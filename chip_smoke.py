@@ -15,18 +15,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
            level), with its time, the plain version's time and its bound
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
-           the card; the launch counters show the path went through every
-           kernel and through no plain version; the same solve with the
-           staged smoother (no kernels) must agree
+           the card; the launch counters show the path went through the
+           four kernels small levels take and through no plain version;
+           the same solve with the staged smoother (no kernels) must agree
   lock3    max_level = 2 against the recorded first-step norm and plateau
   scale7   max_level = 6 (7 levels, 28.5M refined cells), 3 Picard steps,
-           against the recorded f64 history
+           against the recorded f64 history; the levels too big for the L2 cache
+           must have gone through the wavefront kernel, the same number of
+           times in each iteration. Then, in a separate pass that the
+           timed run does not see, the phase split of one steady
+           iteration (prepare / coefs / apply / precond / norm / solve /
+           finish), each phase timed to completion on the card
+  cli      the command-line run at max_level = 6, two Picard iterations,
+           with its per-iteration plotfiles and the GRChombo checkpoint.
+           With h5py: main.run in a temporary directory, files read back.
+           Without h5py: the same calls main.run makes, with the writers'
+           tile streaming run against no file (every device operation and
+           device-to-host copy happens; tile sizes, offsets and a checksum
+           per component are checked). The line says which form ran.
 
 Then one line {"kernels": [...]} (per kernel: launches on the main path =
-wrapper calls that reached the card, device_launches = the kernel launches
-those calls enqueued, error against the plain version, time, plain time,
-bound), the nvidia-smi
-line, and the final {"ok": true, "device": {...}} line.
+wrapper calls that reached the card in the scale7 run, device_launches =
+the kernel launches those calls enqueued, the same two for the 4-level
+solve, error against the plain version, time, plain time, bound), the
+nvidia-smi line, and the final {"ok": true, "device": {...}} line.
 
 The recorded values are the Picard histories of the same configuration in
 double precision on a CPU (7 levels: 0.27342222391586096 ->
@@ -42,6 +54,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -56,8 +69,16 @@ from mg_ic_code_tpu_torch.ops import coarse_tower as ct  # noqa: E402
 from mg_ic_code_tpu_torch.ops import cuda_ext, kernel_counts  # noqa: E402
 from mg_ic_code_tpu_torch.ops import fused_sweeps as fs  # noqa: E402
 from mg_ic_code_tpu_torch.ops import stencils as st  # noqa: E402
+from mg_ic_code_tpu_torch.ops import wavefront as wf  # noqa: E402
+from mg_ic_code_tpu_torch import main as cli_main  # noqa: E402
+from mg_ic_code_tpu_torch.io import chombo_hdf5 as chio  # noqa: E402
+from mg_ic_code_tpu_torch.physics import level_data as ld  # noqa: E402
+from mg_ic_code_tpu_torch.solver import composite as comp  # noqa: E402
 from mg_ic_code_tpu_torch.solver import multigrid as mg  # noqa: E402
+from mg_ic_code_tpu_torch.solver import nonlinear as nl  # noqa: E402
+from mg_ic_code_tpu_torch.solver import reductions as red  # noqa: E402
 from mg_ic_code_tpu_torch.solver.nonlinear import poisson_solve  # noqa: E402
+from mg_ic_code_tpu_torch.utils import profiling  # noqa: E402
 
 CANONICAL = os.path.join(os.path.dirname(mgt.__file__), "params",
                          "canonical.txt")
@@ -88,6 +109,18 @@ SOURCES = {
                    "mg_ic_code_tpu/ops/coarse_tower.py:206"),
     "tower_up": ("mg_ic_code_tpu_torch/csrc/tower.cu",
                  "mg_ic_code_tpu/ops/coarse_tower.py:234"),
+    "wavefront_relax": ("mg_ic_code_tpu_torch/csrc/wavefront.cu",
+                        "mg_ic_code_tpu/ops/wavefront.py:329"),
+}
+# rows of the TPU kernel table (PERF.md) that one Hopper kernel serves
+TPU_KERNELS = {
+    "gsrb_relax": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
+    "residual": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
+                 "mg_ic_code_tpu/ops/pallas_kernels.py:389"],
+    "tower_down": ["mg_ic_code_tpu/ops/coarse_tower.py:206"],
+    "tower_up": ["mg_ic_code_tpu/ops/coarse_tower.py:234"],
+    "wavefront_relax": ["mg_ic_code_tpu/ops/wavefront.py:329",
+                        "mg_ic_code_tpu/ops/wavefront.py:385"],
 }
 
 
@@ -245,7 +278,33 @@ LEVEL_CASES = [
      True, False),
     ("periodic_axis", (32, 48, 40), ((P, P), (D, C), (C, N)), (0, 7, 0), 0.5,
      False, False),
+    ("path_l4_272x80x80", (272, 80, 80), ALL_C, (0, 0, 0), 2.0, False,
+     True),
+    ("path_l5_512x96x96", (512, 96, 96), ALL_C, (0, 0, 0), 2.0, False, True),
     ("big_960x144x144", (960, 144, 144), ALL_C, (0, 0, 0), 2.0, False, True),
+]
+
+# wavefront cases: (id, shape, kinds, lo, rho, timed). The first four are
+# the big levels of the 7-level hierarchy (the two largest take the rung)
+# and the 256^3 bench level; the rest are awkward on purpose.
+WAVE_CASES = [
+    ("path_l4_272x80x80", (272, 80, 80), ALL_C, (1520, 960, 960), 2.0, True),
+    ("path_l5_512x96x96", (512, 96, 96), ALL_C, (3040, 1952, 1952), 2.0,
+     True),
+    ("path_l6_960x144x144", (960, 144, 144), ALL_C, (6080, 3952, 3952), 2.0,
+     True),
+    ("bench_256", (256, 256, 256), ALL_D, (0, 0, 0), 2.0, True),
+    ("odd_lo_100x72x56", (100, 72, 56), ALL_C, (49, 40, 40), 2.0, False),
+    ("narrower_than_a_tile", (37, 18, 10), ((D, C), (C, D), (N, C)),
+     (0, 3, 0), 2.0, False),
+    ("mixed_faces", (40, 56, 48), ((D, C), (N, D), (C, N)), (3, 0, 8), 2.0,
+     False),
+    ("periodic_y", (48, 40, 72), ((C, D), (P, P), (C, N)), (0, 7, 0), 0.5,
+     False),
+    ("periodic_z", (33, 50, 36), ((N, C), (D, C), (P, P)), (1, 1, 1), 2.0,
+     False),
+    ("periodic_yz_small", (24, 12, 8), ((D, D), (P, P), (P, P)), (0, 0, 0),
+     2.0, False),
 ]
 
 # tower cases: (id, shape, kinds, lo, timed); the first is the main path's
@@ -300,6 +359,58 @@ def check_level_case(case, dtype) -> dict:
             plain_ms=time_ms(lambda: resid(fs.residual_plain), reps=10,
                              warmup=1),
             bound_ms=b, bound_by=by)
+    return rec
+
+
+def check_wave_case(case, dtype) -> dict:
+    """wavefront_relax against its plain version AND against the gsrb_relax
+    kernel (the same function, one launch per colour pass), nsweeps 2 and
+    4."""
+    cid, shape, kinds, lo, rho, timed = case
+    f = level_fields(shape, dtype, seed=3)
+    kw = dict(kinds=kinds, rho=rho, alpha=1.0, beta=-1.0, dx=0.37, lo=lo)
+    ncells = shape[0] * shape[1] * shape[2]
+    isz = f["u"].element_size()
+    rec = {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
+           "tolerance": TOL[dtype], "wavefront_relax": {}}
+    worst = (0.0, 0.0)
+    for ns in wf.CHUNKS:
+        ref = wf.wavefront_relax_plain(f["u"], f["rhs"], f["a"], nsweeps=ns,
+                                       **kw)
+        ker = fs.gsrb_relax(f["u"], f["rhs"], f["a"], None, nsweeps=ns, **kw)
+        before = kernel_counts.DEVICE_LAUNCHES["wavefront_relax"]
+        out = wf.wavefront_relax(f["u"], f["rhs"], f["a"], nsweeps=ns, **kw)
+        torch.cuda.synchronize()
+        check(kernel_counts.DEVICE_LAUNCHES["wavefront_relax"] == before + 1,
+              "wavefront_relax: not one launch per call")
+        for what, other in (("plain", ref), ("gsrb_relax", ker)):
+            err, rel = rel_err(out, other)
+            worst = max(worst, (rel, err))
+            check(rel <= TOL[dtype] and bool(torch.isfinite(out).all()),
+                  f"wavefront_relax {cid} {dtype} nsweeps {ns} vs {what}: "
+                  f"rel err {rel} > {TOL[dtype]}")
+        del ref, ker, out
+    rec["wavefront_relax"].update(rel_err=worst[0], max_abs_err=worst[1])
+    if timed:
+        run = lambda ns: wf.wavefront_relax(
+            f["u"], f["rhs"], f["a"], nsweeps=ns, **kw)
+        run2x2 = lambda: wf.wavefront_relax(
+            run(2), f["rhs"], f["a"], nsweeps=2, **kw)
+        b, by = bound_ms(level_bytes(ncells, isz, 4), 2 * 32.0 * ncells)
+        rec["wavefront_relax"].update(
+            nsweeps=2,
+            ms=time_ms(lambda: run(2)),
+            plain_ms=time_ms(lambda: wf.wavefront_relax_plain(
+                f["u"], f["rhs"], f["a"], nsweeps=2, **kw), reps=6,
+                warmup=1),
+            bound_ms=b, bound_by=by,
+            ms_4sweeps_one_launch=time_ms(lambda: run(4)),
+            ms_4sweeps_two_launches=time_ms(run2x2),
+            gsrb_relax_ms_2sweeps=time_ms(lambda: fs.gsrb_relax(
+                f["u"], f["rhs"], f["a"], None, nsweeps=2, **kw)),
+            gsrb_relax_ms_4sweeps=time_ms(lambda: fs.gsrb_relax(
+                f["u"], f["rhs"], f["a"], None, nsweeps=4, **kw)),
+        )
     return rec
 
 
@@ -372,6 +483,9 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         for case in TOWER_CASES:
             checks.append(check_tower_case(case, dtype))
+        for case in WAVE_CASES:
+            checks.append(check_wave_case(case, dtype))
+            torch.cuda.empty_cache()
     # wrappers raise on what the kernels do not take (no silent fallback)
     u = torch.zeros((8, 8, 8), dtype=torch.float32, device="cuda")
     kw = dict(nsweeps=1, kinds=ALL_D, rho=2.0, alpha=1.0, beta=-1.0, dx=1.0,
@@ -382,8 +496,18 @@ def phase_kernels() -> dict:
         except (TypeError, ValueError):
             continue
         raise SmokeFailure("gsrb_relax accepted a bad operand")
+    wkw = dict(kw, nsweeps=2)
+    for bad_kw, bad_u in (
+            (dict(wkw, kinds=((P, P), (D, D), (D, D))), u),  # periodic x
+            (dict(wkw, nsweeps=3), u),
+            (wkw, u.to(torch.float16)), (wkw, u[:, :, ::2])):
+        try:
+            wf.wavefront_relax(bad_u, u, u, **bad_kw)
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure("wavefront_relax accepted a bad call")
     out = {"phase": "kernels",
-           "kernels": ["gsrb_relax", "residual", "tower_down", "tower_up"],
+           "kernels": list(kernel_counts.KERNELS),
            "tolerance": {"float32": TOL[torch.float32],
                          "float64": TOL[torch.float64],
                          "of": "max|reference| (4 sweeps per relaxation)"},
@@ -395,8 +519,12 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------- solves
 
 
-def run_solve(overrides, label: str) -> dict:
-    """load_params -> generate_hierarchy -> poisson_solve on the card."""
+SMALL_LEVEL_KERNELS = ("gsrb_relax", "residual", "tower_down", "tower_up")
+
+
+def run_solve(overrides, label: str, keep: dict | None = None) -> dict:
+    """load_params -> generate_hierarchy -> poisson_solve on the card.
+    `keep`, when given, receives cfg, geom and the solve's result."""
     cfg = mgt.load_params(CANONICAL, overrides=list(overrides))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -414,9 +542,11 @@ def run_solve(overrides, label: str) -> dict:
     res = poisson_solve(cfg, geom=geom, verbose=False, output_hook=hook)
     torch.cuda.synchronize()
     hook(None, None)
+    if keep is not None:
+        keep.update(cfg=cfg, geom=geom, res=res)
     per_iter = [b - a for a, b in zip(stamps, stamps[1:])]
-    # wrapper calls that reached the card, per Picard iteration, as
-    # [gsrb_relax, residual, tower_down, tower_up]
+    # wrapper calls that reached the card, per Picard iteration, in the
+    # order of kernel_counts.KERNELS
     calls_per_iter = [[b[k] - a[k] for k in kernel_counts.KERNELS]
                       for a, b in zip(calls, calls[1:])]
     for p in res.psi:
@@ -430,6 +560,7 @@ def run_solve(overrides, label: str) -> dict:
         "history": res.dpsi_norm_history, "linear_iters": res.linear_iters,
         "linear_residuals": res.linear_residuals,
         "hierarchy_s": t_hier, "s_per_iteration": per_iter,
+        "kernel_order": list(kernel_counts.KERNELS),
         "kernel_calls_per_iteration": calls_per_iter,
         "memory_reserved_per_iteration": reserved[1:],
         "total_s": time.perf_counter() - t0,
@@ -445,7 +576,7 @@ def phase_solve() -> dict:
     h, it = main["history"], main["linear_iters"]
     check(main["levels"] == [list(s) for s in SCALE7_SHAPES[:4]],
           f"unexpected hierarchy {main['levels']}")
-    check(all(v > 0 for v in counts["launches"].values()),
+    check(all(counts["launches"][k] > 0 for k in SMALL_LEVEL_KERNELS),
           f"a kernel was never launched: {counts}")
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"a plain version ran on the card's path: {counts}")
@@ -485,10 +616,97 @@ def phase_lock3() -> dict:
     return out
 
 
+def phase_split(cfg, geom, psi, reps: int = 2) -> dict:
+    """Seconds per phase of one steady Picard iteration from `psi`, each
+    phase timed to completion on the card (profiling.scope(block=True)):
+    prepare (aCoef, rhs), coefs (depth chains, bottom inverse), ONE
+    composite operator application, ONE preconditioner application, ONE
+    composite max-norm, the whole linear solve, finish (update + norm).
+    One warm pass first; the mean of `reps` passes after it."""
+    device = psi[0].device
+    spec = comp.make_amr_spec(geom, cfg, device)
+    fields = [ld.problem_fields(geom, cfg, l, psi[0].dtype, device)
+              for l in range(geom.num_levels)]
+    dpsi = [torch.zeros_like(p) for p in psi]
+    tree = profiling.TimerTree()
+    iters = []
+    for rep in range(reps + 1):
+        if rep == 1:
+            tree.reset()
+        with tree.scope("prepare", block=True):
+            a_list, rhs_list, _ = nl.prepare_iteration(geom, cfg, fields, psi)
+        with tree.scope("coefs", block=True):
+            coefs = comp.build_coefs(spec, a_list)
+        with tree.scope("apply", block=True):
+            comp.composite_apply(spec, coefs, rhs_list)
+        with tree.scope("precond", block=True):
+            comp.precond(spec, coefs, rhs_list)
+        with tree.scope("norm", block=True):
+            red.composite_max_norm(rhs_list, geom=geom)
+        with tree.scope("solve", block=True):
+            out = comp.solve_linear(spec, coefs, rhs_list, dpsi)
+        with tree.scope("finish", block=True):
+            nl.finish_iteration(geom, psi, out.x, cfg.average_down)
+        iters.append(int(out.iters))
+    ph = {k: v.total / v.count for k, v in tree.root.children.items()}
+    n_it = iters[-1]
+    # BiCGStab: two operator and two preconditioner applications and about
+    # four reductions per iteration, plus the initial residual
+    explained = n_it * (2 * ph["apply"] + 2 * ph["precond"]
+                        + 4 * ph["norm"]) + ph["apply"]
+    return {
+        "phases_s": ph, "krylov_iters": iters,
+        "iteration_s": ph["prepare"] + ph["coefs"] + ph["solve"]
+        + ph["finish"],
+        "solve_explained_s": explained,
+        "solve_unexplained_s": ph["solve"] - explained,
+    }
+
+
+def check_wave_path(run: dict, counts: dict, what: str) -> None:
+    """The big levels went through the wavefront kernel: calls in every
+    Picard iteration, the same number wherever the Krylov count is the
+    same, every kernel launched, and no plain version."""
+    w = kernel_counts.KERNELS.index("wavefront_relax")
+    per_iter = [c[w] for c in run["kernel_calls_per_iteration"]]
+    check(all(n > 0 for n in per_iter),
+          f"{what}: an iteration made no wavefront_relax call: {per_iter}")
+    by_iters: dict = {}
+    for n, it in zip(per_iter, run["linear_iters"]):
+        by_iters.setdefault(it, set()).add(n)
+    check(all(len(v) == 1 for v in by_iters.values()),
+          f"{what}: wavefront_relax calls differ between iterations of "
+          f"equal Krylov count: {per_iter} {run['linear_iters']}")
+    check(all(v > 0 for v in counts["launches"].values()),
+          f"{what}: a kernel was never launched: {counts}")
+    check(counts["device_launches"]["wavefront_relax"]
+          == counts["launches"]["wavefront_relax"],
+          f"{what}: wavefront_relax is not one launch per call")
+    check(all(v == 0 for v in counts["plain_calls"].values()),
+          f"{what}: a plain version ran on the card's path: {counts}")
+
+
+def wave_plan_table() -> dict:
+    """Which rung relax_kernel_plan gives each level shape of the 7-level
+    hierarchy (and the 256^3 bench level) for 4 sweeps of an f32 level on
+    the card; the two biggest and 256^3 must take the wavefront."""
+    spec = chain_spec((64, 64, 64), (0, 0, 0), ALL_C, dx0=0.1)
+    table = {}
+    for shape in SCALE7_SHAPES + [(256, 256, 256)]:
+        plan = mg.plan_for(spec, shape, torch.float32, "cuda", 4)
+        table["x".join(map(str, shape))] = plan
+        if shape in SCALE7_SHAPES[-2:] + [(256, 256, 256)]:
+            check(plan and plan[0][0] == "wave", f"{shape} not on the wave rung")
+    return table
+
+
 def phase_scale7() -> dict:
+    keep: dict = {}
+    kernel_counts.reset()
     run = run_solve(["max_level = 6", "max_NL_iterations = 3",
                      "precond_precision = single", "verbosity = 0"],
-                    "scale7")
+                    "scale7", keep)
+    counts = kernel_counts.snapshot()  # the full-depth path, nothing else
     h, it = run["history"], run["linear_iters"]
     check(run["levels"] == [list(s) for s in SCALE7_SHAPES],
           f"unexpected hierarchy {run['levels']}")
@@ -498,8 +716,164 @@ def phase_scale7() -> dict:
     check(rel2 <= 2e-2, f"7-level step 2 {h[1]} vs {SCALE7[1]}")
     check(h[2] < 1e-6, f"7-level step 3 {h[2]}")
     check(all(i <= 3 for i in it), f"7-level linear iters {it}")
+    check_wave_path(run, counts, "scale7")
+    split = phase_split(keep["cfg"], keep["geom"], keep["res"].psi)
+    keep.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "scale7_split", **split})
     out = {"phase": "scale7", "step1_rel_diff": rel1, "step2_rel_diff": rel2,
-           **run}
+           "launches": counts["launches"],
+           "device_launches": counts["device_launches"],
+           "plain_calls": counts["plain_calls"],
+           "relax_plan_4_sweeps": wave_plan_table(), "split": split, **run}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------------- cli
+
+CLI_OVERRIDES = ["max_level = 6", "max_NL_iterations = 2",
+                 "precond_precision = single", "verbosity = 0"]
+
+
+def check_pieces(pieces, base_off: int, cells: int, stack, what: str):
+    """The (offset, size, sum) of the pieces the writers stream for one
+    box: every tile within the byte limit, each component's pieces contiguous from its offset to
+    its end, and each component's sum equal to the device's (1e-10 of the
+    component's absolute sum: the tiles are added in another order)."""
+    ncomp = stack.shape[0]
+    isz = stack.element_size()
+    nxy = stack.shape[1] * stack.shape[2]
+    limit = max(chio._STREAM_MAX_BYTES, ncomp * nxy * isz)
+    by_comp = [[] for _ in range(ncomp)]
+    for off, size, total in pieces:
+        c = (off - base_off) // cells
+        check(0 <= c < ncomp, f"{what}: piece offset {off} outside the box")
+        by_comp[c].append((off, size, total))
+    ntiles = len(by_comp[0])
+    for c, plist in enumerate(by_comp):
+        pos = base_off + c * cells
+        for off, size, _ in plist:
+            check(off == pos, f"{what}: component {c} has a gap at {off}")
+            pos += size
+        check(pos == base_off + (c + 1) * cells,
+              f"{what}: component {c} ends at {pos}")
+        check(len(plist) == ntiles, f"{what}: tiles differ by component")
+    for t in range(ntiles):
+        tile_bytes = sum(by_comp[c][t][1] for c in range(ncomp)) * isz
+        check(tile_bytes <= limit, f"{what}: tile of {tile_bytes} bytes")
+    host = torch.tensor([sum(x[2] for x in pl) for pl in by_comp],
+                        dtype=torch.float64)
+    dev = stack.sum(dim=(1, 2, 3)).cpu()
+    scale = stack.abs().sum(dim=(1, 2, 3)).cpu().clamp_min(1e-300)
+    worst = float(((host - dev).abs() / scale).max())
+    check(worst <= 1e-10, f"{what}: checksum off by {worst}")
+    return ntiles, worst
+
+
+def cli_streamed(overrides) -> dict:
+    """What main.run does, with the writers' streaming run against no file:
+    load_params -> generate_hierarchy -> poisson_solve with the snapshot
+    hook -> the final 29-variable stacks."""
+    cfg = mgt.load_params(CANONICAL, overrides=list(overrides))
+    geom = generate_hierarchy(cfg)
+    stats = {"boxes": 0, "tiles": 0, "values": 0, "worst_checksum": 0.0}
+
+    def stream(stacks, what):
+        off = 0
+        for e, stack in stacks:
+            cells = geom.boxes[e].num_cells
+            pieces = [(o, flat.size, float(flat.sum()))
+                      for o, flat in chio._fab_pieces(off, cells, stack)]
+            nt, worst = check_pieces(pieces, off, cells, stack,
+                                     f"{what} entry {e}")
+            off += stack.shape[0] * cells
+            stats["boxes"] += 1
+            stats["tiles"] += nt
+            stats["values"] += stack.numel()
+            stats["worst_checksum"] = max(stats["worst_checksum"], worst)
+
+    def snapshot(nl_iter, state):
+        _, rhs_list, _ = nl.prepare_iteration(geom, cfg, state["fields"],
+                                              state["psi"])
+        for d in range(geom.max_depth + 1):
+            stream(((e, chio.solver_data_stack(
+                state["dpsi"][e], rhs_list[e], state["psi"][e],
+                state["fields"][e])) for e in geom.entries_at_depth(d)),
+                f"plotfile {nl_iter} level {d}")
+
+    res = poisson_solve(cfg, geom=geom, output_hook=snapshot)
+    for d in range(geom.max_depth + 1):
+        stream(((e, ld.grchombo_output_stack(
+            res.psi[e], res.fields[e], cfg, res.constant_K))
+            for e in geom.entries_at_depth(d)), f"checkpoint level {d}")
+    return {"history": res.dpsi_norm_history,
+            "levels": [list(b.shape) for b in geom.boxes], **stats}
+
+
+def cli_files(overrides) -> dict:
+    """main.run itself in a temporary directory; the files are read back."""
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            rc = cli_main.run(["main", CANONICAL, *overrides])
+            check(rc == 0, f"main.run returned {rc}")
+            plots = sorted(f for f in os.listdir(tmp)
+                           if f.startswith("vcPoissonOut.3d_"))
+            check(plots == ["vcPoissonOut.3d_0.hdf5",
+                            "vcPoissonOut.3d_1.hdf5"], f"plotfiles {plots}")
+            levels, nbytes = [], 0
+            for d in range(len(SCALE7_SHAPES)):
+                box, _, _, named = chio.read_level_data(
+                    "vcPoissonFinal.3d.hdf5", d)
+                levels.append(list(box.shape))
+                chi = named["chi"]
+                check(float(chi.min()) > 0.0 and bool(
+                    (chi == chi).all()), f"checkpoint level {d}: bad chi")
+                _, _, _, pl = chio.read_level_data(plots[0], d)
+                check(float(abs(pl["dpsi"]).max()) == 0.0
+                      and float(abs(pl["rhs"]).max()) > 0.0,
+                      f"plotfile 0 level {d}: dpsi/rhs")
+            for f in os.listdir(tmp):
+                nbytes += os.path.getsize(f)
+        finally:
+            os.chdir(here)
+    return {"levels": levels, "bytes_written": nbytes}
+
+
+def phase_cli() -> dict:
+    have = chio.HAVE_H5PY
+    torch.cuda.synchronize()
+    kernel_counts.reset()
+    t0 = time.perf_counter()
+    body = cli_files(CLI_OVERRIDES) if have else cli_streamed(CLI_OVERRIDES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts.snapshot()
+    check(body["levels"] == [list(s) for s in SCALE7_SHAPES],
+          f"cli: unexpected hierarchy {body['levels']}")
+    check(all(v > 0 for v in counts["launches"].values()),
+          f"cli: a kernel was never launched: {counts}")
+    check(all(v == 0 for v in counts["plain_calls"].values()),
+          f"cli: a plain version ran on the card's path: {counts}")
+    if not have:
+        h = body["history"]
+        check(abs(h[0] - SCALE7[0]) / SCALE7[0] <= 1e-5
+              and abs(h[1] - SCALE7[1]) / SCALE7[1] <= 2e-2,
+              f"cli: history {h}")
+        # without h5py main.run itself must refuse before any solve
+        t1 = time.perf_counter()
+        rc = cli_main.run(["main", CANONICAL, *CLI_OVERRIDES])
+        check(rc == 2 and time.perf_counter() - t1 < 5.0,
+              f"main.run without h5py returned {rc}")
+    out = {"phase": "cli", "h5py": have, "files_written": have,
+           "form": "main.run, files read back" if have else
+           "main.run's calls, the writers' pieces summed and not written",
+           "overrides": CLI_OVERRIDES, "seconds": seconds,
+           "stream_max_bytes": chio._STREAM_MAX_BYTES,
+           "launches": counts["launches"],
+           "plain_calls": counts["plain_calls"], **body}
     emit(out)
     return out
 
@@ -507,14 +881,18 @@ def phase_scale7() -> dict:
 # --------------------------------------------------------------- summary
 
 
-def kernels_line(kernels: dict | None, solve: dict | None) -> dict:
-    """The per-kernel summary: numbers of the f32 main-path shapes (the
-    largest level of the slice's hierarchy for the two level kernels, the
-    64^3 depth chain for the towers)."""
+def kernels_line(kernels: dict | None, solve: dict | None,
+                 scale7: dict | None) -> dict:
+    """The per-kernel summary: numbers of the f32 shapes of the main path
+    (the finest level, 960x144x144, for the wavefront and the residual; the
+    largest level below the wavefront rung for gsrb_relax; the 64^3 depth
+    chain for the towers). launches / device_launches are the counts of the
+    scale7 run (the slice's full-depth path), *_solve those of the 4-level
+    solve; each was driven with the counters set to 0 just before."""
     rows = []
-    pick = {"gsrb_relax": "path_l3_176x64x64", "residual":
-            "path_l3_176x64x64", "tower_down": "path_l0_64",
-            "tower_up": "path_l0_64"}
+    pick = {"gsrb_relax": "path_l3_176x64x64", "residual": "big_960x144x144",
+            "tower_down": "path_l0_64", "tower_up": "path_l0_64",
+            "wavefront_relax": "path_l6_960x144x144"}
     for name in kernel_counts.KERNELS:
         rec = {}
         if kernels is not None:
@@ -524,20 +902,24 @@ def kernels_line(kernels: dict | None, solve: dict | None) -> dict:
                     rec = dict(c[name], shape=c["shape"])
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1],
-            "launches": solve["launches"][name] if solve else None,
-            "device_launches": (solve["device_launches"][name] if solve
+            "replaces": SOURCES[name][1], "tpu_kernel": TPU_KERNELS[name],
+            "launches": scale7["launches"][name] if scale7 else None,
+            "device_launches": (scale7["device_launches"][name] if scale7
                                 else None),
+            "launches_solve": solve["launches"][name] if solve else None,
+            "device_launches_solve": (solve["device_launches"][name]
+                                      if solve else None),
             "max_abs_err": rec.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": None,
             "shape": rec.get("shape"), "dtype": "float32",
+            **({"nsweeps": rec["nsweeps"]} if "nsweeps" in rec else {}),
         })
     return {"kernels": rows}
 
 
-PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7")
+PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "cli")
 
 
 def main() -> int:
@@ -557,7 +939,7 @@ def main() -> int:
     t_start = time.perf_counter()
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "solve": phase_solve, "lock3": phase_lock3,
-           "scale7": phase_scale7}
+           "scale7": phase_scale7, "cli": phase_cli}
     done: dict = {}
     try:
         with torch.no_grad():
@@ -574,7 +956,8 @@ def main() -> int:
 
     emit({"phase": "done", "phases": wanted,
           "seconds": round(time.perf_counter() - t_start, 1)})
-    emit(kernels_line(done.get("kernels"), done.get("solve")))
+    emit(kernels_line(done.get("kernels"), done.get("solve"),
+                      done.get("scale7")))
     card = done["env"]["card"] if "env" in done else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

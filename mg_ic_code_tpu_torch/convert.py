@@ -103,3 +103,21 @@ def coefs_from_numpy(coefs, device=None) -> tuple:
             d["lp"] = lp
         out.append(d)
     return tuple(out)
+
+
+def solve_state_from_plain(state: dict, device=None, dtype=None) -> dict:
+    """A solve state exported by another implementation — a dict with the
+    geometry's plain description under "geom" (the keyword arguments of
+    `geom_from_plain`), per-level arrays "psi", "dpsi" and optionally "rhs",
+    the per-level static "fields" (with the nested "aij" component dict)
+    and the scalar "constant_K" — carried into the port's structures: what
+    the port's writers (io/chombo_hdf5) and its restart take."""
+    out = {
+        "geom": geom_from_plain(**state["geom"]),
+        "fields": fields_from_numpy(state["fields"], device, dtype),
+        "constant_K": float(state.get("constant_K", 0.0)),
+    }
+    for key in ("psi", "dpsi", "rhs"):
+        if key in state:
+            out[key] = level_list_from_numpy(state[key], device, dtype)
+    return out

@@ -68,15 +68,9 @@ __device__ __forceinline__ void fold_axis(const T* u, long long idx, int i, int 
     return;
   }
   const bool is_lo = i == 0, is_hi = i == n - 1;
-  const T one = (T)1;
-  // neighbour across a face contributes through the ghost rule instead:
-  // weight 0 across it, 1 + c1 on the far neighbour, c0 into the centre
-  const T wa = is_hi ? (T)0 : (is_lo ? one + c1lo : one);
-  const T wb = is_lo ? (T)0 : (is_hi ? one + c1hi : one);
   const T up = is_hi ? (T)0 : u[idx + stride];
   const T um = is_lo ? (T)0 : u[idx - stride];
-  acc = acc + (P * wa) * up + (P * wb) * um;
-  c_sum += (is_lo ? c0lo : (T)0) + (is_hi ? c0hi : (T)0);
+  fold_terms<T>(up, um, is_lo, is_hi, c0lo, c1lo, c0hi, c1hi, P, acc, c_sum);
 }
 
 template <typename T>

@@ -37,6 +37,22 @@ LevelParams<T> make_level_params(int nx, int ny, int nz, const int* kinds,
                                  double rho, double alpha, double beta,
                                  double dx);
 
+// One axis of the folded GSRB update on a non-periodic axis, from the two
+// neighbour values: adds (weight_plus * up + weight_minus * um) to acc and
+// the c0 feed-through of a face to c_sum. The neighbour across a face
+// contributes through the ghost rule instead: weight 0 across it (its value
+// is never used), 1 + c1 on the far neighbour, c0 into the centre.
+template <typename T>
+__device__ __forceinline__ void fold_terms(T up, T um, bool is_lo, bool is_hi,
+                                           T c0lo, T c1lo, T c0hi, T c1hi,
+                                           T P, T& acc, T& c_sum) {
+  const T one = (T)1;
+  const T wa = is_hi ? (T)0 : (is_lo ? one + c1lo : one);
+  const T wb = is_lo ? (T)0 : (is_hi ? one + c1hi : one);
+  acc = acc + (P * wa) * (is_hi ? (T)0 : up) + (P * wb) * (is_lo ? (T)0 : um);
+  c_sum += (is_lo ? c0lo : (T)0) + (is_hi ? c0hi : (T)0);
+}
+
 // nsweeps red-black sweeps in place on u: 2*nsweeps colour-pass launches.
 // base = sum of the box's lo corner (global checkerboard parity).
 template <typename T>

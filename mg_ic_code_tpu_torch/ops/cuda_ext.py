@@ -23,7 +23,7 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu")
+SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "wavefront.cu")
 HEADERS = ("mg_kernels.h", "residual_device.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,6 +113,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mgk_residual.restype = ci
     lib.mgk_residual.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, vp,
+    ]
+    lib.mgk_wavefront_relax.restype = ci
+    lib.mgk_wavefront_relax.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, vp,
     ]
     lib.mgk_tower_down.restype = ci
     lib.mgk_tower_down.argtypes = [

@@ -109,13 +109,13 @@ def _parity(shape, dtype, base: int, device) -> torch.Tensor:
     return ((ii + jj + kk + base) & 1).to(dtype)
 
 
-def gsrb_relax_plain(
+def gsrb_sweeps_folded(
     u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
     alpha: float, beta: float, dx: float, lo,
 ):
     """nsweeps red-black sweeps of a whole level in plain PyTorch, from the
-    folded form (the arithmetic of the kernel, operation for operation)."""
-    kernel_counts.PLAIN_CALLS["gsrb_relax"] += 1
+    folded form (the arithmetic of the kernels, operation for operation).
+    The body of every plain version of a GSRB kernel; it counts nothing."""
     P, pab, k_uc, t_rhs = _fold_coefs(
         rhs, a, kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx, bv=b,
     )
@@ -132,6 +132,18 @@ def gsrb_relax_plain(
                    else acc + pa * vp + pb * vm)
         s = acc + pars[p & 1] * (s - acc)
     return s
+
+
+def gsrb_relax_plain(
+    u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
+    alpha: float, beta: float, dx: float, lo,
+):
+    """The plain PyTorch version of `gsrb_relax`."""
+    kernel_counts.PLAIN_CALLS["gsrb_relax"] += 1
+    return gsrb_sweeps_folded(
+        u, rhs, a, b, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
+        beta=beta, dx=dx, lo=lo,
+    )
 
 
 def _axis_neighbour_sum(uc, axis: int, kinds: FaceKinds, rho: float):

@@ -14,9 +14,9 @@ operator's level contract (VariableCoeffPoissonOperator.cpp):
                        2 GSRB relaxes) as its preconditioner
 
 The f32 (mixed-precision preconditioner) path runs relax / residual /
-mg_vcycle through the hand-written kernels of ops/fused_sweeps and
-ops/coarse_tower; everything else is the staged ghost-fill body in plain
-PyTorch.
+mg_vcycle through the hand-written kernels of ops/fused_sweeps,
+ops/wavefront and ops/coarse_tower; everything else is the staged
+ghost-fill body in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -190,30 +190,55 @@ def gsrb_sweep(spec: LevelMGSpec, coefs: dict, d: int, u, rhs):
     return u
 
 
-def _kernels_allowed(spec: LevelMGSpec, u) -> bool:
+def _kernels_allowed_for(spec: LevelMGSpec, dtype, device_type: str) -> bool:
     """Kernel smoothers run on the f32 (mixed-precision preconditioner)
     path; 'auto' additionally requires a CUDA tensor ('pallas' forces the
     kernel path, which on a CPU tensor is the kernels' plain versions —
     what the tests use)."""
     if spec.smoother == "xla":
         return False
-    if u.dtype != torch.float32:
+    if dtype != torch.float32:
         return False
-    return spec.smoother == "pallas" or u.is_cuda
+    return spec.smoother == "pallas" or device_type == "cuda"
 
 
-def relax_kernel_plan(spec: LevelMGSpec, u, n: int):
-    """THE single source of truth for the smoother dispatch: the launch
-    sequence relax() issues for n homogeneous GSRB sweeps of `u`, as
-    (kind, nsweeps) entries. Today one rung: "resident" — the whole-level
-    GSRB kernel, which takes every level shape (the card has no residency
-    limit) — and "xla", the staged ghost-fill body, for f64 operands or
-    `smoother = xla`. relax() executes this plan verbatim."""
+def _kernels_allowed(spec: LevelMGSpec, u) -> bool:
+    return _kernels_allowed_for(spec, u.dtype, u.device.type)
+
+
+def plan_for(spec: LevelMGSpec, shape, dtype, device_type: str, n: int,
+             const_b: bool = True):
+    """relax_kernel_plan in terms of what it looks at: the level's shape,
+    dtype and device type and whether bCoef is constant (so the decision
+    table can be read without a tensor on the card)."""
+    from mg_ic_code_tpu_torch.ops import wavefront as wf
+
     if n <= 0:
         return []
-    if _kernels_allowed(spec, u):
-        return [("resident", n)]
-    return [("xla", n)]
+    if not _kernels_allowed_for(spec, dtype, device_type):
+        return [("xla", n)]
+    if device_type == "cuda" and const_b:
+        s = wf.wavefront_plan(tuple(shape), n, spec.kinds)
+        if s is not None:
+            return [("wave", s)] * (n // s)
+    return [("resident", n)]
+
+
+def relax_kernel_plan(spec: LevelMGSpec, u, n: int, const_b: bool = True):
+    """THE single source of truth for the smoother dispatch: the launch
+    sequence relax() runs for n homogeneous GSRB sweeps of `u`, as
+    (kind, nsweeps) entries. Rungs in order of preference:
+      "wave"     — the time-skewed wavefront kernel, one launch per chunk of
+                   sweeps: a CUDA f32 level with non-periodic x and constant
+                   bCoef that ops/wavefront.wavefront_supported takes (too
+                   big to stay in L2 between colour passes);
+      "resident" — the whole-level GSRB kernel, one launch per colour pass,
+                   which takes every level shape (on a CPU tensor, with
+                   `smoother = pallas`, its plain version);
+      "xla"      — the staged ghost-fill body, for f64 operands or
+                   `smoother = xla`.
+    relax() executes this plan verbatim."""
+    return plan_for(spec, u.shape, u.dtype, u.device.type, n, const_b)
 
 
 def _level_kw(spec: LevelMGSpec, d: int) -> dict:
@@ -225,16 +250,23 @@ def _level_kw(spec: LevelMGSpec, d: int) -> dict:
 
 def relax(spec: LevelMGSpec, coefs: dict, d: int, u, rhs, n: int):
     """n red+black sweeps with homogeneous ghosts, executed per
-    relax_kernel_plan: the GSRB kernel (constant or variable bCoef), or the
-    staged body — a ghost refresh and one colour update per pass."""
+    relax_kernel_plan: the wavefront kernel (big levels on the card), the
+    GSRB kernel (constant or variable bCoef), or the staged body — a ghost
+    refresh and one colour update per pass."""
     from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
+    from mg_ic_code_tpu_torch.ops import wavefront as wf
 
-    for kind, s in relax_kernel_plan(spec, u, n):
-        if kind == "resident":
+    b = coefs["b"][d]
+    for kind, s in relax_kernel_plan(spec, u, n, const_b=b is None):
+        if kind == "wave":
+            u = wf.wavefront_relax(
+                u.contiguous(), rhs.contiguous(), coefs["a"][d], nsweeps=s,
+                lo=spec.boxes[d].lo, **_level_kw(spec, d),
+            )
+        elif kind == "resident":
             u = fs.gsrb_relax(
-                u.contiguous(), rhs.contiguous(), coefs["a"][d],
-                coefs["b"][d], nsweeps=s, lo=spec.boxes[d].lo,
-                **_level_kw(spec, d),
+                u.contiguous(), rhs.contiguous(), coefs["a"][d], b,
+                nsweeps=s, lo=spec.boxes[d].lo, **_level_kw(spec, d),
             )
         else:
             for i in range(2 * s):
@@ -297,7 +329,10 @@ def cf_folded_rhs(spec: LevelMGSpec, geom: HierarchyGeom, level: int,
 
 def residual_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs):
     """rhs - L(u) with homogeneous ghosts: the residual kernel on the
-    kernel path, else the staged ghost-fill form."""
+    kernel path, else the staged ghost-fill form. The one residual kernel
+    has no residency limit: it is the counterpart both of the JAX package's
+    `fused_sweeps.resident_residual` and, at the big levels, of its
+    `pallas_kernels.residual`."""
     if _kernels_allowed(spec, u):
         from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 

@@ -92,3 +92,35 @@ def test_device_none_needs_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         cv.level_list_from_numpy([np.zeros((2, 2, 2))])
+
+
+def test_solve_state_from_plain():
+    """A solve state exported as plain data (geometry description, level
+    arrays, fields with the nested A_ij dict, constant_K) carried across."""
+    rng = np.random.default_rng(3)
+    shapes = [(16, 16, 16), (16, 16, 16)]
+    boxes = [((0, 0, 0), (15, 15, 15)), ((8, 8, 8), (23, 23, 23))]
+    doms = [((0, 0, 0), (15, 15, 15)), ((0, 0, 0), (31, 31, 31))]
+    lv = lambda: [rng.standard_normal(s) for s in shapes]
+    fields = [{"phi": rng.standard_normal(s), "aij2": rng.standard_normal(s),
+               "aij": {(0, 0): rng.standard_normal(s),
+                       (1, 2): rng.standard_normal(s)}} for s in shapes]
+    plain = dict(
+        geom=dict(boxes=boxes, parent=(-1, 0), dx=(1.0, 0.5), bc=BC,
+                  domain_boxes=doms, domain_length=(16.0,) * 3),
+        psi=lv(), dpsi=lv(), fields=fields, constant_K=np.float64(-0.5))
+    st = cv.solve_state_from_plain(plain, "cpu")
+    assert isinstance(st["geom"], HierarchyGeom) and st["geom"].num_levels == 2
+    assert st["constant_K"] == -0.5 and type(st["constant_K"]) is float
+    assert "rhs" not in st
+    for key in ("psi", "dpsi"):
+        for t, a in zip(st[key], plain[key]):
+            assert t.dtype == torch.float64 and t.is_contiguous()
+            np.testing.assert_array_equal(t.numpy(), a)
+    for tf, f in zip(st["fields"], fields):
+        np.testing.assert_array_equal(tf["aij"][(1, 2)].numpy(),
+                                      f["aij"][(1, 2)])
+        np.testing.assert_array_equal(tf["phi"].numpy(), f["phi"])
+    st32 = cv.solve_state_from_plain(dict(plain, rhs=lv()), "cpu",
+                                     torch.float32)
+    assert st32["rhs"][1].dtype == torch.float32

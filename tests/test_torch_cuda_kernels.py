@@ -70,6 +70,81 @@ def test_cuda_level_kernels_match_plain(dt):
                        lo=(0, 0, 0), **kw)
 
 
+WAVE_CASES = [
+    # (shape, kinds, lo)
+    ((37, 18, 10), ((D, C), (C, D), (N, C)), (0, 3, 0)),
+    ((100, 72, 56), ((C, C), (C, C), (C, C)), (49, 40, 40)),
+    ((48, 40, 72), ((C, D), ("periodic", "periodic"), (C, N)), (0, 7, 0)),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("nsweeps", [2, 4])
+@pytest.mark.parametrize("case", WAVE_CASES,
+                         ids=["narrow", "odd_lo", "periodic_y"])
+def test_cuda_wavefront_matches_plain_and_gsrb(case, nsweeps, dt):
+    """wavefront_relax on the card against its plain version and against
+    the gsrb_relax kernel (the same function, a launch per colour pass):
+    one launch per call, and no giving way to another path."""
+    _need_cuda()
+    from mg_ic_code_tpu_torch.ops import wavefront as twf
+
+    shape, kinds, lo = case
+    npdt, rtol = DTYPES[dt]
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
+              dx=0.25, lo=lo)
+    kernel_counts.reset()
+    out = twf.wavefront_relax(f["u"], f["rhs"], f["a"], **kw)
+    assert kernel_counts.LAUNCHES["wavefront_relax"] == 1
+    assert kernel_counts.DEVICE_LAUNCHES["wavefront_relax"] == 1
+    assert kernel_counts.PLAIN_CALLS["wavefront_relax"] == 0
+    ref = twf.wavefront_relax_plain(f["u"], f["rhs"], f["a"], **kw)
+    ker = tfs.gsrb_relax(f["u"], f["rhs"], f["a"], None, **kw)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= rtol * scale
+    assert float((out - ker).abs().max()) <= rtol * scale
+    with pytest.raises(ValueError, match="periodic"):
+        twf.wavefront_relax(
+            f["u"], f["rhs"], f["a"],
+            **dict(kw, kinds=(("periodic", "periodic"),) + kinds[1:]))
+    with pytest.raises((TypeError, ValueError)):
+        twf.wavefront_relax(f["u"].half(), f["rhs"], f["a"], **kw)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_relax_takes_the_wave_rung_on_a_big_level():
+    """relax() on the card sends a level whose arrays exceed the L2 cache
+    through wavefront_relax (4 sweeps = two launches of 2), a small one
+    through gsrb_relax, and the two rungs agree."""
+    _need_cuda()
+    from mg_ic_code_tpu_torch.grid.boxes import Box
+
+    def spec_of(shape):
+        return tmg.LevelMGSpec(
+            kinds=((C, C),) * 3, boxes=(Box.from_shape(shape),), dx=(0.25,),
+            rho=(2.0,), alpha=1.0, beta=-1.0, nsmooth=4, smoother="auto")
+
+    big = (512, 96, 96)
+    f = {k: torch.from_numpy(v).cuda()
+         for k, v in fields(big, np.float32).items()}
+    spec = spec_of(big)
+    coefs = {"a": (f["a"],), "b": (None,)}
+    assert tmg.relax_kernel_plan(spec, f["u"], 4) == [("wave", 2)] * 2
+    kernel_counts.reset()
+    out = tmg.relax(spec, coefs, 0, f["u"], f["rhs"], 4)
+    assert kernel_counts.LAUNCHES["wavefront_relax"] == 2
+    assert kernel_counts.LAUNCHES["gsrb_relax"] == 0
+    ref = tfs.gsrb_relax(f["u"], f["rhs"], f["a"], None, nsweeps=4,
+                         kinds=spec.kinds, rho=2.0, alpha=1.0, beta=-1.0,
+                         dx=0.25, lo=(0, 0, 0))
+    assert float((out - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    small = spec_of((16, 16, 16))
+    u = torch.zeros((16, 16, 16), dtype=torch.float32, device="cuda")
+    assert tmg.relax_kernel_plan(small, u, 4) == [("resident", 4)]
+
+
 @pytest.mark.requires_cuda
 def test_cuda_tower_vcycle_matches_cpu_plain():
     """mg_vcycle on the card (tower kernels) against the same V-cycle on

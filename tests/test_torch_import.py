@@ -48,6 +48,66 @@ def test_port_solve_imports_no_jax():
     assert "PORT_STANDS_ALONE" in r.stdout
 
 
+_CLI = r"""
+import os, sys, tempfile
+import torch
+torch.set_num_threads(1)
+import mg_ic_code_tpu_torch as mgt
+from mg_ic_code_tpu_torch import main
+from mg_ic_code_tpu_torch.io import chombo_hdf5, restart
+from mg_ic_code_tpu_torch.ops import wavefront
+canonical = os.path.join(os.path.dirname(mgt.__file__), "params",
+                         "canonical.txt")
+over = ["N = 16 16 16", "L = 16.0", "max_level = 1",
+        "refine_threshold = 0.1", "block_factor = 4", "buffer_size = 2",
+        "max_grid_size = 16", "numMGIterations = 1", "max_NL_iterations = 2",
+        "verbosity = 0", "bh1_bare_mass = 0.2", "bh2_bare_mass = 0.2",
+        "bh1_offset = 2.0", "bh2_offset = -2.0", "precond_precision = double"]
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    rc = main.run(["main", canonical] + over, device="cpu")
+    if chombo_hdf5.HAVE_H5PY:
+        assert rc == 0, rc
+        geom, psi, _ = restart.load_state(
+            "vcPoissonFinal.3d.hdf5", mgt.load_params(canonical, over),
+            device="cpu")
+        assert geom.num_levels == 2 and psi[1].shape == (32, 32, 32)
+    else:
+        assert rc == 2, rc
+    os.chdir("/")
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+       or m == "mg_ic_code_tpu" or m.startswith("mg_ic_code_tpu.")]
+assert not bad, bad
+print("CLI_STANDS_ALONE")
+"""
+
+
+def test_port_cli_and_io_import_no_jax():
+    """main, io/chombo_hdf5, io/restart and ops/wavefront: a whole
+    command-line run on the CPU pulls in no JAX."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _CLI], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert "CLI_STANDS_ALONE" in r.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    """No module of the port, nor the GPU smoke script, has an import of
+    jax or of the JAX package in its source."""
+    import re
+
+    pat = re.compile(
+        r"^\s*(from|import)\s+(jax|jaxlib|mg_ic_code_tpu)(\.|\s|$)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "mg_ic_code_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    for f in files:
+        assert not pat.search(open(f).read()), f
+
+
 def test_device_none_requires_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None resolves to it")
