@@ -111,22 +111,54 @@ __global__ void gsrb_pass_kernel(T* u, const T* __restrict__ rhs,
   u[idx] = (k_uc * uc + lam * rhs[idx]) + nb;
 }
 
+// One colour pass in place on u: the cells with (i + j + k + par) even are
+// updated.
+template <typename T>
+cudaError_t launch_gsrb_pass(T* u, const T* rhs, const T* a, const T* b,
+                             const LevelParams<T>& p, int par,
+                             cudaStream_t stream) {
+  const int threads = 256;
+  const long long per_plane = (long long)p.ny * ((p.nz + 1) >> 1);
+  dim3 grid((unsigned)((per_plane + threads - 1) / threads), (unsigned)p.nx);
+  gsrb_pass_kernel<T><<<grid, threads, 0, stream>>>(u, rhs, a, b, p,
+                                                    ((par % 2) + 2) % 2);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_gsrb_relax(T* u, const T* rhs, const T* a, const T* b,
                               const LevelParams<T>& p, int base, int nsweeps,
                               cudaStream_t stream) {
-  const int threads = 256;
-  const long long per_plane = (long long)p.ny * ((p.nz + 1) >> 1);
-  dim3 grid((unsigned)((per_plane + threads - 1) / threads), (unsigned)p.nx);
-  for (int pass = 0; pass < 2 * nsweeps; ++pass) {
-    const int par = (((base + pass) % 2) + 2) % 2;
-    gsrb_pass_kernel<T><<<grid, threads, 0, stream>>>(u, rhs, a, b, p, par);
-  }
-  return cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  for (int pass = 0; pass < 2 * nsweeps && err == cudaSuccess; ++pass)
+    err = launch_gsrb_pass<T>(u, rhs, a, b, p, base + pass, stream);
+  return err;
 }
 
 template cudaError_t launch_gsrb_relax<float>(float*, const float*, const float*, const float*, const LevelParams<float>&, int, int, cudaStream_t);
 template cudaError_t launch_gsrb_relax<double>(double*, const double*, const double*, const double*, const LevelParams<double>&, int, int, cudaStream_t);
+
+// One colour pass in place on u: the cells with (i + j + k + par) even are
+// updated, par = (sum(lo) + colour) & 1. The entry point of the one-pass and
+// one-sweep forms (the TPU kernels mg_ic_code_tpu/ops/pallas_kernels.py:
+// gsrb_half_sweep and :gsrb_full_sweep, which is two of these).
+extern "C" int mgk_gsrb_pass(void* u, const void* rhs, const void* a,
+                             const void* b, int is_double, int nx, int ny,
+                             int nz, const int* kinds, double rho,
+                             double alpha, double beta, double dx, int par,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_double) {
+    auto p = make_level_params<double>(nx, ny, nz, kinds, rho, alpha, beta, dx);
+    return (int)launch_gsrb_pass<double>((double*)u, (const double*)rhs,
+                                         (const double*)a, (const double*)b,
+                                         p, par, st);
+  }
+  auto p = make_level_params<float>(nx, ny, nz, kinds, rho, alpha, beta, dx);
+  return (int)launch_gsrb_pass<float>((float*)u, (const float*)rhs,
+                                      (const float*)a, (const float*)b, p,
+                                      par, st);
+}
 
 // C entry point. is_double selects the element type; b may be null
 // (constant bCoef = 1). u is updated in place.

@@ -1,28 +1,52 @@
-// wavefront_relax: nsweeps red-black Gauss-Seidel sweeps of one level in ONE
-// launch, time-skewed along x.
+// multisweep_relax: nsweeps red-black Gauss-Seidel sweeps of one level in ONE
+// launch, carried along x in shared memory with the halo recomputed, for ANY
+// face kinds including periodic x.
 //
-// Replaces the TPU kernels mg_ic_code_tpu/ops/wavefront.py:wavefront_relax
-// and :wavefront_relax_flat (one function in two memory layouts there; one
-// kernel here). It computes what gsrb_relax computes (csrc/gsrb_relax.cu:
-// the same folded per-cell update, parity (i+j+k+sum(lo)+pass) & 1, the
-// homogeneous ghost rule re-derived from the current interior before every
-// colour pass), for constant bCoef and non-periodic x.
+// One kernel replaces five TPU kernels that compute one function (what
+// gsrb_relax computes, csrc/gsrb_relax.cu: the same folded per-cell update,
+// parity (i+j+k+sum(lo)+pass) & 1, the homogeneous ghost rule re-derived
+// from the current interior before every colour pass, for constant bCoef)
+// and differ in how a TPU core schedules and tiles it:
+//   mg_ic_code_tpu/ops/wavefront.py:wavefront_relax, :wavefront_relax_flat
+//       (time-skewed in x from the x faces, x not periodic; 3-D and flat
+//       layout) -- ops/wavefront.wavefront_relax calls this kernel with x
+//       open,
+//   mg_ic_code_tpu/ops/fused_sweeps.py:multisweep_relax_pipelined (x slabs
+//       of full rows with 2*nsweeps-row halo blocks, index maps that wrap
+//       for periodic x), :multisweep_relax_flat_pipelined (the same in the
+//       (nx, ny*nz) layout), :multisweep_relax_tiled ((x, y) tiles with a
+//       2*nsweeps halo both ways, wrap or ghost pads)
+//       -- ops/fused_sweeps.multisweep_relax, any face kinds.
+// The halo recompute of the last three is what the time-skewed march does at
+// every open segment end and tile side anyway, so one march serves both: a
+// periodic x only makes both ends of every x segment open.
 //
 // What bounds it on this card: gsrb_relax is bound by bytes, because each of
 // its 2*nsweeps colour passes is a launch that streams the level through
-// device memory again. This kernel carries all NP = 2*nsweeps passes along x
+// device memory again. This march carries all NP = 2*nsweeps passes along x
 // in on-chip memory, so u, rhs and a are read once and u is written once
 // per call (times the rind factor below); what is left is the arithmetic
 // and one block barrier per plane.
 //
-// Design (not the TPU schedule, which holds whole (W, ny, nz) windows in
-// on-chip memory and walks x on one core):
+// Design (not the TPU schedules, which hold whole (W, ny, nz) windows or
+// slabs in on-chip memory and walk x on one core):
 //  * A block owns a TY x TZ tile of the y-z plane and a segment of x, and
 //    marches along x. A rind of NP cells on every tile side and NP planes at
-//    each segment end is recomputed redundantly, so blocks never wait on
-//    each other: a wrong value at an open edge moves inward one cell per
+//    each open segment end is recomputed redundantly, so blocks never wait
+//    on each other: a wrong value at an open edge moves inward one cell per
 //    pass and never reaches the cells the block writes. Domain faces need no
 //    rind: their ghost rule comes from the cell's index (fold_terms).
+//  * x may be periodic, decided at run time (wrapx). A periodic x has no
+//    face to start from, so EVERY segment end is open: the first segment
+//    starts NP planes before plane 0 and the last ends NP planes after
+//    plane nx-1, and the planes a block reads are taken modulo nx from the
+//    input array (never from the output, so one segment may wrap onto its
+//    own planes). The parity of a plane keeps the unwrapped index, which
+//    agrees across the wrap only for an even nx. With x open the flag is
+//    read in the general steps only; a separate set of instantiations with
+//    that code compiled out was timed beside this one at 512x96x96 and
+//    960x144x144 (NVIDIA H100 80GB HBM3, 700 W) and was within 3 % either
+//    way, so there is one set.
 //  * A ring of NP + 2 planes of u in shared memory holds the staircase: at
 //    step t, pass p works on plane t - p, for p = 0 .. NP-1.
 //  * With that skew a cell (t - p, j, k) of pass p has the colour of the
@@ -32,8 +56,8 @@
 //    step. The x neighbours lie in the thread's own column. So a thread
 //    that owns a column runs its NP updates of a step one after the other,
 //    p ascending (pass p on plane q, then pass p+1 on plane q-1: the order
-//    Gauss-Seidel needs; the TPU kernel keeps the pre-update plane in d_ref
-//    for it), and the block needs ONE barrier per step.
+//    Gauss-Seidel needs; the TPU wavefront kernel keeps the pre-update plane
+//    in d_ref for it), and the block needs ONE barrier per step.
 //  * A thread owns the z-pair (2kk, 2kk+1) of one tile row: one of the two
 //    columns is active in each step. It loads its pair of u of plane t + 2
 //    while step t computes, and writes plane t - NP + 1 when its last pass
@@ -50,20 +74,20 @@
 //    planes in flight in per-thread shift registers across steps; it gave
 //    wrong last passes in some instantiations, the cause was not found, and
 //    it was dropped. (Check every instantiation, f32 and f64, NP = 4 and 8,
-//    on the card after any change to a step.)
-//  * The kernel is bound by issue throughput, not by bytes (the first
-//    form issued 190 machine operations per update). So the march has a
-//    steady form (wave_step<STEADY>) for the steps whose whole staircase lies
-//    inside the segment and off the x faces: no validity tests, no x-face
-//    rule, and the ring slot of every plane a compile-time constant (one
-//    instantiation per slot of plane t), so that every shared-memory
-//    address is the thread's base plus an immediate. The first and last
-//    steps of a segment take the general form. Between barriers the phases
-//    of a step do not overlap (one block per multiprocessor), so each was
-//    cut: a and rhs of the newest plane are asked for a step ahead; a
-//    plane is stored by colour (WaveLayout) so that the cells of a step
-//    are consecutive in shared memory, free of bank conflicts; 1/d is the
-//    hardware's reciprocal plus a Newton step.
+//    periodic x and not, on the card after any change to a step.)
+//  * The march is bound by instruction throughput, not by bytes (the first
+//    form ran 190 machine operations per update). So it has a steady
+//    form (wave_step<STEADY>) for the steps whose whole staircase lies
+//    inside the segment, off the x faces and off the periodic wrap: no
+//    validity tests, no x-face rule, no modulo, and the ring slot of every
+//    plane a compile-time constant (one instantiation per slot of plane t),
+//    so that every shared-memory address is the thread's base plus an
+//    immediate. The first and last steps of a segment take the general
+//    form. Between barriers the phases of a step do not overlap (one block
+//    per multiprocessor), so each was cut: a and rhs of the newest plane
+//    are asked for a step ahead; a plane is stored by colour (WaveLayout)
+//    so that the cells of a step are consecutive in shared memory, free of
+//    bank conflicts; 1/d is the hardware's reciprocal plus a Newton step.
 //
 // Tile and chunk: 40 x 40 columns (800 threads, 52 KB of f32 ring at
 // nsweeps = 2). The solver sends 4 sweeps as two launches of nsweeps = 2
@@ -71,11 +95,10 @@
 // (1 + 4*nsweeps/32)^2 = 1.56 on traffic and arithmetic per launch; one
 // launch of nsweeps = 4 (NP = 8) writes 24 x 24 of 40 x 40 (2.78) and was
 // slower, so the solver does not send it; it is built so that the 2-or-4
-// choice can be measured again. x is
-// cut into segments no shorter than 8*NP planes, as many as fill the
-// card's rounds of resident blocks best. (A 32 x 32 tile was timed beside
-// it and was no faster at 512x96x96 and above.) Shared memory is read with
-// plain loads; no TMA, no clusters.
+// choice can be measured again. x is cut into segments no shorter than
+// 8*NP planes, as many as fill the card's rounds of resident blocks best.
+// (A 32 x 32 tile was timed beside it and was no faster at 512x96x96 and
+// above.) Shared memory is read with plain loads; no TMA, no clusters.
 #include "mg_kernels.h"
 
 namespace {
@@ -118,6 +141,7 @@ struct WaveThread {
   int coff[2];       // offset of each column inside a plane
   int xs, xe, x0, x1, nx;  // planes worked on [xs, xe), written [x0, x1)
   int par;           // row + first column + sum(lo), unwrapped indices
+  bool wrapx;        // x is periodic: planes are taken modulo nx
   int jpar;          // parity of the row inside the tile
   bool live[2], own[2];
   T alpha, six_b_inv, b_inv;
@@ -129,15 +153,26 @@ struct WaveThread {
   T next_a, next_r;  // a, rhs of the next step's first cell
 };
 
+// Plane q of the march as a plane of the level arrays: q itself, or q modulo
+// nx where x is periodic.
+template <typename T>
+__device__ __forceinline__ int xplane(const WaveThread<T>& w, int q) {
+  if (w.wrapx) {
+    q %= w.nx;
+    if (q < 0) q += w.nx;
+  }
+  return q;
+}
+
 // One step of the march: plane t+1 enters the ring, plane t+2 is loaded,
 // and pass ps works on plane t - ps for ps = 0 .. NP-1, in the pair's
 // column whose cells have this step's colour.
 //
-// STEADY: every plane t+1 .. t-NP lies inside (xs, xe) and away from the x
-// faces of the domain, so no pass needs a validity test or an x-face rule,
-// and the ring slot of plane t is the compile-time ST: every shared-memory
-// address is the thread's base plus a constant. Otherwise `st` is t's slot
-// at run time and every pass is tested.
+// STEADY: every plane t+2 .. t-NP lies inside (xs, xe), inside [0, nx) and
+// away from the x faces of the domain, so no pass needs a validity test, an
+// x-face rule or a wrapped index, and the ring slot of plane t is the
+// compile-time ST: every shared-memory address is the thread's base plus a
+// constant. Otherwise `st` is t's slot at run time and every pass is tested.
 template <typename T, int NP, int TY, int TZ, bool STEADY, int ST>
 __device__ __forceinline__ void wave_step(WaveThread<T>& w, const int t,
                                           const int st_rt) {
@@ -145,6 +180,8 @@ __device__ __forceinline__ void wave_step(WaveThread<T>& w, const int t,
   constexpr int R = NP + 2;
   constexpr int HP = L::HP, PZ = L::PZ, PLANE = L::PLANE;
   const int st = STEADY ? ST : st_rt;
+  // plane q in the level arrays (a steady step never wraps)
+  auto xq = [&](int q) { return STEADY ? q : xplane(w, q); };
   // slot of plane t + d
   auto slot = [&](int d) {
     int s = st + d;
@@ -160,8 +197,8 @@ __device__ __forceinline__ void wave_step(WaveThread<T>& w, const int t,
     pl[half0] = w.raw_u[0];
     pl[half1] = w.raw_u[1];
   }
-  const T* next = w.u + (t + 2) * w.sx;
   if (STEADY || t + 2 < w.xe) {
+    const T* next = w.u + xq(t + 2) * w.sx;
 #pragma unroll
     for (int c = 0; c < 2; ++c)
       w.raw_u[c] = w.live[c] ? __ldg(next + w.coff[c]) : (T)0;
@@ -183,17 +220,29 @@ __device__ __forceinline__ void wave_step(WaveThread<T>& w, const int t,
 #pragma unroll
   for (int ps = 1; ps < NP; ++ps) {
     av[ps] = (T)0; rv[ps] = (T)0;
-    if (act && (STEADY || (t - ps >= w.xs && t - ps < w.xe))) {
-      av[ps] = __ldg(ap + (col - ps * sxi));
-      rv[ps] = __ldg(rp + (col - ps * sxi));
+    if (STEADY) {
+      if (act) {
+        av[ps] = __ldg(ap + (col - ps * sxi));
+        rv[ps] = __ldg(rp + (col - ps * sxi));
+      }
+    } else if (act && t - ps >= w.xs && t - ps < w.xe) {
+      const long long o = xq(t - ps) * w.sx + col;
+      av[ps] = __ldg(w.a + o);
+      rv[ps] = __ldg(w.rhs + o);
     }
   }
   {
     const int ncol = c ? w.coff[0] : w.coff[1];
     w.next_a = (T)0; w.next_r = (T)0;
-    if ((c ? w.live[0] : w.live[1]) && (STEADY || t + 1 < w.xe)) {
-      w.next_a = __ldg(ap + (ncol + sxi));
-      w.next_r = __ldg(rp + (ncol + sxi));
+    if (STEADY) {
+      if (c ? w.live[0] : w.live[1]) {
+        w.next_a = __ldg(ap + (ncol + sxi));
+        w.next_r = __ldg(rp + (ncol + sxi));
+      }
+    } else if ((c ? w.live[0] : w.live[1]) && t + 1 < w.xe) {
+      const long long o = xq(t + 1) * w.sx + ncol;
+      w.next_a = __ldg(w.a + o);
+      w.next_r = __ldg(w.rhs + o);
     }
   }
   // P = lambda*beta/dx^2, 1 - lambda*alpha*a, lambda*rhs
@@ -252,8 +301,9 @@ __device__ __forceinline__ void wave_step(WaveThread<T>& w, const int t,
         // beyond an open segment end the cell reads itself
         const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
         const T umv = q > w.xs ? own_u[ps + 2] : uc;
-        fold_terms<T>(upv, umv, q == 0, q == w.nx - 1, w.c0xlo, w.c1xlo,
-                      w.c0xhi, w.c1xhi, Pc[ps], nb, cs);
+        const bool xface = !w.wrapx;
+        fold_terms<T>(upv, umv, xface && q == 0, xface && q == w.nx - 1,
+                      w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi, Pc[ps], nb, cs);
       }
       cs = (cs + w.csy) + cz;
       const T k_uc = kc[ps] + Pc[ps] * (cs - (T)6);
@@ -286,7 +336,7 @@ __device__ __forceinline__ void steady_step(WaveThread<T>& w, int t, int st) {
 
 template <typename T, int NP, int TY, int TZ>
 __global__ void __launch_bounds__((TY * TZ) / 2)
-wavefront_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
+march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
                  const T* __restrict__ a, T* __restrict__ out,
                  const LevelParams<T> p, const int base, const int xseg) {
   using L = WaveLayout<TY, TZ>;
@@ -314,8 +364,10 @@ wavefront_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   w.nx = p.nx;
   w.x0 = (int)blockIdx.z * xseg;
   w.x1 = min(p.nx, w.x0 + xseg);
-  w.xs = max(0, w.x0 - NP);
-  w.xe = min(p.nx, w.x1 + NP);
+  w.wrapx = p.periodic[0] != 0;
+  // a periodic x has no face: both segment ends are open, wherever they lie
+  w.xs = w.wrapx ? w.x0 - NP : max(0, w.x0 - NP);
+  w.xe = w.wrapx ? w.x1 + NP : min(p.nx, w.x1 + NP);
   w.par = uj + uk + base;
   w.alpha = p.alpha; w.six_b_inv = p.six_b_inv; w.b_inv = p.b_inv;
   w.c0xlo = p.c0[0][0]; w.c1xlo = p.c1[0][0];
@@ -357,16 +409,19 @@ wavefront_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
 
   // plane xs enters the ring, plane xs + 1 is loaded, and a, rhs of the
   // first step's first cell
+  int st = w.xs % R;
+  if (st < 0) st += R;
   {
-    T* pl = w.cell + (w.xs % R) * L::PLANE;
+    T* pl = w.cell + st * L::PLANE;
     const int half0 = w.jpar ? L::HP : 0;
-    const long long o = w.xs * w.sx;
+    const long long o = xplane(w, w.xs) * w.sx;
+    const long long o1 = xplane(w, w.xs + 1) * w.sx;
     pl[half0] = w.live[0] ? u[o + w.coff[0]] : (T)0;
     pl[L::HP - half0] = w.live[1] ? u[o + w.coff[1]] : (T)0;
 #pragma unroll
     for (int c = 0; c < 2; ++c)
       w.raw_u[c] = (w.live[c] && w.xs + 1 < w.xe)
-                       ? u[o + w.sx + w.coff[c]] : (T)0;
+                       ? u[o1 + w.coff[c]] : (T)0;
     const int c = (w.xs + w.par) & 1;
     const bool act = c ? w.live[1] : w.live[0];
     w.next_a = act ? a[o + (c ? w.coff[1] : w.coff[0])] : (T)0;
@@ -374,9 +429,10 @@ wavefront_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   }
 
   // steps xs .. xe+NP-2; those in [lo_s, hi_s) are steady: t - NP >= xs,
-  // t + 2 < xe, and no plane of the staircase at an x face of the domain
-  const int lo_s = w.xs + NP, hi_s = w.xe - 2;
-  int t = w.xs, st = w.xs % R;
+  // t + 2 < xe, no plane of the staircase at an x face of the domain, and
+  // (periodic x) every plane t - NP .. t + 2 inside [0, nx)
+  const int lo_s = max(w.xs, 0) + NP, hi_s = min(w.xe, p.nx) - 2;
+  int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
     wave_step<T, NP, TY, TZ, false, 0>(w, t, st);
@@ -402,7 +458,7 @@ cudaError_t launch_tile(const T* u, const T* rhs, const T* a, T* out,
   const int nty = (p.ny + TIY - 1) / TIY, ntz = (p.nz + TIZ - 1) / TIZ;
   const size_t smem = (size_t)(NP + 2) * WaveLayout<TY, TZ>::PLANE * sizeof(T);
   const int threads = (TY * TZ) / 2;
-  auto kern = wavefront_kernel<T, NP, TY, TZ>;
+  auto kern = march_kernel<T, NP, TY, TZ>;
   // blocks the card runs at once (asked once per instantiation)
   static int capacity = 0;
   if (capacity == 0) {
@@ -439,14 +495,15 @@ cudaError_t launch_tile(const T* u, const T* rhs, const T* a, T* out,
   return cudaGetLastError();
 }
 
+
 template <typename T>
-cudaError_t launch_wavefront(const T* u, const T* rhs, const T* a, T* out,
-                             const LevelParams<T>& p, int base, int nsweeps,
-                             cudaStream_t stream) {
-  if (p.periodic[0]) return cudaErrorInvalidValue;
-  // a periodic axis wraps inside a tile: its extent must be even so that
-  // the two columns of a pair keep opposite colours across the wrap
-  if ((p.periodic[1] && p.ny % 2) || (p.periodic[2] && p.nz % 2))
+cudaError_t launch_multisweep(const T* u, const T* rhs, const T* a, T* out,
+                              const LevelParams<T>& p, int base, int nsweeps,
+                              cudaStream_t stream) {
+  // a periodic axis wraps inside a tile or a segment: its extent must be
+  // even so that the checkerboard stays consistent across the wrap
+  if ((p.periodic[0] && p.nx % 2) || (p.periodic[1] && p.ny % 2) ||
+      (p.periodic[2] && p.nz % 2))
     return cudaErrorInvalidValue;
   if (nsweeps == 2)
     return launch_tile<T, 4, 40, 40>(u, rhs, a, out, p, base, stream);
@@ -459,21 +516,21 @@ cudaError_t launch_wavefront(const T* u, const T* rhs, const T* a, T* out,
 
 // C entry point: out <- nsweeps (2 or 4) sweeps of u; u is not modified and
 // out must not alias it.
-extern "C" int mgk_wavefront_relax(const void* u, const void* rhs,
-                                   const void* a, void* out, int is_double,
-                                   int nx, int ny, int nz, const int* kinds,
-                                   double rho, double alpha, double beta,
-                                   double dx, int base, int nsweeps,
-                                   void* stream) {
+extern "C" int mgk_multisweep_relax(const void* u, const void* rhs,
+                                    const void* a, void* out, int is_double,
+                                    int nx, int ny, int nz, const int* kinds,
+                                    double rho, double alpha, double beta,
+                                    double dx, int base, int nsweeps,
+                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (is_double) {
     auto p = make_level_params<double>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_wavefront<double>((const double*)u, (const double*)rhs,
-                                         (const double*)a, (double*)out, p,
-                                         base, nsweeps, st);
+    return (int)launch_multisweep<double>((const double*)u, (const double*)rhs,
+                                          (const double*)a, (double*)out, p,
+                                          base, nsweeps, st);
   }
   auto p = make_level_params<float>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_wavefront<float>((const float*)u, (const float*)rhs,
-                                      (const float*)a, (float*)out, p, base,
-                                      nsweeps, st);
+  return (int)launch_multisweep<float>((const float*)u, (const float*)rhs,
+                                       (const float*)a, (float*)out, p, base,
+                                       nsweeps, st);
 }

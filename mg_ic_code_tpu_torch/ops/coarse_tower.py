@@ -88,12 +88,24 @@ def tower_up_plain(spec, d: int, e_bot, u_list, rhs_list, a_list):
     return e
 
 
-def tower_supported(spec, coefs, d: int) -> bool:
+def tower_supported(spec, coefs, d: int, itemsize: int = 4) -> bool:
     """Whether the depth sub-chain [d, end) can run as the tower: V-cycle
     shape (num_mg == 1 — a W-cycle's recursion tree interleaves bottom
     solves), constant bCoef, at least 2 depths below d, every tower shape
-    even-coarsenable. (The card has no residency limit, so no size term.)"""
+    even-coarsenable, and a top depth whose four arrays of `itemsize` bytes
+    per cell (4: the kernel path runs in f32) fit the card's L2 cache
+    (fused_sweeps.L2_BYTES, the size term of the smoother rungs). The
+    tower smooths with one launch per colour pass, which is the right
+    smoother only for a depth that stays in the cache between passes: a
+    bigger depth goes through mg_vcycle's staged recursion, where `relax`
+    gives it the wavefront or multisweep rung, and the tower starts
+    below it. The term looks at the shape alone, not at where the tensors
+    live: CPU tensors under `smoother = pallas` take the same split on
+    purpose, so that a CPU run walks the card's dispatch (with the plain
+    versions in the kernels' places)."""
     if spec.num_mg != 1 or coefs["b"][d] is not None:
+        return False
+    if fs.exceeds_l2(spec.boxes[d].shape, itemsize):
         return False
     ndep = spec.ndepths - d
     if ndep < 3:

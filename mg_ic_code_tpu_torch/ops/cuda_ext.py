@@ -23,7 +23,7 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "wavefront.cu")
+SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "multisweep.cu")
 HEADERS = ("mg_kernels.h", "residual_device.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -110,12 +110,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mgk_gsrb_relax.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, vp,
     ]
+    lib.mgk_gsrb_pass.restype = ci
+    lib.mgk_gsrb_pass.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, vp,
+    ]
     lib.mgk_residual.restype = ci
     lib.mgk_residual.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, vp,
     ]
-    lib.mgk_wavefront_relax.restype = ci
-    lib.mgk_wavefront_relax.argtypes = [
+    lib.mgk_multisweep_relax.restype = ci
+    lib.mgk_multisweep_relax.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, vp,
     ]
     lib.mgk_tower_down.restype = ci

@@ -10,7 +10,21 @@ and the residual that feeds restriction, each as
     from the same folded form, which the wrappers take ONLY for tensors on
     the CPU. On a CUDA tensor a wrapper launches its kernel or raises.
 
-Both work on any level shape (the card has no residency limit) in f32 or
+Beside them:
+
+  * `multisweep_relax` (csrc/multisweep.cu): the same sweeps as
+    `gsrb_relax` for constant bCoef in ONE launch per chunk of 2 or 4
+    sweeps, the halo recomputed, for any face kinds including periodic x.
+    It is the one counterpart of the JAX package's
+    `multisweep_relax_pipelined`, `multisweep_relax_flat_pipelined` and
+    `multisweep_relax_tiled` (one function in three TPU tilings), and the
+    smoother of levels with periodic x that are too big for the L2 cache.
+    `ops/wavefront.wavefront_relax` is the same kernel with x open.
+  * `gsrb_full_sweep` / `gsrb_half_sweep`: one sweep / one colour pass
+    through the `gsrb_relax` pass kernel (the JAX package's
+    `pallas_kernels.gsrb_full_sweep` / `gsrb_half_sweep`).
+
+All work on any level shape (the card has no residency limit) in f32 or
 f64, with the homogeneous ghost rules of the six faces folded into per-cell
 weights: because every rule is linear in the two interior planes
 (ghost = c0*u0 + c1*u1), the GSRB update of a cell collapses to
@@ -26,6 +40,7 @@ feed-through, T = lam*rhs. A colour pass p keeps the cells with
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -37,6 +52,19 @@ from mg_ic_code_tpu_torch.ops.ghosts import (
 
 # face kind codes shared with csrc/mg_kernels.h
 _KIND_CODE = {PHYS_DIRICHLET: 0, PHYS_NEUMANN: 1, PERIODIC: 2, CF: 3}
+
+# The card's L2 cache (50 MB on the H100). A level whose four arrays (u,
+# rhs, a and the result) fit it stays there between the colour passes of
+# `gsrb_relax`: its passes never reach device memory and a one-launch
+# multisweep has nothing to save. The one size term of the dispatch: the
+# wavefront and multisweep rungs take levels above it, and the coarse tower
+# starts at the first depth below it.
+L2_BYTES = 50 << 20
+
+
+def exceeds_l2(shape, itemsize: int = 4) -> bool:
+    """Whether the four arrays of a level do not fit the L2 cache."""
+    return 4 * math.prod(shape) * itemsize > L2_BYTES
 
 
 def _ghost_lin(kind: str, rho: float) -> tuple[float, float]:
@@ -111,18 +139,20 @@ def _parity(shape, dtype, base: int, device) -> torch.Tensor:
 
 def gsrb_sweeps_folded(
     u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
-    alpha: float, beta: float, dx: float, lo,
+    alpha: float, beta: float, dx: float, lo, colors=None,
 ):
     """nsweeps red-black sweeps of a whole level in plain PyTorch, from the
     folded form (the arithmetic of the kernels, operation for operation).
-    The body of every plain version of a GSRB kernel; it counts nothing."""
+    `colors`, when given, is the sequence of colour passes to run instead
+    (colour c updates the cells with (i+j+k+sum(lo)+c) even). The body of
+    every plain version of a GSRB kernel; it counts nothing."""
     P, pab, k_uc, t_rhs = _fold_coefs(
         rhs, a, kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx, bv=b,
     )
     s = u
     par0 = _parity(s.shape, s.dtype, sum(lo), s.device)
     pars = (par0, 1.0 - par0)
-    for p in range(2 * nsweeps):
+    for p in (range(2 * nsweeps) if colors is None else colors):
         acc = k_uc * s + t_rhs
         for axis in (0, 1, 2):
             pa, pb = pab[axis]
@@ -143,6 +173,44 @@ def gsrb_relax_plain(
     return gsrb_sweeps_folded(
         u, rhs, a, b, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
         beta=beta, dx=dx, lo=lo,
+    )
+
+
+def multisweep_relax_plain(
+    u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, lo,
+):
+    """The plain PyTorch version of `multisweep_relax`: the sweeps in their
+    natural order, every pass over the whole level (tiling and halo
+    recomputation change where the data lives, not what is computed)."""
+    kernel_counts.PLAIN_CALLS["multisweep_relax"] += 1
+    return gsrb_sweeps_folded(
+        u, rhs, a, None, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
+        beta=beta, dx=dx, lo=lo,
+    )
+
+
+def gsrb_full_sweep_plain(
+    u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, lo,
+):
+    """The plain PyTorch version of `gsrb_full_sweep`."""
+    kernel_counts.PLAIN_CALLS["gsrb_relax"] += 1
+    return gsrb_sweeps_folded(
+        u, rhs, a, b, nsweeps=1, kinds=kinds, rho=rho, alpha=alpha,
+        beta=beta, dx=dx, lo=lo,
+    )
+
+
+def gsrb_half_sweep_plain(
+    u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, lo, color: int,
+):
+    """The plain PyTorch version of `gsrb_half_sweep`."""
+    kernel_counts.PLAIN_CALLS["gsrb_relax"] += 1
+    return gsrb_sweeps_folded(
+        u, rhs, a, b, nsweeps=1, kinds=kinds, rho=rho, alpha=alpha,
+        beta=beta, dx=dx, lo=lo, colors=(int(color),),
     )
 
 
@@ -243,6 +311,141 @@ def gsrb_relax(
         )
     cuda_ext.check(err, "gsrb_relax")
     return out
+
+
+def _gsrb_passes(name: str, u, rhs, a, b, colors, *, kinds: FaceKinds,
+                 rho: float, alpha: float, beta: float, dx: float, lo):
+    """The colour passes `colors` on a copy of u, one launch of the
+    `gsrb_relax` pass kernel each (C entry point mgk_gsrb_pass)."""
+    check_level_args(name, u, rhs, a, b)
+    lib = cuda_ext.lib()
+    out = u.clone()  # the kernel sweeps in place
+    nx, ny, nz = u.shape
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_counts.count_launch("gsrb_relax", len(colors))
+        for color in colors:
+            err = lib.mgk_gsrb_pass(
+                out.data_ptr(), rhs.data_ptr(), a.data_ptr(), _ptr(b),
+                int(u.dtype == torch.float64), nx, ny, nz,
+                kinds_array(kinds), float(rho), float(alpha), float(beta),
+                float(dx), int(sum(lo)) + int(color), stream,
+            )
+            cuda_ext.check(err, name)
+    return out
+
+
+def gsrb_full_sweep(
+    u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, lo,
+):
+    """One red + black sweep of a whole level (homogeneous ghosts): two
+    launches of the `gsrb_relax` pass kernel. Returns a new tensor. CUDA
+    tensors go to the kernel, CPU tensors take the plain version."""
+    kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx, lo=lo)
+    if u.device.type == "cpu":
+        return gsrb_full_sweep_plain(u, rhs, a, b, **kw)
+    return _gsrb_passes("gsrb_full_sweep", u, rhs, a, b, (0, 1), **kw)
+
+
+def gsrb_half_sweep(
+    u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, lo, color: int,
+):
+    """One colour pass of a whole level (homogeneous ghosts): the cells
+    with (i + j + k + sum(lo) + color) even are updated, in one launch of
+    the `gsrb_relax` pass kernel. Returns a new tensor. CUDA tensors go to
+    the kernel, CPU tensors take the plain version."""
+    kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx, lo=lo)
+    if u.device.type == "cpu":
+        return gsrb_half_sweep_plain(u, rhs, a, b, color=color, **kw)
+    return _gsrb_passes("gsrb_half_sweep", u, rhs, a, b, (int(color),), **kw)
+
+
+# sweeps one multisweep launch can carry (csrc/multisweep.cu instantiates 4
+# and 8 colour passes), and what the solver sends per launch: 4 smooths go
+# as two launches of 2, as on the wavefront rung
+MULTISWEEP_CHUNKS = (2, 4)
+MULTISWEEP_PLAN_CHUNK = 2
+
+
+def _odd_periodic_axis(shape, kinds: FaceKinds) -> bool:
+    return any(kinds[ax][0] == PERIODIC and shape[ax] % 2 for ax in range(3))
+
+
+def multisweep_supported(shape, nsweeps: int, kinds: FaceKinds | None,
+                         itemsize: int = 4) -> bool:
+    """Levels the one-launch kernel takes from `gsrb_relax` (the multisweep
+    rung where x is periodic, the wavefront rung where it is open: one
+    predicate for both): a chunk the kernel is built for,
+    even extents on periodic axes (tiles and x segments wrap them, and the
+    checkerboard must agree across the wrap), and a level whose arrays do
+    not fit the L2 cache. The kernel itself takes any nx >= 2 (a single x
+    segment then wraps onto its own planes, read from the input); the size
+    term is what keeps small levels on `gsrb_relax`."""
+    if kinds is None or nsweeps not in MULTISWEEP_CHUNKS:
+        return False
+    if _odd_periodic_axis(shape, kinds):
+        return False
+    return exceeds_l2(shape, itemsize)
+
+
+def multisweep_plan(shape, n: int, kinds: FaceKinds | None,
+                    itemsize: int = 4):
+    """Sweeps per launch for n sweeps of this level, or None when the level
+    does not take the multisweep rung (n odd, or not supported)."""
+    if n <= 0 or n % MULTISWEEP_PLAN_CHUNK:
+        return None
+    if not multisweep_supported(shape, MULTISWEEP_PLAN_CHUNK, kinds,
+                                itemsize):
+        return None
+    return MULTISWEEP_PLAN_CHUNK
+
+
+def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
+                      kinds: FaceKinds, rho: float, alpha: float,
+                      beta: float, dx: float, lo):
+    """One launch of the multisweep kernel (csrc/multisweep.cu) on CUDA
+    tensors, counted under `name` (`multisweep_relax`, or `wavefront_relax`
+    for ops/wavefront's wrapper of the same kernel); raises on what the
+    kernel does not take. The wrappers have checked nsweeps."""
+    check_level_args(name, u, rhs, a)
+    if _odd_periodic_axis(u.shape, kinds):
+        raise ValueError(
+            f"{name}: a periodic axis needs an even extent, got "
+            f"{tuple(u.shape)}")
+    lib = cuda_ext.lib()
+    out = torch.empty_like(u)  # the kernel reads u and writes out
+    nx, ny, nz = u.shape
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_counts.count_launch(name, 1)
+        err = lib.mgk_multisweep_relax(
+            u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
+            int(u.dtype == torch.float64), nx, ny, nz, kinds_array(kinds),
+            float(rho), float(alpha), float(beta), float(dx), int(sum(lo)),
+            int(nsweeps), stream,
+        )
+    cuda_ext.check(err, name)
+    return out
+
+
+def multisweep_relax(
+    u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, lo,
+):
+    """nsweeps (2 or 4) red-black GSRB sweeps of a whole level with
+    homogeneous ghosts and constant bCoef, for any face kinds including
+    periodic x, in one kernel launch. Returns a new tensor. CUDA tensors go
+    to the kernel; CPU tensors take the plain version."""
+    if nsweeps not in MULTISWEEP_CHUNKS:
+        raise ValueError(
+            f"multisweep_relax: nsweeps {nsweeps} not in {MULTISWEEP_CHUNKS}")
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
+              dx=dx, lo=lo)
+    if u.device.type == "cpu":
+        return multisweep_relax_plain(u, rhs, a, **kw)
+    return multisweep_launch("multisweep_relax", u, rhs, a, **kw)
 
 
 def residual(

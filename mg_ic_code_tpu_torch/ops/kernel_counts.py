@@ -4,11 +4,13 @@
 CUDA library (and nowhere else): it counts wrapper CALLS that reached the
 card. One such call enqueues several `<<<>>>` launches from its C entry
 point; `DEVICE_LAUNCHES[name]` goes up by that number at the same place
-(gsrb_relax: one per colour pass = 2 * nsweeps; wavefront_relax: 1, all
-passes of the chunk in one launch; residual: 1; tower_down:
+(gsrb_relax: one per colour pass = 2 * nsweeps, and so 2 for its one-sweep
+and 1 for its one-pass entry point; wavefront_relax and multisweep_relax,
+two wrappers of one kernel: 1, all passes of the chunk in one launch;
+residual: 1; tower_down:
 2 * nsmooth per depth plus one residual-and-restrict per depth but the
 last; tower_up: one prolongation plus 2 * nsmooth per depth above the
-bottom — the loops of csrc/gsrb_relax.cu, csrc/wavefront.cu and
+bottom — the loops of csrc/gsrb_relax.cu, csrc/multisweep.cu and
 csrc/tower.cu).
 `PLAIN_CALLS[name]` goes up each time the plain PyTorch version of that
 kernel runs. A run on the GPU can thereby show that its path went through
@@ -16,7 +18,7 @@ the kernels and never through a plain version.
 """
 
 KERNELS = ("gsrb_relax", "residual", "tower_down", "tower_up",
-           "wavefront_relax")
+           "wavefront_relax", "multisweep_relax")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}

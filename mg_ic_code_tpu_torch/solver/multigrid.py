@@ -30,7 +30,8 @@ from mg_ic_code_tpu_torch.grid.boxes import Box
 from mg_ic_code_tpu_torch.grid.geometry import HierarchyGeom
 from mg_ic_code_tpu_torch.ops import stencils as st
 from mg_ic_code_tpu_torch.ops.ghosts import (
-    CF, PHYS_DIRICHLET, FaceKinds, face_kinds, fill_ghosts_homogeneous,
+    CF, PERIODIC, PHYS_DIRICHLET, FaceKinds, face_kinds,
+    fill_ghosts_homogeneous,
 )
 from mg_ic_code_tpu_torch.solver.bicgstab import bicgstab
 
@@ -211,16 +212,17 @@ def plan_for(spec: LevelMGSpec, shape, dtype, device_type: str, n: int,
     """relax_kernel_plan in terms of what it looks at: the level's shape,
     dtype and device type and whether bCoef is constant (so the decision
     table can be read without a tensor on the card)."""
-    from mg_ic_code_tpu_torch.ops import wavefront as wf
+    from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 
     if n <= 0:
         return []
     if not _kernels_allowed_for(spec, dtype, device_type):
         return [("xla", n)]
     if device_type == "cuda" and const_b:
-        s = wf.wavefront_plan(tuple(shape), n, spec.kinds)
+        s = fs.multisweep_plan(tuple(shape), n, spec.kinds)
         if s is not None:
-            return [("wave", s)] * (n // s)
+            rung = "multisweep" if spec.kinds[0][0] == PERIODIC else "wave"
+            return [(rung, s)] * (n // s)
     return [("resident", n)]
 
 
@@ -228,10 +230,20 @@ def relax_kernel_plan(spec: LevelMGSpec, u, n: int, const_b: bool = True):
     """THE single source of truth for the smoother dispatch: the launch
     sequence relax() runs for n homogeneous GSRB sweeps of `u`, as
     (kind, nsweeps) entries. Rungs in order of preference:
-      "wave"     — the time-skewed wavefront kernel, one launch per chunk of
+      "wave"     — the one-launch multisweep kernel through
+                   ops/wavefront.wavefront_relax, one launch per chunk of
                    sweeps: a CUDA f32 level with non-periodic x and constant
-                   bCoef that ops/wavefront.wavefront_supported takes (too
-                   big to stay in L2 between colour passes);
+                   bCoef that ops/fused_sweeps.multisweep_supported takes
+                   (too big to stay in L2 between colour passes);
+      "multisweep" — the same kernel through
+                   ops/fused_sweeps.multisweep_relax: the same kind of
+                   level with PERIODIC x (one predicate, two names, so that
+                   the counters tell the two paths apart). The JAX
+                   package's rungs "tiled", "pipelined" and "flatp" fold
+                   into this one: they are three TPU tilings of the function
+                   this kernel computes; its "slab", "flat" and "legacy"
+                   rungs have no counterpart because `gsrb_relax` takes
+                   every shape;
       "resident" — the whole-level GSRB kernel, one launch per colour pass,
                    which takes every level shape (on a CPU tensor, with
                    `smoother = pallas`, its plain version);
@@ -250,16 +262,19 @@ def _level_kw(spec: LevelMGSpec, d: int) -> dict:
 
 def relax(spec: LevelMGSpec, coefs: dict, d: int, u, rhs, n: int):
     """n red+black sweeps with homogeneous ghosts, executed per
-    relax_kernel_plan: the wavefront kernel (big levels on the card), the
-    GSRB kernel (constant or variable bCoef), or the staged body — a ghost
-    refresh and one colour update per pass."""
+    relax_kernel_plan: the wavefront or the multisweep kernel (big levels
+    on the card, x open or periodic), the GSRB kernel (constant or variable
+    bCoef), or the staged body — a ghost refresh and one colour update per
+    pass."""
     from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
     from mg_ic_code_tpu_torch.ops import wavefront as wf
 
     b = coefs["b"][d]
     for kind, s in relax_kernel_plan(spec, u, n, const_b=b is None):
-        if kind == "wave":
-            u = wf.wavefront_relax(
+        if kind in ("wave", "multisweep"):
+            one_launch = (wf.wavefront_relax if kind == "wave"
+                          else fs.multisweep_relax)
+            u = one_launch(
                 u.contiguous(), rhs.contiguous(), coefs["a"][d], nsweeps=s,
                 lo=spec.boxes[d].lo, **_level_kw(spec, d),
             )
@@ -403,7 +418,7 @@ def mg_vcycle(spec: LevelMGSpec, coefs: dict, u, rhs, d: int = 0):
     if _kernels_allowed(spec, u):
         from mg_ic_code_tpu_torch.ops import coarse_tower as ct
 
-        if ct.tower_supported(spec, coefs, d):
+        if ct.tower_supported(spec, coefs, d, u.element_size()):
             return ct.tower_vcycle(spec, coefs, d, u, rhs)
     u = relax(spec, coefs, d, u, rhs, spec.nsmooth)
     if d + 1 < spec.ndepths:

@@ -135,10 +135,15 @@ def test_tower_supported_predicate():
         smoother="pallas", num_mg=2)
     assert not tct.tower_supported(spec_w, tco, 0)  # W-cycle
     assert not tct.tower_supported(tspec, tco, tspec.ndepths - 2)
-    # no size term: a level far beyond the TPU's residency limit qualifies
+    # the size term: the tower starts at the first depth whose four arrays
+    # fit the card's 50 MB L2 (512^3 and 256^3 in f32 do not, 128^3 does)
     big = tmg.make_level_spec(
         tgeom1(512, 1.0, TBC()), 0, alpha=1.0, beta=-1.0, nsmooth=4)
-    assert tct.tower_supported(big, {"b": (None,) * big.ndepths}, 0)
+    const_b = {"b": (None,) * big.ndepths}
+    assert [tct.tower_supported(big, const_b, d) for d in range(4)] == [
+        False, False, True, True]
+    assert [tct.tower_supported(big, const_b, d, itemsize=8)
+            for d in range(4)] == [False, False, False, True]
 
 
 def test_restrict_pairs_is_full_weighting():

@@ -174,3 +174,115 @@ def test_cuda_tower_vcycle_matches_cpu_plain():
             assert counts["device_launches"]["tower_up"] == 3 * 9
     np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
                                rtol=0, atol=5e-5)
+
+
+P = "periodic"
+MULTI_CASES = [
+    # (shape, kinds, lo)
+    ((38, 18, 10), ((P, P), (C, D), (N, C)), (0, 3, 0)),
+    ((100, 72, 56), ((P, P), (C, C), (C, C)), (49, 40, 40)),
+    ((66, 40, 24), ((P, P),) * 3, (1, 0, 0)),   # two x segments
+    ((6, 44, 36), ((P, P),) * 3, (0, 0, 0)),    # one segment, wrapped twice
+    ((40, 56, 48), ((D, C), (N, D), (C, N)), (3, 0, 8)),  # x open
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("nsweeps", [2, 4])
+@pytest.mark.parametrize("case", MULTI_CASES,
+                         ids=["narrow", "odd_lo", "two_segments", "tiny_nx",
+                              "open_x"])
+def test_cuda_multisweep_matches_plain_and_gsrb(case, nsweeps, dt):
+    """multisweep_relax on the card against its plain version and against
+    the gsrb_relax kernel: one launch per call, the input untouched, and no
+    giving way to another path."""
+    _need_cuda()
+    shape, kinds, lo = case
+    npdt, rtol = DTYPES[dt]
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
+              dx=0.25, lo=lo)
+    kernel_counts.reset()
+    u_in = f["u"].clone()
+    out = tfs.multisweep_relax(f["u"], f["rhs"], f["a"], **kw)
+    assert kernel_counts.LAUNCHES["multisweep_relax"] == 1
+    assert kernel_counts.DEVICE_LAUNCHES["multisweep_relax"] == 1
+    assert kernel_counts.PLAIN_CALLS["multisweep_relax"] == 0
+    assert torch.equal(u_in, f["u"])
+    ref = tfs.multisweep_relax_plain(f["u"], f["rhs"], f["a"], **kw)
+    ker = tfs.gsrb_relax(f["u"], f["rhs"], f["a"], None, **kw)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= rtol * scale
+    assert float((out - ker).abs().max()) <= rtol * scale
+    with pytest.raises(ValueError, match="nsweeps"):
+        tfs.multisweep_relax(f["u"], f["rhs"], f["a"], **dict(kw, nsweeps=3))
+    with pytest.raises((TypeError, ValueError)):
+        tfs.multisweep_relax(f["u"].half(), f["rhs"], f["a"], **kw)
+    odd = f["u"][:-1].contiguous()
+    if kinds[0][0] == P:
+        with pytest.raises(ValueError, match="even"):
+            tfs.multisweep_relax(odd, odd, odd, **kw)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_cuda_sweep_entry_points_match_plain(dt):
+    """gsrb_full_sweep (two launches of the pass kernel) and gsrb_half_sweep
+    (one) against their plain versions on a box with an odd sum(lo)."""
+    _need_cuda()
+    npdt, rtol = DTYPES[dt]
+    f = {k: torch.from_numpy(v).cuda()
+         for k, v in fields((12, 10, 14), npdt, seed=2).items()}
+    args = (f["u"], f["rhs"], f["a"], f["b"])
+    kw = dict(kinds=KINDS, rho=2.0, alpha=1.0, beta=-1.0, dx=0.25,
+              lo=(2, 0, 1))
+    kernel_counts.reset()
+    full = tfs.gsrb_full_sweep(*args, **kw)
+    assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax"] == 2
+    ref = tfs.gsrb_full_sweep_plain(*args, **kw)
+    assert float((full - ref).abs().max()) <= rtol * float(ref.abs().max())
+    halves = []
+    for color in (0, 1):
+        out = tfs.gsrb_half_sweep(*args, color=color, **kw)
+        ref = tfs.gsrb_half_sweep_plain(*args, color=color, **kw)
+        assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+        halves.append(out)
+    assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax"] == 4
+    assert kernel_counts.LAUNCHES["gsrb_relax"] == 3
+    two = tfs.gsrb_half_sweep(halves[0], *args[1:], color=1, **kw)
+    assert torch.equal(full, two)
+    assert torch.equal(full, tfs.gsrb_relax(*args, nsweeps=1, **kw))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_vcycle_stages_a_big_periodic_level_above_the_tower():
+    """mg_vcycle on a 256^3 periodic level on the card: the top depth is too
+    big for the tower, goes through relax's multisweep rung (two launches
+    before, two after), and the tower starts at 128^3."""
+    _need_cuda()
+    n = 256
+    spec = tmg.make_level_spec(
+        single_level_geom(n, 16.0, BCSpec(periodic=True)), 0, alpha=1.0,
+        beta=-1.0, nsmooth=4, smoother="auto")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    mk = lambda: torch.randn((n, n, n), dtype=torch.float32, device="cuda",
+                             generator=g)
+    u, rhs = mk(), mk()
+    # alpha*a*u - beta*lap(u) = a*u + lap(u): definite for a < 0
+    a = -(0.5 + mk().abs())
+    coefs = tmg.build_level_coefs(spec, a)
+    assert tmg.relax_kernel_plan(spec, u, 4) == [("multisweep", 2)] * 2
+    kernel_counts.reset()
+    out = tmg.mg_vcycle(spec, coefs, u, rhs)
+    counts = kernel_counts.snapshot()
+    assert counts["launches"]["multisweep_relax"] == 4
+    assert counts["launches"]["tower_down"] == 1
+    assert counts["launches"]["tower_up"] == 1
+    assert counts["launches"]["gsrb_relax"] == 0
+    assert all(v == 0 for v in counts["plain_calls"].values())
+    # one V-cycle contracts the residual of this definite operator
+    res0 = tmg.residual_homog(spec, coefs, 0, u, rhs)
+    res1 = tmg.residual_homog(spec, coefs, 0, out, rhs)
+    assert float(res1.abs().max()) < 0.5 * float(res0.abs().max())

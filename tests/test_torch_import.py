@@ -177,3 +177,67 @@ def test_pout_verbosity(capsys):
         tlog.set_verbosity(old)
     out = capsys.readouterr().out
     assert "shown" in out and "hidden" not in out
+
+
+_MODULES = r"""
+import importlib, os, pkgutil, sys
+import torch
+import mg_ic_code_tpu_torch as mgt
+names = [m.name for m in pkgutil.walk_packages(mgt.__path__, mgt.__name__ + ".")]
+for need in ("physics.diagnostics", "ops.fused_sweeps", "ops.wavefront",
+             "ops.coarse_tower", "ops.cuda_ext", "solver.multigrid"):
+    assert mgt.__name__ + "." + need in names, need
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # the GPU smoke script: importing it runs nothing
+assert os.path.exists(chip_smoke.PERIODIC) and os.path.exists(chip_smoke.CANONICAL)
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+       or m == "mg_ic_code_tpu" or m.startswith("mg_ic_code_tpu.")]
+assert not bad, bad
+# importing built no kernel and loaded no compiler
+from mg_ic_code_tpu_torch.ops import cuda_ext
+assert cuda_ext._lib is None and "triton" not in sys.modules
+print("EVERY_MODULE_STANDS_ALONE", len(names))
+"""
+
+
+def test_every_port_module_and_the_smoke_script_import_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _MODULES], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert "EVERY_MODULE_STANDS_ALONE" in r.stdout
+
+
+def test_kernel_sources_are_listed_and_the_build_directory_is_ignored():
+    from mg_ic_code_tpu_torch.ops import cuda_ext, kernel_counts
+
+    on_disk = sorted(os.listdir(cuda_ext.CSRC_DIR))
+    assert sorted(cuda_ext.SOURCES + cuda_ext.HEADERS) == on_disk
+    assert "multisweep.cu" in cuda_ext.SOURCES
+    assert "multisweep_relax" in kernel_counts.KERNELS
+    # the wavefront wrapper launches the multisweep kernel: one march, one
+    # set of instantiations
+    assert "wavefront_relax" in kernel_counts.KERNELS
+    assert "wavefront.cu" not in on_disk
+    # every C entry point that is declared to ctypes is defined in a source
+    text = "".join(open(os.path.join(cuda_ext.CSRC_DIR, f)).read()
+                   for f in cuda_ext.SOURCES)
+    for entry in ("mgk_gsrb_relax", "mgk_gsrb_pass", "mgk_residual",
+                  "mgk_multisweep_relax",
+                  "mgk_tower_down", "mgk_tower_up"):
+        assert f'extern "C" int {entry}(' in text, entry
+    ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
+    assert "build/" in ignored
+    if not os.environ.get("MG_IC_BUILD_DIR"):
+        assert cuda_ext.build_dir().startswith(os.path.join(ROOT, "build"))
+
+
+def test_smoke_script_exits_1_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 1
+    assert r.stdout.strip() == ""

@@ -173,7 +173,8 @@ def test_plan_decision_table(shape, rung):
     else:
         assert plan == [("resident", 4)]
     # an odd count, a CPU tensor, variable bCoef, f64, periodic x and the
-    # staged smoother never take the wave rung
+    # staged smoother never take the wave rung (periodic x takes the
+    # multisweep rung where the level exceeds the L2 term)
     assert tmg.plan_for(spec, shape, torch.float32, "cuda", 3) == [
         ("resident", 3)]
     assert tmg.plan_for(_spec(KINDS["cf"], "pallas"), shape, torch.float32,
@@ -183,8 +184,9 @@ def test_plan_decision_table(shape, rung):
                         const_b=False) == [("resident", 4)]
     assert tmg.plan_for(spec, shape, torch.float64, "cuda", 4) == [("xla", 4)]
     per_x = _spec(((PER, PER), (D, D), (D, D)))
-    assert tmg.plan_for(per_x, shape, torch.float32, "cuda", 4) == [
-        ("resident", 4)]
+    assert tmg.plan_for(per_x, shape, torch.float32, "cuda", 4) == (
+        [("multisweep", 2), ("multisweep", 2)] if rung == "wave"
+        else [("resident", 4)])
     assert tmg.plan_for(_spec(KINDS["cf"], "xla"), shape, torch.float32,
                         "cuda", 4) == [("xla", 4)]
 
