@@ -12,10 +12,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            f32 and f64, at the level shapes each path gives it (the
            canonical 7 levels; the periodic box's 256^3, its all-periodic
-           tower chain from 128^3 and its 4^3 bottom) and at awkward ones
+           tower chain from 128^3 and its 4^3 bottom; the sharded paths'
+           16^3 tower chains, 8^3 and 4^3 depths) and at awkward ones
            (odd parity offset, mixed faces, periodic axes, one wrapped x
            segment, a 20M-cell level, 512^3), with its time, the plain
-           version's time and its bound
+           version's time and its bound; the halo kernels on one shard of
+           a level cut over a mesh (the periodic box's 64x256x256 x-slabs
+           and 128x128x256 pencils, the 7-level hierarchy's local slabs,
+           odd offsets), each against its plain version and, every shard
+           joined, against the whole-level kernel
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
            the card; the launch counters show the path went through the
@@ -48,10 +53,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
            tile streaming run against no file (every device operation and
            device-to-host copy happens; tile sizes, offsets and a checksum
            per component are checked). The line says which form ran.
+  sharded  the sharded solve with a mesh that names cuda:0 four times (the
+           seams, exchanges and global offsets of four cards on one): the
+           periodic box on 4 x-slabs and on (2, 2) pencils and the 7-level
+           hierarchy on 4 x-slabs, each beside the same run without a mesh
+           (Krylov counts, K, step 1, the 7-level lock; the halo kernels
+           launched in every iteration, no plain version), and the CLI's
+           calls on the periodic box with the mesh (the sharding line, K
+           against the run without one)
+
+Asked for by name only (the default run needs one card):
+
+  cards    the sharded solve over every visible card (at least two), with
+           the mesh main.run builds by itself on such a host, beside one
+           card named as often and the run without a mesh: the periodic box
+           and the 7-level hierarchy, held as in the sharded phase, then
+           the CLI's calls with no mesh given (the sharding line).
+           python3 chip_smoke.py --phases env,build,cards
 
 Then one line {"kernels": [...]} (per kernel: launches on its main path =
-wrapper calls that reached the card in the scale7 run, or in the periodic
-run for the multisweep kernel, device_launches = the kernel launches those
+wrapper calls that reached the card in the scale7 run, in the periodic
+run for the multisweep kernel, in the sharded periodic runs for the halo
+kernels (x-slabs / pencils), device_launches = the kernel launches those
 calls enqueued, error against the plain version, time, plain time and bound
 at that path's shape; the same for the 4-level solve; and under "paths" the
 same numbers for EVERY path the kernel is on, each at that path's own
@@ -67,7 +90,10 @@ double precision on a CPU (7 levels: 0.27342222391586096 ->
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -90,6 +116,10 @@ from mg_ic_code_tpu_torch.ops import stencils as st  # noqa: E402
 from mg_ic_code_tpu_torch.ops import wavefront as wf  # noqa: E402
 from mg_ic_code_tpu_torch import main as cli_main  # noqa: E402
 from mg_ic_code_tpu_torch.io import chombo_hdf5 as chio  # noqa: E402
+from mg_ic_code_tpu_torch.io.logging import set_verbosity  # noqa: E402
+from mg_ic_code_tpu_torch.parallel import distributed as dist  # noqa: E402
+from mg_ic_code_tpu_torch.parallel import halo  # noqa: E402
+from mg_ic_code_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from mg_ic_code_tpu_torch.physics import diagnostics as dg  # noqa: E402
 from mg_ic_code_tpu_torch.physics import level_data as ld  # noqa: E402
 from mg_ic_code_tpu_torch.solver import composite as comp  # noqa: E402
@@ -136,6 +166,13 @@ SOURCES = {
                         "mg_ic_code_tpu/ops/wavefront.py:329"),
     "multisweep_relax": ("mg_ic_code_tpu_torch/csrc/multisweep.cu",
                          "mg_ic_code_tpu/ops/fused_sweeps.py:486"),
+    # the same march on one shard of a sharded level (x-slab + pads,
+    # prepadded pencil)
+    "multisweep_relax_halo": ("mg_ic_code_tpu_torch/csrc/multisweep_halo.cu",
+                              "mg_ic_code_tpu/ops/fused_sweeps.py:378"),
+    "multisweep_relax_tiled_pre": (
+        "mg_ic_code_tpu_torch/csrc/multisweep_halo.cu",
+        "mg_ic_code_tpu/ops/fused_sweeps.py:1540"),
 }
 # rows of the TPU kernel table (PERF.md) that one Hopper kernel serves
 TPU_KERNELS = {
@@ -150,9 +187,18 @@ TPU_KERNELS = {
     "tower_up": ["mg_ic_code_tpu/ops/coarse_tower.py:234"],
     "wavefront_relax": ["mg_ic_code_tpu/ops/wavefront.py:329",
                         "mg_ic_code_tpu/ops/wavefront.py:385"],
+    # :378 and :714 called without a halo (the single-device slab and flat
+    # rungs) compute what the whole-level kernel computes
     "multisweep_relax": ["mg_ic_code_tpu/ops/fused_sweeps.py:486",
                          "mg_ic_code_tpu/ops/fused_sweeps.py:816",
-                         "mg_ic_code_tpu/ops/fused_sweeps.py:1384"],
+                         "mg_ic_code_tpu/ops/fused_sweeps.py:1384",
+                         "mg_ic_code_tpu/ops/fused_sweeps.py:378",
+                         "mg_ic_code_tpu/ops/fused_sweeps.py:714"],
+    # :378's halo= form, and :1397 (the halo= form of the tiled kernel,
+    # which the JAX package runs on 512^3-class slabs)
+    "multisweep_relax_halo": ["mg_ic_code_tpu/ops/fused_sweeps.py:378",
+                              "mg_ic_code_tpu/ops/fused_sweeps.py:1397"],
+    "multisweep_relax_tiled_pre": ["mg_ic_code_tpu/ops/fused_sweeps.py:1540"],
 }
 
 
@@ -227,7 +273,7 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     cuda_ext.lib()
     info = dict(cuda_ext.BUILD_INFO)
-    regs = {}
+    regs, spills = {}, {}
     if os.path.exists(info["log"]):
         log = open(info["log"]).read()
         # ptxas -v: "Compiling entry function '<mangled>' ..." then
@@ -237,6 +283,9 @@ def phase_build() -> dict:
             log, flags=re.S,
         ):
             regs[name] = max(int(used), regs.get(name, 0))
+        spills = {name: int(st) for name, st in re.findall(
+            r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores", log)}
     out = {
         "phase": "build", "seconds": round(time.perf_counter() - t0, 3),
         "cached": info["cached"], "library": os.path.relpath(
@@ -244,6 +293,9 @@ def phase_build() -> dict:
         "flags": list(cuda_ext.NVCC_FLAGS),
         "max_registers": max(regs.values()) if regs else None,
         "entry_functions": len(regs),
+        # bytes of register spill stores per kernel that spills (mangled
+        # names); the f32 NP = 4 marches the solver runs spill none
+        "spill_stores": {k: v for k, v in spills.items() if v},
     }
     emit(out)
     return out
@@ -320,6 +372,11 @@ LEVEL_CASES = [
      True),
     ("periodic_path_bottom_4", (4, 4, 4), ALL_P, (0, 0, 0), 2.0 ** -5, False,
      True),
+    # the sharded paths: the periodic box on (2, 2) pencils smooths its
+    # unsharded 8^3 depth with gsrb_relax (16^3 is the last depth cut); the
+    # 7-level hierarchy's 4^3 bottom (its base chain's tower starts at 16^3)
+    ("sharded_pencil_8_P", (8, 8, 8), ALL_P, (0, 0, 0), 2.0, False, True),
+    ("path_bottom_4", (4, 4, 4), ALL_D, (0, 0, 0), 2.0, False, True),
 ]
 
 # wavefront cases: (id, shape, kinds, lo, rho, timed). The first four are
@@ -368,6 +425,9 @@ MULTI_CASES = [
      2.0, False),
     ("tiny_nx6", (6, 44, 36), ALL_P, (0, 0, 0), 2.0, False),
     ("tiny_nx2", (2, 12, 8), ((P, P), (N, D), (P, P)), (1, 0, 0), 2.0, False),
+    # the JAX package's flat rung (row 12): a lane-misaligned level it names,
+    # x open; here the same whole-level kernel
+    ("flat_472x64x64", (472, 64, 64), ALL_C, (0, 0, 0), 2.0, True),
     ("open_x_mixed_faces", (40, 56, 48), ((D, C), (N, D), (C, N)), (3, 0, 8),
      2.0, False),
     ("open_x_periodic_yz", (96, 40, 72), ((C, D), (P, P), (P, P)), (0, 7, 0),
@@ -380,10 +440,14 @@ F32_ONLY_CASES = ("periodic_512",)
 
 # tower cases: (id, shape, kinds, lo, timed); the first is the canonical
 # path's, the second the periodic box's (six depths, 128^3 down to 4^3, every
-# axis wrapped at every depth)
+# axis wrapped at every depth), the next two the chains of the sharded paths
+# on 4 x-slabs, where every depth down to 32^3 is cut and the tower starts at
+# 16^3 (the periodic box, the 7-level hierarchy's base)
 TOWER_CASES = [
     ("path_l0_64", (64, 64, 64), ALL_D, (0, 0, 0), True),
     ("periodic_path_128", (128, 128, 128), ALL_P, (0, 0, 0), True),
+    ("sharded_path_16_P", (16, 16, 16), ALL_P, (0, 0, 0), True),
+    ("sharded_path_16", (16, 16, 16), ALL_D, (0, 0, 0), True),
     ("l3_176x64x64", (176, 64, 64), ALL_C, (416, 288, 288), False),
     ("mixed_faces", (32, 48, 40), ((D, C), (N, D), (C, N)), (16, 0, 8),
      False),
@@ -618,6 +682,166 @@ def check_tower_case(case, dtype) -> dict:
     return rec
 
 
+# sharded cases: (id, level shape, kinds, lo, mesh shape, shard, timed). The
+# kernel runs on shard `shard` of the level cut over a mesh of cuda:0 named
+# prod(mesh shape) times, with the operands the sharded path hands it
+# (parallel/halo); then mg.relax on the whole level with that mesh (every
+# shard, 4 sweeps as two launches of 2, joined) is held against the
+# whole-level kernel. The first of each kind is the periodic box's (256^3 on
+# 4 x-slabs / on (2, 2) pencils), then the 7-level hierarchy's local slabs
+# (its finest level, 960x144x144, and its 64^3 base on 4 x-slabs), then odd
+# offsets and mixed faces.
+SHARD_CASES = [
+    ("slab_64x256x256_P", (256, 256, 256), ALL_P, (0, 0, 0), (4,), (1, 0, 0),
+     True),
+    ("slab_240x144x144_edge", (960, 144, 144), ALL_C, (6080, 3952, 3952),
+     (4,), (0, 0, 0), True),
+    ("slab_16x64x64_edge", (64, 64, 64), ALL_D, (0, 0, 0), (4,), (3, 0, 0),
+     True),
+    ("slab_odd_offset", (84, 40, 36), ((P, P), (D, C), (N, C)), (1, 0, 3),
+     (4,), (1, 0, 0), False),
+    ("slab_mixed_seams", (96, 56, 48), ((D, C), (N, D), (C, N)), (3, 0, 8),
+     (4,), (2, 0, 0), False),
+    ("pencil_128x128x256_P", (256, 256, 256), ALL_P, (0, 0, 0), (2, 2),
+     (1, 0, 0), True),
+    ("pencil_odd_offsets", (42, 46, 36), ((D, C), (N, D), (C, N)), (1, 0, 0),
+     (2, 2), (1, 1, 0), False),
+    ("pencil_periodic_odd", (42, 46, 36), ALL_P, (0, 3, 0), (2, 2), (1, 0, 0),
+     False),
+]
+# reassembled sharded relax against the whole-level kernel (of max|ref|)
+REASSEMBLED_TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
+
+
+def shard_operands(f, kinds, mshape, H: int, rho: float = 2.0) -> dict:
+    """What the sharded path hands the kernel of every shard for a chunk of
+    H/2 sweeps, by shard: the shard and its pads (x-slabs) or its prepadded
+    arrays (pencils), and the meta; built by parallel/halo's own helpers."""
+    mesh = pmesh.make_mesh(["cuda:0"] * math.prod(mshape), mshape)
+    counts = tuple(mshape) + (1,) * (3 - len(mshape))
+    devs = halo._grid(mesh, counts)
+    sh = {k: halo._split(f[k], counts, devs) for k in ("u", "rhs", "a")}
+    n_loc = [f["u"].shape[ax] // counts[ax] for ax in range(3)]
+    px = kinds[0][0] == P
+    meta = halo._metas(devs, counts, n_loc, px)
+    if len(mshape) == 1:
+        pads = (halo._u_rows(sh["u"], kinds, rho, H, counts[0], devs),
+                halo._coef_rows(sh["rhs"], H, counts[0], px, devs),
+                halo._coef_rows(sh["a"], H, counts[0], px, devs))
+        return {k: {"u": sh["u"][k], "rhs": sh["rhs"][k], "a": sh["a"][k],
+                    "pads": tuple(p[k] for p in pads), "meta": meta[k]}
+                for k in devs}
+    pre = {n: halo._prepad(sh[n], H, "ghost" if n == "u" else "zero", kinds,
+                           rho, counts, devs) for n in sh}
+    return {k: {"pre": (pre["u"][k], pre["rhs"][k], pre["a"][k]),
+                "meta": meta[k], "ny_global": f["u"].shape[1]} for k in devs}
+
+
+def check_shard_case(case, dtype) -> dict:
+    """The halo kernel (x-slab) or the prepadded one (pencil) against its
+    plain version on one shard, nsweeps 2 and 4; then the sharded relax of
+    the whole level against the whole-level kernel."""
+    cid, shape, kinds, lo, mshape, key, timed = case
+    name = ("multisweep_relax_halo" if len(mshape) == 1
+            else "multisweep_relax_tiled_pre")
+    f = level_fields(shape, dtype, seed=4)
+    kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.37, lo=lo)
+    counts = tuple(mshape) + (1,) * (3 - len(mshape))
+    loc = [shape[ax] // counts[ax] for ax in range(3)]
+    rec = {"case": cid, "shape": loc, "level": list(shape),
+           "mesh": list(mshape), "shard": list(key), "dtype": str(dtype)[6:],
+           "tolerance": TOL[dtype], name: {}}
+
+    def call(ops, ns, kernel=True):
+        if "pads" in ops:
+            if kernel:
+                return fs.multisweep_relax(
+                    ops["u"], ops["rhs"], ops["a"], nsweeps=ns,
+                    halo=ops["pads"] + (ops["meta"],), **kw)
+            return fs.multisweep_relax_halo_plain(
+                ops["u"], ops["rhs"], ops["a"], *ops["pads"], ops["meta"],
+                nsweeps=ns, **kw)
+        fn = (fs.multisweep_relax_tiled_pre if kernel
+              else fs.multisweep_relax_tiled_pre_plain)
+        return fn(*ops["pre"], ops["meta"], ny_global=ops["ny_global"],
+                  nsweeps=ns, **kw)
+
+    worst = (0.0, 0.0)
+    for ns in fs.MULTISWEEP_CHUNKS:
+        ops = shard_operands(f, kinds, mshape, 2 * ns)[key]
+        before = kernel_counts.DEVICE_LAUNCHES[name]
+        out = call(ops, ns)
+        torch.cuda.synchronize()
+        check(kernel_counts.DEVICE_LAUNCHES[name] == before + 1,
+              f"{name}: not one launch per call")
+        err, rel = rel_err(out, call(ops, ns, kernel=False))
+        worst = max(worst, (rel, err))
+        check(rel <= TOL[dtype] and bool(torch.isfinite(out).all()),
+              f"{name} {cid} {dtype} nsweeps {ns}: rel err {rel}")
+    rec[name].update(rel_err=worst[0], max_abs_err=worst[1],
+                     meta=list(ops["meta"]))
+
+    # 4 sweeps of the whole level as the sharded path runs them (per chunk
+    # of 2: every shard's kernel on the operands parallel/halo builds,
+    # joined) against the whole-level kernel (two launches of 2)
+    def sharded_sweeps():
+        u = f["u"]
+        for _ in range(2):
+            outs = {k: call(o, 2) for k, o in shard_operands(
+                dict(f, u=u), kinds, mshape, 4).items()}
+            u = halo._join(outs, counts, u.device)
+        return u
+
+    sharded = sharded_sweeps()
+    if dtype == torch.float32:
+        # the solver's own route: mg.relax with the mesh (f32 only: the
+        # kernels are the f32 preconditioner's), the same launches
+        mesh = pmesh.make_mesh(["cuda:0"] * math.prod(mshape), mshape)
+        spec = mg.LevelMGSpec(
+            kinds=kinds, boxes=(Box.from_shape(shape, lo),), dx=(0.37,),
+            rho=(2.0,), alpha=1.0, beta=-1.0, nsmooth=4, smoother="auto",
+            mesh=mesh)
+        coefs = {"a": (f["a"],), "b": (None,), "lam": (None,)}
+        before = kernel_counts.LAUNCHES[name]
+        via_relax = mg.relax(spec, coefs, 0, f["u"], f["rhs"], 4)
+        check(kernel_counts.LAUNCHES[name] - before == 2 * math.prod(mshape),
+              f"{name} {cid}: the sharded relax did not launch every shard")
+        check(torch.equal(via_relax, sharded),
+              f"{name} {cid}: mg.relax with the mesh is not the shards' "
+              f"kernels joined")
+    whole = fs.multisweep_relax(f["u"], f["rhs"], f["a"], nsweeps=2, **kw)
+    whole = fs.multisweep_relax(whole, f["rhs"], f["a"], nsweeps=2, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(sharded, whole)
+    rec["reassembled"] = {"max_abs_err": err, "rel_err": rel,
+                          "tolerance": REASSEMBLED_TOL[dtype],
+                          "bitwise": bool(torch.equal(sharded, whole))}
+    check(rel <= REASSEMBLED_TOL[dtype],
+          f"sharded relax {cid} {dtype}: rel err {rel} against the "
+          f"whole-level kernel")
+    if timed:
+        ops = shard_operands(f, kinds, mshape, 4)[key]
+        isz = f["u"].element_size()
+        nin = (math.prod(loc) + 2 * 4 * loc[1] * loc[2] if "pads" in ops
+               else ops["pre"][0].numel())
+        ncells = math.prod(loc)
+        # read u, rhs, a with their pads once, write the shard once
+        b, by = bound_ms(isz * (3 * nin + ncells), 2 * 32.0 * ncells)
+        rec[name].update(
+            nsweeps=2,
+            ms=time_ms(lambda: call(ops, 2)),
+            plain_ms=time_ms(lambda: call(ops, 2, kernel=False), reps=6,
+                             warmup=1),
+            bound_ms=b, bound_by=by,
+            whole_level_relax_ms={
+                "sharded": time_ms(sharded_sweeps, reps=6, warmup=1),
+                "unsharded_two_launches": time_ms(lambda: fs.multisweep_relax(
+                    fs.multisweep_relax(f["u"], f["rhs"], f["a"], nsweeps=2,
+                                        **kw), f["rhs"], f["a"], nsweeps=2,
+                    **kw))})
+    return rec
+
+
 def phase_kernels() -> dict:
     checks = []
     for dtype in (torch.float32, torch.float64):
@@ -633,6 +857,9 @@ def phase_kernels() -> dict:
                 checks.append(check_one_launch_case(name, case, dtype))
                 torch.cuda.empty_cache()
         checks.append(check_sweep_entry_points(dtype))
+        for case in SHARD_CASES:
+            checks.append(check_shard_case(case, dtype))
+            torch.cuda.empty_cache()
     # wrappers raise on what the kernels do not take (no silent fallback)
     u = torch.zeros((8, 8, 8), dtype=torch.float32, device="cuda")
     kw = dict(nsweeps=1, kinds=ALL_D, rho=2.0, alpha=1.0, beta=-1.0, dx=1.0,
@@ -685,7 +912,7 @@ PERIODIC_KERNELS = ("multisweep_relax", "residual", "tower_down", "tower_up")
 
 
 def run_solve(overrides, label: str, keep: dict | None = None,
-              params: str = CANONICAL) -> dict:
+              params: str = CANONICAL, mesh=None) -> dict:
     """load_params -> generate_hierarchy -> poisson_solve on the card.
     `keep`, when given, receives cfg, geom and the solve's result."""
     cfg = mgt.load_params(params, overrides=list(overrides))
@@ -704,7 +931,8 @@ def run_solve(overrides, label: str, keep: dict | None = None,
     t0 = time.perf_counter()
     geom = generate_hierarchy(cfg)
     t_hier = time.perf_counter() - t0
-    res = poisson_solve(cfg, geom=geom, verbose=False, output_hook=hook)
+    res = poisson_solve(cfg, geom=geom, verbose=False, output_hook=hook,
+                        mesh=mesh)
     torch.cuda.synchronize()
     hook(None, None)
     if keep is not None:
@@ -1180,12 +1408,15 @@ CLI_PERIODIC_OVERRIDES = ["max_NL_iterations = 2",
                           "precond_precision = single", "verbosity = 0"]
 
 
-def cli_streamed(overrides, params: str = CANONICAL) -> dict:
+def cli_streamed(overrides, params: str = CANONICAL, mesh=None) -> dict:
     """What main.run does, with the writers' streaming run against no file:
-    load_params -> generate_hierarchy -> poisson_solve with the snapshot
-    hook -> the final 29-variable stacks."""
+    load_params -> generate_hierarchy -> the mesh (main.choose_mesh, which
+    prints the sharding line) -> poisson_solve with the snapshot hook -> the
+    final 29-variable stacks."""
     cfg = mgt.load_params(params, overrides=list(overrides))
+    set_verbosity(cfg.verbosity)
     geom = generate_hierarchy(cfg)
+    mesh = cli_main.choose_mesh(cfg, torch.device("cuda"), mesh)
     stats = {"boxes": 0, "tiles": 0, "values": 0, "worst_checksum": 0.0}
 
     def stream(stacks, what):
@@ -1211,7 +1442,7 @@ def cli_streamed(overrides, params: str = CANONICAL) -> dict:
                 state["fields"][e])) for e in geom.entries_at_depth(d)),
                 f"plotfile {nl_iter} level {d}")
 
-    res = poisson_solve(cfg, geom=geom, output_hook=snapshot)
+    res = poisson_solve(cfg, geom=geom, output_hook=snapshot, mesh=mesh)
     k_index = ld.GRCHOMBO_INDEX["K"]
     for d in range(geom.max_depth + 1):
         stacks = [(e, ld.grchombo_output_stack(
@@ -1223,6 +1454,7 @@ def cli_streamed(overrides, params: str = CANONICAL) -> dict:
                   == res.constant_K, "checkpoint: K is not the solve's")
         stream(stacks, f"checkpoint level {d}")
     return {"history": res.dpsi_norm_history, "constant_K": res.constant_K,
+            "linear_iters": res.linear_iters,
             # what write_solver_data puts into is_periodic_<d> (the
             # checkpoint's is 1 by GRChombo's convention)
             "plotfile_is_periodic": int(geom.bc.periodic),
@@ -1230,7 +1462,7 @@ def cli_streamed(overrides, params: str = CANONICAL) -> dict:
 
 
 def cli_files(overrides, params: str = CANONICAL,
-              ndepths: int = len(SCALE7_SHAPES)) -> dict:
+              ndepths: int = len(SCALE7_SHAPES), mesh=None) -> dict:
     """main.run itself in a temporary directory; the files are read back."""
     import h5py
 
@@ -1238,7 +1470,7 @@ def cli_files(overrides, params: str = CANONICAL,
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            rc = cli_main.run(["main", params, *overrides])
+            rc = cli_main.run(["main", params, *overrides], mesh=mesh)
             check(rc == 0, f"main.run returned {rc}")
             plots = sorted(f for f in os.listdir(tmp)
                            if f.startswith("vcPoissonOut.3d_"))
@@ -1332,6 +1564,286 @@ def phase_cli() -> dict:
     return out
 
 
+# --------------------------------------------------------------- sharded
+
+# one card standing in for four: the mesh names cuda:0 four times, so every
+# seam, exchange and global offset of a 4-card run is there
+SHARD_X = (4,)
+SHARD_PENCIL = (2, 2)
+# the 7-level lock's step 1 limit on the sharded run: twice the unsharded
+# 1e-5 (which f32 preconditioner runs moves step 1 by up to ~6e-6, PERF.md
+# section 6, and sharding changes the preconditioner's arithmetic: the
+# tower moves down to 16^3)
+SHARDED7_STEP1 = 2e-5
+
+
+def one_card_mesh(shape):
+    return pmesh.make_mesh(["cuda:0"] * math.prod(shape), shape)
+
+
+def check_sharded_run(run, ref, counts, what: str, kernel: str,
+                      step_tol: float, k_tol: float | None) -> dict:
+    """A sharded run against the unsharded run of the same configuration:
+    step 1 within step_tol relative, every K within k_tol, Krylov counts
+    equal while the history contracts (+-1 on a step that does not: there
+    the last BiCGStab iteration is decided by roundoff); its halo kernel
+    launched in every iteration, the same number of times wherever the
+    Krylov count is the same, one launch per call; no plain version."""
+    h, hr = run["history"], ref["history"]
+    rel = abs(h[0] - hr[0]) / hr[0]
+    check(rel <= step_tol, f"{what}: step 1 {h[0]} vs unsharded {hr[0]}: "
+          f"{rel} > {step_tol}")
+    krels = [abs(a - b) / abs(b) if b else abs(a - b)
+             for a, b in zip(run["K_history"], ref["K_history"])]
+    if k_tol is not None:
+        check(max(krels) <= k_tol, f"{what}: K {krels} > {k_tol}")
+    for i, (a, b) in enumerate(zip(run["linear_iters"], ref["linear_iters"])):
+        plateau = i > 0 and hr[i] > 0.5 * hr[i - 1]
+        check(a == b or (plateau and abs(a - b) <= 1),
+              f"{what}: Krylov {run['linear_iters']} vs unsharded "
+              f"{ref['linear_iters']}")
+    check(all(b < a for a, b in zip(h, h[1:])),
+          f"{what}: history not contracting: {h}")
+    m = kernel_counts.KERNELS.index(kernel)
+    per_iter = [c[m] for c in run["kernel_calls_per_iteration"]]
+    check(all(n > 0 for n in per_iter),
+          f"{what}: an iteration made no {kernel} call: {per_iter}")
+    by_iters: dict = {}
+    for calls, n_it in zip(run["kernel_calls_per_iteration"],
+                           run["linear_iters"]):
+        by_iters.setdefault(n_it, set()).add(tuple(calls))
+    check(all(len(v) == 1 for v in by_iters.values()),
+          f"{what}: kernel calls differ between iterations of equal Krylov "
+          f"count: {run['kernel_calls_per_iteration']}")
+    check(counts["device_launches"][kernel] == counts["launches"][kernel],
+          f"{what}: {kernel} is not one launch per call")
+    check(all(v == 0 for v in counts["plain_calls"].values()),
+          f"{what}: a plain version ran on the card's path: {counts}")
+    return {"step1_rel_diff": rel, "K_rel_diff": max(krels),
+            "unsharded_history": hr, "unsharded_linear_iters":
+            ref["linear_iters"], "unsharded_K": ref["constant_K"],
+            "unsharded_s_per_iteration": ref["s_per_iteration"],
+            "unsharded_max_memory_allocated": ref["max_memory_allocated"]}
+
+
+def sharded_solve(overrides, label, mesh_shape, params: str) -> tuple:
+    """run_solve with a mesh of one card; the counts of that run alone."""
+    kernel_counts.reset()
+    run = run_solve(overrides, label, params=params,
+                    mesh=one_card_mesh(mesh_shape))
+    return run, kernel_counts.snapshot()
+
+
+SHARDED7 = ["max_level = 6", "max_NL_iterations = 3",
+            "precond_precision = single", "verbosity = 0"]
+
+
+def phase_sharded() -> dict:
+    out = {"phase": "sharded", "mesh_device": "cuda:0",
+           "note": "one card named once per mesh position"}
+    runs = {}
+    # the periodic box at 256^3: unsharded, 4 x-slabs, (2, 2) pencils
+    ref = run_solve(PERIODIC_BASE, "periodic_unsharded", params=PERIODIC)
+    for path, mshape, kernel, other in (
+            ("sharded_x", SHARD_X, "multisweep_relax_halo",
+             "multisweep_relax_tiled_pre"),
+            ("sharded_pencil", SHARD_PENCIL, "multisweep_relax_tiled_pre",
+             "multisweep_relax_halo")):
+        run, counts = sharded_solve(PERIODIC_BASE, path, mshape, PERIODIC)
+        torch.cuda.empty_cache()
+        check(run["levels"] == [[256, 256, 256]], f"{path}: {run['levels']}")
+        agree = check_sharded_run(run, ref, counts, path, kernel,
+                                  step_tol=1e-5, k_tol=1e-10)
+        # the 256^3 depth went through the shards, not the whole-level rung
+        check(counts["launches"]["multisweep_relax"] == 0
+              and counts["launches"][other] == 0,
+              f"{path}: another rung ran: {counts}")
+        check(run["constant_K"] < 0.0, f"{path}: K {run['constant_K']}")
+        runs[path] = counts
+        n_iter = len(run["history"])
+        out[path] = {"mesh": list(mshape), **agree, **run,
+                     "launches": counts["launches"],
+                     "device_launches": counts["device_launches"],
+                     "plain_calls": counts["plain_calls"],
+                     "launches_per_picard_iteration": {
+                         k: v / n_iter for k, v in counts["launches"].items()}}
+
+    # the canonical 7-level hierarchy: unsharded, then 4 x-slabs
+    ref7 = run_solve(SHARDED7, "scale7_unsharded")
+    torch.cuda.empty_cache()
+    run7, counts7 = sharded_solve(SHARDED7, "sharded7", SHARD_X, CANONICAL)
+    torch.cuda.empty_cache()
+    check(run7["levels"] == [list(s) for s in SCALE7_SHAPES],
+          f"sharded7: {run7['levels']}")
+    agree7 = check_sharded_run(run7, ref7, counts7, "sharded7",
+                               "multisweep_relax_halo",
+                               step_tol=SHARDED7_STEP1, k_tol=None)
+    h = run7["history"]
+    lock = {"step1_rel_diff_lock": abs(h[0] - SCALE7[0]) / SCALE7[0],
+            "step1_limit": SHARDED7_STEP1,
+            "step2_rel_diff_lock": abs(h[1] - SCALE7[1]) / SCALE7[1],
+            "step3": h[2]}
+    check(lock["step1_rel_diff_lock"] <= SHARDED7_STEP1,
+          f"sharded7: step 1 {h[0]} vs {SCALE7[0]}")
+    check(lock["step2_rel_diff_lock"] <= 2e-2,
+          f"sharded7: step 2 {h[1]} vs {SCALE7[1]}")
+    check(h[2] < 1e-6, f"sharded7: step 3 {h[2]}")
+    check(all(i <= 3 for i in run7["linear_iters"]),
+          f"sharded7: Krylov {run7['linear_iters']}")
+    runs["sharded7"] = counts7
+    n7 = len(h)
+    out["sharded7"] = {"mesh": list(SHARD_X), **lock, **agree7, **run7,
+                       "launches": counts7["launches"],
+                       "device_launches": counts7["device_launches"],
+                       "plain_calls": counts7["plain_calls"],
+                       "launches_per_picard_iteration": {
+                           k: v / n7 for k, v in counts7["launches"].items()}}
+
+    # the command line on the periodic box with the mesh, beside the same
+    # without one (files written and read back where h5py is, else the
+    # writers' pieces streamed and summed, as the cli phase)
+    over = CLI_PERIODIC_OVERRIDES[:-1] + ["verbosity = 1"]
+    cli = {}
+    for label, mesh in (("mesh", one_card_mesh(SHARD_X)), ("none", None)):
+        buf = io.StringIO()
+        kernel_counts.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            body = (cli_files(over, PERIODIC, 1, mesh=mesh)
+                    if chio.HAVE_H5PY
+                    else cli_streamed(over, PERIODIC, mesh=mesh))
+        torch.cuda.synchronize()
+        said = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("sharding over")]
+        cli[label] = {"seconds": time.perf_counter() - t0,
+                      "sharding_line": said,
+                      "launches": kernel_counts.snapshot()["launches"],
+                      **body}
+    want = "sharding over 4 devices (host-major mesh, shape {'x': 4})"
+    check(cli["mesh"]["sharding_line"] == [want]
+          and cli["none"]["sharding_line"] == [],
+          f"cli: sharding line {cli['mesh']['sharding_line']}")
+    if "history" in cli["mesh"]:
+        hm, hn = cli["mesh"]["history"], cli["none"]["history"]
+        krel = abs(cli["mesh"]["constant_K"] - cli["none"]["constant_K"]) / \
+            abs(cli["none"]["constant_K"])
+        cli["step1_rel_diff"] = abs(hm[0] - hn[0]) / hn[0]
+        cli["K_rel_diff"] = krel
+        check(cli["step1_rel_diff"] <= 1e-5 and krel <= 1e-10
+              and cli["mesh"]["linear_iters"] == cli["none"]["linear_iters"],
+              f"cli with a mesh: {hm} K {cli['mesh']['constant_K']} vs "
+              f"{hn} K {cli['none']['constant_K']}")
+    else:
+        krel = abs(cli["mesh"]["constant_K"] - cli["none"]["constant_K"]) / \
+            abs(cli["none"]["constant_K"])
+        cli["K_rel_diff"] = krel
+        check(krel <= 1e-10, f"cli with a mesh: K differs by {krel}")
+    check(cli["mesh"]["launches"]["multisweep_relax_halo"] > 0,
+          f"cli with a mesh: no halo kernel launch {cli['mesh']['launches']}")
+    out["cli"] = {"overrides": over, "form": (
+        "main.run, files read back" if chio.HAVE_H5PY else
+        "main.run's calls, the writers' pieces summed and not written"),
+        **cli}
+    out["runs"] = runs
+    emit(out)
+    return out
+
+
+def phase_cards() -> dict:
+    """The sharded solve over every visible card: the mesh main.run builds
+    by itself where it sees more than one (main.choose_mesh ->
+    distributed.host_mesh), beside one card named as often and the run
+    without a mesh. Each level stays whole on cuda:0 and every sharded
+    relax or residual cuts it, copies the shards to their cards and joins
+    them back (the placement gap, parallel/mesh.py): this phase measures
+    what that costs across cards."""
+    n = torch.cuda.device_count()
+    check(n >= 2, f"cards: needs more than one card, found {n}")
+    out = {"phase": "cards", "device_count": n,
+           "names": [torch.cuda.get_device_name(i) for i in range(n)]}
+    keys = ("levels", "history", "linear_iters", "constant_K",
+            "s_per_iteration", "total_s", "max_memory_allocated")
+    for what, over, params, step_tol, k_tol in (
+            ("periodic", PERIODIC_BASE, PERIODIC, 1e-5, 1e-10),
+            ("scale7", SHARDED7, CANONICAL, SHARDED7_STEP1, None)):
+        ref = run_solve(over, f"{what}_unsharded", params=params)
+        torch.cuda.empty_cache()
+        cfg = mgt.load_params(params, overrides=list(over))
+        cards = cli_main.choose_mesh(cfg, torch.device("cuda"))
+        check(cards is not None and cards.size == n
+              and len(set(cards.devices)) == n,
+              f"cards: main.choose_mesh gave {cards}")
+        rec = {"unsharded": {k: ref[k] for k in keys}}
+        for label, mesh in (
+                ("cards", cards),
+                ("one_card", one_card_mesh(tuple(cards.sizes)))):
+            kernel_counts.reset()
+            run = run_solve(over, f"{what}_{label}", params=params,
+                            mesh=mesh)
+            counts = kernel_counts.snapshot()
+            torch.cuda.empty_cache()
+            agree = check_sharded_run(run, ref, counts, f"cards {what} "
+                                      f"{label}", "multisweep_relax_halo",
+                                      step_tol=step_tol, k_tol=k_tol)
+            rec[label] = {"mesh": mesh.shape,
+                          "devices": [str(d) for d in mesh.devices],
+                          **{k: run[k] for k in keys},
+                          "step1_rel_diff": agree["step1_rel_diff"],
+                          "K_rel_diff": agree["K_rel_diff"],
+                          "launches": counts["launches"]}
+        rec["cards_equal_one_card"] = all(
+            rec["cards"][k] == rec["one_card"][k]
+            for k in ("history", "constant_K", "linear_iters"))
+        rec["max_memory_allocated_per_card"] = [
+            torch.cuda.max_memory_allocated(i) for i in range(n)]
+        out[what] = rec
+        if what == "periodic":
+            # one relax of its 256^3 level (4 sweeps) on each mesh
+            shape = tuple(ref["levels"][0])
+            f = level_fields(shape, torch.float32, seed=4)
+            coefs = {"a": (f["a"],), "b": (None,), "lam": (None,)}
+            relax_ms = {}
+            for label, mesh in (("cards", cards),
+                                ("one_card", one_card_mesh(
+                                    tuple(cards.sizes))),
+                                ("unsharded", None)):
+                spec = mg.LevelMGSpec(
+                    kinds=ALL_P, boxes=(Box.from_shape(shape, (0, 0, 0)),),
+                    dx=(0.37,), rho=(2.0,), alpha=1.0, beta=-1.0, nsmooth=4,
+                    smoother="auto", mesh=mesh)
+                relax_ms[label] = time_ms(
+                    lambda: mg.relax(spec, coefs, 0, f["u"], f["rhs"], 4),
+                    reps=6, warmup=1)
+            rec["whole_level_relax_ms"] = relax_ms
+            del f
+            torch.cuda.empty_cache()
+
+    # main.run's calls with no mesh given: it shards by itself
+    buf = io.StringIO()
+    kernel_counts.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        body = cli_streamed(CLI_PERIODIC_OVERRIDES[:-1] + ["verbosity = 1"],
+                            PERIODIC)
+    torch.cuda.synchronize()
+    said = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("sharding over")]
+    shape = dist.choose_mesh_shape(tuple(body["levels"][0]), n)
+    want = (f"sharding over {n} devices (host-major mesh, shape "
+            f"{dict(zip(pmesh.AXES, shape))})")
+    launches = kernel_counts.snapshot()["launches"]
+    check(said == [want], f"cards cli: sharding line {said}, not {want}")
+    check(launches["multisweep_relax_halo"] > 0
+          or launches["multisweep_relax_tiled_pre"] > 0,
+          f"cards cli: no halo kernel launch {launches}")
+    check(all(b < a for a, b in zip(body["history"], body["history"][1:])),
+          f"cards cli: history not contracting: {body['history']}")
+    out["cli"] = {"seconds": time.perf_counter() - t0, "sharding_line": said,
+                  "launches": launches, **body}
+    emit(out)
+    return out
+
+
 # --------------------------------------------------------------- summary
 
 
@@ -1340,7 +1852,11 @@ def phase_cli() -> dict:
 # wavefront and the residual, the largest level below the wavefront rung for
 # gsrb_relax, the 64^3 depth chain for the towers) and the periodic box (its
 # 256^3 top depth for the multisweep and the residual, the depth chain from
-# 128^3 for the towers; gsrb_relax and the wavefront are not on it)
+# 128^3 for the towers; gsrb_relax and the wavefront are not on it). On the
+# sharded paths every cut depth smooths through the halo kernels and takes
+# the plain sharded residual, so the other kernels run only below the last
+# cut depth: the towers from 16^3 (x-slabs), gsrb_relax at 8^3 (pencils), and
+# the residual at the 4^3 bottom.
 PATH_CASES = {
     "scale7": {"gsrb_relax": "path_l3_176x64x64",
                "residual": "big_960x144x144", "tower_down": "path_l0_64",
@@ -1350,12 +1866,30 @@ PATH_CASES = {
                  "residual": "periodic_path_256",
                  "tower_down": "periodic_path_128",
                  "tower_up": "periodic_path_128"},
+    # the sharded solves (phase sharded): the periodic box on 4 x-slabs and
+    # on (2, 2) pencils, the 7-level hierarchy on 4 x-slabs (its finest
+    # level's slab); the row-12 level shape rides with the whole-level kernel
+    "sharded_x": {"multisweep_relax_halo": "slab_64x256x256_P",
+                  "residual": "periodic_path_bottom_4",
+                  "tower_down": "sharded_path_16_P",
+                  "tower_up": "sharded_path_16_P"},
+    "sharded_pencil": {"multisweep_relax_tiled_pre": "pencil_128x128x256_P",
+                       "gsrb_relax": "sharded_pencil_8_P",
+                       "residual": "periodic_path_bottom_4"},
+    "sharded7": {"multisweep_relax_halo": "slab_240x144x144_edge",
+                 "residual": "path_bottom_4", "tower_down": "sharded_path_16",
+                 "tower_up": "sharded_path_16"},
 }
+# the path whose run gives a kernel's top-level launches
+MAIN_PATH = {"multisweep_relax": "periodic",
+             "multisweep_relax_halo": "sharded_x",
+             "multisweep_relax_tiled_pre": "sharded_pencil"}
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
 
 def kernels_line(kernels: dict | None, solve: dict | None,
-                 scale7: dict | None, periodic: dict | None) -> dict:
+                 scale7: dict | None, periodic: dict | None,
+                 sharded: dict | None = None) -> dict:
     """The per-kernel summary. The top-level numbers of a row are those of
     the kernel's main path: the scale7 run (the canonical full-depth path)
     or, for the multisweep kernel, which only a periodic x reaches, the
@@ -1364,7 +1898,9 @@ def kernels_line(kernels: dict | None, solve: dict | None,
     shape (PATH_CASES), and the wrapper calls (launches) and kernel launches
     (device_launches) of that path's run, which was driven with the counters
     set to 0 just before. *_solve are the counts of the 4-level solve."""
-    runs = {"scale7": scale7, "periodic": periodic}
+    runs = {"scale7": scale7, "periodic": periodic,
+            **{p: (sharded["runs"][p] if sharded else None)
+               for p in ("sharded_x", "sharded_pencil", "sharded7")}}
 
     def measured(name: str, path: str) -> dict:
         if kernels is None:
@@ -1377,7 +1913,7 @@ def kernels_line(kernels: dict | None, solve: dict | None,
 
     rows = []
     for name in kernel_counts.KERNELS:
-        main = "periodic" if name == "multisweep_relax" else "scale7"
+        main = MAIN_PATH.get(name, "scale7")
         paths = {}
         for path, cases in PATH_CASES.items():
             if name not in cases:
@@ -1418,16 +1954,19 @@ def kernels_line(kernels: dict | None, solve: dict | None,
 
 
 PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "periodic",
-          "cli")
+          "cli", "sharded")
+# asked for by name only: the default run needs one card
+ON_REQUEST = ("cards",)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + ON_REQUEST))
     args = ap.parse_args()
     wanted = [p for p in args.phases.split(",") if p]
-    unknown = [p for p in wanted if p not in PHASES]
+    unknown = [p for p in wanted if p not in PHASES + ON_REQUEST]
     if unknown:
         print(f"unknown phases {unknown}", file=sys.stderr)
         return 2
@@ -1439,11 +1978,11 @@ def main() -> int:
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "solve": phase_solve, "lock3": phase_lock3,
            "scale7": phase_scale7, "periodic": phase_periodic,
-           "cli": phase_cli}
+           "cli": phase_cli, "sharded": phase_sharded, "cards": phase_cards}
     done: dict = {}
     try:
         with torch.no_grad():
-            for name in PHASES:
+            for name in PHASES + ON_REQUEST:
                 if name in wanted:
                     done[name] = fns[name]()
         bad = [m for m in sys.modules
@@ -1457,7 +1996,8 @@ def main() -> int:
     emit({"phase": "done", "phases": wanted,
           "seconds": round(time.perf_counter() - t_start, 1)})
     line = kernels_line(done.get("kernels"), done.get("solve"),
-                        done.get("scale7"), done.get("periodic"))
+                        done.get("scale7"), done.get("periodic"),
+                        done.get("sharded"))
     if set(PHASES) <= set(wanted):
         never = [f"{r['name']} ({path})" for r in line["kernels"]
                  for path, rec in r["paths"].items() if not rec["launches"]]

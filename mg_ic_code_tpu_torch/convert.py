@@ -121,3 +121,22 @@ def solve_state_from_plain(state: dict, device=None, dtype=None) -> dict:
         if key in state:
             out[key] = level_list_from_numpy(state[key], device, dtype)
     return out
+
+
+def mesh_from_jax(jax_mesh, devices):
+    """The port's Mesh with the axis names and shape of another
+    implementation's device mesh (anything with `axis_names` and a
+    `devices` array, read without importing its library). `devices` are the
+    port's devices for it: one per mesh position in row-major order, or a
+    single device that then fills every position (one card, or the CPU,
+    standing in for all of them)."""
+    from mg_ic_code_tpu_torch.parallel.mesh import Mesh
+
+    sizes = tuple(int(s) for s in np.shape(jax_mesh.devices))
+    n = int(np.prod(sizes))
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices] * n
+    devices = tuple(torch.device(d) for d in devices)
+    if len(devices) != n:
+        raise ValueError(f"mesh of {n} positions, {len(devices)} devices")
+    return Mesh(devices, tuple(jax_mesh.axis_names), sizes)

@@ -164,20 +164,6 @@ def _write_level_group(
 _STREAM_MAX_BYTES = 1 << 25
 
 
-def _z_slabs(stack, max_bytes: int):
-    """(z0, host block) tiles of a (ncomp, nx, ny, nz) device stack along
-    z, each of at most `max_bytes` (at least one z-plane). The device
-    transposes a tile to (ncomp, nz_tile, ny, nx) before the copy, so that
-    on the host each component of the block is already in Fortran order of
-    (nx, ny, nz_tile)."""
-    ncomp, nx, ny, nz = stack.shape
-    plane_bytes = ncomp * nx * ny * stack.element_size()
-    step = max(1, min(nz, int(max_bytes) // max(plane_bytes, 1)))
-    for z0 in range(0, nz, step):
-        tile = stack[..., z0:z0 + step].permute(0, 3, 2, 1).contiguous()
-        yield z0, tile.cpu().numpy()
-
-
 def _fab_pieces(base_off: int, cells: int, stack):
     """(offset, flat host array) pieces of one box's FArrayBox record
     (components slowest, Fortran order — i fastest — per component) in the
@@ -186,8 +172,14 @@ def _fab_pieces(base_off: int, cells: int, stack):
     component c is the CONTIGUOUS range
     [c*cells + nx*ny*a, c*cells + nx*ny*b), so no more than one ~32 MB tile
     is ever on the host (no full-level copy)."""
+    from mg_ic_code_tpu_torch.parallel import distributed as dist
+
     nx, ny = stack.shape[1], stack.shape[2]
-    for z0, blk in _z_slabs(stack, _STREAM_MAX_BYTES):
+    # z-slab tiles of at most _STREAM_MAX_BYTES; the device transposes each
+    # to (ncomp, nz_tile, ny, nx) before the copy, so that on the host each
+    # component of the block is already in Fortran order of (nx, ny, nz_tile)
+    for z0, blk in dist.stream_global_slabs(
+            stack, axis=3, max_bytes=_STREAM_MAX_BYTES, perm=(0, 3, 2, 1)):
         for c in range(blk.shape[0]):
             yield base_off + c * cells + nx * ny * z0, blk[c].reshape(-1)
 

@@ -12,14 +12,24 @@ returns 2: nothing carries on on the CPU by itself (tests pass
 `device="cpu"`; no params key and no environment variable selects the
 device). The files need `h5py`; where it is missing `run` says so and
 returns 2 BEFORE the solve, not at the first snapshot.
+
+With more than one card visible the level arrays are sharded over all of
+them (parallel/distributed.host_mesh, topology from the base grid), as the
+JAX package's command line does; `mesh` names a mesh instead (one card may
+appear in it several times). Until sharded levels stay resident on their
+cards (the placement gap, parallel/mesh.py) that is SLOWER than one card:
+every sharded smoother call copies its level out to the cards and back.
+Make one card visible (CUDA_VISIBLE_DEVICES) to run unsharded.
 """
 
 from __future__ import annotations
 
 import sys
 
+import torch
 
-def run(argv: list[str], device=None) -> int:
+
+def run(argv: list[str], device=None, mesh=None) -> int:
     if len(argv) < 2:
         print(f" usage {argv[0]} <input_file_name> ", file=sys.stderr)
         return 0
@@ -81,9 +91,12 @@ def run(argv: list[str], device=None) -> int:
             state["dpsi"], rhs_list, state["psi"], state["fields"], nl_iter,
         )
 
+    mesh = choose_mesh(cfg, device, mesh)
+
     try:
         res = poisson_solve(cfg, geom=geom, device=device,
-                            output_hook=snapshot, initial_psi=initial_psi)
+                            output_hook=snapshot, initial_psi=initial_psi,
+                            mesh=mesh)
     except NonConvergenceError as e:
         print(str(e), file=sys.stderr)
         return 2
@@ -94,6 +107,24 @@ def run(argv: list[str], device=None) -> int:
     )
     pout("wrote vcPoissonFinal.3d.hdf5")
     return 0
+
+
+def choose_mesh(cfg, device, mesh=None):
+    """The mesh of a run: `mesh` as given, else one over every visible card
+    when there are several (the MPI rank decomposition's role; x slabs or
+    (x, y) pencils by the base grid, parallel/distributed.host_mesh), else
+    None. Says so when there is one."""
+    from mg_ic_code_tpu_torch.io.logging import pout
+
+    if mesh is None and device.type == "cuda" and (
+            torch.cuda.device_count() > 1):
+        from mg_ic_code_tpu_torch.parallel import distributed as dist
+
+        mesh = dist.host_mesh(cfg.n_cells)
+    if mesh is not None:
+        pout(f"sharding over {mesh.size} devices "
+             f"(host-major mesh, shape {mesh.shape})")
+    return mesh
 
 
 def cli() -> None:

@@ -23,8 +23,9 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "multisweep.cu")
-HEADERS = ("mg_kernels.h", "residual_device.cuh")
+SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "multisweep.cu",
+           "multisweep_halo.cu")
+HEADERS = ("mg_kernels.h", "residual_device.cuh", "multisweep_march.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,6 +122,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mgk_multisweep_relax.restype = ci
     lib.mgk_multisweep_relax.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, vp,
+    ]
+    lib.mgk_multisweep_halo.restype = ci
+    lib.mgk_multisweep_halo.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci,
+        ci, ci, ci, vp,
+    ]
+    lib.mgk_multisweep_pre.restype = ci
+    lib.mgk_multisweep_pre.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci, ci,
+        ci, ci, vp,
     ]
     lib.mgk_tower_down.restype = ci
     lib.mgk_tower_down.argtypes = [

@@ -404,48 +404,248 @@ def multisweep_plan(shape, n: int, kinds: FaceKinds | None,
 
 def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
                       kinds: FaceKinds, rho: float, alpha: float,
-                      beta: float, dx: float, lo):
-    """One launch of the multisweep kernel (csrc/multisweep.cu) on CUDA
-    tensors, counted under `name` (`multisweep_relax`, or `wavefront_relax`
-    for ops/wavefront's wrapper of the same kernel); raises on what the
-    kernel does not take. The wrappers have checked nsweeps."""
+                      beta: float, dx: float, lo, pads=None, meta=None,
+                      ny_global: int | None = None):
+    """One launch of the multisweep kernel (csrc/multisweep_march.cuh) on
+    CUDA tensors, counted under `name`; raises on what it does not take.
+    The wrappers have checked nsweeps. Three ways to give it the level:
+      * whole (`multisweep_relax`, `wavefront_relax`, which is the same
+        kernel with x open): C entry mgk_multisweep_relax;
+      * an x-slab with x pads `pads = (upad, rpad, apad)` and `meta`
+        (`multisweep_relax_halo`): mgk_multisweep_halo;
+      * a prepadded pencil with `meta` and `ny_global`
+        (`multisweep_relax_tiled_pre`): mgk_multisweep_pre, whose output is
+        the pencil without its pads."""
+    H = 2 * int(nsweeps)
+    pre = ny_global is not None
     check_level_args(name, u, rhs, a)
-    if _odd_periodic_axis(u.shape, kinds):
-        raise ValueError(
-            f"{name}: a periodic axis needs an even extent, got "
-            f"{tuple(u.shape)}")
-    lib = cuda_ext.lib()
-    out = torch.empty_like(u)  # the kernel reads u and writes out
+    if pads is not None:
+        check_level_args(name, *pads)
+        if pads[0].device != u.device or pads[0].dtype != u.dtype:
+            raise ValueError(f"{name}: pads and slab disagree")
     nx, ny, nz = u.shape
+    if pre:
+        nx, ny = nx - 2 * H, ny - 2 * H
+        if min(nx, ny) < 2:
+            raise ValueError(f"{name}: prepadded {tuple(u.shape)} for H={H}")
+    periodic = [kinds[ax][0] == PERIODIC for ax in range(3)]
+    if meta is None:
+        if _odd_periodic_axis(u.shape, kinds):
+            raise ValueError(
+                f"{name}: a periodic axis needs an even extent, got "
+                f"{tuple(u.shape)}")
+    else:
+        lo_edge, hi_edge, x_off, y_off = meta
+        # the shard's x faces: the domain's where flagged and x is open
+        faces = (int(lo_edge != 0 and not periodic[0]),
+                 int(hi_edge != 0 and not periodic[0]))
+        # x (and, prepadded, y) wrap through the pads: the extent that must
+        # be even is the level's, which the sharded plan checked; z is whole
+        if periodic[2] and nz % 2:
+            raise ValueError(f"{name}: odd periodic z extent {nz}")
+        if pre and not 0 <= y_off <= ny_global - ny:
+            raise ValueError(f"{name}: y_off {y_off} outside {ny_global}")
+    lib = cuda_ext.lib()
+    out = torch.empty((nx, ny, nz), dtype=u.dtype, device=u.device)
+    level = (int(u.dtype == torch.float64), nx, ny, nz, kinds_array(kinds),
+             float(rho), float(alpha), float(beta), float(dx))
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         kernel_counts.count_launch(name, 1)
-        err = lib.mgk_multisweep_relax(
-            u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
-            int(u.dtype == torch.float64), nx, ny, nz, kinds_array(kinds),
-            float(rho), float(alpha), float(beta), float(dx), int(sum(lo)),
-            int(nsweeps), stream,
-        )
+        if meta is None:
+            err = lib.mgk_multisweep_relax(
+                u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
+                *level, int(sum(lo)), int(nsweeps), stream,
+            )
+        elif not pre:
+            err = lib.mgk_multisweep_halo(
+                u.data_ptr(), rhs.data_ptr(), a.data_ptr(),
+                pads[0].data_ptr(), pads[1].data_ptr(), pads[2].data_ptr(),
+                out.data_ptr(), *level, int(sum(lo)) + x_off, *faces,
+                int(nsweeps), stream,
+            )
+        else:
+            err = lib.mgk_multisweep_pre(
+                u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
+                *level, int(sum(lo)) + x_off + y_off, *faces, y_off,
+                int(ny_global), int(nsweeps), stream,
+            )
     cuda_ext.check(err, name)
     return out
 
 
 def multisweep_relax(
     u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
-    beta: float, dx: float, lo,
+    beta: float, dx: float, lo, halo=None,
 ):
     """nsweeps (2 or 4) red-black GSRB sweeps of a whole level with
     homogeneous ghosts and constant bCoef, for any face kinds including
     periodic x, in one kernel launch. Returns a new tensor. CUDA tensors go
-    to the kernel; CPU tensors take the plain version."""
+    to the kernel; CPU tensors take the plain version.
+
+    `halo = (upad, rpad, apad, meta)` runs the kernel on one x-slab of a
+    sharded level (parallel/halo.sharded_relax), the JAX package's contract:
+    the (2H, ny, nz) pads (H = 2*nsweeps) hold the rows of u, rhs and a
+    below the slab in rows [0, H) and above it in rows [H, 2H), and `meta`
+    is four ints [lo_edge, hi_edge, x_off, y_off]. An x face whose edge flag
+    is set (and x not periodic) is the domain's: the ghost rule applies
+    there and its pad is never read; a face whose flag is 0 is a seam, read
+    from the pad. x_off places the slab in the level, so the checkerboard
+    stays global (y_off is not read: an x-slab is never cut in y). Counted
+    as `multisweep_relax_halo`."""
     if nsweeps not in MULTISWEEP_CHUNKS:
         raise ValueError(
             f"multisweep_relax: nsweeps {nsweeps} not in {MULTISWEEP_CHUNKS}")
     kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
               dx=dx, lo=lo)
+    if halo is not None:
+        upad, rpad, apad, meta = halo
+        meta = _meta(meta)
+        H = 2 * nsweeps
+        if tuple(upad.shape) != (2 * H,) + tuple(u.shape[1:]):
+            raise ValueError(
+                f"multisweep_relax: pad {tuple(upad.shape)} for H = {H} and "
+                f"a slab {tuple(u.shape)}")
+        if u.device.type == "cpu":
+            return multisweep_relax_halo_plain(u, rhs, a, upad, rpad, apad,
+                                               meta, **kw)
+        return multisweep_launch("multisweep_relax_halo", u, rhs, a,
+                                 pads=(upad, rpad, apad), meta=meta, **kw)
     if u.device.type == "cpu":
         return multisweep_relax_plain(u, rhs, a, **kw)
     return multisweep_launch("multisweep_relax", u, rhs, a, **kw)
+
+
+def multisweep_relax_tiled_pre(
+    u_pre, rhs_pre, a_pre, meta, *, ny_global: int, nsweeps: int,
+    kinds: FaceKinds, rho: float, alpha: float, beta: float, dx: float, lo,
+):
+    """nsweeps (2 or 4) red-black GSRB sweeps of one (x, y) pencil of a
+    sharded level (parallel/halo.sharded_relax_2d) in one kernel launch,
+    from PREPADDED operands of shape (nx + 2H, ny + 2H, nz), H = 2*nsweeps:
+    the pads hold the neighbour pencils' rows, columns and corners. `meta`
+    = [x_lo_edge, x_hi_edge, x_off, y_off]: the x faces as in
+    multisweep_relax(halo=...); y_off places the pencil in the level, whose
+    y extent is `ny_global`, so the y face rule fires only at global y = 0
+    and ny_global - 1 (never at a seam) and the checkerboard stays global.
+    Returns the (nx, ny, nz) pencil. CUDA tensors go to the kernel; CPU
+    tensors take the plain version. Counted as
+    `multisweep_relax_tiled_pre`."""
+    if nsweeps not in MULTISWEEP_CHUNKS:
+        raise ValueError(
+            f"multisweep_relax_tiled_pre: nsweeps {nsweeps} not in "
+            f"{MULTISWEEP_CHUNKS}")
+    meta = _meta(meta)
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
+              dx=dx, lo=lo)
+    if u_pre.device.type == "cpu":
+        return multisweep_relax_tiled_pre_plain(
+            u_pre, rhs_pre, a_pre, meta, ny_global=ny_global, **kw)
+    return multisweep_launch("multisweep_relax_tiled_pre", u_pre, rhs_pre,
+                             a_pre, meta=meta, ny_global=ny_global, **kw)
+
+
+def _meta(meta) -> tuple[int, int, int, int]:
+    """[lo_edge, hi_edge, x_off, y_off] as a tuple of Python ints."""
+    meta = tuple(int(v) for v in meta)
+    if len(meta) != 4:
+        raise ValueError(f"meta must hold 4 ints, got {meta}")
+    return meta
+
+
+def _open_pads(arr, axis: int, H: int, keep_lo: bool, keep_hi: bool):
+    """`arr` padded by H on `axis` with the pads dropped where a face of
+    the domain is (the plain versions' form of a prepadded array)."""
+    n = arr.shape[axis] - 2 * H
+    start = 0 if keep_lo else H
+    stop = n + 2 * H if keep_hi else n + H
+    return arr.narrow(axis, start, stop - start)
+
+
+def _halo_sweeps(u_ext, r_ext, a_ext, *, nsweeps: int, kinds: FaceKinds,
+                 rho: float, alpha: float, beta: float, dx: float,
+                 base: int):
+    """The plain sweeps of a padded block: every pass over the whole block
+    with the folded form, the face rule at the block's ends (only faces of
+    the domain are ends that matter: an open end is H = 2*nsweeps cells
+    from the cells kept, and what it gets wrong moves inward one cell per
+    pass), parity base `base` at index (0, 0, 0)."""
+    return gsrb_sweeps_folded(
+        u_ext, r_ext, a_ext, None, nsweeps=nsweeps, kinds=kinds, rho=rho,
+        alpha=alpha, beta=beta, dx=dx, lo=(base, 0, 0),
+    )
+
+
+def multisweep_relax_halo_plain(
+    u, rhs, a, upad, rpad, apad, meta, *, nsweeps: int, kinds: FaceKinds,
+    rho: float, alpha: float, beta: float, dx: float, lo,
+):
+    """The plain PyTorch version of `multisweep_relax(halo=...)`: the slab
+    with its pads (a domain face keeps none) swept pass by pass, the x face
+    rule only where an edge flag is set, parity from sum(lo) + x_off (an
+    x-slab is never cut in y: y_off is not read, as in the JAX kernel)."""
+    kernel_counts.PLAIN_CALLS["multisweep_relax_halo"] += 1
+    lo_edge, hi_edge, x_off, y_off = _meta(meta)
+    H = 2 * nsweeps
+    periodic_x = kinds[0][0] == PERIODIC
+    keep_lo = periodic_x or not lo_edge
+    keep_hi = periodic_x or not hi_edge
+    cat = lambda t, p: _open_pads(  # noqa: E731
+        torch.cat([p[:H], t, p[H:]], dim=0), 0, H, keep_lo, keep_hi)
+    out = _halo_sweeps(
+        cat(u, upad), cat(rhs, rpad), cat(a, apad), nsweeps=nsweeps,
+        kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx,
+        base=sum(lo) + x_off - (H if keep_lo else 0),
+    )
+    return out[H if keep_lo else 0:][:u.shape[0]]
+
+
+def multisweep_relax_tiled_pre_plain(
+    u_pre, rhs_pre, a_pre, meta, *, ny_global: int, nsweeps: int,
+    kinds: FaceKinds, rho: float, alpha: float, beta: float, dx: float, lo,
+):
+    """The plain PyTorch version of `multisweep_relax_tiled_pre`: the
+    prepadded pencil (pads dropped at the domain's faces) swept pass by
+    pass, the x face rule only where an edge flag is set, the y face rule
+    at global y = 0 and ny_global - 1 (y_off + j), parity from sum(lo) +
+    x_off + y_off."""
+    kernel_counts.PLAIN_CALLS["multisweep_relax_tiled_pre"] += 1
+    lo_edge, hi_edge, x_off, y_off = _meta(meta)
+    H = 2 * nsweeps
+    nx, ny = u_pre.shape[0] - 2 * H, u_pre.shape[1] - 2 * H
+    periodic_x = kinds[0][0] == PERIODIC
+    keep_lo, keep_hi = periodic_x or not lo_edge, periodic_x or not hi_edge
+    # y: padded column c is global row c - H + y_off; keep them all but
+    # those beyond a y face of the domain (outside [0, ny_global))
+    c0, c1 = 0, ny + 2 * H
+    if kinds[1][0] != PERIODIC:
+        c0, c1 = max(c0, H - y_off), min(c1, H - y_off + ny_global)
+
+    def cut(t):
+        return _open_pads(t, 0, H, keep_lo, keep_hi)[:, c0:c1]
+
+    x0 = H if keep_lo else 0
+    y0 = H - c0
+    out = _halo_sweeps(
+        cut(u_pre), cut(rhs_pre), cut(a_pre), nsweeps=nsweeps, kinds=kinds,
+        rho=rho, alpha=alpha, beta=beta, dx=dx,
+        base=sum(lo) + x_off + y_off - x0 - y0,
+    )
+    return out[x0:x0 + nx, y0:y0 + ny]
+
+
+def sharded_plan(shape, n: int, kinds: FaceKinds) -> int | None:
+    """Sweeps per launch of the halo kernels on a sharded level of global
+    `shape`, or None where the plain sharded ops run instead: n must be a
+    multiple of the chunk the solver sends (MULTISWEEP_PLAN_CHUNK) and
+    every periodic axis even (the checkerboard must agree across the
+    wrap). No size term: a sharded depth has no per-pass kernel to stay
+    on, the alternative is the plain sharded ops."""
+    if n <= 0 or n % MULTISWEEP_PLAN_CHUNK:
+        return None
+    if _odd_periodic_axis(shape, kinds):
+        return None
+    return MULTISWEEP_PLAN_CHUNK
 
 
 def residual(

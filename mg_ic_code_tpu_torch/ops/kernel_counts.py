@@ -6,7 +6,10 @@ card. One such call enqueues several `<<<>>>` launches from its C entry
 point; `DEVICE_LAUNCHES[name]` goes up by that number at the same place
 (gsrb_relax: one per colour pass = 2 * nsweeps, and so 2 for its one-sweep
 and 1 for its one-pass entry point; wavefront_relax and multisweep_relax,
-two wrappers of one kernel: 1, all passes of the chunk in one launch;
+two wrappers of one kernel, and multisweep_relax_halo /
+multisweep_relax_tiled_pre, the same kernel on one shard of a sharded level
+(an x-slab with its pads, a prepadded pencil): 1, all passes of the chunk
+in one launch;
 residual: 1; tower_down:
 2 * nsmooth per depth plus one residual-and-restrict per depth but the
 last; tower_up: one prolongation plus 2 * nsmooth per depth above the
@@ -18,7 +21,8 @@ the kernels and never through a plain version.
 """
 
 KERNELS = ("gsrb_relax", "residual", "tower_down", "tower_up",
-           "wavefront_relax", "multisweep_relax")
+           "wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
+           "multisweep_relax_tiled_pre")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}

@@ -67,10 +67,14 @@ class AMRSolverSpec:
 
 
 def make_amr_spec(
-    geom: HierarchyGeom, cfg: SolverConfig, device=None
+    geom: HierarchyGeom, cfg: SolverConfig, device=None, mesh=None
 ) -> AMRSolverSpec:
     """`device` (None = cuda) is where the solve will run: it resolves
-    `precond_precision = auto` (precision.precond_dtype)."""
+    `precond_precision = auto` (precision.precond_dtype). `mesh`
+    (parallel/mesh.Mesh, optional) puts the smoother and the residual on
+    the explicit-halo path wherever a depth's axes shard usefully
+    (multigrid._shard_counts); `device` is then the mesh's first (its
+    home, where the levels live)."""
     device = precision.resolve_device(device)
     if cfg.smoother_precision == "bfloat16":
         raise NotImplementedError(
@@ -87,6 +91,7 @@ def make_amr_spec(
             with_depths=(l == 0),
             smoother=cfg.smoother,
             num_mg=cfg.num_mg,
+            mesh=mesh,
             bottom=cfg.bottom_solver,
         )
         for l in range(geom.num_levels)

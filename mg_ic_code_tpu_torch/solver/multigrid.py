@@ -66,6 +66,11 @@ class LevelMGSpec:
     # place, but the kernels sweep at operand precision and
     # composite.make_amr_spec refuses smoother_precision = bfloat16
     smoother_compute: str | None = None
+    # device mesh (parallel/mesh.Mesh) of the explicit-halo path: where a
+    # depth's axes shard usefully (_shard_counts), relax / residual run per
+    # shard with halo exchange (parallel/halo.py) — the counterpart of the
+    # reference's per-smooth MPI exchange. None = one device.
+    mesh: object = None
 
     @property
     def ndepths(self) -> int:
@@ -83,6 +88,7 @@ def make_level_spec(
     min_size: int = 4,
     smoother: str = "auto",
     num_mg: int = 1,
+    mesh=None,
     bottom: str = "auto",
     smoother_compute: str | None = None,
 ) -> LevelMGSpec:
@@ -103,6 +109,7 @@ def make_level_spec(
         avg_type=avg_type,
         smoother=smoother,
         num_mg=num_mg,
+        mesh=mesh,
         bottom=bottom,
         smoother_compute=smoother_compute,
     )
@@ -207,6 +214,28 @@ def _kernels_allowed(spec: LevelMGSpec, u) -> bool:
     return _kernels_allowed_for(spec, u.dtype, u.device.type)
 
 
+def _shard_counts(spec: LevelMGSpec, d: int) -> tuple[int, int, int]:
+    """(x, y, z) shard counts of the explicit-halo path at depth d: an axis
+    is cut only where the mesh axis divides this depth's extent into shards
+    of at least MIN_LOCAL_NX cells (parallel/mesh.shard_counts). Depths too
+    coarse to cut run the single-device path — the analogue of Chombo's
+    gather of coarse MG levels onto few ranks."""
+    if spec.mesh is None:
+        return 1, 1, 1
+    from mg_ic_code_tpu_torch.parallel.mesh import shard_counts
+
+    return shard_counts(spec.mesh, spec.boxes[d].shape)
+
+
+def _shard_count(spec: LevelMGSpec, d: int) -> int:
+    """x-slab shard count (the path of halo.sharded_relax): only where
+    nothing but x is cut; pencils and blocks go through _shard_counts. The
+    JAX package's API: relax and residual_homog dispatch on _shard_counts,
+    and only tests/test_torch_parallel.py asks this."""
+    sx, sy, sz = _shard_counts(spec, d)
+    return sx if sy == 1 and sz == 1 else 1
+
+
 def plan_for(spec: LevelMGSpec, shape, dtype, device_type: str, n: int,
              const_b: bool = True):
     """relax_kernel_plan in terms of what it looks at: the level's shape,
@@ -249,7 +278,8 @@ def relax_kernel_plan(spec: LevelMGSpec, u, n: int, const_b: bool = True):
                    `smoother = pallas`, its plain version);
       "xla"      — the staged ghost-fill body, for f64 operands or
                    `smoother = xla`.
-    relax() executes this plan verbatim."""
+    relax() executes this plan verbatim on a depth of one device; a depth
+    cut over a mesh (_shard_counts) is routed before it, to parallel/halo."""
     return plan_for(spec, u.shape, u.dtype, u.device.type, n, const_b)
 
 
@@ -269,7 +299,25 @@ def relax(spec: LevelMGSpec, coefs: dict, d: int, u, rhs, n: int):
     from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
     from mg_ic_code_tpu_torch.ops import wavefront as wf
 
+    if n <= 0:
+        return u
     b = coefs["b"][d]
+    counts = _shard_counts(spec, d)
+    if counts != (1, 1, 1):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        sx, sy, sz = counts
+        if b is None and (sy > 1 or sz > 1):
+            # pencils / blocks: the prepadded halo kernel on each pencil
+            # (the plain pencil ops where it does not apply)
+            return halo.sharded_relax_2d(spec, coefs, d, u, rhs, n)
+        if b is None:
+            return halo.sharded_relax(spec, coefs, d, u, rhs, n)
+        # variable bCoef: cell-centred, no halo of its own — the plain
+        # pencil ops with b keep the explicit exchange
+        relax_fn, _ = halo.make_sharded_level_ops_2d(
+            spec, spec.mesh, d, nsweeps=n, with_b=True)
+        return relax_fn(coefs["a"][d], b, coefs["lam"][d], u, rhs)
     for kind, s in relax_kernel_plan(spec, u, n, const_b=b is None):
         if kind in ("wave", "multisweep"):
             one_launch = (wf.wavefront_relax if kind == "wave"
@@ -347,7 +395,20 @@ def residual_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs):
     kernel path, else the staged ghost-fill form. The one residual kernel
     has no residency limit: it is the counterpart both of the JAX package's
     `fused_sweeps.resident_residual` and, at the big levels, of its
-    `pallas_kernels.residual`."""
+    `pallas_kernels.residual`. A depth cut over a mesh takes the sharded
+    residual (plain ops with the exchanged ghost planes, parallel/halo)."""
+    counts = _shard_counts(spec, d)
+    if counts != (1, 1, 1):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        b = coefs["b"][d]
+        if b is None and counts[1] == 1 and counts[2] == 1:
+            return halo.sharded_residual(spec, coefs, d, u, rhs)
+        _, residual_fn = halo.make_sharded_level_ops_2d(
+            spec, spec.mesh, d, with_b=b is not None)
+        if b is None:
+            return residual_fn(coefs["a"][d], u, rhs)
+        return residual_fn(coefs["a"][d], b, u, rhs)
     if _kernels_allowed(spec, u):
         from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 
@@ -414,8 +475,13 @@ def mg_vcycle(spec: LevelMGSpec, coefs: dict, u, rhs, d: int = 0):
     On the kernel path, where the remaining sub-chain is a constant-bCoef
     V-cycle of even shapes, the whole tower below runs as the down-pass and
     up-pass kernels around the bottom solve (ops/coarse_tower) instead of
-    the staged per-depth recursion."""
-    if _kernels_allowed(spec, u):
+    the staged per-depth recursion. The tower runs only where no depth from
+    d down is cut over a mesh (the sharded depths stay staged, each relax
+    and residual going through parallel/halo)."""
+    if _kernels_allowed(spec, u) and all(
+        _shard_counts(spec, dd) == (1, 1, 1)
+        for dd in range(d, spec.ndepths)
+    ):
         from mg_ic_code_tpu_torch.ops import coarse_tower as ct
 
         if ct.tower_supported(spec, coefs, d, u.element_size()):

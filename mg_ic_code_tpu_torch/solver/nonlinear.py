@@ -153,14 +153,27 @@ def poisson_solve(
     verbose: bool | None = None,
     output_hook=None,
     initial_psi=None,
+    mesh=None,
 ) -> NLResult:
     """Full nonlinear solve (the reference's poissonSolve,
     Main_PoissonSolver.cpp:45-256). `device` None means the CUDA device
     (raises without one); pass "cpu" to run on the CPU. `output_hook(iter,
     state)` is called before each linear solve — the slot where the
     reference writes its per-iteration HDF5 snapshot. `initial_psi`
-    warm-starts from a previous solution."""
+    warm-starts from a previous solution. `mesh` (parallel/mesh.Mesh) runs
+    the sharded solve: the state is placed by parallel.mesh's policy and
+    the smoother and residual of every depth that shards take the
+    explicit-halo path (parallel/halo.py); the solve runs on the mesh's
+    home device, which `device` None resolves to."""
+    if mesh is not None and device is None:
+        device = mesh.home
     device = precision.resolve_device(device)
+    if mesh is not None and not (
+            device.type == mesh.home.type
+            and device.index in (None, mesh.home.index)):
+        raise ValueError(
+            f"poisson_solve: device {device} is not the mesh's home "
+            f"{mesh.home}")
     if geom is None:
         from mg_ic_code_tpu_torch.grid.tagging import generate_hierarchy
 
@@ -177,12 +190,18 @@ def poisson_solve(
     if initial_psi is not None:
         psi = [torch.as_tensor(p, dtype=dtype, device=device)
                for p in initial_psi]
+    if mesh is not None:
+        from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+
+        psi = pmesh.shard_level_list(psi, mesh)
+        dpsi = pmesh.shard_level_list(dpsi, mesh)
+        fields = pmesh.shard_fields(fields, mesh)
 
     history: list[float] = []
     lin_iters: list[int] = []
     lin_resid: list[float] = []
     constant_K = 0.0
-    spec = comp.make_amr_spec(geom, cfg, device)
+    spec = comp.make_amr_spec(geom, cfg, device, mesh)
 
     from mg_ic_code_tpu_torch.utils import profiling
 

@@ -286,3 +286,135 @@ def test_cuda_vcycle_stages_a_big_periodic_level_above_the_tower():
     res0 = tmg.residual_homog(spec, coefs, 0, u, rhs)
     res1 = tmg.residual_homog(spec, coefs, 0, out, rhs)
     assert float(res1.abs().max()) < 0.5 * float(res0.abs().max())
+
+
+def _halo_pads(u, H, meta, kinds, npdt, seed):
+    """(2H, ny, nz) pads: random neighbour rows, the contract's fill at a
+    domain x face (the ghost plane in u's pad, zeros in rhs's and a's)."""
+    from mg_ic_code_tpu_torch.ops.ghosts import ghost_plane
+
+    rng = np.random.default_rng(seed)
+    shape = (2 * H,) + tuple(u.shape[1:])
+    pads = [torch.from_numpy(rng.standard_normal(shape).astype(npdt)),
+            torch.from_numpy(rng.standard_normal(shape).astype(npdt)),
+            torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(npdt))]
+    pads = [p.to(u.device) for p in pads]
+    if kinds[0][0] != P:
+        if meta[0]:
+            pads[0][:H] = ghost_plane(kinds[0][0], u[:1], u[1:2], 2.0)
+            pads[1][:H] = 0.0
+            pads[2][:H] = 0.0
+        if meta[1]:
+            pads[0][H:] = ghost_plane(kinds[0][1], u[-1:], u[-2:-1], 2.0)
+            pads[1][H:] = 0.0
+            pads[2][H:] = 0.0
+    return pads
+
+
+HALO_CASES = [
+    # (shape, kinds, meta, lo): seams, faces, periodic x through the pads,
+    # odd x offsets, a slab longer than one x segment
+    ((24, 40, 36), ((D, C), (N, D), (C, N)), (0, 0, 7, 0), (1, 0, 0)),
+    ((24, 40, 36), ((N, D), (C, C), (D, D)), (1, 0, 0, 0), (0, 3, 0)),
+    ((24, 40, 36), ((N, D), (C, C), (D, D)), (0, 1, 23, 0), (0, 3, 0)),
+    ((24, 18, 10), ((D, D), (D, D), (D, D)), (1, 1, 0, 0), (0, 0, 0)),
+    ((40, 44, 36), ((P, P), (P, P), (P, P)), (0, 0, 5, 0), (0, 0, 0)),
+    ((80, 24, 40), ((P, P), (D, D), (P, P)), (0, 0, 80, 0), (0, 1, 0)),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("nsweeps", [2, 4])
+@pytest.mark.parametrize("case", HALO_CASES,
+                         ids=["seams_odd", "face_lo", "face_hi", "both_faces",
+                              "periodic_x", "two_segments"])
+def test_cuda_multisweep_halo_matches_plain(case, nsweeps, dt):
+    """multisweep_relax(halo=...) on the card against its plain version:
+    one launch, its own counter, no plain call."""
+    _need_cuda()
+    shape, kinds, meta, lo = case
+    npdt, rtol = DTYPES[dt]
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
+    H = 2 * nsweeps
+    pads = _halo_pads(f["u"], H, meta, kinds, npdt, seed=5)
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
+              dx=0.25, lo=lo)
+    kernel_counts.reset()
+    out = tfs.multisweep_relax(f["u"], f["rhs"], f["a"],
+                               halo=tuple(pads) + (meta,), **kw)
+    assert kernel_counts.LAUNCHES["multisweep_relax_halo"] == 1
+    assert kernel_counts.DEVICE_LAUNCHES["multisweep_relax_halo"] == 1
+    assert kernel_counts.PLAIN_CALLS["multisweep_relax_halo"] == 0
+    ref = tfs.multisweep_relax_halo_plain(f["u"], f["rhs"], f["a"], *pads,
+                                          meta, **kw)
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
+PRE_CASES = [
+    # (pencil shape, kinds, meta, ny_global, lo)
+    ((24, 40, 36), ((D, C), (N, D), (C, N)), (0, 0, 9, 40), 120, (1, 0, 0)),
+    ((24, 40, 36), ((N, D), (D, N), (D, D)), (1, 0, 0, 0), 80, (0, 3, 0)),
+    ((24, 40, 36), ((N, D), (D, N), (D, D)), (0, 1, 24, 40), 80, (0, 3, 0)),
+    ((16, 8, 12), ((D, D), (D, D), (D, D)), (1, 1, 0, 0), 8, (0, 0, 0)),
+    ((40, 44, 36), ((P, P), (P, P), (P, P)), (0, 0, 5, 3), 88, (0, 0, 0)),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("nsweeps", [2, 4])
+@pytest.mark.parametrize("case", PRE_CASES,
+                         ids=["interior_odd", "faces_lo", "faces_hi",
+                              "whole", "periodic_odd"])
+def test_cuda_multisweep_tiled_pre_matches_plain(case, nsweeps, dt):
+    """multisweep_relax_tiled_pre on the card against its plain version."""
+    _need_cuda()
+    shape, kinds, meta, ny_global, lo = case
+    npdt, rtol = DTYPES[dt]
+    H = 2 * nsweeps
+    pre = (shape[0] + 2 * H, shape[1] + 2 * H, shape[2])
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(pre, npdt).items()}
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
+              dx=0.25, lo=lo, ny_global=ny_global)
+    kernel_counts.reset()
+    out = tfs.multisweep_relax_tiled_pre(f["u"], f["rhs"], f["a"], meta, **kw)
+    assert kernel_counts.LAUNCHES["multisweep_relax_tiled_pre"] == 1
+    assert kernel_counts.PLAIN_CALLS["multisweep_relax_tiled_pre"] == 0
+    assert out.shape == shape
+    ref = tfs.multisweep_relax_tiled_pre_plain(f["u"], f["rhs"], f["a"], meta,
+                                               **kw)
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mshape", [(4,), (2, 2)])
+@pytest.mark.parametrize("kinds", [((P, P),) * 3, ((D, C), (N, D), (C, N))],
+                         ids=["periodic", "open"])
+def test_cuda_sharded_relax_on_one_card(kinds, mshape):
+    """relax() with a mesh that names cuda:0 four times: every shard runs
+    the halo kernel (slabs) or the prepadded one (pencils), and the joined
+    level agrees with the unsharded kernel on the whole level."""
+    _need_cuda()
+    from mg_ic_code_tpu_torch.grid.boxes import Box
+    from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+
+    shape, lo = (64, 48, 40), (0, 1, 0)
+    mesh = pmesh.make_mesh(["cuda:0"] * 4, mshape)
+    spec = tmg.LevelMGSpec(
+        kinds=kinds, boxes=(Box.from_shape(shape, lo),), dx=(0.25,),
+        rho=(2.0,), alpha=1.0, beta=-1.0, nsmooth=4, smoother="auto",
+        mesh=mesh)
+    f = {k: torch.from_numpy(v).cuda()
+         for k, v in fields(shape, np.float32).items()}
+    coefs = {"a": (f["a"],), "b": (None,), "lam": (None,)}
+    kernel_counts.reset()
+    out = tmg.relax(spec, coefs, 0, f["u"], f["rhs"], 4)
+    name = ("multisweep_relax_halo" if len(mshape) == 1
+            else "multisweep_relax_tiled_pre")
+    assert kernel_counts.LAUNCHES[name] == 8  # 2 chunks x 4 shards
+    assert all(v == 0 for v in kernel_counts.PLAIN_CALLS.values())
+    kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.25, lo=lo)
+    ref = tfs.multisweep_relax(f["u"], f["rhs"], f["a"], nsweeps=2, **kw)
+    ref = tfs.multisweep_relax(ref, f["rhs"], f["a"], nsweeps=2, **kw)
+    assert float((out - ref).abs().max()) <= 2e-6 * float(ref.abs().max())

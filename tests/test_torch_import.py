@@ -32,6 +32,12 @@ cfg = mgt.SolverConfig(
 res = poisson_solve(cfg, device="cpu", verbose=False)
 assert res.geom.num_levels == 2
 assert res.dpsi_norm_history[1] < 0.1 * res.dpsi_norm_history[0]
+# the sharded solve (parallel/) on a mesh of two CPU entries
+from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+sharded = poisson_solve(cfg, device="cpu", verbose=False,
+                        mesh=pmesh.make_mesh(["cpu"] * 2))
+assert abs(sharded.dpsi_norm_history[0] - res.dpsi_norm_history[0]) <= (
+    1e-6 * res.dpsi_norm_history[0])
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib"
        or m == "mg_ic_code_tpu" or m.startswith("mg_ic_code_tpu.")]
@@ -185,7 +191,8 @@ import torch
 import mg_ic_code_tpu_torch as mgt
 names = [m.name for m in pkgutil.walk_packages(mgt.__path__, mgt.__name__ + ".")]
 for need in ("physics.diagnostics", "ops.fused_sweeps", "ops.wavefront",
-             "ops.coarse_tower", "ops.cuda_ext", "solver.multigrid"):
+             "ops.coarse_tower", "ops.cuda_ext", "solver.multigrid",
+             "parallel.mesh", "parallel.halo", "parallel.distributed"):
     assert mgt.__name__ + "." + need in names, need
 for name in names:
     importlib.import_module(name)
@@ -216,7 +223,10 @@ def test_kernel_sources_are_listed_and_the_build_directory_is_ignored():
     on_disk = sorted(os.listdir(cuda_ext.CSRC_DIR))
     assert sorted(cuda_ext.SOURCES + cuda_ext.HEADERS) == on_disk
     assert "multisweep.cu" in cuda_ext.SOURCES
-    assert "multisweep_relax" in kernel_counts.KERNELS
+    assert "multisweep_halo.cu" in cuda_ext.SOURCES
+    for name in ("multisweep_relax", "multisweep_relax_halo",
+                 "multisweep_relax_tiled_pre"):
+        assert name in kernel_counts.KERNELS
     # the wavefront wrapper launches the multisweep kernel: one march, one
     # set of instantiations
     assert "wavefront_relax" in kernel_counts.KERNELS
@@ -225,8 +235,8 @@ def test_kernel_sources_are_listed_and_the_build_directory_is_ignored():
     text = "".join(open(os.path.join(cuda_ext.CSRC_DIR, f)).read()
                    for f in cuda_ext.SOURCES)
     for entry in ("mgk_gsrb_relax", "mgk_gsrb_pass", "mgk_residual",
-                  "mgk_multisweep_relax",
-                  "mgk_tower_down", "mgk_tower_up"):
+                  "mgk_multisweep_relax", "mgk_multisweep_halo",
+                  "mgk_multisweep_pre", "mgk_tower_down", "mgk_tower_up"):
         assert f'extern "C" int {entry}(' in text, entry
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "build/" in ignored

@@ -50,10 +50,10 @@ def test_level_spec_fields_match():
     js, ts = specs("mixed")
     for name in ("kinds", "dx", "rho", "alpha", "beta", "nsmooth",
                  "avg_type", "bottom_iters", "bottom_tol", "num_mg",
-                 "smoother", "bottom", "smoother_compute"):
+                 "smoother", "bottom", "smoother_compute", "mesh"):
         assert getattr(ts, name) == getattr(js, name), name
     assert [b.shape for b in ts.boxes] == [b.shape for b in js.boxes]
-    assert not hasattr(ts, "mesh")  # the port's spec carries no mesh
+    assert ts.mesh is None  # one device unless a mesh is given
     hash(ts)
 
 
