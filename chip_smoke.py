@@ -216,19 +216,29 @@ def emit(obj: dict) -> None:
 
 
 def time_ms(fn, reps: int = 12, warmup: int = 3) -> float:
-    """Median over `reps` of one call's device time (CUDA events)."""
+    """Median over `reps` of one call's device time: CUDA events around a
+    batch of calls back to back (as many as fill ~2 ms, at most 20), over
+    the batch, so that the host's time between calls hides behind the
+    device's. (scripts/march_ab.py times both trees of an A/B with a copy
+    of this function.)"""
     for _ in range(warmup):
         fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    batch = max(1, min(20, int(2.0 / max(t0.elapsed_time(t1), 1e-3))))
     times = []
     for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        fn()
+        for _ in range(batch):
+            fn()
         t1.record()
         torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times.append(t0.elapsed_time(t1) / batch)
     times.sort()
     return times[len(times) // 2]
 
@@ -286,6 +296,11 @@ def phase_build() -> dict:
         spills = {name: int(st) for name, st in re.findall(
             r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
             r"(\d+) bytes spill stores", log)}
+    # every march instantiation: the whole-level forms of csrc/multisweep.cu
+    # (march_kernel<T, NP, W, RPT, D>) and the shard forms of
+    # csrc/multisweep_halo.cu, by mangled name
+    march = {name: {"registers": n, "spill_stores": spills.get(name)}
+             for name, n in regs.items() if "march_kernel" in name}
     out = {
         "phase": "build", "seconds": round(time.perf_counter() - t0, 3),
         "cached": info["cached"], "library": os.path.relpath(
@@ -296,6 +311,7 @@ def phase_build() -> dict:
         # bytes of register spill stores per kernel that spills (mangled
         # names); the f32 NP = 4 marches the solver runs spill none
         "spill_stores": {k: v for k, v in spills.items() if v},
+        "march_forms": march,
     }
     emit(out)
     return out
@@ -400,6 +416,12 @@ WAVE_CASES = [
      False),
     ("periodic_yz_small", (24, 12, 8), ((D, D), (P, P), (P, P)), (0, 0, 0),
      2.0, False),
+    # the march's wider tile (44, 36 written: fused_sweeps.march_tile) at 2
+    # sweeps, with an odd parity offset and mixed faces; and 144, the
+    # finest level's width, ragged for the 4-sweep and f64 tiles
+    ("tile44_odd_lo", (40, 72, 36), ((D, C), (N, D), (C, N)), (3, 1, 8), 2.0,
+     False),
+    ("ragged_144", (20, 144, 144), ALL_C, (1, 0, 0), 2.0, False),
 ]
 
 # multisweep cases: (id, shape, kinds, lo, rho, timed). The first is
@@ -433,6 +455,12 @@ MULTI_CASES = [
     ("open_x_periodic_yz", (96, 40, 72), ((C, D), (P, P), (P, P)), (0, 7, 0),
      0.5, False),
     ("periodic_512", (512, 512, 512), ALL_P, (0, 0, 0), 2.0, True),
+    # the wider tile with periodic y and z, wrapping one segment onto its
+    # own planes, and cut into two x segments
+    ("tile44_periodic_yz", (32, 72, 108), ALL_P, (0, 1, 0), 2.0, False),
+    ("tile44_tiny_nx6", (6, 36, 72), ALL_P, (1, 0, 0), 2.0, False),
+    ("tile44_two_segments", (66, 36, 36), ((P, P), (D, N), (C, D)),
+     (0, 0, 1), 2.0, False),
 ]
 # run in f32 only (the four f64 arrays and the plain version's temporaries
 # of a 512^3 level would take a quarter of the card)
@@ -512,6 +540,34 @@ def one_launch_kernels() -> dict:
     }
 
 
+def march_steps(u, ms: float, bound: float, nsweeps: int = 2) -> dict:
+    """The whole-level march's launch on `u` (fused_sweeps.march_geometry):
+    tile width, x segments, steps of the longest block (its segment, the
+    rind planes at both ends and the drain), rounds of blocks, and from the
+    kernel's time `ms` the time of one step and the fraction of the byte
+    bound reached."""
+    tile, nseg, xseg = fs.march_geometry_on(u, nsweeps)
+    inner = tile - 4 * nsweeps
+    tiles = -(-u.shape[1] // inner) * -(-u.shape[2] // inner)
+    cap = fs.march_capacity(u.device, u.element_size(), nsweeps, tile)
+    steps = xseg + 3 * 2 * nsweeps - 1
+    rounds = -(-tiles * nseg // cap)
+    return {"tile": tile, "segments": nseg, "xseg": xseg, "blocks": tiles * nseg,
+            "capacity": cap, "steps_per_block": steps, "rounds": rounds,
+            "us_per_step": 1e3 * ms / (rounds * steps),
+            "fraction_of_bound": bound / ms}
+
+
+# medians of an A/B file (scripts/march_ab.py, --ab): "<kernel> <case>" ->
+# the parent's (tree A's) median ms
+AB_PARENT: dict = {}
+
+
+def parent_ms(name: str, cid: str) -> dict:
+    key = f"{name} {cid}"
+    return {"parent_ms": AB_PARENT[key]} if key in AB_PARENT else {}
+
+
 def check_one_launch_case(name: str, case, dtype) -> dict:
     """wavefront_relax or multisweep_relax against its plain version AND
     against the gsrb_relax kernel (the same function, one launch per colour
@@ -552,9 +608,10 @@ def check_one_launch_case(name: str, case, dtype) -> dict:
         run = lambda ns: fn(f["u"], f["rhs"], f["a"], nsweeps=ns, **kw)
         run2x2 = lambda: fn(run(2), f["rhs"], f["a"], nsweeps=2, **kw)
         b, by = bound_ms(level_bytes(ncells, isz, 4), 2 * 32.0 * ncells)
+        ms = time_ms(lambda: run(2))
         rec[name].update(
             nsweeps=2,
-            ms=time_ms(lambda: run(2)),
+            ms=ms, **march_steps(f["u"], ms, b), **parent_ms(name, cid),
             plain_ms=time_ms(lambda: plain(
                 f["u"], f["rhs"], f["a"], nsweeps=2, **kw), reps=6,
                 warmup=1),
@@ -829,7 +886,7 @@ def check_shard_case(case, dtype) -> dict:
         b, by = bound_ms(isz * (3 * nin + ncells), 2 * 32.0 * ncells)
         rec[name].update(
             nsweeps=2,
-            ms=time_ms(lambda: call(ops, 2)),
+            ms=time_ms(lambda: call(ops, 2)), **parent_ms(name, cid),
             plain_ms=time_ms(lambda: call(ops, 2, kernel=False), reps=6,
                              warmup=1),
             bound_ms=b, bound_by=by,
@@ -1964,7 +2021,14 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + ON_REQUEST))
+    ap.add_argument("--ab", default=None,
+                    help="an A/B file of scripts/march_ab.py: the kernels "
+                    "phase prints tree A's median beside each march time")
     args = ap.parse_args()
+    if args.ab:
+        with open(args.ab) as f:
+            AB_PARENT.update({k: r["A_median"]
+                              for k, r in json.load(f)["cases"].items()})
     wanted = [p for p in args.phases.split(",") if p]
     unknown = [p for p in wanted if p not in PHASES + ON_REQUEST]
     if unknown:

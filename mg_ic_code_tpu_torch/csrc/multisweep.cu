@@ -1,19 +1,128 @@
 // multisweep_relax: nsweeps red-black Gauss-Seidel sweeps of one WHOLE level
-// in ONE launch: the march of csrc/multisweep_march.cuh (which says what it
-// computes, which TPU kernels it replaces and how it is built) with the
-// planes of the level itself, taken modulo nx where x is periodic. The entry
-// point of ops/fused_sweeps.multisweep_relax and of
-// ops/wavefront.wavefront_relax. The body is the one measured before the
-// shard forms existed (their body is csrc/multisweep_halo.cu, a unit of its
-// own so that the two build in parallel).
+// in ONE launch, for any face kinds including periodic x: the march of
+// csrc/multisweep_march.cuh (which says what it computes and which TPU
+// kernels it replaces) with the planes of the level itself, taken modulo nx
+// where x is periodic. The entry point of ops/fused_sweeps.multisweep_relax
+// and of ops/wavefront.wavefront_relax. The shard forms have a body of their
+// own (csrc/multisweep_halo.cu, the header's design); this one is built for
+// the H100 as follows.
+//
+// What bounds it: not bytes (u, rhs and a are read once and u written once
+// per call, times the rind factor) but the time of one step of the march,
+// i.e. of one plane, which every block takes NP passes at a time with one
+// block barrier. The header's body loaded the next plane's u one step ahead
+// into registers and re-read rhs and a of the older planes through L1 at
+// each of a cell's NP/2 updates, so every step waited on memory; and its
+// one 40 x 40 tile computed 1.93 columns per written one at 144.
+//
+// Design:
+//  * A ring of R = NP + D + 1 planes in shared memory holds u (colour-split,
+//    WaveLayout: no bank conflicts) AND rhs and a of every column of the
+//    tile. Plane t + D is brought in with asynchronous copies (cp.async,
+//    one commit group per plane) right after the barrier of step t, so D
+//    planes are in flight and no thread waits on device memory inside a
+//    step: before a step a thread waits only for its own copies of plane
+//    t + 1 (cp.async.wait_group D - 2). rhs and a of a column are read only
+//    by the thread that owns the column, so they need no barrier; u of
+//    plane t + 1 is read before the barrier only in the thread's own
+//    column, and the neighbours' columns of planes t .. t - NP + 1 after it.
+//    A slot is refilled (plane t + D over plane t + D - R) only after the
+//    barrier that follows the last step reading it (t - 1). The copies read
+//    the INPUT arrays only, modulo nx, so a segment may wrap onto its own
+//    planes.
+//    TMA box copies were not used: the colour-split layout a step needs is
+//    not a box, and a dense box would put the cells of a step at every
+//    second address (two-way bank conflicts on every read of a step).
+//  * A thread owns RPT z-pairs (2kk, 2kk+1) of the tile, in rows jj and
+//    jj + W / RPT, and runs their updates one pair after the other between
+//    the same barriers (independent chains the scheduler can interleave).
+//  * The tile is W x W columns, W - 2*NP written per side. The caller picks
+//    W from the forms built (MARCH_FORMS) and the x segment length from
+//    the blocks that fit at once (mgk_multisweep_capacity), both in Python
+//    (ops/fused_sweeps.march_geometry), so that 144 = 4 x 36 takes a tile
+//    of 44 (1.49 columns computed per written one) and 96, 256, 512 one of
+//    40 (1.56).
+//  * Kept from the header's body, because each was measured: the time skew
+//    (pass p on plane t - p, one barrier per step), the steady form with
+//    compile-time ring slots for the steps whose staircase lies inside the
+//    segment and off the x faces, recip() with a Newton step.
+//  * The update sums the four in-plane neighbours with their face weights
+//    and the two x neighbours, then multiplies by P once:
+//        u' = K u + P ((c0 - 6) u + sum) + T,  K = 1 - lam alpha a,
+//    (fewer operations than weighting each neighbour by P; ulps away from
+//    gsrb_relax, not bitwise).
+#include <type_traits>
+
 #include "multisweep_march.cuh"
 
 namespace {
 
-// Plane q of the march as a plane of the level arrays: q itself, or q modulo
-// nx where x is periodic.
+// The forms built: (type, colour passes NP = 2*nsweeps, tile width W, rows
+// per thread RPT, planes fetched ahead D). Each must fit the 227 KB of
+// shared memory a block may use: R * (PLANE + 2*W*W) * sizeof(T) with
+// R = NP + D + 1. ops/fused_sweeps.MARCH_TILES lists the same widths per
+// (itemsize, nsweeps).
+#define MARCH_FORMS(X)    \
+  X(float, 4, 40, 1, 3)   \
+  X(float, 4, 44, 2, 3)   \
+  X(float, 8, 36, 1, 2)   \
+  X(double, 4, 32, 1, 2)  \
+  X(double, 8, 24, 1, 2)
+
+// Asynchronous copy of one element, global -> shared (cp.async, sm_80+).
 template <typename T>
-__device__ __forceinline__ int xplane(const WaveThread<T>& w, int q) {
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One z-pair of a tile row: where its columns live in the level and in the
+// rings, and the folded weights of the y and z faces they touch.
+template <typename T>
+struct MarchPair {
+  T* cell;     // u ring slot 0: the pair's place in the first half of its row
+  T* co;       // a, rhs ring slot 0 of the pair: column c of plane slot s
+               // at co[(4*s + 2*arr + (c ^ jb))*NPAIR], arr 0 = a, 1 = rhs
+  int coff[2];  // offset of each column inside a plane of the level
+  int par;      // row + first column + sum(lo), unwrapped indices
+  int jb;       // row parity: column c lives in colour half c ^ jb
+  int half0;    // jb * HP
+  bool live[2], own[2];
+  T wya, wyb;        // weight of the y+1 / y-1 neighbour (0 across a face,
+  T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
+  T cs6[2];          // c0 feed-through of the y and z faces, minus 6
+};
+
+// v[c] for a c known only at run time, without indexing a register array
+template <typename X>
+__device__ __forceinline__ X pick(int c, const X (&v)[2]) {
+  return c ? v[1] : v[0];
+}
+
+template <typename T, int RPT>
+struct MarchThread {
+  const T* u; const T* rhs; const T* a; T* out;
+  long long sx;             // plane stride of the level arrays
+  int xs, xe, x0, x1, nx;   // planes worked on [xs, xe), written [x0, x1)
+  bool wrapx;               // x is periodic: planes are taken modulo nx
+  T alpha, six_b_inv, b_inv;
+  T c0xlo, c1xlo, c0xhi, c1xhi;  // x-face ghost rule
+  MarchPair<T> pr[RPT];
+};
+
+// Plane q of the march as a plane of the level arrays.
+template <typename T, int RPT>
+__device__ __forceinline__ int xplane(const MarchThread<T, RPT>& w, int q) {
   if (w.wrapx) {
     q %= w.nx;
     if (q < 0) q += w.nx;
@@ -21,202 +130,191 @@ __device__ __forceinline__ int xplane(const WaveThread<T>& w, int q) {
   return q;
 }
 
-// One step of the march: plane t+1 enters the ring, plane t+2 is loaded,
-// and pass ps works on plane t - ps for ps = 0 .. NP-1, in the pair's
-// column whose cells have this step's colour.
+// Start the copies of plane q (level plane xq) into ring slot s: u of the
+// thread's live columns, and their rhs and a.
+template <typename T, int W, int RPT>
+__device__ __forceinline__ void fetch_plane(const MarchThread<T, RPT>& w,
+                                            int xq, int s) {
+  using L = WaveLayout<W, W>;
+  constexpr int NPAIR = W * W / 2;
+  const long long o = (long long)xq * w.sx;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const MarchPair<T>& p = w.pr[r];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (!p.live[c]) continue;
+      const long long g = o + p.coff[c];
+      copy_async(p.cell + s * L::PLANE + (c ? L::HP - p.half0 : p.half0),
+                 w.u + g);
+      // by colour half, like u: the cells of a step share one half
+      const int h = c ^ p.jb;
+      copy_async(p.co + (4 * s + h) * NPAIR, w.a + g);
+      copy_async(p.co + (4 * s + 2 + h) * NPAIR, w.rhs + g);
+    }
+  }
+}
+
+// One step of the march: pass ps works on plane t - ps for ps = 0 .. NP-1,
+// in each pair's column whose cells have this step's colour; plane t + D is
+// fetched.
 //
-// STEADY: every plane t+2 .. t-NP lies inside (xs, xe), inside [0, nx) and
-// away from the x faces of the domain, so no pass needs a validity test, an
-// x-face rule or a wrapped index, and the ring slot of plane t is the
-// compile-time ST: every shared-memory address is the thread's base plus a
-// constant. Otherwise `st` is t's slot at run time and every pass is tested.
-template <typename T, int NP, int TY, int TZ, bool STEADY, int ST>
-__device__ __forceinline__ void wave_step(WaveThread<T>& w, const int t,
-                                          const int st_rt) {
-  using L = WaveLayout<TY, TZ>;
-  constexpr int R = NP + 2;
+// STEADY: every plane t + D .. t - NP lies inside (xs, xe), inside [0, nx)
+// and away from the x faces of the domain, so no pass needs a validity
+// test, an x-face rule or a wrapped index, and the ring slot of plane t is
+// the compile-time ST. Otherwise `st_rt` is t's slot and every pass is
+// tested.
+template <typename T, int NP, int W, int RPT, int D, bool STEADY, int ST>
+__device__ __forceinline__ void march_step(MarchThread<T, RPT>& w,
+                                           const int t, const int st_rt) {
+  using L = WaveLayout<W, W>;
+  constexpr int R = NP + D + 1;
   constexpr int HP = L::HP, PZ = L::PZ, PLANE = L::PLANE;
+  constexpr int NPAIR = W * W / 2;
   const int st = STEADY ? ST : st_rt;
-  // plane q in the level arrays (a steady step never wraps)
-  auto xq = [&](int q) { return STEADY ? q : xplane(w, q); };
-  // slot of plane t + d
-  auto slot = [&](int d) {
+  auto slot = [&](int d) {  // slot of plane t + d, -R < d < R
     int s = st + d;
     if (s < 0) s += R;
     if (s >= R) s -= R;
     return s;
   };
-  // column 0 of the pair lives in half (row parity), column 1 in the other
-  const int half0 = w.jpar ? HP : 0, half1 = HP - half0;
+  auto valid = [&](int q) { return STEADY || (q >= w.xs && q < w.xe); };
 
-  if (STEADY || t + 1 < w.xe) {
-    T* pl = w.cell + slot(1) * PLANE;
-    pl[half0] = w.raw_u[0];
-    pl[half1] = w.raw_u[1];
-  }
-  if (STEADY || t + 2 < w.xe) {
-    const T* next = w.u + xq(t + 2) * w.sx;
+  // this thread's copies of plane t + 1 (and so of t .. t - NP) are in
+  copy_wait<D - 2>();
+  // rhs, a and the own column of u need no barrier: only the owner reads
+  // them. P = lam*beta/dx^2, K = 1 - lam*alpha*a, T = lam*rhs.
+  T Pc[RPT][NP], kc[RPT][NP], tr[RPT][NP], own_u[RPT][NP + 2];
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
-      w.raw_u[c] = w.live[c] ? __ldg(next + w.coff[c]) : (T)0;
-  }
-
-  // the column of the pair whose cells have this step's colour
-  const int c = (t + w.par) & 1;
-  const bool act = c ? w.live[1] : w.live[0];
-  const int col = c ? w.coff[1] : w.coff[0];
-  // a, rhs of this step's cells: plane t came with the step before, the
-  // older planes are in cache (loads in flight over the barrier), and the
-  // next step's first cell is asked for now
-  T av[NP], rv[NP];
-  av[0] = w.next_a;
-  rv[0] = w.next_r;
-  const T* ap = w.a + t * w.sx;
-  const T* rp = w.rhs + t * w.sx;
-  const int sxi = (int)w.sx;
+  for (int r = 0; r < RPT; ++r) {
+    const MarchPair<T>& p = w.pr[r];
+    const int c = (t + p.par) & 1;
+    const bool act = pick(c, p.live);
 #pragma unroll
-  for (int ps = 1; ps < NP; ++ps) {
-    av[ps] = (T)0; rv[ps] = (T)0;
-    if (STEADY) {
-      if (act) {
-        av[ps] = __ldg(ap + (col - ps * sxi));
-        rv[ps] = __ldg(rp + (col - ps * sxi));
+    for (int ps = 0; ps < NP; ++ps) {
+      T av = (T)0, rv = (T)0;
+      if (act && valid(t - ps)) {
+        const T* cp = p.co + (4 * slot(-ps) + (c ^ p.jb)) * NPAIR;
+        av = cp[0];
+        rv = cp[2 * NPAIR];
       }
-    } else if (act && t - ps >= w.xs && t - ps < w.xe) {
-      const long long o = xq(t - ps) * w.sx + col;
-      av[ps] = __ldg(w.a + o);
-      rv[ps] = __ldg(w.rhs + o);
+      const T aa = w.alpha * av;
+      const T lam = recip(aa + w.six_b_inv);
+      Pc[r][ps] = lam * w.b_inv;
+      kc[r][ps] = (T)1 - lam * aa;
+      tr[r][ps] = lam * rv;
     }
-  }
-  {
-    const int ncol = c ? w.coff[0] : w.coff[1];
-    w.next_a = (T)0; w.next_r = (T)0;
-    if (STEADY) {
-      if (c ? w.live[0] : w.live[1]) {
-        w.next_a = __ldg(ap + (ncol + sxi));
-        w.next_r = __ldg(rp + (ncol + sxi));
-      }
-    } else if ((c ? w.live[0] : w.live[1]) && t + 1 < w.xe) {
-      const long long o = xq(t + 1) * w.sx + ncol;
-      w.next_a = __ldg(w.a + o);
-      w.next_r = __ldg(w.rhs + o);
-    }
-  }
-  // P = lambda*beta/dx^2, 1 - lambda*alpha*a, lambda*rhs
-  T Pc[NP], kc[NP], tr[NP];
+    const T* rb = p.cell + (c ? HP - p.half0 : p.half0);
 #pragma unroll
-  for (int ps = 0; ps < NP; ++ps) {
-    const T aa = w.alpha * av[ps];
-    const T lam = recip(aa + w.six_b_inv);
-    Pc[ps] = lam * w.b_inv;
-    kc[ps] = (T)1 - lam * aa;
-    tr[ps] = lam * rv[ps];
+    for (int i = 0; i < NP + 2; ++i) own_u[r][i] = rb[slot(1 - i) * PLANE];
   }
   __syncthreads();
 
-  // the half the step's cells live in, and the way to the other half
-  const int half = c ? half1 : half0;
-  const int dh = HP - 2 * half;
-  if (act) {
-    // Everything a step reads was written before the barrier, apart from
-    // the thread's own results: the own column of planes t+1 .. t-NP and
-    // the y and z neighbours of every pass are loaded up front, and the NP
-    // updates then run from registers.
-    const T* rb = w.cell + half;
-    const T* yp = rb + (dh + PZ);
-    const T* ym = rb + (dh - PZ);
-    const T* zp = rb + (dh + c);      // even column: same index, odd: +1
-    const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
-    const T wza = c ? w.wza[1] : w.wza[0], wzb = c ? w.wzb[1] : w.wzb[0];
-    const T cz = c ? w.csz[1] : w.csz[0];
-    T own_u[NP + 2];
-#pragma unroll
-    for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
-    T yz[NP];
-#pragma unroll
-    for (int ps = 0; ps < NP; ++ps) {
-      const int o = slot(-ps) * PLANE;
-      T nb = (Pc[ps] * w.wya) * yp[o];
-      nb = nb + (Pc[ps] * w.wyb) * ym[o];
-      nb = nb + (Pc[ps] * wza) * zp[o];
-      nb = nb + (Pc[ps] * wzb) * zm[o];
-      yz[ps] = nb;
-    }
-    T* wb = w.cell + half;
-    T up = own_u[0];
-    bool have_up = STEADY;
-#pragma unroll
-    for (int ps = 0; ps < NP; ++ps) {
-      const int q = t - ps;
-      if (!STEADY && (q < w.xs || q >= w.xe)) continue;
-      const T uc = own_u[ps + 1];
-      T nb = (T)0, cs = (T)0;
-      if (STEADY) {
-        nb = Pc[ps] * up;
-        nb = nb + Pc[ps] * own_u[ps + 2];
-      } else {
-        // beyond an open segment end the cell reads itself
-        const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
-        const T umv = q > w.xs ? own_u[ps + 2] : uc;
-        const bool xface = !w.wrapx;
-        fold_terms<T>(upv, umv, xface && q == 0, xface && q == w.nx - 1,
-                      w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi, Pc[ps], nb, cs);
-      }
-      cs = (cs + w.csy) + cz;
-      const T k_uc = kc[ps] + Pc[ps] * (cs - (T)6);
-      const T un = (k_uc * uc + tr[ps]) + (nb + yz[ps]);
-      wb[slot(-ps) * PLANE] = un;
-      up = un;
-      have_up = true;
-      // the last pass of plane q: final
-      if (ps == NP - 1 && q >= w.x0 && q < w.x1 && (c ? w.own[1] : w.own[0]))
-        w.out[q * w.sx + col] = un;
-    }
-  }
+  // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
+  // steps before this barrier were the last to read
+  if (STEADY || t + D < w.xe)
+    fetch_plane<T, W, RPT>(w, STEADY ? t + D : xplane(w, t + D), slot(D));
+  copy_commit();
 
-  // plane t - NP + 1 has had its last pass: the pair's other column has
-  // been final since the step before
-  const int qo = t - NP + 1;
-  if (qo >= w.x0 && qo < w.x1 && (c ? w.own[0] : w.own[1]))
-    w.out[qo * w.sx + (c ? w.coff[0] : w.coff[1])] =
-        w.cell[slot(1 - NP) * PLANE + half + dh];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const MarchPair<T>& p = w.pr[r];
+    const int c = (t + p.par) & 1;
+    const int half = c ? HP - p.half0 : p.half0;
+    const int dh = HP - 2 * half;  // from this half to the other
+    if (pick(c, p.live)) {
+      const T* rb = p.cell + half;
+      const T* yp = rb + (dh + PZ);
+      const T* ym = rb + (dh - PZ);
+      const T* zp = rb + (dh + c);      // even column: same index, odd: +1
+      const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
+      const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
+      const T cs6 = pick(c, p.cs6);
+      // the in-plane neighbours of every pass, weighted
+      T nb[NP];
+#pragma unroll
+      for (int ps = 0; ps < NP; ++ps) {
+        const int o = slot(-ps) * PLANE;
+        T s = p.wya * yp[o];
+        s = s + p.wyb * ym[o];
+        s = s + wza * zp[o];
+        s = s + wzb * zm[o];
+        nb[ps] = s;
+      }
+      T* wb = p.cell + half;
+      T up = own_u[r][0];
+      bool have_up = STEADY;
+#pragma unroll
+      for (int ps = 0; ps < NP; ++ps) {
+        const int q = t - ps;
+        if (!valid(q)) continue;
+        const T uc = own_u[r][ps + 1];
+        T xs_ = (T)0, csx = (T)0;
+        if (STEADY) {
+          xs_ = up + own_u[r][ps + 2];
+        } else {
+          // beyond an open segment end the cell reads itself
+          const T upv = have_up ? up : (q + 1 < w.xe ? own_u[r][ps] : uc);
+          const T umv = q > w.xs ? own_u[r][ps + 2] : uc;
+          const bool lo = !w.wrapx && q == 0;
+          const bool hi = !w.wrapx && q == w.nx - 1;
+          const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
+          const T wb2 = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
+          xs_ = wa * (hi ? (T)0 : upv) + wb2 * (lo ? (T)0 : umv);
+          csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
+        }
+        const T sum = nb[ps] + xs_;
+        const T k6 = STEADY ? cs6 : cs6 + csx;
+        const T un = kc[r][ps] * uc + (Pc[r][ps] * (k6 * uc + sum) + tr[r][ps]);
+        wb[slot(-ps) * PLANE] = un;
+        up = un;
+        have_up = true;
+        // the last pass of plane q: final
+        if (ps == NP - 1 && q >= w.x0 && q < w.x1 && pick(c, p.own))
+          w.out[q * w.sx + pick(c, p.coff)] = un;
+      }
+    }
+    // plane t - NP + 1 has had its last pass: the pair's other column has
+    // been final since the step before
+    const int qo = t - NP + 1;
+    if (qo >= w.x0 && qo < w.x1 && pick(c ^ 1, p.own))
+      w.out[qo * w.sx + pick(c ^ 1, p.coff)] =
+          p.cell[slot(1 - NP) * PLANE + half + dh];
+  }
 }
 
 // st == ST picks the instantiation whose ring slots are constants
-template <typename T, int NP, int TY, int TZ, int ST>
-__device__ __forceinline__ void steady_step(WaveThread<T>& w, int t, int st) {
-  if constexpr (ST < NP + 2) {
-    if (st == ST) wave_step<T, NP, TY, TZ, true, ST>(w, t, st);
-    else steady_step<T, NP, TY, TZ, ST + 1>(w, t, st);
+template <typename T, int NP, int W, int RPT, int D, int ST>
+__device__ __forceinline__ void steady_step(MarchThread<T, RPT>& w, int t,
+                                            int st) {
+  if constexpr (ST < NP + D + 1) {
+    if (st == ST) march_step<T, NP, W, RPT, D, true, ST>(w, t, st);
+    else steady_step<T, NP, W, RPT, D, ST + 1>(w, t, st);
   }
 }
 
-template <typename T, int NP, int TY, int TZ>
-__global__ void __launch_bounds__((TY * TZ) / 2)
+template <typename T, int NP, int W, int RPT, int D>
+__global__ void __launch_bounds__(W * W / (2 * RPT), 1)
 march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
-                 const T* __restrict__ a, T* __restrict__ out,
-                 const LevelParams<T> p, const int base, const int xseg) {
-  using L = WaveLayout<TY, TZ>;
-  constexpr int R = NP + 2;       // planes in the ring
+             const T* __restrict__ a, T* __restrict__ out,
+             const LevelParams<T> p, const int base, const int xseg) {
+  using L = WaveLayout<W, W>;
+  constexpr int R = NP + D + 1;  // planes in the rings
   constexpr int HZ = L::HZ;
-  extern __shared__ __align__(16) unsigned char wave_smem[];
-  T* ring = reinterpret_cast<T*>(wave_smem);
-  // zero the ring: the padding stays zero, and no slot ever holds anything
-  // but finite values
-  for (int i = threadIdx.x; i < R * L::PLANE; i += blockDim.x) ring[i] = (T)0;
+  constexpr int NPAIR = W * HZ;
+  constexpr int NT = NPAIR / RPT;
+  static_assert(D >= 2, "plane t + 1 must be fetched before step t");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* coef = ring + R * L::PLANE;
+  // zero the rings: the padding and the dead columns stay zero, and no slot
+  // ever holds anything but finite values
+  for (int i = threadIdx.x; i < R * (L::PLANE + 4 * NPAIR); i += NT)
+    ring[i] = (T)0;
   __syncthreads();
 
-  const int kk = threadIdx.x % HZ;
-  const int jj = threadIdx.x / HZ;
-  const int lk = 2 * kk;
-  // unwrapped global indices of the thread's row and first column
-  const int uj = (int)blockIdx.y * (TY - 2 * NP) - NP + jj;
-  const int uk = (int)blockIdx.x * (TZ - 2 * NP) - NP + lk;
-
-  WaveThread<T> w;
+  MarchThread<T, RPT> w;
   w.u = u; w.rhs = rhs; w.a = a; w.out = out;
-  w.cell = ring + (jj + 1) * L::PZ + kk + 1;
-  w.jpar = jj & 1;
   w.sx = (long long)p.ny * p.nz;
   w.nx = p.nx;
   w.x0 = (int)blockIdx.z * xseg;
@@ -225,137 +323,183 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   // a periodic x has no face: both segment ends are open, wherever they lie
   w.xs = w.wrapx ? w.x0 - NP : max(0, w.x0 - NP);
   w.xe = w.wrapx ? w.x1 + NP : min(p.nx, w.x1 + NP);
-  w.par = uj + uk + base;
   w.alpha = p.alpha; w.six_b_inv = p.six_b_inv; w.b_inv = p.b_inv;
   w.c0xlo = p.c0[0][0]; w.c1xlo = p.c1[0][0];
   w.c0xhi = p.c0[0][1]; w.c1xhi = p.c1[0][1];
 
   const bool py = p.periodic[1] != 0, pz = p.periodic[2] != 0;
   const T one = (T)1;
-  int gj = uj;
-  bool live_j = uj >= 0 && uj < p.ny;
-  if (py) {
-    gj = uj % p.ny;
-    if (gj < 0) gj += p.ny;
-    live_j = true;
-  }
-  const bool own_j = jj >= NP && jj < TY - NP && uj < p.ny;
-  const bool ylo = !py && gj == 0, yhi = !py && gj == p.ny - 1;
-  w.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
-  w.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
-  w.csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int ukc = uk + c;
-    int gk = ukc;
-    bool live_k = ukc >= 0 && ukc < p.nz;
-    if (pz) {
-      gk = ukc % p.nz;
-      if (gk < 0) gk += p.nz;
-      live_k = true;
+  for (int r = 0; r < RPT; ++r) {
+    MarchPair<T>& q = w.pr[r];
+    const int pidx = (int)threadIdx.x + r * NT;
+    const int kk = pidx % HZ, jj = pidx / HZ, lk = 2 * kk;
+    // unwrapped global indices of the pair's row and first column
+    const int uj = (int)blockIdx.y * (W - 2 * NP) - NP + jj;
+    const int uk = (int)blockIdx.x * (W - 2 * NP) - NP + lk;
+    q.cell = ring + (jj + 1) * L::PZ + kk + 1;
+    q.co = coef + pidx;
+    q.jb = jj & 1;
+    q.half0 = q.jb * L::HP;
+    q.par = uj + uk + base;
+    int gj = uj;
+    bool live_j = uj >= 0 && uj < p.ny;
+    if (py) {
+      gj = uj % p.ny;
+      if (gj < 0) gj += p.ny;
+      live_j = true;
     }
-    w.live[c] = live_j && live_k;
-    w.own[c] = own_j && w.live[c] && lk + c >= NP && lk + c < TZ - NP &&
-               ukc < p.nz;
-    w.coff[c] = gj * p.nz + gk;
-    const bool zlo = !pz && gk == 0, zhi = !pz && gk == p.nz - 1;
-    w.wza[c] = zhi ? (T)0 : (zlo ? one + p.c1[2][0] : one);
-    w.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
-    w.csz[c] = (zlo ? p.c0[2][0] : (T)0) + (zhi ? p.c0[2][1] : (T)0);
+    const bool own_j = jj >= NP && jj < W - NP && uj < p.ny;
+    const bool ylo = !py && gj == 0, yhi = !py && gj == p.ny - 1;
+    q.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
+    q.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
+    const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int ukc = uk + c;
+      int gk = ukc;
+      bool live_k = ukc >= 0 && ukc < p.nz;
+      if (pz) {
+        gk = ukc % p.nz;
+        if (gk < 0) gk += p.nz;
+        live_k = true;
+      }
+      q.live[c] = live_j && live_k;
+      q.own[c] = own_j && q.live[c] && lk + c >= NP && lk + c < W - NP &&
+                 ukc < p.nz;
+      q.coff[c] = gj * p.nz + gk;
+      const bool zlo = !pz && gk == 0, zhi = !pz && gk == p.nz - 1;
+      q.wza[c] = zhi ? (T)0 : (zlo ? one + p.c1[2][0] : one);
+      q.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
+      q.cs6[c] = ((csy + ((zlo ? p.c0[2][0] : (T)0) +
+                          (zhi ? p.c0[2][1] : (T)0)))) - (T)6;
+    }
   }
 
-  // plane xs enters the ring, plane xs + 1 is loaded, and a, rhs of the
-  // first step's first cell
+  // planes xs .. xs + D - 1 are fetched before the first step, one commit
+  // group each (so that every step waits for the same count)
   int st = w.xs % R;
   if (st < 0) st += R;
-  {
-    T* pl = w.cell + st * L::PLANE;
-    const int half0 = w.jpar ? L::HP : 0;
-    const long long o = xplane(w, w.xs) * w.sx;
-    const long long o1 = xplane(w, w.xs + 1) * w.sx;
-    pl[half0] = w.live[0] ? u[o + w.coff[0]] : (T)0;
-    pl[L::HP - half0] = w.live[1] ? u[o + w.coff[1]] : (T)0;
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
-      w.raw_u[c] = (w.live[c] && w.xs + 1 < w.xe)
-                       ? u[o1 + w.coff[c]] : (T)0;
-    const int c = (w.xs + w.par) & 1;
-    const bool act = c ? w.live[1] : w.live[0];
-    w.next_a = act ? a[o + (c ? w.coff[1] : w.coff[0])] : (T)0;
-    w.next_r = act ? rhs[o + (c ? w.coff[1] : w.coff[0])] : (T)0;
+  for (int d = 0; d < D; ++d) {
+    if (w.xs + d < w.xe) {
+      int s = st + d;
+      if (s >= R) s -= R;
+      fetch_plane<T, W, RPT>(w, xplane(w, w.xs + d), s);
+    }
+    copy_commit();
   }
 
   // steps xs .. xe+NP-2; those in [lo_s, hi_s) are steady: t - NP >= xs,
-  // t + 2 < xe, no plane of the staircase at an x face of the domain, and
-  // (periodic x) every plane t - NP .. t + 2 inside [0, nx)
-  const int lo_s = max(w.xs, 0) + NP, hi_s = min(w.xe, p.nx) - 2;
+  // t + D < xe, no plane of the staircase at an x face of the domain, and
+  // (periodic x) every plane t - NP .. t + D inside [0, nx)
+  const int lo_s = max(w.xs, 0) + NP, hi_s = min(w.xe, p.nx) - D;
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    wave_step<T, NP, TY, TZ, false, 0>(w, t, st);
+    march_step<T, NP, W, RPT, D, false, 0>(w, t, st);
   for (; t < hi_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    steady_step<T, NP, TY, TZ, 0>(w, t, st);
+    steady_step<T, NP, W, RPT, D, 0>(w, t, st);
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
-    wave_step<T, NP, TY, TZ, false, 0>(w, t, st);
+    march_step<T, NP, W, RPT, D, false, 0>(w, t, st);
+  copy_wait<0>();
 }
 
-template <typename T, int NP, int TY, int TZ>
-cudaError_t launch_tile(const T* u, const T* rhs, const T* a, T* out,
-                        const LevelParams<T>& p, int base,
-                        cudaStream_t stream) {
-  constexpr int TIY = TY - 2 * NP, TIZ = TZ - 2 * NP;
-  static_assert(TIY > 0 && TIZ > 0 && TZ % 2 == 0, "tile too small");
-  const int nty = (p.ny + TIY - 1) / TIY, ntz = (p.nz + TIZ - 1) / TIZ;
-  const size_t smem = (size_t)(NP + 2) * WaveLayout<TY, TZ>::PLANE * sizeof(T);
-  const int threads = (TY * TZ) / 2;
-  auto kern = march_kernel<T, NP, TY, TZ>;
+template <typename T, int NP, int W, int RPT, int D>
+constexpr size_t march_smem() {
+  return (size_t)(NP + D + 1) * (WaveLayout<W, W>::PLANE + 2 * W * W) *
+         sizeof(T);
+}
+
+// blocks of this form the current device runs at once; sets the kernel's
+// shared-memory limit on first use per device
+template <typename T, int NP, int W, int RPT, int D>
+cudaError_t form_capacity(int* capacity) {
+  static_assert(march_smem<T, NP, W, RPT, D>() <= 232448,
+                "form does not fit the shared memory of a block");
   static int cache[kMaxDevices] = {};
+  return march_capacity((const void*)march_kernel<T, NP, W, RPT, D>,
+                        W * W / (2 * RPT), march_smem<T, NP, W, RPT, D>(),
+                        cache, capacity);
+}
+
+template <typename T, int NP, int W, int RPT, int D>
+cudaError_t launch_form(const T* u, const T* rhs, const T* a, T* out,
+                        const LevelParams<T>& p, int base, int xseg,
+                        cudaStream_t stream) {
+  constexpr int TI = W - 2 * NP;  // written per side
+  static_assert(TI > 0 && W % 2 == 0 && (W * W / 2) % RPT == 0 &&
+                    (W / 2) % RPT == 0,
+                "tile");
   int capacity = 0;
-  cudaError_t err =
-      march_capacity((const void*)kern, threads, smem, cache, &capacity);
+  cudaError_t err = form_capacity<T, NP, W, RPT, D>(&capacity);
   if (err != cudaSuccess) return err;
-  int nseg = 1, xseg = p.nx;
-  march_segments(p.nx, (long long)nty * ntz, capacity, NP, &nseg, &xseg);
+  if (xseg < 1) return cudaErrorInvalidValue;
+  const int nty = (p.ny + TI - 1) / TI, ntz = (p.nz + TI - 1) / TI;
+  const int nseg = (p.nx + xseg - 1) / xseg;
+  if (nty > 65535 || nseg > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)ntz, (unsigned)nty, (unsigned)nseg);
-  kern<<<grid, threads, smem, stream>>>(u, rhs, a, out, p, base, xseg);
+  march_kernel<T, NP, W, RPT, D>
+      <<<grid, W * W / (2 * RPT), march_smem<T, NP, W, RPT, D>(), stream>>>(
+          u, rhs, a, out, p, base, xseg);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_multisweep(const T* u, const T* rhs, const T* a, T* out,
                               const LevelParams<T>& p, int base, int nsweeps,
-                              cudaStream_t stream) {
+                              int tile, int xseg, cudaStream_t stream) {
   // a periodic axis wraps inside a tile or a segment: its extent must be
   // even so that the checkerboard stays consistent across the wrap
   if ((p.periodic[0] && p.nx % 2) || (p.periodic[1] && p.ny % 2) ||
       (p.periodic[2] && p.nz % 2))
     return cudaErrorInvalidValue;
-  if (nsweeps == 2)
-    return launch_tile<T, 4, 40, 40>(u, rhs, a, out, p, base, stream);
-  if (nsweeps == 4)
-    return launch_tile<T, 8, 40, 40>(u, rhs, a, out, p, base, stream);
+  const int np = 2 * nsweeps;
+#define MARCH_LAUNCH(TT, NPP, WW, RR, DD)                                  \
+  if constexpr (std::is_same<T, TT>::value) {                              \
+    if (np == NPP && tile == WW)                                           \
+      return launch_form<TT, NPP, WW, RR, DD>(u, rhs, a, out, p, base, xseg, \
+                                              stream);                     \
+  }
+  MARCH_FORMS(MARCH_LAUNCH)
+#undef MARCH_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry point: out <- nsweeps (2 or 4) sweeps of u; u is not modified and
-// out must not alias it.
+// C entry point: out <- nsweeps (2 or 4) sweeps of u with tiles of width
+// `tile` (one of MARCH_FORMS) and x segments of `xseg` planes; u is not
+// modified and out must not alias it.
 extern "C" int mgk_multisweep_relax(const void* u, const void* rhs,
                                     const void* a, void* out, int is_double,
                                     int nx, int ny, int nz, const int* kinds,
                                     double rho, double alpha, double beta,
                                     double dx, int base, int nsweeps,
-                                    void* stream) {
+                                    int tile, int xseg, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (is_double) {
     auto p = make_level_params<double>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_multisweep<double>((const double*)u, (const double*)rhs,
-                                          (const double*)a, (double*)out, p,
-                                          base, nsweeps, st);
+    return (int)launch_multisweep<double>(
+        (const double*)u, (const double*)rhs, (const double*)a, (double*)out,
+        p, base, nsweeps, tile, xseg, st);
   }
   auto p = make_level_params<float>(nx, ny, nz, kinds, rho, alpha, beta, dx);
   return (int)launch_multisweep<float>((const float*)u, (const float*)rhs,
                                        (const float*)a, (float*)out, p, base,
-                                       nsweeps, st);
+                                       nsweeps, tile, xseg, st);
+}
+
+// C entry point: *capacity <- blocks of the form (type, nsweeps, tile) that
+// the current device runs at once (the x segments are cut for it).
+extern "C" int mgk_multisweep_capacity(int is_double, int nsweeps, int tile,
+                                       int* capacity) {
+  const int np = 2 * nsweeps;
+#define MARCH_CAPACITY(TT, NPP, WW, RR, DD)                           \
+  if (is_double == (int)std::is_same<TT, double>::value && np == NPP && \
+      tile == WW)                                                     \
+    return (int)form_capacity<TT, NPP, WW, RR, DD>(capacity);
+  MARCH_FORMS(MARCH_CAPACITY)
+#undef MARCH_CAPACITY
+  return (int)cudaErrorInvalidValue;
 }

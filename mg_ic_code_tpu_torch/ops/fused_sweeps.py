@@ -368,6 +368,77 @@ def gsrb_half_sweep(
 MULTISWEEP_CHUNKS = (2, 4)
 MULTISWEEP_PLAN_CHUNK = 2
 
+# The forms of the whole-level march (csrc/multisweep.cu, MARCH_FORMS): the
+# tile widths built per (itemsize, nsweeps). A tile of width W computes W x W
+# y-z columns and writes the (W - 4*nsweeps)^2 inside its rind.
+MARCH_TILES = {(4, 2): (40, 44), (4, 4): (36,), (8, 2): (32,), (8, 4): (24,)}
+
+
+def march_tile(ny: int, nz: int, nsweeps: int, itemsize: int = 4) -> int:
+    """The tile width of MARCH_TILES that computes the fewest y-z columns
+    for the level (the smaller width on a tie): 40 (32 written) for 64, 96,
+    256 and 512, 44 (36 written) for 144."""
+    def computed(w):
+        inner = w - 4 * nsweeps
+        return -(-ny // inner) * -(-nz // inner) * w * w
+    return min(MARCH_TILES[(itemsize, nsweeps)], key=lambda w: (computed(w), w))
+
+
+def march_segments(nx: int, tiles: int, capacity: int, nsweeps: int):
+    """(nseg, xseg): the x segments of a launch over `tiles` y-z tiles, the
+    count that needs the fewest steps in all, a block taking xseg + 3*NP
+    steps (NP = 2*nsweeps: rind planes at both ends and the drain) and the
+    grid running in rounds of `capacity` blocks; no segment shorter than
+    8*NP planes unless the level is."""
+    np_ = 2 * nsweeps
+    best = None
+    for n in range(1, max(nx // (8 * np_), 1) + 1):
+        length = -(-nx // n)
+        segs = -(-nx // length)
+        cost = -(-tiles * segs // capacity) * (length + 3 * np_)
+        if best is None or cost < best[0]:
+            best = (cost, segs, length)
+    return best[1], best[2]
+
+
+def march_geometry(shape, nsweeps: int, itemsize: int, capacity):
+    """(tile, nseg, xseg) of one whole-level march launch: the tile width
+    (`march_tile`) and the x segments (`march_segments`) for `capacity`, the
+    blocks the card runs at once: an int, or a function of the tile width
+    (`march_capacity`)."""
+    nx, ny, nz = (int(n) for n in shape)
+    tile = march_tile(ny, nz, nsweeps, itemsize)
+    inner = tile - 4 * nsweeps
+    tiles = -(-ny // inner) * -(-nz // inner)
+    cap = capacity(tile) if callable(capacity) else int(capacity)
+    return (tile,) + march_segments(nx, tiles, cap, nsweeps)
+
+
+_CAPACITY: dict = {}
+
+
+def march_capacity(device, itemsize: int, nsweeps: int, tile: int) -> int:
+    """Blocks of the march form (itemsize, nsweeps, tile) that the CUDA
+    device runs at once (mgk_multisweep_capacity), kept per device."""
+    device = torch.device(device)
+    key = (device.index, itemsize, nsweeps, tile)
+    if key not in _CAPACITY:
+        cap = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = cuda_ext.lib().mgk_multisweep_capacity(
+                int(itemsize == 8), int(nsweeps), int(tile), ctypes.byref(cap))
+        cuda_ext.check(err, "multisweep_relax capacity")
+        _CAPACITY[key] = cap.value
+    return _CAPACITY[key]
+
+
+def march_geometry_on(u, nsweeps: int):
+    """`march_geometry` of the level `u` (a CUDA tensor) on its device."""
+    isz = u.element_size()
+    return march_geometry(
+        u.shape, nsweeps, isz,
+        lambda w: march_capacity(u.device, isz, nsweeps, w))
+
 
 def _odd_periodic_axis(shape, kinds: FaceKinds) -> bool:
     return any(kinds[ax][0] == PERIODIC and shape[ax] % 2 for ax in range(3))
@@ -410,7 +481,8 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
     CUDA tensors, counted under `name`; raises on what it does not take.
     The wrappers have checked nsweeps. Three ways to give it the level:
       * whole (`multisweep_relax`, `wavefront_relax`, which is the same
-        kernel with x open): C entry mgk_multisweep_relax;
+        kernel with x open): C entry mgk_multisweep_relax (csrc/
+        multisweep.cu), with the tile and x segments of `march_geometry`;
       * an x-slab with x pads `pads = (upad, rpad, apad)` and `meta`
         (`multisweep_relax_halo`): mgk_multisweep_halo;
       * a prepadded pencil with `meta` and `ny_global`
@@ -453,9 +525,10 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
         stream = torch.cuda.current_stream().cuda_stream
         kernel_counts.count_launch(name, 1)
         if meta is None:
+            tile, _, xseg = march_geometry_on(u, nsweeps)
             err = lib.mgk_multisweep_relax(
                 u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
-                *level, int(sum(lo)), int(nsweeps), stream,
+                *level, int(sum(lo)), int(nsweeps), tile, xseg, stream,
             )
         elif not pre:
             err = lib.mgk_multisweep_halo(
