@@ -51,6 +51,7 @@
 //        u' = K u + P ((c0 - 6) u + sum) + T,  K = 1 - lam alpha a,
 //    (fewer operations than weighting each neighbour by P; ulps away from
 //    gsrb_relax, not bitwise).
+#include <cstdint>
 #include <type_traits>
 
 #include "multisweep_march.cuh"
@@ -64,17 +65,23 @@ namespace {
 // (itemsize, nsweeps).
 #define MARCH_FORMS(X)    \
   X(float, 4, 40, 1, 3)   \
-  X(float, 4, 44, 2, 3)   \
+  X(float, 4, 44, 1, 2)   \
   X(float, 8, 36, 1, 2)   \
   X(double, 4, 32, 1, 2)  \
   X(double, 8, 24, 1, 2)
 
-// Asynchronous copy of one element, global -> shared (cp.async, sm_80+).
+// Asynchronous copy of one element, global -> shared-memory address dst
+// (cp.async, sm_80+).
 template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+__device__ __forceinline__ void copy_async(unsigned dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
                "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+// Asynchronous copy of 16 bytes, global -> shared, bypassing L1.
+__device__ __forceinline__ void copy_chunk(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void copy_commit() {
@@ -87,16 +94,21 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // One z-pair of a tile row: where its columns live in the level and in the
-// rings, and the folded weights of the y and z faces they touch.
+// rings, and the folded weights of the y and z faces they touch. Column c of
+// the pair lives in colour half h = c ^ jb of its row (jb: row parity): the
+// cells a step updates share one half in every row.
 template <typename T>
 struct MarchPair {
-  T* cell;     // u ring slot 0: the pair's place in the first half of its row
-  T* co;       // a, rhs ring slot 0 of the pair: column c of plane slot s
-               // at co[(4*s + 2*arr + (c ^ jb))*NPAIR], arr 0 = a, 1 = rhs
-  int coff[2];  // offset of each column inside a plane of the level
-  int par;      // row + first column + sum(lo), unwrapped indices
-  int jb;       // row parity: column c lives in colour half c ^ jb
-  int half0;    // jb * HP
+  T* cell;         // u ring slot 0: the pair's place in half 0 of its row
+  const T* co;     // a of the pair in slot 0 of the a, rhs ring (below)
+  unsigned scell, sco;  // the same as shared-memory addresses
+  // V (16-byte copies): the chunks of a or rhs this pair fetches, source in
+  // plane 0 (null: outside the level) and shared address in slot 0
+  const T* chunk_src[2];
+  unsigned chunk_dst[2];
+  int coff[2];     // offset of each column inside a plane of the level
+  int par;         // row + first column + sum(lo), unwrapped indices
+  int jb;          // row parity
   bool live[2], own[2];
   T wya, wyb;        // weight of the y+1 / y-1 neighbour (0 across a face,
   T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
@@ -130,13 +142,16 @@ __device__ __forceinline__ int xplane(const MarchThread<T, RPT>& w, int q) {
   return q;
 }
 
-// Start the copies of plane q (level plane xq) into ring slot s: u of the
-// thread's live columns, and their rhs and a.
-template <typename T, int W, int RPT>
+// Start the copies of level plane xq into ring slot s: u of the thread's
+// live columns (one element a copy), and their a and rhs: one element a
+// copy into the pair's colour halves, or (V) 16-byte chunks of rows into the
+// plane's own layout, bypassing L1.
+template <typename T, int W, int RPT, bool V>
 __device__ __forceinline__ void fetch_plane(const MarchThread<T, RPT>& w,
                                             int xq, int s) {
   using L = WaveLayout<W, W>;
   constexpr int NPAIR = W * W / 2;
+  constexpr unsigned B = sizeof(T);
   const long long o = (long long)xq * w.sx;
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
@@ -145,26 +160,35 @@ __device__ __forceinline__ void fetch_plane(const MarchThread<T, RPT>& w,
     for (int c = 0; c < 2; ++c) {
       if (!p.live[c]) continue;
       const long long g = o + p.coff[c];
-      copy_async(p.cell + s * L::PLANE + (c ? L::HP - p.half0 : p.half0),
-                 w.u + g);
-      // by colour half, like u: the cells of a step share one half
-      const int h = c ^ p.jb;
-      copy_async(p.co + (4 * s + h) * NPAIR, w.a + g);
-      copy_async(p.co + (4 * s + 2 + h) * NPAIR, w.rhs + g);
+      const unsigned h = (unsigned)(c ^ p.jb);
+      copy_async(p.scell + (s * L::PLANE + h * L::HP) * B, w.u + g);
+      if (!V) {
+        copy_async(p.sco + (4 * s + h) * NPAIR * B, w.a + g);
+        copy_async(p.sco + (4 * s + 2 + h) * NPAIR * B, w.rhs + g);
+      }
+    }
+    if (V) {
+#pragma unroll
+      for (int k = 0; k < (int)(B / 4); ++k)
+        if (p.chunk_src[k])
+          copy_chunk(p.chunk_dst[k] + s * 2 * W * W * B, p.chunk_src[k] + o);
     }
   }
 }
 
 // One step of the march: pass ps works on plane t - ps for ps = 0 .. NP-1,
 // in each pair's column whose cells have this step's colour; plane t + D is
-// fetched.
+// fetched; both columns of plane t - NP + 1 are final and written.
 //
 // STEADY: every plane t + D .. t - NP lies inside (xs, xe), inside [0, nx)
 // and away from the x faces of the domain, so no pass needs a validity
 // test, an x-face rule or a wrapped index, and the ring slot of plane t is
 // the compile-time ST. Otherwise `st_rt` is t's slot and every pass is
-// tested.
-template <typename T, int NP, int W, int RPT, int D, bool STEADY, int ST>
+// tested. A dead column (outside a non-periodic face) is updated like any
+// other from the zeros and neighbours it has: its values stay finite, are
+// read only with weight 0, and are never written out.
+template <typename T, int NP, int W, int RPT, int D, bool V, bool STEADY,
+          int ST>
 __device__ __forceinline__ void march_step(MarchThread<T, RPT>& w,
                                            const int t, const int st_rt) {
   using L = WaveLayout<W, W>;
@@ -182,29 +206,22 @@ __device__ __forceinline__ void march_step(MarchThread<T, RPT>& w,
 
   // this thread's copies of plane t + 1 (and so of t .. t - NP) are in
   copy_wait<D - 2>();
-  // rhs, a and the own column of u need no barrier: only the owner reads
-  // them. P = lam*beta/dx^2, K = 1 - lam*alpha*a, T = lam*rhs.
-  T Pc[RPT][NP], kc[RPT][NP], tr[RPT][NP], own_u[RPT][NP + 2];
+  // a, rhs and the own column of u need no barrier: only the owner reads
+  // them. lam = 1 / (alpha*a + 6*beta/dx^2).
+  T lam[RPT][NP], aa[RPT][NP], rv[RPT][NP], own_u[RPT][NP + 2];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const MarchPair<T>& p = w.pr[r];
     const int c = (t + p.par) & 1;
-    const bool act = pick(c, p.live);
+    const int h = c ^ p.jb;
 #pragma unroll
     for (int ps = 0; ps < NP; ++ps) {
-      T av = (T)0, rv = (T)0;
-      if (act && valid(t - ps)) {
-        const T* cp = p.co + (4 * slot(-ps) + (c ^ p.jb)) * NPAIR;
-        av = cp[0];
-        rv = cp[2 * NPAIR];
-      }
-      const T aa = w.alpha * av;
-      const T lam = recip(aa + w.six_b_inv);
-      Pc[r][ps] = lam * w.b_inv;
-      kc[r][ps] = (T)1 - lam * aa;
-      tr[r][ps] = lam * rv;
+      const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
+      aa[r][ps] = w.alpha * cp[0];
+      rv[r][ps] = cp[W * W];
+      lam[r][ps] = recip(aa[r][ps] + w.six_b_inv);
     }
-    const T* rb = p.cell + (c ? HP - p.half0 : p.half0);
+    const T* rb = p.cell + h * HP;
 #pragma unroll
     for (int i = 0; i < NP + 2; ++i) own_u[r][i] = rb[slot(1 - i) * PLANE];
   }
@@ -213,87 +230,86 @@ __device__ __forceinline__ void march_step(MarchThread<T, RPT>& w,
   // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
   // steps before this barrier were the last to read
   if (STEADY || t + D < w.xe)
-    fetch_plane<T, W, RPT>(w, STEADY ? t + D : xplane(w, t + D), slot(D));
+    fetch_plane<T, W, RPT, V>(w, STEADY ? t + D : xplane(w, t + D), slot(D));
   copy_commit();
 
+  const int qo = t - NP + 1;  // the plane whose last pass this step runs
+  const bool write = qo >= w.x0 && qo < w.x1;
+  T* const oplane = w.out + qo * w.sx;
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const MarchPair<T>& p = w.pr[r];
     const int c = (t + p.par) & 1;
-    const int half = c ? HP - p.half0 : p.half0;
-    const int dh = HP - 2 * half;  // from this half to the other
-    if (pick(c, p.live)) {
-      const T* rb = p.cell + half;
-      const T* yp = rb + (dh + PZ);
-      const T* ym = rb + (dh - PZ);
-      const T* zp = rb + (dh + c);      // even column: same index, odd: +1
-      const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
-      const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
-      const T cs6 = pick(c, p.cs6);
-      // the in-plane neighbours of every pass, weighted
-      T nb[NP];
+    const int h = c ^ p.jb;
+    T* const rb = p.cell + h * HP;
+    const int dh = (1 - 2 * h) * HP;  // from this half to the other
+    const T* yp = rb + (dh + PZ);
+    const T* ym = rb + (dh - PZ);
+    const T* zp = rb + (dh + c);      // even column: same index, odd: +1
+    const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
+    const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
+    const T cs6 = pick(c, p.cs6);
+    // the in-plane neighbours of every pass, weighted
+    T nb[NP];
 #pragma unroll
-      for (int ps = 0; ps < NP; ++ps) {
-        const int o = slot(-ps) * PLANE;
-        T s = p.wya * yp[o];
-        s = s + p.wyb * ym[o];
-        s = s + wza * zp[o];
-        s = s + wzb * zm[o];
-        nb[ps] = s;
-      }
-      T* wb = p.cell + half;
-      T up = own_u[r][0];
-      bool have_up = STEADY;
-#pragma unroll
-      for (int ps = 0; ps < NP; ++ps) {
-        const int q = t - ps;
-        if (!valid(q)) continue;
-        const T uc = own_u[r][ps + 1];
-        T xs_ = (T)0, csx = (T)0;
-        if (STEADY) {
-          xs_ = up + own_u[r][ps + 2];
-        } else {
-          // beyond an open segment end the cell reads itself
-          const T upv = have_up ? up : (q + 1 < w.xe ? own_u[r][ps] : uc);
-          const T umv = q > w.xs ? own_u[r][ps + 2] : uc;
-          const bool lo = !w.wrapx && q == 0;
-          const bool hi = !w.wrapx && q == w.nx - 1;
-          const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
-          const T wb2 = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
-          xs_ = wa * (hi ? (T)0 : upv) + wb2 * (lo ? (T)0 : umv);
-          csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
-        }
-        const T sum = nb[ps] + xs_;
-        const T k6 = STEADY ? cs6 : cs6 + csx;
-        const T un = kc[r][ps] * uc + (Pc[r][ps] * (k6 * uc + sum) + tr[r][ps]);
-        wb[slot(-ps) * PLANE] = un;
-        up = un;
-        have_up = true;
-        // the last pass of plane q: final
-        if (ps == NP - 1 && q >= w.x0 && q < w.x1 && pick(c, p.own))
-          w.out[q * w.sx + pick(c, p.coff)] = un;
-      }
+    for (int ps = 0; ps < NP; ++ps) {
+      const int o = slot(-ps) * PLANE;
+      T s = p.wya * yp[o];
+      s = s + p.wyb * ym[o];
+      s = s + wza * zp[o];
+      s = s + wzb * zm[o];
+      nb[ps] = s;
     }
-    // plane t - NP + 1 has had its last pass: the pair's other column has
-    // been final since the step before
-    const int qo = t - NP + 1;
-    if (qo >= w.x0 && qo < w.x1 && pick(c ^ 1, p.own))
-      w.out[qo * w.sx + pick(c ^ 1, p.coff)] =
-          p.cell[slot(1 - NP) * PLANE + half + dh];
+    T up = own_u[r][0], last = (T)0;
+    bool have_up = STEADY;
+#pragma unroll
+    for (int ps = 0; ps < NP; ++ps) {
+      const int q = t - ps;
+      if (!valid(q)) continue;
+      const T uc = own_u[r][ps + 1];
+      T xn = (T)0, csx = (T)0;
+      if (STEADY) {
+        xn = up + own_u[r][ps + 2];
+      } else {
+        // beyond an open segment end the cell reads itself
+        const T upv = have_up ? up : (q + 1 < w.xe ? own_u[r][ps] : uc);
+        const T umv = q > w.xs ? own_u[r][ps + 2] : uc;
+        const bool lo = !w.wrapx && q == 0;
+        const bool hi = !w.wrapx && q == w.nx - 1;
+        const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
+        const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
+        xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
+        csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
+      }
+      // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
+      const T k6 = STEADY ? cs6 : cs6 + csx;
+      const T s1 = k6 * uc + (nb[ps] + xn);
+      const T s2 = w.b_inv * s1 + rv[r][ps];
+      const T un = uc + lam[r][ps] * (s2 - aa[r][ps] * uc);
+      rb[slot(-ps) * PLANE] = un;
+      up = un;
+      have_up = true;
+      last = un;
+    }
+    // plane qo: the active column's last pass was the step's last update,
+    // the other column has been final since the step before
+    if (write) {
+      if (pick(c, p.own)) oplane[pick(c, p.coff)] = last;
+      if (pick(c ^ 1, p.own))
+        oplane[pick(c ^ 1, p.coff)] = rb[slot(1 - NP) * PLANE + dh];
+    }
   }
 }
 
-// st == ST picks the instantiation whose ring slots are constants
-template <typename T, int NP, int W, int RPT, int D, int ST>
-__device__ __forceinline__ void steady_step(MarchThread<T, RPT>& w, int t,
-                                            int st) {
-  if constexpr (ST < NP + D + 1) {
-    if (st == ST) march_step<T, NP, W, RPT, D, true, ST>(w, t, st);
-    else steady_step<T, NP, W, RPT, D, ST + 1>(w, t, st);
-  }
+// R steady steps from slot ST on, each with its slot a constant
+template <typename T, int NP, int W, int RPT, int D, bool V, int ST>
+__device__ __forceinline__ void steady_steps(MarchThread<T, RPT>& w, int t) {
+  march_step<T, NP, W, RPT, D, V, true, ST>(w, t + ST, ST);
+  if constexpr (ST + 1 < NP + D + 1)
+    steady_steps<T, NP, W, RPT, D, V, ST + 1>(w, t);
 }
 
-template <typename T, int NP, int W, int RPT, int D>
+template <typename T, int NP, int W, int RPT, int D, bool V>
 __global__ void __launch_bounds__(W * W / (2 * RPT), 1)
 march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
              const T* __restrict__ a, T* __restrict__ out,
@@ -307,8 +323,8 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   T* coef = ring + R * L::PLANE;
-  // zero the rings: the padding and the dead columns stay zero, and no slot
-  // ever holds anything but finite values
+  // zero the rings: the padding and the dead columns start at zero, and no
+  // slot ever holds anything but finite values
   for (int i = threadIdx.x; i < R * (L::PLANE + 4 * NPAIR); i += NT)
     ring[i] = (T)0;
   __syncthreads();
@@ -338,9 +354,14 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
     const int uj = (int)blockIdx.y * (W - 2 * NP) - NP + jj;
     const int uk = (int)blockIdx.x * (W - 2 * NP) - NP + lk;
     q.cell = ring + (jj + 1) * L::PZ + kk + 1;
-    q.co = coef + pidx;
+    // the a, rhs ring: per slot 2*W*W elements, a then rhs; without V the
+    // a (rhs) of column c at co[h*NPAIR] (co[W*W + h*NPAIR]), h = c ^ jb,
+    // co = coef + pidx: the cells of a step at consecutive addresses; with
+    // V each plane in its own layout (row jj, column lk + c at co[c])
+    q.co = V ? coef + jj * W + lk : coef + pidx;
+    q.scell = static_cast<unsigned>(__cvta_generic_to_shared(q.cell));
+    q.sco = static_cast<unsigned>(__cvta_generic_to_shared(q.co));
     q.jb = jj & 1;
-    q.half0 = q.jb * L::HP;
     q.par = uj + uk + base;
     int gj = uj;
     bool live_j = uj >= 0 && uj < p.ny;
@@ -350,6 +371,27 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
       live_j = true;
     }
     const bool own_j = jj >= NP && jj < W - NP && uj < p.ny;
+    if (V) {
+      // chunk i of a slot (CH elements of one row of a or rhs) is fetched
+      // by pair i / CPP
+      constexpr int CH = 16 / sizeof(T), CPP = sizeof(T) / 4;
+#pragma unroll
+      for (int k = 0; k < CPP; ++k) {
+        const int i = pidx * CPP + k;
+        const int arr = i / (W * W / CH), rem = i % (W * W / CH);
+        const int row = rem / (W / CH), col = (rem % (W / CH)) * CH;
+        const int cuj = (int)blockIdx.y * (W - 2 * NP) - NP + row;
+        const int cuk = (int)blockIdx.x * (W - 2 * NP) - NP + col;
+        int cj = cuj % p.ny, ck = cuk % p.nz;
+        if (cj < 0) cj += p.ny;
+        if (ck < 0) ck += p.nz;
+        const bool in = (py || (cuj >= 0 && cuj < p.ny)) &&
+                        (pz || (cuk >= 0 && cuk < p.nz));
+        q.chunk_src[k] = in ? (arr ? rhs : a) + (cj * p.nz + ck) : nullptr;
+        q.chunk_dst[k] = static_cast<unsigned>(__cvta_generic_to_shared(
+            coef + arr * W * W + row * W + col));
+      }
+    }
     const bool ylo = !py && gj == 0, yhi = !py && gj == p.ny - 1;
     q.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
     q.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
@@ -371,41 +413,50 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
       const bool zlo = !pz && gk == 0, zhi = !pz && gk == p.nz - 1;
       q.wza[c] = zhi ? (T)0 : (zlo ? one + p.c1[2][0] : one);
       q.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
-      q.cs6[c] = ((csy + ((zlo ? p.c0[2][0] : (T)0) +
-                          (zhi ? p.c0[2][1] : (T)0)))) - (T)6;
+      q.cs6[c] = (csy + ((zlo ? p.c0[2][0] : (T)0) +
+                         (zhi ? p.c0[2][1] : (T)0))) - (T)6;
     }
   }
 
+  // steps xs .. xe+NP-2; those in [lo_s, hi_s) are steady: t - NP >= xs,
+  // t + D < xe, no plane of the staircase at an x face of the domain, and
+  // (periodic x) every plane t - NP .. t + D inside [0, nx). Plane q sits in
+  // slot (q - lo_s) mod R, so that the steady steps run in blocks of R from
+  // slot 0.
+  const int lo_s = max(w.xs, 0) + NP, hi_s = min(w.xe, p.nx) - D;
+  int st = (w.xs - lo_s) % R;
+  if (st < 0) st += R;
   // planes xs .. xs + D - 1 are fetched before the first step, one commit
   // group each (so that every step waits for the same count)
-  int st = w.xs % R;
-  if (st < 0) st += R;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     if (w.xs + d < w.xe) {
       int s = st + d;
       if (s >= R) s -= R;
-      fetch_plane<T, W, RPT>(w, xplane(w, w.xs + d), s);
+      fetch_plane<T, W, RPT, V>(w, xplane(w, w.xs + d), s);
     }
     copy_commit();
   }
-
-  // steps xs .. xe+NP-2; those in [lo_s, hi_s) are steady: t - NP >= xs,
-  // t + D < xe, no plane of the staircase at an x face of the domain, and
-  // (periodic x) every plane t - NP .. t + D inside [0, nx)
-  const int lo_s = max(w.xs, 0) + NP, hi_s = min(w.xe, p.nx) - D;
+  // a step reads a and rhs of its own plane before its barrier; with V they
+  // come from other threads' copies, so plane xs must be in and seen by all
+  // before the first step (later planes: the wait and barrier of the step
+  // before)
+  if (V) {
+    copy_wait<D - 1>();
+    __syncthreads();
+  }
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, RPT, D, false, 0>(w, t, st);
-  for (; t < hi_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    steady_step<T, NP, W, RPT, D, 0>(w, t, st);
+    march_step<T, NP, W, RPT, D, V, false, 0>(w, t, st);
+  for (; t + R <= hi_s; t += R)  // st == 0 here
+    steady_steps<T, NP, W, RPT, D, V, 0>(w, t);
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, RPT, D, false, 0>(w, t, st);
+    march_step<T, NP, W, RPT, D, V, false, 0>(w, t, st);
   copy_wait<0>();
 }
 
-template <typename T, int NP, int W, int RPT, int D>
+template <typename T, int NP, int W, int RPT, int D, bool V>
 constexpr size_t march_smem() {
   return (size_t)(NP + D + 1) * (WaveLayout<W, W>::PLANE + 2 * W * W) *
          sizeof(T);
@@ -413,17 +464,17 @@ constexpr size_t march_smem() {
 
 // blocks of this form the current device runs at once; sets the kernel's
 // shared-memory limit on first use per device
-template <typename T, int NP, int W, int RPT, int D>
+template <typename T, int NP, int W, int RPT, int D, bool V>
 cudaError_t form_capacity(int* capacity) {
-  static_assert(march_smem<T, NP, W, RPT, D>() <= 232448,
+  static_assert(march_smem<T, NP, W, RPT, D, V>() <= 232448,
                 "form does not fit the shared memory of a block");
   static int cache[kMaxDevices] = {};
-  return march_capacity((const void*)march_kernel<T, NP, W, RPT, D>,
-                        W * W / (2 * RPT), march_smem<T, NP, W, RPT, D>(),
+  return march_capacity((const void*)march_kernel<T, NP, W, RPT, D, V>,
+                        W * W / (2 * RPT), march_smem<T, NP, W, RPT, D, V>(),
                         cache, capacity);
 }
 
-template <typename T, int NP, int W, int RPT, int D>
+template <typename T, int NP, int W, int RPT, int D, bool V>
 cudaError_t launch_form(const T* u, const T* rhs, const T* a, T* out,
                         const LevelParams<T>& p, int base, int xseg,
                         cudaStream_t stream) {
@@ -432,15 +483,15 @@ cudaError_t launch_form(const T* u, const T* rhs, const T* a, T* out,
                     (W / 2) % RPT == 0,
                 "tile");
   int capacity = 0;
-  cudaError_t err = form_capacity<T, NP, W, RPT, D>(&capacity);
+  cudaError_t err = form_capacity<T, NP, W, RPT, D, V>(&capacity);
   if (err != cudaSuccess) return err;
   if (xseg < 1) return cudaErrorInvalidValue;
   const int nty = (p.ny + TI - 1) / TI, ntz = (p.nz + TI - 1) / TI;
   const int nseg = (p.nx + xseg - 1) / xseg;
   if (nty > 65535 || nseg > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)ntz, (unsigned)nty, (unsigned)nseg);
-  march_kernel<T, NP, W, RPT, D>
-      <<<grid, W * W / (2 * RPT), march_smem<T, NP, W, RPT, D>(), stream>>>(
+  march_kernel<T, NP, W, RPT, D, V>
+      <<<grid, W * W / (2 * RPT), march_smem<T, NP, W, RPT, D, V>(), stream>>>(
           u, rhs, a, out, p, base, xseg);
   return cudaGetLastError();
 }
@@ -455,11 +506,17 @@ cudaError_t launch_multisweep(const T* u, const T* rhs, const T* a, T* out,
       (p.periodic[2] && p.nz % 2))
     return cudaErrorInvalidValue;
   const int np = 2 * nsweeps;
-#define MARCH_LAUNCH(TT, NPP, WW, RR, DD)                                  \
-  if constexpr (std::is_same<T, TT>::value) {                              \
-    if (np == NPP && tile == WW)                                           \
-      return launch_form<TT, NPP, WW, RR, DD>(u, rhs, a, out, p, base, xseg, \
-                                              stream);                     \
+  // a and rhs in 16-byte chunks of rows where every row starts on one
+  const bool vec = p.nz % (16 / sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(rhs) % 16 == 0;
+#define MARCH_LAUNCH(TT, NPP, WW, RR, DD)                                 \
+  if constexpr (std::is_same<T, TT>::value) {                             \
+    if (np == NPP && tile == WW)                                          \
+      return vec ? launch_form<TT, NPP, WW, RR, DD, true>(                \
+                       u, rhs, a, out, p, base, xseg, stream)             \
+                 : launch_form<TT, NPP, WW, RR, DD, false>(               \
+                       u, rhs, a, out, p, base, xseg, stream);            \
   }
   MARCH_FORMS(MARCH_LAUNCH)
 #undef MARCH_LAUNCH
@@ -498,7 +555,7 @@ extern "C" int mgk_multisweep_capacity(int is_double, int nsweeps, int tile,
 #define MARCH_CAPACITY(TT, NPP, WW, RR, DD)                           \
   if (is_double == (int)std::is_same<TT, double>::value && np == NPP && \
       tile == WW)                                                     \
-    return (int)form_capacity<TT, NPP, WW, RR, DD>(capacity);
+    return (int)form_capacity<TT, NPP, WW, RR, DD, false>(capacity);
   MARCH_FORMS(MARCH_CAPACITY)
 #undef MARCH_CAPACITY
   return (int)cudaErrorInvalidValue;

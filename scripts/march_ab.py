@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Time the march kernels of two trees against each other on one card.
+"""Time the march kernels of two trees (or more) against each other on one
+card.
 
     git archive <parent> | tar -x -C build/ab_parent   # where git is
     python3 scripts/march_ab.py --parent build/ab_parent \
-        --out chiprun_out/march_ab.json
+        --out chiprun_out/march_ab.json [--variant NAME=DIR ...]
 
-A is the tree unpacked under --parent, B the tree this script lies in. Each
-run is `chip_smoke.py --phases env,build,kernels` from the root of its tree,
-in the order given (default A, B, B, A), one after the other on the same
-card, with the same timer in both trees: this script's `time_ms` (CUDA
-events around a batch of calls back to back, over the batch; the one
-chip_smoke.py itself has from this tree on) replaces the tree's own. The f32 times of every timed march case (the whole-level
-kernel under `wavefront_relax` and `multisweep_relax`, the shard kernels
-under `multisweep_relax_halo` and `multisweep_relax_tiled_pre`; 2 sweeps per
-launch) are read from each run's kernels line; the JSON written to --out
-holds every run's times, the median of each tree per case, B's speed-up
-over A (A's median over B's) and each tree's spread (largest over smallest
-of its runs minus one). Each run's whole output goes beside it
-(<out>.<i><tree>.log). Exits non-zero when a run fails.
+Tree A is the one unpacked under --parent, tree B the one this script lies
+in, and each --variant another tree, named. Each run is `chip_smoke.py
+--phases env,build,kernels` from the root of its tree, one after the other
+on the same card, in the order given by --order (default: A, B, the
+variants, the same backwards: A B B A without variants), with the same
+timer in every tree: this script's `time_ms` (CUDA events around a batch of
+calls back to back, over the batch; the one chip_smoke.py itself has from
+this tree on) replaces the tree's own. The f32 times of every timed march
+case (the whole-level kernel under `wavefront_relax` and
+`multisweep_relax`, the shard kernels under `multisweep_relax_halo` and
+`multisweep_relax_tiled_pre`; 2 sweeps per launch) are read from each run's
+kernels line. The JSON written to --out holds every run's times and, per
+case, each tree's runs, median and spread (largest over smallest of its
+runs, minus one) and each tree's speed-up over A (A's median over its own).
+Each run's whole output goes beside it (<out>.<i><tree>.log). Exits non-zero
+when a run fails.
 """
 
 from __future__ import annotations
@@ -116,18 +120,21 @@ def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
             time.perf_counter() - t0)
 
 
-def summarize(runs: list) -> dict:
-    """Per case: each tree's runs, median and spread; B's speed-up."""
+def summarize(runs: list, trees) -> dict:
+    """Per case: each tree's runs, median and spread, and its speed-up over
+    tree A."""
     cases = sorted(set.intersection(*(set(r["times"]) for r in runs)))
     out = {}
     for case in cases:
         row = {}
-        for tree in ("A", "B"):
+        for tree in trees:
             ts = [r["times"][case] for r in runs if r["tree"] == tree]
             row[tree] = ts
             row[f"{tree}_median"] = statistics.median(ts)
             row[f"{tree}_spread"] = max(ts) / min(ts) - 1.0
-        row["speedup"] = row["A_median"] / row["B_median"]
+        for tree in trees:
+            if tree != "A":
+                row[f"{tree}_speedup"] = row["A_median"] / row[f"{tree}_median"]
         out[case] = row
     return out
 
@@ -137,39 +144,51 @@ def main() -> int:
     ap.add_argument("--parent", required=True,
                     help="root of tree A (an unpacked git archive)")
     ap.add_argument("--out", required=True, help="JSON file to write")
-    ap.add_argument("--order", default="ABBA",
-                    help="trees in the order they run (letters A and B)")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=DIR: one more tree to time, named")
+    ap.add_argument("--order", default=None,
+                    help="tree names in the order they run, comma-separated")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds one run may take")
     args = ap.parse_args()
-    if set(args.order) - {"A", "B"} or not {"A", "B"} <= set(args.order):
-        print("--order needs both A and B and no other letter",
+    roots = {"A": os.path.abspath(args.parent), "B": ROOT}
+    for v in args.variant:
+        name, _, path = v.partition("=")
+        if not name or not path or name in roots:
+            print(f"--variant {v!r}: want a new NAME=DIR", file=sys.stderr)
+            return 2
+        roots[name] = os.path.abspath(path)
+    order = (args.order.split(",") if args.order else
+             list(roots) + list(roots)[::-1])
+    if set(order) != set(roots):
+        print(f"--order {order} must name every tree {list(roots)}",
               file=sys.stderr)
         return 2
-    roots = {"A": os.path.abspath(args.parent), "B": ROOT}
-    if not os.path.exists(os.path.join(roots["A"], "chip_smoke.py")):
-        print(f"{roots['A']}: no chip_smoke.py", file=sys.stderr)
-        return 2
+    for name, root in roots.items():
+        if not os.path.exists(os.path.join(root, "chip_smoke.py")):
+            print(f"{name}: {root}: no chip_smoke.py", file=sys.stderr)
+            return 2
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[:1]
     runs = []
-    for i, tree in enumerate(args.order):
+    for i, tree in enumerate(order):
         rec, secs = run_tree(roots[tree], f"{args.out}.{i}{tree}.log",
                              args.timeout)
         runs.append({"tree": tree, "seconds": secs, **rec})
         print(f"run {i} {tree}: {secs:.1f} s", flush=True)
-    result = {"card": card[0] if card else None, "order": args.order,
-              "roots": roots, "runs": runs, "cases": summarize(runs)}
+    result = {"card": card[0] if card else None, "order": order,
+              "roots": roots, "runs": runs,
+              "cases": summarize(runs, list(roots))}
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     for case, row in result["cases"].items():
-        print(f"{case}: A {row['A_median']:.4f} ms, B {row['B_median']:.4f}"
-              f" ms, x{row['speedup']:.3f}", flush=True)
-    print(json.dumps({"card": result["card"], "cases": {
-        c: round(r["speedup"], 4) for c, r in result["cases"].items()}}))
+        print(case + ": " + ", ".join(
+            f"{t} {row[t + '_median']:.4f} ms"
+            + (f" x{row[t + '_speedup']:.3f}" if t != "A" else "")
+            for t in roots), flush=True)
     return 0
 
 
