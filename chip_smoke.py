@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --phases env,build,kernels
+    python3 chip_smoke.py --phases env,build,kernels --ab march_ab.json
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
            whether h5py imports
-  build    compiles csrc/*.cu with nvcc for sm_90a; seconds, registers
+  build    compiles csrc/*.cu with nvcc for sm_90a; seconds, registers,
+           and registers and spill stores of every march instantiation
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            f32 and f64, at the level shapes each path gives it (the
            canonical 7 levels; the periodic box's 256^3, its all-periodic
@@ -20,7 +22,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
            a level cut over a mesh (the periodic box's 64x256x256 x-slabs
            and 128x128x256 pencils, the 7-level hierarchy's local slabs,
            odd offsets), each against its plain version and, every shard
-           joined, against the whole-level kernel
+           joined, against the whole-level kernel. Times: CUDA events
+           around a batch of calls back to back, over the batch. For each
+           timed whole-level march case also its launch (tile width, x
+           segments, steps of the longest block, rounds), the time of one
+           step and the fraction of the byte bound; with --ab (a file of
+           scripts/march_ab.py) the parent's median beside each march time
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
            the card; the launch counters show the path went through the
@@ -1153,12 +1160,39 @@ def wave_plan_table() -> dict:
     return table
 
 
+@contextlib.contextmanager
+def calls_by_shape(names=("gsrb_relax", "wavefront_relax",
+                          "multisweep_relax")):
+    """Counts the calls of the named relax wrappers by level shape while the
+    block runs (the wrappers the solver reaches through their modules);
+    yields {name: {"nx x ny x nz": calls}}."""
+    mods = {"gsrb_relax": fs, "wavefront_relax": wf, "multisweep_relax": fs}
+    seen: dict = {n: {} for n in names}
+    saved = {n: getattr(mods[n], n) for n in names}
+
+    def counted(name, fn):
+        def call(u, *args, **kw):
+            key = "x".join(map(str, u.shape))
+            seen[name][key] = seen[name].get(key, 0) + 1
+            return fn(u, *args, **kw)
+        return call
+
+    for n in names:
+        setattr(mods[n], n, counted(n, saved[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(mods[n], n, saved[n])
+
+
 def phase_scale7() -> dict:
     keep: dict = {}
     kernel_counts.reset()
-    run = run_solve(["max_level = 6", "max_NL_iterations = 3",
-                     "precond_precision = single", "verbosity = 0"],
-                    "scale7", keep)
+    with calls_by_shape() as by_shape:
+        run = run_solve(["max_level = 6", "max_NL_iterations = 3",
+                         "precond_precision = single", "verbosity = 0"],
+                        "scale7", keep)
     counts = kernel_counts.snapshot()  # the full-depth path, nothing else
     h, it = run["history"], run["linear_iters"]
     check(run["levels"] == [list(s) for s in SCALE7_SHAPES],
@@ -1178,7 +1212,9 @@ def phase_scale7() -> dict:
            "launches": counts["launches"],
            "device_launches": counts["device_launches"],
            "plain_calls": counts["plain_calls"],
-           "relax_plan_4_sweeps": wave_plan_table(), "split": split, **run}
+           "relax_plan_4_sweeps": wave_plan_table(), "split": split,
+           # wrapper calls by level shape over the run's Picard iterations
+           "relax_calls_by_shape": by_shape, **run}
     emit(out)
     return out
 
@@ -1627,11 +1663,10 @@ def phase_cli() -> dict:
 # seam, exchange and global offset of a 4-card run is there
 SHARD_X = (4,)
 SHARD_PENCIL = (2, 2)
-# the 7-level lock's step 1 limit on the sharded run: twice the unsharded
-# 1e-5 (which f32 preconditioner runs moves step 1 by up to ~6e-6, PERF.md
-# section 6, and sharding changes the preconditioner's arithmetic: the
-# tower moves down to 16^3)
-SHARDED7_STEP1 = 2e-5
+# the 7-level lock's step 1 limit on the sharded run: the unsharded lock's
+# 1e-5 (sharding changes the f32 preconditioner's arithmetic, the tower
+# moves down to 16^3, and step 1 has read 7.0e-6 from the lock: PERF.md)
+SHARDED7_STEP1 = 1e-5
 
 
 def one_card_mesh(shape):

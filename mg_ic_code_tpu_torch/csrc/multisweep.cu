@@ -10,47 +10,59 @@
 // What bounds it: not bytes (u, rhs and a are read once and u written once
 // per call, times the rind factor) but the time of one step of the march,
 // i.e. of one plane, which every block takes NP passes at a time with one
-// block barrier. The header's body loaded the next plane's u one step ahead
-// into registers and re-read rhs and a of the older planes through L1 at
-// each of a cell's NP/2 updates, so every step waited on memory; and its
-// one 40 x 40 tile computed 1.93 columns per written one at 144.
+// block barrier: the instructions of a step, the wait for the plane that
+// enters, and the barrier. The shard body (the header's design) loads the
+// next plane's u one step ahead into registers and re-reads rhs and a of
+// the older planes through L1 at each of a cell's NP/2 updates, so every
+// step waits on memory; and its one 40 x 40 tile computes 1.93 columns per
+// written one at 144.
 //
 // Design:
 //  * A ring of R = NP + D + 1 planes in shared memory holds u (colour-split,
-//    WaveLayout: no bank conflicts) AND rhs and a of every column of the
+//    WaveLayout: no bank conflicts) AND a and rhs of every column of the
 //    tile. Plane t + D is brought in with asynchronous copies (cp.async,
 //    one commit group per plane) right after the barrier of step t, so D
 //    planes are in flight and no thread waits on device memory inside a
 //    step: before a step a thread waits only for its own copies of plane
-//    t + 1 (cp.async.wait_group D - 2). rhs and a of a column are read only
-//    by the thread that owns the column, so they need no barrier; u of
-//    plane t + 1 is read before the barrier only in the thread's own
-//    column, and the neighbours' columns of planes t .. t - NP + 1 after it.
-//    A slot is refilled (plane t + D over plane t + D - R) only after the
-//    barrier that follows the last step reading it (t - 1). The copies read
-//    the INPUT arrays only, modulo nx, so a segment may wrap onto its own
-//    planes.
-//    TMA box copies were not used: the colour-split layout a step needs is
-//    not a box, and a dense box would put the cells of a step at every
-//    second address (two-way bank conflicts on every read of a step).
-//  * A thread owns RPT z-pairs (2kk, 2kk+1) of the tile, in rows jj and
-//    jj + W / RPT, and runs their updates one pair after the other between
-//    the same barriers (independent chains the scheduler can interleave).
-//  * The tile is W x W columns, W - 2*NP written per side. The caller picks
+//    t + 1 (cp.async.wait_group D - 2). u of plane t + 1 is read before the
+//    barrier only in the thread's own column, which the thread fetched; the
+//    neighbours' columns of planes t .. t - NP + 1 after it. a and rhs of
+//    planes t .. t - NP + 1 are read before the barrier: every thread waited
+//    for them before the barrier of step t - 1. A slot is refilled (plane
+//    t + D over plane t + D - R) only after the barrier that follows the
+//    last step reading it (t - 1). The copies read the INPUT arrays only,
+//    modulo nx, so a segment may wrap onto its own planes.
+//  * u is copied one element a column (the colour split is no box and no
+//    16-byte run). a and rhs are copied in 16-byte chunks of rows (V: the
+//    tile's pair i fetches chunk i of the plane's a and rhs in f32, chunks
+//    2i and 2i + 1 in f64; cp.async.cg, past L1, so that the D planes in
+//    flight do not evict each other from it),
+//    where every row starts on 16 bytes (nz a multiple of the chunk, the
+//    arrays aligned); otherwise one element a column into the pair's
+//    colour halves, each thread its own (the second path, a kernel of its
+//    own, chosen at launch). TMA box copies were not used: the colour-split
+//    layout a step needs is not a box, and a periodic y or z wraps a tile
+//    into pieces a box cannot land.
+//  * The tile is W x W columns, W - 2*NP written per side; a thread owns
+//    RPT z-pairs (2kk, 2kk+1), in rows jj and jj + W / RPT. The caller picks
 //    W from the forms built (MARCH_FORMS) and the x segment length from
 //    the blocks that fit at once (mgk_multisweep_capacity), both in Python
 //    (ops/fused_sweeps.march_geometry), so that 144 = 4 x 36 takes a tile
-//    of 44 (1.49 columns computed per written one) and 96, 256, 512 one of
-//    40 (1.56).
-//  * Kept from the header's body, because each was measured: the time skew
+//    of 44 (1.49 columns computed per written one) and 64, 96, 256, 512 one
+//    of 40 (1.56).
+//  * Kept from the shard body, because each was measured: the time skew
 //    (pass p on plane t - p, one barrier per step), the steady form with
 //    compile-time ring slots for the steps whose staircase lies inside the
-//    segment and off the x faces, recip() with a Newton step.
-//  * The update sums the four in-plane neighbours with their face weights
-//    and the two x neighbours, then multiplies by P once:
-//        u' = K u + P ((c0 - 6) u + sum) + T,  K = 1 - lam alpha a,
-//    (fewer operations than weighting each neighbour by P; ulps away from
-//    gsrb_relax, not bitwise).
+//    segment and off the x faces (here in unrolled blocks of R steps, slots
+//    counted from the first steady step), recip() with a Newton step.
+//  * The update in residual form, the four in-plane neighbours summed with
+//    their face weights and the two x neighbours added:
+//        u' = u + lam (beta/dx^2 ((c0 - 6) u + sum) + rhs - alpha a u),
+//    lam = 1 / (alpha a + 6 beta/dx^2) (fewer operations than weighting
+//    each neighbour by lam beta/dx^2; ulps away from gsrb_relax, not
+//    bitwise).
+//  * Dead columns (outside a non-periodic y or z face) are updated like
+//    the others, without a branch; they are read only with weight 0.
 #include <cstdint>
 #include <type_traits>
 
@@ -206,8 +218,10 @@ __device__ __forceinline__ void march_step(MarchThread<T, RPT>& w,
 
   // this thread's copies of plane t + 1 (and so of t .. t - NP) are in
   copy_wait<D - 2>();
-  // a, rhs and the own column of u need no barrier: only the owner reads
-  // them. lam = 1 / (alpha*a + 6*beta/dx^2).
+  // the own column of u needs no barrier (only its owner reads it before
+  // one), a and rhs of planes t .. t - NP + 1 were waited for by every
+  // thread before the barrier of step t - 1. lam = 1 / (alpha*a +
+  // 6*beta/dx^2).
   T lam[RPT][NP], aa[RPT][NP], rv[RPT][NP], own_u[RPT][NP + 2];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {

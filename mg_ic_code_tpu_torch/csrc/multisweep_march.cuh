@@ -12,8 +12,12 @@
 // [0, nx) is read and which x faces take the ghost rule. They are kept apart
 // because one template serving both made the whole-level march slower on
 // an NVIDIA H100 80GB HBM3 at 700 W (24-38 %, and still 4-5 % once the
-// shard-only state had left its thread; PERF.md): the whole-level body is
-// the one that was measured before the shard forms existed.
+// shard-only state had left its thread; PERF.md). The whole-level body has
+// since been redesigned for the card (its own header comment says how: a
+// ring of u, rhs and a filled by asynchronous copies, a tile width chosen
+// per level); the design notes below are those of the shard body, which
+// the whole-level one shares the time skew, the plane layout, recip() and
+// march_capacity with.
 //
 // The march replaces TPU kernels that compute one function (what
 // gsrb_relax computes, csrc/gsrb_relax.cu: the same folded per-cell update,

@@ -40,6 +40,7 @@ feed-through, T = lam*rhs. A colour pass p keeps the cells with
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -433,11 +434,19 @@ def march_capacity(device, itemsize: int, nsweeps: int, tile: int) -> int:
 
 
 def march_geometry_on(u, nsweeps: int):
-    """`march_geometry` of the level `u` (a CUDA tensor) on its device."""
-    isz = u.element_size()
+    """`march_geometry` of the level `u` (a CUDA tensor) on its device,
+    kept per shape: the solver calls the march with a few shapes many
+    times, and its host time is part of every call's."""
+    return _geometry_on(tuple(u.shape), nsweeps, u.element_size(),
+                        u.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_on(shape, nsweeps: int, itemsize: int, index: int):
+    device = torch.device("cuda", index)
     return march_geometry(
-        u.shape, nsweeps, isz,
-        lambda w: march_capacity(u.device, isz, nsweeps, w))
+        shape, nsweeps, itemsize,
+        lambda w: march_capacity(device, itemsize, nsweeps, w))
 
 
 def _odd_periodic_axis(shape, kinds: FaceKinds) -> bool:

@@ -82,6 +82,14 @@ def make_amr_spec(
             "operand precision; reduced-precision colour passes are not "
             "ported (use auto or single)"
         )
+    if getattr(cfg, "forest_batching", "auto") == "force":
+        raise NotImplementedError(
+            "forest_batching = force: sweeping same-shape sibling patches "
+            "as one batch (the JAX package's composite._sibling_batch_groups) "
+            "is not ported yet (ROADMAP queue 1, item 6); auto and off run "
+            "the patches one after the other, as the JAX package does "
+            "without a mesh"
+        )
     level_specs = tuple(
         mg.make_level_spec(
             geom, l, cfg.alpha, cfg.beta, cfg.num_mg_smooth,

@@ -132,6 +132,47 @@ def test_bfloat16_smoother_is_refused(f64):
         assert all(s.smoother_compute is None for s in spec.level_specs)
 
 
+def sibling_forest():
+    """A base and two same-shape level-1 patches of the same parity: a
+    group the JAX package sweeps as one batch under forest_batching =
+    force."""
+    dom0 = Box.from_shape((16, 16, 16))
+    p1 = Box((2, 2, 2), (5, 5, 5)).refine(2)
+    p2 = Box((10, 2, 2), (13, 5, 5)).refine(2)
+    jg = JGeom(boxes=(dom0, p1, p2),
+               domain_boxes=(dom0, dom0.refine(2), dom0.refine(2)),
+               dx=(0.0625, 0.03125, 0.03125), domain_length=(1.0,) * 3,
+               bc=JBC(bc_value=0.1), parent=(-1, 0, 0))
+    tg = cv.geom_from_plain(
+        [(b.lo, b.hi) for b in jg.boxes], jg.parent, jg.dx,
+        dict(bc_lo=(0, 0, 0), bc_hi=(0, 0, 0), bc_value=0.1, periodic=False),
+        [(b.lo, b.hi) for b in jg.domain_boxes], jg.domain_length)
+    return jg, tg
+
+
+@pytest.mark.parametrize("mode", ["auto", "off", "force"])
+def test_forest_batching(mode):
+    """forest_batching = force (sibling patches swept as one batch) is not
+    ported and raises instead of being ignored; auto and off run the
+    patches one after the other, which is what the JAX package computes
+    without a mesh: it forms a batch group only under force."""
+    jg, tg = sibling_forest()
+    base = dict(n_cells=(16, 16, 16), max_level=1)
+    jgroups = jcomp.make_amr_spec(
+        jg, JCfg(forest_batching=mode, **base)).batch_groups
+    cfg = TCfg(forest_batching=mode, **base)
+    if mode == "force":
+        assert jgroups == ((1, 2),)
+        with pytest.raises(NotImplementedError, match="forest_batching"):
+            tcomp.make_amr_spec(tg, cfg, device="cpu")
+        return
+    assert jgroups == ()
+    spec = tcomp.make_amr_spec(tg, cfg, device="cpu")
+    assert spec == tcomp.make_amr_spec(
+        tg, dataclasses.replace(cfg, forest_batching="off"), device="cpu")
+    assert spec.num_levels == 3
+
+
 def test_build_coefs_matches(f64, mixed):
     for jspec, tspec, jco, _, a, *_ in (f64, mixed):
         tco = tcomp.build_coefs(tspec, T(a))

@@ -225,6 +225,73 @@ def test_cuda_multisweep_matches_plain_and_gsrb(case, nsweeps, dt):
             tfs.multisweep_relax(odd, odd, odd, **kw)
 
 
+# The whole-level march's tiles (fused_sweeps.march_tile): (shape, kinds,
+# lo, misaligned). 144 is the finest level's width: the 44 tile at 2 sweeps
+# in f32 (4 x 36 written), ragged for the others; 72 x 36 and 72 x 108 pick
+# 44, 96 picks 40; narrow and wrapped levels, periodic y/z; `misaligned`
+# hands the kernel arrays that start 4 bytes past a 16-byte boundary, and
+# nz = 10 is no multiple of a 16-byte chunk: both take the element copies.
+TILE_CASES = [
+    ((20, 144, 144), ((C, C),) * 3, (1, 0, 0), False),
+    ((40, 72, 36), ((D, C), (N, D), (C, N)), (3, 1, 8), False),
+    ((32, 72, 108), ((P, P),) * 3, (0, 1, 0), False),
+    ((6, 36, 72), ((P, P),) * 3, (1, 0, 0), False),
+    ((66, 36, 36), ((P, P), (D, N), (C, D)), (0, 0, 1), False),
+    ((24, 96, 96), ((C, D), (P, P), (N, C)), (0, 7, 0), False),
+    ((37, 18, 10), ((D, C), (C, D), (N, C)), (0, 3, 0), False),
+    ((2, 12, 8), ((P, P), (N, D), (P, P)), (1, 0, 0), False),
+    ((40, 72, 36), ((C, C),) * 3, (0, 0, 0), True),
+]
+
+
+def _misaligned(t):
+    """t's values in a tensor whose data starts one element past the start
+    of its storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("nsweeps", [2, 4])
+@pytest.mark.parametrize("case", TILE_CASES,
+                         ids=["ragged_144", "tile44_odd_lo",
+                              "tile44_periodic", "tile44_wrap_nx6",
+                              "tile44_two_segments", "tile40_96",
+                              "narrow_nz10", "wrap_nx2", "misaligned"])
+def test_cuda_march_tiles_match_plain(case, nsweeps, dt):
+    """The whole-level march with each tile it can pick (x periodic through
+    multisweep_relax, x open through wavefront_relax) against its plain
+    version: one launch per call, the tile march_geometry names."""
+    _need_cuda()
+    from mg_ic_code_tpu_torch.ops import wavefront as twf
+
+    shape, kinds, lo, misaligned = case
+    npdt, rtol = DTYPES[dt]
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
+    if misaligned:
+        f = {k: _misaligned(v) for k, v in f.items()}
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
+              dx=0.25, lo=lo)
+    x_open = kinds[0][0] != P
+    name = "wavefront_relax" if x_open else "multisweep_relax"
+    fn, plain = ((twf.wavefront_relax, twf.wavefront_relax_plain) if x_open
+                 else (tfs.multisweep_relax, tfs.multisweep_relax_plain))
+    tile, nseg, xseg = tfs.march_geometry_on(f["u"], nsweeps)
+    assert tile == tfs.march_tile(shape[1], shape[2], nsweeps,
+                                  f["u"].element_size())
+    assert nseg == -(-shape[0] // xseg)
+    kernel_counts.reset()
+    out = fn(f["u"], f["rhs"], f["a"], **kw)
+    assert kernel_counts.DEVICE_LAUNCHES[name] == 1
+    assert kernel_counts.PLAIN_CALLS[name] == 0
+    ref = plain(f["u"], f["rhs"], f["a"], **kw)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_cuda_sweep_entry_points_match_plain(dt):
