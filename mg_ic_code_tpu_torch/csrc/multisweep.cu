@@ -44,7 +44,8 @@
 //    layout a step needs is not a box, and a periodic y or z wraps a tile
 //    into pieces a box cannot land.
 //  * The tile is W x W columns, W - 2*NP written per side; a thread owns
-//    RPT z-pairs (2kk, 2kk+1), in rows jj and jj + W / RPT. The caller picks
+//    one z-pair (2kk, 2kk+1) of a tile row (a thread owning two pairs in
+//    two rows, half the threads, ran slower on the H100). The caller picks
 //    W from the forms built (MARCH_FORMS) and the x segment length from
 //    the blocks that fit at once (mgk_multisweep_capacity), both in Python
 //    (ops/fused_sweeps.march_geometry), so that 144 = 4 x 36 takes a tile
@@ -70,17 +71,18 @@
 
 namespace {
 
-// The forms built: (type, colour passes NP = 2*nsweeps, tile width W, rows
-// per thread RPT, planes fetched ahead D). Each must fit the 227 KB of
-// shared memory a block may use: R * (PLANE + 2*W*W) * sizeof(T) with
-// R = NP + D + 1. ops/fused_sweeps.MARCH_TILES lists the same widths per
-// (itemsize, nsweeps).
-#define MARCH_FORMS(X)    \
-  X(float, 4, 40, 1, 3)   \
-  X(float, 4, 44, 1, 2)   \
-  X(float, 8, 36, 1, 2)   \
-  X(double, 4, 32, 1, 2)  \
-  X(double, 8, 24, 1, 2)
+// The forms built: (type, colour passes NP = 2*nsweeps, tile width W,
+// planes fetched ahead D), each twice: with a and rhs in 16-byte chunks (V)
+// and without. Each must fit the 227 KB of shared memory a block may use:
+// R * (PLANE + 2*W*W) * sizeof(T) with R = NP + D + 1.
+// ops/fused_sweeps.MARCH_TILES lists the same widths per (itemsize,
+// nsweeps).
+#define MARCH_FORMS(X) \
+  X(float, 4, 40, 3)   \
+  X(float, 4, 44, 2)   \
+  X(float, 8, 36, 2)   \
+  X(double, 4, 32, 2)  \
+  X(double, 8, 24, 2)
 
 // Asynchronous copy of one element, global -> shared-memory address dst
 // (cp.async, sm_80+).
@@ -122,10 +124,20 @@ struct MarchPair {
   int par;         // row + first column + sum(lo), unwrapped indices
   int jb;          // row parity
   bool live[2], own[2];
+  bool own_both;   // both columns written, side by side in the level, the
+                   // first at an even offset (nz even): one 2-wide store
   T wya, wyb;        // weight of the y+1 / y-1 neighbour (0 across a face,
   T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
   T cs6[2];          // c0 feed-through of the y and z faces, minus 6
 };
+
+// p[0] = x, p[1] = y in one store (p aligned to twice the element)
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(double* p, double x, double y) {
+  *reinterpret_cast<double2*>(p) = make_double2(x, y);
+}
 
 // v[c] for a c known only at run time, without indexing a register array
 template <typename X>
@@ -133,7 +145,7 @@ __device__ __forceinline__ X pick(int c, const X (&v)[2]) {
   return c ? v[1] : v[0];
 }
 
-template <typename T, int RPT>
+template <typename T>
 struct MarchThread {
   const T* u; const T* rhs; const T* a; T* out;
   long long sx;             // plane stride of the level arrays
@@ -141,12 +153,12 @@ struct MarchThread {
   bool wrapx;               // x is periodic: planes are taken modulo nx
   T alpha, six_b_inv, b_inv;
   T c0xlo, c1xlo, c0xhi, c1xhi;  // x-face ghost rule
-  MarchPair<T> pr[RPT];
+  MarchPair<T> p;
 };
 
 // Plane q of the march as a plane of the level arrays.
-template <typename T, int RPT>
-__device__ __forceinline__ int xplane(const MarchThread<T, RPT>& w, int q) {
+template <typename T>
+__device__ __forceinline__ int xplane(const MarchThread<T>& w, int q) {
   if (w.wrapx) {
     q %= w.nx;
     if (q < 0) q += w.nx;
@@ -158,33 +170,30 @@ __device__ __forceinline__ int xplane(const MarchThread<T, RPT>& w, int q) {
 // live columns (one element a copy), and their a and rhs: one element a
 // copy into the pair's colour halves, or (V) 16-byte chunks of rows into the
 // plane's own layout, bypassing L1.
-template <typename T, int W, int RPT, bool V>
-__device__ __forceinline__ void fetch_plane(const MarchThread<T, RPT>& w,
+template <typename T, int W, bool V>
+__device__ __forceinline__ void fetch_plane(const MarchThread<T>& w,
                                             int xq, int s) {
   using L = WaveLayout<W, W>;
   constexpr int NPAIR = W * W / 2;
   constexpr unsigned B = sizeof(T);
   const long long o = (long long)xq * w.sx;
+  const MarchPair<T>& p = w.p;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const MarchPair<T>& p = w.pr[r];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (!p.live[c]) continue;
-      const long long g = o + p.coff[c];
-      const unsigned h = (unsigned)(c ^ p.jb);
-      copy_async(p.scell + (s * L::PLANE + h * L::HP) * B, w.u + g);
-      if (!V) {
-        copy_async(p.sco + (4 * s + h) * NPAIR * B, w.a + g);
-        copy_async(p.sco + (4 * s + 2 + h) * NPAIR * B, w.rhs + g);
-      }
+  for (int c = 0; c < 2; ++c) {
+    if (!p.live[c]) continue;
+    const long long g = o + p.coff[c];
+    const unsigned h = (unsigned)(c ^ p.jb);
+    copy_async(p.scell + (s * L::PLANE + h * L::HP) * B, w.u + g);
+    if (!V) {
+      copy_async(p.sco + (4 * s + h) * NPAIR * B, w.a + g);
+      copy_async(p.sco + (4 * s + 2 + h) * NPAIR * B, w.rhs + g);
     }
-    if (V) {
+  }
+  if (V) {
 #pragma unroll
-      for (int k = 0; k < (int)(B / 4); ++k)
-        if (p.chunk_src[k])
-          copy_chunk(p.chunk_dst[k] + s * 2 * W * W * B, p.chunk_src[k] + o);
-    }
+    for (int k = 0; k < (int)(B / 4); ++k)
+      if (p.chunk_src[k])
+        copy_chunk(p.chunk_dst[k] + s * 2 * W * W * B, p.chunk_src[k] + o);
   }
 }
 
@@ -192,16 +201,15 @@ __device__ __forceinline__ void fetch_plane(const MarchThread<T, RPT>& w,
 // in each pair's column whose cells have this step's colour; plane t + D is
 // fetched; both columns of plane t - NP + 1 are final and written.
 //
-// STEADY: every plane t + D .. t - NP lies inside (xs, xe), inside [0, nx)
-// and away from the x faces of the domain, so no pass needs a validity
-// test, an x-face rule or a wrapped index, and the ring slot of plane t is
-// the compile-time ST. Otherwise `st_rt` is t's slot and every pass is
+// STEADY: every plane t + D .. t - NP lies inside (xs, xe) and, x open,
+// away from the x faces of the domain; x periodic, t + D lies in [0, 2 nx).
+// So no pass needs a validity test or an x-face rule, the plane fetched
+// wraps at most once, and the ring slot of plane t is the compile-time ST. Otherwise `st_rt` is t's slot and every pass is
 // tested. A dead column (outside a non-periodic face) is updated like any
 // other from the zeros and neighbours it has: its values stay finite, are
 // read only with weight 0, and are never written out.
-template <typename T, int NP, int W, int RPT, int D, bool V, bool STEADY,
-          int ST>
-__device__ __forceinline__ void march_step(MarchThread<T, RPT>& w,
+template <typename T, int NP, int W, int D, bool V, bool STEADY, int ST>
+__device__ __forceinline__ void march_step(MarchThread<T>& w,
                                            const int t, const int st_rt) {
   using L = WaveLayout<W, W>;
   constexpr int R = NP + D + 1;
@@ -222,109 +230,105 @@ __device__ __forceinline__ void march_step(MarchThread<T, RPT>& w,
   // one), a and rhs of planes t .. t - NP + 1 were waited for by every
   // thread before the barrier of step t - 1. lam = 1 / (alpha*a +
   // 6*beta/dx^2).
-  T lam[RPT][NP], aa[RPT][NP], rv[RPT][NP], own_u[RPT][NP + 2];
+  const MarchPair<T>& p = w.p;
+  const int c = (t + p.par) & 1;  // the pair's column this step updates
+  const int h = c ^ p.jb;         // its colour half
+  T lam[NP], aa[NP], rv[NP], own_u[NP + 2];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const MarchPair<T>& p = w.pr[r];
-    const int c = (t + p.par) & 1;
-    const int h = c ^ p.jb;
-#pragma unroll
-    for (int ps = 0; ps < NP; ++ps) {
-      const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
-      aa[r][ps] = w.alpha * cp[0];
-      rv[r][ps] = cp[W * W];
-      lam[r][ps] = recip(aa[r][ps] + w.six_b_inv);
-    }
-    const T* rb = p.cell + h * HP;
-#pragma unroll
-    for (int i = 0; i < NP + 2; ++i) own_u[r][i] = rb[slot(1 - i) * PLANE];
+  for (int ps = 0; ps < NP; ++ps) {
+    const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
+    aa[ps] = w.alpha * cp[0];
+    rv[ps] = cp[W * W];
+    lam[ps] = recip(aa[ps] + w.six_b_inv);
   }
+  T* const rb = p.cell + h * HP;
+#pragma unroll
+  for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
   __syncthreads();
 
   // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
   // steps before this barrier were the last to read
   if (STEADY || t + D < w.xe)
-    fetch_plane<T, W, RPT, V>(w, STEADY ? t + D : xplane(w, t + D), slot(D));
+    fetch_plane<T, W, V>(
+        w, STEADY ? t + D - (t + D >= w.nx ? w.nx : 0) : xplane(w, t + D),
+        slot(D));
   copy_commit();
 
   const int qo = t - NP + 1;  // the plane whose last pass this step runs
   const bool write = qo >= w.x0 && qo < w.x1;
   T* const oplane = w.out + qo * w.sx;
+  const int dh = (1 - 2 * h) * HP;  // from this half to the other
+  const T* yp = rb + (dh + PZ);
+  const T* ym = rb + (dh - PZ);
+  const T* zp = rb + (dh + c);      // even column: same index, odd: +1
+  const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
+  const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
+  const T cs6 = pick(c, p.cs6);
+  // the in-plane neighbours of every pass, weighted
+  T nb[NP];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const MarchPair<T>& p = w.pr[r];
-    const int c = (t + p.par) & 1;
-    const int h = c ^ p.jb;
-    T* const rb = p.cell + h * HP;
-    const int dh = (1 - 2 * h) * HP;  // from this half to the other
-    const T* yp = rb + (dh + PZ);
-    const T* ym = rb + (dh - PZ);
-    const T* zp = rb + (dh + c);      // even column: same index, odd: +1
-    const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
-    const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
-    const T cs6 = pick(c, p.cs6);
-    // the in-plane neighbours of every pass, weighted
-    T nb[NP];
+  for (int ps = 0; ps < NP; ++ps) {
+    const int o = slot(-ps) * PLANE;
+    T s = p.wya * yp[o];
+    s = s + p.wyb * ym[o];
+    s = s + wza * zp[o];
+    s = s + wzb * zm[o];
+    nb[ps] = s;
+  }
+  T up = own_u[0], last = (T)0;
+  bool have_up = STEADY;
 #pragma unroll
-    for (int ps = 0; ps < NP; ++ps) {
-      const int o = slot(-ps) * PLANE;
-      T s = p.wya * yp[o];
-      s = s + p.wyb * ym[o];
-      s = s + wza * zp[o];
-      s = s + wzb * zm[o];
-      nb[ps] = s;
+  for (int ps = 0; ps < NP; ++ps) {
+    const int q = t - ps;
+    if (!valid(q)) continue;
+    const T uc = own_u[ps + 1];
+    T xn = (T)0, csx = (T)0;
+    if (STEADY) {
+      xn = up + own_u[ps + 2];
+    } else {
+      // beyond an open segment end the cell reads itself
+      const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
+      const T umv = q > w.xs ? own_u[ps + 2] : uc;
+      const bool lo = !w.wrapx && q == 0;
+      const bool hi = !w.wrapx && q == w.nx - 1;
+      const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
+      const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
+      xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
+      csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
     }
-    T up = own_u[r][0], last = (T)0;
-    bool have_up = STEADY;
-#pragma unroll
-    for (int ps = 0; ps < NP; ++ps) {
-      const int q = t - ps;
-      if (!valid(q)) continue;
-      const T uc = own_u[r][ps + 1];
-      T xn = (T)0, csx = (T)0;
-      if (STEADY) {
-        xn = up + own_u[r][ps + 2];
-      } else {
-        // beyond an open segment end the cell reads itself
-        const T upv = have_up ? up : (q + 1 < w.xe ? own_u[r][ps] : uc);
-        const T umv = q > w.xs ? own_u[r][ps + 2] : uc;
-        const bool lo = !w.wrapx && q == 0;
-        const bool hi = !w.wrapx && q == w.nx - 1;
-        const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
-        const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
-        xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
-        csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
-      }
-      // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
-      const T k6 = STEADY ? cs6 : cs6 + csx;
-      const T s1 = k6 * uc + (nb[ps] + xn);
-      const T s2 = w.b_inv * s1 + rv[r][ps];
-      const T un = uc + lam[r][ps] * (s2 - aa[r][ps] * uc);
-      rb[slot(-ps) * PLANE] = un;
-      up = un;
-      have_up = true;
-      last = un;
-    }
-    // plane qo: the active column's last pass was the step's last update,
-    // the other column has been final since the step before
-    if (write) {
+    // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
+    const T k6 = STEADY ? cs6 : cs6 + csx;
+    const T s1 = k6 * uc + (nb[ps] + xn);
+    const T s2 = w.b_inv * s1 + rv[ps];
+    const T un = uc + lam[ps] * (s2 - aa[ps] * uc);
+    rb[slot(-ps) * PLANE] = un;
+    up = un;
+    have_up = true;
+    last = un;
+  }
+  // plane qo: the active column's last pass was the step's last update,
+  // the other column has been final since the step before
+  if (write) {
+    const T other = rb[slot(1 - NP) * PLANE + dh];
+    if (p.own_both) {
+      store_pair(oplane + p.coff[0], c ? other : last, c ? last : other);
+    } else {
       if (pick(c, p.own)) oplane[pick(c, p.coff)] = last;
-      if (pick(c ^ 1, p.own))
-        oplane[pick(c ^ 1, p.coff)] = rb[slot(1 - NP) * PLANE + dh];
+      if (pick(c ^ 1, p.own)) oplane[pick(c ^ 1, p.coff)] = other;
     }
   }
 }
 
 // R steady steps from slot ST on, each with its slot a constant
-template <typename T, int NP, int W, int RPT, int D, bool V, int ST>
-__device__ __forceinline__ void steady_steps(MarchThread<T, RPT>& w, int t) {
-  march_step<T, NP, W, RPT, D, V, true, ST>(w, t + ST, ST);
+template <typename T, int NP, int W, int D, bool V, int ST>
+__device__ __forceinline__ void steady_steps(MarchThread<T>& w, int t) {
+  march_step<T, NP, W, D, V, true, ST>(w, t + ST, ST);
   if constexpr (ST + 1 < NP + D + 1)
-    steady_steps<T, NP, W, RPT, D, V, ST + 1>(w, t);
+    steady_steps<T, NP, W, D, V, ST + 1>(w, t);
 }
 
-template <typename T, int NP, int W, int RPT, int D, bool V>
-__global__ void __launch_bounds__(W * W / (2 * RPT), 1)
+template <typename T, int NP, int W, int D, bool V>
+__global__ void __launch_bounds__(W * W / 2, 1)
 march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
              const T* __restrict__ a, T* __restrict__ out,
              const LevelParams<T> p, const int base, const int xseg) {
@@ -332,7 +336,7 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   constexpr int R = NP + D + 1;  // planes in the rings
   constexpr int HZ = L::HZ;
   constexpr int NPAIR = W * HZ;
-  constexpr int NT = NPAIR / RPT;
+  constexpr int NT = NPAIR;  // threads: one z-pair each
   static_assert(D >= 2, "plane t + 1 must be fetched before step t");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -343,7 +347,7 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
     ring[i] = (T)0;
   __syncthreads();
 
-  MarchThread<T, RPT> w;
+  MarchThread<T> w;
   w.u = u; w.rhs = rhs; w.a = a; w.out = out;
   w.sx = (long long)p.ny * p.nz;
   w.nx = p.nx;
@@ -359,85 +363,86 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
 
   const bool py = p.periodic[1] != 0, pz = p.periodic[2] != 0;
   const T one = (T)1;
+  MarchPair<T>& q = w.p;
+  const int pidx = (int)threadIdx.x;
+  const int kk = pidx % HZ, jj = pidx / HZ, lk = 2 * kk;
+  // unwrapped global indices of the pair's row and first column
+  const int uj = (int)blockIdx.y * (W - 2 * NP) - NP + jj;
+  const int uk = (int)blockIdx.x * (W - 2 * NP) - NP + lk;
+  q.cell = ring + (jj + 1) * L::PZ + kk + 1;
+  // the a, rhs ring: per slot 2*W*W elements, a then rhs; without V the
+  // a (rhs) of column c at co[h*NPAIR] (co[W*W + h*NPAIR]), h = c ^ jb,
+  // co = coef + pidx: the cells of a step at consecutive addresses; with
+  // V each plane in its own layout (row jj, column lk + c at co[c])
+  q.co = V ? coef + jj * W + lk : coef + pidx;
+  q.scell = static_cast<unsigned>(__cvta_generic_to_shared(q.cell));
+  q.sco = static_cast<unsigned>(__cvta_generic_to_shared(q.co));
+  q.jb = jj & 1;
+  q.par = uj + uk + base;
+  int gj = uj;
+  bool live_j = uj >= 0 && uj < p.ny;
+  if (py) {
+    gj = uj % p.ny;
+    if (gj < 0) gj += p.ny;
+    live_j = true;
+  }
+  const bool own_j = jj >= NP && jj < W - NP && uj < p.ny;
+  if (V) {
+    // chunk i of a slot (CH elements of one row of a or rhs) is fetched
+    // by pair i / CPP
+    constexpr int CH = 16 / sizeof(T), CPP = sizeof(T) / 4;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    MarchPair<T>& q = w.pr[r];
-    const int pidx = (int)threadIdx.x + r * NT;
-    const int kk = pidx % HZ, jj = pidx / HZ, lk = 2 * kk;
-    // unwrapped global indices of the pair's row and first column
-    const int uj = (int)blockIdx.y * (W - 2 * NP) - NP + jj;
-    const int uk = (int)blockIdx.x * (W - 2 * NP) - NP + lk;
-    q.cell = ring + (jj + 1) * L::PZ + kk + 1;
-    // the a, rhs ring: per slot 2*W*W elements, a then rhs; without V the
-    // a (rhs) of column c at co[h*NPAIR] (co[W*W + h*NPAIR]), h = c ^ jb,
-    // co = coef + pidx: the cells of a step at consecutive addresses; with
-    // V each plane in its own layout (row jj, column lk + c at co[c])
-    q.co = V ? coef + jj * W + lk : coef + pidx;
-    q.scell = static_cast<unsigned>(__cvta_generic_to_shared(q.cell));
-    q.sco = static_cast<unsigned>(__cvta_generic_to_shared(q.co));
-    q.jb = jj & 1;
-    q.par = uj + uk + base;
-    int gj = uj;
-    bool live_j = uj >= 0 && uj < p.ny;
-    if (py) {
-      gj = uj % p.ny;
-      if (gj < 0) gj += p.ny;
-      live_j = true;
-    }
-    const bool own_j = jj >= NP && jj < W - NP && uj < p.ny;
-    if (V) {
-      // chunk i of a slot (CH elements of one row of a or rhs) is fetched
-      // by pair i / CPP
-      constexpr int CH = 16 / sizeof(T), CPP = sizeof(T) / 4;
-#pragma unroll
-      for (int k = 0; k < CPP; ++k) {
-        const int i = pidx * CPP + k;
-        const int arr = i / (W * W / CH), rem = i % (W * W / CH);
-        const int row = rem / (W / CH), col = (rem % (W / CH)) * CH;
-        const int cuj = (int)blockIdx.y * (W - 2 * NP) - NP + row;
-        const int cuk = (int)blockIdx.x * (W - 2 * NP) - NP + col;
-        int cj = cuj % p.ny, ck = cuk % p.nz;
-        if (cj < 0) cj += p.ny;
-        if (ck < 0) ck += p.nz;
-        const bool in = (py || (cuj >= 0 && cuj < p.ny)) &&
-                        (pz || (cuk >= 0 && cuk < p.nz));
-        q.chunk_src[k] = in ? (arr ? rhs : a) + (cj * p.nz + ck) : nullptr;
-        q.chunk_dst[k] = static_cast<unsigned>(__cvta_generic_to_shared(
-            coef + arr * W * W + row * W + col));
-      }
-    }
-    const bool ylo = !py && gj == 0, yhi = !py && gj == p.ny - 1;
-    q.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
-    q.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
-    const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int ukc = uk + c;
-      int gk = ukc;
-      bool live_k = ukc >= 0 && ukc < p.nz;
-      if (pz) {
-        gk = ukc % p.nz;
-        if (gk < 0) gk += p.nz;
-        live_k = true;
-      }
-      q.live[c] = live_j && live_k;
-      q.own[c] = own_j && q.live[c] && lk + c >= NP && lk + c < W - NP &&
-                 ukc < p.nz;
-      q.coff[c] = gj * p.nz + gk;
-      const bool zlo = !pz && gk == 0, zhi = !pz && gk == p.nz - 1;
-      q.wza[c] = zhi ? (T)0 : (zlo ? one + p.c1[2][0] : one);
-      q.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
-      q.cs6[c] = (csy + ((zlo ? p.c0[2][0] : (T)0) +
-                         (zhi ? p.c0[2][1] : (T)0))) - (T)6;
+    for (int k = 0; k < CPP; ++k) {
+      const int i = pidx * CPP + k;
+      const int arr = i / (W * W / CH), rem = i % (W * W / CH);
+      const int row = rem / (W / CH), col = (rem % (W / CH)) * CH;
+      const int cuj = (int)blockIdx.y * (W - 2 * NP) - NP + row;
+      const int cuk = (int)blockIdx.x * (W - 2 * NP) - NP + col;
+      int cj = cuj % p.ny, ck = cuk % p.nz;
+      if (cj < 0) cj += p.ny;
+      if (ck < 0) ck += p.nz;
+      const bool in = (py || (cuj >= 0 && cuj < p.ny)) &&
+                      (pz || (cuk >= 0 && cuk < p.nz));
+      q.chunk_src[k] = in ? (arr ? rhs : a) + (cj * p.nz + ck) : nullptr;
+      q.chunk_dst[k] = static_cast<unsigned>(__cvta_generic_to_shared(
+          coef + arr * W * W + row * W + col));
     }
   }
+  const bool ylo = !py && gj == 0, yhi = !py && gj == p.ny - 1;
+  q.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
+  q.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
+  const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int ukc = uk + c;
+    int gk = ukc;
+    bool live_k = ukc >= 0 && ukc < p.nz;
+    if (pz) {
+      gk = ukc % p.nz;
+      if (gk < 0) gk += p.nz;
+      live_k = true;
+    }
+    q.live[c] = live_j && live_k;
+    q.own[c] = own_j && q.live[c] && lk + c >= NP && lk + c < W - NP &&
+               ukc < p.nz;
+    q.coff[c] = gj * p.nz + gk;
+    const bool zlo = !pz && gk == 0, zhi = !pz && gk == p.nz - 1;
+    q.wza[c] = zhi ? (T)0 : (zlo ? one + p.c1[2][0] : one);
+    q.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
+    q.cs6[c] = (csy + ((zlo ? p.c0[2][0] : (T)0) +
+                       (zhi ? p.c0[2][1] : (T)0))) - (T)6;
+  }
+
+  q.own_both = q.own[0] && q.own[1] && p.nz % 2 == 0 &&
+               q.coff[1] == q.coff[0] + 1;
 
   // steps xs .. xe+NP-2; those in [lo_s, hi_s) are steady: t - NP >= xs,
-  // t + D < xe, no plane of the staircase at an x face of the domain, and
-  // (periodic x) every plane t - NP .. t + D inside [0, nx). Plane q sits in
-  // slot (q - lo_s) mod R, so that the steady steps run in blocks of R from
-  // slot 0.
-  const int lo_s = max(w.xs, 0) + NP, hi_s = min(w.xe, p.nx) - D;
+  // t + D < xe, and no plane of the staircase at an x face of the domain
+  // (x open) or 0 <= t + D < 2 nx (x periodic: the fetch wraps once at
+  // most). Plane q sits in slot (q - lo_s) mod R, so that the steady steps
+  // run in blocks of R from slot 0.
+  const int lo_s = w.wrapx ? max(w.xs + NP, -D) : max(w.xs, 0) + NP;
+  const int hi_s = w.wrapx ? min(w.xe, 2 * p.nx) - D : min(w.xe, p.nx) - D;
   int st = (w.xs - lo_s) % R;
   if (st < 0) st += R;
   // planes xs .. xs + D - 1 are fetched before the first step, one commit
@@ -447,7 +452,7 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
     if (w.xs + d < w.xe) {
       int s = st + d;
       if (s >= R) s -= R;
-      fetch_plane<T, W, RPT, V>(w, xplane(w, w.xs + d), s);
+      fetch_plane<T, W, V>(w, xplane(w, w.xs + d), s);
     }
     copy_commit();
   }
@@ -462,15 +467,15 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, RPT, D, V, false, 0>(w, t, st);
+    march_step<T, NP, W, D, V, false, 0>(w, t, st);
   for (; t + R <= hi_s; t += R)  // st == 0 here
-    steady_steps<T, NP, W, RPT, D, V, 0>(w, t);
+    steady_steps<T, NP, W, D, V, 0>(w, t);
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, RPT, D, V, false, 0>(w, t, st);
+    march_step<T, NP, W, D, V, false, 0>(w, t, st);
   copy_wait<0>();
 }
 
-template <typename T, int NP, int W, int RPT, int D, bool V>
+template <typename T, int NP, int W, int D, bool V>
 constexpr size_t march_smem() {
   return (size_t)(NP + D + 1) * (WaveLayout<W, W>::PLANE + 2 * W * W) *
          sizeof(T);
@@ -478,34 +483,32 @@ constexpr size_t march_smem() {
 
 // blocks of this form the current device runs at once; sets the kernel's
 // shared-memory limit on first use per device
-template <typename T, int NP, int W, int RPT, int D, bool V>
+template <typename T, int NP, int W, int D, bool V>
 cudaError_t form_capacity(int* capacity) {
-  static_assert(march_smem<T, NP, W, RPT, D, V>() <= 232448,
+  static_assert(march_smem<T, NP, W, D, V>() <= 232448,
                 "form does not fit the shared memory of a block");
   static int cache[kMaxDevices] = {};
-  return march_capacity((const void*)march_kernel<T, NP, W, RPT, D, V>,
-                        W * W / (2 * RPT), march_smem<T, NP, W, RPT, D, V>(),
+  return march_capacity((const void*)march_kernel<T, NP, W, D, V>,
+                        W * W / 2, march_smem<T, NP, W, D, V>(),
                         cache, capacity);
 }
 
-template <typename T, int NP, int W, int RPT, int D, bool V>
+template <typename T, int NP, int W, int D, bool V>
 cudaError_t launch_form(const T* u, const T* rhs, const T* a, T* out,
                         const LevelParams<T>& p, int base, int xseg,
                         cudaStream_t stream) {
   constexpr int TI = W - 2 * NP;  // written per side
-  static_assert(TI > 0 && W % 2 == 0 && (W * W / 2) % RPT == 0 &&
-                    (W / 2) % RPT == 0,
-                "tile");
+  static_assert(TI > 0 && W % 2 == 0, "tile");
   int capacity = 0;
-  cudaError_t err = form_capacity<T, NP, W, RPT, D, V>(&capacity);
+  cudaError_t err = form_capacity<T, NP, W, D, V>(&capacity);
   if (err != cudaSuccess) return err;
   if (xseg < 1) return cudaErrorInvalidValue;
   const int nty = (p.ny + TI - 1) / TI, ntz = (p.nz + TI - 1) / TI;
   const int nseg = (p.nx + xseg - 1) / xseg;
   if (nty > 65535 || nseg > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)ntz, (unsigned)nty, (unsigned)nseg);
-  march_kernel<T, NP, W, RPT, D, V>
-      <<<grid, W * W / (2 * RPT), march_smem<T, NP, W, RPT, D, V>(), stream>>>(
+  march_kernel<T, NP, W, D, V>
+      <<<grid, W * W / 2, march_smem<T, NP, W, D, V>(), stream>>>(
           u, rhs, a, out, p, base, xseg);
   return cudaGetLastError();
 }
@@ -524,12 +527,12 @@ cudaError_t launch_multisweep(const T* u, const T* rhs, const T* a, T* out,
   const bool vec = p.nz % (16 / sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(rhs) % 16 == 0;
-#define MARCH_LAUNCH(TT, NPP, WW, RR, DD)                                 \
+#define MARCH_LAUNCH(TT, NPP, WW, DD)                                     \
   if constexpr (std::is_same<T, TT>::value) {                             \
     if (np == NPP && tile == WW)                                          \
-      return vec ? launch_form<TT, NPP, WW, RR, DD, true>(                \
+      return vec ? launch_form<TT, NPP, WW, DD, true>(                    \
                        u, rhs, a, out, p, base, xseg, stream)             \
-                 : launch_form<TT, NPP, WW, RR, DD, false>(               \
+                 : launch_form<TT, NPP, WW, DD, false>(                   \
                        u, rhs, a, out, p, base, xseg, stream);            \
   }
   MARCH_FORMS(MARCH_LAUNCH)
@@ -566,10 +569,10 @@ extern "C" int mgk_multisweep_relax(const void* u, const void* rhs,
 extern "C" int mgk_multisweep_capacity(int is_double, int nsweeps, int tile,
                                        int* capacity) {
   const int np = 2 * nsweeps;
-#define MARCH_CAPACITY(TT, NPP, WW, RR, DD)                           \
+#define MARCH_CAPACITY(TT, NPP, WW, DD)                               \
   if (is_double == (int)std::is_same<TT, double>::value && np == NPP && \
       tile == WW)                                                     \
-    return (int)form_capacity<TT, NPP, WW, RR, DD, false>(capacity);
+    return (int)form_capacity<TT, NPP, WW, DD, false>(capacity);
   MARCH_FORMS(MARCH_CAPACITY)
 #undef MARCH_CAPACITY
   return (int)cudaErrorInvalidValue;

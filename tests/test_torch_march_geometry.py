@@ -29,12 +29,12 @@ FORMS = [(isz, ns) for isz, ns in tfs.MARCH_TILES]
 
 
 def march_forms():
-    """(type, NP, W, RPT, D) of every line of the source's MARCH_FORMS."""
+    """(type, NP, W, D) of every line of the source's MARCH_FORMS."""
     with open(os.path.join(CSRC, "multisweep.cu")) as f:
         src = f.read()
     block = re.search(r"#define MARCH_FORMS\(X\)((?:.*\\\n)*.*\n)", src)
-    return [(t, int(a), int(b), int(c), int(d)) for t, a, b, c, d in
-            re.findall(r"X\((float|double), (\d+), (\d+), (\d+), (\d+)\)",
+    return [(t, int(a), int(b), int(d)) for t, a, b, d in
+            re.findall(r"X\((float|double), (\d+), (\d+), (\d+)\)",
                        block.group(1))]
 
 
@@ -63,7 +63,7 @@ def wave_plane(W):
 
 def test_python_tiles_are_the_forms_the_source_builds():
     built = {}
-    for t, np_, w, _, _ in march_forms():
+    for t, np_, w, _ in march_forms():
         built.setdefault((4 if t == "float" else 8, np_ // 2), []).append(w)
     assert {k: tuple(v) for k, v in built.items()} == tfs.MARCH_TILES
 
@@ -75,7 +75,7 @@ def test_every_form_fits_a_block_and_its_chunks(form):
     under the block's limit; rows that split into 16-byte chunks whose
     starts in the level are chunk-aligned (tile starts at a multiple of
     W - 2*NP, less NP)."""
-    t, np_, w, rpt, d = form
+    t, np_, w, d = form
     isz = 4 if t == "float" else 8
     ring = (np_ + d + 1) * (wave_plane(w) + 2 * w * w) * isz
     assert ring <= SMEM_PER_BLOCK
@@ -83,8 +83,7 @@ def test_every_form_fits_a_block_and_its_chunks(form):
     assert 2 * ring > 228 * 1024
     chunk = 16 // isz
     assert w % chunk == 0 and (w - 2 * np_) % chunk == 0 and np_ % chunk == 0
-    threads = w * w // (2 * rpt)
-    assert threads <= 1024 and (w // 2) % rpt == 0
+    assert w * w // 2 <= 1024  # one thread per z-pair
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
