@@ -335,15 +335,14 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   using L = WaveLayout<W, W>;
   constexpr int R = NP + D + 1;  // planes in the rings
   constexpr int HZ = L::HZ;
-  constexpr int NPAIR = W * HZ;
-  constexpr int NT = NPAIR;  // threads: one z-pair each
+  constexpr int NPAIR = W * HZ;  // z-pairs of the tile: one per thread
   static_assert(D >= 2, "plane t + 1 must be fetched before step t");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   T* coef = ring + R * L::PLANE;
   // zero the rings: the padding and the dead columns start at zero, and no
   // slot ever holds anything but finite values
-  for (int i = threadIdx.x; i < R * (L::PLANE + 4 * NPAIR); i += NT)
+  for (int i = threadIdx.x; i < R * (L::PLANE + 4 * NPAIR); i += NPAIR)
     ring[i] = (T)0;
   __syncthreads();
 

@@ -402,35 +402,26 @@ def march_segments(nx: int, tiles: int, capacity: int, nsweeps: int):
     return best[1], best[2]
 
 
-def march_geometry(shape, nsweeps: int, itemsize: int, capacity):
+def march_geometry(shape, nsweeps: int, itemsize: int, capacity: int):
     """(tile, nseg, xseg) of one whole-level march launch: the tile width
-    (`march_tile`) and the x segments (`march_segments`) for `capacity`, the
-    blocks the card runs at once: an int, or a function of the tile width
-    (`march_capacity`)."""
+    (`march_tile`) and the x segments (`march_segments`) for `capacity`
+    blocks running at once on the card (`march_capacity`)."""
     nx, ny, nz = (int(n) for n in shape)
     tile = march_tile(ny, nz, nsweeps, itemsize)
     inner = tile - 4 * nsweeps
     tiles = -(-ny // inner) * -(-nz // inner)
-    cap = capacity(tile) if callable(capacity) else int(capacity)
-    return (tile,) + march_segments(nx, tiles, cap, nsweeps)
-
-
-_CAPACITY: dict = {}
+    return (tile,) + march_segments(nx, tiles, int(capacity), nsweeps)
 
 
 def march_capacity(device, itemsize: int, nsweeps: int, tile: int) -> int:
     """Blocks of the march form (itemsize, nsweeps, tile) that the CUDA
-    device runs at once (mgk_multisweep_capacity), kept per device."""
-    device = torch.device(device)
-    key = (device.index, itemsize, nsweeps, tile)
-    if key not in _CAPACITY:
-        cap = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = cuda_ext.lib().mgk_multisweep_capacity(
-                int(itemsize == 8), int(nsweeps), int(tile), ctypes.byref(cap))
-        cuda_ext.check(err, "multisweep_relax capacity")
-        _CAPACITY[key] = cap.value
-    return _CAPACITY[key]
+    device runs at once (mgk_multisweep_capacity)."""
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = cuda_ext.lib().mgk_multisweep_capacity(
+            int(itemsize == 8), int(nsweeps), int(tile), ctypes.byref(cap))
+    cuda_ext.check(err, "multisweep_relax capacity")
+    return cap.value
 
 
 def march_geometry_on(u, nsweeps: int):
@@ -444,9 +435,9 @@ def march_geometry_on(u, nsweeps: int):
 @functools.lru_cache(maxsize=None)
 def _geometry_on(shape, nsweeps: int, itemsize: int, index: int):
     device = torch.device("cuda", index)
-    return march_geometry(
-        shape, nsweeps, itemsize,
-        lambda w: march_capacity(device, itemsize, nsweeps, w))
+    tile = march_tile(shape[1], shape[2], nsweeps, itemsize)
+    return march_geometry(shape, nsweeps, itemsize,
+                          march_capacity(device, itemsize, nsweeps, tile))
 
 
 def _odd_periodic_axis(shape, kinds: FaceKinds) -> bool:

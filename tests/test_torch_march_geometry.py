@@ -142,9 +142,6 @@ def test_capacity_drives_the_segments_as_the_header_does(shape, capacity):
         want = header_march_segments(shape[0], tiles, capacity, 2 * ns)
         assert tfs.march_segments(shape[0], tiles, capacity, ns) == want
         assert tfs.march_geometry(shape, ns, isz, capacity)[1:] == want
-        # a capacity given as a function of the tile width
-        assert tfs.march_geometry(shape, ns, isz,
-                                  lambda w: capacity)[1:] == want
 
 
 def test_more_capacity_never_means_fewer_segments_on_a_long_level():
