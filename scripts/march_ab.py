@@ -4,7 +4,7 @@ card.
 
     git archive <parent> | tar -x -C build/ab_parent   # where git is
     python3 scripts/march_ab.py --parent build/ab_parent \
-        --out chiprun_out/march_ab.json [--variant NAME=DIR ...]
+        --out build/march_ab.json [--variant NAME=DIR ...]
 
 Tree A is the one unpacked under --parent, tree B the one this script lies
 in, and each --variant another tree, named. Each run is `chip_smoke.py
@@ -65,7 +65,7 @@ def time_ms(fn, reps=12, warmup=3):
     times.sort()
     return times[len(times) // 2]
 """
-DRIVER = (
+RUNNER = (
     "import os, sys\n"
     "sys.path.insert(0, os.getcwd())\n"
     f"sys.argv = ['chip_smoke.py', '--phases', '{PHASES}']\n"
@@ -106,7 +106,7 @@ def build_seconds(stdout: str):
 def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", DRIVER], cwd=root,
+        [sys.executable, "-c", RUNNER], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=timeout)
     with open(log_path, "w") as f:
