@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --phases env,build,kernels
-    python3 chip_smoke.py --phases env,build,kernels --ab march_ab.json
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -26,8 +25,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
            around a batch of calls back to back, over the batch. For each
            timed whole-level march case also its launch (tile width, x
            segments, steps of the longest block, rounds), the time of one
-           step and the fraction of the byte bound; with --ab (a file of
-           scripts/march_ab.py) the parent's median beside each march time
+           step and the fraction of the byte bound (scripts/march_ab.py
+           times the march of two trees against each other)
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
            the card; the launch counters show the path went through the
@@ -226,8 +225,8 @@ def time_ms(fn, reps: int = 12, warmup: int = 3) -> float:
     """Median over `reps` of one call's device time: CUDA events around a
     batch of calls back to back (as many as fill ~2 ms, at most 20), over
     the batch, so that the host's time between calls hides behind the
-    device's. (scripts/march_ab.py times both trees of an A/B with a copy
-    of this function.)"""
+    device's. (scripts/march_ab.py puts this function into every tree it
+    times.)"""
     for _ in range(warmup):
         fn()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -304,7 +303,7 @@ def phase_build() -> dict:
             r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
             r"(\d+) bytes spill stores", log)}
     # every march instantiation: the whole-level forms of csrc/multisweep.cu
-    # (march_kernel<T, NP, W, RPT, D>) and the shard forms of
+    # (march_kernel<T, NP, W, D, V>) and the shard forms of
     # csrc/multisweep_halo.cu, by mangled name
     march = {name: {"registers": n, "spill_stores": spills.get(name)}
              for name, n in regs.items() if "march_kernel" in name}
@@ -565,16 +564,6 @@ def march_steps(u, ms: float, bound: float, nsweeps: int = 2) -> dict:
             "fraction_of_bound": bound / ms}
 
 
-# medians of an A/B file (scripts/march_ab.py, --ab): "<kernel> <case>" ->
-# the parent's (tree A's) median ms
-AB_PARENT: dict = {}
-
-
-def parent_ms(name: str, cid: str) -> dict:
-    key = f"{name} {cid}"
-    return {"parent_ms": AB_PARENT[key]} if key in AB_PARENT else {}
-
-
 def check_one_launch_case(name: str, case, dtype) -> dict:
     """wavefront_relax or multisweep_relax against its plain version AND
     against the gsrb_relax kernel (the same function, one launch per colour
@@ -618,7 +607,7 @@ def check_one_launch_case(name: str, case, dtype) -> dict:
         ms = time_ms(lambda: run(2))
         rec[name].update(
             nsweeps=2,
-            ms=ms, **march_steps(f["u"], ms, b), **parent_ms(name, cid),
+            ms=ms, **march_steps(f["u"], ms, b),
             plain_ms=time_ms(lambda: plain(
                 f["u"], f["rhs"], f["a"], nsweeps=2, **kw), reps=6,
                 warmup=1),
@@ -893,7 +882,7 @@ def check_shard_case(case, dtype) -> dict:
         b, by = bound_ms(isz * (3 * nin + ncells), 2 * 32.0 * ncells)
         rec[name].update(
             nsweeps=2,
-            ms=time_ms(lambda: call(ops, 2)), **parent_ms(name, cid),
+            ms=time_ms(lambda: call(ops, 2)),
             plain_ms=time_ms(lambda: call(ops, 2, kernel=False), reps=6,
                              warmup=1),
             bound_ms=b, bound_by=by,
@@ -2056,14 +2045,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + ON_REQUEST))
-    ap.add_argument("--ab", default=None,
-                    help="an A/B file of scripts/march_ab.py: the kernels "
-                    "phase prints tree A's median beside each march time")
     args = ap.parse_args()
-    if args.ab:
-        with open(args.ab) as f:
-            AB_PARENT.update({k: r["A_median"]
-                              for k, r in json.load(f)["cases"].items()})
     wanted = [p for p in args.phases.split(",") if p]
     unknown = [p for p in wanted if p not in PHASES + ON_REQUEST]
     if unknown:

@@ -11,13 +11,12 @@ in, and each --variant another tree, named. Each run is `chip_smoke.py
 --phases env,build,kernels` from the root of its tree, one after the other
 on the same card, in the order given by --order (default: A, B, the
 variants, the same backwards: A B B A without variants), with the same
-timer in every tree: this script's `time_ms` (CUDA events around a batch of
-calls back to back, over the batch; the one chip_smoke.py itself has from
-this tree on) replaces the tree's own. The f32 times of every timed march
-case (the whole-level kernel under `wavefront_relax` and
-`multisweep_relax`, the shard kernels under `multisweep_relax_halo` and
-`multisweep_relax_tiled_pre`; 2 sweeps per launch) are read from each run's
-kernels line. The JSON written to --out holds every run's times and, per
+timer in every tree: this tree's `chip_smoke.time_ms` (CUDA events around
+a batch of calls back to back, over the batch) replaces the tree's own. The
+f32 times of every timed march case (the whole-level kernel under
+`wavefront_relax` and `multisweep_relax`, the shard kernels under
+`multisweep_relax_halo` and `multisweep_relax_tiled_pre`; 2 sweeps per
+launch) are read from each run's kernels line. The JSON written to --out holds every run's times and, per
 case, each tree's runs, median and spread (largest over smallest of its
 runs, minus one) and each tree's speed-up over A (A's median over its own).
 Each run's whole output goes beside it (<out>.<i><tree>.log). Exits non-zero
@@ -27,6 +26,7 @@ when a run fails.
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import statistics
@@ -39,40 +39,30 @@ MARCH = ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
          "multisweep_relax_tiled_pre")
 PHASES = "env,build,kernels"
 
-# Runs chip_smoke.py's main() in the tree whose root is the working
-# directory, with TIMER in place of its time_ms.
-TIMER = """
-def time_ms(fn, reps=12, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0.record()
-    fn()
-    t1.record()
-    torch.cuda.synchronize()
-    batch = max(1, min(20, int(2.0 / max(t0.elapsed_time(t1), 1e-3))))
-    times = []
-    for _ in range(reps):
-        t0.record()
-        for _ in range(batch):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / batch)
-    times.sort()
-    return times[len(times) // 2]
-"""
-RUNNER = (
-    "import os, sys\n"
-    "sys.path.insert(0, os.getcwd())\n"
-    f"sys.argv = ['chip_smoke.py', '--phases', '{PHASES}']\n"
-    "import chip_smoke\n"
-    + TIMER +
-    "chip_smoke.time_ms = time_ms\n"
-    "sys.exit(chip_smoke.main())\n")
+
+def timer_source() -> str:
+    """The source of this tree's `chip_smoke.time_ms`, which every run
+    uses in place of its own tree's (a parent may time otherwise)."""
+    path = os.path.join(ROOT, "chip_smoke.py")
+    with open(path) as f:
+        src = f.read()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.FunctionDef) and node.name == "time_ms":
+            return ast.get_source_segment(src, node)
+    raise RuntimeError(f"{path}: no time_ms")
+
+
+def runner() -> str:
+    """Runs chip_smoke.py's main() in the tree whose root is the working
+    directory, with this tree's time_ms in place of its own."""
+    return ("import os, sys\n"
+            "sys.path.insert(0, os.getcwd())\n"
+            f"sys.argv = ['chip_smoke.py', '--phases', '{PHASES}']\n"
+            "import chip_smoke\n"
+            "import torch\n"
+            + timer_source() + "\n"
+            "chip_smoke.time_ms = time_ms\n"
+            "sys.exit(chip_smoke.main())\n")
 
 
 def kernels_record(stdout: str) -> dict:
@@ -106,7 +96,7 @@ def build_seconds(stdout: str):
 def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", RUNNER], cwd=root,
+        [sys.executable, "-c", runner()], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=timeout)
     with open(log_path, "w") as f:
