@@ -26,11 +26,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
            timed whole-level march case also its launch (tile width, x
            segments, steps of the longest block, rounds), the time of one
            step and the fraction of the byte bound (scripts/march_ab.py
-           times the march of two trees against each other)
+           times the march and the towers of two trees against each
+           other). Each tower call must be one kernel launch that leaves
+           its inputs as they were; for each timed tower case also its
+           launch (grid blocks, the first depth of the one-block tail, its
+           shared memory, grid barriers per call), one grid barrier's time
+           (a probe of 64 barriers against none), the wrapper's host time
+           per call, and the device's own time per call (the batch enqueued
+           behind a wait, where the host time would otherwise show)
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
            the card; the launch counters show the path went through the
-           four kernels small levels take and through no plain version;
+           four kernels small levels take, each tower call one launch, and
+           through no plain version;
            the same solve with the staged smoother (no kernels) must agree
   lock3    max_level = 2 against the recorded first-step norm and plateau
   scale7   max_level = 6 (7 levels, 28.5M refined cells), 3 Picard steps,
@@ -249,6 +257,46 @@ def time_ms(fn, reps: int = 12, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 12, batch: int = 20) -> float:
+    """time_ms's measure with the device held busy (torch.cuda._sleep) while
+    the host enqueues the batch, so that the time per call is the device's
+    own even where the wrapper's host time is longer."""
+    fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10_000_000)  # ~5 ms: longer than the enqueueing
+        t0.record()
+        for _ in range(batch):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / batch)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def host_us(fn, batch: int = 8, reps: int = 9) -> float:
+    """Median over `reps` of the host's time per call, in microseconds,
+    across `batch` calls back to back from an idle device: too few launches
+    to fill the launch queue, so the host never waits on the device and
+    what is timed is the wrapper's own work (checks, allocation, ctypes,
+    the launch)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        times.append((time.perf_counter() - t0) / batch * 1e6)
+    torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
 # ------------------------------------------------------------------- env
 
 
@@ -307,6 +355,9 @@ def phase_build() -> dict:
     # csrc/multisweep_halo.cu, by mangled name
     march = {name: {"registers": n, "spill_stores": spills.get(name)}
              for name, n in regs.items() if "march_kernel" in name}
+    # the one-launch towers of csrc/tower.cu (down, up, f32 and f64)
+    tower = {name: {"registers": n, "spill_stores": spills.get(name)}
+             for name, n in regs.items() if "tower_" in name}
     out = {
         "phase": "build", "seconds": round(time.perf_counter() - t0, 3),
         "cached": info["cached"], "library": os.path.relpath(
@@ -318,6 +369,7 @@ def phase_build() -> dict:
         # names); the f32 NP = 4 marches the solver runs spill none
         "spill_stores": {k: v for k, v in spills.items() if v},
         "march_forms": march,
+        "tower_kernels": tower,
     }
     emit(out)
     return out
@@ -487,6 +539,13 @@ TOWER_CASES = [
      False),
     ("periodic_axis", (32, 32, 32), ((P, P), (D, C), (C, N)), (0, 0, 0),
      False),
+    # the launch's other splits: an odd 17^3 bottom too big for the one-block
+    # tail (every depth grid-wide), and a 16x16x15 bottom that is the whole
+    # tail (tower_up has no tail to run); both with an odd, open nz at the
+    # bottom
+    ("no_tail_68", (68, 68, 68), ((D, N), (C, D), (N, C)), (4, 0, 8), False),
+    ("bottom_tail_64x64x60", (64, 64, 60), ((P, P), (P, P), (D, N)),
+     (0, 4, 0), False),
 ]
 
 
@@ -672,6 +731,36 @@ def check_sweep_entry_points(dtype) -> dict:
     return rec
 
 
+def tower_barriers(ndep: int, tail: int, nsmooth: int) -> dict:
+    """Grid barriers one call of each tower kernel passes (csrc/tower.cu):
+    down, per grid-wide depth, one before each colour pass but the first
+    and one before the restriction (which makes the next depth's first
+    pass), and one before the one-block tail; up, one after the tail where
+    grid-wide depths follow, per grid-wide depth one before each colour
+    pass and one after the depth but the last."""
+    np_ = 2 * nsmooth
+    wide = min(tail, ndep)
+    down = sum(max(np_ - 1, 0) + int(d + 1 < ndep) for d in range(wide))
+    down += int(0 < wide < ndep)
+    top = min(tail, ndep - 1)
+    up = int(0 < top < ndep - 1) + sum(np_ + int(d > 0) for d in range(top))
+    return {"tower_down": down, "tower_up": up}
+
+
+def barrier_us(blocks: int) -> float:
+    """One grid barrier's time on the card in a cooperative launch of
+    `blocks` tower-sized blocks (the probe mgk_tower_barriers: 64 barriers
+    against none), microseconds."""
+    lib = cuda_ext.lib()
+
+    def run(n):
+        err = lib.mgk_tower_barriers(
+            blocks, n, torch.cuda.current_stream().cuda_stream)
+        cuda_ext.check(err, "tower barrier probe")
+
+    return (time_ms(lambda: run(64)) - time_ms(lambda: run(0))) / 64 * 1e3
+
+
 def check_tower_case(case, dtype) -> dict:
     cid, shape, kinds, lo, timed = case
     spec = chain_spec(shape, lo, kinds, dx0=0.11)
@@ -684,12 +773,30 @@ def check_tower_case(case, dtype) -> dict:
     # f64 run holds the same kernels at twice the bytes
     check(ct.tower_supported(spec, {"b": (None,) * ndep}, 0),
           f"tower case {cid} not tower-shaped")
+    isz = f["u"].element_size()
+    blocks, tail, smem = ct.tower_geometry(
+        [b.shape for b in spec.boxes], isz,
+        ct.tower_capacity(f["u"].device, isz))
     rec = {"case": cid, "shape": list(shape), "depths": ndep,
-           "dtype": str(dtype)[6:], "tolerance": TOL[dtype]}
+           "dtype": str(dtype)[6:], "tolerance": TOL[dtype],
+           "geometry": {"blocks": blocks, "tail": tail, "smem": smem,
+                        "grid_barriers": tower_barriers(ndep, tail,
+                                                        spec.nsmooth)}}
+    inputs = [t.clone() for t in [f["u"], f["rhs"]] + a_list]
+
+    def one_launch(name, fn):
+        """fn() through the kernel: one wrapper call, one launch."""
+        calls = kernel_counts.LAUNCHES[name]
+        launches = kernel_counts.DEVICE_LAUNCHES[name]
+        out = fn()
+        check(kernel_counts.LAUNCHES[name] == calls + 1
+              and kernel_counts.DEVICE_LAUNCHES[name] == launches + 1,
+              f"{name} {cid} {dtype}: not one launch per call")
+        return out
 
     down = lambda fn: fn(spec, 0, f["u"], f["rhs"], a_list)
-    (ku, kr, kb), (pu, pr, pb) = down(ct.tower_down), down(
-        ct.tower_down_plain)
+    (ku, kr, kb), (pu, pr, pb) = one_launch(
+        "tower_down", lambda: down(ct.tower_down)), down(ct.tower_down_plain)
     torch.cuda.synchronize()
     worst_abs = worst_rel = 0.0
     for k, p in zip(list(ku) + list(kr) + [kb], list(pu) + list(pr) + [pb]):
@@ -702,15 +809,20 @@ def check_tower_case(case, dtype) -> dict:
     # up pass from the plain down pass's outputs, on both sides
     e_bot = 0.5 * pb
     rhs_list = [f["rhs"]] + list(pr)
+    up_in = [e_bot.clone()] + [t.clone() for t in list(pu) + list(pr)]
     up = lambda fn: fn(spec, 0, e_bot, list(pu), rhs_list[:-1], a_list[:-1])
-    out, ref = up(ct.tower_up), up(ct.tower_up_plain)
+    out, ref = one_launch("tower_up", lambda: up(ct.tower_up)), up(
+        ct.tower_up_plain)
     torch.cuda.synchronize()
     err, rel = rel_err(out, ref)
     rec["tower_up"] = {"max_abs_err": err, "rel_err": rel}
     check(rel <= TOL[dtype], f"tower_up {cid} {dtype}: rel err {rel}")
+    # the kernels only read their inputs
+    check(all(torch.equal(x, y) for x, y in zip(
+        inputs + up_in, [f["u"], f["rhs"]] + a_list + [e_bot] + list(pu)
+        + list(pr))), f"tower {cid} {dtype}: an input was written")
 
     if timed:
-        isz = f["u"].element_size()
         cells = [b.num_cells for b in spec.boxes]
         # down: reads u0, rhs0 and every a_d; writes every u_d and the
         # restricted rhs_d (d >= 1)
@@ -720,6 +832,8 @@ def check_tower_case(case, dtype) -> dict:
         b, by = bound_ms(nbytes, flops)
         rec["tower_down"].update(
             ms=time_ms(lambda: down(ct.tower_down)),
+            device_ms=device_ms(lambda: down(ct.tower_down)),
+            host_us=host_us(lambda: down(ct.tower_down)),
             plain_ms=time_ms(lambda: down(ct.tower_down_plain), reps=10,
                              warmup=1),
             bound_ms=b, bound_by=by)
@@ -729,9 +843,13 @@ def check_tower_case(case, dtype) -> dict:
         b, by = bound_ms(nbytes, (4 * 32.0 + 1.0) * up_cells)
         rec["tower_up"].update(
             ms=time_ms(lambda: up(ct.tower_up)),
+            device_ms=device_ms(lambda: up(ct.tower_up)),
+            host_us=host_us(lambda: up(ct.tower_up)),
             plain_ms=time_ms(lambda: up(ct.tower_up_plain), reps=10,
                              warmup=1),
             bound_ms=b, bound_by=by)
+        if dtype == torch.float32 and blocks > 1:
+            rec["geometry"]["barrier_us"] = barrier_us(blocks)
     return rec
 
 
@@ -957,6 +1075,16 @@ def phase_kernels() -> dict:
 
 
 SMALL_LEVEL_KERNELS = ("gsrb_relax", "residual", "tower_down", "tower_up")
+TOWERS = ("tower_down", "tower_up")
+
+
+def check_towers_one_launch(counts: dict, what: str) -> None:
+    """Every tower call of the run was one kernel launch (csrc/tower.cu)."""
+    for k in TOWERS:
+        check(counts["device_launches"][k] == counts["launches"][k],
+              f"{what}: {k} is not one launch per call: "
+              f"{counts['device_launches'][k]} launches in "
+              f"{counts['launches'][k]} calls")
 # the kernels of the canonical 7-level path (x is never periodic there)
 CANONICAL_KERNELS = SMALL_LEVEL_KERNELS + ("wavefront_relax",)
 # the kernels of the periodic box (its 256^3 depth is staged, 128^3 and
@@ -1027,6 +1155,7 @@ def phase_solve() -> dict:
           f"a kernel was never launched: {counts}")
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"a plain version ran on the card's path: {counts}")
+    check_towers_one_launch(counts, "solve")
     check(h[0] > h[1] > h[2], f"history not decreasing: {h}")
     check(all(i <= 4 for i in it), f"linear iters {it}")
     staged = run_solve(base + ["smoother = xla", "max_NL_iterations = 2"],
@@ -1131,6 +1260,7 @@ def check_wave_path(run: dict, counts: dict, what: str) -> None:
     check(counts["device_launches"]["wavefront_relax"]
           == counts["launches"]["wavefront_relax"],
           f"{what}: wavefront_relax is not one launch per call")
+    check_towers_one_launch(counts, what)
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"{what}: a plain version ran on the card's path: {counts}")
 
@@ -1265,6 +1395,7 @@ def check_periodic_run(run: dict, counts: dict, what: str) -> None:
     check(counts["device_launches"]["multisweep_relax"]
           == counts["launches"]["multisweep_relax"],
           f"{what}: multisweep_relax is not one launch per call")
+    check_towers_one_launch(counts, what)
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"{what}: a plain version ran on the card's path: {counts}")
     m = kernel_counts.KERNELS.index("multisweep_relax")
@@ -1698,6 +1829,7 @@ def check_sharded_run(run, ref, counts, what: str, kernel: str,
           f"count: {run['kernel_calls_per_iteration']}")
     check(counts["device_launches"][kernel] == counts["launches"][kernel],
           f"{what}: {kernel} is not one launch per call")
+    check_towers_one_launch(counts, what)
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"{what}: a plain version ran on the card's path: {counts}")
     return {"step1_rel_diff": rel, "K_rel_diff": max(krels),
@@ -1965,7 +2097,8 @@ PATH_CASES = {
 MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
              "multisweep_relax_tiled_pre": "sharded_pencil"}
-MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "host_us")
 
 
 def kernels_line(kernels: dict | None, solve: dict | None,

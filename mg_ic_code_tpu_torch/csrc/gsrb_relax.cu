@@ -19,7 +19,7 @@
 // visited, consecutive threads walk z so that loads coalesce, and u is
 // updated in place (a pass reads only the other colour and the cell
 // itself), so a pass writes half a level.
-#include "mg_kernels.h"
+#include "gsrb_device.cuh"
 
 template <typename T>
 LevelParams<T> make_level_params(int nx, int ny, int nz, const int* kinds,
@@ -54,25 +54,6 @@ LevelParams<T> make_level_params(int nx, int ny, int nz, const int* kinds,
 template LevelParams<float> make_level_params<float>(int, int, int, const int*, double, double, double, double);
 template LevelParams<double> make_level_params<double>(int, int, int, const int*, double, double, double, double);
 
-// One axis of the folded update: adds (weight_plus * u_plus + weight_minus *
-// u_minus) to acc and the c0 feed-through of a face to c_sum.
-template <typename T>
-__device__ __forceinline__ void fold_axis(const T* u, long long idx, int i, int n,
-                                          long long stride, bool periodic,
-                                          T c0lo, T c1lo, T c0hi, T c1hi, T P,
-                                          T& acc, T& c_sum) {
-  if (periodic) {
-    const T up = u[i + 1 < n ? idx + stride : idx - (long long)(n - 1) * stride];
-    const T um = u[i > 0 ? idx - stride : idx + (long long)(n - 1) * stride];
-    acc = acc + P * (up + um);
-    return;
-  }
-  const bool is_lo = i == 0, is_hi = i == n - 1;
-  const T up = is_hi ? (T)0 : u[idx + stride];
-  const T um = is_lo ? (T)0 : u[idx - stride];
-  fold_terms<T>(up, um, is_lo, is_hi, c0lo, c1lo, c0hi, c1hi, P, acc, c_sum);
-}
-
 template <typename T>
 __global__ void gsrb_pass_kernel(T* u, const T* __restrict__ rhs,
                                  const T* __restrict__ a,
@@ -89,34 +70,17 @@ __global__ void gsrb_pass_kernel(T* u, const T* __restrict__ rhs,
   const int k = 2 * kk + ((i + j + par) & 1);
   if (k >= p.nz) return;
 
-  const long long sy = p.nz, sx = (long long)p.ny * p.nz;
-  const long long idx = i * sx + j * sy + k;
-
-  const T av = a[idx];
-  const T diag = p.alpha * av + p.six_b_inv;
-  const T lam = (T)1 / diag;
-  T P = lam * p.b_inv;
-  if (b != nullptr) P = P * b[idx];
-
-  const T uc = u[idx];
-  T nb = (T)0;      // neighbour part of the update
-  T c_sum = (T)0;   // c0 feed-through of the faces this cell touches
-  fold_axis<T>(u, idx, i, p.nx, sx, p.periodic[0], p.c0[0][0], p.c1[0][0],
-               p.c0[0][1], p.c1[0][1], P, nb, c_sum);
-  fold_axis<T>(u, idx, j, p.ny, sy, p.periodic[1], p.c0[1][0], p.c1[1][0],
-               p.c0[1][1], p.c1[1][1], P, nb, c_sum);
-  fold_axis<T>(u, idx, k, p.nz, 1, p.periodic[2], p.c0[2][0], p.c1[2][0],
-               p.c0[2][1], p.c1[2][1], P, nb, c_sum);
-  const T k_uc = ((T)1 - lam * (p.alpha * av)) + P * (c_sum - (T)6);
-  u[idx] = (k_uc * uc + lam * rhs[idx]) + nb;
+  const long long idx = ((long long)i * p.ny + j) * p.nz + k;
+  u[idx] = gsrb_cell<T, long long>([u](long long q) { return u[q]; }, a[idx],
+                                   rhs[idx], b, p, i, j, k, idx);
 }
 
 // One colour pass in place on u: the cells with (i + j + k + par) even are
 // updated.
 template <typename T>
-cudaError_t launch_gsrb_pass(T* u, const T* rhs, const T* a, const T* b,
-                             const LevelParams<T>& p, int par,
-                             cudaStream_t stream) {
+static cudaError_t launch_gsrb_pass(T* u, const T* rhs, const T* a,
+                                    const T* b, const LevelParams<T>& p,
+                                    int par, cudaStream_t stream) {
   const int threads = 256;
   const long long per_plane = (long long)p.ny * ((p.nz + 1) >> 1);
   dim3 grid((unsigned)((per_plane + threads - 1) / threads), (unsigned)p.nx);
@@ -126,17 +90,15 @@ cudaError_t launch_gsrb_pass(T* u, const T* rhs, const T* a, const T* b,
 }
 
 template <typename T>
-cudaError_t launch_gsrb_relax(T* u, const T* rhs, const T* a, const T* b,
-                              const LevelParams<T>& p, int base, int nsweeps,
-                              cudaStream_t stream) {
+static cudaError_t launch_gsrb_relax(T* u, const T* rhs, const T* a,
+                                     const T* b, const LevelParams<T>& p,
+                                     int base, int nsweeps,
+                                     cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   for (int pass = 0; pass < 2 * nsweeps && err == cudaSuccess; ++pass)
     err = launch_gsrb_pass<T>(u, rhs, a, b, p, base + pass, stream);
   return err;
 }
-
-template cudaError_t launch_gsrb_relax<float>(float*, const float*, const float*, const float*, const LevelParams<float>&, int, int, cudaStream_t);
-template cudaError_t launch_gsrb_relax<double>(double*, const double*, const double*, const double*, const LevelParams<double>&, int, int, cudaStream_t);
 
 // One colour pass in place on u: the cells with (i + j + k + par) even are
 // updated, par = (sum(lo) + colour) & 1. The entry point of the one-pass and

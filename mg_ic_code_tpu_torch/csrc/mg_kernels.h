@@ -37,6 +37,16 @@ LevelParams<T> make_level_params(int nx, int ny, int nz, const int* kinds,
                                  double rho, double alpha, double beta,
                                  double dx);
 
+// 1/d. For float: the hardware's approximate reciprocal and one Newton
+// step (within an ulp of the rounded quotient, and no slow path to branch
+// to); d = alpha*a + 6*beta/dx^2 is far from the denormal range.
+__device__ __forceinline__ float recip(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return fmaf(r, fmaf(-d, r, 1.0f), r);
+}
+__device__ __forceinline__ double recip(double d) { return 1.0 / d; }
+
 // One axis of the folded GSRB update on a non-periodic axis, from the two
 // neighbour values: adds (weight_plus * up + weight_minus * um) to acc and
 // the c0 feed-through of a face to c_sum. The neighbour across a face
@@ -53,9 +63,43 @@ __device__ __forceinline__ void fold_terms(T up, T um, bool is_lo, bool is_hi,
   c_sum += (is_lo ? c0lo : (T)0) + (is_hi ? c0hi : (T)0);
 }
 
-// nsweeps red-black sweeps in place on u: 2*nsweeps colour-pass launches.
-// base = sum of the box's lo corner (global checkerboard parity).
-template <typename T>
-cudaError_t launch_gsrb_relax(T* u, const T* rhs, const T* a, const T* b,
-                              const LevelParams<T>& p, int base, int nsweeps,
-                              cudaStream_t stream);
+// Devices a launch set-up is kept for (march_capacity).
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t multiprocessors(int* count) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Blocks of `kern` (`threads` each, `smem` bytes of dynamic shared memory)
+// that the current device runs at once. A kernel's shared-memory limit is an
+// attribute of the kernel on one device, so it is set, and the capacity
+// asked, once per kernel and device: `cache` is the caller's table for its
+// kernel, indexed by device. The one-launch kernels size their grids by it:
+// the march (csrc/multisweep.cu, csrc/multisweep_halo.cu) and the towers'
+// cooperative launches (csrc/tower.cu), which need every block resident.
+inline cudaError_t march_capacity(const void* kern, int threads, size_t smem,
+                                  int* cache, int* capacity) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    int sms = 0;
+    err = multiprocessors(&sms);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1 || sms < 1) return cudaErrorLaunchOutOfResources;
+    cache[dev] = sms * per_sm;
+  }
+  *capacity = cache[dev];
+  return cudaSuccess;
+}

@@ -16,8 +16,9 @@
 // since been redesigned for the card (its own header comment says how: a
 // ring of u, rhs and a filled by asynchronous copies, a tile width chosen
 // per level); the design notes below are those of the shard body, which
-// the whole-level one shares the time skew, the plane layout, recip() and
-// march_capacity with.
+// the whole-level one shares the time skew and the plane layout with
+// (recip() and march_capacity, which the towers use too, are in
+// mg_kernels.h).
 //
 // The march replaces TPU kernels that compute one function (what
 // gsrb_relax computes, csrc/gsrb_relax.cu: the same folded per-cell update,
@@ -131,16 +132,6 @@
 
 namespace {
 
-// 1/d. For float: the hardware's approximate reciprocal and one Newton
-// step (within an ulp of the rounded quotient, and no slow path to branch
-// to); d = alpha*a + 6*beta/dx^2 is far from the denormal range.
-__device__ __forceinline__ float recip(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  return fmaf(r, fmaf(-d, r, 1.0f), r);
-}
-__device__ __forceinline__ double recip(double d) { return 1.0 / d; }
-
 // Shared-memory layout of one plane of a TY x TZ tile. The cells of a row
 // are stored by colour: the HZ cells with (row + column) even in one half
 // of the row, the others in the other half, each half padded by one cell on
@@ -180,45 +171,6 @@ struct WaveThread {
   T raw_u[2];        // u of the pair in the next plane to enter the ring
   T next_a, next_r;  // a, rhs of the next step's first cell
 };
-
-// Devices a launch set-up is kept for (march_capacity).
-constexpr int kMaxDevices = 64;
-
-cudaError_t multiprocessors(int* count) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, dev);
-}
-
-// Blocks of `kern` (`threads` each, `smem` bytes of dynamic shared memory)
-// that the current device runs at once. A kernel's shared-memory limit is an
-// attribute of the kernel on one device, so it is set, and the capacity
-// asked, once per kernel and device: `cache` is the caller's table for its
-// kernel, indexed by device.
-cudaError_t march_capacity(const void* kern, int threads, size_t smem,
-                           int* cache, int* capacity) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        threads, smem);
-    if (err != cudaSuccess) return err;
-    int sms = 0;
-    err = multiprocessors(&sms);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1 || sms < 1) return cudaErrorLaunchOutOfResources;
-    cache[dev] = sms * per_sm;
-  }
-  *capacity = cache[dev];
-  return cudaSuccess;
-}
 
 // x segments of a launch over `tiles` y-z tiles: the count that needs the
 // fewest steps in all, a block taking xseg + 3*NP steps (rind planes at both

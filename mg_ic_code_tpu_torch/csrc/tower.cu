@@ -1,146 +1,683 @@
-// tower_down / tower_up: the V-cycle over a chain of multigrid depths.
+// tower_down / tower_up: the V-cycle over a chain of multigrid depths, each
+// half ONE cooperative launch.
 //
 // Replace the TPU kernels mg_ic_code_tpu/ops/coarse_tower.py:
 // _tower_down_call (kernel _tower_down_kernel) and _tower_up_call (kernel
 // _tower_up_kernel). tower_down: per depth, nsmooth red-black sweeps, then
-// the residual restricted by full weighting (mean of the 2^3 children) as
-// the next depth's rhs, the next depth starting from u = 0; the bottom
-// depth is pre-smoothed too. tower_up: from the bottom correction upward,
-// u += e[i/2, j/2, k/2] (piecewise-constant prolongation), then nsmooth
-// sweeps. The coarsest-depth solve happens between the two, outside.
+// the residual restricted by full weighting (mean of the 2^3 children; pairs
+// summed along x, then z with the single 1/8, then y) as the next depth's
+// rhs, the next depth starting from u = 0; the bottom depth is pre-smoothed
+// too. tower_up: from the bottom correction upward, u += e[i/2, j/2, k/2]
+// (piecewise-constant prolongation), then nsmooth sweeps. The coarsest-depth
+// solve happens between the two, outside. A colour pass updates the cells
+// with (i + j + k + sum(lo) + pass) even.
 //
-// What bounds them on this card: launch latency, then bytes. Below the top
-// depth a level is a few thousand cells, so each of the ~10 launches per
-// depth costs its few microseconds of launch overhead and almost no
-// device time; only the top depth moves real bytes. What the design does
-// about it: the whole chain is enqueued back to back from ONE C call on
-// one stream (no host round trip between depths); restriction is fused
-// with the residual — a thread per COARSE cell evaluates the residual of
-// its eight children from registers and writes one value, so the fine
-// residual never reaches device memory; prolongation indexes the parent
-// directly. The TPU kernel's 0/1 pairing matmuls (its way of regrouping
-// lanes) have no counterpart: children are addressed by index.
+// What bounds them on this card: barriers and instruction issue, not bytes
+// (the whole 64^3 -> 4^3 chain moves ~1.4 us worth of bytes). The earlier form
+// enqueued one launch per colour pass and per restriction (44 + 36 launches
+// at 64^3 -> 4^3) and paid ~9 us of launch and host time for each. This one
+// is ONE cooperative launch per call (every block resident: at most the
+// blocks march_capacity says the card runs at once), with a grid barrier
+// (cooperative_groups, ~1.1 us on an H100 whatever the block count) between
+// dependent steps, and no other launch in the wrapper:
+//  * The depths too big for one block walk their z pairs in grid-stride
+//    loops over a grid sized to whole x planes of pairs (tower_geometry), so
+//    a thread keeps its (j, pair) and steps along x. A pass visits only its
+//    colour, updates u in place (it reads only the other colour and the
+//    cell itself), takes two cells a thread at a time with every load ahead
+//    of both stores, and has fixed forms for the all-periodic and the
+//    no-periodic level (the periodic box, the canonical base) beside the
+//    general one. 1/diag is recip() (within an ulp of the quotient; the
+//    division made a call 8-11 % slower at 64^3 and 128^3 on an H100).
+//  * tower_down folds each depth's fresh state into its first pass: at depth
+//    0 the pass's colour gets the update and the other cell of each z pair
+//    the caller's u; below, the residual-and-restriction (a thread per
+//    coarse cell, the fine residual never in memory) also makes the next
+//    depth's first pass, which starts from zero and so needs only the
+//    cell's own rhs. Nothing is copied or zeroed before the launch, and the
+//    caller's arrays are only read. tower_up writes u_in + P e into its
+//    output in its prolongation step.
+//  * The small depths run in ONE block's shared memory with block barriers
+//    only: from the first depth whose u, rhs and a (and the next depth's
+//    rhs or correction) fit the wrapper's budget down to the bottom.
+//    tower_down runs that tail after its last grid barrier while the other
+//    blocks exit; tower_up runs it first, then one grid barrier, then the
+//    big depths. A 16^3 -> 4^3 chain is one block and no grid barrier.
+// Grid barriers per call with 4 smooths: tower_down one before each pass
+// but a depth's first and one before each restriction, and one before the
+// tail (17 at 64^3 -> 4^3, 25 at 128^3 -> 4^3); tower_up one after the
+// tail, one before each pass and one after each depth but the last (18,
+// 27). Every array is read with plain loads, never the read-only path: the
+// launch writes u and the restricted rhs between grid barriers.
+#include <cooperative_groups.h>
+
+#include "gsrb_device.cuh"
 #include "residual_device.cuh"
 
+namespace cg = cooperative_groups;
+
+extern __shared__ __align__(16) unsigned char tower_smem[];
+
+namespace {
+
+// Threads per block (ops/coarse_tower.TOWER_THREADS): 512 leave a thread
+// the registers it wants (96 in f32), where 1024 held it to 64 and were
+// 12-14 % slower at 64^3 and 16^3 chains on an H100, level at 128^3.
+constexpr int kThreads = 512;
+constexpr int kMaxDepths = 12;  // ops/coarse_tower.MAX_DEPTHS
+
+// Everything one launch needs, passed by value as a __grid_constant__
+// kernel parameter (indexed by depth without a local copy).
 template <typename T>
-__global__ void residual_restrict_kernel(const T* __restrict__ u,
-                                         const T* __restrict__ rhs,
-                                         const T* __restrict__ a,
-                                         T* __restrict__ rc,
-                                         const LevelParams<T> p) {
+struct TowerArgs {
+  LevelParams<T> p[kMaxDepths];
+  const T* a[kMaxDepths];
+  T* r[kMaxDepths];          // rhs per depth; tower_down writes r[1..]
+  T* u[kMaxDepths];          // down: every depth's smoothed state; up: the
+                             // new state of depths 0..ndep-2
+  const T* uin[kMaxDepths];  // up: the states the correction is added to
+  const T* top;              // down: the caller's u; up: the bottom's
+  int par[kMaxDepths];       // sum(lo) & 1 per depth
+  int ndep, nsmooth, tail;   // depths [tail, ndep) run in one block
+};
+
+template <typename T>
+__device__ __forceinline__ int cells_of(const LevelParams<T>& p) {
+  return p.nx * p.ny * p.nz;
+}
+
+// The items first, first + stride, ... of an (n0, n1, n2) box in C order,
+// as digits (a, b, c) that advance by the stride's own digits with a carry:
+// four divisions where the walk starts, none per item.
+struct Walk {
+  int a, b, c, sa, sb, sc, n1, n2;
+  __device__ __forceinline__ void init(int first, int stride, int n1_,
+                                       int n2_) {
+    n1 = n1_;
+    n2 = n2_;
+    const int plane = n1 * n2;
+    a = first / plane;
+    b = (first - a * plane) / n2;
+    c = first - a * plane - b * n2;
+    sa = stride / plane;
+    sb = (stride - sa * plane) / n2;
+    sc = stride - sa * plane - sb * n2;
+  }
+  __device__ __forceinline__ void next() {
+    c += sc;
+    if (c >= n2) { c -= n2; ++b; }
+    b += sb;
+    if (b >= n1) { b -= n1; ++a; }
+    a += sa;
+  }
+};
+
+// A thread takes the items of a loop U at a time and computes all U values
+// before it stores any: the compiler cannot tell that a store does not feed
+// a later item's loads, so items taken one at a time would each wait for
+// their loads in turn. U = 2 where some thread has two items or more (the
+// caller's `many`), else 1. An item past the end, or a cell past an odd nz,
+// computes cell (0, 0, 0) and stores nothing, so every load is in range and
+// none is behind a branch. Within a colour pass no item reads another's
+// cell, and first_pass and prolong_depth read other arrays than they write.
+// The walk over a depth's z pairs (`w`, from the thread's first item) is
+// set up once per depth and copied for each pass. Where the stride is a
+// whole number of x planes (the wrapper sizes the grid so, tower_geometry),
+// a thread keeps its (j, k pair) and steps along x only: the y terms of its
+// cells stay out of the loop.
+
+// One colour pass in place on u (device or shared memory) over the
+// (nx, ny, ceil(nz/2)) z pairs of the walk: the cell of the pass's colour
+// in each. COL: the walk steps along x only.
+template <int U, bool COL, int PER, typename T>
+__device__ __forceinline__ void pass_u(T* u, const T* rhs, const T* a,
+                                       const LevelParams<T>& p, int par,
+                                       Walk w) {
+  const auto get = [u](int q) { return u[q]; };
+  while (w.a < p.nx) {
+    int idx[U];
+    T v[U];
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      int i = w.a, j = w.b, k = 2 * w.c + ((i + j + par) & 1);
+      const bool live = i < p.nx && k < p.nz;
+      i = live ? i : 0;
+      j = live ? j : 0;
+      k = live ? k : 0;
+      const int q = (i * p.ny + j) * p.nz + k;
+      v[s] = gsrb_cell<T, int, true, PER>(get, a[q], rhs[q],
+                                          (const T*)nullptr, p, i, j, k, q);
+      idx[s] = live ? q : -1;
+      if (COL)
+        w.a += w.sa;
+      else
+        w.next();
+    }
+#pragma unroll
+    for (int s = 0; s < U; ++s)
+      if (idx[s] >= 0) u[idx[s]] = v[s];
+  }
+}
+
+// Which axes of depth p are periodic: 1 every axis, 0 none, -1 some (the
+// PER of gsrb_device.cuh). The periodic box and the canonical base level
+// take the two fixed forms, whose cell update has no face of the other kind
+// to compute and discard.
+template <typename T>
+__device__ __forceinline__ int periodic_axes(const LevelParams<T>& p) {
+  const int n = p.periodic[0] + p.periodic[1] + p.periodic[2];
+  return n == 3 ? 1 : n == 0 ? 0 : -1;
+}
+
+template <int PER, typename T>
+__device__ __forceinline__ void pass_per(T* u, const T* rhs, const T* a,
+                                         const LevelParams<T>& p, int par,
+                                         const Walk& w, bool many) {
+  const bool col = w.sb == 0 && w.sc == 0;
+  if (many && col)
+    pass_u<2, true, PER>(u, rhs, a, p, par, w);
+  else if (col)
+    pass_u<1, true, PER>(u, rhs, a, p, par, w);
+  else if (many)
+    pass_u<2, false, PER>(u, rhs, a, p, par, w);
+  else
+    pass_u<1, false, PER>(u, rhs, a, p, par, w);
+}
+
+template <typename T>
+__device__ __forceinline__ void pass_in_place(T* u, const T* rhs, const T* a,
+                                              const LevelParams<T>& p,
+                                              int par, const Walk& w,
+                                              bool many) {
+  const int per = periodic_axes(p);
+  if (per == 1)
+    pass_per<1>(u, rhs, a, p, par, w, many);
+  else if (per == 0)
+    pass_per<0>(u, rhs, a, p, par, w, many);
+  else
+    pass_per<-1>(u, rhs, a, p, par, w, many);
+}
+
+// The first colour pass of a depth from the fresh state `get`, written out
+// whole into u: the pass's cells get the update, the other cell of each z
+// pair (k ^ 1) its fresh value (exact: the pass reads only the other colour
+// and the cell itself). Without a pass to make (nsmooth = 0) both get the
+// fresh value.
+template <int U, typename T, typename Get>
+__device__ __forceinline__ void first_pass_u(T* u, const Get& get,
+                                             const T* rhs, const T* a,
+                                             const LevelParams<T>& p, int par,
+                                             bool update, Walk w) {
+  while (w.a < p.nx) {
+    int idx[U], pidx[U];
+    T v[U], pv[U];
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      int i = w.a, j = w.b, k = 2 * w.c + ((i + j + par) & 1);
+      const bool live = i < p.nx, own = live && k < p.nz;
+      const bool partner = live && (k ^ 1) < p.nz;
+      const int row = live ? (i * p.ny + j) * p.nz : 0;
+      const int kp = partner ? k ^ 1 : 0;
+      i = own ? i : 0;
+      j = own ? j : 0;
+      k = own ? k : 0;
+      const int q = own ? row + k : 0;
+      v[s] = update ? gsrb_cell<T, int, true>(get, a[q], rhs[q],
+                                              (const T*)nullptr, p, i, j, k, q)
+                    : get(q);
+      pv[s] = get(row + kp);
+      idx[s] = own ? q : -1;
+      pidx[s] = partner ? row + kp : -1;
+      w.next();
+    }
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      if (idx[s] >= 0) u[idx[s]] = v[s];
+      if (pidx[s] >= 0) u[pidx[s]] = pv[s];
+    }
+  }
+}
+
+template <typename T, typename Get>
+__device__ __forceinline__ void first_pass(T* u, const Get& get, const T* rhs,
+                                           const T* a, const LevelParams<T>& p,
+                                           int par, bool update, const Walk& w,
+                                           bool many) {
+  if (many)
+    first_pass_u<2>(u, get, rhs, a, p, par, update, w);
+  else
+    first_pass_u<1>(u, get, rhs, a, p, par, update, w);
+}
+
+// The walk over depth p's z pairs from item `first` by `stride`, and
+// whether a thread has two items or more.
+template <typename T>
+__device__ __forceinline__ Walk pair_walk(const LevelParams<T>& p, int first,
+                                          int stride, bool& many) {
+  const int hz = (p.nz + 1) >> 1;
+  many = p.nx * p.ny * hz > stride;
+  Walk w;
+  w.init(first, stride, p.ny, hz);
+  return w;
+}
+
+// The residual of depth p restricted to the next depth by full weighting, a
+// thread per coarse cell, in the plain version's pairing order: x pairs,
+// then z pairs with the single 1/8, then y pairs. Written to rc, and handed
+// to start(m, ci, cj, ck, value) with the coarse cell's index.
+template <int PER, typename T, typename Start>
+__device__ __forceinline__ void restrict_per(const T* u, const T* rhs,
+                                             const T* a, T* rc,
+                                             const LevelParams<T>& p,
+                                             int first, int stride,
+                                             const Start& start) {
   const int cy = p.ny >> 1, cz = p.nz >> 1;
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= (long long)cy * cz) return;
-  const int ci = blockIdx.y;
-  const int cj = (int)(m / cz);
-  const int ck = (int)(m - (long long)cj * cz);
-  // pairing order of the plain version: x pairs, then z, then y
-  T y_sum = (T)0;
-  for (int dj = 0; dj < 2; ++dj) {
-    T z_sum = (T)0;
-    for (int dk = 0; dk < 2; ++dk) {
-      const T r0 = cell_residual<T>(u, rhs, a, nullptr, p, 2 * ci, 2 * cj + dj, 2 * ck + dk);
-      const T r1 = cell_residual<T>(u, rhs, a, nullptr, p, 2 * ci + 1, 2 * cj + dj, 2 * ck + dk);
-      z_sum += (T)0.125 * (r0 + r1);
+  Walk w;
+  for (w.init(first, stride, cy, cz); w.a < (p.nx >> 1); w.next()) {
+    const int ci = w.a, cj = w.b, ck = w.c;
+    T y_sum = (T)0;
+    for (int dj = 0; dj < 2; ++dj) {
+      T z_sum = (T)0;
+      for (int dk = 0; dk < 2; ++dk) {
+        const T r0 = cell_residual<T, int, PER>(u, rhs, a, nullptr, p, 2 * ci,
+                                                2 * cj + dj, 2 * ck + dk);
+        const T r1 = cell_residual<T, int, PER>(u, rhs, a, nullptr, p,
+                                                2 * ci + 1, 2 * cj + dj,
+                                                2 * ck + dk);
+        z_sum += (T)0.125 * (r0 + r1);
+      }
+      y_sum += z_sum;
     }
-    y_sum += z_sum;
+    const int m = (ci * cy + cj) * cz + ck;
+    rc[m] = y_sum;
+    start(m, ci, cj, ck, y_sum);
   }
-  rc[(long long)ci * cy * cz + m] = y_sum;
+}
+
+template <typename T, typename Start>
+__device__ __forceinline__ void restrict_depth(const T* u, const T* rhs,
+                                               const T* a, T* rc,
+                                               const LevelParams<T>& p,
+                                               int first, int stride,
+                                               const Start& start) {
+  const int per = periodic_axes(p);
+  if (per == 1)
+    restrict_per<1>(u, rhs, a, rc, p, first, stride, start);
+  else if (per == 0)
+    restrict_per<0>(u, rhs, a, rc, p, first, stride, start);
+  else
+    restrict_per<-1>(u, rhs, a, rc, p, first, stride, start);
+}
+
+// u = uin + e[i/2, j/2, k/2] over depth p, e the depth below.
+template <int U, typename T>
+__device__ __forceinline__ void prolong_u(T* u, const T* uin, const T* e,
+                                          const LevelParams<T>& p, Walk w) {
+  const int cy = p.ny >> 1, cz = p.nz >> 1;
+  while (w.a < p.nx) {
+    int idx[U];
+    T v[U];
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const bool live = w.a < p.nx;
+      const int i = live ? w.a : 0, j = live ? w.b : 0, k = live ? w.c : 0;
+      const int m = (i * p.ny + j) * p.nz + k;
+      v[s] = uin[m] + e[((i >> 1) * cy + (j >> 1)) * cz + (k >> 1)];
+      idx[s] = live ? m : -1;
+      w.next();
+    }
+#pragma unroll
+    for (int s = 0; s < U; ++s)
+      if (idx[s] >= 0) u[idx[s]] = v[s];
+  }
 }
 
 template <typename T>
-__global__ void prolong_inc_kernel(T* __restrict__ u, const T* __restrict__ e,
-                                   int nx, int ny, int nz) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= (long long)ny * nz) return;
-  const int i = blockIdx.y;
-  const int j = (int)(m / nz);
-  const int k = (int)(m - (long long)j * nz);
-  const int cy = ny >> 1, cz = nz >> 1;
-  u[(long long)i * ny * nz + m] +=
-      e[((long long)(i >> 1) * cy + (j >> 1)) * cz + (k >> 1)];
+__device__ __forceinline__ void prolong_depth(T* u, const T* uin, const T* e,
+                                              const LevelParams<T>& p,
+                                              int first, int stride) {
+  Walk w;
+  w.init(first, stride, p.ny, p.nz);
+  if (p.nx * p.ny * p.nz > stride)
+    prolong_u<2>(u, uin, e, p, w);
+  else
+    prolong_u<1>(u, uin, e, p, w);
 }
 
-static inline dim3 plane_grid(long long per_plane, int nx, int threads) {
-  return dim3((unsigned)((per_plane + threads - 1) / threads), (unsigned)nx);
-}
-
-// Down pass over depths 0..ndep-1 (depth 0 the finest of the chain).
-//   u[d]   : in/out. u[0] holds the caller's start state; u[d>0] must be
-//            zero on entry. On return u[d] is the pre-smoothed state.
-//   rhs[d] : rhs[0] is input, rhs[d>0] are written (restricted residuals).
-//   a[d]   : aCoef per depth.
-//   shapes : ndep * 3 ints; dxs, rhos: ndep doubles; bases: ndep ints.
+// tower_down's depths [tail, ndep) in this block's shared memory: u, a and
+// the rhs of the depth at work, the restricted rhs of the next beside it
+// (the two rhs buffers alternate). Each depth's state and restricted rhs are
+// written out for tower_up.
 template <typename T>
-static cudaError_t tower_down_impl(void* const* u, void* const* rhs,
-                                   const void* const* a, int ndep,
-                                   const int* shapes, const int* kinds,
-                                   const double* dxs, const double* rhos,
-                                   const int* bases, double alpha, double beta,
-                                   int nsmooth, cudaStream_t st) {
-  const int threads = 128;
+__device__ void tail_down(const TowerArgs<T>& g, T* sm) {
+  const int t = g.tail, n0 = cells_of(g.p[t]);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  T* U = sm;
+  T* A = U + n0;
+  T* R0 = A + n0;
+  T* R1 = A + 2 * n0;
+  for (int m = tid; m < n0; m += nt) R0[m] = g.r[t][m];
+  for (int d = t; d < g.ndep; ++d) {
+    const LevelParams<T>& p = g.p[d];
+    const int n = cells_of(p);
+    T* rhs = (d - t) & 1 ? R1 : R0;
+    for (int m = tid; m < n; m += nt) {
+      A[m] = g.a[d][m];
+      U[m] = d == 0 ? g.top[m] : (T)0;
+    }
+    bool many;
+    const Walk w = pair_walk(p, tid, nt, many);
+    __syncthreads();
+    for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
+      pass_in_place(U, rhs, A, p, (g.par[d] + pass) & 1, w, many);
+      __syncthreads();
+    }
+    for (int m = tid; m < n; m += nt) g.u[d][m] = U[m];
+    if (d + 1 < g.ndep) {
+      T* next = (d - t) & 1 ? R0 : R1;
+      restrict_depth(U, rhs, A, g.r[d + 1], p, tid, nt,
+                     [next](int m, int, int, int, T v) { next[m] = v; });
+      __syncthreads();
+    }
+  }
+}
+
+// tower_up's depths ndep-2 .. tail in this block's shared memory: the state
+// at work and the correction from below alternate between two buffers,
+// beside a and rhs. Only the last (depth tail) is written out.
+template <typename T>
+__device__ void tail_up(const TowerArgs<T>& g, T* sm) {
+  const int t = g.tail, bot = g.ndep - 1;
+  const int n0 = cells_of(g.p[t]), n1 = cells_of(g.p[t + 1]);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  T* U0 = sm;
+  T* U1 = sm + n0;
+  T* A = sm + n0 + n1;
+  T* R = A + n0;
+  {
+    T* e = (bot - t) & 1 ? U1 : U0;
+    const int nb = cells_of(g.p[bot]);
+    for (int m = tid; m < nb; m += nt) e[m] = g.top[m];
+  }
+  __syncthreads();
+  for (int d = bot - 1; d >= t; --d) {
+    const LevelParams<T>& p = g.p[d];
+    const int n = cells_of(p);
+    T* u = (d - t) & 1 ? U1 : U0;
+    for (int m = tid; m < n; m += nt) {
+      A[m] = g.a[d][m];
+      R[m] = g.r[d][m];
+    }
+    prolong_depth(u, g.uin[d], (d - t) & 1 ? U0 : U1, p, tid, nt);
+    bool many;
+    const Walk w = pair_walk(p, tid, nt, many);
+    __syncthreads();
+    for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
+      pass_in_place(u, R, A, p, (g.par[d] + pass) & 1, w, many);
+      __syncthreads();
+    }
+  }
+  for (int m = tid; m < n0; m += nt) g.u[t][m] = U0[m];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
+  cg::grid_group grid = cg::this_grid();
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int np = 2 * g.nsmooth;
+  const int wide = g.tail < g.ndep ? g.tail : g.ndep;
+  for (int d = 0; d < wide; ++d) {
+    const LevelParams<T>& p = g.p[d];
+    bool many;
+    const Walk w = pair_walk(p, first, stride, many);
+    // below depth 0 the first pass was made with the restriction that gave
+    // the depth its rhs
+    if (d == 0) {
+      const T* u0 = g.top;
+      first_pass(g.u[0], [u0](int q) { return u0[q]; }, g.r[0], g.a[0], p,
+                 g.par[0], np > 0, w, many);
+    }
+    for (int pass = 1; pass < np; ++pass) {
+      grid.sync();
+      pass_in_place(g.u[d], g.r[d], g.a[d], p, (g.par[d] + pass) & 1, w,
+                    many);
+    }
+    if (d + 1 == g.ndep) break;
+    grid.sync();
+    if (d + 1 < wide) {
+      // the next depth's first colour pass from zero, fused: it reads only
+      // its own cell's rhs, which this thread has just made
+      const LevelParams<T>& pn = g.p[d + 1];
+      const T* an = g.a[d + 1];
+      T* un = g.u[d + 1];
+      const int parn = g.par[d + 1];
+      const bool update = np > 0;
+      restrict_depth(g.u[d], g.r[d], g.a[d], g.r[d + 1], p, first, stride,
+                     [&](int m, int ci, int cj, int ck, T v) {
+                       un[m] = update && ((ci + cj + ck + parn) & 1) == 0
+                           ? gsrb_cell<T, int, true>(
+                                 [](int) { return (T)0; }, an[m], v,
+                                 (const T*)nullptr, pn, ci, cj, ck, m)
+                           : (T)0;
+                     });
+    } else {
+      restrict_depth(g.u[d], g.r[d], g.a[d], g.r[d + 1], p, first, stride,
+                     [](int, int, int, int, T) {});
+      grid.sync();  // the tail reads the restricted rhs
+    }
+  }
+  if (g.tail < g.ndep && blockIdx.x == 0)
+    tail_down(g, reinterpret_cast<T*>(tower_smem));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+tower_up_kernel(const __grid_constant__ TowerArgs<T> g) {
+  cg::grid_group grid = cg::this_grid();
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int bot = g.ndep - 1;
+  const int top = g.tail < bot ? g.tail : bot;  // tail depths [top, bot)
+  if (top < bot) {
+    if (blockIdx.x == 0) tail_up(g, reinterpret_cast<T*>(tower_smem));
+    if (top > 0) grid.sync();
+  }
+  for (int d = top - 1; d >= 0; --d) {
+    const LevelParams<T>& p = g.p[d];
+    T* u = g.u[d];
+    prolong_depth(u, g.uin[d], d + 1 == bot ? g.top : (const T*)g.u[d + 1],
+                  p, first, stride);
+    bool many;
+    const Walk w = pair_walk(p, first, stride, many);
+    for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
+      grid.sync();
+      pass_in_place(u, g.r[d], g.a[d], p, (g.par[d] + pass) & 1, w, many);
+    }
+    if (d > 0) grid.sync();
+  }
+}
+
+// For measurement only (chip_smoke.py): n grid barriers and nothing else,
+// the price of one in a launch of the towers' block size.
+__global__ void __launch_bounds__(kThreads, 1)
+tower_barriers_kernel(int n) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n; ++i) grid.sync();
+}
+
+// Blocks of both tower kernels the current device runs at once with `smem`
+// bytes of dynamic shared memory each (the wrapper's budget), asked once per
+// kernel and device; also sets that shared-memory limit on both.
+template <typename T>
+cudaError_t tower_capacity(int smem, int* capacity) {
+  static int cache_down[kMaxDevices] = {};
+  static int cache_up[kMaxDevices] = {};
+  int down = 0, up = 0;
+  cudaError_t err = march_capacity((const void*)tower_down_kernel<T>,
+                                   kThreads, smem, cache_down, &down);
+  if (err != cudaSuccess) return err;
+  err = march_capacity((const void*)tower_up_kernel<T>, kThreads, smem,
+                       cache_up, &up);
+  if (err != cudaSuccess) return err;
+  *capacity = down < up ? down : up;
+  return cudaSuccess;
+}
+
+long long cells_host(const int* shapes, int d) {
+  return (long long)shapes[3 * d] * shapes[3 * d + 1] * shapes[3 * d + 2];
+}
+
+// The static part of the arguments, with the checks of the geometry: at
+// most kMaxDepths depths, cells indexed by int, the tail inside the chain
+// and its shared memory within `smem`.
+template <typename T>
+cudaError_t chain_args(TowerArgs<T>& g, int ndep, const int* shapes,
+                       const int* kinds, const double* dxs,
+                       const double* rhos, const int* bases, double alpha,
+                       double beta, int nsmooth, int blocks, int tail,
+                       int smem) {
+  if (ndep < 2 || ndep > kMaxDepths || nsmooth < 0 || blocks < 1 ||
+      tail < 0 || tail > ndep)
+    return cudaErrorInvalidValue;
   for (int d = 0; d < ndep; ++d) {
-    const int nx = shapes[3 * d], ny = shapes[3 * d + 1], nz = shapes[3 * d + 2];
-    auto p = make_level_params<T>(nx, ny, nz, kinds, rhos[d], alpha, beta, dxs[d]);
-    cudaError_t err = launch_gsrb_relax<T>((T*)u[d], (const T*)rhs[d],
-                                           (const T*)a[d], nullptr, p,
-                                           bases[d], nsmooth, st);
-    if (err != cudaSuccess) return err;
-    if (d + 1 < ndep) {
-      const long long per_plane = (long long)(ny >> 1) * (nz >> 1);
-      residual_restrict_kernel<T><<<plane_grid(per_plane, nx >> 1, threads), threads, 0, st>>>(
-          (const T*)u[d], (const T*)rhs[d], (const T*)a[d], (T*)rhs[d + 1], p);
-    }
+    if (cells_host(shapes, d) > (1LL << 30)) return cudaErrorInvalidValue;
+    g.p[d] = make_level_params<T>(shapes[3 * d], shapes[3 * d + 1],
+                                  shapes[3 * d + 2], kinds, rhos[d], alpha,
+                                  beta, dxs[d]);
+    g.par[d] = ((bases[d] % 2) + 2) % 2;
   }
-  return cudaGetLastError();
+  g.ndep = ndep;
+  g.nsmooth = nsmooth;
+  g.tail = tail;
+  if (tail < ndep) {
+    const long long n1 = tail + 1 < ndep ? cells_host(shapes, tail + 1) : 0;
+    if ((3 * cells_host(shapes, tail) + n1) * (long long)sizeof(T) > smem)
+      return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
-// Up pass: e_bot is the solved bottom depth (depth ndep-1); for depths
-// ndep-2 .. 0: u[d] += prolong(e), then nsmooth sweeps in place; the
-// smoothed u[d] is the next e. The result is u[0].
 template <typename T>
-static cudaError_t tower_up_impl(const void* e_bot, void* const* u,
-                                 const void* const* rhs, const void* const* a,
-                                 int ndep, const int* shapes, const int* kinds,
-                                 const double* dxs, const double* rhos,
-                                 const int* bases, double alpha, double beta,
-                                 int nsmooth, cudaStream_t st) {
-  const int threads = 256;
-  const T* e = (const T*)e_bot;
-  for (int d = ndep - 2; d >= 0; --d) {
-    const int nx = shapes[3 * d], ny = shapes[3 * d + 1], nz = shapes[3 * d + 2];
-    auto p = make_level_params<T>(nx, ny, nz, kinds, rhos[d], alpha, beta, dxs[d]);
-    prolong_inc_kernel<T><<<plane_grid((long long)ny * nz, nx, threads), threads, 0, st>>>(
-        (T*)u[d], e, nx, ny, nz);
-    cudaError_t err = launch_gsrb_relax<T>((T*)u[d], (const T*)rhs[d],
-                                           (const T*)a[d], nullptr, p,
-                                           bases[d], nsmooth, st);
-    if (err != cudaSuccess) return err;
-    e = (const T*)u[d];
-  }
-  return cudaGetLastError();
+cudaError_t launch_tower(const void* kern, TowerArgs<T>& g, int blocks,
+                         int smem, cudaStream_t st) {
+  void* params[] = {(void*)&g};
+  return cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(kThreads),
+                                     params, (size_t)smem, st);
 }
 
-extern "C" int mgk_tower_down(void* const* u, void* const* rhs,
+// Down pass. u0, rhs0: the caller's depth-0 state and rhs (read only). out:
+// one buffer of every depth's smoothed state (depth 0 first), then the
+// restricted rhs of depths 1 .. ndep-1.
+template <typename T>
+cudaError_t tower_down_impl(const void* u0, const void* rhs0, void* out,
+                            const void* const* a, int ndep, const int* shapes,
+                            const int* kinds, const double* dxs,
+                            const double* rhos, const int* bases, double alpha,
+                            double beta, int nsmooth, int blocks, int tail,
+                            int smem, cudaStream_t st) {
+  TowerArgs<T> g = {};
+  cudaError_t err = chain_args<T>(g, ndep, shapes, kinds, dxs, rhos, bases,
+                                  alpha, beta, nsmooth, blocks, tail, smem);
+  if (err != cudaSuccess) return err;
+  T* next = (T*)out;
+  for (int d = 0; d < ndep; ++d) {
+    g.u[d] = next;
+    next += cells_host(shapes, d);
+  }
+  g.r[0] = (T*)rhs0;  // never written
+  for (int d = 1; d < ndep; ++d) {
+    g.r[d] = next;
+    next += cells_host(shapes, d);
+  }
+  for (int d = 0; d < ndep; ++d) g.a[d] = (const T*)a[d];
+  g.top = (const T*)u0;
+  return launch_tower<T>((const void*)tower_down_kernel<T>, g, blocks, smem,
+                         st);
+}
+
+// Up pass. e_bot: the solved bottom depth; u_in, rhs, a: ndep-1 arrays each
+// (depths 0 .. ndep-2); out: one buffer of the new states of depths 0 ..
+// ndep-2 (depth 0, the result, first).
+template <typename T>
+cudaError_t tower_up_impl(const void* e_bot, const void* const* u_in,
+                          const void* const* rhs, const void* const* a,
+                          void* out, int ndep, const int* shapes,
+                          const int* kinds, const double* dxs,
+                          const double* rhos, const int* bases, double alpha,
+                          double beta, int nsmooth, int blocks, int tail,
+                          int smem, cudaStream_t st) {
+  TowerArgs<T> g = {};
+  cudaError_t err = chain_args<T>(g, ndep, shapes, kinds, dxs, rhos, bases,
+                                  alpha, beta, nsmooth, blocks, tail, smem);
+  if (err != cudaSuccess) return err;
+  T* next = (T*)out;
+  for (int d = 0; d + 1 < ndep; ++d) {
+    g.u[d] = next;
+    next += cells_host(shapes, d);
+    g.uin[d] = (const T*)u_in[d];
+    g.r[d] = (T*)rhs[d];  // never written
+    g.a[d] = (const T*)a[d];
+  }
+  g.top = (const T*)e_bot;
+  return launch_tower<T>((const void*)tower_up_kernel<T>, g, blocks, smem,
+                         st);
+}
+
+}  // namespace
+
+// C entry points (csrc/mg_kernels.h's conventions). shapes: ndep * 3 ints;
+// dxs, rhos: ndep doubles; bases: ndep ints (sum(lo) per depth); blocks,
+// tail, smem: the launch geometry (ops/coarse_tower.tower_geometry).
+extern "C" int mgk_tower_down(const void* u0, const void* rhs0, void* out,
                               const void* const* a, int is_double, int ndep,
                               const int* shapes, const int* kinds,
                               const double* dxs, const double* rhos,
                               const int* bases, double alpha, double beta,
-                              int nsmooth, void* stream) {
+                              int nsmooth, int blocks, int tail, int smem,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_double
-      ? tower_down_impl<double>(u, rhs, a, ndep, shapes, kinds, dxs, rhos, bases, alpha, beta, nsmooth, st)
-      : tower_down_impl<float>(u, rhs, a, ndep, shapes, kinds, dxs, rhos, bases, alpha, beta, nsmooth, st));
+      ? tower_down_impl<double>(u0, rhs0, out, a, ndep, shapes, kinds, dxs,
+                                rhos, bases, alpha, beta, nsmooth, blocks,
+                                tail, smem, st)
+      : tower_down_impl<float>(u0, rhs0, out, a, ndep, shapes, kinds, dxs,
+                               rhos, bases, alpha, beta, nsmooth, blocks,
+                               tail, smem, st));
 }
 
-extern "C" int mgk_tower_up(const void* e_bot, void* const* u,
+extern "C" int mgk_tower_up(const void* e_bot, const void* const* u_in,
                             const void* const* rhs, const void* const* a,
-                            int is_double, int ndep, const int* shapes,
-                            const int* kinds, const double* dxs,
-                            const double* rhos, const int* bases, double alpha,
-                            double beta, int nsmooth, void* stream) {
+                            void* out, int is_double, int ndep,
+                            const int* shapes, const int* kinds,
+                            const double* dxs, const double* rhos,
+                            const int* bases, double alpha, double beta,
+                            int nsmooth, int blocks, int tail, int smem,
+                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_double
-      ? tower_up_impl<double>(e_bot, u, rhs, a, ndep, shapes, kinds, dxs, rhos, bases, alpha, beta, nsmooth, st)
-      : tower_up_impl<float>(e_bot, u, rhs, a, ndep, shapes, kinds, dxs, rhos, bases, alpha, beta, nsmooth, st));
+      ? tower_up_impl<double>(e_bot, u_in, rhs, a, out, ndep, shapes, kinds,
+                              dxs, rhos, bases, alpha, beta, nsmooth, blocks,
+                              tail, smem, st)
+      : tower_up_impl<float>(e_bot, u_in, rhs, a, out, ndep, shapes, kinds,
+                             dxs, rhos, bases, alpha, beta, nsmooth, blocks,
+                             tail, smem, st));
+}
+
+// C entry point of the barrier probe: one cooperative launch of `blocks`
+// blocks that passes n grid barriers.
+extern "C" int mgk_tower_barriers(int blocks, int n, void* stream) {
+  if (blocks < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  void* params[] = {(void*)&n};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)tower_barriers_kernel, dim3(blocks), dim3(kThreads),
+      params, 0, (cudaStream_t)stream);
+}
+
+// C entry point: *capacity <- blocks of both tower kernels of the type that
+// the current device runs at once with `smem` bytes of shared memory each.
+extern "C" int mgk_tower_capacity(int is_double, int smem, int* capacity) {
+  return (int)(is_double ? tower_capacity<double>(smem, capacity)
+                         : tower_capacity<float>(smem, capacity));
 }

@@ -13,10 +13,11 @@ the bottom solve, and an up pass.
   * `tower_up` — from the bottom solution upward, piecewise-constant
     prolongation increment then nsmooth post-smooth sweeps per depth.
 
-Each of the two is one C call that enqueues its whole chain of CUDA
-launches (csrc/tower.cu) for CUDA tensors, and a plain PyTorch version
-(`tower_down_plain` / `tower_up_plain`) that the wrappers take only for CPU
-tensors. The per-depth math is the same the staged path runs, so the tower
+Each of the two is ONE cooperative CUDA launch for CUDA tensors
+(csrc/tower.cu; the split of the chain between grid-wide depths and the
+one-block tail is `tower_geometry`, kept per chain), and a plain PyTorch
+version (`tower_down_plain` / `tower_up_plain`) that the wrappers take only
+for CPU tensors. The per-depth math is the same the staged path runs, so the tower
 matches the per-depth V-cycle to reorder tolerance.
 
 Reference structure this fuses: the MG depth recursion AMRMultiGrid drives
@@ -27,6 +28,8 @@ prolongIncrement.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -95,14 +98,15 @@ def tower_supported(spec, coefs, d: int, itemsize: int = 4) -> bool:
     even-coarsenable, and a top depth whose four arrays of `itemsize` bytes
     per cell (4: the kernel path runs in f32) fit the card's L2 cache
     (fused_sweeps.L2_BYTES, the size term of the smoother rungs). The
-    tower smooths with one launch per colour pass, which is the right
-    smoother only for a depth that stays in the cache between passes: a
-    bigger depth goes through mg_vcycle's staged recursion, where `relax`
-    gives it the wavefront or multisweep rung, and the tower starts
-    below it. The term looks at the shape alone, not at where the tensors
-    live: CPU tensors under `smoother = pallas` take the same split on
-    purpose, so that a CPU run walks the card's dispatch (with the plain
-    versions in the kernels' places)."""
+    tower's big depths pass over their arrays once per colour pass, with a
+    grid barrier between passes, which is the right smoother only for a
+    depth that stays in the cache between passes: a bigger depth goes
+    through mg_vcycle's staged recursion, where `relax` gives it the
+    wavefront or multisweep rung, and the tower starts below it. The term
+    looks at the shape alone, not at where the tensors live: CPU tensors
+    under `smoother = pallas` take the same split on purpose, so that a CPU
+    run walks the card's dispatch (with the plain versions in the kernels'
+    places)."""
     if spec.num_mg != 1 or coefs["b"][d] is not None:
         return False
     if fs.exceeds_l2(spec.boxes[d].shape, itemsize):
@@ -117,107 +121,206 @@ def tower_supported(spec, coefs, d: int, itemsize: int = 4) -> bool:
     return True
 
 
-def _chain_args(spec, d: int, ndep: int):
-    """Static per-depth arguments of the C entry points."""
-    shapes = [s for k in range(ndep) for s in spec.boxes[d + k].shape]
-    return dict(
-        shapes=(ctypes.c_int * (3 * ndep))(*shapes),
-        kinds=fs.kinds_array(spec.kinds),
-        dxs=(ctypes.c_double * ndep)(*[float(x) for x in spec.dx[d:d + ndep]]),
-        rhos=(ctypes.c_double * ndep)(
-            *[float(x) for x in spec.rho[d:d + ndep]]
-        ),
-        bases=(ctypes.c_int * ndep)(
-            *[int(sum(spec.boxes[d + k].lo)) for k in range(ndep)]
-        ),
+# The one-launch kernels (csrc/tower.cu): threads per block (kThreads), the
+# longest chain they take (kMaxDepths), and per item size the shared memory
+# of the block that runs the small depths: u, rhs and a of the tail's first
+# depth and one array of the depth below, (3 * 4096 + 512) cells from a 16^3
+# depth on (50 KB in f32, 100 KB in f64).
+TOWER_THREADS = 512
+MAX_DEPTHS = 12
+TOWER_SMEM = {4: 52 << 10, 8: 104 << 10}
+
+
+def tower_geometry(shapes, itemsize: int, capacity: int):
+    """(blocks, tail, smem) of one tower launch over the depth chain
+    `shapes` (the finest first): depths [0, tail) run grid-wide, depths
+    [tail, end) in one block's `smem` bytes of shared memory. The tail
+    starts at the first depth whose u, rhs and a, with one array of the
+    depth below, fit TOWER_SMEM (counted in bytes, whatever the shape);
+    tail = len(shapes) and smem = 0 when none does. `blocks` of
+    TOWER_THREADS: 1 when the whole chain is the tail; else enough for the
+    top depth's colour pass (a z pair a thread), at most `capacity` (the
+    blocks the card runs at once, tower_capacity: a cooperative launch
+    needs all of them resident), and where that fits a whole number of x
+    planes of z pairs, so that a thread keeps its pair from step to step
+    (csrc/tower.cu)."""
+    cells = [math.prod(s) for s in shapes] + [0]
+    ndep = len(shapes)
+    need = [(3 * cells[k] + cells[k + 1]) * itemsize for k in range(ndep)]
+    tail = next((k for k in range(ndep) if need[k] <= TOWER_SMEM[itemsize]),
+                ndep)
+    smem = need[tail] if tail < ndep else 0
+    if tail == 0:
+        return 1, 0, smem
+    nx, ny, nz = shapes[0]
+    threads, capacity = TOWER_THREADS, int(capacity)
+    plane = ny * -(-nz // 2)
+    need = -(-nx * plane // threads)
+    q = plane // math.gcd(plane, threads)  # blocks that make whole planes
+    if -(-need // q) * q <= capacity:
+        blocks = -(-need // q) * q
+    elif q <= capacity:
+        blocks = capacity // q * q
+    else:
+        blocks = min(capacity, need)
+    return blocks, tail, smem
+
+
+def tower_capacity(device, itemsize: int) -> int:
+    """Blocks of both tower kernels (at TOWER_SMEM) that the CUDA device
+    runs at once (mgk_tower_capacity)."""
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = cuda_ext.lib().mgk_tower_capacity(
+            int(itemsize == 8), TOWER_SMEM[itemsize], ctypes.byref(cap))
+    cuda_ext.check(err, "tower capacity")
+    return cap.value
+
+
+def buffer_layout(shapes):
+    """Where the outputs of one call lie in its one buffer, as the C entry
+    points place them: (views, down_cells, up_cells). tower_down's buffer
+    holds every depth's state (the finest first), then the restricted rhs
+    of depths 1 .. end, down_cells in all; tower_up's the new state of
+    every depth above the bottom, up_cells. views: (shape, stride, offset)
+    of each state, then of each restricted rhs."""
+    ndep = len(shapes)
+    cells = [math.prod(s) for s in shapes]
+    offsets = [sum(cells[:k]) for k in range(ndep + 1)]
+    views = tuple((s, (s[1] * s[2], s[2], 1), o)
+                  for s, o in zip(shapes, offsets))
+    views += tuple((s, stride, o + offsets[ndep] - cells[0])
+                   for s, stride, o in views[1:])
+    return views, 2 * offsets[ndep] - cells[0], offsets[ndep - 1]
+
+
+class _Chain(NamedTuple):
+    """What a tower launch over one depth chain needs besides its tensors."""
+    shapes: tuple       # per depth (nx, ny, nz)
+    views: tuple        # per depth (shape, stride, offset) in one buffer
+    down_cells: int     # every state, then every restricted rhs
+    up_cells: int       # the states of every depth above the bottom
+    args: tuple         # the C entry points' arguments after the pointers,
+                        # tower_geometry's last
+
+
+# chains by (id(spec), d, dtype, device index); each entry keeps its spec,
+# so an id is not reused while it is cached
+_CHAINS: dict = {}
+
+
+def _chain(spec, d: int, ref) -> _Chain:
+    """The static arguments of the chain [d, end) of `spec` for tensors like
+    `ref`, kept per chain: the solver calls the tower with a few chains
+    many times, and its host time is part of every call's."""
+    key = (id(spec), d, ref.dtype, ref.device.index)
+    hit = _CHAINS.get(key)
+    if hit is not None and hit[0] is spec:
+        return hit[1]
+    ndep = spec.ndepths - d
+    if not 2 <= ndep <= MAX_DEPTHS:
+        raise ValueError(f"tower: {ndep} depths (2 to {MAX_DEPTHS})")
+    shapes = tuple(tuple(int(n) for n in spec.boxes[d + k].shape)
+                   for k in range(ndep))
+    isz = ref.element_size()
+    geometry = tower_geometry(shapes, isz, tower_capacity(ref.device, isz))
+    args = (
+        int(isz == 8), ndep, (ctypes.c_int * (3 * ndep))(*sum(shapes, ())),
+        fs.kinds_array(spec.kinds),
+        (ctypes.c_double * ndep)(*[float(x) for x in spec.dx[d:]]),
+        (ctypes.c_double * ndep)(*[float(x) for x in spec.rho[d:]]),
+        (ctypes.c_int * ndep)(*[int(sum(spec.boxes[d + k].lo))
+                                for k in range(ndep)]),
+        float(spec.alpha), float(spec.beta), int(spec.nsmooth), *geometry,
     )
+    chain = _Chain(shapes, *buffer_layout(shapes), args)
+    if len(_CHAINS) >= 256:
+        _CHAINS.clear()
+    _CHAINS[key] = (spec, chain)
+    return chain
 
 
 def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _check_chain(name: str, spec, d: int, groups):
-    """Every tensor of depth k has the depth's shape; one dtype/device."""
-    ref = groups[0][0]
+def _on_stream(fn, t, *args):
+    """fn(*args, stream): a C entry point that launches on the current
+    stream of t's device, made the current device only where it is not."""
+    idx = t.get_device()
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+    with torch.cuda.device(idx):
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+
+
+def _check_first(name: str, t):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (f32/f64)")
+
+
+def _check_chain(name: str, shapes, ref, groups):
+    """Depth k of every group has the chain's depth-k shape, is contiguous,
+    and has ref's dtype and device."""
+    dt, dev = ref.dtype, ref.device
     for tensors in groups:
         for k, t in enumerate(tensors):
-            fs.check_level_args(name, t)
-            if (tuple(t.shape) != tuple(spec.boxes[d + k].shape)
-                    or t.dtype != ref.dtype or t.device != ref.device):
+            if (t.shape != shapes[k] or t.dtype != dt or t.device != dev
+                    or not t.is_contiguous()):
                 raise ValueError(
-                    f"{name}: depth {d + k} operand {tuple(t.shape)} "
-                    f"{t.dtype} {t.device} does not match the depth chain"
+                    f"{name}: depth {k} operand {tuple(t.shape)} {t.dtype} "
+                    f"{t.device} does not match the depth chain "
+                    f"({shapes[k]}, {dt}, {dev}, contiguous)"
                 )
 
 
 def tower_down(spec, d: int, u, rhs, a_list):
     """Down pass over depths [d, end): (u_list[0..ndep-2],
-    rhs_list[1..ndep-1], u_bot). CUDA tensors go to the kernels, CPU
-    tensors take the plain version."""
+    rhs_list[1..ndep-1], u_bot). CUDA tensors go to the kernel (one
+    cooperative launch; the outputs are views of one new buffer, the
+    inputs are only read), CPU tensors take the plain version."""
     if u.device.type == "cpu":
         return tower_down_plain(spec, d, u, rhs, a_list)
-    ndep = spec.ndepths - d
-    a_list = list(a_list)
-    _check_chain("tower_down", spec, d, [[u], [rhs], a_list])
-    lib = cuda_ext.lib()
-    shapes = [tuple(spec.boxes[d + k].shape) for k in range(ndep)]
-    # the kernels sweep in place: depth 0 starts from a copy of the
-    # caller's u, coarser depths from zero
-    us = [u.clone()] + [
-        torch.zeros(shapes[k], dtype=u.dtype, device=u.device)
-        for k in range(1, ndep)
-    ]
-    rs = [rhs] + [
-        torch.empty(shapes[k], dtype=u.dtype, device=u.device)
-        for k in range(1, ndep)
-    ]
-    ca = _chain_args(spec, d, ndep)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernel_counts.count_launch(
-            "tower_down", ndep * 2 * int(spec.nsmooth) + ndep - 1)
-        err = lib.mgk_tower_down(
-            _ptrs(us), _ptrs(rs), _ptrs(a_list),
-            int(u.dtype == torch.float64), ndep, ca["shapes"], ca["kinds"],
-            ca["dxs"], ca["rhos"], ca["bases"], float(spec.alpha),
-            float(spec.beta), int(spec.nsmooth), stream,
-        )
+    _check_first("tower_down", u)
+    ch = _chain(spec, d, u)
+    ndep = len(ch.shapes)
+    if len(a_list) != ndep:
+        raise ValueError(f"tower_down: need {ndep} arrays of a")
+    _check_chain("tower_down", ch.shapes, u, ((u,), (rhs,), a_list))
+    out = torch.empty(ch.down_cells, dtype=u.dtype, device=u.device)
+    kernel_counts.count_launch("tower_down", 1)
+    err = _on_stream(
+        cuda_ext.lib().mgk_tower_down, u, u.data_ptr(), rhs.data_ptr(),
+        out.data_ptr(), _ptrs(a_list), *ch.args)
     cuda_ext.check(err, "tower_down")
-    return us[:-1], rs[1:], us[-1]
+    views = [out.as_strided(*v) for v in ch.views]
+    return views[:ndep - 1], views[ndep:], views[ndep - 1]
 
 
 def tower_up(spec, d: int, e_bot, u_list, rhs_list, a_list):
     """Up pass from the bottom correction to depth d; returns the depth-d
-    state. CUDA tensors go to the kernels, CPU tensors take the plain
+    state. CUDA tensors go to the kernel (one cooperative launch into one
+    new buffer; the inputs are only read), CPU tensors take the plain
     version."""
     if e_bot.device.type == "cpu":
         return tower_up_plain(spec, d, e_bot, u_list, rhs_list, a_list)
-    ndep = spec.ndepths - d
-    u_list, rhs_list, a_list = list(u_list), list(rhs_list), list(a_list)
+    _check_first("tower_up", e_bot)
+    ch = _chain(spec, d, e_bot)
+    ndep = len(ch.shapes)
     if not (len(u_list) == len(rhs_list) == len(a_list) == ndep - 1):
         raise ValueError("tower_up: need ndep-1 arrays of u, rhs and a")
-    _check_chain("tower_up", spec, d, [u_list, rhs_list, a_list])
-    fs.check_level_args("tower_up", e_bot)
-    if (tuple(e_bot.shape) != tuple(spec.boxes[spec.ndepths - 1].shape)
-            or e_bot.dtype != u_list[0].dtype
-            or e_bot.device != u_list[0].device):
-        raise ValueError("tower_up: e_bot does not match the bottom depth")
-    lib = cuda_ext.lib()
-    us = [t.clone() for t in u_list]  # swept in place
-    ca = _chain_args(spec, d, ndep)
-    with torch.cuda.device(e_bot.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernel_counts.count_launch(
-            "tower_up", (ndep - 1) * (1 + 2 * int(spec.nsmooth)))
-        err = lib.mgk_tower_up(
-            e_bot.data_ptr(), _ptrs(us), _ptrs(rhs_list), _ptrs(a_list),
-            int(e_bot.dtype == torch.float64), ndep, ca["shapes"],
-            ca["kinds"], ca["dxs"], ca["rhos"], ca["bases"],
-            float(spec.alpha), float(spec.beta), int(spec.nsmooth), stream,
-        )
+    _check_chain("tower_up", ch.shapes, e_bot,
+                 (u_list, rhs_list, a_list))
+    _check_chain("tower_up", ch.shapes[ndep - 1:], e_bot, ((e_bot,),))
+    out = torch.empty(ch.up_cells, dtype=e_bot.dtype, device=e_bot.device)
+    kernel_counts.count_launch("tower_up", 1)
+    err = _on_stream(
+        cuda_ext.lib().mgk_tower_up, e_bot, e_bot.data_ptr(), _ptrs(u_list),
+        _ptrs(rhs_list), _ptrs(a_list), out.data_ptr(), *ch.args)
     cuda_ext.check(err, "tower_up")
-    return us[0]
+    return out.as_strided(*ch.views[0])
 
 
 def tower_vcycle(spec, coefs, d: int, u, rhs):

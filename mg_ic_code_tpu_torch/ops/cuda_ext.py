@@ -25,7 +25,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "multisweep.cu",
            "multisweep_halo.cu")
-HEADERS = ("mg_kernels.h", "residual_device.cuh", "multisweep_march.cuh")
+HEADERS = ("mg_kernels.h", "gsrb_device.cuh", "residual_device.cuh",
+           "multisweep_march.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -138,12 +139,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.mgk_tower_down.restype = ci
     lib.mgk_tower_down.argtypes = [
-        pvp, pvp, pvp, ci, ci, pi, pi, pd, pd, pi, cd, cd, ci, vp,
+        vp, vp, vp, pvp, ci, ci, pi, pi, pd, pd, pi, cd, cd, ci, ci, ci, ci,
+        vp,
     ]
     lib.mgk_tower_up.restype = ci
     lib.mgk_tower_up.argtypes = [
-        vp, pvp, pvp, pvp, ci, ci, pi, pi, pd, pd, pi, cd, cd, ci, vp,
+        vp, pvp, pvp, pvp, vp, ci, ci, pi, pi, pd, pd, pi, cd, cd, ci, ci, ci,
+        ci, vp,
     ]
+    lib.mgk_tower_capacity.restype = ci
+    lib.mgk_tower_capacity.argtypes = [ci, ci, pi]
+    lib.mgk_tower_barriers.restype = ci
+    lib.mgk_tower_barriers.argtypes = [ci, ci, vp]
 
 
 def lib() -> ctypes.CDLL:

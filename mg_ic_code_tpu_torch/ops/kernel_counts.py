@@ -2,19 +2,16 @@
 
 `LAUNCHES[name]` goes up by one each time a wrapper hands its work to the
 CUDA library (and nowhere else): it counts wrapper CALLS that reached the
-card. One such call enqueues several `<<<>>>` launches from its C entry
-point; `DEVICE_LAUNCHES[name]` goes up by that number at the same place
-(gsrb_relax: one per colour pass = 2 * nsweeps, and so 2 for its one-sweep
-and 1 for its one-pass entry point; wavefront_relax and multisweep_relax,
+card. `DEVICE_LAUNCHES[name]` goes up, at the same place, by the number of
+kernel launches that call enqueued from its C entry point: gsrb_relax one
+per colour pass = 2 * nsweeps (2 for its one-sweep and 1 for its one-pass
+entry point: the loops of csrc/gsrb_relax.cu); every other kernel 1 —
+residual; tower_down and tower_up, each a whole depth chain in one
+cooperative launch (csrc/tower.cu); wavefront_relax and multisweep_relax,
 two wrappers of one kernel, and multisweep_relax_halo /
-multisweep_relax_tiled_pre, the same kernel on one shard of a sharded level
-(an x-slab with its pads, a prepadded pencil): 1, all passes of the chunk
-in one launch;
-residual: 1; tower_down:
-2 * nsmooth per depth plus one residual-and-restrict per depth but the
-last; tower_up: one prolongation plus 2 * nsmooth per depth above the
-bottom — the loops of csrc/gsrb_relax.cu, csrc/multisweep.cu and
-csrc/tower.cu).
+multisweep_relax_tiled_pre, the same march on one shard of a sharded level
+(an x-slab with its pads, a prepadded pencil), all passes of the chunk in
+one launch (csrc/multisweep.cu, csrc/multisweep_halo.cu).
 `PLAIN_CALLS[name]` goes up each time the plain PyTorch version of that
 kernel runs. A run on the GPU can thereby show that its path went through
 the kernels and never through a plain version.

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the march kernels of two trees (or more) against each other on one
-card.
+"""Time the one-launch kernels of two trees (or more) against each other on
+one card: the march and the coarse towers.
 
     git archive <parent> | tar -x -C build/ab_parent   # where git is
     python3 scripts/march_ab.py --parent build/ab_parent \
@@ -13,14 +13,19 @@ on the same card, in the order given by --order (default: A, B, the
 variants, the same backwards: A B B A without variants), with the same
 timer in every tree: this tree's `chip_smoke.time_ms` (CUDA events around
 a batch of calls back to back, over the batch) replaces the tree's own. The
-f32 times of every timed march case (the whole-level kernel under
+f32 times of every timed case of the march (the whole-level kernel under
 `wavefront_relax` and `multisweep_relax`, the shard kernels under
 `multisweep_relax_halo` and `multisweep_relax_tiled_pre`; 2 sweeps per
-launch) are read from each run's kernels line. The JSON written to --out holds every run's times and, per
-case, each tree's runs, median and spread (largest over smallest of its
-runs, minus one) and each tree's speed-up over A (A's median over its own).
-Each run's whole output goes beside it (<out>.<i><tree>.log). Exits non-zero
-when a run fails.
+launch) and of the towers (`tower_down`, `tower_up`: a depth chain, 4
+sweeps per depth) are read from each run's kernels line. In every tree the
+same probe also times each tower wrapper call on the host clock (its
+checks, allocation and launches, in the kernels phase's own calls;
+reported per case as the median over the run's calls, `host_us`). The JSON
+written to --out holds every run's times and, per case, each tree's runs,
+median and spread (largest over smallest of its runs, minus one) and each
+tree's speed-up over A (A's median over its own), for the device times
+under "cases" and the host times under "host_us". Each run's whole output
+goes beside it (<out>.<i><tree>.log). Exits non-zero when a run fails.
 """
 
 from __future__ import annotations
@@ -36,7 +41,36 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MARCH = ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
-         "multisweep_relax_tiled_pre")
+         "multisweep_relax_tiled_pre", "tower_down", "tower_up")
+TOWERS = ("tower_down", "tower_up")
+
+# Run in every tree after its chip_smoke module is imported: wraps the tower
+# wrappers of that tree so that each call's host time is kept under
+# "<kernel> <case> <dtype>" (the case of chip_smoke.TOWER_CASES whose shape
+# and faces the chain has), and prints them as one line when main() is done.
+HOST_PROBE = """
+_host = {}
+
+
+def _host_timed(name, fn):
+    cases = {(tuple(c[1]), c[2]): c[0] for c in chip_smoke.TOWER_CASES}
+
+    def call(spec, d, first, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(spec, d, first, *args, **kw)
+        dt = (time.perf_counter() - t0) * 1e6
+        cid = cases.get((tuple(spec.boxes[d].shape), spec.kinds))
+        if cid is not None and first.is_cuda:
+            key = f"{name} {cid} {str(first.dtype)[6:]}"
+            _host.setdefault(key, []).append(dt)
+        return out
+    return call
+
+
+for _name in TOWERS:
+    setattr(chip_smoke.ct, _name,
+            _host_timed(_name, getattr(chip_smoke.ct, _name)))
+"""
 PHASES = "env,build,kernels"
 
 
@@ -54,15 +88,22 @@ def timer_source() -> str:
 
 def runner() -> str:
     """Runs chip_smoke.py's main() in the tree whose root is the working
-    directory, with this tree's time_ms in place of its own."""
-    return ("import os, sys\n"
+    directory, with this tree's time_ms in place of its own and the host
+    probe of the tower wrappers."""
+    return ("import json, os, statistics, sys, time\n"
             "sys.path.insert(0, os.getcwd())\n"
             f"sys.argv = ['chip_smoke.py', '--phases', '{PHASES}']\n"
             "import chip_smoke\n"
             "import torch\n"
             + timer_source() + "\n"
             "chip_smoke.time_ms = time_ms\n"
-            "sys.exit(chip_smoke.main())\n")
+            f"TOWERS = {TOWERS!r}\n"
+            + HOST_PROBE +
+            "rc = chip_smoke.main()\n"
+            "print(json.dumps({'phase': 'tower_host_us', 'host_us': {\n"
+            "    k: statistics.median(v) for k, v in _host.items()}}),\n"
+            "    flush=True)\n"
+            "sys.exit(rc)\n")
 
 
 def kernels_record(stdout: str) -> dict:
@@ -86,6 +127,17 @@ def march_times(rec: dict) -> dict:
     return out
 
 
+def host_times(stdout: str) -> dict:
+    """{"<kernel> <case>": us} of the f32 tower calls: the host probe's
+    line of one run."""
+    for line in stdout.splitlines():
+        if line.startswith("{") and '"phase": "tower_host_us"' in line:
+            return {k[:-len(" float32")]: v
+                    for k, v in json.loads(line)["host_us"].items()
+                    if k.endswith(" float32")}
+    raise RuntimeError("no tower_host_us line in the run's output")
+
+
 def build_seconds(stdout: str):
     for line in stdout.splitlines():
         if line.startswith("{") and '"phase": "build"' in line:
@@ -106,19 +158,20 @@ def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
         raise RuntimeError(f"{root}: chip_smoke.py exit {proc.returncode}:\n"
                            f"{tail}")
     return ({"times": march_times(kernels_record(proc.stdout)),
+             "host_us": host_times(proc.stdout),
              "build_s": build_seconds(proc.stdout)},
             time.perf_counter() - t0)
 
 
-def summarize(runs: list, trees) -> dict:
-    """Per case: each tree's runs, median and spread, and its speed-up over
-    tree A."""
-    cases = sorted(set.intersection(*(set(r["times"]) for r in runs)))
+def summarize(runs: list, trees, field: str = "times") -> dict:
+    """Per case of `field`: each tree's runs, median and spread, and its
+    speed-up over tree A."""
+    cases = sorted(set.intersection(*(set(r[field]) for r in runs)))
     out = {}
     for case in cases:
         row = {}
         for tree in trees:
-            ts = [r["times"][case] for r in runs if r["tree"] == tree]
+            ts = [r[field][case] for r in runs if r["tree"] == tree]
             row[tree] = ts
             row[f"{tree}_median"] = statistics.median(ts)
             row[f"{tree}_spread"] = max(ts) / min(ts) - 1.0
@@ -171,7 +224,8 @@ def main() -> int:
         print(f"run {i} {tree}: {secs:.1f} s", flush=True)
     result = {"card": card[0] if card else None, "order": order,
               "roots": roots, "runs": runs,
-              "cases": summarize(runs, list(roots))}
+              "cases": summarize(runs, list(roots)),
+              "host_us": summarize(runs, list(roots), "host_us")}
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     for case, row in result["cases"].items():
@@ -179,6 +233,9 @@ def main() -> int:
             f"{t} {row[t + '_median']:.4f} ms"
             + (f" x{row[t + '_speedup']:.3f}" if t != "A" else "")
             for t in roots), flush=True)
+    for case, row in result["host_us"].items():
+        print(case + " host: " + ", ".join(
+            f"{t} {row[t + '_median']:.1f} us" for t in roots), flush=True)
     return 0
 
 

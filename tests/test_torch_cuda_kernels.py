@@ -169,14 +169,89 @@ def test_cuda_tower_vcycle_matches_cpu_plain():
         which = "launches" if dev == "cuda" else "plain_calls"
         assert counts[which]["tower_down"] == 1
         assert counts[which]["tower_up"] == 1
-        if dev == "cuda":  # 32^3 -> 4^3: 4 depths, 4 smooths each
-            assert counts["device_launches"]["tower_down"] == 4 * 8 + 3
-            assert counts["device_launches"]["tower_up"] == 3 * 9
+        if dev == "cuda":  # 32^3 -> 4^3 in one launch each way
+            assert counts["device_launches"]["tower_down"] == 1
+            assert counts["device_launches"]["tower_up"] == 1
     np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
                                rtol=0, atol=5e-5)
 
 
 P = "periodic"
+
+# chip_smoke.TOWER_CASES: (shape, kinds, lo): the canonical 64^3 chain, the
+# periodic box's from 128^3, the sharded paths' 16^3 chains (one block),
+# a non-cube CF chain, mixed faces with an odd parity offset in z, one
+# periodic axis, an odd bottom too big for the one-block tail, a bottom that
+# is the whole tail
+TOWER_CASES = [
+    ((64, 64, 64), ((D, D),) * 3, (0, 0, 0)),
+    ((128, 128, 128), ((P, P),) * 3, (0, 0, 0)),
+    ((16, 16, 16), ((P, P),) * 3, (0, 0, 0)),
+    ((16, 16, 16), ((D, D),) * 3, (0, 0, 0)),
+    ((176, 64, 64), ((C, C),) * 3, (416, 288, 288)),
+    ((32, 48, 40), ((D, C), (N, D), (C, N)), (16, 0, 8)),
+    ((32, 32, 32), ((P, P), (D, C), (C, N)), (0, 0, 0)),
+    ((68, 68, 68), ((D, N), (C, D), (N, C)), (4, 0, 8)),
+    ((64, 64, 60), ((P, P), (P, P), (D, N)), (0, 4, 0)),
+]
+
+
+def tower_chain(shape, lo, kinds):
+    """A LevelMGSpec whose depth chain coarsens `shape` while it stays
+    2-coarsenable with every side >= 4 (as make_level_spec builds it)."""
+    from mg_ic_code_tpu_torch.grid.boxes import Box
+
+    boxes = [Box.from_shape(tuple(shape), tuple(lo))]
+    while boxes[-1].coarsenable(2) and min(boxes[-1].coarsen(2).shape) >= 4:
+        boxes.append(boxes[-1].coarsen(2))
+    n = len(boxes)
+    return tmg.LevelMGSpec(
+        kinds=kinds, boxes=tuple(boxes), dx=tuple(0.11 * 2**d for d in
+                                                  range(n)),
+        rho=tuple(2.0 ** (1 - d) for d in range(n)), alpha=1.0, beta=-1.0,
+        nsmooth=4, smoother="pallas")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", TOWER_CASES,
+                         ids=["path_64", "periodic_128", "sharded_16_P",
+                              "sharded_16", "l3_176x64x64", "mixed_faces",
+                              "periodic_axis", "no_tail_68",
+                              "bottom_tail_64x64x60"])
+def test_cuda_towers_match_plain(case, dt):
+    """tower_down and tower_up on the card against their plain versions:
+    one launch per call, the inputs only read."""
+    _need_cuda()
+    from mg_ic_code_tpu_torch.ops import coarse_tower as tct
+    from mg_ic_code_tpu_torch.ops import stencils as tst
+
+    shape, kinds, lo = case
+    npdt, rtol = DTYPES[dt]
+    spec = tower_chain(shape, lo, kinds)
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
+    a_list = [f["a"]]
+    for _ in range(1, spec.ndepths):
+        a_list.append(tst.coarsen_coef(a_list[-1], "harmonic").contiguous())
+    kept = [t.clone() for t in [f["u"], f["rhs"]] + a_list]
+    kernel_counts.reset()
+    ku, kr, kb = tct.tower_down(spec, 0, f["u"], f["rhs"], a_list)
+    pu, pr, pb = tct.tower_down_plain(spec, 0, f["u"], f["rhs"], a_list)
+    for k, p in zip(list(ku) + list(kr) + [kb], list(pu) + list(pr) + [pb]):
+        assert k.shape == p.shape
+        assert float((k - p).abs().max()) <= rtol * float(p.abs().max())
+    e_bot = 0.5 * pb
+    rhs_list = [f["rhs"]] + list(pr)
+    args = (spec, 0, e_bot, list(pu), rhs_list[:-1], a_list[:-1])
+    out, ref = tct.tower_up(*args), tct.tower_up_plain(*args)
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+    for name in ("tower_down", "tower_up"):
+        assert kernel_counts.LAUNCHES[name] == 1
+        assert kernel_counts.DEVICE_LAUNCHES[name] == 1
+    assert all(torch.equal(x, y) for x, y in
+               zip(kept, [f["u"], f["rhs"]] + a_list))
+
+
 MULTI_CASES = [
     # (shape, kinds, lo)
     ((38, 18, 10), ((P, P), (C, D), (N, C)), (0, 3, 0)),
