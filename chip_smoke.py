@@ -26,9 +26,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
            timed whole-level march case also its launch (tile width, x
            segments, steps of the longest block, rounds), the time of one
            step and the fraction of the byte bound (scripts/march_ab.py
-           times the march and the towers of two trees against each
-           other). Each tower call must be one kernel launch that leaves
-           its inputs as they were; for each timed tower case also its
+           times the march, the towers and gsrb_relax of two trees against
+           each other). gsrb_relax runs in every form that takes a level
+           (fused_sweeps.gsrb_geometry: grid, slab), each call one launch
+           that leaves its input as it was; for each timed case also the
+           form and blocks the geometry picks, the device time and the
+           wrapper's host time per call, and each form's time. Each tower
+           call must be one kernel launch that leaves its inputs as they
+           were; for each timed tower case also its
            launch (grid blocks, the first depth of the one-block tail, its
            shared memory, grid barriers per call), one grid barrier's time
            (a probe of 64 barriers against none), the wrapper's host time
@@ -549,6 +554,71 @@ TOWER_CASES = [
 ]
 
 
+def gsrb_forms(u, with_b: bool, kinds) -> tuple:
+    """The geometry fused_sweeps.gsrb_geometry picks for the level, and its
+    form then every other form that takes it (the slab form only f32 levels
+    with constant b whose tiles fit a block's shared memory)."""
+    isz = u.element_size()
+    cap = fs.gsrb_capacity(u.device, isz)
+    picked = fs.gsrb_geometry(u.shape, isz, with_b, kinds, cap)
+    forms = [picked.form]
+    for form in fs.GSRB_FORMS:
+        try:
+            fs.gsrb_geometry(u.shape, isz, with_b, kinds, cap, form=form)
+        except ValueError:
+            continue
+        if form not in forms:
+            forms.append(form)
+    return picked, forms
+
+
+def check_gsrb(cid: str, f: dict, lo, kw: dict, dtype, timed: bool,
+               bound: tuple | None = None) -> dict:
+    """gsrb_relax (4 sweeps) against its plain version, through the wrapper
+    (the form gsrb_geometry picks) and in every other form that takes the
+    level (fused_sweeps.gsrb_launch): one launch per call, the input
+    untouched. Timed: the wrapper's time, its device and host time per call,
+    and each form's time and device time."""
+    relax = lambda fn, **x: fn(f["u"], f["rhs"], f["a"], f["b"], nsweeps=4,
+                               lo=lo, **kw, **x)
+    ref = relax(fs.gsrb_relax_plain)
+    u_in = f["u"].clone()
+    geom, forms = gsrb_forms(f["u"], f["b"] is not None, kw["kinds"])
+    worst = (0.0, 0.0)
+    for form in forms:
+        calls = kernel_counts.LAUNCHES["gsrb_relax"]
+        launches = kernel_counts.DEVICE_LAUNCHES["gsrb_relax"]
+        out = (relax(fs.gsrb_relax) if form == geom.form
+               else relax(fs.gsrb_launch, form=form))
+        torch.cuda.synchronize()
+        check(kernel_counts.LAUNCHES["gsrb_relax"] == calls + 1
+              and kernel_counts.DEVICE_LAUNCHES["gsrb_relax"]
+              == launches + 1,
+              f"gsrb_relax {cid} {dtype} {form}: not one launch per call")
+        err, rel = rel_err(out, ref)
+        worst = max(worst, (rel, err))
+        check(rel <= TOL[dtype] and bool(torch.isfinite(out).all()),
+              f"gsrb_relax {cid} {dtype} {form}: rel err {rel} > "
+              f"{TOL[dtype]}")
+        check(torch.equal(u_in, f["u"]),
+              f"gsrb_relax {cid} {dtype} {form}: input modified")
+        check(not torch.equal(out, f["u"]), f"gsrb_relax {cid}: no update")
+    rec = {"max_abs_err": worst[1], "rel_err": worst[0], "form": geom.form,
+           "blocks": geom.blocks, "forms_checked": forms}
+    if timed:
+        run = lambda: relax(fs.gsrb_relax)
+        rec.update(
+            ms=time_ms(run), device_ms=device_ms(run), host_us=host_us(run),
+            plain_ms=time_ms(lambda: relax(fs.gsrb_relax_plain), reps=10,
+                             warmup=1),
+            bound_ms=bound[0], bound_by=bound[1],
+            forms_ms={form: time_ms(lambda: relax(fs.gsrb_launch, form=form))
+                      for form in forms},
+            forms_device_ms={form: device_ms(
+                lambda: relax(fs.gsrb_launch, form=form)) for form in forms})
+    return rec
+
+
 def check_level_case(case, dtype) -> dict:
     cid, shape, kinds, lo, rho, with_b, timed = case
     f = level_fields(shape, dtype, seed=1, with_b=with_b)
@@ -557,17 +627,10 @@ def check_level_case(case, dtype) -> dict:
     isz = f["u"].element_size()
     rec = {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
            "tolerance": TOL[dtype]}
-
-    relax = lambda fn: fn(f["u"], f["rhs"], f["a"], f["b"], nsweeps=4,
-                          lo=lo, **kw)
-    out, ref = relax(fs.gsrb_relax), relax(fs.gsrb_relax_plain)
-    torch.cuda.synchronize()
-    err, rel = rel_err(out, ref)
-    rec["gsrb_relax"] = {"max_abs_err": err, "rel_err": rel}
-    check(rel <= TOL[dtype] and bool(torch.isfinite(out).all()),
-          f"gsrb_relax {cid} {dtype}: rel err {rel} > {TOL[dtype]}")
-    # the input is not modified (the kernel sweeps a copy in place)
-    check(not torch.equal(out, f["u"]), f"gsrb_relax {cid}: no update")
+    narr = 4 + (1 if with_b else 0)
+    rec["gsrb_relax"] = check_gsrb(
+        cid, f, lo, kw, dtype, timed,
+        bound_ms(level_bytes(ncells, isz, narr), 4 * 32.0 * ncells))
 
     resid = lambda fn: fn(f["u"], f["rhs"], f["a"], f["b"], **kw)
     out, ref = resid(fs.residual), resid(fs.residual_plain)
@@ -577,13 +640,6 @@ def check_level_case(case, dtype) -> dict:
     check(rel <= TOL[dtype], f"residual {cid} {dtype}: rel err {rel}")
 
     if timed:
-        narr = 4 + (1 if with_b else 0)
-        b, by = bound_ms(level_bytes(ncells, isz, narr), 4 * 32.0 * ncells)
-        rec["gsrb_relax"].update(
-            ms=time_ms(lambda: relax(fs.gsrb_relax)),
-            plain_ms=time_ms(lambda: relax(fs.gsrb_relax_plain), reps=10,
-                             warmup=1),
-            bound_ms=b, bound_by=by)
         b, by = bound_ms(level_bytes(ncells, isz, narr), 16.0 * ncells)
         rec["residual"].update(
             ms=time_ms(lambda: resid(fs.residual)),
@@ -591,6 +647,43 @@ def check_level_case(case, dtype) -> dict:
                              warmup=1),
             bound_ms=b, bound_by=by)
     return rec
+
+
+# gsrb_relax cases for each split of its launch (fused_sweeps.gsrb_geometry),
+# beside LEVEL_CASES: (id, shape, kinds, lo, with_b). Every form that takes a
+# level runs it (check_gsrb: the slab form f32 with constant b only, forced
+# where the geometry picks the grid form), f32 and f64.
+GSRB_CASES = [
+    # odd lo on tiles that do not divide the level: x (12 and 13 planes),
+    # then x and y (11 and 12 planes, 6 and 7 rows)
+    ("uneven_tiles_odd_lo", (270, 78, 80), ALL_C, (1521, 960, 960), False),
+    ("uneven_tiles_xy", (128, 83, 80), ((D, C), (N, D), (C, N)), (0, 1, 0),
+     False),
+    # nx below the block count: 2 x tiles of a plane, 64 y tiles of a row;
+    # x periodic, so each tile's two x neighbours are the same block
+    ("nx_below_blocks_ring", (2, 64, 48), ((P, P), (D, C), (C, N)), (1, 0, 0),
+     False),
+    # the periodic-x ring of 16 x tiles, and every axis periodic (33 x 4
+    # tiles, y wrapping too)
+    ("periodic_x_ring", (48, 40, 36), ((P, P), (D, C), (C, N)), (0, 1, 0),
+     False),
+    ("all_periodic_tiles", (264, 32, 32), ALL_P, (1, 0, 0), False),
+    # a one-block level with every face kind
+    ("one_block_16", (16, 16, 16), ((D, N), (C, D), (N, C)), (1, 0, 0),
+     False),
+    # variable b: the grid form
+    ("var_b_272x80x80", (272, 80, 80), ALL_C, (0, 0, 0), True),
+    ("var_b_odd_nz", (40, 30, 33), ((D, C), (P, P), (C, N)), (0, 0, 1), True),
+]
+
+
+def check_gsrb_case(case, dtype) -> dict:
+    cid, shape, kinds, lo, with_b = case
+    f = level_fields(shape, dtype, seed=5, with_b=with_b)
+    kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.37)
+    return {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
+            "tolerance": TOL[dtype],
+            "gsrb_relax": check_gsrb(cid, f, lo, kw, dtype, False)}
 
 
 def one_launch_kernels() -> dict:
@@ -625,8 +718,8 @@ def march_steps(u, ms: float, bound: float, nsweeps: int = 2) -> dict:
 
 def check_one_launch_case(name: str, case, dtype) -> dict:
     """wavefront_relax or multisweep_relax against its plain version AND
-    against the gsrb_relax kernel (the same function, one launch per colour
-    pass); nsweeps 2 and 4; one launch per call, the input untouched."""
+    against the gsrb_relax kernel (the same function in another kernel);
+    nsweeps 2 and 4; one launch per call, the input untouched."""
     fn, plain, chunks, _ = one_launch_kernels()[name]
     cid, shape, kinds, lo, rho, timed = case
     f = level_fields(shape, dtype, seed=3)
@@ -1019,6 +1112,8 @@ def phase_kernels() -> dict:
         for case in LEVEL_CASES:
             checks.append(check_level_case(case, dtype))
             torch.cuda.empty_cache()
+        for case in GSRB_CASES:
+            checks.append(check_gsrb_case(case, dtype))
         for case in TOWER_CASES:
             checks.append(check_tower_case(case, dtype))
         for name, (_, _, _, cases) in one_launch_kernels().items():
@@ -1078,13 +1173,20 @@ SMALL_LEVEL_KERNELS = ("gsrb_relax", "residual", "tower_down", "tower_up")
 TOWERS = ("tower_down", "tower_up")
 
 
-def check_towers_one_launch(counts: dict, what: str) -> None:
-    """Every tower call of the run was one kernel launch (csrc/tower.cu)."""
-    for k in TOWERS:
+# kernels whose wrapper call is one kernel launch on the solve paths
+ONE_LAUNCH = TOWERS + ("gsrb_relax",)
+
+
+def check_one_launch(counts: dict, what: str) -> None:
+    """Every tower and gsrb_relax call of the run was one kernel launch
+    (csrc/tower.cu, csrc/gsrb_relax.cu)."""
+    for k in ONE_LAUNCH:
         check(counts["device_launches"][k] == counts["launches"][k],
               f"{what}: {k} is not one launch per call: "
               f"{counts['device_launches'][k]} launches in "
               f"{counts['launches'][k]} calls")
+
+
 # the kernels of the canonical 7-level path (x is never periodic there)
 CANONICAL_KERNELS = SMALL_LEVEL_KERNELS + ("wavefront_relax",)
 # the kernels of the periodic box (its 256^3 depth is staged, 128^3 and
@@ -1155,7 +1257,7 @@ def phase_solve() -> dict:
           f"a kernel was never launched: {counts}")
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"a plain version ran on the card's path: {counts}")
-    check_towers_one_launch(counts, "solve")
+    check_one_launch(counts, "solve")
     check(h[0] > h[1] > h[2], f"history not decreasing: {h}")
     check(all(i <= 4 for i in it), f"linear iters {it}")
     staged = run_solve(base + ["smoother = xla", "max_NL_iterations = 2"],
@@ -1260,7 +1362,7 @@ def check_wave_path(run: dict, counts: dict, what: str) -> None:
     check(counts["device_launches"]["wavefront_relax"]
           == counts["launches"]["wavefront_relax"],
           f"{what}: wavefront_relax is not one launch per call")
-    check_towers_one_launch(counts, what)
+    check_one_launch(counts, what)
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"{what}: a plain version ran on the card's path: {counts}")
 
@@ -1395,7 +1497,7 @@ def check_periodic_run(run: dict, counts: dict, what: str) -> None:
     check(counts["device_launches"]["multisweep_relax"]
           == counts["launches"]["multisweep_relax"],
           f"{what}: multisweep_relax is not one launch per call")
-    check_towers_one_launch(counts, what)
+    check_one_launch(counts, what)
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"{what}: a plain version ran on the card's path: {counts}")
     m = kernel_counts.KERNELS.index("multisweep_relax")
@@ -1829,7 +1931,7 @@ def check_sharded_run(run, ref, counts, what: str, kernel: str,
           f"count: {run['kernel_calls_per_iteration']}")
     check(counts["device_launches"][kernel] == counts["launches"][kernel],
           f"{what}: {kernel} is not one launch per call")
-    check_towers_one_launch(counts, what)
+    check_one_launch(counts, what)
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"{what}: a plain version ran on the card's path: {counts}")
     return {"step1_rel_diff": rel, "K_rel_diff": max(krels),
@@ -2098,7 +2200,7 @@ MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
              "multisweep_relax_tiled_pre": "sharded_pencil"}
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "host_us")
+            "device_ms", "host_us")
 
 
 def kernels_line(kernels: dict | None, solve: dict | None,
@@ -2139,8 +2241,10 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                 "device_launches": (run["device_launches"][name] if run
                                     else None),
                 **{k: rec.get(k) for k in MEASURED},
-                # sweeps per timed call, where the kernel takes a count
-                **({"nsweeps": rec["nsweeps"]} if "nsweeps" in rec else {})}
+                # sweeps per timed call, where the kernel takes a count; the
+                # launch's form and blocks, where the kernel has forms
+                **{k: rec[k] for k in ("nsweeps", "form", "blocks")
+                   if k in rec}}
         top = paths[main]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -2152,7 +2256,7 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                                       if solve else None),
             **{k: top[k] for k in MEASURED}, "library_ms": None,
             "shape": top["shape"], "dtype": "float32",
-            **({"nsweeps": top["nsweeps"]} if "nsweeps" in top else {}),
+            **{k: top[k] for k in ("nsweeps", "form", "blocks") if k in top},
             "paths": paths,
         })
     # the one-sweep and one-pass entry points of the gsrb_relax pass kernel

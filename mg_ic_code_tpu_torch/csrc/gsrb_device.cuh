@@ -1,61 +1,147 @@
-// Device functions shared by the gsrb_relax pass kernel (csrc/gsrb_relax.cu)
-// and the towers' colour passes (csrc/tower.cu): the folded red-black
-// Gauss-Seidel update of ONE cell. The state is read through `get(q)`, u at
-// the linear index q: the level array itself for a pass in place, or a
-// fresh state that the tower's first pass of a depth writes out whole.
-// Indices are of type I: long long for a whole level of any size, int in
-// the towers, whose depths fit the L2 cache. PER says which axes are
-// periodic when the caller knows it: 1 every axis, 0 none, -1 read
+// Device functions shared by every GSRB kernel (csrc/gsrb_relax.cu: the
+// pass kernel and both one-launch forms; csrc/tower.cu: the towers' colour
+// passes): the folded red-black Gauss-Seidel update of ONE cell, split into
+// the terms of its (i, j) row (row_fold) and the rest (gsrb_update_row), so
+// that a kernel that updates several cells of one z row works the row out
+// once; every caller computes the same expressions in the same order.
+// gsrb_cell reads the state through `get(q)`, u at the linear index q: the
+// level array itself for a pass in place, or a fresh state that the first
+// pass writes out whole. Indices are of type I: long long for a whole level
+// of any size, int where the level is below 2^31 cells. PER says which axes
+// are periodic when the caller knows it: 1 every axis, 0 none, -1 read
 // p.periodic (a branch the compiler resolves by computing both forms).
 #pragma once
 
 #include "mg_kernels.h"
 
-// One axis of the folded update: adds (weight_plus * u_plus + weight_minus *
-// u_minus) to acc and the c0 feed-through of a face to c_sum. One load each
-// way, whatever the axis: across a periodic face the wrapped neighbour,
-// across another face the cell itself, which the weight 0 there masks.
+// The neighbours of a cell along one axis, one load each way whatever the
+// axis: across a periodic face the wrapped neighbour, across another face
+// the cell itself (its weight 0 masks it).
 template <typename T, typename I, int PER, typename Get>
-__device__ __forceinline__ void fold_axis(const Get& get, I idx, int i, int n,
-                                          I stride, bool periodic_axis, T c0lo,
-                                          T c1lo, T c0hi, T c1hi, T P, T& acc,
-                                          T& c_sum) {
+__device__ __forceinline__ void axis_pair(const Get& get, I idx, int i, int n,
+                                          I stride, bool periodic_axis,
+                                          T& up, T& um) {
   const bool periodic = PER < 0 ? periodic_axis : PER == 1;
   const bool is_lo = i == 0, is_hi = i == n - 1;
-  const T up = get(is_hi ? (periodic ? idx - (I)(n - 1) * stride : idx)
-                         : idx + stride);
-  const T um = get(is_lo ? (periodic ? idx + (I)(n - 1) * stride : idx)
-                         : idx - stride);
+  up = get(is_hi ? (periodic ? idx - (I)(n - 1) * stride : idx)
+                 : idx + stride);
+  um = get(is_lo ? (periodic ? idx + (I)(n - 1) * stride : idx)
+                 : idx - stride);
+}
+
+// The terms of one non-periodic axis that depend only on the cell's index
+// along it (fold_terms' weights and the c0 feed-through of a face).
+template <typename T>
+struct AxisFold {
+  T wa, wb;     // weights of up and um: 0 across a face, 1 + c1 at it
+  bool lo, hi;  // the cell is at the low / high face: its value is masked
+  T c;          // c0 of the faces the cell touches
+};
+
+template <typename T>
+__device__ __forceinline__ AxisFold<T> axis_fold(int i, int n, T c0lo,
+                                                 T c1lo, T c0hi, T c1hi) {
+  const T one = (T)1;
+  AxisFold<T> f;
+  f.lo = i == 0;
+  f.hi = i == n - 1;
+  f.wa = f.hi ? (T)0 : (f.lo ? one + c1lo : one);
+  f.wb = f.lo ? (T)0 : (f.hi ? one + c1hi : one);
+  f.c = (f.lo ? c0lo : (T)0) + (f.hi ? c0hi : (T)0);
+  return f;
+}
+
+// Adds (weight_plus * up + weight_minus * um) of one axis to acc: P * (up +
+// um) across a periodic axis, else fold_terms' sum with the axis's terms.
+template <typename T>
+__device__ __forceinline__ void fold_axis(T up, T um, bool periodic,
+                                          const AxisFold<T>& f, T P, T& acc) {
   if (periodic) {
     acc = acc + P * (up + um);
     return;
   }
-  fold_terms<T>(up, um, is_lo, is_hi, c0lo, c1lo, c0hi, c1hi, P, acc, c_sum);
+  acc = acc + (P * f.wa) * (f.hi ? (T)0 : up) + (P * f.wb) * (f.lo ? (T)0 : um);
 }
 
-// The new value of cell (i, j, k) at linear index idx, from a = av, rhs = rv
-// and b (null: constant bCoef = 1). FAST: 1/diag by recip() (within an ulp
-// of the quotient; the towers), else by division (gsrb_relax).
+// The x and y terms of a cell's update, which depend on (i, j) only: the
+// axes' folds and the c0 sum so far, (0 + c_x) + c_y over the non-periodic
+// ones (gsrb_update adds z's).
+template <typename T>
+struct RowFold {
+  AxisFold<T> x, y;
+  bool px, py;  // the axis is periodic
+  T c_xy;
+};
+
+template <typename T, int PER>
+__device__ __forceinline__ RowFold<T> row_fold(const LevelParams<T>& p, int i,
+                                               int j) {
+  RowFold<T> r;
+  r.px = PER < 0 ? p.periodic[0] != 0 : PER == 1;
+  r.py = PER < 0 ? p.periodic[1] != 0 : PER == 1;
+  r.x = axis_fold<T>(i, p.nx, p.c0[0][0], p.c1[0][0], p.c0[0][1],
+                     p.c1[0][1]);
+  r.y = axis_fold<T>(j, p.ny, p.c0[1][0], p.c1[1][0], p.c0[1][1],
+                     p.c1[1][1]);
+  T c_sum = (T)0;
+  if (!r.px) c_sum += r.x.c;
+  if (!r.py) c_sum += r.y.c;
+  r.c_xy = c_sum;
+  return r;
+}
+
+// The new value of cell (i, j, k) from its own value uc, its neighbours
+// (up[axis], um[axis]: i + 1 and i - 1 along each axis, as axis_pair gives
+// them), a = av, rhs = rv, bCoef = bv (with_b; else constant 1) and the
+// row's terms rf (row_fold of (i, j)). FAST: 1/diag by recip() (within an
+// ulp of the quotient; the towers), else by division (gsrb_relax).
+template <typename T, bool FAST, int PER>
+__device__ __forceinline__ T gsrb_update_row(T uc, const T (&up)[3],
+                                             const T (&um)[3], T av, T rv,
+                                             bool with_b, T bv,
+                                             const RowFold<T>& rf,
+                                             const LevelParams<T>& p, int k) {
+  const T diag = p.alpha * av + p.six_b_inv;
+  const T lam = FAST ? recip(diag) : (T)1 / diag;
+  T P = lam * p.b_inv;
+  if (with_b) P = P * bv;
+  const bool pz = PER < 0 ? p.periodic[2] != 0 : PER == 1;
+  T nb = (T)0;  // neighbour part of the update
+  fold_axis<T>(up[0], um[0], rf.px, rf.x, P, nb);
+  fold_axis<T>(up[1], um[1], rf.py, rf.y, P, nb);
+  const AxisFold<T> z = axis_fold<T>(k, p.nz, p.c0[2][0], p.c1[2][0],
+                                     p.c0[2][1], p.c1[2][1]);
+  fold_axis<T>(up[2], um[2], pz, z, P, nb);
+  // c0 feed-through of the faces this cell touches
+  const T c_sum = pz ? rf.c_xy : rf.c_xy + z.c;
+  const T k_uc = ((T)1 - lam * (p.alpha * av)) + P * (c_sum - (T)6);
+  return (k_uc * uc + lam * rv) + nb;
+}
+
+// gsrb_update_row with the row's terms worked out for the one cell.
+template <typename T, bool FAST = false, int PER = -1>
+__device__ __forceinline__ T gsrb_update(T uc, const T (&up)[3],
+                                         const T (&um)[3], T av, T rv,
+                                         bool with_b, T bv,
+                                         const LevelParams<T>& p, int i,
+                                         int j, int k) {
+  return gsrb_update_row<T, FAST, PER>(uc, up, um, av, rv, with_b, bv,
+                                       row_fold<T, PER>(p, i, j), p, k);
+}
+
+// The new value of cell (i, j, k) at linear index idx, its state read
+// through get(q), from a = av, rhs = rv and b (null: constant bCoef = 1).
 template <typename T, typename I, bool FAST = false, int PER = -1,
           typename Get>
 __device__ __forceinline__ T gsrb_cell(const Get& get, T av, T rv,
                                        const T* b, const LevelParams<T>& p,
                                        int i, int j, int k, I idx) {
-  const T diag = p.alpha * av + p.six_b_inv;
-  const T lam = FAST ? recip(diag) : (T)1 / diag;
-  T P = lam * p.b_inv;
-  if (b != nullptr) P = P * b[idx];
-
   const I sy = p.nz, sx = (I)p.ny * p.nz;
-  const T uc = get(idx);
-  T nb = (T)0;      // neighbour part of the update
-  T c_sum = (T)0;   // c0 feed-through of the faces this cell touches
-  fold_axis<T, I, PER>(get, idx, i, p.nx, sx, p.periodic[0], p.c0[0][0],
-                  p.c1[0][0], p.c0[0][1], p.c1[0][1], P, nb, c_sum);
-  fold_axis<T, I, PER>(get, idx, j, p.ny, sy, p.periodic[1], p.c0[1][0],
-                  p.c1[1][0], p.c0[1][1], p.c1[1][1], P, nb, c_sum);
-  fold_axis<T, I, PER>(get, idx, k, p.nz, (I)1, p.periodic[2], p.c0[2][0],
-                  p.c1[2][0], p.c0[2][1], p.c1[2][1], P, nb, c_sum);
-  const T k_uc = ((T)1 - lam * (p.alpha * av)) + P * (c_sum - (T)6);
-  return (k_uc * uc + lam * rv) + nb;
+  T up[3], um[3];
+  axis_pair<T, I, PER>(get, idx, i, p.nx, sx, p.periodic[0], up[0], um[0]);
+  axis_pair<T, I, PER>(get, idx, j, p.ny, sy, p.periodic[1], up[1], um[1]);
+  axis_pair<T, I, PER>(get, idx, k, p.nz, (I)1, p.periodic[2], up[2],
+                       um[2]);
+  return gsrb_update<T, FAST, PER>(get(idx), up, um, av, rv, b != nullptr,
+                                   b != nullptr ? b[idx] : (T)0, p, i, j, k);
 }

@@ -1,25 +1,55 @@
-// gsrb_relax: red-black Gauss-Seidel sweeps of one whole level.
+// gsrb_relax: red-black Gauss-Seidel sweeps of one whole level, ONE
+// cooperative launch per call.
 //
 // Replaces the TPU kernel mg_ic_code_tpu/ops/fused_sweeps.py:resident_relax
-// (body resident_relax_values): nsweeps full sweeps, each two colour passes,
-// with the homogeneous ghost rules folded into per-cell neighbour weights.
+// (its pallas_call _resident_call; body resident_relax_values): nsweeps
+// full sweeps, each two colour passes, with the homogeneous ghost rules
+// folded into per-cell neighbour weights (csrc/gsrb_device.cuh). The TPU
+// kernel pinned the level in VMEM: one read and one write of each array
+// whatever nsweeps.
 //
-// What bounds it on this card: bytes. A colour pass does ~20 flops per
-// updated cell against 16-32 bytes of device-memory traffic, far below the
-// card's flops-per-byte balance, so the time is the number of passes times
-// one read of u, rhs, a (and b) plus one write of u. The TPU kernel pinned
-// the level in on-chip memory and paid that traffic once per call; here a
-// colour pass needs every value of the previous pass from every block, and
-// blocks cannot wait on each other inside one launch, so each pass is its
-// own launch and pays the traffic again (levels up to ~12 MB stay in the
-// 50 MB L2 between passes). What the design does about it: the folded
-// weights (lambda, P, the face-dependent neighbour weights, K) are computed
-// in registers from a, rhs, b and the cell's index instead of being read
-// from precomputed coefficient arrays, only cells of the pass's colour are
-// visited, consecutive threads walk z so that loads coalesce, and u is
-// updated in place (a pass reads only the other colour and the cell
-// itself), so a pass writes half a level.
-#include "gsrb_device.cuh"
+// What bounds it on this card: not the bytes (a level the solver sends here
+// fits the 50 MB L2, and its arrays read once and u written once take 3-8
+// us at 3.35 TB/s) but the 2 * nsweeps dependent passes: the instructions
+// of each cell's update (~110 a cell, issue-bound: 1.5-2 us a pass for
+// 300-800K cells on 132 SMs) and a grid-wide synchronisation between
+// passes (~1.1 us, more with the exchange). What the design does about it:
+// no launch, copy or host work per pass (ONE cooperative launch, every
+// block resident: at most the blocks march_capacity says the card runs at
+// once, a grid barrier between passes), the level held on chip where that
+// wins, and the update's row terms worked out once for several cells; in
+// one of two forms that fused_sweeps.gsrb_geometry picks before the launch
+// from the shape, the type, b and the capacity:
+//  * "grid" (any level, f32 or f64, variable b): the towers' grid-wide pass
+//    (csrc/gsrb_walk.cuh): z pairs in grid-stride loops, two cells in
+//    flight a thread, fixed forms for the all-periodic and the no-periodic
+//    level; the first pass reads the caller's u and writes the whole of out
+//    (the other colour copied), the others update out in place, reading u,
+//    rhs and a again from the L2.
+//  * "slab" (f32, constant b, where a block's share fits its shared memory
+//    and the tiles are large enough to win): the counterpart of the TPU
+//    kernel's residency. The level is cut into tiles of x planes and y rows
+//    (all of z); a block holds its tile's u with one plane and one row more
+//    on each side (its window), and the tile's a and rhs, in shared memory,
+//    loaded once. Every pass runs on chip, a thread taking 4 cells of one z
+//    row at a time so that the row's index and x and y terms are worked out
+//    once; between passes only the tile's first and last planes and rows
+//    along a cut axis go out to `out`, and after a grid barrier the
+//    neighbours' come into the window (along a whole periodic axis the
+//    tile's own far plane or row). u is stored once at the end. A level of
+//    one block needs no exchange and no grid barrier.
+//    Point-to-point flags between neighbouring blocks in place of the grid
+//    barrier were slower in every form measured (PERF.md §6), as were
+//    1024 threads a block: the update is issue-bound.
+// Both forms compute exactly what the pass kernel below computes, with the
+// same arithmetic in the same order (gsrb_update_row): gsrb_full_sweep ==
+// gsrb_relax(nsweeps = 1) bitwise. The pass kernel (one launch per colour
+// pass) is the entry point of gsrb_full_sweep / gsrb_half_sweep.
+#include <cooperative_groups.h>
+
+#include "gsrb_walk.cuh"
+
+namespace cg = cooperative_groups;
 
 template <typename T>
 LevelParams<T> make_level_params(int nx, int ny, int nz, const int* kinds,
@@ -89,17 +119,6 @@ static cudaError_t launch_gsrb_pass(T* u, const T* rhs, const T* a,
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t launch_gsrb_relax(T* u, const T* rhs, const T* a,
-                                     const T* b, const LevelParams<T>& p,
-                                     int base, int nsweeps,
-                                     cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  for (int pass = 0; pass < 2 * nsweeps && err == cudaSuccess; ++pass)
-    err = launch_gsrb_pass<T>(u, rhs, a, b, p, base + pass, stream);
-  return err;
-}
-
 // One colour pass in place on u: the cells with (i + j + k + par) even are
 // updated, par = (sum(lo) + colour) & 1. The entry point of the one-pass and
 // one-sweep forms (the TPU kernels mg_ic_code_tpu/ops/pallas_kernels.py:
@@ -122,22 +141,424 @@ extern "C" int mgk_gsrb_pass(void* u, const void* rhs, const void* a,
                                       par, st);
 }
 
-// C entry point. is_double selects the element type; b may be null
-// (constant bCoef = 1). u is updated in place.
-extern "C" int mgk_gsrb_relax(void* u, const void* rhs, const void* a,
-                              const void* b, int is_double, int nx, int ny,
-                              int nz, const int* kinds, double rho,
-                              double alpha, double beta, double dx, int base,
-                              int nsweeps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (is_double) {
-    auto p = make_level_params<double>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_gsrb_relax<double>((double*)u, (const double*)rhs,
-                                          (const double*)a, (const double*)b,
-                                          p, base, nsweeps, st);
+
+extern __shared__ __align__(16) unsigned char relax_smem[];
+
+namespace {
+
+// Threads per block of both forms (fused_sweeps.GSRB_THREADS; 1024 were
+// slower in the slab form) and the most blocks of the slab form
+// (fused_sweeps.GSRB_MAX_SLABS); the forms' codes (fused_sweeps.GSRB_FORMS).
+constexpr int kThreads = 512;
+constexpr int kMaxSlabs = 256;
+enum RelaxForm { FORM_GRID = 0, FORM_SLAB = 1 };
+
+// Everything one launch needs, passed by value as a __grid_constant__
+// kernel parameter.
+template <typename T>
+struct RelaxArgs {
+  LevelParams<T> p;
+  const T* u;                // the caller's state, only read
+  const T* rhs;
+  const T* a;
+  const T* b;                // null: constant bCoef
+  T* out;
+  int par, npass, per;        // sum(lo) & 1, 2 * nsweeps, periodic_axes
+  bool vec;                   // slab form: rows in 16-byte pieces
+  int xtiles;                 // slab form: tiles along x (blocks / along y)
+  // slab form: the first plane of each x tile, then nx; the first row of
+  // each y tile, then ny
+  int start[2 * kMaxSlabs + 2];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+relax_grid_kernel(const __grid_constant__ RelaxArgs<T> g) {
+  cg::grid_group grid = cg::this_grid();
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  bool many;
+  const Walk w = pair_walk(g.p, first, stride, many);
+  const T* u0 = g.u;
+  const auto get = [u0](int q) { return u0[q]; };
+  const bool update = g.npass > 0;
+  if (g.per == 1)
+    first_pass<false, 1>(g.out, get, g.rhs, g.a, g.b, g.p, g.par, update, w,
+                         many);
+  else if (g.per == 0)
+    first_pass<false, 0>(g.out, get, g.rhs, g.a, g.b, g.p, g.par, update, w,
+                         many);
+  else
+    first_pass<false, -1>(g.out, get, g.rhs, g.a, g.b, g.p, g.par, update, w,
+                          many);
+  for (int pass = 1; pass < g.npass; ++pass) {
+    grid.sync();
+    pass_in_place<false>(g.out, g.rhs, g.a, g.b, g.p, (g.par + pass) & 1, w,
+                         many, g.per);
   }
-  auto p = make_level_params<float>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_gsrb_relax<float>((float*)u, (const float*)rhs,
-                                       (const float*)a, (const float*)b, p,
-                                       base, nsweeps, st);
+}
+
+// Copies into shared memory that every thread of the block issues before it
+// waits for any (cp.async, past L1: `out` changes between passes), and the
+// wait.
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned d =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The geometry of one block of the slab form: its tile of the level (x
+// planes [i0, i0 + bx), rows [j0, j0 + by), all of z) and its window in
+// shared memory: the tile with one plane and one row more on each side,
+// (bx + 2) x (by + 2) rows of nz cells, window plane stride sx.
+struct Tile {
+  int i0, bx, j0, by, sx;
+  // window index of the tile's cell (li, lj, k), li and lj from -1
+  __device__ __forceinline__ int at(int li, int lj, int k, int nz) const {
+    return ((li + 1) * (by + 2) + lj + 1) * nz + k;
+  }
+};
+
+// Copies of whole z rows between the window and a level array: nrows rows,
+// row r from level row src_row(r) (or to it) at window row win_row(r); a
+// row whose level row is -1 is left out. 16-byte pieces where `vec` (nz a
+// multiple of 4, the arrays 16-byte aligned), else one element at a time
+// through the L2. Rows in: cp.async, finished by copies_done().
+template <bool IN, typename L, typename Rows>
+__device__ __forceinline__ void copy_rows(float* win, L* level, int nrows,
+                                          int nz, bool vec,
+                                          const Rows& rows) {
+  const int per = vec ? nz >> 2 : nz;
+  for (int m = threadIdx.x; m < nrows * per; m += blockDim.x) {
+    const int r = m / per, c = m - r * per;
+    int g, w;
+    rows(r, g, w);
+    if (g < 0) continue;
+    float* s = win + w * nz;
+    L* d = level + (long long)g * nz;
+    if constexpr (IN) {
+      if (vec)
+        copy16(s + 4 * c, d + 4 * c);
+      else
+        s[c] = __ldcg(d + c);
+    } else {
+      if (vec)
+        reinterpret_cast<float4*>(d)[c] = reinterpret_cast<float4*>(s)[c];
+      else
+        d[c] = s[c];
+    }
+  }
+}
+
+// Level index i + d (d = -1 or n) of an axis of n cells: wrapped where the
+// axis is periodic, else -1 past the face.
+__device__ __forceinline__ int beyond(int i, int n, bool periodic) {
+  if (i >= 0 && i < n) return i;
+  return periodic ? (i < 0 ? i + n : i - n) : -1;
+}
+
+// Cells of one z row that a thread of the slab form updates at a time: the
+// row's index, parity and x and y faces are worked out once for all of
+// them.
+constexpr int kRowCells = 4;
+
+// One colour pass of the slab form on the window W: the cells of the pass's
+// colour in the tile, as items (li, lj, seg) of the (bx, by, L) box, L =
+// ceil(nz / 2 / kRowCells) segments a row: segment seg takes the z pairs
+// seg, seg + L, ... of row (li, lj) (neighbouring threads on neighbouring
+// pairs), all its loads ahead of its stores.
+template <int PER>
+__device__ __forceinline__ void tile_pass(float* W, const float* A,
+                                          const float* R, const Tile& t,
+                                          const LevelParams<float>& p,
+                                          int par, Walk w, int segs) {
+  const int nz = p.nz, hz = (nz + 1) >> 1;
+  const bool zper = PER < 0 ? p.periodic[2] != 0 : PER == 1;
+  for (; w.a < t.bx; w.next()) {
+    const int i = t.i0 + w.a, j = t.j0 + w.b;
+    const int row = t.at(w.a, w.b, 0, nz), own = (w.a * t.by + w.b) * nz;
+    const int odd = (i + j + par) & 1;
+    const RowFold<float> rf = row_fold<float, PER>(p, i, j);
+    int idx[kRowCells];
+    float v[kRowCells];
+#pragma unroll
+    for (int s = 0; s < kRowCells; ++s) {
+      const int kk = w.c + s * segs;
+      int k = 2 * kk + odd;
+      const bool live = kk < hz && k < nz;
+      k = live ? k : 0;
+      const int c = row + k;
+      float up[3], um[3];
+      // x and y from the window's neighbours (its halo past the tile; past
+      // an open face of the level the value is masked by its weight 0)
+      up[0] = W[c + t.sx];
+      um[0] = W[c - t.sx];
+      up[1] = W[c + nz];
+      um[1] = W[c - nz];
+      up[2] = W[k == nz - 1 ? (zper ? c - (nz - 1) : c) : c + 1];
+      um[2] = W[k == 0 ? (zper ? c + (nz - 1) : c) : c - 1];
+      v[s] = gsrb_update_row<float, false, PER>(W[c], up, um, A[own + k],
+                                                R[own + k], false, 0.0f, rf,
+                                                p, k);
+      idx[s] = live ? c : -1;
+    }
+#pragma unroll
+    for (int s = 0; s < kRowCells; ++s)
+      if (idx[s] >= 0) W[idx[s]] = v[s];
+  }
+}
+
+template <int PER>
+__global__ void __launch_bounds__(kThreads, 1)
+relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
+  const LevelParams<float>& p = g.p;
+  const int nx = p.nx, ny = p.ny, nz = p.nz;
+  const int tx = g.xtiles, ty = gridDim.x / tx;
+  const int ix = blockIdx.x / ty, iy = blockIdx.x - ix * ty;
+  Tile t;
+  t.i0 = g.start[ix];
+  t.bx = g.start[ix + 1] - t.i0;
+  t.j0 = g.start[tx + 1 + iy];
+  t.by = g.start[tx + 2 + iy] - t.j0;
+  t.sx = (t.by + 2) * nz;
+  const bool xper = p.periodic[0], yper = p.periodic[1], vec = g.vec;
+  float* W = reinterpret_cast<float*>(relax_smem);
+  const int cells = t.bx * t.by * nz;
+  float* A = W + (t.bx + 2) * t.sx;
+  float* R = A + cells;
+  float* out = g.out;
+  // the window from the caller's u (not its corners, which no cell reads),
+  // a and rhs of the tile
+  const int wrows = (t.bx + 2) * (t.by + 2);
+  copy_rows<true>(W, g.u, wrows, nz, vec,
+                  [&](int r, int& gr, int& wr) {
+                    const int li = r / (t.by + 2) - 1;
+                    const int lj = r - (li + 1) * (t.by + 2) - 1;
+                    const bool corner = (li < 0 || li == t.bx) &&
+                                        (lj < 0 || lj == t.by);
+                    const int i = beyond(t.i0 + li, nx, xper);
+                    const int j = beyond(t.j0 + lj, ny, yper);
+                    gr = corner || i < 0 || j < 0 ? -1 : i * ny + j;
+                    wr = r;
+                  });
+  const auto own_rows = [&](int r, int& gr, int& wr) {
+    const int li = r / t.by, lj = r - li * t.by;
+    gr = (t.i0 + li) * ny + t.j0 + lj;
+    wr = (li + 1) * (t.by + 2) + lj + 1;
+  };
+  copy_rows<true>(A, g.a, t.bx * t.by, nz, vec,
+                  [&](int r, int& gr, int& wr) {
+                    own_rows(r, gr, wr);
+                    wr = r;
+                  });
+  copy_rows<true>(R, g.rhs, t.bx * t.by, nz, vec,
+                  [&](int r, int& gr, int& wr) {
+                    own_rows(r, gr, wr);
+                    wr = r;
+                  });
+  const int segs = ((nz + 1) / 2 + kRowCells - 1) / kRowCells;
+  Walk w;
+  w.init(threadIdx.x, blockDim.x, t.by, segs);
+  copies_done();
+  __syncthreads();
+  // rows a neighbour reads: the first and last planes along a cut x, the
+  // first and last rows along a cut y
+  const int xrows = tx > 1 ? 2 * t.by : 0, yrows = ty > 1 ? 2 * t.bx : 0;
+  const auto edge_rows = [&](int r, int& gr, int& wr) {
+    int li, lj;
+    if (r < xrows) {
+      li = r < t.by ? 0 : t.bx - 1;
+      lj = r < t.by ? r : r - t.by;
+    } else {
+      r -= xrows;
+      lj = r < t.bx ? 0 : t.by - 1;
+      li = r < t.bx ? r : r - t.bx;
+    }
+    gr = (t.i0 + li) * ny + t.j0 + lj;
+    wr = (li + 1) * (t.by + 2) + lj + 1;
+  };
+  for (int pass = 0; pass < g.npass; ++pass) {
+    tile_pass<PER>(W, A, R, t, p, (g.par + pass) & 1, w, segs);
+    __syncthreads();
+    if (pass + 1 == g.npass) break;
+    if (xrows + yrows > 0) {
+      copy_rows<false>(W, out, xrows + yrows, nz, vec, edge_rows);
+      cg::this_grid().sync();
+    }
+    // the halo: along a cut axis the neighbours' planes and rows from out;
+    // along a whole periodic axis the tile's own far plane or row
+    const int sxr = tx == 1 && xper ? 2 * t.by : 0;
+    const int syr = ty == 1 && yper ? 2 * t.bx : 0;
+    for (int m = threadIdx.x; m < (sxr + syr) * nz; m += blockDim.x) {
+      int r = m / nz;
+      const int k = m - r * nz;
+      int li, lj, si, sj;
+      if (r < sxr) {
+        const bool lo = r < t.by;
+        lj = sj = lo ? r : r - t.by;
+        li = lo ? -1 : t.bx;
+        si = lo ? t.bx - 1 : 0;
+      } else {
+        r -= sxr;
+        const bool lo = r < t.bx;
+        li = si = lo ? r : r - t.bx;
+        lj = lo ? -1 : t.by;
+        sj = lo ? t.by - 1 : 0;
+      }
+      W[t.at(li, lj, k, nz)] = W[t.at(si, sj, k, nz)];
+    }
+    const int cx = tx > 1 ? 2 * t.by : 0, cy = ty > 1 ? 2 * t.bx : 0;
+    if (cx + cy > 0) {
+      copy_rows<true>(W, (const float*)out, cx + cy, nz, vec,
+                      [&](int r, int& gr, int& wr) {
+                        int li, lj, i, j;
+                        if (r < cx) {
+                          lj = r < t.by ? r : r - t.by;
+                          li = r < t.by ? -1 : t.bx;
+                          i = beyond(t.i0 + li, nx, xper);
+                          j = t.j0 + lj;
+                        } else {
+                          r -= cx;
+                          li = r < t.bx ? r : r - t.bx;
+                          lj = r < t.bx ? -1 : t.by;
+                          i = t.i0 + li;
+                          j = beyond(t.j0 + lj, ny, yper);
+                        }
+                        gr = i < 0 || j < 0 ? -1 : i * ny + j;
+                        wr = (li + 1) * (t.by + 2) + lj + 1;
+                      });
+      copies_done();
+    }
+    __syncthreads();
+  }
+  copy_rows<false>(W, out, t.bx * t.by, nz, vec, own_rows);
+}
+
+// The slab kernels: every axis periodic, none, some.
+const void* const kSlabKernels[3] = {(const void*)relax_slab_kernel<1>,
+                                     (const void*)relax_slab_kernel<0>,
+                                     (const void*)relax_slab_kernel<-1>};
+
+const void* slab_kernel(int per) {
+  return kSlabKernels[per == 1 ? 0 : per == 0 ? 1 : 2];
+}
+
+// Blocks of every kernel of the type that the current device runs at once,
+// the slab kernels with `smem` bytes of shared memory each (the wrapper's
+// budget), asked once per kernel and device; also sets that shared-memory
+// limit on the slab kernels.
+template <typename T>
+cudaError_t relax_capacity(int smem, int* capacity) {
+  static int cache_grid[kMaxDevices] = {};
+  static int cache_slab[3][kMaxDevices] = {};
+  int cap = 0;
+  cudaError_t err = march_capacity((const void*)relax_grid_kernel<T>,
+                                   kThreads, 0, cache_grid, &cap);
+  for (int f = 0; f < 3 && err == cudaSuccess && sizeof(T) == 4; ++f) {
+    int c = 0;
+    err = march_capacity(kSlabKernels[f], kThreads, smem, cache_slab[f], &c);
+    cap = c < cap ? c : cap;
+  }
+  *capacity = cap;
+  return err;
+}
+
+template <typename T>
+cudaError_t relax_impl(const void* u, const void* rhs, const void* a,
+                       const void* b, void* out, int nx, int ny, int nz,
+                       const int* kinds, double rho, double alpha,
+                       double beta, double dx, int base, int nsweeps,
+                       int form, int per, int blocks, int xtiles,
+                       const int* starts, int smem, cudaStream_t st) {
+  const long long rows = (long long)nx * ny;
+  if (nsweeps < 0 || 2 * nsweeps >= (1 << 16) || blocks < 1 || per < -1 ||
+      per > 1 || rows * nz >= (1LL << 31) || form < FORM_GRID ||
+      form > FORM_SLAB)
+    return cudaErrorInvalidValue;
+  RelaxArgs<T> g = {};
+  g.p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
+  g.u = (const T*)u;
+  g.rhs = (const T*)rhs;
+  g.a = (const T*)a;
+  g.b = (const T*)b;
+  g.out = (T*)out;
+  g.par = ((base % 2) + 2) % 2;
+  g.npass = 2 * nsweeps;
+  g.per = per;
+  const void* kern = (const void*)relax_grid_kernel<T>;
+  if (form != FORM_GRID) {
+    // the slab form: f32, constant b, x and y cut in order into xtiles x
+    // (blocks / xtiles) tiles, each tile's window, a and rhs within smem
+    const int tx = xtiles, ty = xtiles > 0 ? blocks / xtiles : 0;
+    if (sizeof(T) != 4 || b != nullptr || blocks > kMaxSlabs || tx < 1 ||
+        tx * ty != blocks || starts[0] != 0 || starts[tx] != nx ||
+        starts[tx + 1] != 0 || starts[tx + 1 + ty] != ny)
+      return cudaErrorInvalidValue;
+    long long bx = 0, by = 0;
+    for (int s = 0; s < tx + ty + 2; ++s) {
+      const bool last = s == tx || s == tx + ty + 1;
+      if (!last && starts[s + 1] <= starts[s]) return cudaErrorInvalidValue;
+      if (!last) {
+        const long long c = starts[s + 1] - starts[s];
+        if (s < tx)
+          bx = c > bx ? c : bx;
+        else
+          by = c > by ? c : by;
+      }
+      g.start[s] = starts[s];
+    }
+    if (((bx + 2) * (by + 2) + 2 * bx * by) * nz * (long long)sizeof(T) >
+        smem)
+      return cudaErrorInvalidValue;
+    g.xtiles = tx;
+    g.vec = nz % 4 == 0 &&
+            (((unsigned long long)u | (unsigned long long)rhs |
+              (unsigned long long)a | (unsigned long long)out) & 15) == 0;
+    kern = slab_kernel(per);
+  } else {
+    smem = 0;
+  }
+  void* params[] = {(void*)&g};
+  return cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(kThreads),
+                                     params, (size_t)smem, st);
+}
+
+}  // namespace
+
+// C entry point (csrc/mg_kernels.h's conventions): nsweeps red-black sweeps
+// of the level u into out (u, rhs, a, b only read; b may be null: constant
+// bCoef = 1). base = sum(lo). The launch geometry comes from
+// fused_sweeps.gsrb_geometry: form (RelaxForm), per (1 every axis periodic,
+// 0 none, -1 some), blocks, and for the slab form xtiles (tiles along x;
+// blocks / xtiles along y), starts (the first plane of each x tile, then
+// nx; the first row of each y tile, then ny) and smem bytes.
+extern "C" int mgk_gsrb_relax(const void* u, const void* rhs, const void* a,
+                              const void* b, void* out, int is_double, int nx,
+                              int ny, int nz, const int* kinds, double rho,
+                              double alpha, double beta, double dx, int base,
+                              int nsweeps, int form, int per, int blocks,
+                              int xtiles, const int* starts, int smem,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(is_double
+      ? relax_impl<double>(u, rhs, a, b, out, nx, ny, nz, kinds, rho, alpha,
+                           beta, dx, base, nsweeps, form, per, blocks,
+                           xtiles, starts, smem, st)
+      : relax_impl<float>(u, rhs, a, b, out, nx, ny, nz, kinds, rho, alpha,
+                          beta, dx, base, nsweeps, form, per, blocks,
+                          xtiles, starts, smem, st));
+}
+
+// C entry point: *capacity <- blocks of every gsrb_relax kernel of the type
+// that the current device runs at once, the slab kernels with `smem` bytes
+// of shared memory each.
+extern "C" int mgk_gsrb_capacity(int is_double, int smem, int* capacity) {
+  return (int)(is_double ? relax_capacity<double>(smem, capacity)
+                         : relax_capacity<float>(smem, capacity));
 }

@@ -1,0 +1,188 @@
+// Grid-wide colour passes over a whole level, shared by the towers' big
+// depths (csrc/tower.cu) and the grid form of gsrb_relax
+// (csrc/gsrb_relax.cu): the threads of a launch walk the level's z pairs
+// (k, k ^ 1) in grid-stride loops, and a pass updates the cell of its colour
+// in each pair.
+//
+// A thread takes the items of a loop U at a time and computes all U values
+// before it stores any: the compiler cannot tell that a store does not feed
+// a later item's loads, so items taken one at a time would each wait for
+// their loads in turn. U = 2 where some thread has two items or more (the
+// caller's `many`), else 1. An item past the end, or a cell past an odd nz,
+// computes cell (0, 0, 0) and stores nothing, so every load is in range and
+// none is behind a branch. Within a colour pass no item reads another's
+// cell, and first_pass reads another array than it writes. The walk over a
+// level's z pairs (`w`, from the thread's first item) is set up once and
+// copied for each pass. Where the stride is a whole number of x planes (the
+// wrappers size the grid so: fused_sweeps.pair_grid_blocks), a thread keeps
+// its (j, k pair) and steps along x only: the y terms of its cells stay out
+// of the loop. FAST and PER are gsrb_cell's; b is the variable bCoef (null:
+// constant). Cells are indexed by int: the wrappers take levels below 2^31
+// cells.
+#pragma once
+
+#include "gsrb_device.cuh"
+
+// The items first, first + stride, ... of an (n0, n1, n2) box in C order,
+// as digits (a, b, c) that advance by the stride's own digits with a carry:
+// four divisions where the walk starts, none per item.
+struct Walk {
+  int a, b, c, sa, sb, sc, n1, n2;
+  __device__ __forceinline__ void init(int first, int stride, int n1_,
+                                       int n2_) {
+    n1 = n1_;
+    n2 = n2_;
+    const int plane = n1 * n2;
+    a = first / plane;
+    b = (first - a * plane) / n2;
+    c = first - a * plane - b * n2;
+    sa = stride / plane;
+    sb = (stride - sa * plane) / n2;
+    sc = stride - sa * plane - sb * n2;
+  }
+  __device__ __forceinline__ void next() {
+    c += sc;
+    if (c >= n2) { c -= n2; ++b; }
+    b += sb;
+    if (b >= n1) { b -= n1; ++a; }
+    a += sa;
+  }
+};
+
+// One colour pass in place on u (device or shared memory) over the
+// (nx, ny, ceil(nz/2)) z pairs of the walk: the cell of the pass's colour
+// in each. COL: the walk steps along x only.
+template <int U, bool COL, int PER, bool FAST, typename T>
+__device__ __forceinline__ void pass_u(T* u, const T* rhs, const T* a,
+                                       const T* b, const LevelParams<T>& p,
+                                       int par, Walk w) {
+  const auto get = [u](int q) { return u[q]; };
+  while (w.a < p.nx) {
+    int idx[U];
+    T v[U];
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      int i = w.a, j = w.b, k = 2 * w.c + ((i + j + par) & 1);
+      const bool live = i < p.nx && k < p.nz;
+      i = live ? i : 0;
+      j = live ? j : 0;
+      k = live ? k : 0;
+      const int q = (i * p.ny + j) * p.nz + k;
+      v[s] = gsrb_cell<T, int, FAST, PER>(get, a[q], rhs[q], b, p, i, j, k,
+                                          q);
+      idx[s] = live ? q : -1;
+      if (COL)
+        w.a += w.sa;
+      else
+        w.next();
+    }
+#pragma unroll
+    for (int s = 0; s < U; ++s)
+      if (idx[s] >= 0) u[idx[s]] = v[s];
+  }
+}
+
+// Which axes of level p are periodic: 1 every axis, 0 none, -1 some (the
+// PER of gsrb_device.cuh). The periodic box and the canonical levels take
+// the two fixed forms, whose cell update has no face of the other kind to
+// compute and discard.
+template <typename T>
+__device__ __forceinline__ int periodic_axes(const LevelParams<T>& p) {
+  const int n = p.periodic[0] + p.periodic[1] + p.periodic[2];
+  return n == 3 ? 1 : n == 0 ? 0 : -1;
+}
+
+template <int PER, bool FAST, typename T>
+__device__ __forceinline__ void pass_per(T* u, const T* rhs, const T* a,
+                                         const T* b, const LevelParams<T>& p,
+                                         int par, const Walk& w, bool many) {
+  const bool col = w.sb == 0 && w.sc == 0;
+  if (many && col)
+    pass_u<2, true, PER, FAST>(u, rhs, a, b, p, par, w);
+  else if (col)
+    pass_u<1, true, PER, FAST>(u, rhs, a, b, p, par, w);
+  else if (many)
+    pass_u<2, false, PER, FAST>(u, rhs, a, b, p, par, w);
+  else
+    pass_u<1, false, PER, FAST>(u, rhs, a, b, p, par, w);
+}
+
+// A colour pass in the form `per` (periodic_axes) says.
+template <bool FAST, typename T>
+__device__ __forceinline__ void pass_in_place(T* u, const T* rhs, const T* a,
+                                              const T* b,
+                                              const LevelParams<T>& p,
+                                              int par, const Walk& w,
+                                              bool many, int per) {
+  if (per == 1)
+    pass_per<1, FAST>(u, rhs, a, b, p, par, w, many);
+  else if (per == 0)
+    pass_per<0, FAST>(u, rhs, a, b, p, par, w, many);
+  else
+    pass_per<-1, FAST>(u, rhs, a, b, p, par, w, many);
+}
+
+// The first colour pass of a level from the state `get`, written out whole
+// into u: the pass's cells get the update, the other cell of each z pair
+// (k ^ 1) its value from `get` (exact: the pass reads only the other colour
+// and the cell itself). Without a pass to make (update false) both get the
+// value from `get`.
+template <int U, bool FAST, int PER, typename T, typename Get>
+__device__ __forceinline__ void first_pass_u(T* u, const Get& get,
+                                             const T* rhs, const T* a,
+                                             const T* b,
+                                             const LevelParams<T>& p, int par,
+                                             bool update, Walk w) {
+  while (w.a < p.nx) {
+    int idx[U], pidx[U];
+    T v[U], pv[U];
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      int i = w.a, j = w.b, k = 2 * w.c + ((i + j + par) & 1);
+      const bool live = i < p.nx, own = live && k < p.nz;
+      const bool partner = live && (k ^ 1) < p.nz;
+      const int row = live ? (i * p.ny + j) * p.nz : 0;
+      const int kp = partner ? k ^ 1 : 0;
+      i = own ? i : 0;
+      j = own ? j : 0;
+      k = own ? k : 0;
+      const int q = own ? row + k : 0;
+      v[s] = update ? gsrb_cell<T, int, FAST, PER>(get, a[q], rhs[q], b, p,
+                                                   i, j, k, q)
+                    : get(q);
+      pv[s] = get(row + kp);
+      idx[s] = own ? q : -1;
+      pidx[s] = partner ? row + kp : -1;
+      w.next();
+    }
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      if (idx[s] >= 0) u[idx[s]] = v[s];
+      if (pidx[s] >= 0) u[pidx[s]] = pv[s];
+    }
+  }
+}
+
+template <bool FAST, int PER, typename T, typename Get>
+__device__ __forceinline__ void first_pass(T* u, const Get& get, const T* rhs,
+                                           const T* a, const T* b,
+                                           const LevelParams<T>& p, int par,
+                                           bool update, const Walk& w,
+                                           bool many) {
+  if (many)
+    first_pass_u<2, FAST, PER>(u, get, rhs, a, b, p, par, update, w);
+  else
+    first_pass_u<1, FAST, PER>(u, get, rhs, a, b, p, par, update, w);
+}
+
+// The walk over level p's z pairs from item `first` by `stride`, and
+// whether a thread has two items or more.
+template <typename T>
+__device__ __forceinline__ Walk pair_walk(const LevelParams<T>& p, int first,
+                                          int stride, bool& many) {
+  const int hz = (p.nz + 1) >> 1;
+  many = p.nx * p.ny * hz > stride;
+  Walk w;
+  w.init(first, stride, p.ny, hz);
+  return w;
+}

@@ -51,7 +51,7 @@
 // launch writes u and the restricted rhs between grid barriers.
 #include <cooperative_groups.h>
 
-#include "gsrb_device.cuh"
+#include "gsrb_walk.cuh"
 #include "residual_device.cuh"
 
 namespace cg = cooperative_groups;
@@ -84,181 +84,6 @@ struct TowerArgs {
 template <typename T>
 __device__ __forceinline__ int cells_of(const LevelParams<T>& p) {
   return p.nx * p.ny * p.nz;
-}
-
-// The items first, first + stride, ... of an (n0, n1, n2) box in C order,
-// as digits (a, b, c) that advance by the stride's own digits with a carry:
-// four divisions where the walk starts, none per item.
-struct Walk {
-  int a, b, c, sa, sb, sc, n1, n2;
-  __device__ __forceinline__ void init(int first, int stride, int n1_,
-                                       int n2_) {
-    n1 = n1_;
-    n2 = n2_;
-    const int plane = n1 * n2;
-    a = first / plane;
-    b = (first - a * plane) / n2;
-    c = first - a * plane - b * n2;
-    sa = stride / plane;
-    sb = (stride - sa * plane) / n2;
-    sc = stride - sa * plane - sb * n2;
-  }
-  __device__ __forceinline__ void next() {
-    c += sc;
-    if (c >= n2) { c -= n2; ++b; }
-    b += sb;
-    if (b >= n1) { b -= n1; ++a; }
-    a += sa;
-  }
-};
-
-// A thread takes the items of a loop U at a time and computes all U values
-// before it stores any: the compiler cannot tell that a store does not feed
-// a later item's loads, so items taken one at a time would each wait for
-// their loads in turn. U = 2 where some thread has two items or more (the
-// caller's `many`), else 1. An item past the end, or a cell past an odd nz,
-// computes cell (0, 0, 0) and stores nothing, so every load is in range and
-// none is behind a branch. Within a colour pass no item reads another's
-// cell, and first_pass and prolong_depth read other arrays than they write.
-// The walk over a depth's z pairs (`w`, from the thread's first item) is
-// set up once per depth and copied for each pass. Where the stride is a
-// whole number of x planes (the wrapper sizes the grid so, tower_geometry),
-// a thread keeps its (j, k pair) and steps along x only: the y terms of its
-// cells stay out of the loop.
-
-// One colour pass in place on u (device or shared memory) over the
-// (nx, ny, ceil(nz/2)) z pairs of the walk: the cell of the pass's colour
-// in each. COL: the walk steps along x only.
-template <int U, bool COL, int PER, typename T>
-__device__ __forceinline__ void pass_u(T* u, const T* rhs, const T* a,
-                                       const LevelParams<T>& p, int par,
-                                       Walk w) {
-  const auto get = [u](int q) { return u[q]; };
-  while (w.a < p.nx) {
-    int idx[U];
-    T v[U];
-#pragma unroll
-    for (int s = 0; s < U; ++s) {
-      int i = w.a, j = w.b, k = 2 * w.c + ((i + j + par) & 1);
-      const bool live = i < p.nx && k < p.nz;
-      i = live ? i : 0;
-      j = live ? j : 0;
-      k = live ? k : 0;
-      const int q = (i * p.ny + j) * p.nz + k;
-      v[s] = gsrb_cell<T, int, true, PER>(get, a[q], rhs[q],
-                                          (const T*)nullptr, p, i, j, k, q);
-      idx[s] = live ? q : -1;
-      if (COL)
-        w.a += w.sa;
-      else
-        w.next();
-    }
-#pragma unroll
-    for (int s = 0; s < U; ++s)
-      if (idx[s] >= 0) u[idx[s]] = v[s];
-  }
-}
-
-// Which axes of depth p are periodic: 1 every axis, 0 none, -1 some (the
-// PER of gsrb_device.cuh). The periodic box and the canonical base level
-// take the two fixed forms, whose cell update has no face of the other kind
-// to compute and discard.
-template <typename T>
-__device__ __forceinline__ int periodic_axes(const LevelParams<T>& p) {
-  const int n = p.periodic[0] + p.periodic[1] + p.periodic[2];
-  return n == 3 ? 1 : n == 0 ? 0 : -1;
-}
-
-template <int PER, typename T>
-__device__ __forceinline__ void pass_per(T* u, const T* rhs, const T* a,
-                                         const LevelParams<T>& p, int par,
-                                         const Walk& w, bool many) {
-  const bool col = w.sb == 0 && w.sc == 0;
-  if (many && col)
-    pass_u<2, true, PER>(u, rhs, a, p, par, w);
-  else if (col)
-    pass_u<1, true, PER>(u, rhs, a, p, par, w);
-  else if (many)
-    pass_u<2, false, PER>(u, rhs, a, p, par, w);
-  else
-    pass_u<1, false, PER>(u, rhs, a, p, par, w);
-}
-
-template <typename T>
-__device__ __forceinline__ void pass_in_place(T* u, const T* rhs, const T* a,
-                                              const LevelParams<T>& p,
-                                              int par, const Walk& w,
-                                              bool many) {
-  const int per = periodic_axes(p);
-  if (per == 1)
-    pass_per<1>(u, rhs, a, p, par, w, many);
-  else if (per == 0)
-    pass_per<0>(u, rhs, a, p, par, w, many);
-  else
-    pass_per<-1>(u, rhs, a, p, par, w, many);
-}
-
-// The first colour pass of a depth from the fresh state `get`, written out
-// whole into u: the pass's cells get the update, the other cell of each z
-// pair (k ^ 1) its fresh value (exact: the pass reads only the other colour
-// and the cell itself). Without a pass to make (nsmooth = 0) both get the
-// fresh value.
-template <int U, typename T, typename Get>
-__device__ __forceinline__ void first_pass_u(T* u, const Get& get,
-                                             const T* rhs, const T* a,
-                                             const LevelParams<T>& p, int par,
-                                             bool update, Walk w) {
-  while (w.a < p.nx) {
-    int idx[U], pidx[U];
-    T v[U], pv[U];
-#pragma unroll
-    for (int s = 0; s < U; ++s) {
-      int i = w.a, j = w.b, k = 2 * w.c + ((i + j + par) & 1);
-      const bool live = i < p.nx, own = live && k < p.nz;
-      const bool partner = live && (k ^ 1) < p.nz;
-      const int row = live ? (i * p.ny + j) * p.nz : 0;
-      const int kp = partner ? k ^ 1 : 0;
-      i = own ? i : 0;
-      j = own ? j : 0;
-      k = own ? k : 0;
-      const int q = own ? row + k : 0;
-      v[s] = update ? gsrb_cell<T, int, true>(get, a[q], rhs[q],
-                                              (const T*)nullptr, p, i, j, k, q)
-                    : get(q);
-      pv[s] = get(row + kp);
-      idx[s] = own ? q : -1;
-      pidx[s] = partner ? row + kp : -1;
-      w.next();
-    }
-#pragma unroll
-    for (int s = 0; s < U; ++s) {
-      if (idx[s] >= 0) u[idx[s]] = v[s];
-      if (pidx[s] >= 0) u[pidx[s]] = pv[s];
-    }
-  }
-}
-
-template <typename T, typename Get>
-__device__ __forceinline__ void first_pass(T* u, const Get& get, const T* rhs,
-                                           const T* a, const LevelParams<T>& p,
-                                           int par, bool update, const Walk& w,
-                                           bool many) {
-  if (many)
-    first_pass_u<2>(u, get, rhs, a, p, par, update, w);
-  else
-    first_pass_u<1>(u, get, rhs, a, p, par, update, w);
-}
-
-// The walk over depth p's z pairs from item `first` by `stride`, and
-// whether a thread has two items or more.
-template <typename T>
-__device__ __forceinline__ Walk pair_walk(const LevelParams<T>& p, int first,
-                                          int stride, bool& many) {
-  const int hz = (p.nz + 1) >> 1;
-  many = p.nx * p.ny * hz > stride;
-  Walk w;
-  w.init(first, stride, p.ny, hz);
-  return w;
 }
 
 // The residual of depth p restricted to the next depth by full weighting, a
@@ -369,7 +194,9 @@ __device__ void tail_down(const TowerArgs<T>& g, T* sm) {
     const Walk w = pair_walk(p, tid, nt, many);
     __syncthreads();
     for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
-      pass_in_place(U, rhs, A, p, (g.par[d] + pass) & 1, w, many);
+      pass_in_place<true>(U, rhs, A, (const T*)nullptr, p,
+                          (g.par[d] + pass) & 1, w, many,
+                          periodic_axes(p));
       __syncthreads();
     }
     for (int m = tid; m < n; m += nt) g.u[d][m] = U[m];
@@ -413,7 +240,8 @@ __device__ void tail_up(const TowerArgs<T>& g, T* sm) {
     const Walk w = pair_walk(p, tid, nt, many);
     __syncthreads();
     for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
-      pass_in_place(u, R, A, p, (g.par[d] + pass) & 1, w, many);
+      pass_in_place<true>(u, R, A, (const T*)nullptr, p, (g.par[d] + pass) & 1,
+                          w, many, periodic_axes(p));
       __syncthreads();
     }
   }
@@ -436,13 +264,14 @@ tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
     // the depth its rhs
     if (d == 0) {
       const T* u0 = g.top;
-      first_pass(g.u[0], [u0](int q) { return u0[q]; }, g.r[0], g.a[0], p,
-                 g.par[0], np > 0, w, many);
+      first_pass<true, -1>(g.u[0], [u0](int q) { return u0[q]; }, g.r[0],
+                           g.a[0], (const T*)nullptr, p, g.par[0], np > 0, w,
+                           many);
     }
     for (int pass = 1; pass < np; ++pass) {
       grid.sync();
-      pass_in_place(g.u[d], g.r[d], g.a[d], p, (g.par[d] + pass) & 1, w,
-                    many);
+      pass_in_place<true>(g.u[d], g.r[d], g.a[d], (const T*)nullptr, p,
+                          (g.par[d] + pass) & 1, w, many, periodic_axes(p));
     }
     if (d + 1 == g.ndep) break;
     grid.sync();
@@ -493,7 +322,8 @@ tower_up_kernel(const __grid_constant__ TowerArgs<T> g) {
     const Walk w = pair_walk(p, first, stride, many);
     for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
       grid.sync();
-      pass_in_place(u, g.r[d], g.a[d], p, (g.par[d] + pass) & 1, w, many);
+      pass_in_place<true>(u, g.r[d], g.a[d], (const T*)nullptr, p,
+                          (g.par[d] + pass) & 1, w, many, periodic_axes(p));
     }
     if (d > 0) grid.sync();
   }

@@ -143,7 +143,7 @@ def tower_geometry(shapes, itemsize: int, capacity: int):
     blocks the card runs at once, tower_capacity: a cooperative launch
     needs all of them resident), and where that fits a whole number of x
     planes of z pairs, so that a thread keeps its pair from step to step
-    (csrc/tower.cu)."""
+    (fused_sweeps.pair_grid_blocks)."""
     cells = [math.prod(s) for s in shapes] + [0]
     ndep = len(shapes)
     need = [(3 * cells[k] + cells[k + 1]) * itemsize for k in range(ndep)]
@@ -152,18 +152,8 @@ def tower_geometry(shapes, itemsize: int, capacity: int):
     smem = need[tail] if tail < ndep else 0
     if tail == 0:
         return 1, 0, smem
-    nx, ny, nz = shapes[0]
-    threads, capacity = TOWER_THREADS, int(capacity)
-    plane = ny * -(-nz // 2)
-    need = -(-nx * plane // threads)
-    q = plane // math.gcd(plane, threads)  # blocks that make whole planes
-    if -(-need // q) * q <= capacity:
-        blocks = -(-need // q) * q
-    elif q <= capacity:
-        blocks = capacity // q * q
-    else:
-        blocks = min(capacity, need)
-    return blocks, tail, smem
+    return (fs.pair_grid_blocks(shapes[0], TOWER_THREADS, int(capacity)),
+            tail, smem)
 
 
 def tower_capacity(device, itemsize: int) -> int:
@@ -244,16 +234,6 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _on_stream(fn, t, *args):
-    """fn(*args, stream): a C entry point that launches on the current
-    stream of t's device, made the current device only where it is not."""
-    idx = t.get_device()
-    if idx == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
-    with torch.cuda.device(idx):
-        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
-
-
 def _check_first(name: str, t):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -291,7 +271,7 @@ def tower_down(spec, d: int, u, rhs, a_list):
     _check_chain("tower_down", ch.shapes, u, ((u,), (rhs,), a_list))
     out = torch.empty(ch.down_cells, dtype=u.dtype, device=u.device)
     kernel_counts.count_launch("tower_down", 1)
-    err = _on_stream(
+    err = fs.on_stream(
         cuda_ext.lib().mgk_tower_down, u, u.data_ptr(), rhs.data_ptr(),
         out.data_ptr(), _ptrs(a_list), *ch.args)
     cuda_ext.check(err, "tower_down")
@@ -316,7 +296,7 @@ def tower_up(spec, d: int, e_bot, u_list, rhs_list, a_list):
     _check_chain("tower_up", ch.shapes[ndep - 1:], e_bot, ((e_bot,),))
     out = torch.empty(ch.up_cells, dtype=e_bot.dtype, device=e_bot.device)
     kernel_counts.count_launch("tower_up", 1)
-    err = _on_stream(
+    err = fs.on_stream(
         cuda_ext.lib().mgk_tower_up, e_bot, e_bot.data_ptr(), _ptrs(u_list),
         _ptrs(rhs_list), _ptrs(a_list), out.data_ptr(), *ch.args)
     cuda_ext.check(err, "tower_up")

@@ -25,8 +25,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "multisweep.cu",
            "multisweep_halo.cu")
-HEADERS = ("mg_kernels.h", "gsrb_device.cuh", "residual_device.cuh",
-           "multisweep_march.cuh")
+HEADERS = ("mg_kernels.h", "gsrb_device.cuh", "gsrb_walk.cuh",
+           "residual_device.cuh", "multisweep_march.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -110,8 +110,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.POINTER(vp))
     lib.mgk_gsrb_relax.restype = ci
     lib.mgk_gsrb_relax.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci,
+        ci, ci, ci, pi, ci, vp,
     ]
+    lib.mgk_gsrb_capacity.restype = ci
+    lib.mgk_gsrb_capacity.argtypes = [ci, ci, pi]
     lib.mgk_gsrb_pass.restype = ci
     lib.mgk_gsrb_pass.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, vp,

@@ -4,8 +4,10 @@ The hot loop of the solver (reference: GSRBHELMHOLTZVC3D, executed
 numMGsmooth smooths x 2 colours x depths x V-cycles x Krylov iterations)
 and the residual that feeds restriction, each as
 
-  * a hand-written CUDA kernel (csrc/gsrb_relax.cu, csrc/residual.cu),
-    launched by `gsrb_relax` / `residual` for tensors on a CUDA device, and
+  * a hand-written CUDA kernel (csrc/gsrb_relax.cu: every sweep of a call
+    in one cooperative launch, in the form and grid `gsrb_geometry` picks;
+    csrc/residual.cu), launched by `gsrb_relax` / `residual` for tensors
+    on a CUDA device, and
   * a plain PyTorch version (`gsrb_relax_plain` / `residual_plain`) written
     from the same folded form, which the wrappers take ONLY for tensors on
     the CPU. On a CUDA tensor a wrapper launches its kernel or raises.
@@ -42,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -284,34 +287,210 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# The one-launch gsrb_relax (csrc/gsrb_relax.cu): threads per block of
+# either form (kThreads), the most blocks of the slab form
+# (kMaxSlabs), the forms' codes (RelaxForm), the shared memory a slab block
+# may take (the H100's 227 KB a block), the largest level that runs as one
+# block (16^3, as the towers' tail), and the smallest tile (cells) for which
+# the slab form is taken over the grid form when the level needs more than
+# one block: on an H100 the slab form was the faster at 128x80x80 and
+# 272x80x80 (tiles of 6400 and 13600 cells) and the slower at 96x80x80 and
+# 176x64x64 (4800 and 5632), by 5-6 % either way (scripts/gsrb_probe.py).
+GSRB_THREADS = 512
+GSRB_MAX_SLABS = 256
+GSRB_FORMS = {"grid": 0, "slab": 1}
+GSRB_SLAB_SMEM = 232448
+GSRB_ONE_BLOCK_CELLS = 4096
+GSRB_SLAB_MIN_TILE = 6144
+
+
+class GsrbGeometry(NamedTuple):
+    """The launch of one gsrb_relax call (gsrb_geometry)."""
+    form: str      # "grid" or "slab"
+    per: int       # 1 every axis periodic, 0 none, -1 some
+    blocks: int
+    xsplit: tuple  # slab forms: (first plane, planes) of each x tile
+    ysplit: tuple  # slab forms: (first row, rows) of each y tile; block
+                   # (ix, iy) is number ix * len(ysplit[0]) + iy
+    smem: int      # slab forms: bytes of shared memory a block
+
+
+def pair_grid_blocks(shape, threads: int, capacity: int) -> int:
+    """Blocks of `threads` for a grid-wide colour pass over `shape`: enough
+    for a z pair a thread, at most `capacity`, and where that fits a whole
+    number of x planes of z pairs, so that a thread keeps its pair from pass
+    to pass (csrc/gsrb_walk.cuh)."""
+    nx, ny, nz = shape
+    plane = ny * -(-nz // 2)
+    need = -(-nx * plane // threads)
+    q = plane // math.gcd(plane, threads)  # blocks that make whole planes
+    if -(-need // q) * q <= capacity:
+        return -(-need // q) * q
+    if q <= capacity:
+        return capacity // q * q
+    return min(capacity, need)
+
+
+def periodic_axes(kinds: FaceKinds) -> int:
+    """1 when every axis is periodic, 0 when none is, -1 otherwise."""
+    n = sum(kinds[ax][0] == PERIODIC for ax in range(3))
+    return 1 if n == 3 else 0 if n == 0 else -1
+
+
+def even_split(n: int, parts: int) -> tuple[tuple, tuple]:
+    """(first, count): n cut in order into `parts` runs, the first
+    n % parts of them one longer."""
+    q, r = divmod(n, parts)
+    count = tuple(q + (s < r) for s in range(parts))
+    first = tuple(sum(count[:s]) for s in range(parts))
+    return first, count
+
+
+def tile_smem(bx: int, by: int, nz: int, itemsize: int) -> int:
+    """Shared memory of a slab block whose tile is bx planes of by rows: the
+    window (the tile with a plane and a row more on each side) and the
+    tile's a and rhs."""
+    return ((bx + 2) * (by + 2) + 2 * bx * by) * nz * itemsize
+
+
+def slab_tiles(shape, itemsize: int, capacity: int):
+    """(x tiles, y tiles) of the slab form, or None where no split fits: at
+    most min(capacity, GSRB_MAX_SLABS) tiles whose largest fits
+    GSRB_SLAB_SMEM, the one with the least rows computed and exchanged per
+    pass by its largest tile (by x bx rows, and 2 bx or 2 by more along a cut
+    axis: the rows it sends equal the rows it takes), then the fewest
+    tiles; one tile up to GSRB_ONE_BLOCK_CELLS cells."""
+    nx, ny, nz = shape
+    if nx * ny * nz <= GSRB_ONE_BLOCK_CELLS:
+        ok = tile_smem(nx, ny, nz, itemsize) <= GSRB_SLAB_SMEM
+        return (1, 1) if ok else None
+    most = min(int(capacity), GSRB_MAX_SLABS)
+    best = None
+    for tx in range(1, min(nx, most) + 1):
+        bx = -(-nx // tx)
+        for ty in range(1, min(ny, most // tx) + 1):
+            by = -(-ny // ty)
+            if tile_smem(bx, by, nz, itemsize) > GSRB_SLAB_SMEM:
+                continue
+            cost = bx * by + 2 * (by * (tx > 1) + bx * (ty > 1))
+            key = (cost, tx * ty, tx)
+            if best is None or key < best[0]:
+                best = (key, (tx, ty))
+    return None if best is None else best[1]
+
+
+def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
+                  capacity: int, form: str | None = None) -> GsrbGeometry:
+    """The launch of gsrb_relax on a level of `shape` for `capacity` blocks
+    running at once (gsrb_capacity; a cooperative launch needs all of them
+    resident). The slab form where it applies, f32 with constant b and a
+    split of x and y into tiles that fits (slab_tiles, each axis cut evenly
+    by even_split), and where it is the faster: one block, or tiles of
+    GSRB_SLAB_MIN_TILE cells or more. Else the grid form: a z pair a thread
+    in whole x planes (pair_grid_blocks) unless those leave more than an
+    eighth of the capacity idle, then as many blocks as run at once. `form`
+    asks for one form (the measurements do); a slab form that does not
+    apply then raises."""
+    nx, ny, nz = (int(n) for n in shape)
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError(f"gsrb_relax: {nx * ny * nz} cells (below 2^31)")
+    per = periodic_axes(kinds)
+    capacity = int(capacity)
+    tiles = None
+    if form != "grid" and itemsize == 4 and not with_b:
+        tiles = slab_tiles((nx, ny, nz), itemsize, capacity)
+    if tiles is not None:
+        xs, ys = even_split(nx, tiles[0]), even_split(ny, tiles[1])
+        bx, by = max(xs[1]), max(ys[1])
+        if (form == "slab" or tiles == (1, 1)
+                or bx * by * nz >= GSRB_SLAB_MIN_TILE):
+            return GsrbGeometry("slab", per, tiles[0] * tiles[1], xs, ys,
+                                tile_smem(bx, by, nz, itemsize))
+    if form not in (None, "grid"):
+        raise ValueError(f"gsrb_relax: no {form} form for {tuple(shape)}, "
+                         f"itemsize {itemsize}, b {with_b}")
+    blocks = pair_grid_blocks((nx, ny, nz), GSRB_THREADS, capacity)
+    need = -(-nx * ny * -(-nz // 2) // GSRB_THREADS)
+    if 8 * blocks < 7 * capacity and need > blocks:
+        blocks = min(capacity, need)
+    return GsrbGeometry("grid", per, blocks, ((), ()), ((), ()), 0)
+
+
+def gsrb_capacity(device, itemsize: int) -> int:
+    """Blocks of every gsrb_relax kernel of the item size (the slab kernels
+    at GSRB_SLAB_SMEM) that the CUDA device runs at once
+    (mgk_gsrb_capacity)."""
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = cuda_ext.lib().mgk_gsrb_capacity(
+            int(itemsize == 8), GSRB_SLAB_SMEM, ctypes.byref(cap))
+    cuda_ext.check(err, "gsrb_relax capacity")
+    return cap.value
+
+
+@functools.lru_cache(maxsize=None)
+def _relax_launch(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
+                  index: int, form: str | None):
+    """(geometry, the C entry's geometry arguments) of a level, kept: the
+    solver calls gsrb_relax with a few shapes many times, and its host time
+    is part of every call's."""
+    geom = gsrb_geometry(shape, itemsize, with_b, kinds, gsrb_capacity(
+        torch.device("cuda", index), itemsize), form)
+    starts = (geom.xsplit[0] + (shape[0],) + geom.ysplit[0] + (shape[1],)
+              if geom.form != "grid" else (0,))
+    return geom, (kinds_array(kinds), GSRB_FORMS[geom.form], geom.per,
+                  geom.blocks, len(geom.xsplit[0]),
+                  (ctypes.c_int * len(starts))(*starts), geom.smem)
+
+
 def gsrb_relax(
     u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
     alpha: float, beta: float, dx: float, lo,
 ):
     """nsweeps red-black GSRB sweeps of a whole level (homogeneous ghosts,
-    optional variable bCoef `b`). Returns a new tensor. CUDA tensors go to
-    the kernel (one launch per colour pass, issued from one C call); CPU
-    tensors take the plain version."""
+    optional variable bCoef `b`). Returns a new tensor; the inputs are only
+    read. CUDA tensors go to the kernel (one cooperative launch in the form
+    gsrb_geometry picks); CPU tensors take the plain version."""
     if u.device.type == "cpu":
         return gsrb_relax_plain(
             u, rhs, a, b, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
             beta=beta, dx=dx, lo=lo,
         )
+    return gsrb_launch(u, rhs, a, b, nsweeps=nsweeps, kinds=kinds, rho=rho,
+                       alpha=alpha, beta=beta, dx=dx, lo=lo)
+
+
+def gsrb_launch(
+    u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
+    alpha: float, beta: float, dx: float, lo, form: str | None = None,
+):
+    """gsrb_relax's launch on CUDA tensors, in the form gsrb_geometry picks
+    or in `form` (the measurements compare the forms)."""
     check_level_args("gsrb_relax", u, rhs, a, b)
-    lib = cuda_ext.lib()
-    out = u.clone()  # the kernel sweeps in place
+    if nsweeps < 0:
+        raise ValueError(f"gsrb_relax: nsweeps {nsweeps}")
+    geom, args = _relax_launch(tuple(u.shape), u.element_size(),
+                               b is not None, kinds, u.device.index, form)
+    out = torch.empty_like(u)
     nx, ny, nz = u.shape
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernel_counts.count_launch("gsrb_relax", 2 * int(nsweeps))
-        err = lib.mgk_gsrb_relax(
-            out.data_ptr(), rhs.data_ptr(), a.data_ptr(), _ptr(b),
-            int(u.dtype == torch.float64), nx, ny, nz, kinds_array(kinds),
-            float(rho), float(alpha), float(beta), float(dx), int(sum(lo)),
-            int(nsweeps), stream,
-        )
+    kernel_counts.count_launch("gsrb_relax", 1)
+    err = on_stream(
+        cuda_ext.lib().mgk_gsrb_relax, u, u.data_ptr(), rhs.data_ptr(),
+        a.data_ptr(), _ptr(b), out.data_ptr(), int(u.dtype == torch.float64),
+        nx, ny, nz, args[0], float(rho), float(alpha), float(beta),
+        float(dx), int(sum(lo)), int(nsweeps), *args[1:])
     cuda_ext.check(err, "gsrb_relax")
     return out
+
+
+def on_stream(fn, t, *args):
+    """fn(*args, stream): a C entry point that launches on the current
+    stream of t's device, made the current device only where it is not."""
+    idx = t.get_device()
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+    with torch.cuda.device(idx):
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
 
 
 def _gsrb_passes(name: str, u, rhs, a, b, colors, *, kinds: FaceKinds,

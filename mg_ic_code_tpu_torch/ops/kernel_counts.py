@@ -3,10 +3,11 @@
 `LAUNCHES[name]` goes up by one each time a wrapper hands its work to the
 CUDA library (and nowhere else): it counts wrapper CALLS that reached the
 card. `DEVICE_LAUNCHES[name]` goes up, at the same place, by the number of
-kernel launches that call enqueued from its C entry point: gsrb_relax one
-per colour pass = 2 * nsweeps (2 for its one-sweep and 1 for its one-pass
-entry point: the loops of csrc/gsrb_relax.cu); every other kernel 1 —
-residual; tower_down and tower_up, each a whole depth chain in one
+kernel launches that call enqueued from its C entry point: 1 for every
+kernel — gsrb_relax, all its sweeps in one cooperative launch (csrc/
+gsrb_relax.cu; its one-sweep and one-pass entry points gsrb_full_sweep /
+gsrb_half_sweep, counted under it, enqueue 2 and 1 launches of its pass
+kernel); residual; tower_down and tower_up, each a whole depth chain in one
 cooperative launch (csrc/tower.cu); wavefront_relax and multisweep_relax,
 two wrappers of one kernel, and multisweep_relax_halo /
 multisweep_relax_tiled_pre, the same march on one shard of a sharded level

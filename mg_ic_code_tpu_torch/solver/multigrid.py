@@ -273,7 +273,7 @@ def relax_kernel_plan(spec: LevelMGSpec, u, n: int, const_b: bool = True):
                    this kernel computes; its "slab", "flat" and "legacy"
                    rungs have no counterpart because `gsrb_relax` takes
                    every shape;
-      "resident" — the whole-level GSRB kernel, one launch per colour pass,
+      "resident" — the whole-level GSRB kernel, all sweeps in one launch,
                    which takes every level shape (on a CPU tensor, with
                    `smoother = pallas`, its plain version);
       "xla"      — the staged ghost-fill body, for f64 operands or

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the one-launch kernels of two trees (or more) against each other on
-one card: the march and the coarse towers.
+one card: the march, the coarse towers and gsrb_relax, with the residual as
+a control that should not move.
 
     git archive <parent> | tar -x -C build/ab_parent   # where git is
     python3 scripts/march_ab.py --parent build/ab_parent \
@@ -16,15 +17,20 @@ a batch of calls back to back, over the batch) replaces the tree's own. The
 f32 times of every timed case of the march (the whole-level kernel under
 `wavefront_relax` and `multisweep_relax`, the shard kernels under
 `multisweep_relax_halo` and `multisweep_relax_tiled_pre`; 2 sweeps per
-launch) and of the towers (`tower_down`, `tower_up`: a depth chain, 4
-sweeps per depth) are read from each run's kernels line. In every tree the
-same probe also times each tower wrapper call on the host clock (its
-checks, allocation and launches, in the kernels phase's own calls;
-reported per case as the median over the run's calls, `host_us`). The JSON
-written to --out holds every run's times and, per case, each tree's runs,
-median and spread (largest over smallest of its runs, minus one) and each
-tree's speed-up over A (A's median over its own), for the device times
-under "cases" and the host times under "host_us". Each run's whole output
+launch), of the towers (`tower_down`, `tower_up`: a depth chain, 4 sweeps
+per depth) and of `gsrb_relax` (4 sweeps) and `residual` at every timed
+level case are read from each run's kernels line. In every tree the same
+probe also times each tower wrapper call on the host clock (its checks,
+allocation and launches, in the kernels phase's own calls; reported per
+case as the median over the run's calls, `host_us`), and, after the
+kernels phase, splits one call of `gsrb_relax` and of `residual` at the
+7-level path's resident levels into device time (this tree's
+`chip_smoke.device_ms`: the batch enqueued behind a wait) and host time
+(`chip_smoke.host_us`), under "split". The JSON written to --out holds
+every run's times and, per case, each tree's runs, median and spread
+(largest over smallest of its runs, minus one) and each tree's speed-up
+over A (A's median over its own), for the times under "cases", the host
+times under "host_us" and the split under "split". Each run's whole output
 goes beside it (<out>.<i><tree>.log). Exits non-zero when a run fails.
 """
 
@@ -41,7 +47,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MARCH = ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
-         "multisweep_relax_tiled_pre", "tower_down", "tower_up")
+         "multisweep_relax_tiled_pre", "tower_down", "tower_up",
+         "gsrb_relax", "residual")
 TOWERS = ("tower_down", "tower_up")
 
 # Run in every tree after its chip_smoke module is imported: wraps the tower
@@ -71,19 +78,45 @@ for _name in TOWERS:
     setattr(chip_smoke.ct, _name,
             _host_timed(_name, getattr(chip_smoke.ct, _name)))
 """
+
+# Run in every tree after its chip_smoke.main(): the device and host time of
+# one call of gsrb_relax (4 sweeps) and residual at each split case (the
+# LEVEL_CASES of the 7-level path's resident levels), with this tree's
+# device_ms and host_us, printed as one line.
+SPLIT_PROBE = """
+_split = {}
+with torch.no_grad():
+    for _c in chip_smoke.LEVEL_CASES:
+        if _c[0] not in SPLIT_CASES:
+            continue
+        _f = chip_smoke.level_fields(_c[1], torch.float32, seed=1)
+        _kw = dict(kinds=_c[2], rho=_c[4], alpha=1.0, beta=-1.0, dx=0.37)
+        for _name, _fn in (
+                ("gsrb_relax", lambda: chip_smoke.fs.gsrb_relax(
+                    _f["u"], _f["rhs"], _f["a"], None, nsweeps=4, lo=_c[3],
+                    **_kw)),
+                ("residual", lambda: chip_smoke.fs.residual(
+                    _f["u"], _f["rhs"], _f["a"], None, **_kw))):
+            _split[f"{_name} {_c[0]}"] = {"device_ms": device_ms(_fn),
+                                         "host_us": host_us(_fn)}
+print(json.dumps({"phase": "gsrb_split", "split": _split}), flush=True)
+"""
+SPLIT_CASES = ("path_l0_64", "path_l1_96x80x80", "path_l2_128x80x80",
+               "path_l3_176x64x64", "path_l4_272x80x80")
 PHASES = "env,build,kernels"
 
 
-def timer_source() -> str:
-    """The source of this tree's `chip_smoke.time_ms`, which every run
-    uses in place of its own tree's (a parent may time otherwise)."""
+def timer_source(name: str = "time_ms") -> str:
+    """The source of this tree's `chip_smoke.<name>`: time_ms, which every
+    run uses in place of its own tree's (a parent may time otherwise), and
+    the split probe's device_ms and host_us."""
     path = os.path.join(ROOT, "chip_smoke.py")
     with open(path) as f:
         src = f.read()
     for node in ast.parse(src).body:
-        if isinstance(node, ast.FunctionDef) and node.name == "time_ms":
+        if isinstance(node, ast.FunctionDef) and node.name == name:
             return ast.get_source_segment(src, node)
-    raise RuntimeError(f"{path}: no time_ms")
+    raise RuntimeError(f"{path}: no {name}")
 
 
 def runner() -> str:
@@ -103,6 +136,8 @@ def runner() -> str:
             "print(json.dumps({'phase': 'tower_host_us', 'host_us': {\n"
             "    k: statistics.median(v) for k, v in _host.items()}}),\n"
             "    flush=True)\n"
+            + timer_source("device_ms") + "\n" + timer_source("host_us")
+            + f"\nSPLIT_CASES = {SPLIT_CASES!r}\n" + SPLIT_PROBE +
             "sys.exit(rc)\n")
 
 
@@ -138,6 +173,16 @@ def host_times(stdout: str) -> dict:
     raise RuntimeError("no tower_host_us line in the run's output")
 
 
+def split_times(stdout: str) -> dict:
+    """{"<kernel> <case> device_ms|host_us": value}: the split probe's line
+    of one run."""
+    for line in stdout.splitlines():
+        if line.startswith("{") and '"phase": "gsrb_split"' in line:
+            return {f"{k} {m}": v for k, rec in json.loads(line)[
+                "split"].items() for m, v in rec.items()}
+    raise RuntimeError("no gsrb_split line in the run's output")
+
+
 def build_seconds(stdout: str):
     for line in stdout.splitlines():
         if line.startswith("{") and '"phase": "build"' in line:
@@ -159,6 +204,7 @@ def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
                            f"{tail}")
     return ({"times": march_times(kernels_record(proc.stdout)),
              "host_us": host_times(proc.stdout),
+             "split": split_times(proc.stdout),
              "build_s": build_seconds(proc.stdout)},
             time.perf_counter() - t0)
 
@@ -225,7 +271,8 @@ def main() -> int:
     result = {"card": card[0] if card else None, "order": order,
               "roots": roots, "runs": runs,
               "cases": summarize(runs, list(roots)),
-              "host_us": summarize(runs, list(roots), "host_us")}
+              "host_us": summarize(runs, list(roots), "host_us"),
+              "split": summarize(runs, list(roots), "split")}
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     for case, row in result["cases"].items():
@@ -236,6 +283,9 @@ def main() -> int:
     for case, row in result["host_us"].items():
         print(case + " host: " + ", ".join(
             f"{t} {row[t + '_median']:.1f} us" for t in roots), flush=True)
+    for case, row in result["split"].items():
+        print(case + ": " + ", ".join(
+            f"{t} {row[t + '_median']:.4g}" for t in roots), flush=True)
     return 0
 
 

@@ -61,13 +61,63 @@ def test_cuda_level_kernels_match_plain(dt):
     assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
     assert kernel_counts.LAUNCHES["gsrb_relax"] == 1
     assert kernel_counts.LAUNCHES["residual"] == 1
-    # one call = one launch per colour pass / one launch
-    assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax"] == 8
+    # one call = one launch each
+    assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax"] == 1
     assert kernel_counts.DEVICE_LAUNCHES["residual"] == 1
     # a CUDA tensor the kernel does not take raises; it never falls back
     with pytest.raises((TypeError, ValueError)):
         tfs.gsrb_relax(f["u"].half(), f["rhs"], f["a"], nsweeps=1,
                        lo=(0, 0, 0), **kw)
+
+
+# gsrb_relax's launch forms (fused_sweeps.gsrb_geometry): (shape, kinds,
+# lo, with_b, misaligned): tiles that do not divide the level with an odd
+# lo, nx below the block count with periodic x (each tile's two x
+# neighbours the same block), the periodic-x ring, the same with arrays off
+# a 16-byte boundary (one element a copy), one block, variable b (grid form
+# only)
+GSRB_CASES = [
+    ((270, 78, 80), ((C, C),) * 3, (1521, 960, 960), False, False),
+    ((2, 64, 48), (("periodic", "periodic"), (D, C), (C, N)), (1, 0, 0),
+     False, False),
+    ((48, 40, 40), (("periodic", "periodic"), (D, C), (C, N)), (0, 1, 0),
+     False, False),
+    ((48, 40, 40), (("periodic", "periodic"), (D, C), (C, N)), (0, 1, 0),
+     False, True),
+    ((16, 16, 16), ((D, N), (C, D), (N, C)), (1, 0, 0), False, False),
+    ((40, 30, 33), ((D, C), ("periodic", "periodic"), (C, N)), (0, 0, 1),
+     True, False),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", GSRB_CASES,
+                         ids=["uneven_tiles_odd_lo", "nx_below_blocks_ring",
+                              "periodic_x_ring", "misaligned", "one_block",
+                              "var_b"])
+def test_cuda_gsrb_relax_forms_match_plain(case, dt):
+    """gsrb_relax in every form that takes the level against its plain
+    version: one launch per call, the input untouched."""
+    _need_cuda()
+    shape, kinds, lo, with_b, misaligned = case
+    npdt, rtol = DTYPES[dt]
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
+    if misaligned:
+        f = {k: _misaligned(v) for k, v in f.items()}
+    b = f["b"] if with_b else None
+    kw = dict(nsweeps=4, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.25,
+              lo=lo)
+    ref = tfs.gsrb_relax_plain(f["u"], f["rhs"], f["a"], b, **kw)
+    u_in = f["u"].clone()
+    slab = npdt == np.float32 and not with_b
+    for form in ("grid", "slab") if slab else ("grid",):
+        kernel_counts.reset()
+        out = tfs.gsrb_launch(f["u"], f["rhs"], f["a"], b, form=form, **kw)
+        assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax"] == 1
+        assert float((out - ref).abs().max()) <= rtol * float(
+            ref.abs().max())
+        assert torch.equal(u_in, f["u"])
 
 
 WAVE_CASES = [
@@ -85,7 +135,7 @@ WAVE_CASES = [
                          ids=["narrow", "odd_lo", "periodic_y"])
 def test_cuda_wavefront_matches_plain_and_gsrb(case, nsweeps, dt):
     """wavefront_relax on the card against its plain version and against
-    the gsrb_relax kernel (the same function, a launch per colour pass):
+    the gsrb_relax kernel (the same function in another kernel):
     one launch per call, and no giving way to another path."""
     _need_cuda()
     from mg_ic_code_tpu_torch.ops import wavefront as twf
