@@ -27,7 +27,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
            segments, steps of the longest block, rounds), the time of one
            step and the fraction of the byte bound (scripts/march_ab.py
            times the march, the towers and gsrb_relax of two trees against
-           each other). gsrb_relax runs in every form that takes a level
+           each other); the same for each timed shard case, with the form
+           that ran and its registers and spill stores, also on a line of
+           its own before the kernels line (shard_launch). gsrb_relax runs in every form that takes a level
            (fused_sweeps.gsrb_geometry: grid, slab), each call one launch
            that leaves its input as it was; for each timed case also the
            form and blocks the geometry picks, the device time and the
@@ -110,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -338,13 +341,13 @@ def phase_env() -> dict:
 # ----------------------------------------------------------------- build
 
 
-def phase_build() -> dict:
-    t0 = time.perf_counter()
-    cuda_ext.lib()
-    info = dict(cuda_ext.BUILD_INFO)
+def ptxas_resources() -> tuple[dict, dict]:
+    """(registers, spill store bytes) of every entry function of the built
+    library, by mangled name, from ptxas -v's lines in the build log."""
     regs, spills = {}, {}
-    if os.path.exists(info["log"]):
-        log = open(info["log"]).read()
+    path = cuda_ext.BUILD_INFO.get("log")
+    if path and os.path.exists(path):
+        log = open(path).read()
         # ptxas -v: "Compiling entry function '<mangled>' ..." then
         # "Used N registers"
         for name, used in re.findall(
@@ -355,6 +358,35 @@ def phase_build() -> dict:
         spills = {name: int(st) for name, st in re.findall(
             r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
             r"(\d+) bytes spill stores", log)}
+    return regs, spills
+
+
+# shard_march_kernel<T, NP, W, D, V, SRC> of csrc/multisweep_halo.cu, mangled
+SHARD_KERNEL = re.compile(
+    r"shard_march_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])ELi([12])E")
+
+
+def shard_forms(regs: dict, spills: dict) -> dict:
+    """Registers and spill stores of every shard march instantiation, by
+    form: "<f32|f64> NP<n> W<w> V<0|1> <slab|pre>" (V: a and rhs in 16-byte
+    chunks), with its D (planes fetched ahead)."""
+    out = {}
+    for name, n in regs.items():
+        m = SHARD_KERNEL.search(name)
+        if m:
+            t, np_, w, d, v, src = m.groups()
+            key = (f"{'f32' if t == 'f' else 'f64'} NP{np_} W{w} V{v} "
+                   f"{'slab' if src == '1' else 'pre'}")
+            out[key] = {"D": int(d), "registers": n,
+                        "spill_stores": spills.get(name, 0)}
+    return out
+
+
+def phase_build() -> dict:
+    t0 = time.perf_counter()
+    cuda_ext.lib()
+    info = dict(cuda_ext.BUILD_INFO)
+    regs, spills = ptxas_resources()
     # every march instantiation: the whole-level forms of csrc/multisweep.cu
     # (march_kernel<T, NP, W, D, V>) and the shard forms of
     # csrc/multisweep_halo.cu, by mangled name
@@ -374,6 +406,8 @@ def phase_build() -> dict:
         # names); the f32 NP = 4 marches the solver runs spill none
         "spill_stores": {k: v for k, v in spills.items() if v},
         "march_forms": march,
+        # the shard forms of csrc/multisweep_halo.cu by form
+        "shard_forms": shard_forms(regs, spills),
         "tower_kernels": tower,
     }
     emit(out)
@@ -954,7 +988,11 @@ def check_tower_case(case, dtype) -> dict:
 # whole-level kernel. The first of each kind is the periodic box's (256^3 on
 # 4 x-slabs / on (2, 2) pencils), then the 7-level hierarchy's local slabs
 # (its finest level, 960x144x144, and its 64^3 base on 4 x-slabs), then odd
-# offsets and mixed faces.
+# offsets and mixed faces; then the cases the shard march's copies can get
+# wrong: rows that do not start on 16 bytes (nz odd: one element a copy), the
+# nsweeps = 2 slice of rhs and a pads built for 4 sweeps (SHARD_COEF_HMAX),
+# an x-slab cut into several x segments, and a one-shard periodic x mesh
+# whose seams wrap onto its own pads.
 SHARD_CASES = [
     ("slab_64x256x256_P", (256, 256, 256), ALL_P, (0, 0, 0), (4,), (1, 0, 0),
      True),
@@ -972,15 +1010,31 @@ SHARD_CASES = [
      (2, 2), (1, 1, 0), False),
     ("pencil_periodic_odd", (42, 46, 36), ALL_P, (0, 3, 0), (2, 2), (1, 0, 0),
      False),
+    ("slab_misaligned_nz", (64, 40, 37), ((D, C), (N, D), (C, N)), (1, 0, 2),
+     (4,), (1, 0, 0), False),
+    ("pencil_misaligned_nz", (48, 44, 37), ((N, D), (D, C), (C, D)),
+     (0, 1, 0), (2, 2), (1, 1, 0), False),
+    ("slab_pad_slice_hmax8", (96, 56, 48), ((D, C), (N, D), (C, N)),
+     (3, 0, 8), (4,), (2, 0, 0), False),
+    ("slab_segments", (528, 40, 36), ((N, D), (D, C), (C, C)), (0, 1, 1),
+     (4,), (1, 0, 0), False),
+    ("slab_one_shard_periodic", (48, 40, 36), ALL_P, (0, 1, 0), (1,),
+     (0, 0, 0), False),
 ]
+# cases whose rhs and aCoef pads are built for a deeper chunk (h_max rows a
+# side) and sliced [h_max - H, h_max + H), as halo.sharded_relax slices them
+SHARD_COEF_HMAX = {"slab_pad_slice_hmax8": 8}
 # reassembled sharded relax against the whole-level kernel (of max|ref|)
 REASSEMBLED_TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 
 
-def shard_operands(f, kinds, mshape, H: int, rho: float = 2.0) -> dict:
+def shard_operands(f, kinds, mshape, H: int, rho: float = 2.0,
+                   h_max: int | None = None) -> dict:
     """What the sharded path hands the kernel of every shard for a chunk of
     H/2 sweeps, by shard: the shard and its pads (x-slabs) or its prepadded
-    arrays (pencils), and the meta; built by parallel/halo's own helpers."""
+    arrays (pencils), and the meta; built by parallel/halo's own helpers.
+    h_max: the x-slabs' rhs and aCoef pads built h_max rows a side and
+    sliced to H, as halo.sharded_relax does for chunks of mixed depth."""
     mesh = pmesh.make_mesh(["cuda:0"] * math.prod(mshape), mshape)
     counts = tuple(mshape) + (1,) * (3 - len(mshape))
     devs = halo._grid(mesh, counts)
@@ -989,16 +1043,55 @@ def shard_operands(f, kinds, mshape, H: int, rho: float = 2.0) -> dict:
     px = kinds[0][0] == P
     meta = halo._metas(devs, counts, n_loc, px)
     if len(mshape) == 1:
+        hm = max(H, h_max or H)
+        sl = slice(hm - H, hm + H)
         pads = (halo._u_rows(sh["u"], kinds, rho, H, counts[0], devs),
-                halo._coef_rows(sh["rhs"], H, counts[0], px, devs),
-                halo._coef_rows(sh["a"], H, counts[0], px, devs))
+                halo._coef_rows(sh["rhs"], hm, counts[0], px, devs),
+                halo._coef_rows(sh["a"], hm, counts[0], px, devs))
         return {k: {"u": sh["u"][k], "rhs": sh["rhs"][k], "a": sh["a"][k],
-                    "pads": tuple(p[k] for p in pads), "meta": meta[k]}
+                    "pads": (pads[0][k], pads[1][k][sl], pads[2][k][sl]),
+                    "meta": meta[k]}
                 for k in devs}
     pre = {n: halo._prepad(sh[n], H, "ghost" if n == "u" else "zero", kinds,
                            rho, counts, devs) for n in sh}
     return {k: {"pre": (pre["u"][k], pre["rhs"][k], pre["a"][k]),
                 "meta": meta[k], "ny_global": f["u"].shape[1]} for k in devs}
+
+
+def shard_launch(ops: dict, loc, nsweeps: int, ms: float,
+                 bound: float) -> dict:
+    """The shard march's launch on one shard
+    (fused_sweeps.shard_geometry_on): tile width, x segments, steps of the
+    longest block, rounds of blocks, the time of one step and the fraction
+    of the byte bound reached, and the instantiation that runs (its form,
+    a and rhs in 16-byte chunks or not, as the C entry reports it for these
+    operands: mgk_multisweep_shard_chunked) with its registers and spill
+    stores (ptxas -v)."""
+    pre = "pre" in ops
+    arrays = ops["pre"] if pre else (ops["u"], ops["rhs"], ops["a"],
+                                     *ops["pads"])
+    u = arrays[0]
+    isz = u.element_size()
+    tile, nseg, xseg = fs.shard_geometry_on(tuple(loc), nsweeps, isz,
+                                            u.device.index, pre)
+    inner = tile - 4 * nsweeps
+    tiles = -(-loc[1] // inner) * -(-loc[2] // inner)
+    cap = fs.shard_capacity(u.device, isz, nsweeps, tile, pre)
+    steps = xseg + 3 * 2 * nsweeps - 1
+    rounds = -(-tiles * nseg // cap)
+    chunks = ctypes.c_int(0)
+    cuda_ext.check(cuda_ext.lib().mgk_multisweep_shard_chunked(
+        int(isz == 8), int(pre), loc[1], loc[2], nsweeps,
+        *(t.data_ptr() for t in arrays), *(None,) * (3 * pre),
+        ctypes.byref(chunks)), "multisweep shard chunked")
+    form = (f"{'f32' if isz == 4 else 'f64'} NP{2 * nsweeps} W{tile} "
+            f"V{chunks.value} {'pre' if pre else 'slab'}")
+    return {"tile": tile, "segments": nseg, "xseg": xseg,
+            "blocks": tiles * nseg, "capacity": cap,
+            "steps_per_block": steps, "rounds": rounds,
+            "us_per_step": 1e3 * ms / (rounds * steps),
+            "fraction_of_bound": bound / ms, "form": form,
+            **shard_forms(*ptxas_resources()).get(form, {})}
 
 
 def check_shard_case(case, dtype) -> dict:
@@ -1030,9 +1123,12 @@ def check_shard_case(case, dtype) -> dict:
         return fn(*ops["pre"], ops["meta"], ny_global=ops["ny_global"],
                   nsweeps=ns, **kw)
 
+    h_max = SHARD_COEF_HMAX.get(cid)
+    if h_max:
+        rec["coef_pad_h_max"] = h_max
     worst = (0.0, 0.0)
     for ns in fs.MULTISWEEP_CHUNKS:
-        ops = shard_operands(f, kinds, mshape, 2 * ns)[key]
+        ops = shard_operands(f, kinds, mshape, 2 * ns, h_max=h_max)[key]
         before = kernel_counts.DEVICE_LAUNCHES[name]
         out = call(ops, ns)
         torch.cuda.synchronize()
@@ -1057,9 +1153,11 @@ def check_shard_case(case, dtype) -> dict:
         return u
 
     sharded = sharded_sweeps()
-    if dtype == torch.float32:
+    if dtype == torch.float32 and math.prod(mshape) > 1:
         # the solver's own route: mg.relax with the mesh (f32 only: the
-        # kernels are the f32 preconditioner's), the same launches
+        # kernels are the f32 preconditioner's), the same launches. A
+        # one-shard mesh cuts no depth (mesh.shard_counts): the solver
+        # smooths such a level with the whole-level kernel
         mesh = pmesh.make_mesh(["cuda:0"] * math.prod(mshape), mshape)
         spec = mg.LevelMGSpec(
             kinds=kinds, boxes=(Box.from_shape(shape, lo),), dx=(0.37,),
@@ -1091,9 +1189,12 @@ def check_shard_case(case, dtype) -> dict:
         ncells = math.prod(loc)
         # read u, rhs, a with their pads once, write the shard once
         b, by = bound_ms(isz * (3 * nin + ncells), 2 * 32.0 * ncells)
+        ms = time_ms(lambda: call(ops, 2))
         rec[name].update(
             nsweeps=2,
-            ms=time_ms(lambda: call(ops, 2)),
+            ms=ms, **shard_launch(ops, loc, 2, ms, b),
+            device_ms=device_ms(lambda: call(ops, 2)),
+            host_us=host_us(lambda: call(ops, 2)),
             plain_ms=time_ms(lambda: call(ops, 2, kernel=False), reps=6,
                              warmup=1),
             bound_ms=b, bound_by=by,
@@ -1156,6 +1257,16 @@ def phase_kernels() -> dict:
         except (TypeError, ValueError):
             continue
         raise SmokeFailure("multisweep_relax accepted a bad call")
+    # the shard marches' launches at the timed cases, on a line of their own
+    emit({"phase": "shard_launch", "cases": {
+        f"{c['case']} {c['dtype']}": {
+            k: c[n][k] for k in ("tile", "segments", "xseg", "blocks",
+                                 "steps_per_block", "us_per_step", "form",
+                                 "D", "registers", "spill_stores")
+            if k in c[n]}
+        for c in checks for n in ("multisweep_relax_halo",
+                                  "multisweep_relax_tiled_pre")
+        if "tile" in c.get(n, {})}})
     out = {"phase": "kernels",
            "kernels": list(kernel_counts.KERNELS),
            "tolerance": {"float32": TOL[torch.float32],
@@ -1886,8 +1997,13 @@ def phase_cli() -> dict:
 SHARD_X = (4,)
 SHARD_PENCIL = (2, 2)
 # the 7-level lock's step 1 limit on the sharded run: the unsharded lock's
-# 1e-5 (sharding changes the f32 preconditioner's arithmetic, the tower
-# moves down to 16^3, and step 1 has read 7.0e-6 from the lock: PERF.md)
+# 1e-5. Sharding changes the f32 preconditioner's arithmetic: every depth
+# the mesh cuts is smoothed by the shard march (the whole-level march's
+# update, not gsrb_relax's or the tower's) and the tower moves down to 16^3.
+# Step 1 reads 9.54e-6 from the lock, bit for bit in every run, and the
+# unsharded solve with those depths on the whole-level march reads the same
+# to 1.5e-9; with the f64 preconditioner both paths reach the lock to 3e-15
+# (scripts/sharded7_lock.py, PERF.md).
 SHARDED7_STEP1 = 1e-5
 
 

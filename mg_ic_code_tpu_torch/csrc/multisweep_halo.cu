@@ -1,332 +1,442 @@
 // The multisweep march (csrc/multisweep_march.cuh, which says what it
-// computes and how it is built) on ONE SHARD of a level cut over a device
-// mesh (parallel/halo.py): an x-slab whose neighbours' rows sit in
-// (2H, ny, nz) pads beside it (ops/fused_sweeps.multisweep_relax(halo=...),
-// the JAX package's mg_ic_code_tpu/ops/fused_sweeps.py:378 multisweep_relax
-// in its halo form), or an (x, y) pencil prepadded by H on both sides of x
-// and y (ops/fused_sweeps.multisweep_relax_tiled_pre, :1540
+// computes) on ONE SHARD of a level cut over a device mesh (parallel/
+// halo.py): an x-slab whose neighbours' rows sit in (2H, ny, nz) pads beside
+// it (ops/fused_sweeps.multisweep_relax(halo=...), the JAX package's
+// mg_ic_code_tpu/ops/fused_sweeps.py:378 multisweep_relax in its halo form),
+// or an (x, y) pencil prepadded by H on both sides of x and y
+// (ops/fused_sweeps.multisweep_relax_tiled_pre, :1540
 // multisweep_relax_tiled_pre). A seam between shards is an open segment end
 // whose planes come from the pads; only the faces flagged as the domain's
 // take the ghost rule; the parity and the y face rule stay in the level's
-// frame. The body is the whole-level one of csrc/multisweep.cu with the
-// planes outside [0, nx) read from the pads instead of modulo nx.
+// frame (x_off and y_off in `base`, y_off and ny_global for the y faces).
+//
+// What bounds it: as for the whole level (csrc/multisweep.cu), not bytes
+// but the time of one step of the march, i.e. of one plane: the
+// instructions of a step, the wait for the plane that enters, and the block
+// barrier. The body is the whole level's design for the H100, carried over
+// and kept in a unit of its own (one template serving both cost the whole
+// level 24-38 % once):
+//  * A ring of R = NP + D + 1 planes in shared memory holds u (colour-split,
+//    WaveLayout: no bank conflicts) and a and rhs of every column of the
+//    tile. Plane t + D comes in by cp.async, one commit group per plane,
+//    right after the barrier of step t; before a step a thread waits only
+//    for its own copies of plane t + 1. No step waits on device memory.
+//  * Where a plane comes from is the source policy (ShardSource): planes
+//    in [0, nx) from the shard; an x-slab's planes beyond a seam from its
+//    pads' rows (q + NP below, q - nx + NP above); a pencil's from the same
+//    prepadded array, whose y pad columns belong to the tile. A pad at a
+//    domain face is never read: the segment stops at that face.
+//  * a and rhs move in 16-byte cp.async.cg chunks of rows where every row
+//    of every operand starts on 16 bytes (nz a multiple of the chunk and all
+//    six pointers aligned: the pad slices the sharded relax passes start at
+//    row h_max - H); otherwise one element a column, in an instantiation of
+//    its own chosen at launch.
+//  * The tile width and the x segments are the caller's
+//    (ops/fused_sweeps.shard_geometry_on, the whole level's rule on the
+//    shard's written extent); the forms built are SHARD_FORMS, with the
+//    whole level's widths.
+//  * Steady steps (compile-time ring slots, no validity tests, no x-face
+//    rule) wherever the staircase lies inside the segment and off the
+//    domain's x faces; a seam's pads are no reason to leave them, since a
+//    plane's source is picked per plane when it is fetched.
+//  * The update in residual form, recip() with a Newton step, dead columns
+//    updated without a branch and read only with weight 0, both finished
+//    columns of a pair in one store: as in the whole level.
+#include <cstdint>
+#include <type_traits>
+
 #include "multisweep_march.cuh"
 
 namespace {
 
-// Where the march reads its planes: the source-indexing policy, a template
-// parameter so that each form compiles to its own code. Plane q of u is at
-// u + q*sx for 0 <= q < nx; a plane outside [0, nx) is read only beyond an
-// OPEN segment end (a seam; at an x face of the domain the ghost rule
-// stands in), and is
-//   SRC_SLAB:  in the (2H, ny, nz) pads of an x-slab of a sharded level,
-//              H = NP: rows [0, H) below the slab, [H, 2H) above;
-//   SRC_PRE:   in the same array: a pencil prepadded by H on both sides of x
-//              and y, u pointing at its cell (0, 0, 0); its y has H pad
-//              columns on each side, and its y face rule fires at global
-//              rows 0 and ny_global - 1 (y_off + row). out has its own
-//              plane stride there.
+// The forms built: (type, colour passes NP = 2*nsweeps, tile width W,
+// planes fetched ahead D), each with a and rhs in 16-byte chunks (V) and
+// without, for both sources. Each must fit the 227 KB of shared memory a
+// block may use: R * (PLANE + 2*W*W) * sizeof(T), R = NP + D + 1.
+// The widths are MARCH_FORMS' (csrc/multisweep.cu), which
+// ops/fused_sweeps.MARCH_TILES lists per (itemsize, nsweeps) for both.
+#define SHARD_FORMS(X) \
+  X(float, 4, 40, 3)   \
+  X(float, 4, 44, 2)   \
+  X(float, 8, 36, 2)   \
+  X(double, 4, 32, 2)  \
+  X(double, 8, 24, 2)
+
+// Where the march reads its planes, a template parameter so that each form
+// compiles to its own code:
+//   SRC_SLAB:  an x-slab, u at its cell (0, 0, 0); a plane outside [0, nx)
+//              (only beyond a seam) in the (2H, ny, nz) pads, H = NP: rows
+//              [0, H) below the slab, [H, 2H) above;
+//   SRC_PRE:   a pencil prepadded by H on both sides of x and y, u at its
+//              cell (0, 0, 0); rows -H .. ny + H - 1 of a plane are the
+//              tile's, those beyond a y face of the domain dead; its y face
+//              rule fires at global rows 0 and ny_global - 1 (y_off + row).
+//              out has its own plane stride.
 // The same for rhs and a.
-enum MarchSource { SRC_SLAB = 1, SRC_PRE = 2 };
+enum ShardSource { SRC_SLAB = 1, SRC_PRE = 2 };
 
 // The source's shape.
-struct MarchGeom {
+struct ShardGeom {
   long long sx, sxo;     // plane strides of the inputs and of out
   int face_lo, face_hi;  // the x faces at planes 0 and nx - 1 are the
                          // domain's (else seams)
   int y_off, ny_global;  // SRC_PRE
 };
 
-// What a launch reads: u, rhs, a at cell (0, 0, 0), the SRC_SLAB pads. The
-// arrays are separate __restrict__ parameters of the kernel: out never
-// aliases an input.
+// What a launch reads: u, rhs, a at cell (0, 0, 0), the SRC_SLAB pads.
 template <typename T>
-struct MarchSrc {
+struct ShardSrc {
   const T* u; const T* rhs; const T* a;
   const T* upad; const T* rpad; const T* apad;
-  MarchGeom g;
+  ShardGeom g;
 };
 
-// What a thread marching a shard carries beyond WaveThread.
+// The copies and stores of the whole level's unit (csrc/multisweep.cu),
+// again here: the two units build apart.
 template <typename T>
-struct ShardThread {
-  const T* upad; const T* rpad; const T* apad;  // SRC_SLAB
-  long long sxo;          // plane stride of out
-  bool face_lo, face_hi;  // plane 0 / nx-1 lies at an x face of the domain
-};
-
-// Where plane q of every array is: at offset `off` from the array's plane 0,
-// or (SRC_SLAB, q outside [0, nx); `pad` set) from its pad's row 0. One
-// offset serves u, rhs and a alike, so it is computed once per plane.
-template <int SRC, int NP, typename T>
-__device__ __forceinline__ long long plane_off(const WaveThread<T>& w, int q,
-                                               bool& pad) {
-  pad = false;
-  if constexpr (SRC == SRC_SLAB) {
-    if (q < 0) {
-      pad = true;
-      return (q + NP) * w.sx;
-    }
-    if (q >= w.nx) {
-      pad = true;
-      return (q - w.nx + NP) * w.sx;
-    }
-  }
-  return q * w.sx;
+__device__ __forceinline__ void copy_async(unsigned dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void copy_chunk(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(double* p, double x, double y) {
+  *reinterpret_cast<double2*>(p) = make_double2(x, y);
+}
+template <typename X>
+__device__ __forceinline__ X pick(int c, const X (&v)[2]) {
+  return c ? v[1] : v[0];
 }
 
-// One step of the march: plane t+1 enters the ring, plane t+2 is loaded,
-// and pass ps works on plane t - ps for ps = 0 .. NP-1, in the pair's
-// column whose cells have this step's colour.
+// One z-pair of a tile row: where its columns live in a plane and in the
+// rings, and the folded weights of the y and z faces they touch. Column c of
+// the pair lives in colour half h = c ^ jb of its row (jb: row parity).
+template <typename T>
+struct ShardPair {
+  T* cell;         // u ring slot 0: the pair's place in half 0 of its row
+  const T* co;     // a of the pair in slot 0 of the a, rhs ring
+  unsigned scell, sco;  // the same as shared-memory addresses
+  // V: the chunks of a or rhs this pair fetches: offset in a plane, whether
+  // it is rhs's, whether it holds cells, shared address in slot 0
+  int chunk_off[2];
+  bool chunk_rhs[2], chunk_in[2];
+  unsigned chunk_dst[2];
+  int coff[2];     // offset of each column inside a plane (row stride nz)
+  int par;         // row + first column + base, unwrapped indices
+  int jb;          // row parity
+  bool live[2], own[2];
+  bool own_both;   // both columns written, side by side, the first at an
+                   // even offset: one 2-wide store
+  T wya, wyb;        // weight of the y+1 / y-1 neighbour (0 across a face,
+  T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
+  T cs6[2];          // c0 feed-through of the y and z faces, minus 6
+};
+
+template <typename T>
+struct ShardThread {
+  const T* u; const T* rhs; const T* a; T* out;
+  const T* upad; const T* rpad; const T* apad;  // SRC_SLAB
+  long long sx, sxo;        // plane strides of the inputs and (SRC_PRE)
+                            // of out
+  int xs, xe, x0, x1, nx;   // planes worked on [xs, xe), written [x0, x1)
+  bool face_lo, face_hi;    // plane 0 / nx-1 lies at an x face of the domain
+  T alpha, six_b_inv, b_inv;
+  T c0xlo, c1xlo, c0xhi, c1xhi;  // x-face ghost rule
+  ShardPair<T> p;
+};
+
+// Row uj of a tile (unwrapped, in the shard's frame): its row gj in a plane
+// of the source, and whether it holds cells. An x-slab has the level's whole
+// y (a periodic y wraps modulo ny); a pencil's rows -NP .. ny + NP - 1 lie
+// in its pads, but for those beyond a y face of the domain.
+template <int SRC, int NP, typename T>
+__device__ __forceinline__ bool shard_row(int uj, const LevelParams<T>& p,
+                                          const ShardGeom& g, int& gj) {
+  const bool py = p.periodic[1] != 0;
+  gj = uj;
+  if constexpr (SRC == SRC_PRE) {
+    const int yg = uj + g.y_off;
+    return uj >= -NP && uj < p.ny + NP &&
+           (py || (yg >= 0 && yg < g.ny_global));
+  }
+  if (py) {
+    gj = uj % p.ny;
+    if (gj < 0) gj += p.ny;
+    return true;
+  }
+  return uj >= 0 && uj < p.ny;
+}
+
+// Start the copies of plane q (xs <= q < xe) into ring slot s: u of the
+// thread's live columns (one element a copy), and their a and rhs: one
+// element a copy into the pair's colour halves, or (V) 16-byte chunks of
+// rows into the plane's own layout, bypassing L1. An x-slab's plane outside
+// [0, nx) is row q + NP (below) or q - nx + NP (above) of its pads.
+template <typename T, int NP, int W, bool V, int SRC>
+__device__ __forceinline__ void fetch_plane(const ShardThread<T>& w, int q,
+                                            int s) {
+  using L = WaveLayout<W, W>;
+  constexpr int NPAIR = W * W / 2;
+  constexpr unsigned B = sizeof(T);
+  bool pad = false;
+  int row = q;
+  if constexpr (SRC == SRC_SLAB) {
+    if (q < 0) { pad = true; row = q + NP; }
+    if (q >= w.nx) { pad = true; row = q - w.nx + NP; }
+  }
+  const long long o = (long long)row * w.sx;
+  const T* u = (pad ? w.upad : w.u) + o;
+  const T* a = (pad ? w.apad : w.a) + o;
+  const T* r = (pad ? w.rpad : w.rhs) + o;
+  const ShardPair<T>& p = w.p;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (!p.live[c]) continue;
+    const unsigned h = (unsigned)(c ^ p.jb);
+    copy_async(p.scell + (s * L::PLANE + h * L::HP) * B, u + p.coff[c]);
+    if (!V) {
+      copy_async(p.sco + (4 * s + h) * NPAIR * B, a + p.coff[c]);
+      copy_async(p.sco + (4 * s + 2 + h) * NPAIR * B, r + p.coff[c]);
+    }
+  }
+  if (V) {
+#pragma unroll
+    for (int k = 0; k < (int)(B / 4); ++k)
+      if (p.chunk_in[k])
+        copy_chunk(p.chunk_dst[k] + s * 2 * W * W * B,
+                   (p.chunk_rhs[k] ? r : a) + p.chunk_off[k]);
+  }
+}
+
+// One step of the march: pass ps works on plane t - ps for ps = 0 .. NP-1,
+// in each pair's column whose cells have this step's colour; plane t + D is
+// fetched; both columns of plane t - NP + 1 are final and written.
 //
-// STEADY: every plane t+2 .. t-NP lies inside (xs, xe), inside [0, nx) and
-// away from the x faces of the domain, so no pass needs a validity test, an
-// x-face rule or a wrapped index, and the ring slot of plane t is the
-// compile-time ST: every shared-memory address is the thread's base plus a
-// constant. Otherwise `st` is t's slot at run time and every pass is tested.
-template <typename T, int NP, int TY, int TZ, int SRC, bool STEADY, int ST>
-__device__ __forceinline__ void wave_step(WaveThread<T>& w,
-                                          const ShardThread<T>& x,
-                                          const int t, const int st_rt) {
-  using L = WaveLayout<TY, TZ>;
-  constexpr int R = NP + 2;
+// STEADY: every plane t + D .. t - NP lies inside (xs, xe), so no pass needs
+// a validity test or an x-face rule (a domain face bounds the segment), and
+// the ring slot of plane t is the compile-time ST. Otherwise `st_rt` is t's
+// slot and every pass is tested.
+template <typename T, int NP, int W, int D, bool V, int SRC, bool STEADY,
+          int ST>
+__device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
+                                           const int st_rt) {
+  using L = WaveLayout<W, W>;
+  constexpr int R = NP + D + 1;
   constexpr int HP = L::HP, PZ = L::PZ, PLANE = L::PLANE;
+  constexpr int NPAIR = W * W / 2;
   const int st = STEADY ? ST : st_rt;
-  // the x faces of the domain, the plane stride of out, the pads
-  const bool face_lo = x.face_lo, face_hi = x.face_hi;
-  const long long so = x.sxo;
-  const T *upad = x.upad, *rpad = x.rpad, *apad = x.apad;
-  // offset of plane q, and whether it lies in the pads (a steady step
-  // stays inside [0, nx))
-  bool in_pad = false;
-  auto xo = [&](int q) {
-    return STEADY ? q * w.sx : plane_off<SRC, NP>(w, q, in_pad);
-  };
-  // slot of plane t + d
-  auto slot = [&](int d) {
+  auto slot = [&](int d) {  // slot of plane t + d, -R < d < R
     int s = st + d;
     if (s < 0) s += R;
     if (s >= R) s -= R;
     return s;
   };
-  // column 0 of the pair lives in half (row parity), column 1 in the other
-  const int half0 = w.jpar ? HP : 0, half1 = HP - half0;
+  auto valid = [&](int q) { return STEADY || (q >= w.xs && q < w.xe); };
 
-  if (STEADY || t + 1 < w.xe) {
-    T* pl = w.cell + slot(1) * PLANE;
-    pl[half0] = w.raw_u[0];
-    pl[half1] = w.raw_u[1];
-  }
-  if (STEADY || t + 2 < w.xe) {
-    const long long o = xo(t + 2);
-    const T* next = (in_pad ? upad : w.u) + o;
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      w.raw_u[c] = w.live[c] ? __ldg(next + w.coff[c]) : (T)0;
-  }
-
-  // the column of the pair whose cells have this step's colour
-  const int c = (t + w.par) & 1;
-  const bool act = c ? w.live[1] : w.live[0];
-  const int col = c ? w.coff[1] : w.coff[0];
-  // a, rhs of this step's cells: plane t came with the step before, the
-  // older planes are in cache (loads in flight over the barrier), and the
-  // next step's first cell is asked for now
-  T av[NP], rv[NP];
-  av[0] = w.next_a;
-  rv[0] = w.next_r;
-  const T* ap = w.a + t * w.sx;
-  const T* rp = w.rhs + t * w.sx;
-  const int sxi = (int)w.sx;
-#pragma unroll
-  for (int ps = 1; ps < NP; ++ps) {
-    av[ps] = (T)0; rv[ps] = (T)0;
-    if (STEADY) {
-      if (act) {
-        av[ps] = __ldg(ap + (col - ps * sxi));
-        rv[ps] = __ldg(rp + (col - ps * sxi));
-      }
-    } else if (act && t - ps >= w.xs && t - ps < w.xe) {
-      const long long o = xo(t - ps) + col;
-      av[ps] = __ldg((in_pad ? apad : w.a) + o);
-      rv[ps] = __ldg((in_pad ? rpad : w.rhs) + o);
-    }
-  }
-  {
-    const int ncol = c ? w.coff[0] : w.coff[1];
-    w.next_a = (T)0; w.next_r = (T)0;
-    if (STEADY) {
-      if (c ? w.live[0] : w.live[1]) {
-        w.next_a = __ldg(ap + (ncol + sxi));
-        w.next_r = __ldg(rp + (ncol + sxi));
-      }
-    } else if ((c ? w.live[0] : w.live[1]) && t + 1 < w.xe) {
-      const long long o = xo(t + 1) + ncol;
-      w.next_a = __ldg((in_pad ? apad : w.a) + o);
-      w.next_r = __ldg((in_pad ? rpad : w.rhs) + o);
-    }
-  }
-  // P = lambda*beta/dx^2, 1 - lambda*alpha*a, lambda*rhs
-  T Pc[NP], kc[NP], tr[NP];
+  // this thread's copies of plane t + 1 (and so of t .. t - NP) are in; a
+  // and rhs of planes t .. t - NP + 1 were waited for by every thread
+  // before the barrier of step t - 1
+  copy_wait<D - 2>();
+  const ShardPair<T>& p = w.p;
+  const int c = (t + p.par) & 1;  // the pair's column this step updates
+  const int h = c ^ p.jb;         // its colour half
+  T lam[NP], aa[NP], rv[NP], own_u[NP + 2];
 #pragma unroll
   for (int ps = 0; ps < NP; ++ps) {
-    const T aa = w.alpha * av[ps];
-    const T lam = recip(aa + w.six_b_inv);
-    Pc[ps] = lam * w.b_inv;
-    kc[ps] = (T)1 - lam * aa;
-    tr[ps] = lam * rv[ps];
+    const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
+    aa[ps] = w.alpha * cp[0];
+    rv[ps] = cp[W * W];
+    lam[ps] = recip(aa[ps] + w.six_b_inv);
   }
+  T* const rb = p.cell + h * HP;
+#pragma unroll
+  for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
   __syncthreads();
 
-  // the half the step's cells live in, and the way to the other half
-  const int half = c ? half1 : half0;
-  const int dh = HP - 2 * half;
-  if (act) {
-    // Everything a step reads was written before the barrier, apart from
-    // the thread's own results: the own column of planes t+1 .. t-NP and
-    // the y and z neighbours of every pass are loaded up front, and the NP
-    // updates then run from registers.
-    const T* rb = w.cell + half;
-    const T* yp = rb + (dh + PZ);
-    const T* ym = rb + (dh - PZ);
-    const T* zp = rb + (dh + c);      // even column: same index, odd: +1
-    const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
-    const T wza = c ? w.wza[1] : w.wza[0], wzb = c ? w.wzb[1] : w.wzb[0];
-    const T cz = c ? w.csz[1] : w.csz[0];
-    T own_u[NP + 2];
+  // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
+  // steps before this barrier were the last to read
+  if (STEADY || t + D < w.xe)
+    fetch_plane<T, NP, W, V, SRC>(w, t + D, slot(D));
+  copy_commit();
+
+  const int qo = t - NP + 1;  // the plane whose last pass this step runs
+  const bool write = qo >= w.x0 && qo < w.x1;
+  T* const oplane = w.out + qo * (SRC == SRC_PRE ? w.sxo : w.sx);
+  const int dh = (1 - 2 * h) * HP;  // from this half to the other
+  const T* yp = rb + (dh + PZ);
+  const T* ym = rb + (dh - PZ);
+  const T* zp = rb + (dh + c);      // even column: same index, odd: +1
+  const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
+  const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
+  const T cs6 = pick(c, p.cs6);
+  T nb[NP];
 #pragma unroll
-    for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
-    T yz[NP];
-#pragma unroll
-    for (int ps = 0; ps < NP; ++ps) {
-      const int o = slot(-ps) * PLANE;
-      T nb = (Pc[ps] * w.wya) * yp[o];
-      nb = nb + (Pc[ps] * w.wyb) * ym[o];
-      nb = nb + (Pc[ps] * wza) * zp[o];
-      nb = nb + (Pc[ps] * wzb) * zm[o];
-      yz[ps] = nb;
-    }
-    T* wb = w.cell + half;
-    T up = own_u[0];
-    bool have_up = STEADY;
-#pragma unroll
-    for (int ps = 0; ps < NP; ++ps) {
-      const int q = t - ps;
-      if (!STEADY && (q < w.xs || q >= w.xe)) continue;
-      const T uc = own_u[ps + 1];
-      T nb = (T)0, cs = (T)0;
-      if (STEADY) {
-        nb = Pc[ps] * up;
-        nb = nb + Pc[ps] * own_u[ps + 2];
-      } else {
-        // beyond an open segment end the cell reads itself
-        const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
-        const T umv = q > w.xs ? own_u[ps + 2] : uc;
-        fold_terms<T>(upv, umv, face_lo && q == 0,
-                      face_hi && q == w.nx - 1,
-                      w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi, Pc[ps], nb, cs);
-      }
-      cs = (cs + w.csy) + cz;
-      const T k_uc = kc[ps] + Pc[ps] * (cs - (T)6);
-      const T un = (k_uc * uc + tr[ps]) + (nb + yz[ps]);
-      wb[slot(-ps) * PLANE] = un;
-      up = un;
-      have_up = true;
-      // the last pass of plane q: final
-      if (ps == NP - 1 && q >= w.x0 && q < w.x1 && (c ? w.own[1] : w.own[0]))
-        w.out[q * so + col] = un;
-    }
+  for (int ps = 0; ps < NP; ++ps) {
+    const int o = slot(-ps) * PLANE;
+    T s = p.wya * yp[o];
+    s = s + p.wyb * ym[o];
+    s = s + wza * zp[o];
+    s = s + wzb * zm[o];
+    nb[ps] = s;
   }
-
-  // plane t - NP + 1 has had its last pass: the pair's other column has
-  // been final since the step before
-  const int qo = t - NP + 1;
-  if (qo >= w.x0 && qo < w.x1 && (c ? w.own[0] : w.own[1]))
-    w.out[qo * so + (c ? w.coff[0] : w.coff[1])] =
-        w.cell[slot(1 - NP) * PLANE + half + dh];
-}
-
-// st == ST picks the instantiation whose ring slots are constants
-template <typename T, int NP, int TY, int TZ, int SRC, int ST>
-__device__ __forceinline__ void steady_step(WaveThread<T>& w,
-                                            const ShardThread<T>& x,
-                                            int t, int st) {
-  if constexpr (ST < NP + 2) {
-    if (st == ST) wave_step<T, NP, TY, TZ, SRC, true, ST>(w, x, t, st);
-    else steady_step<T, NP, TY, TZ, SRC, ST + 1>(w, x, t, st);
+  T up = own_u[0], last = (T)0;
+  bool have_up = STEADY;
+#pragma unroll
+  for (int ps = 0; ps < NP; ++ps) {
+    const int q = t - ps;
+    if (!valid(q)) continue;
+    const T uc = own_u[ps + 1];
+    T xn = (T)0, csx = (T)0;
+    if (STEADY) {
+      xn = up + own_u[ps + 2];
+    } else {
+      // beyond an open segment end (a seam or a cut) the cell reads itself
+      const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
+      const T umv = q > w.xs ? own_u[ps + 2] : uc;
+      const bool lo = w.face_lo && q == 0;
+      const bool hi = w.face_hi && q == w.nx - 1;
+      const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
+      const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
+      xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
+      csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
+    }
+    // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
+    const T k6 = STEADY ? cs6 : cs6 + csx;
+    const T s1 = k6 * uc + (nb[ps] + xn);
+    const T s2 = w.b_inv * s1 + rv[ps];
+    const T un = uc + lam[ps] * (s2 - aa[ps] * uc);
+    rb[slot(-ps) * PLANE] = un;
+    up = un;
+    have_up = true;
+    last = un;
+  }
+  // plane qo: the active column's last pass was the step's last update,
+  // the other column has been final since the step before
+  if (write) {
+    const T other = rb[slot(1 - NP) * PLANE + dh];
+    if (p.own_both) {
+      store_pair(oplane + p.coff[0], c ? other : last, c ? last : other);
+    } else {
+      if (pick(c, p.own)) oplane[pick(c, p.coff)] = last;
+      if (pick(c ^ 1, p.own)) oplane[pick(c ^ 1, p.coff)] = other;
+    }
   }
 }
 
-template <typename T, int NP, int TY, int TZ, int SRC>
-__global__ void __launch_bounds__((TY * TZ) / 2)
-march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
-             const T* __restrict__ a, const T* __restrict__ upad,
-             const T* __restrict__ rpad, const T* __restrict__ apad,
-             T* __restrict__ out, const MarchGeom g, const LevelParams<T> p,
-             const int base, const int xseg) {
-  using L = WaveLayout<TY, TZ>;
-  constexpr int R = NP + 2;       // planes in the ring
+// R steady steps from slot ST on, each with its slot a constant
+template <typename T, int NP, int W, int D, bool V, int SRC, int ST>
+__device__ __forceinline__ void steady_steps(ShardThread<T>& w, int t) {
+  march_step<T, NP, W, D, V, SRC, true, ST>(w, t + ST, ST);
+  if constexpr (ST + 1 < NP + D + 1)
+    steady_steps<T, NP, W, D, V, SRC, ST + 1>(w, t);
+}
+
+template <typename T, int NP, int W, int D, bool V, int SRC>
+__global__ void __launch_bounds__(W * W / 2, 1)
+shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
+                   const T* __restrict__ a, const T* __restrict__ upad,
+                   const T* __restrict__ rpad, const T* __restrict__ apad,
+                   T* __restrict__ out, const ShardGeom g,
+                   const LevelParams<T> p, const int base, const int xseg) {
+  using L = WaveLayout<W, W>;
+  constexpr int R = NP + D + 1;  // planes in the rings
   constexpr int HZ = L::HZ;
-  extern __shared__ __align__(16) unsigned char wave_smem[];
-  T* ring = reinterpret_cast<T*>(wave_smem);
-  // zero the ring: the padding stays zero, and no slot ever holds anything
-  // but finite values
-  for (int i = threadIdx.x; i < R * L::PLANE; i += blockDim.x) ring[i] = (T)0;
+  constexpr int NPAIR = W * HZ;  // z-pairs of the tile: one per thread
+  static_assert(D >= 2, "plane t + 1 must be fetched before step t");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* coef = ring + R * L::PLANE;
+  // zero the rings: the padding and the dead columns start at zero, and no
+  // slot ever holds anything but finite values
+  for (int i = threadIdx.x; i < R * (L::PLANE + 4 * NPAIR); i += NPAIR)
+    ring[i] = (T)0;
   __syncthreads();
 
-  const int kk = threadIdx.x % HZ;
-  const int jj = threadIdx.x / HZ;
-  const int lk = 2 * kk;
-  // unwrapped global indices of the thread's row and first column
-  const int uj = (int)blockIdx.y * (TY - 2 * NP) - NP + jj;
-  const int uk = (int)blockIdx.x * (TZ - 2 * NP) - NP + lk;
-
-  WaveThread<T> w;
+  ShardThread<T> w;
   w.u = u; w.rhs = rhs; w.a = a; w.out = out;
-  w.cell = ring + (jj + 1) * L::PZ + kk + 1;
-  w.jpar = jj & 1;
+  w.upad = upad; w.rpad = rpad; w.apad = apad;
   w.sx = g.sx;
+  w.sxo = g.sxo;
   w.nx = p.nx;
   w.x0 = (int)blockIdx.z * xseg;
   w.x1 = min(p.nx, w.x0 + xseg);
-  // a shard's periodic x wraps through its pads, never modulo nx
-  w.wrapx = false;
-  ShardThread<T> x;
-  x.upad = upad; x.rpad = rpad; x.apad = apad;
-  x.sxo = g.sxo;
-  const bool face_lo = x.face_lo = g.face_lo != 0;
-  const bool face_hi = x.face_hi = g.face_hi != 0;
+  w.face_lo = g.face_lo != 0;
+  w.face_hi = g.face_hi != 0;
   // a segment end at an x face of the domain stops there; every other end
   // (a seam between shards, a cut inside the shard) is open
-  w.xs = face_lo ? max(0, w.x0 - NP) : w.x0 - NP;
-  w.xe = face_hi ? min(p.nx, w.x1 + NP) : w.x1 + NP;
-  w.par = uj + uk + base;
+  w.xs = w.face_lo ? max(0, w.x0 - NP) : w.x0 - NP;
+  w.xe = w.face_hi ? min(p.nx, w.x1 + NP) : w.x1 + NP;
   w.alpha = p.alpha; w.six_b_inv = p.six_b_inv; w.b_inv = p.b_inv;
   w.c0xlo = p.c0[0][0]; w.c1xlo = p.c1[0][0];
   w.c0xhi = p.c0[0][1]; w.c1xhi = p.c1[0][1];
 
   const bool py = p.periodic[1] != 0, pz = p.periodic[2] != 0;
   const T one = (T)1;
+  ShardPair<T>& q = w.p;
+  const int pidx = (int)threadIdx.x;
+  const int kk = pidx % HZ, jj = pidx / HZ, lk = 2 * kk;
+  // unwrapped indices of the pair's row and first column in the shard
+  const int uj = (int)blockIdx.y * (W - 2 * NP) - NP + jj;
+  const int uk = (int)blockIdx.x * (W - 2 * NP) - NP + lk;
+  q.cell = ring + (jj + 1) * L::PZ + kk + 1;
+  // the a, rhs ring: per slot 2*W*W elements, a then rhs; without V the
+  // a (rhs) of column c at co[h*NPAIR] (co[W*W + h*NPAIR]), h = c ^ jb; with
+  // V each plane in its own layout (row jj, column lk + c at co[c])
+  q.co = V ? coef + jj * W + lk : coef + pidx;
+  q.scell = static_cast<unsigned>(__cvta_generic_to_shared(q.cell));
+  q.sco = static_cast<unsigned>(__cvta_generic_to_shared(q.co));
+  q.jb = jj & 1;
+  q.par = uj + uk + base;
   int gj = uj;
-  bool live_j = uj >= 0 && uj < p.ny;
-  bool ylo = !py && gj == 0, yhi = !py && gj == p.ny - 1;
-  if constexpr (SRC == SRC_PRE) {
-    // prepadded: the pad columns are real rows of the neighbours, apart
-    // from those beyond a y face of the domain, which are never read
-    const int yg = uj + g.y_off;
-    live_j = uj >= -NP && uj < p.ny + NP &&
-             (py || (yg >= 0 && yg < g.ny_global));
-    ylo = !py && yg == 0;
-    yhi = !py && yg == g.ny_global - 1;
-  } else if (py) {
-    gj = uj % p.ny;
-    if (gj < 0) gj += p.ny;
-    live_j = true;
+  const bool live_j = shard_row<SRC, NP>(uj, p, g, gj);
+  const bool own_j = jj >= NP && jj < W - NP && uj < p.ny;
+  if (V) {
+    // chunk i of a slot (CH elements of one row of a or rhs) is fetched
+    // by pair i / CPP
+    constexpr int CH = 16 / sizeof(T), CPP = sizeof(T) / 4;
+#pragma unroll
+    for (int k = 0; k < CPP; ++k) {
+      const int i = pidx * CPP + k;
+      const int arr = i / (W * W / CH), rem = i % (W * W / CH);
+      const int row = rem / (W / CH), col = (rem % (W / CH)) * CH;
+      const int cuj = (int)blockIdx.y * (W - 2 * NP) - NP + row;
+      const int cuk = (int)blockIdx.x * (W - 2 * NP) - NP + col;
+      int cj = cuj;
+      const bool in_j = shard_row<SRC, NP>(cuj, p, g, cj);
+      int ck = cuk % p.nz;
+      if (ck < 0) ck += p.nz;
+      q.chunk_in[k] = in_j && (pz || (cuk >= 0 && cuk < p.nz));
+      q.chunk_off[k] = cj * p.nz + ck;
+      q.chunk_rhs[k] = arr != 0;
+      q.chunk_dst[k] = static_cast<unsigned>(__cvta_generic_to_shared(
+          coef + arr * W * W + row * W + col));
+    }
   }
-  const bool own_j = jj >= NP && jj < TY - NP && uj < p.ny;
-  w.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
-  w.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
-  w.csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
+  bool ylo, yhi;
+  if constexpr (SRC == SRC_PRE) {
+    ylo = !py && uj + g.y_off == 0;
+    yhi = !py && uj + g.y_off == g.ny_global - 1;
+  } else {
+    ylo = !py && gj == 0;
+    yhi = !py && gj == p.ny - 1;
+  }
+  q.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
+  q.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
+  const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int ukc = uk + c;
@@ -337,117 +447,172 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
       if (gk < 0) gk += p.nz;
       live_k = true;
     }
-    w.live[c] = live_j && live_k;
-    w.own[c] = own_j && w.live[c] && lk + c >= NP && lk + c < TZ - NP &&
+    q.live[c] = live_j && live_k;
+    q.own[c] = own_j && q.live[c] && lk + c >= NP && lk + c < W - NP &&
                ukc < p.nz;
-    w.coff[c] = gj * p.nz + gk;
+    q.coff[c] = gj * p.nz + gk;
     const bool zlo = !pz && gk == 0, zhi = !pz && gk == p.nz - 1;
-    w.wza[c] = zhi ? (T)0 : (zlo ? one + p.c1[2][0] : one);
-    w.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
-    w.csz[c] = (zlo ? p.c0[2][0] : (T)0) + (zhi ? p.c0[2][1] : (T)0);
+    q.wza[c] = zhi ? (T)0 : (zlo ? one + p.c1[2][0] : one);
+    q.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
+    q.cs6[c] = (csy + ((zlo ? p.c0[2][0] : (T)0) +
+                       (zhi ? p.c0[2][1] : (T)0))) - (T)6;
   }
+  q.own_both = q.own[0] && q.own[1] && p.nz % 2 == 0 &&
+               q.coff[1] == q.coff[0] + 1;
 
-  // plane xs enters the ring, plane xs + 1 is loaded, and a, rhs of the
-  // first step's first cell
-  int st = w.xs % R;
+  // steps xs .. xe+NP-2; those in [lo_s, hi_s) are steady: t - NP >= xs and
+  // t + D < xe, so that no plane of the staircase lies at a domain face
+  // (a face bounds the segment). Plane q sits in slot (q - lo_s) mod R, so
+  // that the steady steps run in blocks of R from slot 0.
+  const int lo_s = w.xs + NP, hi_s = w.xe - D;
+  int st = (w.xs - lo_s) % R;
   if (st < 0) st += R;
-  {
-    T* pl = w.cell + st * L::PLANE;
-    const int half0 = w.jpar ? L::HP : 0;
-    bool pad0, pad1;
-    const long long o = plane_off<SRC, NP>(w, w.xs, pad0);
-    const long long o1 = plane_off<SRC, NP>(w, w.xs + 1, pad1);
-    const T* u0 = (pad0 ? upad : u) + o;
-    const T* u1 = (pad1 ? upad : u) + o1;
-    pl[half0] = w.live[0] ? u0[w.coff[0]] : (T)0;
-    pl[L::HP - half0] = w.live[1] ? u0[w.coff[1]] : (T)0;
+  // planes xs .. xs + D - 1 are fetched before the first step, one commit
+  // group each (so that every step waits for the same count)
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
-      w.raw_u[c] = (w.live[c] && w.xs + 1 < w.xe) ? u1[w.coff[c]] : (T)0;
-    const int c = (w.xs + w.par) & 1;
-    const bool act = c ? w.live[1] : w.live[0];
-    const int col = c ? w.coff[1] : w.coff[0];
-    w.next_a = act ? ((pad0 ? apad : a) + o)[col] : (T)0;
-    w.next_r = act ? ((pad0 ? rpad : rhs) + o)[col] : (T)0;
+  for (int d = 0; d < D; ++d) {
+    if (w.xs + d < w.xe) {
+      int s = st + d;
+      if (s >= R) s -= R;
+      fetch_plane<T, NP, W, V, SRC>(w, w.xs + d, s);
+    }
+    copy_commit();
   }
-
-  // steps xs .. xe+NP-2; those in [lo_s, hi_s) are steady: t - NP >= xs,
-  // t + 2 < xe, no plane of the staircase at an x face of the domain, and
-  // every plane t - NP .. t + 2 inside [0, nx) (none in the pads)
-  const int lo_s = max(w.xs, 0) + NP, hi_s = min(w.xe, p.nx) - 2;
+  // a step reads a and rhs of its own plane before its barrier; with V they
+  // come from other threads' copies, so plane xs must be in and seen by all
+  // before the first step (later planes: the wait and barrier of the step
+  // before)
+  if (V) {
+    copy_wait<D - 1>();
+    __syncthreads();
+  }
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    wave_step<T, NP, TY, TZ, SRC, false, 0>(w, x, t, st);
-  for (; t < hi_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    steady_step<T, NP, TY, TZ, SRC, 0>(w, x, t, st);
+    march_step<T, NP, W, D, V, SRC, false, 0>(w, t, st);
+  for (; t + R <= hi_s; t += R)  // st == 0 here
+    steady_steps<T, NP, W, D, V, SRC, 0>(w, t);
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
-    wave_step<T, NP, TY, TZ, SRC, false, 0>(w, x, t, st);
+    march_step<T, NP, W, D, V, SRC, false, 0>(w, t, st);
+  copy_wait<0>();
 }
 
-template <typename T, int NP, int TY, int TZ, int SRC>
-cudaError_t launch_tile(const MarchSrc<T>& src, T* out,
-                        const LevelParams<T>& p, int base,
-                        cudaStream_t stream) {
-  constexpr int TIY = TY - 2 * NP, TIZ = TZ - 2 * NP;
-  static_assert(TIY > 0 && TIZ > 0 && TZ % 2 == 0, "tile too small");
-  const int nty = (p.ny + TIY - 1) / TIY, ntz = (p.nz + TIZ - 1) / TIZ;
-  const size_t smem = (size_t)(NP + 2) * WaveLayout<TY, TZ>::PLANE * sizeof(T);
-  const int threads = (TY * TZ) / 2;
-  auto kern = march_kernel<T, NP, TY, TZ, SRC>;
+template <typename T, int NP, int W, int D>
+constexpr size_t shard_smem() {
+  return (size_t)(NP + D + 1) * (WaveLayout<W, W>::PLANE + 2 * W * W) *
+         sizeof(T);
+}
+
+// blocks of this form the current device runs at once; sets the kernel's
+// shared-memory limit on first use per device
+template <typename T, int NP, int W, int D, bool V, int SRC>
+cudaError_t form_capacity(int* capacity) {
+  static_assert(shard_smem<T, NP, W, D>() <= 232448,
+                "form does not fit the shared memory of a block");
   static int cache[kMaxDevices] = {};
+  return march_capacity((const void*)shard_march_kernel<T, NP, W, D, V, SRC>,
+                        W * W / 2, shard_smem<T, NP, W, D>(), cache,
+                        capacity);
+}
+
+template <typename T, int NP, int W, int D, bool V, int SRC>
+cudaError_t launch_form(const ShardSrc<T>& s, T* out,
+                        const LevelParams<T>& p, int base, int xseg,
+                        cudaStream_t stream) {
+  constexpr int TI = W - 2 * NP;  // written per side
+  static_assert(TI > 0 && W % 2 == 0, "tile");
   int capacity = 0;
-  cudaError_t err =
-      march_capacity((const void*)kern, threads, smem, cache, &capacity);
+  cudaError_t err = form_capacity<T, NP, W, D, V, SRC>(&capacity);
   if (err != cudaSuccess) return err;
-  int nseg = 1, xseg = p.nx;
-  march_segments(p.nx, (long long)nty * ntz, capacity, NP, &nseg, &xseg);
+  if (xseg < 1) return cudaErrorInvalidValue;
+  const int nty = (p.ny + TI - 1) / TI, ntz = (p.nz + TI - 1) / TI;
+  const int nseg = (p.nx + xseg - 1) / xseg;
+  if (nty > 65535 || nseg > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)ntz, (unsigned)nty, (unsigned)nseg);
-  kern<<<grid, threads, smem, stream>>>(src.u, src.rhs, src.a, src.upad,
-                                        src.rpad, src.apad, out, src.g, p,
-                                        base, xseg);
+  shard_march_kernel<T, NP, W, D, V, SRC>
+      <<<grid, W * W / 2, shard_smem<T, NP, W, D>(), stream>>>(
+          s.u, s.rhs, s.a, s.upad, s.rpad, s.apad, out, s.g, p, base, xseg);
   return cudaGetLastError();
 }
 
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// The launch takes the form that moves a and rhs in 16-byte chunks of rows
+// (V) where every row of every operand starts on 16 bytes.
+template <typename T>
+bool chunked_rows(const ShardSrc<T>& s, int nz) {
+  return nz % (16 / sizeof(T)) == 0 && aligned16(s.u) && aligned16(s.rhs) &&
+         aligned16(s.a) && aligned16(s.upad) && aligned16(s.rpad) &&
+         aligned16(s.apad);
+}
 
 template <int SRC, typename T>
-cudaError_t launch_multisweep(const MarchSrc<T>& src, T* out,
-                              const LevelParams<T>& p, int base, int nsweeps,
-                              cudaStream_t stream) {
+cudaError_t launch_shard(const ShardSrc<T>& s, T* out,
+                         const LevelParams<T>& p, int base, int nsweeps,
+                         int tile, int xseg, cudaStream_t stream) {
   // a periodic axis that wraps inside a tile must have an even extent so
   // that the checkerboard stays consistent across the wrap (an axis that
   // wraps through pads was checked by the caller on the level)
   if ((SRC != SRC_PRE && p.periodic[1] && p.ny % 2) ||
       (p.periodic[2] && p.nz % 2))
     return cudaErrorInvalidValue;
-  if (nsweeps == 2)
-    return launch_tile<T, 4, 40, 40, SRC>(src, out, p, base, stream);
-  if (nsweeps == 4)
-    return launch_tile<T, 8, 40, 40, SRC>(src, out, p, base, stream);
+  const int np = 2 * nsweeps;
+  const bool vec = chunked_rows(s, p.nz);
+#define SHARD_LAUNCH(TT, NPP, WW, DD)                                    \
+  if constexpr (std::is_same<T, TT>::value) {                            \
+    if (np == NPP && tile == WW)                                         \
+      return vec ? launch_form<TT, NPP, WW, DD, true, SRC>(              \
+                       s, out, p, base, xseg, stream)                    \
+                 : launch_form<TT, NPP, WW, DD, false, SRC>(             \
+                       s, out, p, base, xseg, stream);                   \
+  }
+  SHARD_FORMS(SHARD_LAUNCH)
+#undef SHARD_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 // An x-slab with (2H, ny, nz) pads (SRC_SLAB).
 template <typename T>
-MarchSrc<T> padded_slab(const T* u, const T* rhs, const T* a, const T* upad,
+ShardSrc<T> padded_slab(const T* u, const T* rhs, const T* a, const T* upad,
                         const T* rpad, const T* apad, const LevelParams<T>& p,
                         int face_lo, int face_hi) {
   const long long sx = (long long)p.ny * p.nz;
-  return MarchSrc<T>{u, rhs, a, upad, rpad, apad,
-                     MarchGeom{sx, sx, face_lo, face_hi, 0, p.ny}};
+  return ShardSrc<T>{u, rhs, a, upad, rpad, apad,
+                     ShardGeom{sx, sx, face_lo, face_hi, 0, p.ny}};
 }
 
 // A pencil prepadded by H on both sides of x and y: (nx+2H, ny+2H, nz)
 // (SRC_PRE).
 template <typename T>
-MarchSrc<T> prepadded(const T* u_pre, const T* r_pre, const T* a_pre,
+ShardSrc<T> prepadded(const T* u_pre, const T* r_pre, const T* a_pre,
                       const LevelParams<T>& p, int face_lo, int face_hi,
                       int y_off, int ny_global, int H) {
   const long long sx = (long long)(p.ny + 2 * H) * p.nz;
   const long long o = H * sx + (long long)H * p.nz;  // cell (0, 0, 0)
-  return MarchSrc<T>{u_pre + o, r_pre + o, a_pre + o, nullptr, nullptr,
-                     nullptr, MarchGeom{sx, (long long)p.ny * p.nz, face_lo,
+  return ShardSrc<T>{u_pre + o, r_pre + o, a_pre + o, nullptr, nullptr,
+                     nullptr, ShardGeom{sx, (long long)p.ny * p.nz, face_lo,
                                         face_hi, y_off, ny_global}};
+}
+
+// chunked_rows of the operands an entry is given (pre: mgk_multisweep_pre's
+// prepadded arrays, else mgk_multisweep_halo's slab and pads).
+template <typename T>
+int entry_chunked(int pre, int ny, int nz, int H, const void* u,
+                  const void* rhs, const void* a, const void* upad,
+                  const void* rpad, const void* apad) {
+  LevelParams<T> p{};
+  p.ny = ny;
+  p.nz = nz;
+  return pre ? chunked_rows(prepadded((const T*)u, (const T*)rhs,
+                                      (const T*)a, p, 0, 0, 0, ny, H),
+                            nz)
+             : chunked_rows(padded_slab((const T*)u, (const T*)rhs,
+                                        (const T*)a, (const T*)upad,
+                                        (const T*)rpad, (const T*)apad, p, 0,
+                                        0),
+                            nz);
 }
 
 }  // namespace
@@ -457,7 +622,8 @@ MarchSrc<T> prepadded(const T* u_pre, const T* r_pre, const T* a_pre,
 // rows [0, H) lie below the slab, [H, 2H) above. face_lo / face_hi: the
 // slab's low / high x face is a face of the domain (the ghost rule; its pad
 // is not read); else a seam, read from the pad. base = sum(lo) + the slab's
-// x origin in the level. out must not alias an input.
+// x origin in the level. Tiles of width `tile` (one of SHARD_FORMS), x
+// segments of `xseg` planes. out must not alias an input.
 extern "C" int mgk_multisweep_halo(const void* u, const void* rhs,
                                    const void* a, const void* upad,
                                    const void* rpad, const void* apad,
@@ -465,23 +631,24 @@ extern "C" int mgk_multisweep_halo(const void* u, const void* rhs,
                                    int nz, const int* kinds, double rho,
                                    double alpha, double beta, double dx,
                                    int base, int face_lo, int face_hi,
-                                   int nsweeps, void* stream) {
+                                   int nsweeps, int tile, int xseg,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (nx < 1) return (int)cudaErrorInvalidValue;
   if (is_double) {
     using T = double;
     auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_multisweep<SRC_SLAB>(
+    return (int)launch_shard<SRC_SLAB>(
         padded_slab((const T*)u, (const T*)rhs, (const T*)a, (const T*)upad,
                     (const T*)rpad, (const T*)apad, p, face_lo, face_hi),
-        (T*)out, p, base, nsweeps, st);
+        (T*)out, p, base, nsweeps, tile, xseg, st);
   }
   using T = float;
   auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_multisweep<SRC_SLAB>(
+  return (int)launch_shard<SRC_SLAB>(
       padded_slab((const T*)u, (const T*)rhs, (const T*)a, (const T*)upad,
                   (const T*)rpad, (const T*)apad, p, face_lo, face_hi),
-      (T*)out, p, base, nsweeps, st);
+      (T*)out, p, base, nsweeps, tile, xseg, st);
 }
 
 // C entry point: out (nx, ny, nz) <- nsweeps (2 or 4) sweeps of one pencil of
@@ -489,29 +656,67 @@ extern "C" int mgk_multisweep_halo(const void* u, const void* rhs,
 // H = 2*nsweeps. face_lo / face_hi as for mgk_multisweep_halo; y_off is the
 // pencil's y origin in the level of y extent ny_global (the y face rule
 // fires at global rows 0 and ny_global - 1 only); base = sum(lo) + x origin
-// + y_off.
+// + y_off; tile and xseg as for mgk_multisweep_halo.
 extern "C" int mgk_multisweep_pre(const void* u_pre, const void* rhs_pre,
                                   const void* a_pre, void* out, int is_double,
                                   int nx, int ny, int nz, const int* kinds,
                                   double rho, double alpha, double beta,
                                   double dx, int base, int face_lo,
                                   int face_hi, int y_off, int ny_global,
-                                  int nsweeps, void* stream) {
+                                  int nsweeps, int tile, int xseg,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int H = 2 * nsweeps;
   if (nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
   if (is_double) {
     using T = double;
     auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_multisweep<SRC_PRE>(
+    return (int)launch_shard<SRC_PRE>(
         prepadded((const T*)u_pre, (const T*)rhs_pre, (const T*)a_pre, p,
                   face_lo, face_hi, y_off, ny_global, H),
-        (T*)out, p, base, nsweeps, st);
+        (T*)out, p, base, nsweeps, tile, xseg, st);
   }
   using T = float;
   auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_multisweep<SRC_PRE>(
+  return (int)launch_shard<SRC_PRE>(
       prepadded((const T*)u_pre, (const T*)rhs_pre, (const T*)a_pre, p,
                 face_lo, face_hi, y_off, ny_global, H),
-      (T*)out, p, base, nsweeps, st);
+      (T*)out, p, base, nsweeps, tile, xseg, st);
+}
+
+// C entry point: *capacity <- blocks of the shard form (type, nsweeps, tile;
+// pre: the prepadded source) that the current device runs at once (the x
+// segments are cut for it).
+extern "C" int mgk_multisweep_shard_capacity(int is_double, int nsweeps,
+                                             int tile, int pre,
+                                             int* capacity) {
+  const int np = 2 * nsweeps;
+#define SHARD_CAPACITY(TT, NPP, WW, DD)                                 \
+  if (is_double == (int)std::is_same<TT, double>::value && np == NPP && \
+      tile == WW)                                                       \
+    return (int)(pre ? form_capacity<TT, NPP, WW, DD, false, SRC_PRE>(  \
+                           capacity)                                    \
+                     : form_capacity<TT, NPP, WW, DD, false, SRC_SLAB>( \
+                           capacity));
+  SHARD_FORMS(SHARD_CAPACITY)
+#undef SHARD_CAPACITY
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry point: *chunked <- 1 where mgk_multisweep_pre (pre = 1) or
+// mgk_multisweep_halo (pre = 0), given these pointers and this (ny, nz) and
+// nsweeps, launches its form with a and rhs in 16-byte chunks, else 0 (the
+// pads are not read for pre).
+extern "C" int mgk_multisweep_shard_chunked(int is_double, int pre, int ny,
+                                            int nz, int nsweeps,
+                                            const void* u, const void* rhs,
+                                            const void* a, const void* upad,
+                                            const void* rpad,
+                                            const void* apad, int* chunked) {
+  const int H = 2 * nsweeps;
+  *chunked = is_double ? entry_chunked<double>(pre, ny, nz, H, u, rhs, a,
+                                               upad, rpad, apad)
+                       : entry_chunked<float>(pre, ny, nz, H, u, rhs, a,
+                                              upad, rpad, apad);
+  return (int)cudaSuccess;
 }

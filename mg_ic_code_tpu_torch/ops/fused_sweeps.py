@@ -568,8 +568,10 @@ def march_segments(nx: int, tiles: int, capacity: int, nsweeps: int):
     """(nseg, xseg): the x segments of a launch over `tiles` y-z tiles, the
     count that needs the fewest steps in all, a block taking xseg + 3*NP
     steps (NP = 2*nsweeps: rind planes at both ends and the drain) and the
-    grid running in rounds of `capacity` blocks; no segment shorter than
-    8*NP planes unless the level is."""
+    grid running in rounds of `capacity` blocks; at most nx // (8*NP)
+    segments (unless there is one), so that they average 8*NP planes or
+    more. Segments are xseg long but the last, which takes what is left.
+    The one rule of the whole level's march and the shards'."""
     np_ = 2 * nsweeps
     best = None
     for n in range(1, max(nx // (8 * np_), 1) + 1):
@@ -619,6 +621,37 @@ def _geometry_on(shape, nsweeps: int, itemsize: int, index: int):
                           march_capacity(device, itemsize, nsweeps, tile))
 
 
+def shard_capacity(device, itemsize: int, nsweeps: int, tile: int,
+                   pre: bool) -> int:
+    """Blocks of the shard march form (itemsize, nsweeps, tile; `pre`: the
+    prepadded pencil's) that the CUDA device runs at once
+    (mgk_multisweep_shard_capacity)."""
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = cuda_ext.lib().mgk_multisweep_shard_capacity(
+            int(itemsize == 8), int(nsweeps), int(tile), int(pre),
+            ctypes.byref(cap))
+    cuda_ext.check(err, "multisweep shard capacity")
+    return cap.value
+
+
+@functools.lru_cache(maxsize=None)
+def shard_geometry_on(local_shape, nsweeps: int, itemsize: int, index: int,
+                      pre: bool):
+    """(tile, nseg, xseg) of one shard march launch (csrc/multisweep_halo.cu,
+    whose forms are the whole level's) on CUDA device `index`: the whole
+    level's `march_geometry` on the written (nx, ny, nz) of an x-slab or of
+    a pencil without its pads (a tile's rind of 2*nsweeps rows reaches into
+    a pencil's y pads), for the shard form's capacity. Kept per shape: the
+    sharded solver calls each shard's march with a few shapes many
+    times."""
+    device = torch.device("cuda", index)
+    tile = march_tile(local_shape[1], local_shape[2], nsweeps, itemsize)
+    return march_geometry(
+        local_shape, nsweeps, itemsize,
+        shard_capacity(device, itemsize, nsweeps, tile, pre))
+
+
 def _odd_periodic_axis(shape, kinds: FaceKinds) -> bool:
     return any(kinds[ax][0] == PERIODIC and shape[ax] % 2 for ax in range(3))
 
@@ -663,10 +696,12 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
         kernel with x open): C entry mgk_multisweep_relax (csrc/
         multisweep.cu), with the tile and x segments of `march_geometry`;
       * an x-slab with x pads `pads = (upad, rpad, apad)` and `meta`
-        (`multisweep_relax_halo`): mgk_multisweep_halo;
+        (`multisweep_relax_halo`): mgk_multisweep_halo (csrc/
+        multisweep_halo.cu), with the tile and x segments of
+        `shard_geometry_on`;
       * a prepadded pencil with `meta` and `ny_global`
-        (`multisweep_relax_tiled_pre`): mgk_multisweep_pre, whose output is
-        the pencil without its pads."""
+        (`multisweep_relax_tiled_pre`): mgk_multisweep_pre, the same
+        geometry on the pencil without its pads, which is the output."""
     H = 2 * int(nsweeps)
     pre = ny_global is not None
     check_level_args(name, u, rhs, a)
@@ -709,19 +744,25 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
                 u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
                 *level, int(sum(lo)), int(nsweeps), tile, xseg, stream,
             )
-        elif not pre:
-            err = lib.mgk_multisweep_halo(
-                u.data_ptr(), rhs.data_ptr(), a.data_ptr(),
-                pads[0].data_ptr(), pads[1].data_ptr(), pads[2].data_ptr(),
-                out.data_ptr(), *level, int(sum(lo)) + x_off, *faces,
-                int(nsweeps), stream,
-            )
         else:
-            err = lib.mgk_multisweep_pre(
-                u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
-                *level, int(sum(lo)) + x_off + y_off, *faces, y_off,
-                int(ny_global), int(nsweeps), stream,
-            )
+            tile, _, xseg = shard_geometry_on(
+                (nx, ny, nz), nsweeps, u.element_size(), u.device.index,
+                pre)
+            if not pre:
+                err = lib.mgk_multisweep_halo(
+                    u.data_ptr(), rhs.data_ptr(), a.data_ptr(),
+                    pads[0].data_ptr(), pads[1].data_ptr(),
+                    pads[2].data_ptr(), out.data_ptr(), *level,
+                    int(sum(lo)) + x_off, *faces, int(nsweeps), tile, xseg,
+                    stream,
+                )
+            else:
+                err = lib.mgk_multisweep_pre(
+                    u.data_ptr(), rhs.data_ptr(), a.data_ptr(),
+                    out.data_ptr(), *level, int(sum(lo)) + x_off + y_off,
+                    *faces, y_off, int(ny_global), int(nsweeps), tile, xseg,
+                    stream,
+                )
     cuda_ext.check(err, name)
     return out
 

@@ -24,9 +24,12 @@ probe also times each tower wrapper call on the host clock (its checks,
 allocation and launches, in the kernels phase's own calls; reported per
 case as the median over the run's calls, `host_us`), and, after the
 kernels phase, splits one call of `gsrb_relax` and of `residual` at the
-7-level path's resident levels into device time (this tree's
-`chip_smoke.device_ms`: the batch enqueued behind a wait) and host time
-(`chip_smoke.host_us`), under "split". The JSON written to --out holds
+7-level path's resident levels, and of the shard marches at the timed
+SHARD_CASES shards, into device time (this tree's `chip_smoke.device_ms`:
+the batch enqueued behind a wait) and host time (`chip_smoke.host_us`),
+and times the whole-level march's device time at its timed cases, under
+"split"; the towers' and gsrb_relax's device times from the kernels line
+("<kernel> <case> device_ms" under "cases"). The JSON written to --out holds
 every run's times and, per case, each tree's runs, median and spread
 (largest over smallest of its runs, minus one) and each tree's speed-up
 over A (A's median over its own), for the times under "cases", the host
@@ -81,7 +84,9 @@ for _name in TOWERS:
 
 # Run in every tree after its chip_smoke.main(): the device and host time of
 # one call of gsrb_relax (4 sweeps) and residual at each split case (the
-# LEVEL_CASES of the 7-level path's resident levels), with this tree's
+# LEVEL_CASES of the 7-level path's resident levels), the device time of the
+# whole-level march (2 sweeps) at its timed cases, and of the shard marches
+# (2 sweeps) on the shard of every timed SHARD_CASES case, with this tree's
 # device_ms and host_us, printed as one line.
 SPLIT_PROBE = """
 _split = {}
@@ -99,6 +104,37 @@ with torch.no_grad():
                     _f["u"], _f["rhs"], _f["a"], None, **_kw))):
             _split[f"{_name} {_c[0]}"] = {"device_ms": device_ms(_fn),
                                          "host_us": host_us(_fn)}
+    for _name, (_fn, _, _, _cases) in chip_smoke.one_launch_kernels().items():
+        for _c in _cases:
+            if not _c[5]:
+                continue
+            _f = chip_smoke.level_fields(_c[1], torch.float32, seed=3)
+            _kw = dict(kinds=_c[2], rho=_c[4], alpha=1.0, beta=-1.0,
+                       dx=0.37, lo=_c[3], nsweeps=2)
+            _split[f"{_name} {_c[0]}"] = {
+                "device_ms": device_ms(lambda fn=_fn, f=_f, kw=_kw: fn(
+                    f["u"], f["rhs"], f["a"], **kw))}
+            del _f
+            torch.cuda.empty_cache()
+    for _c in chip_smoke.SHARD_CASES:
+        if not _c[6]:
+            continue
+        _f = chip_smoke.level_fields(_c[1], torch.float32, seed=4)
+        _kw = dict(kinds=_c[2], rho=2.0, alpha=1.0, beta=-1.0, dx=0.37,
+                   lo=_c[3], nsweeps=2)
+        _ops = chip_smoke.shard_operands(_f, _c[2], _c[4], 4)[_c[5]]
+        if "pads" in _ops:
+            _name = "multisweep_relax_halo"
+            _fn = (lambda o=_ops, kw=_kw: chip_smoke.fs.multisweep_relax(
+                o["u"], o["rhs"], o["a"], halo=o["pads"] + (o["meta"],),
+                **kw))
+        else:
+            _name = "multisweep_relax_tiled_pre"
+            _fn = (lambda o=_ops, kw=_kw:
+                   chip_smoke.fs.multisweep_relax_tiled_pre(
+                       *o["pre"], o["meta"], ny_global=o["ny_global"], **kw))
+        _split[f"{_name} {_c[0]}"] = {"device_ms": device_ms(_fn),
+                                     "host_us": host_us(_fn)}
 print(json.dumps({"phase": "gsrb_split", "split": _split}), flush=True)
 """
 SPLIT_CASES = ("path_l0_64", "path_l1_96x80x80", "path_l2_128x80x80",
@@ -150,15 +186,19 @@ def kernels_record(stdout: str) -> dict:
 
 
 def march_times(rec: dict) -> dict:
-    """{"<kernel> <case>": ms} of the timed f32 march cases."""
+    """{"<kernel> <case>": ms} of the timed f32 march cases, and
+    {"<kernel> <case> device_ms": ms} where the record has the device's own
+    time (the towers, gsrb_relax)."""
     out = {}
     for c in rec["checks"]:
         if c.get("dtype") != "float32":
             continue
         for name in MARCH:
-            ms = c.get(name, {}).get("ms")
-            if ms is not None:
-                out[f"{name} {c['case']}"] = ms
+            r = c.get(name, {})
+            if r.get("ms") is not None:
+                out[f"{name} {c['case']}"] = r["ms"]
+            if r.get("device_ms") is not None:
+                out[f"{name} {c['case']} device_ms"] = r["device_ms"]
     return out
 
 

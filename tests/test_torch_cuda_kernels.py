@@ -480,17 +480,21 @@ def test_cuda_vcycle_stages_a_big_periodic_level_above_the_tower():
     assert float(res1.abs().max()) < 0.5 * float(res0.abs().max())
 
 
-def _halo_pads(u, H, meta, kinds, npdt, seed):
+def _halo_pads(u, H, meta, kinds, npdt, seed, h_max=None):
     """(2H, ny, nz) pads: random neighbour rows, the contract's fill at a
-    domain x face (the ghost plane in u's pad, zeros in rhs's and a's)."""
+    domain x face (the ghost plane in u's pad, zeros in rhs's and a's).
+    h_max: rhs's and a's pads drawn h_max rows a side and sliced
+    [h_max - H, h_max + H), as halo.sharded_relax slices them."""
     from mg_ic_code_tpu_torch.ops.ghosts import ghost_plane
 
     rng = np.random.default_rng(seed)
     shape = (2 * H,) + tuple(u.shape[1:])
+    deep = (2 * (h_max or H),) + tuple(u.shape[1:])
+    sl = slice((h_max or H) - H, (h_max or H) + H)
     pads = [torch.from_numpy(rng.standard_normal(shape).astype(npdt)),
-            torch.from_numpy(rng.standard_normal(shape).astype(npdt)),
-            torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(npdt))]
-    pads = [p.to(u.device) for p in pads]
+            torch.from_numpy(rng.standard_normal(deep).astype(npdt)),
+            torch.from_numpy(rng.uniform(0.5, 2.0, deep).astype(npdt))]
+    pads = [pads[0].to(u.device)] + [p.to(u.device)[sl] for p in pads[1:]]
     if kinds[0][0] != P:
         if meta[0]:
             pads[0][:H] = ghost_plane(kinds[0][0], u[:1], u[1:2], 2.0)
@@ -503,15 +507,30 @@ def _halo_pads(u, H, meta, kinds, npdt, seed):
     return pads
 
 
+def _wrapped_pads(f, H):
+    """The pads of a one-shard periodic x mesh: the slab's own rows, its
+    top H below it and its bottom H above it."""
+    return [torch.cat([f[k][-H:], f[k][:H]]) for k in ("u", "rhs", "a")]
+
+
 HALO_CASES = [
-    # (shape, kinds, meta, lo): seams, faces, periodic x through the pads,
-    # odd x offsets, a slab longer than one x segment
-    ((24, 40, 36), ((D, C), (N, D), (C, N)), (0, 0, 7, 0), (1, 0, 0)),
-    ((24, 40, 36), ((N, D), (C, C), (D, D)), (1, 0, 0, 0), (0, 3, 0)),
-    ((24, 40, 36), ((N, D), (C, C), (D, D)), (0, 1, 23, 0), (0, 3, 0)),
-    ((24, 18, 10), ((D, D), (D, D), (D, D)), (1, 1, 0, 0), (0, 0, 0)),
-    ((40, 44, 36), ((P, P), (P, P), (P, P)), (0, 0, 5, 0), (0, 0, 0)),
-    ((80, 24, 40), ((P, P), (D, D), (P, P)), (0, 0, 80, 0), (0, 1, 0)),
+    # (shape, kinds, meta, lo, pads): seams, faces, periodic x through the
+    # pads, odd x offsets, a slab longer than one x segment; then rows that
+    # do not start on 16 bytes (nz odd), rhs and a pads sliced from pads
+    # built 8 rows a side ("hmax8"), a slab cut into several x segments, and
+    # a one-shard periodic x mesh whose pads are its own rows ("wrap")
+    ((24, 40, 36), ((D, C), (N, D), (C, N)), (0, 0, 7, 0), (1, 0, 0), None),
+    ((24, 40, 36), ((N, D), (C, C), (D, D)), (1, 0, 0, 0), (0, 3, 0), None),
+    ((24, 40, 36), ((N, D), (C, C), (D, D)), (0, 1, 23, 0), (0, 3, 0), None),
+    ((24, 18, 10), ((D, D), (D, D), (D, D)), (1, 1, 0, 0), (0, 0, 0), None),
+    ((40, 44, 36), ((P, P), (P, P), (P, P)), (0, 0, 5, 0), (0, 0, 0), None),
+    ((80, 24, 40), ((P, P), (D, D), (P, P)), (0, 0, 80, 0), (0, 1, 0), None),
+    ((24, 40, 37), ((D, C), (N, D), (C, N)), (0, 0, 7, 0), (1, 0, 0), None),
+    ((24, 40, 36), ((D, C), (N, D), (C, N)), (0, 0, 24, 0), (0, 1, 0),
+     "hmax8"),
+    ((132, 40, 36), ((N, D), (D, C), (C, C)), (0, 0, 132, 0), (0, 1, 1),
+     None),
+    ((48, 40, 36), ((P, P), (P, P), (P, P)), (0, 0, 0, 0), (0, 1, 0), "wrap"),
 ]
 
 
@@ -520,16 +539,20 @@ HALO_CASES = [
 @pytest.mark.parametrize("nsweeps", [2, 4])
 @pytest.mark.parametrize("case", HALO_CASES,
                          ids=["seams_odd", "face_lo", "face_hi", "both_faces",
-                              "periodic_x", "two_segments"])
+                              "periodic_x", "two_segments", "misaligned_nz",
+                              "pad_slice_hmax8", "segments",
+                              "one_shard_periodic"])
 def test_cuda_multisweep_halo_matches_plain(case, nsweeps, dt):
     """multisweep_relax(halo=...) on the card against its plain version:
     one launch, its own counter, no plain call."""
     _need_cuda()
-    shape, kinds, meta, lo = case
+    shape, kinds, meta, lo, how = case
     npdt, rtol = DTYPES[dt]
     f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
     H = 2 * nsweeps
-    pads = _halo_pads(f["u"], H, meta, kinds, npdt, seed=5)
+    pads = (_wrapped_pads(f, H) if how == "wrap" else
+            _halo_pads(f["u"], H, meta, kinds, npdt, seed=5,
+                       h_max=8 if how == "hmax8" else None))
     kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
               dx=0.25, lo=lo)
     kernel_counts.reset()
@@ -544,12 +567,25 @@ def test_cuda_multisweep_halo_matches_plain(case, nsweeps, dt):
 
 
 PRE_CASES = [
-    # (pencil shape, kinds, meta, ny_global, lo)
-    ((24, 40, 36), ((D, C), (N, D), (C, N)), (0, 0, 9, 40), 120, (1, 0, 0)),
-    ((24, 40, 36), ((N, D), (D, N), (D, D)), (1, 0, 0, 0), 80, (0, 3, 0)),
-    ((24, 40, 36), ((N, D), (D, N), (D, D)), (0, 1, 24, 40), 80, (0, 3, 0)),
-    ((16, 8, 12), ((D, D), (D, D), (D, D)), (1, 1, 0, 0), 8, (0, 0, 0)),
-    ((40, 44, 36), ((P, P), (P, P), (P, P)), (0, 0, 5, 3), 88, (0, 0, 0)),
+    # (pencil shape, kinds, meta, ny_global, lo, x pads): then rows that do
+    # not start on 16 bytes (nz odd), a pencil cut into several x segments,
+    # and a one-shard periodic x mesh whose x pads are its own planes
+    # ("wrap")
+    ((24, 40, 36), ((D, C), (N, D), (C, N)), (0, 0, 9, 40), 120, (1, 0, 0),
+     None),
+    ((24, 40, 36), ((N, D), (D, N), (D, D)), (1, 0, 0, 0), 80, (0, 3, 0),
+     None),
+    ((24, 40, 36), ((N, D), (D, N), (D, D)), (0, 1, 24, 40), 80, (0, 3, 0),
+     None),
+    ((16, 8, 12), ((D, D), (D, D), (D, D)), (1, 1, 0, 0), 8, (0, 0, 0), None),
+    ((40, 44, 36), ((P, P), (P, P), (P, P)), (0, 0, 5, 3), 88, (0, 0, 0),
+     None),
+    ((24, 40, 37), ((D, C), (N, D), (C, N)), (0, 0, 9, 40), 120, (1, 0, 0),
+     None),
+    ((132, 24, 36), ((N, D), (D, N), (C, C)), (0, 0, 132, 24), 72, (0, 1, 0),
+     None),
+    ((48, 40, 36), ((P, P), (P, P), (P, P)), (0, 0, 0, 40), 80, (0, 1, 0),
+     "wrap"),
 ]
 
 
@@ -558,15 +594,20 @@ PRE_CASES = [
 @pytest.mark.parametrize("nsweeps", [2, 4])
 @pytest.mark.parametrize("case", PRE_CASES,
                          ids=["interior_odd", "faces_lo", "faces_hi",
-                              "whole", "periodic_odd"])
+                              "whole", "periodic_odd", "misaligned_nz",
+                              "segments", "one_shard_periodic"])
 def test_cuda_multisweep_tiled_pre_matches_plain(case, nsweeps, dt):
     """multisweep_relax_tiled_pre on the card against its plain version."""
     _need_cuda()
-    shape, kinds, meta, ny_global, lo = case
+    shape, kinds, meta, ny_global, lo, how = case
     npdt, rtol = DTYPES[dt]
     H = 2 * nsweeps
     pre = (shape[0] + 2 * H, shape[1] + 2 * H, shape[2])
     f = {k: torch.from_numpy(v).cuda() for k, v in fields(pre, npdt).items()}
+    if how == "wrap":
+        for v in f.values():
+            v[:H] = v[shape[0]:shape[0] + H].clone()
+            v[shape[0] + H:] = v[H:2 * H].clone()
     kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
               dx=0.25, lo=lo, ny_global=ny_global)
     kernel_counts.reset()

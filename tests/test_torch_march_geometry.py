@@ -1,8 +1,11 @@
-"""The whole-level march's launch geometry on the CPU: which tile width
-(`fused_sweeps.march_tile`) and which x segments (`march_segments`) a level
-gets, and that the Python table of tiles agrees with the forms the CUDA
-source builds (csrc/multisweep.cu, MARCH_FORMS). No device is needed: the
-geometry is plain Python handed to the kernel's C entry."""
+"""The march's launch geometry on the CPU: which tile width
+(`fused_sweeps.march_tile`) and which x segments (`march_segments`, the one
+rule of both bodies) a whole level or one shard of a sharded level gets
+(`march_geometry`; a shard's through `shard_geometry_on`), and that the
+Python table of tiles agrees with the forms the CUDA sources build
+(csrc/multisweep.cu, MARCH_FORMS; csrc/multisweep_halo.cu, SHARD_FORMS). No
+device is needed: the geometry is plain Python handed to the kernels' C
+entries."""
 
 import math
 import os
@@ -28,29 +31,36 @@ SHAPES = [(960, 144, 144), (512, 96, 96), (256, 256, 256), (472, 64, 64),
 FORMS = [(isz, ns) for isz, ns in tfs.MARCH_TILES]
 
 
-def march_forms():
-    """(type, NP, W, D) of every line of the source's MARCH_FORMS."""
-    with open(os.path.join(CSRC, "multisweep.cu")) as f:
+def march_forms(source="multisweep.cu", macro="MARCH_FORMS"):
+    """(type, NP, W, D) of every line of a source's forms macro."""
+    with open(os.path.join(CSRC, source)) as f:
         src = f.read()
-    block = re.search(r"#define MARCH_FORMS\(X\)((?:.*\\\n)*.*\n)", src)
+    block = re.search(r"#define " + macro + r"\(X\)((?:.*\\\n)*.*\n)",
+                      src)
     return [(t, int(a), int(b), int(d)) for t, a, b, d in
             re.findall(r"X\((float|double), (\d+), (\d+), (\d+)\)",
                        block.group(1))]
 
 
-def header_march_segments(nx, tiles, capacity, NP):
-    """csrc/multisweep_march.cuh's march_segments, line by line (the shard
-    forms still cut their segments with it)."""
-    most = nx // (8 * NP) if nx // (8 * NP) > 1 else 1
-    nseg, xseg, best = 1, nx, -1
-    for n in range(1, most + 1):
-        length = (nx + n - 1) // n
-        segs = (nx + length - 1) // length
-        rounds = (tiles * segs + capacity - 1) // capacity
-        cost = rounds * (length + 3 * NP)
-        if best < 0 or cost < best:
-            best, nseg, xseg = cost, segs, length
-    return nseg, xseg
+def shard_forms():
+    return march_forms("multisweep_halo.cu", "SHARD_FORMS")
+
+
+def brute_force_segments(nx, tiles, capacity, NP):
+    """The segment rule stated plainly: every segment length L from 1 to
+    nx, its ceil(nx / L) segments (all L long but the last), allowed when
+    there is one segment or no more than nx // (8*NP) of them; the cost of a
+    split is its rounds of `capacity` blocks times the steps of a block, L
+    + 3*NP. Returns the least cost and every (segments, L) that has it."""
+    costs = {}
+    for length in range(1, nx + 1):
+        segs = -(-nx // length)
+        if segs > 1 and segs > nx // (8 * NP):
+            continue
+        costs[(segs, length)] = -(-tiles * segs // capacity) * (length
+                                                                + 3 * NP)
+    best = min(costs.values())
+    return best, {k for k, v in costs.items() if v == best}
 
 
 def wave_plane(W):
@@ -61,15 +71,28 @@ def wave_plane(W):
     return (W + 2) * pz
 
 
-def test_python_tiles_are_the_forms_the_source_builds():
+@pytest.mark.parametrize("forms", [march_forms, shard_forms],
+                         ids=["whole_level", "shard"])
+def test_python_tiles_are_the_forms_the_source_builds(forms):
+    """Both bodies build MARCH_TILES' widths: a shard's tile is chosen by
+    the whole level's rule."""
     built = {}
-    for t, np_, w, _ in march_forms():
+    for t, np_, w, _ in forms():
         built.setdefault((4 if t == "float" else 8, np_ // 2), []).append(w)
     assert {k: tuple(v) for k, v in built.items()} == tfs.MARCH_TILES
 
 
-@pytest.mark.parametrize("form", march_forms(), ids=lambda f: "_".join(
-    map(str, f)))
+def test_one_segment_rule_in_the_sources():
+    """The x segments are cut in Python only: no CUDA source or header
+    defines a rule of its own (a function of that name)."""
+    for name in os.listdir(CSRC):
+        with open(os.path.join(CSRC, name)) as f:
+            assert not re.search(r"\w+\s+march_segments\s*\(", f.read()), \
+                name
+
+
+@pytest.mark.parametrize("form", march_forms() + shard_forms(),
+                         ids=lambda f: "_".join(map(str, f)))
 def test_every_form_fits_a_block_and_its_chunks(form):
     """Shared memory of the rings (R = NP + D + 1 planes of u and of a, rhs)
     under the block's limit; rows that split into 16-byte chunks whose
@@ -133,13 +156,22 @@ def test_main_path_geometry_on_132_blocks():
 @pytest.mark.parametrize("capacity", [1, 7, 66, 132, 264, 1000])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_capacity_drives_the_segments_as_the_header_does(shape, capacity):
+    """The segments `march_segments` cuts for a capacity are a split of
+    least cost under the rule stated by brute force (the C copy of the rule
+    in csrc/multisweep_march.cuh is gone; the name stays), and
+    `march_geometry` hands them on."""
+    nx = shape[0]
     for (isz, ns) in FORMS:
         tile = tfs.march_tile(shape[1], shape[2], ns, isz)
         inner = tile - 4 * ns
         tiles = -(-shape[1] // inner) * -(-shape[2] // inner)
-        want = header_march_segments(shape[0], tiles, capacity, 2 * ns)
-        assert tfs.march_segments(shape[0], tiles, capacity, ns) == want
-        assert tfs.march_geometry(shape, ns, isz, capacity)[1:] == want
+        nseg, xseg = tfs.march_segments(nx, tiles, capacity, ns)
+        best, splits = brute_force_segments(nx, tiles, capacity, 2 * ns)
+        assert (nseg, xseg) in splits
+        assert (nseg - 1) * xseg < nx <= nseg * xseg
+        assert nseg == 1 or nseg <= nx // (8 * 2 * ns)
+        assert tfs.march_geometry(shape, ns, isz, capacity)[1:] == (nseg,
+                                                                    xseg)
 
 
 def test_more_capacity_never_means_fewer_segments_on_a_long_level():
@@ -149,3 +181,74 @@ def test_more_capacity_never_means_fewer_segments_on_a_long_level():
     # a card with room for every tile once runs x in one segment per block
     assert tfs.march_segments(960, 16, 16, 2) == (1, 960)
     assert math.prod(tfs.march_segments(960, 16, 128, 2)) == 960
+
+
+# the shards the sharded paths hand the shard march (written extent; a
+# pencil without its pads): the periodic box on 4 x-slabs and on (2, 2)
+# pencils, the 7-level finest level's and 64^3 base's slabs, and the odd
+# shapes of chip_smoke.SHARD_CASES (odd offsets, misaligned nz, several x
+# segments, one shard)
+SHARD_SHAPES = [(64, 256, 256, False), (240, 144, 144, False),
+                (128, 128, 256, True), (16, 64, 64, False),
+                (21, 40, 36, False), (24, 56, 48, False), (21, 23, 36, True),
+                (16, 40, 37, False), (24, 22, 37, True), (132, 40, 36, False),
+                (48, 40, 36, False)]
+
+
+@pytest.mark.parametrize("shard", SHARD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:3]))
+                         + ("_pre" if s[3] else "_slab"))
+@pytest.mark.parametrize("form", FORMS, ids=lambda f: f"isz{f[0]}_ns{f[1]}")
+def test_shard_tiles_cover_the_shard(shard, form):
+    """The written tiles cover the shard's written y-z extent once, and
+    their computed columns (a rind of NP = 2*nsweeps on every side) cover
+    a pencil's y pads (H = NP rows a side); the segments cover x."""
+    isz, ns = form
+    nx, ny, nz, pre = shard
+    tile, nseg, xseg = tfs.march_geometry((nx, ny, nz), ns, isz, H100_SMS)
+    assert tile in tfs.MARCH_TILES[form]
+    np_ = 2 * ns
+    inner = tile - 2 * np_
+    for n in (ny, nz):
+        count = -(-n // inner)
+        assert count * inner >= n > (count - 1) * inner
+        # tile b computes [b*inner - NP, b*inner + inner + NP)
+        covered = set()
+        for b in range(count):
+            covered.update(range(b * inner - np_, b * inner + inner + np_))
+        assert set(range(-np_ if pre else 0, n + (np_ if pre else 0))) \
+            <= covered
+    assert nseg == -(-nx // xseg) and (nseg - 1) * xseg < nx <= nseg * xseg
+    assert nseg <= 65535
+
+
+def test_shard_geometry_on_the_main_shards():
+    # 64x256x256 P slab: 64 tiles of 40 x 2 segments of 32, one round
+    assert tfs.march_geometry((64, 256, 256), 2, 4, H100_SMS) == (40, 2, 32)
+    # 240x144x144: 16 tiles of 44 x 7 segments of 35
+    assert tfs.march_geometry((240, 144, 144), 2, 4, H100_SMS) == (44, 7, 35)
+    # 128x128x256 P pencil: 32 tiles of 40 x 4 segments of 32
+    assert tfs.march_geometry((128, 128, 256), 2, 4, H100_SMS) == (40, 4, 32)
+    # 16x64x64: 4 tiles of 40, one segment (16 < 8*NP)
+    assert tfs.march_geometry((16, 64, 64), 2, 4, H100_SMS) == (40, 1, 16)
+
+
+@pytest.mark.parametrize("pre", [False, True], ids=["slab", "pre"])
+@pytest.mark.parametrize("form", FORMS, ids=lambda f: f"isz{f[0]}_ns{f[1]}")
+def test_shard_geometry_on_is_the_level_rule_at_the_shard_capacity(
+        monkeypatch, form, pre):
+    """`shard_geometry_on` asks the shard body's capacity for the whole
+    level's tile of the shard, then cuts the whole level's segments for it
+    (the capacity query stands in for the card)."""
+    isz, ns = form
+    asked = []
+
+    def capacity(device, itemsize, nsweeps, tile, pre_form):
+        asked.append((device.index, itemsize, nsweeps, tile, pre_form))
+        return 66
+
+    monkeypatch.setattr(tfs, "shard_capacity", capacity)
+    shape = (240, 144, 144)
+    got = tfs.shard_geometry_on.__wrapped__(shape, ns, isz, 3, pre)
+    assert got == tfs.march_geometry(shape, ns, isz, 66)
+    assert asked == [(3, isz, ns, tfs.march_tile(144, 144, ns, isz), pre)]
