@@ -31,7 +31,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
            that ran and its registers and spill stores, also on a line of
            its own before the kernels line (shard_launch). gsrb_relax runs in every form that takes a level
            (fused_sweeps.gsrb_geometry: grid, slab), each call one launch
-           that leaves its input as it was; for each timed case also the
+           that leaves its input as it was; the residual whole and
+           restricted (residual_restrict, also into a strided slice of a
+           parent), one launch a call, the restricted one bitwise
+           restrict_full of the whole one, at every level case and at one
+           case of each form of csrc/residual.cu (RESIDUAL_CASES); for each timed case also the
            form and blocks the geometry picks, the device time and the
            wrapper's host time per call, and each form's time. Each tower
            call must be one kernel launch that leaves its inputs as they
@@ -44,8 +48,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
            the card; the launch counters show the path went through the
-           four kernels small levels take, each tower call one launch, and
-           through no plain version;
+           five kernels small levels take (gsrb_relax, the residual whole
+           and restricted, the towers), each call one launch, the
+           residual's two forms as often as the preconditioner's structure
+           says (RESIDUAL_CALLS, also in scale7 and periodic), and through
+           no plain version;
            the same solve with the staged smoother (no kernels) must agree
   lock3    max_level = 2 against the recorded first-step norm and plateau
   scale7   max_level = 6 (7 levels, 28.5M refined cells), 3 Picard steps,
@@ -179,6 +186,10 @@ SOURCES = {
                    "mg_ic_code_tpu/ops/fused_sweeps.py:1032"),
     "residual": ("mg_ic_code_tpu_torch/csrc/residual.cu",
                  "mg_ic_code_tpu/ops/fused_sweeps.py:1055"),
+    # the same march with the restriction that follows the residual in the
+    # V-cycles (JAX: restrict_full of these kernels' output, fused by XLA)
+    "residual_restrict": ("mg_ic_code_tpu_torch/csrc/residual.cu",
+                          "mg_ic_code_tpu/ops/fused_sweeps.py:1055"),
     "tower_down": ("mg_ic_code_tpu_torch/csrc/tower.cu",
                    "mg_ic_code_tpu/ops/coarse_tower.py:206"),
     "tower_up": ("mg_ic_code_tpu_torch/csrc/tower.cu",
@@ -205,6 +216,8 @@ TPU_KERNELS = {
                    "mg_ic_code_tpu/ops/pallas_kernels.py:368"],
     "residual": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
                  "mg_ic_code_tpu/ops/pallas_kernels.py:389"],
+    "residual_restrict": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
+                          "mg_ic_code_tpu/ops/pallas_kernels.py:389"],
     "tower_down": ["mg_ic_code_tpu/ops/coarse_tower.py:206"],
     "tower_up": ["mg_ic_code_tpu/ops/coarse_tower.py:234"],
     "wavefront_relax": ["mg_ic_code_tpu/ops/wavefront.py:329",
@@ -395,6 +408,9 @@ def phase_build() -> dict:
     # the one-launch towers of csrc/tower.cu (down, up, f32 and f64)
     tower = {name: {"registers": n, "spill_stores": spills.get(name)}
              for name, n in regs.items() if "tower_" in name}
+    # every instantiation of the residual march (csrc/residual.cu)
+    residual = {name: {"registers": n, "spill_stores": spills.get(name)}
+                for name, n in regs.items() if "residual_kernel" in name}
     out = {
         "phase": "build", "seconds": round(time.perf_counter() - t0, 3),
         "cached": info["cached"], "library": os.path.relpath(
@@ -409,6 +425,7 @@ def phase_build() -> dict:
         # the shard forms of csrc/multisweep_halo.cu by form
         "shard_forms": shard_forms(regs, spills),
         "tower_kernels": tower,
+        "residual_kernels": residual,
     }
     emit(out)
     return out
@@ -666,20 +683,116 @@ def check_level_case(case, dtype) -> dict:
         cid, f, lo, kw, dtype, timed,
         bound_ms(level_bytes(ncells, isz, narr), 4 * 32.0 * ncells))
 
-    resid = lambda fn: fn(f["u"], f["rhs"], f["a"], f["b"], **kw)
-    out, ref = resid(fs.residual), resid(fs.residual_plain)
-    torch.cuda.synchronize()
-    err, rel = rel_err(out, ref)
-    rec["residual"] = {"max_abs_err": err, "rel_err": rel}
-    check(rel <= TOL[dtype], f"residual {cid} {dtype}: rel err {rel}")
+    rec.update(check_residual(cid, f, kw, dtype, timed))
+    return rec
 
+
+def one_launch(name: str, fn):
+    """fn() with the check that it was one wrapper call and one kernel
+    launch of `name`."""
+    calls = kernel_counts.LAUNCHES[name]
+    launches = kernel_counts.DEVICE_LAUNCHES[name]
+    out = fn()
+    check(kernel_counts.LAUNCHES[name] == calls + 1
+          and kernel_counts.DEVICE_LAUNCHES[name] == launches + 1,
+          f"{name}: not one launch per call")
+    return out
+
+
+def check_residual(cid: str, f: dict, kw: dict, dtype, timed: bool) -> dict:
+    """residual and, where every axis is even, residual_restrict against
+    their plain versions (csrc/residual.cu, one launch a call): the
+    restricted form into a new tensor and into a strided slice of a larger
+    parent (the rest of it untouched), each bitwise equal to
+    restrict_full(residual). Timed: each form's batched time, device and
+    host time per call, plain time and bound (inputs once, the output
+    once: the whole residual, or an eighth of it)."""
+    args = (f["u"], f["rhs"], f["a"], f["b"])
+    shape, isz = tuple(f["u"].shape), f["u"].element_size()
+    ncells = math.prod(shape)
+    res = one_launch("residual", lambda: fs.residual(*args, **kw))
+    torch.cuda.synchronize()
+    err, rel = rel_err(res, fs.residual_plain(*args, **kw))
+    out = {"residual": {"max_abs_err": err, "rel_err": rel,
+                        "geometry": fs.residual_geometry_on(
+                            *args, out=res, restrict=False)._asdict()}}
+    check(rel <= TOL[dtype], f"residual {cid} {dtype}: rel err {rel}")
+    nin = 3 + (f["b"] is not None)
+    runs = {"residual": (lambda: fs.residual(*args, **kw),
+                         lambda: fs.residual_plain(*args, **kw),
+                         level_bytes(ncells, isz, nin + 1))}
+    if not any(n % 2 for n in shape):
+        rc = one_launch("residual_restrict",
+                        lambda: fs.residual_restrict(*args, **kw))
+        torch.cuda.synchronize()
+        err, rel = rel_err(rc, fs.residual_restrict_plain(*args, **kw))
+        check(rel <= TOL[dtype],
+              f"residual_restrict {cid} {dtype}: rel err {rel}")
+        check(torch.equal(rc, st.restrict_full(res)),
+              f"residual_restrict {cid} {dtype}: not restrict_full of "
+              f"residual bit for bit")
+        # into the covered part of a parent, as the AMR downsweep writes it
+        half = tuple(n // 2 for n in shape)
+        parent = torch.full(tuple(n + 3 for n in half), -7.0, dtype=dtype,
+                            device="cuda")
+        view = parent[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]]
+        one_launch("residual_restrict",
+                   lambda: fs.residual_restrict(*args, out=view, **kw))
+        torch.cuda.synchronize()
+        rest = parent.clone()
+        rest[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]] = -7.0
+        check(torch.equal(view, rc) and bool((rest == -7.0).all()),
+              f"residual_restrict {cid} {dtype}: into a parent's slice")
+        out["residual_restrict"] = {
+            "max_abs_err": err, "rel_err": rel, "equals_restrict_full": True,
+            "into_slice": True, "geometry": fs.residual_geometry_on(
+                *args, out=rc, restrict=True)._asdict()}
+        runs["residual_restrict"] = (
+            lambda: fs.residual_restrict(*args, **kw),
+            lambda: fs.residual_restrict_plain(*args, **kw),
+            level_bytes(ncells, isz, nin) + ncells * isz / 8)
     if timed:
-        b, by = bound_ms(level_bytes(ncells, isz, narr), 16.0 * ncells)
-        rec["residual"].update(
-            ms=time_ms(lambda: resid(fs.residual)),
-            plain_ms=time_ms(lambda: resid(fs.residual_plain), reps=10,
-                             warmup=1),
-            bound_ms=b, bound_by=by)
+        for name, (run, plain, nbytes) in runs.items():
+            b, by = bound_ms(nbytes, 16.0 * ncells)
+            out[name].update(
+                ms=time_ms(run), device_ms=device_ms(run),
+                host_us=host_us(run),
+                plain_ms=time_ms(plain, reps=10, warmup=1),
+                bound_ms=b, bound_by=by)
+    return out
+
+
+# residual cases beside LEVEL_CASES, for each form of csrc/residual.cu
+# (fused_sweeps.residual_form): (id, shape, kinds, rho, with_b, misaligned).
+# An odd nz (one cell a thread; the whole residual only), an odd periodic
+# y (a tile's last row pair half in the level, the row below it wrapped),
+# nz = 2 mod 4 (two cells a thread in f32), operands off a 16-byte boundary
+# (two cells a thread, one copy a cell), the smallest level.
+RESIDUAL_CASES = [
+    ("odd_nz", (20, 18, 33), ((D, C), (N, D), (C, N)), 2.0, True, False),
+    ("odd_periodic_y", (20, 17, 24), ((D, C), (P, P), (C, N)), 2.0, False,
+     False),
+    ("nz_2_mod_4", (24, 20, 34), ALL_P, 0.5, True, False),
+    ("misaligned", (16, 20, 24), ((C, D), (D, N), (P, P)), 2.0, False, True),
+    ("smallest_P", (2, 2, 2), ALL_P, 2.0, False, False),
+]
+
+
+def check_residual_case(case, dtype) -> dict:
+    cid, shape, kinds, rho, with_b, misaligned = case
+    f = level_fields(shape, dtype, seed=9, with_b=with_b)
+    if misaligned:  # one element past a 16-byte boundary, still contiguous
+        for k in ("u", "rhs", "a"):
+            buf = torch.empty(f[k].numel() + 1, dtype=dtype, device="cuda")
+            f[k] = buf[1:].view(shape).copy_(f[k])
+    kw = dict(kinds=kinds, rho=rho, alpha=1.0, beta=-1.0, dx=0.37)
+    rec = {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
+           "tolerance": TOL[dtype]}
+    rec.update(check_residual(cid, f, kw, dtype, False))
+    want = fs.residual_form(shape[2], f["u"].element_size(), not misaligned)
+    check((rec["residual"]["geometry"]["vz"],
+           rec["residual"]["geometry"]["vec"]) == want,
+          f"residual {cid}: form {rec['residual']['geometry']}")
     return rec
 
 
@@ -1215,6 +1328,8 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         for case in GSRB_CASES:
             checks.append(check_gsrb_case(case, dtype))
+        for case in RESIDUAL_CASES:
+            checks.append(check_residual_case(case, dtype))
         for case in TOWER_CASES:
             checks.append(check_tower_case(case, dtype))
         for name, (_, _, _, cases) in one_launch_kernels().items():
@@ -1247,6 +1362,16 @@ def phase_kernels() -> dict:
         except (TypeError, ValueError):
             continue
         raise SmokeFailure("wavefront_relax accepted a bad call")
+    rkw = dict(kinds=ALL_D, rho=2.0, alpha=1.0, beta=-1.0, dx=1.0)
+    for bad_u, bad_out in ((torch.zeros((8, 7, 8), device="cuda"), None),
+                           (u, torch.zeros((4, 4, 8), device="cuda")),
+                           (u, torch.zeros((4, 4, 8), device="cuda")[
+                               :, :, ::2])):
+        try:
+            fs.residual_restrict(bad_u, bad_u, bad_u, out=bad_out, **rkw)
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure("residual_restrict accepted a bad call")
     u7 = torch.zeros((7, 8, 8), dtype=torch.float32, device="cuda")
     for bad_kw, bad_u in (
             (dict(wkw, kinds=((P, P), (D, D), (D, D))), u7),  # odd periodic
@@ -1280,17 +1405,18 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------- solves
 
 
-SMALL_LEVEL_KERNELS = ("gsrb_relax", "residual", "tower_down", "tower_up")
+SMALL_LEVEL_KERNELS = ("gsrb_relax", "residual", "residual_restrict",
+                       "tower_down", "tower_up")
 TOWERS = ("tower_down", "tower_up")
 
 
 # kernels whose wrapper call is one kernel launch on the solve paths
-ONE_LAUNCH = TOWERS + ("gsrb_relax",)
+ONE_LAUNCH = TOWERS + ("gsrb_relax", "residual", "residual_restrict")
 
 
 def check_one_launch(counts: dict, what: str) -> None:
-    """Every tower and gsrb_relax call of the run was one kernel launch
-    (csrc/tower.cu, csrc/gsrb_relax.cu)."""
+    """Every tower, gsrb_relax and residual call of the run was one kernel
+    launch (csrc/tower.cu, csrc/gsrb_relax.cu, csrc/residual.cu)."""
     for k in ONE_LAUNCH:
         check(counts["device_launches"][k] == counts["launches"][k],
               f"{what}: {k} is not one launch per call: "
@@ -1302,7 +1428,8 @@ def check_one_launch(counts: dict, what: str) -> None:
 CANONICAL_KERNELS = SMALL_LEVEL_KERNELS + ("wavefront_relax",)
 # the kernels of the periodic box (its 256^3 depth is staged, 128^3 and
 # below run inside the tower)
-PERIODIC_KERNELS = ("multisweep_relax", "residual", "tower_down", "tower_up")
+PERIODIC_KERNELS = ("multisweep_relax", "residual", "residual_restrict",
+                    "tower_down", "tower_up")
 
 
 def run_solve(overrides, label: str, keep: dict | None = None,
@@ -1369,6 +1496,7 @@ def phase_solve() -> dict:
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"a plain version ran on the card's path: {counts}")
     check_one_launch(counts, "solve")
+    check_residual_calls(main, "solve")
     check(h[0] > h[1] > h[2], f"history not decreasing: {h}")
     check(all(i <= 4 for i in it), f"linear iters {it}")
     staged = run_solve(base + ["smoother = xla", "max_NL_iterations = 2"],
@@ -1450,6 +1578,29 @@ def phase_split(cfg, geom, psi, reps: int = 2) -> dict:
         "solve_explained_s": explained,
         "solve_unexplained_s": ph["solve"] - explained,
     }
+
+
+# wrapper calls of the residual's two forms per preconditioner application
+# (two a Krylov iteration): each refined level restricts its residual into
+# its parent once a V-cycle (residual_restrict), the composite residual
+# between the two V-cycles takes every level whole and the bottom solve of
+# each V-cycle its depth (residual); the periodic box restricts its staged
+# 256^3 depth once a V-cycle
+RESIDUAL_CALLS = {"solve": {"residual": 4 + 2, "residual_restrict": 2 * 3},
+                  "scale7": {"residual": 7 + 2, "residual_restrict": 2 * 6},
+                  "periodic": {"residual": 1 + 2, "residual_restrict": 2}}
+
+
+def check_residual_calls(run: dict, what: str) -> None:
+    """Every Picard iteration made RESIDUAL_CALLS[what] calls of each form
+    of the residual per preconditioner application."""
+    for calls, krylov in zip(run["kernel_calls_per_iteration"],
+                             run["linear_iters"]):
+        for name, n in RESIDUAL_CALLS[what].items():
+            got = calls[kernel_counts.KERNELS.index(name)]
+            check(got == 2 * krylov * n,
+                  f"{what}: {got} {name} calls in an iteration of {krylov} "
+                  f"Krylov iterations, not {2 * krylov * n}")
 
 
 def check_wave_path(run: dict, counts: dict, what: str) -> None:
@@ -1536,6 +1687,7 @@ def phase_scale7() -> dict:
     check(h[2] < 1e-6, f"7-level step 3 {h[2]}")
     check(all(i <= 3 for i in it), f"7-level linear iters {it}")
     check_wave_path(run, counts, "scale7")
+    check_residual_calls(run, "scale7")
     split = phase_split(keep["cfg"], keep["geom"], keep["res"].psi)
     keep.clear()
     torch.cuda.empty_cache()
@@ -1677,6 +1829,7 @@ def phase_periodic() -> dict:
     check(run["levels"] == [[256, 256, 256]],
           f"unexpected hierarchy {run['levels']}")
     check_periodic_run(run, counts, "periodic")
+    check_residual_calls(run, "periodic")
     # the 256^3 depth never went to the per-pass kernel: every gsrb pass of
     # this path runs inside the tower, from 128^3 down
     check(counts["launches"]["gsrb_relax"] == 0
@@ -2280,21 +2433,25 @@ def phase_cards() -> dict:
 
 # the f32 kernels-phase case that holds a kernel at the shape each path
 # gives it: the canonical 7-level path (scale7: the finest level for the
-# wavefront and the residual, the largest level below the wavefront rung for
-# gsrb_relax, the 64^3 depth chain for the towers) and the periodic box (its
-# 256^3 top depth for the multisweep and the residual, the depth chain from
-# 128^3 for the towers; gsrb_relax and the wavefront are not on it). On the
-# sharded paths every cut depth smooths through the halo kernels and takes
-# the plain sharded residual, so the other kernels run only below the last
-# cut depth: the towers from 16^3 (x-slabs), gsrb_relax at 8^3 (pencils), and
-# the residual at the 4^3 bottom.
+# wavefront, the residual and its restricted form, the largest level below
+# the wavefront rung for gsrb_relax, the 64^3 depth chain for the towers)
+# and the periodic box (its 256^3 top depth for the multisweep, the residual
+# and the restricted residual, the depth chain from 128^3 for the towers;
+# gsrb_relax and the wavefront are not on it). On the sharded paths every
+# cut depth smooths through the halo kernels and takes the plain sharded
+# residual, so the other kernels run only below the last cut depth: the
+# towers from 16^3 (x-slabs), gsrb_relax and the restricted residual at 8^3
+# (pencils), and the residual at the 4^3 bottom.
 PATH_CASES = {
     "scale7": {"gsrb_relax": "path_l3_176x64x64",
-               "residual": "big_960x144x144", "tower_down": "path_l0_64",
+               "residual": "big_960x144x144",
+               "residual_restrict": "big_960x144x144",
+               "tower_down": "path_l0_64",
                "tower_up": "path_l0_64",
                "wavefront_relax": "path_l6_960x144x144"},
     "periodic": {"multisweep_relax": "periodic_256",
                  "residual": "periodic_path_256",
+                 "residual_restrict": "periodic_path_256",
                  "tower_down": "periodic_path_128",
                  "tower_up": "periodic_path_128"},
     # the sharded solves (phase sharded): the periodic box on 4 x-slabs and
@@ -2306,6 +2463,7 @@ PATH_CASES = {
                   "tower_up": "sharded_path_16_P"},
     "sharded_pencil": {"multisweep_relax_tiled_pre": "pencil_128x128x256_P",
                        "gsrb_relax": "sharded_pencil_8_P",
+                       "residual_restrict": "sharded_pencil_8_P",
                        "residual": "periodic_path_bottom_4"},
     "sharded7": {"multisweep_relax_halo": "slab_240x144x144_edge",
                  "residual": "path_bottom_4", "tower_down": "sharded_path_16",

@@ -1,14 +1,16 @@
-// Device function shared by the residual kernel and the towers' fused
-// residual-and-restriction (csrc/tower.cu): the residual of ONE cell,
+// Device function of the towers' fused residual-and-restriction
+// (csrc/tower.cu): the residual of ONE cell,
 //     rhs - (alpha * a * u - beta * b / dx^2 * lap u),
 // with the homogeneous ghost rule (c0 * u0 + c1 * u1) standing in for the
 // neighbour across a non-periodic face and wrap-around on a periodic axis.
-// Indices are of type I: long long for a whole level of any size, int in
-// the towers, whose depths fit the L2 cache; PER as in gsrb_device.cuh (1
-// every axis periodic, 0 none, -1 read p.periodic). The pointers carry no
-// __restrict__: the towers read arrays that their own launch wrote before a
-// grid barrier, which must not take the read-only (non-coherent) load path;
-// the residual kernel's own arguments keep theirs.
+// The residual kernels (csrc/residual.cu) evaluate the same expression from
+// their shared-memory planes, each rounding fixed in intrinsics as the one
+// thread a cell kernel that called this function compiled it. Indices are
+// of type I: int in the towers, whose depths fit the L2 cache; PER as in
+// gsrb_device.cuh (1 every axis periodic, 0 none, -1 read p.periodic). The
+// pointers carry no __restrict__: the towers read arrays that their own
+// launch wrote before a grid barrier, which must not take the read-only
+// (non-coherent) load path.
 #pragma once
 
 #include "mg_kernels.h"

@@ -120,9 +120,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, vp,
     ]
     lib.mgk_residual.restype = ci
+    cll = ctypes.c_longlong
     lib.mgk_residual.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, vp,
+        vp, vp, vp, vp, vp, pi, cd, cd, cd, cd, pi, cll, cll, vp,
     ]
+    lib.mgk_residual_capacity.restype = ci
+    lib.mgk_residual_capacity.argtypes = [ci, ci, ci, ci, ci, ci, pi]
     lib.mgk_multisweep_relax.restype = ci
     lib.mgk_multisweep_relax.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci, ci,

@@ -6,11 +6,16 @@ and the residual that feeds restriction, each as
 
   * a hand-written CUDA kernel (csrc/gsrb_relax.cu: every sweep of a call
     in one cooperative launch, in the form and grid `gsrb_geometry` picks;
-    csrc/residual.cu), launched by `gsrb_relax` / `residual` for tensors
-    on a CUDA device, and
+    csrc/residual.cu: a march along x in the tiles and segments
+    `residual_geometry` picks), launched by `gsrb_relax` / `residual` for
+    tensors on a CUDA device, and
   * a plain PyTorch version (`gsrb_relax_plain` / `residual_plain`) written
     from the same folded form, which the wrappers take ONLY for tensors on
     the CPU. On a CUDA tensor a wrapper launches its kernel or raises.
+
+`residual_restrict` is the residual restricted by full weighting in the
+same launch (the restriction that follows every residual the V-cycles
+restrict); its plain version is `restrict_full` of `residual_plain`.
 
 Beside them:
 
@@ -49,6 +54,7 @@ from typing import NamedTuple
 import torch
 
 from mg_ic_code_tpu_torch.ops import cuda_ext, kernel_counts
+from mg_ic_code_tpu_torch.ops.stencils import restrict_full
 from mg_ic_code_tpu_torch.ops.ghosts import (
     CF, PERIODIC, PHYS_DIRICHLET, PHYS_NEUMANN, FaceKinds, cf_homog_weights,
     ghost_plane,
@@ -242,6 +248,24 @@ def residual_plain(
     """res = rhs - L(u) of a whole level with homogeneous ghosts, in plain
     PyTorch."""
     kernel_counts.PLAIN_CALLS["residual"] += 1
+    return _residual_values(u, rhs, a, b, kinds=kinds, rho=rho, alpha=alpha,
+                            beta=beta, dx=dx)
+
+
+def residual_restrict_plain(
+    u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float,
+):
+    """The plain PyTorch version of `residual_restrict`: restrict_full of
+    the residual."""
+    kernel_counts.PLAIN_CALLS["residual_restrict"] += 1
+    return restrict_full(_residual_values(
+        u, rhs, a, b, kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx))
+
+
+def _residual_values(u, rhs, a, b, *, kinds: FaceKinds, rho: float,
+                     alpha: float, beta: float, dx: float):
+    """The body of both plain versions; it counts nothing."""
     inv_dx2 = 1.0 / (dx * dx)
     b_inv = beta * inv_dx2
     if b is not None:
@@ -941,29 +965,209 @@ def sharded_plan(shape, n: int, kinds: FaceKinds) -> int | None:
     return MULTISWEEP_PLAN_CHUNK
 
 
+# The residual (csrc/residual.cu): planes a block holds in its ring (kRing),
+# threads a block at most (kMaxThreads), shared memory a block may take
+# (the H100's 227 KB). Then residual_geometry's rule, read off
+# scripts/residual_probe.py's grids of tile heights and segment lengths on
+# an NVIDIA H100 80GB HBM3 at 700 W (every path shape, both forms): a step
+# of a block costs ~0.8 us of latency whatever its size, so small tiles of
+# about RESIDUAL_WORK threads' work (ty 2-8) were among the fastest, and a
+# launch lost up to 20 % where its blocks overran the blocks the card runs
+# at once by part of a wave; so the segments are cut to fill one wave.
+RESIDUAL_RING = 5
+RESIDUAL_MAX_THREADS = 512
+RESIDUAL_SMEM = 232448
+RESIDUAL_WORK = 64
+
+
+class ResidualGeometry(NamedTuple):
+    """The launch of one residual / residual_restrict call."""
+    vz: int        # cells a thread owns along z in each of its two rows
+    vec: bool      # u, rhs, a (b) and res in 16-byte accesses
+    ty: int        # rows of a y tile (even)
+    ntiles: int    # y tiles
+    xseg: int      # planes of an x segment (all but the last)
+    nseg: int      # x segments; blocks = ntiles * nseg
+    threads: int
+    slot: int      # elements of one ring slot
+    smem: int      # bytes of shared memory a block
+
+
+def residual_form(nz: int, itemsize: int, aligned: bool) -> tuple[int, bool]:
+    """(VZ, VEC) of csrc/residual.cu for rows of nz cells: 16 bytes a thread
+    in one access where rows start on 16 bytes (every operand aligned and nz
+    a multiple of the chunk), else two cells a thread where nz is even, else
+    one."""
+    chunk = 16 // itemsize
+    if aligned and nz % chunk == 0:
+        return chunk, True
+    return (2, False) if nz % 2 == 0 else (1, False)
+
+
+def residual_slot(ty: int, nz: int, itemsize: int, with_b: bool) -> int:
+    """Elements of a ring slot: u of the tile's ty rows and of the row above
+    and below, rhs and a (and b) of its rows, rounded up to 16 bytes."""
+    per = 16 // itemsize
+    return -(-(ty + 2 + (3 if with_b else 2) * ty) * nz // per) * per
+
+
+def residual_geometry(shape, itemsize: int, vz: int, vec: bool,
+                      restrict: bool, with_b: bool, sms: int, per_sm,
+                      ty: int | None = None,
+                      xseg: int | None = None) -> ResidualGeometry:
+    """The tiles and x segments of a residual launch on a card with `sms`
+    multiprocessors: the lowest even tile height whose row pairs hold
+    RESIDUAL_WORK groups of VZ cells (a thread each; at most the level's
+    rows), then the shortest segments (even in the restricted form) whose
+    blocks fit one wave: sms x per_sm(threads, smem), the blocks one
+    multiprocessor runs at once (on the card, mgk_residual_capacity).
+    `ty` / `xseg` ask for another launch (scripts/residual_probe.py times
+    them); one that does not fit a block's threads or shared memory
+    raises."""
+    nx, ny, nz = (int(n) for n in shape)
+    if ny * nz >= 2 ** 31:
+        raise ValueError(f"residual: a plane of {ny * nz} cells (below 2^31)")
+    qpr = nz // vz
+    step = 2 if restrict else 1
+    if ty is None:
+        ty = 2 * min(-(-RESIDUAL_WORK // qpr), -(-ny // 2))
+    ntiles = -(-ny // ty)
+    threads = -(-(ty // 2) * qpr // 32) * 32
+    slot = residual_slot(ty, nz, itemsize, with_b)
+    smem = RESIDUAL_RING * slot * itemsize
+    if ty % 2 or threads > RESIDUAL_MAX_THREADS or smem > RESIDUAL_SMEM:
+        raise ValueError(f"residual: no launch for {tuple(shape)}, itemsize "
+                         f"{itemsize}, ty {ty}")
+    if xseg is None:
+        nseg = max(1, sms * per_sm(threads, smem) // ntiles)
+        xseg = -(-nx // min(nseg, nx))
+        xseg += xseg % step
+    if xseg % step or xseg < 1:
+        raise ValueError(f"residual: x segments of {xseg} planes")
+    return ResidualGeometry(vz, vec, ty, ntiles, xseg, -(-nx // xseg),
+                            threads, slot, smem)
+
+
+def residual_capacity(index: int, itemsize: int, vz: int, vec: bool,
+                      restrict: bool, threads: int, smem: int) -> int:
+    """Blocks of the residual instantiation (itemsize, vz, vec, restrict)
+    with `threads` and `smem` that one multiprocessor of CUDA device
+    `index` runs at once (mgk_residual_capacity)."""
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = cuda_ext.lib().mgk_residual_capacity(
+            int(itemsize == 8), vz, int(vec), int(restrict), threads, smem,
+            ctypes.byref(cap))
+    cuda_ext.check(err, "residual capacity")
+    return cap.value
+
+
+def _residual_geometry(shape, itemsize: int, restrict: bool, with_b: bool,
+                       aligned: bool, index: int) -> ResidualGeometry:
+    """residual_geometry on CUDA device `index`."""
+    vz, vec = residual_form(shape[2], itemsize, aligned)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    per_sm = functools.partial(residual_capacity, index, itemsize, vz, vec,
+                               restrict)
+    return residual_geometry(shape, itemsize, vz, vec, restrict, with_b, sms,
+                             per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _residual_launch(shape, itemsize: int, kinds: FaceKinds, restrict: bool,
+                     with_b: bool, aligned: bool, index: int):
+    """(geometry, kinds array, geometry array) of a residual launch, kept
+    as gsrb_relax's are (the solver calls the residual with a few shapes
+    many times)."""
+    g = _residual_geometry(shape, itemsize, restrict, with_b, aligned, index)
+    geo = (int(itemsize == 8), *shape, g.vz, int(g.vec), int(restrict), g.ty,
+           g.ntiles, g.xseg, g.nseg, shape[2] // g.vz, g.slot, g.threads,
+           g.smem)
+    return g, kinds_array(kinds), (ctypes.c_int * len(geo))(*geo)
+
+
+def _aligned(ptrs, restrict: bool) -> bool:
+    """Whether every operand starts on 16 bytes (the restricted output is
+    written a cell at a time: its alignment does not choose the form)."""
+    return not any(p % 16 for p in ptrs[:4 if restrict else 5] if p)
+
+
+def residual_geometry_on(u, rhs, a, b=None, *, out, restrict: bool):
+    """The geometry a residual launch on these CUDA operands takes."""
+    ptrs = (u.data_ptr(), rhs.data_ptr(), a.data_ptr(), _ptr(b),
+            out.data_ptr())
+    return _residual_geometry(tuple(u.shape), u.element_size(), restrict,
+                              b is not None, _aligned(ptrs, restrict),
+                              u.device.index)
+
+
+def residual_launch(name: str, u, rhs, a, b, out, *, kinds: FaceKinds,
+                    rho: float, alpha: float, beta: float, dx: float):
+    """One launch of csrc/residual.cu on CUDA tensors, counted under `name`:
+    the whole residual into `out` (residual) or, for name
+    "residual_restrict", the restricted one into the (nx/2, ny/2, nz/2)
+    view `out` (z contiguous). Returns the geometry it took."""
+    check_level_args(name, u, rhs, a, b)
+    restrict = name == "residual_restrict"
+    ptrs = (u.data_ptr(), rhs.data_ptr(), a.data_ptr(), _ptr(b),
+            out.data_ptr())
+    g, kinds_c, geo = _residual_launch(
+        tuple(u.shape), u.element_size(), kinds, restrict, b is not None,
+        _aligned(ptrs, restrict), u.device.index)
+    osx, osy = (out.stride(0), out.stride(1)) if restrict else (0, 0)
+    kernel_counts.count_launch(name, 1)
+    err = on_stream(cuda_ext.lib().mgk_residual, u, *ptrs, kinds_c,
+                    float(rho), float(alpha), float(beta), float(dx), geo,
+                    osx, osy)
+    cuda_ext.check(err, name)
+    return g
+
+
 def residual(
     u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
     beta: float, dx: float,
 ):
     """res = rhs - L(u) of a whole level with homogeneous ghosts (optional
-    variable bCoef). CUDA tensors go to the kernel, CPU tensors take the
-    plain version."""
+    variable bCoef). Returns a new tensor. CUDA tensors go to the kernel (one
+    launch), CPU tensors take the plain version."""
+    kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx)
     if u.device.type == "cpu":
-        return residual_plain(
-            u, rhs, a, b, kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx,
-        )
-    check_level_args("residual", u, rhs, a, b)
-    lib = cuda_ext.lib()
+        return residual_plain(u, rhs, a, b, **kw)
     res = torch.empty_like(u)
-    nx, ny, nz = u.shape
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernel_counts.count_launch("residual", 1)
-        err = lib.mgk_residual(
-            u.data_ptr(), rhs.data_ptr(), a.data_ptr(), _ptr(b),
-            res.data_ptr(), int(u.dtype == torch.float64), nx, ny, nz,
-            kinds_array(kinds), float(rho), float(alpha), float(beta),
-            float(dx), stream,
-        )
-    cuda_ext.check(err, "residual")
+    residual_launch("residual", u, rhs, a, b, res, **kw)
     return res
+
+
+def residual_restrict(
+    u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, out=None,
+):
+    """The residual restricted by full weighting, restrict_full(rhs - L(u)):
+    the mean of the 2^3 children of each coarse cell, written into `out` (an
+    (nx/2, ny/2, nz/2) tensor or view with z contiguous, e.g. the covered
+    part of a parent level; it must not overlap the inputs) or a new tensor.
+    Every axis must be even. CUDA tensors go to the kernel (one launch, the
+    fine residual never written: bit for bit restrict_full(residual(...))),
+    CPU tensors take the plain version. Returns the restricted residual."""
+    kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx)
+    shape = u.shape
+    if len(shape) != 3 or shape[0] % 2 or shape[1] % 2 or shape[2] % 2:
+        raise ValueError(
+            f"residual_restrict: every axis must be even, got "
+            f"{tuple(shape)}")
+    half = (shape[0] // 2, shape[1] // 2, shape[2] // 2)
+    if out is not None and (out.shape != half or out.dtype != u.dtype
+                            or out.device != u.device):
+        raise ValueError(
+            f"residual_restrict: out {tuple(out.shape)} {out.dtype} "
+            f"{out.device} for {half} {u.dtype} {u.device}")
+    if u.device.type == "cpu":
+        rc = residual_restrict_plain(u, rhs, a, b, **kw)
+        return rc if out is None else out.copy_(rc)
+    if out is None:
+        out = u.new_empty(half)
+    elif out.stride(2) != 1 or min(out.stride()) < 0:
+        raise ValueError(
+            f"residual_restrict: out strides {out.stride()} (z contiguous)")
+    residual_launch("residual_restrict", u, rhs, a, b, out, **kw)
+    return out

@@ -7,7 +7,9 @@ kernel launches that call enqueued from its C entry point: 1 for every
 kernel — gsrb_relax, all its sweeps in one cooperative launch (csrc/
 gsrb_relax.cu; its one-sweep and one-pass entry points gsrb_full_sweep /
 gsrb_half_sweep, counted under it, enqueue 2 and 1 launches of its pass
-kernel); residual; tower_down and tower_up, each a whole depth chain in one
+kernel); residual and residual_restrict, the two forms of one march
+(csrc/residual.cu: the residual whole, or restricted by full weighting in
+the same launch); tower_down and tower_up, each a whole depth chain in one
 cooperative launch (csrc/tower.cu); wavefront_relax and multisweep_relax,
 two wrappers of one kernel, and multisweep_relax_halo /
 multisweep_relax_tiled_pre, the same march on one shard of a sharded level
@@ -18,9 +20,9 @@ kernel runs. A run on the GPU can thereby show that its path went through
 the kernels and never through a plain version.
 """
 
-KERNELS = ("gsrb_relax", "residual", "tower_down", "tower_up",
-           "wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
-           "multisweep_relax_tiled_pre")
+KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
+           "tower_up", "wavefront_relax", "multisweep_relax",
+           "multisweep_relax_halo", "multisweep_relax_tiled_pre")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}

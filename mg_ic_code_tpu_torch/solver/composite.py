@@ -225,6 +225,7 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
     nl = spec.num_levels
     r = list(r_list)
     e: list = [None] * nl
+    copied: set = set()  # parents whose r is this V-cycle's own copy
 
     # downsweep: depths descending — every child restricts into its parent
     # before the parent's depth runs
@@ -234,12 +235,13 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
             cl = _lp(coefs[l], use_lp)
             el = torch.zeros_like(r[l])
             el = mg.relax(ls, cl, 0, el, r[l], spec.nsmooth)
-            res_l = mg.residual_homog(ls, cl, 0, el, r[l])
-            rc = st.restrict_full(res_l)
             p = geom.parent[l]
-            rp = r[p].clone()
-            rp[geom.child_slices(p, l)] = rc
-            r[p] = rp
+            if p not in copied:  # r[p] may be the caller's tensor
+                r[p] = r[p].clone()
+                copied.add(p)
+            # the restricted residual written over the covered part
+            mg.residual_restrict_homog(ls, cl, 0, el, r[l],
+                                       out=r[p][geom.child_slices(p, l)])
             e[l] = el
 
     e[0] = mg.mg_vcycle(

@@ -5,7 +5,7 @@ operator's level contract (VariableCoeffPoissonOperator.cpp):
   * relax            — numMGsmooth red-black GSRB sweeps, each colour
                        preceded by a homogeneous ghost refresh (levelGSRB)
   * residual/restrict— fused residual + full-weighting restriction
-                       (restrictResidual)
+                       (restrictResidual; residual_restrict_homog)
   * mg_vcycle        — V-cycle down the depth chain built by MGnewOp, with
                        coefficients pre-coarsened arithmetically or
                        harmonically
@@ -422,6 +422,27 @@ def residual_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs):
     )
 
 
+def residual_restrict_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs,
+                            out=None):
+    """restrict_full(rhs - L(u)) with homogeneous ghosts, into `out` (an
+    (nx/2, ny/2, nz/2) tensor or view, e.g. the covered part of a parent
+    level) or a new tensor: on the kernel path of a depth on one device the
+    residual kernel's restricted form (one launch, the fine residual never
+    written), else restrict_full of residual_homog (a depth cut over a
+    mesh: parallel/halo's sharded residual). The one dispatch of both
+    places that restrict a residual: the AMR downsweep and the staged
+    depths of mg_vcycle."""
+    if _kernels_allowed(spec, u) and _shard_counts(spec, d) == (1, 1, 1):
+        from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
+
+        return fs.residual_restrict(
+            u.contiguous(), rhs.contiguous(), coefs["a"][d], coefs["b"][d],
+            out=out, **_level_kw(spec, d),
+        )
+    rc = st.restrict_full(residual_homog(spec, coefs, d, u, rhs))
+    return rc if out is None else out.copy_(rc)
+
+
 def apply_homog(spec: LevelMGSpec, coefs: dict, d: int, u):
     return st.apply_op(
         _ghost(spec, d, u), coefs["a"][d], coefs["b"][d],
@@ -488,10 +509,15 @@ def mg_vcycle(spec: LevelMGSpec, coefs: dict, u, rhs, d: int = 0):
             return ct.tower_vcycle(spec, coefs, d, u, rhs)
     u = relax(spec, coefs, d, u, rhs, spec.nsmooth)
     if d + 1 < spec.ndepths:
-        rc = st.restrict_residual(
-            _ghost(spec, d, u), rhs, coefs["a"][d], coefs["b"][d],
-            spec.alpha, spec.beta, spec.dx[d],
-        )
+        if _shard_counts(spec, d) == (1, 1, 1):
+            rc = residual_restrict_homog(spec, coefs, d, u, rhs)
+        else:
+            # a depth cut over a mesh restricts the whole level's staged
+            # residual, as the JAX package's sharded arrays do
+            rc = st.restrict_residual(
+                _ghost(spec, d, u), rhs, coefs["a"][d], coefs["b"][d],
+                spec.alpha, spec.beta, spec.dx[d],
+            )
         ec = torch.zeros_like(rc)
         for _ in range(max(spec.num_mg, 1)):
             ec = mg_vcycle(spec, coefs, ec, rc, d + 1)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the one-launch kernels of two trees (or more) against each other on
-one card: the march, the coarse towers and gsrb_relax, with the residual as
-a control that should not move.
+one card: the march, the coarse towers, gsrb_relax and the residual (whole
+and restricted), and one preconditioner application end to end.
 
     git archive <parent> | tar -x -C build/ab_parent   # where git is
     python3 scripts/march_ab.py --parent build/ab_parent \
@@ -18,8 +18,9 @@ f32 times of every timed case of the march (the whole-level kernel under
 `wavefront_relax` and `multisweep_relax`, the shard kernels under
 `multisweep_relax_halo` and `multisweep_relax_tiled_pre`; 2 sweeps per
 launch), of the towers (`tower_down`, `tower_up`: a depth chain, 4 sweeps
-per depth) and of `gsrb_relax` (4 sweeps) and `residual` at every timed
-level case are read from each run's kernels line. In every tree the same
+per depth) and of `gsrb_relax` (4 sweeps), `residual` and
+`residual_restrict` (where the tree has it) at every timed level case are
+read from each run's kernels line. In every tree the same
 probe also times each tower wrapper call on the host clock (its checks,
 allocation and launches, in the kernels phase's own calls; reported per
 case as the median over the run's calls, `host_us`), and, after the
@@ -29,7 +30,16 @@ SHARD_CASES shards, into device time (this tree's `chip_smoke.device_ms`:
 the batch enqueued behind a wait) and host time (`chip_smoke.host_us`),
 and times the whole-level march's device time at its timed cases, under
 "split"; the towers' and gsrb_relax's device times from the kernels line
-("<kernel> <case> device_ms" under "cases"). The JSON written to --out holds
+("<kernel> <case> device_ms" under "cases"). Last, the same probe times one
+preconditioner application (composite.precond, two AMR V-cycles in f32)
+on the 7-level hierarchy and on the periodic box from the initial psi: the
+wall time to completion on the card, the host's time to enqueue it from an
+idle card, and the card's busy time (the kernels and copies torch.profiler
+sees), with the wrapper calls it made; and the staged chain the periodic
+box's 256^3 depth was restricted with before the fused kernel
+(stencils.restrict_residual of the ghost-filled level, f32) beside
+`residual_restrict` where the tree has it, under "precond". A case a tree
+lacks is left out of that tree's columns. The JSON written to --out holds
 every run's times and, per case, each tree's runs, median and spread
 (largest over smallest of its runs, minus one) and each tree's speed-up
 over A (A's median over its own), for the times under "cases", the host
@@ -51,7 +61,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MARCH = ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
          "multisweep_relax_tiled_pre", "tower_down", "tower_up",
-         "gsrb_relax", "residual")
+         "gsrb_relax", "residual", "residual_restrict")
 TOWERS = ("tower_down", "tower_up")
 
 # Run in every tree after its chip_smoke module is imported: wraps the tower
@@ -96,12 +106,16 @@ with torch.no_grad():
             continue
         _f = chip_smoke.level_fields(_c[1], torch.float32, seed=1)
         _kw = dict(kinds=_c[2], rho=_c[4], alpha=1.0, beta=-1.0, dx=0.37)
-        for _name, _fn in (
-                ("gsrb_relax", lambda: chip_smoke.fs.gsrb_relax(
+        _fns = [("gsrb_relax", lambda: chip_smoke.fs.gsrb_relax(
                     _f["u"], _f["rhs"], _f["a"], None, nsweeps=4, lo=_c[3],
                     **_kw)),
                 ("residual", lambda: chip_smoke.fs.residual(
-                    _f["u"], _f["rhs"], _f["a"], None, **_kw))):
+                    _f["u"], _f["rhs"], _f["a"], None, **_kw))]
+        if hasattr(chip_smoke.fs, "residual_restrict"):
+            _fns.append(("residual_restrict",
+                         lambda: chip_smoke.fs.residual_restrict(
+                             _f["u"], _f["rhs"], _f["a"], None, **_kw)))
+        for _name, _fn in _fns:
             _split[f"{_name} {_c[0]}"] = {"device_ms": device_ms(_fn),
                                          "host_us": host_us(_fn)}
     for _name, (_fn, _, _, _cases) in chip_smoke.one_launch_kernels().items():
@@ -137,6 +151,93 @@ with torch.no_grad():
                                      "host_us": host_us(_fn)}
 print(json.dumps({"phase": "gsrb_split", "split": _split}), flush=True)
 """
+# Run in every tree after the split probe: one preconditioner application
+# on each PRECOND_CASES configuration, and the staged 256^3 chain, printed
+# as one line (see the module docstring).
+PRECOND_PROBE = """
+def _busy_ms(fn):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in prof.key_averages())
+    return total / 1e3 if total else None  # us -> ms; None: nothing seen
+
+
+def _clock_ms(fn, sync, reps=15):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _timed(fn):
+    return {"wall_ms": _clock_ms(fn, True), "host_ms": _clock_ms(fn, False),
+            "busy_ms": _busy_ms(fn)}
+
+
+_precond = {}
+with torch.no_grad():
+    for _label, _over, _params in PRECOND_CASES:
+        _params = getattr(chip_smoke, _params)
+        _cfg = chip_smoke.mgt.load_params(_params, overrides=list(_over))
+        _geom = chip_smoke.generate_hierarchy(_cfg)
+        _dev = torch.device("cuda")
+        _spec = chip_smoke.comp.make_amr_spec(_geom, _cfg, _dev)
+        _fields = [chip_smoke.ld.problem_fields(_geom, _cfg, l, torch.float64,
+                                                _dev)
+                   for l in range(_geom.num_levels)]
+        _psi = chip_smoke.ld.initial_state(_geom, _cfg, torch.float64,
+                                           _dev)["psi"]
+        _a, _rhs, _ = chip_smoke.nl.prepare_iteration(_geom, _cfg, _fields,
+                                                      _psi)
+        _coefs = chip_smoke.comp.build_coefs(_spec, _a)
+        _run = lambda: chip_smoke.comp.precond(_spec, _coefs, _rhs)
+        _run()
+        torch.cuda.synchronize()
+        _k0 = dict(chip_smoke.kernel_counts.LAUNCHES)
+        _run()
+        _calls = {k: v - _k0[k]
+                  for k, v in chip_smoke.kernel_counts.LAUNCHES.items()
+                  if v != _k0[k]}
+        for _k, _v in _timed(_run).items():
+            _precond[f"{_label} {_k}"] = _v
+        _precond[f"{_label} calls"] = _calls
+        del _spec, _fields, _psi, _a, _rhs, _coefs, _run
+        torch.cuda.empty_cache()
+    _spec = chip_smoke.chain_spec((256, 256, 256), (0, 0, 0), chip_smoke.ALL_P,
+                                  dx0=0.0625)
+    _f = chip_smoke.level_fields((256, 256, 256), torch.float32, seed=2)
+    _stage = lambda: chip_smoke.st.restrict_residual(
+        chip_smoke.mg._ghost(_spec, 0, _f["u"]), _f["rhs"], _f["a"], None,
+        _spec.alpha, _spec.beta, _spec.dx[0])
+    for _k, _v in _timed(_stage).items():
+        _precond[f"staged_256 {_k}"] = _v
+    if hasattr(chip_smoke.fs, "residual_restrict"):
+        _fused = lambda: chip_smoke.fs.residual_restrict(
+            _f["u"], _f["rhs"], _f["a"], None, kinds=chip_smoke.ALL_P,
+            rho=_spec.rho[0], alpha=_spec.alpha, beta=_spec.beta,
+            dx=_spec.dx[0])
+        for _k, _v in _timed(_fused).items():
+            _precond[f"fused_256 {_k}"] = _v
+print(json.dumps({"phase": "precond_probe", "precond": _precond}),
+      flush=True)
+"""
+PRECOND_CASES = (
+    ("scale7", ("max_level = 6", "precond_precision = single",
+                "verbosity = 0"), "CANONICAL"),
+    ("periodic", ("precond_precision = single", "verbosity = 0"),
+     "PERIODIC"))
 SPLIT_CASES = ("path_l0_64", "path_l1_96x80x80", "path_l2_128x80x80",
                "path_l3_176x64x64", "path_l4_272x80x80")
 PHASES = "env,build,kernels"
@@ -173,7 +274,8 @@ def runner() -> str:
             "    k: statistics.median(v) for k, v in _host.items()}}),\n"
             "    flush=True)\n"
             + timer_source("device_ms") + "\n" + timer_source("host_us")
-            + f"\nSPLIT_CASES = {SPLIT_CASES!r}\n" + SPLIT_PROBE +
+            + f"\nSPLIT_CASES = {SPLIT_CASES!r}\n" + SPLIT_PROBE
+            + f"PRECOND_CASES = {PRECOND_CASES!r}\n" + PRECOND_PROBE +
             "sys.exit(rc)\n")
 
 
@@ -223,6 +325,16 @@ def split_times(stdout: str) -> dict:
     raise RuntimeError("no gsrb_split line in the run's output")
 
 
+def precond_times(stdout: str) -> dict:
+    """{"<case> wall_ms|host_ms|busy_ms": value} and the wrapper calls of
+    one application ("<case> calls"): the precond probe's line of one
+    run."""
+    for line in stdout.splitlines():
+        if line.startswith("{") and '"phase": "precond_probe"' in line:
+            return json.loads(line)["precond"]
+    raise RuntimeError("no precond_probe line in the run's output")
+
+
 def build_seconds(stdout: str):
     for line in stdout.splitlines():
         if line.startswith("{") and '"phase": "build"' in line:
@@ -245,26 +357,32 @@ def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
     return ({"times": march_times(kernels_record(proc.stdout)),
              "host_us": host_times(proc.stdout),
              "split": split_times(proc.stdout),
+             "precond": precond_times(proc.stdout),
              "build_s": build_seconds(proc.stdout)},
             time.perf_counter() - t0)
 
 
 def summarize(runs: list, trees, field: str = "times") -> dict:
-    """Per case of `field`: each tree's runs, median and spread, and its
-    speed-up over tree A."""
-    cases = sorted(set.intersection(*(set(r[field]) for r in runs)))
+    """Per numeric case of `field`: each tree's runs, median and spread
+    (the trees that have it), and its speed-up over tree A where A has it
+    too."""
+    cases = sorted(set.union(*(set(r[field]) for r in runs)))
     out = {}
     for case in cases:
         row = {}
         for tree in trees:
-            ts = [r[field][case] for r in runs if r["tree"] == tree]
+            ts = [r[field][case] for r in runs if r["tree"] == tree
+                  and isinstance(r[field].get(case), (int, float))]
+            if not ts:
+                continue
             row[tree] = ts
             row[f"{tree}_median"] = statistics.median(ts)
             row[f"{tree}_spread"] = max(ts) / min(ts) - 1.0
         for tree in trees:
-            if tree != "A":
+            if tree != "A" and "A" in row and tree in row:
                 row[f"{tree}_speedup"] = row["A_median"] / row[f"{tree}_median"]
-        out[case] = row
+        if row:
+            out[case] = row
     return out
 
 
@@ -312,20 +430,25 @@ def main() -> int:
               "roots": roots, "runs": runs,
               "cases": summarize(runs, list(roots)),
               "host_us": summarize(runs, list(roots), "host_us"),
-              "split": summarize(runs, list(roots), "split")}
+              "split": summarize(runs, list(roots), "split"),
+              "precond": summarize(runs, list(roots), "precond")}
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     for case, row in result["cases"].items():
         print(case + ": " + ", ".join(
             f"{t} {row[t + '_median']:.4f} ms"
-            + (f" x{row[t + '_speedup']:.3f}" if t != "A" else "")
-            for t in roots), flush=True)
+            + (f" x{row[t + '_speedup']:.3f}" if t + "_speedup" in row
+               else "")
+            for t in roots if t in row), flush=True)
     for case, row in result["host_us"].items():
         print(case + " host: " + ", ".join(
-            f"{t} {row[t + '_median']:.1f} us" for t in roots), flush=True)
-    for case, row in result["split"].items():
-        print(case + ": " + ", ".join(
-            f"{t} {row[t + '_median']:.4g}" for t in roots), flush=True)
+            f"{t} {row[t + '_median']:.1f} us" for t in roots if t in row),
+            flush=True)
+    for field in ("split", "precond"):
+        for case, row in result[field].items():
+            print(case + ": " + ", ".join(
+                f"{t} {row[t + '_median']:.4g}" for t in roots if t in row),
+                flush=True)
     return 0
 
 

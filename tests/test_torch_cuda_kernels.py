@@ -651,3 +651,48 @@ def test_cuda_sharded_relax_on_one_card(kinds, mshape):
     ref = tfs.multisweep_relax(f["u"], f["rhs"], f["a"], nsweeps=2, **kw)
     ref = tfs.multisweep_relax(ref, f["rhs"], f["a"], nsweeps=2, **kw)
     assert float((out - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+
+
+# residual_restrict's forms (fused_sweeps.residual_form): (shape, kinds,
+# with_b, misaligned): 16 bytes a thread with every face kind, nz = 2 mod 4
+# (two cells a thread in f32), operands off a 16-byte boundary (two cells a
+# thread, one copy a cell), all periodic with variable b
+RESTRICT_CASES = [
+    ((16, 24, 20), KINDS, False, False),
+    ((12, 10, 18), ((C, C), ("periodic", "periodic"), (D, N)), True, False),
+    ((12, 10, 16), KINDS, False, True),
+    ((8, 8, 8), (("periodic", "periodic"),) * 3, True, False),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", RESTRICT_CASES,
+                         ids=["vec", "nz_2_mod_4", "misaligned",
+                              "periodic_var_b"])
+def test_cuda_residual_restrict_matches_plain(case, dt):
+    """residual_restrict against its plain version, one launch a call, bit
+    for bit restrict_full of the residual kernel's output, and into a
+    strided slice of a parent that it leaves untouched elsewhere."""
+    _need_cuda()
+    shape, kinds, with_b, misaligned = case
+    npdt, rtol = DTYPES[dt]
+    f = {k: torch.from_numpy(v).cuda() for k, v in fields(shape, npdt).items()}
+    if misaligned:
+        f = {k: _misaligned(v) for k, v in f.items()}
+    args = (f["u"], f["rhs"], f["a"], f["b"] if with_b else None)
+    kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.25)
+    ref = tfs.residual_restrict_plain(*args, **kw)
+    kernel_counts.reset()
+    out = tfs.residual_restrict(*args, **kw)
+    assert kernel_counts.DEVICE_LAUNCHES["residual_restrict"] == 1
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+    assert torch.equal(out, tfs.restrict_full(tfs.residual(*args, **kw)))
+    half = tuple(n // 2 for n in shape)
+    parent = torch.full(tuple(n + 2 for n in half), -7.0, dtype=out.dtype,
+                        device="cuda")
+    view = parent[1:1 + half[0], 2:2 + half[1], :half[2]]
+    tfs.residual_restrict(*args, out=view, **kw)
+    assert torch.equal(view, out)
+    parent[1:1 + half[0], 2:2 + half[1], :half[2]] = -7.0
+    assert bool((parent == -7.0).all())

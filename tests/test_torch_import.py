@@ -237,7 +237,8 @@ def test_kernel_sources_are_listed_and_the_build_directory_is_ignored():
     for entry in ("mgk_gsrb_relax", "mgk_gsrb_pass", "mgk_residual",
                   "mgk_multisweep_relax", "mgk_multisweep_halo",
                   "mgk_multisweep_pre", "mgk_tower_down", "mgk_tower_up",
-                  "mgk_tower_capacity", "mgk_tower_barriers"):
+                  "mgk_tower_capacity", "mgk_tower_barriers",
+                  "mgk_residual_capacity"):
         assert f'extern "C" int {entry}(' in text, entry
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "build/" in ignored
