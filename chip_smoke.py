@@ -12,7 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
            and registers and spill stores of every march instantiation
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            f32 and f64, at the level shapes each path gives it (the
-           canonical 7 levels; the periodic box's 256^3, its all-periodic
+           canonical 7 levels and the six patch shapes of its patches
+           forest, two of them also at an odd lo; the periodic box's
+           256^3, its all-periodic
            tower chain from 128^3 and its 4^3 bottom; the sharded paths'
            16^3 tower chains, 8^3 and 4^3 depths) and at awkward ones
            (odd parity offset, mixed faces, periodic axes, one wrapped x
@@ -51,17 +53,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
            five kernels small levels take (gsrb_relax, the residual whole
            and restricted, the towers), each call one launch, the
            residual's two forms as often as the preconditioner's structure
-           says (RESIDUAL_CALLS, also in scale7 and periodic), and through
+           says (RESIDUAL_CALLS, also in periodic; scale7 and records
+           derive theirs from the hierarchy: residual_calls_of), and through
            no plain version;
            the same solve with the staged smoother (no kernels) must agree
   lock3    max_level = 2 against the recorded first-step norm and plateau
   scale7   max_level = 6 (7 levels, 28.5M refined cells), 3 Picard steps,
            against the recorded f64 history; the levels too big for the L2 cache
-           must have gone through the wavefront kernel, the same number of
-           times in each iteration. Then, in a separate pass that the
+           must have gone through the wavefront kernel, and every relax and
+           residual kernel called as often as the hierarchy implies, the
+           same calls in each iteration of equal Krylov count (check_route,
+           as in records). Then, in a separate pass that the
            timed run does not see, the phase split of one steady
            iteration (prepare / coefs / apply / precond / norm / solve /
            finish), each phase timed to completion on the card
+  records  max_level = 6 held to the three recorded histories of docs/
+           (RECORDS): the plain run carried to 6 entries with the f32
+           preconditioner (steps 1-3 as scale7, entries 4-6 a plateau
+           flat to 1 % in [1.25e-7, 1.92e-7], bracketing the recorded
+           f32 plateau 1.586e-7, the f64 one 1.822e-7 and this path's
+           1.3146e-7: PLATEAU7 says why) and with the f64
+           one (no kernel; entries 1-2 to 1e-7 of the f64 record, 3-6 to
+           1e-3, Krylov 2 each, +-1 from entry 4), its s/iteration and
+           peak memory beside the f32 run's; average_down = 1 on the
+           bounding box (canonical_7level_avgdown_result.json: step 1 to
+           1e-5 of 0.27342222391586096, steps 2-4 to 2 %, entry 7 <= 5e-10,
+           converged below 1e-10 by entry 8, Krylov within one of
+           2,2,2,3,3,3,3,2) and on the patches forest
+           (canonical_7level_patches_avgdown_result.json: its 13 boxes,
+           step 1 to 1e-5 of 0.2701168366859994, the same limits, Krylov
+           within one of 2,3,2,2,3,3,3,2), the forest once more with the
+           staged smoother (step 1 to 1e-5). Each run with kernels is held
+           to the route its hierarchy implies (check_route)
   periodic the periodic scalar-field box (params/periodic.txt: is_periodic
            = 1, the constant-K branch, the triple-sine field) at its full
            256^3, 3 Picard steps: K finite and negative, a contracting
@@ -106,13 +129,15 @@ kernels (x-slabs / pencils), device_launches = the kernel launches those
 calls enqueued, error against the plain version, time, plain time and bound
 at that path's shape; the same for the 4-level solve; and under "paths" the
 same numbers for EVERY path the kernel is on, each at that path's own
-shape), the nvidia-smi line, and the final {"ok": true, "device": {...}}
+shape, and for the patches path its wrapper calls by level shape), the
+nvidia-smi line, and the final {"ok": true, "device": {...}}
 line.
 
 The recorded values are the Picard histories of the same configuration in
 double precision on a CPU (7 levels: 0.27342222391586096 ->
 1.0170868859107062e-4 -> 2.888833383836128e-7; 3 levels, first step:
-0.2643130351285558).
+0.2643130351285558), and for the records phase the files of docs/ it
+names.
 """
 
 from __future__ import annotations
@@ -507,6 +532,25 @@ LEVEL_CASES = [
     # 7-level hierarchy's 4^3 bottom (its base chain's tower starts at 16^3)
     ("sharded_pencil_8_P", (8, 8, 8), ALL_P, (0, 0, 0), 2.0, False, True),
     ("path_bottom_4", (4, 4, 4), ALL_D, (0, 0, 0), 2.0, False, True),
+    # the six patch shapes of the canonical patches hierarchy (records
+    # phase), each at the lo of its first patch there: depth 4 72x80x80 and
+    # 48^3, depth 5 104x96x96 and 64^3, depth 6 144^3 and 112^3. Every lo
+    # there is a multiple of 8 (block_factor), so two of the shapes also
+    # run at an odd one
+    ("patch_d4_72x80x80", (72, 80, 80), ALL_C, (376, 472, 472), 2.0, False,
+     True),
+    ("patch_d4_48", (48, 48, 48), ALL_C, (488, 488, 488), 2.0, False, True),
+    ("patch_d5_104x96x96", (104, 96, 96), ALL_C, (768, 976, 976), 2.0,
+     False, True),
+    ("patch_d5_64", (64, 64, 64), ALL_C, (992, 992, 992), 2.0, False, True),
+    ("patch_d6_144", (144, 144, 144), ALL_C, (1568, 1976, 1976), 2.0, False,
+     True),
+    ("patch_d6_112", (112, 112, 112), ALL_C, (1992, 1992, 1992), 2.0, False,
+     True),
+    ("patch_72x80x80_odd_lo", (72, 80, 80), ALL_C, (377, 472, 472), 2.0,
+     False, False),
+    ("patch_144_odd_lo", (144, 144, 144), ALL_C, (1568, 1977, 1976), 2.0,
+     False, False),
 ]
 
 # wavefront cases: (id, shape, kinds, lo, rho, timed). The first four are
@@ -536,6 +580,12 @@ WAVE_CASES = [
     ("tile44_odd_lo", (40, 72, 36), ((D, C), (N, D), (C, N)), (3, 1, 8), 2.0,
      False),
     ("ragged_144", (20, 144, 144), ALL_C, (1, 0, 0), 2.0, False),
+    # the largest patch of the canonical patches hierarchy: relax_kernel_plan
+    # keeps it on gsrb_relax (its four f32 arrays fit the L2), so the march
+    # is held and timed here beside gsrb_relax at the same shape
+    ("patch_d6_144", (144, 144, 144), ALL_C, (1568, 1976, 1976), 2.0, True),
+    ("patch_144_odd_lo", (144, 144, 144), ALL_C, (1569, 1976, 1976), 2.0,
+     False),
 ]
 
 # multisweep cases: (id, shape, kinds, lo, rho, timed). The first is
@@ -1473,8 +1523,9 @@ def run_solve(overrides, label: str, keep: dict | None = None,
         "levels": [list(b.shape) for b in geom.boxes],
         "history": res.dpsi_norm_history, "linear_iters": res.linear_iters,
         "linear_residuals": res.linear_residuals,
-        "constant_K": res.constant_K,
-        "K_history": k_hist + [res.constant_K], "hierarchy_s": t_hier, "s_per_iteration": per_iter,
+        "constant_K": res.constant_K, "converged": res.converged,
+        "K_history": k_hist + [res.constant_K], "hierarchy_s": t_hier,
+        "s_per_iteration": per_iter,
         "kernel_order": list(kernel_counts.KERNELS),
         "kernel_calls_per_iteration": calls_per_iter,
         "memory_reserved_per_iteration": reserved[1:],
@@ -1587,46 +1638,94 @@ def phase_split(cfg, geom, psi, reps: int = 2) -> dict:
 # each V-cycle its depth (residual); the periodic box restricts its staged
 # 256^3 depth once a V-cycle
 RESIDUAL_CALLS = {"solve": {"residual": 4 + 2, "residual_restrict": 2 * 3},
-                  "scale7": {"residual": 7 + 2, "residual_restrict": 2 * 6},
                   "periodic": {"residual": 1 + 2, "residual_restrict": 2}}
 
 
-def check_residual_calls(run: dict, what: str) -> None:
-    """Every Picard iteration made RESIDUAL_CALLS[what] calls of each form
-    of the residual per preconditioner application."""
+def check_residual_calls(run: dict, what: str,
+                         per_application: dict | None = None) -> None:
+    """Every Picard iteration made RESIDUAL_CALLS[what] (or
+    `per_application`) calls of each form of the residual per
+    preconditioner application."""
+    per_application = per_application or RESIDUAL_CALLS[what]
     for calls, krylov in zip(run["kernel_calls_per_iteration"],
                              run["linear_iters"]):
-        for name, n in RESIDUAL_CALLS[what].items():
+        for name, n in per_application.items():
             got = calls[kernel_counts.KERNELS.index(name)]
             check(got == 2 * krylov * n,
                   f"{what}: {got} {name} calls in an iteration of {krylov} "
                   f"Krylov iterations, not {2 * krylov * n}")
 
 
-def check_wave_path(run: dict, counts: dict, what: str) -> None:
-    """The big levels went through the wavefront kernel: calls in every
-    Picard iteration, the same number wherever the Krylov count is the
-    same, every kernel launched, and no plain version."""
-    w = kernel_counts.KERNELS.index("wavefront_relax")
-    per_iter = [c[w] for c in run["kernel_calls_per_iteration"]]
-    check(all(n > 0 for n in per_iter),
-          f"{what}: an iteration made no wavefront_relax call: {per_iter}")
-    by_iters: dict = {}
-    for n, it in zip(per_iter, run["linear_iters"]):
-        by_iters.setdefault(it, set()).add(n)
-    check(all(len(v) == 1 for v in by_iters.values()),
-          f"{what}: wavefront_relax calls differ between iterations of "
-          f"equal Krylov count: {per_iter} {run['linear_iters']}")
-    check(all(counts["launches"][k] > 0 for k in CANONICAL_KERNELS),
-          f"{what}: a kernel was never launched: {counts}")
-    check(counts["launches"]["multisweep_relax"] == 0,
-          f"{what}: the multisweep rung ran with x not periodic: {counts}")
+def relax_calls_of(spec) -> dict:
+    """Wrapper calls of the relax kernels per preconditioner application,
+    by kernel and level shape ("nx x ny x nz"), on a hierarchy whose base
+    chain runs in the towers: every refined entry relaxes twice a V-cycle
+    (the downsweep and the post-smooth with CF ghosts), each relax the
+    launches relax_kernel_plan gives its shape at f32 on the card."""
+    kernel = {"resident": "gsrb_relax", "wave": "wavefront_relax",
+              "multisweep": "multisweep_relax"}
+    out: dict = {name: {} for name in kernel.values()}
+    for e in range(1, spec.num_levels):
+        ls = spec.level_specs[e]
+        shape = ls.boxes[0].shape
+        key = "x".join(map(str, shape))
+        for kind, _ in mg.plan_for(ls, shape, torch.float32, "cuda",
+                                   spec.nsmooth):
+            calls = out[kernel[kind]]
+            calls[key] = calls.get(key, 0) + 2 * spec.num_mg_iterations
+    return out
+
+
+def residual_calls_of(spec) -> dict:
+    """RESIDUAL_CALLS for any hierarchy whose base chain goes into the
+    tower at its top depth: the composite residual between V-cycles takes
+    every entry whole and each V-cycle's bottom solve its depth (residual);
+    every refined entry restricts its residual into its parent once a
+    V-cycle (residual_restrict)."""
+    geom, nmg = spec.geom, spec.num_mg_iterations
+    entries = sum(len(geom.entries_at_depth(d))
+                  for d in range(geom.max_depth + 1))
+    return {"residual": (nmg - 1) * entries + nmg,
+            "residual_restrict": nmg * (entries - 1)}
+
+
+def check_route(run: dict, counts: dict, spec, what: str) -> None:
+    """The kernels of a run on the canonical hierarchy (scale7, records):
+    each relax kernel called at each level shape as often as the hierarchy
+    and the Krylov counts imply (relax_calls_of), the residual's two forms
+    likewise (residual_calls_of), the same calls in every iteration of
+    equal Krylov count; every kernel those imply and the towers launched
+    and no other, each tower, gsrb_relax and residual call one launch; no
+    plain version."""
+    apps = 2 * sum(run["linear_iters"])
+    want = {name: {k: n * apps for k, n in calls.items()}
+            for name, calls in relax_calls_of(spec).items()}
+    check(counts["by_shape"] == want,
+          f"{what}: relax calls by shape {counts['by_shape']}, the "
+          f"hierarchy implies {want}")
+    check(ct.tower_supported(
+        spec.level_specs[0], {"b": (None,) * spec.level_specs[0].ndepths},
+        0), f"{what}: the base chain does not start in the tower")
+    launched = set(SMALL_LEVEL_KERNELS) | {k for k, v in want.items() if v}
+    check(all(counts["launches"][k] > 0 for k in launched)
+          and all(counts["launches"][k] == 0 for k in kernel_counts.KERNELS
+                  if k not in launched),
+          f"{what}: kernels launched {counts['launches']}, the path takes "
+          f"{sorted(launched)}")
     check(counts["device_launches"]["wavefront_relax"]
           == counts["launches"]["wavefront_relax"],
           f"{what}: wavefront_relax is not one launch per call")
     check_one_launch(counts, what)
     check(all(v == 0 for v in counts["plain_calls"].values()),
           f"{what}: a plain version ran on the card's path: {counts}")
+    by_iters: dict = {}
+    for calls, n_it in zip(run["kernel_calls_per_iteration"],
+                           run["linear_iters"]):
+        by_iters.setdefault(n_it, set()).add(tuple(calls))
+    check(all(len(v) == 1 for v in by_iters.values()),
+          f"{what}: kernel calls differ between iterations of equal Krylov "
+          f"count: {run['kernel_calls_per_iteration']}")
+    check_residual_calls(run, what, residual_calls_of(spec))
 
 
 def wave_plan_table() -> dict:
@@ -1646,10 +1745,11 @@ def wave_plan_table() -> dict:
 @contextlib.contextmanager
 def calls_by_shape(names=("gsrb_relax", "wavefront_relax",
                           "multisweep_relax")):
-    """Counts the calls of the named relax wrappers by level shape while the
-    block runs (the wrappers the solver reaches through their modules);
-    yields {name: {"nx x ny x nz": calls}}."""
-    mods = {"gsrb_relax": fs, "wavefront_relax": wf, "multisweep_relax": fs}
+    """Counts the calls of the named relax (or residual) wrappers by level
+    shape while the block runs (the wrappers the solver reaches through
+    their modules); yields {name: {"nx x ny x nz": calls}}."""
+    mods = {"gsrb_relax": fs, "wavefront_relax": wf, "multisweep_relax": fs,
+            "residual": fs, "residual_restrict": fs}
     seen: dict = {n: {} for n in names}
     saved = {n: getattr(mods[n], n) for n in names}
 
@@ -1686,8 +1786,8 @@ def phase_scale7() -> dict:
     check(rel2 <= 2e-2, f"7-level step 2 {h[1]} vs {SCALE7[1]}")
     check(h[2] < 1e-6, f"7-level step 3 {h[2]}")
     check(all(i <= 3 for i in it), f"7-level linear iters {it}")
-    check_wave_path(run, counts, "scale7")
-    check_residual_calls(run, "scale7")
+    check_route(run, dict(counts, by_shape=by_shape),
+                comp.make_amr_spec(keep["geom"], keep["cfg"]), "scale7")
     split = phase_split(keep["cfg"], keep["geom"], keep["res"].psi)
     keep.clear()
     torch.cuda.empty_cache()
@@ -1699,6 +1799,170 @@ def phase_scale7() -> dict:
            "relax_plan_4_sweeps": wave_plan_table(), "split": split,
            # wrapper calls by level shape over the run's Picard iterations
            "relax_calls_by_shape": by_shape, **run}
+    emit(out)
+    return out
+
+
+# --------------------------------------------------------------- records
+
+# the recorded histories of the canonical configuration at max_level = 6
+# (docs/): the plain run in f64 on a CPU, and the two average_down runs
+# (bounding box, patches), each converged below 1e-10 at entry 8 with an f32
+# preconditioner
+RECORDS = {"plain": "canonical_7level_result.json",
+           "avgdown": "canonical_7level_avgdown_result.json",
+           "patches_avgdown": "canonical_7level_patches_avgdown_result.json"}
+RECORDS_BASE = ["max_level = 6", "verbosity = 0"]
+# entries 4-6 of the plain run with the f32 preconditioner: a flat plateau
+# (max / min <= PLATEAU7_FLAT) in a range that brackets the recorded f32
+# plateau (1.586e-7, docs/canonical_7level_tpu_result.json), the f64 one
+# (1.822e-7) and this path's own. The plateau is what the covered coarse
+# cells, which no norm sees and only average_down resets, carry from the
+# first steps: an f32 preconditioner's rounding of them moves it. On an
+# H100 the kernels read 1.3146e-7, the same f32 preconditioner with
+# smoother = xla (no kernel) 2.0187e-7, the f64 one 1.8218e-7 (the f64
+# record to 4e-6): scripts/records_probe.py. The low end is 5 % below the
+# kernels' reading, the margin the high end keeps above the f64 record.
+PLATEAU7 = (1.25e-7, 1.92e-7)
+PLATEAU7_FLAT = 1.01
+# the patches runs: the base and three single levels (SCALE7_SHAPES[:4]),
+# then three sibling patches at each of depths 4-6
+PATCHES = ["level_decomposition = patches", "average_down = 1",
+           "max_NL_iterations = 12", "precond_precision = single"]
+
+
+def record(name: str) -> dict:
+    with open(os.path.join(ROOT, "docs", RECORDS[name])) as f:
+        return json.load(f)
+
+
+def levels_by_depth(geom) -> list:
+    """Entry shapes per refinement depth, the `levels` of a record."""
+    return [[list(geom.boxes[e].shape) for e in geom.entries_at_depth(d)]
+            for d in range(geom.max_depth + 1)]
+
+
+def records_solve(overrides, label: str) -> tuple:
+    """run_solve at max_level = 6 with the counters and the relax calls by
+    shape of that run alone; its AMR spec, for what the run implies."""
+    keep: dict = {}
+    kernel_counts.reset()
+    with calls_by_shape() as by_shape:
+        run = run_solve(RECORDS_BASE + list(overrides), label, keep)
+    counts = dict(kernel_counts.snapshot(), by_shape=by_shape)
+    spec = comp.make_amr_spec(keep["geom"], keep["cfg"])
+    run["levels_by_depth"] = levels_by_depth(keep["geom"])
+    keep.clear()
+    torch.cuda.empty_cache()
+    return run, counts, spec
+
+
+def check_avgdown_record(run: dict, rec: dict, first: float,
+                         what: str) -> dict:
+    """An average_down run against its record: the record's boxes depth by
+    depth, entry 1 within 1e-5 of `first`, entries 2-4 within 2 %, entry 7
+    at most 5e-10, converged below 1e-10 by entry 8, each Krylov count
+    within one of the record's."""
+    h, it, ref = run["history"], run["linear_iters"], rec["history"]
+    check(run["levels_by_depth"] == rec["levels"],
+          f"{what}: boxes {run['levels_by_depth']}, recorded {rec['levels']}")
+    out = {"step1_rel_diff": abs(h[0] - first) / first,
+           "steps2_4_rel_diff": [abs(a - b) / b
+                                 for a, b in zip(h[1:4], ref[1:4])],
+           "recorded_history": ref, "recorded_linear_iters":
+           rec["linear_iters"]}
+    check(out["step1_rel_diff"] <= 1e-5, f"{what}: step 1 {h[0]} vs {first}")
+    check(len(h) >= 4 and max(out["steps2_4_rel_diff"]) <= 2e-2,
+          f"{what}: steps 2-4 {h[1:4]} vs {ref[1:4]}")
+    check(len(h) < 7 or h[6] <= 5e-10, f"{what}: entry 7 {h[6:7]}")
+    check(run["converged"] and len(h) <= 8 and h[-1] < 1e-10,
+          f"{what}: not converged below 1e-10 by entry 8: {h}")
+    check(all(abs(a - b) <= 1 for a, b in zip(it, rec["linear_iters"])),
+          f"{what}: Krylov {it} vs recorded {rec['linear_iters']}")
+    return out
+
+
+def patch_plan_table(spec) -> dict:
+    """The rung relax_kernel_plan gives each refined entry's shape, 4
+    sweeps of an f32 level on the card."""
+    return {"x".join(map(str, spec.geom.boxes[e].shape)): mg.plan_for(
+        spec.level_specs[e], spec.geom.boxes[e].shape, torch.float32,
+        "cuda", 4) for e in range(1, spec.num_levels)}
+
+
+def phase_records() -> dict:
+    plain_rec = record("plain")
+    ref = plain_rec["history"]
+    out = {"phase": "records", "records": {
+        k: os.path.join("docs", v) for k, v in RECORDS.items()}}
+
+    # 1. the plain 7 levels at the f32 preconditioner, to the plateau
+    run, counts, spec = records_solve(
+        ["max_NL_iterations = 6", "precond_precision = single"], "plain_f32")
+    h = run["history"]
+    check(run["levels"] == plain_rec["levels"],
+          f"plain_f32: hierarchy {run['levels']}")
+    check(len(h) == 6, f"plain_f32: {len(h)} entries: {h}")
+    rel = [abs(a - b) / b for a, b in zip(h, ref)]
+    check(rel[0] <= 1e-5 and rel[1] <= 2e-2 and h[2] < 1e-6,
+          f"plain_f32: steps 1-3 {h[:3]} vs {ref[:3]}")
+    plateau = h[3:6]
+    check(all(PLATEAU7[0] <= x <= PLATEAU7[1] for x in plateau)
+          and max(plateau) / min(plateau) <= PLATEAU7_FLAT,
+          f"plain_f32: plateau {plateau} not flat in {PLATEAU7}")
+    check(all(i <= 3 for i in run["linear_iters"]),
+          f"plain_f32: Krylov {run['linear_iters']}")
+    check_route(run, counts, spec, "plain_f32")
+    out["plain_f32"] = {"rel_diff": rel, "plateau_max_over_min":
+                        max(plateau) / min(plateau), **counts, **run}
+
+    # 2. the same with the f64 preconditioner (no kernel: the staged body),
+    # against the f64 record
+    run, counts, _ = records_solve(
+        ["max_NL_iterations = 6", "precond_precision = double"], "plain_f64")
+    h, it = run["history"], run["linear_iters"]
+    rel = [abs(a - b) / b for a, b in zip(h, ref)]
+    check(len(h) == 6 and max(rel[:2]) <= 1e-7 and max(rel[2:]) <= 1e-3,
+          f"plain_f64: {h} vs {ref}: {rel}")
+    check(it[:3] == plain_rec["linear_iters"][:3]
+          and all(abs(a - b) <= 1 for a, b in
+                  zip(it[3:], plain_rec["linear_iters"][3:])),
+          f"plain_f64: Krylov {it} vs {plain_rec['linear_iters']}")
+    out["plain_f64"] = {"rel_diff": rel, **counts, **run}
+    # the data of the choice precond_precision = auto makes on the card
+    out["precond_precision"] = {
+        p: {k: out[f"plain_{p}"][k] for k in (
+            "s_per_iteration", "linear_iters", "max_memory_allocated",
+            "hierarchy_s", "total_s")} for p in ("f32", "f64")}
+
+    # 3. bounding box + average_down
+    rec = record("avgdown")
+    run, counts, spec = records_solve(
+        ["average_down = 1", "max_NL_iterations = 9",
+         "precond_precision = single"], "bbox_avgdown")
+    agree = check_avgdown_record(run, rec, ref[0], "bbox_avgdown")
+    check_route(run, counts, spec, "bbox_avgdown")
+    out["bbox_avgdown"] = {**agree, **counts, **run}
+
+    # 4. patches + average_down, then the staged smoother (no kernel) as
+    # the arbiter of the kernels' arithmetic on the forest
+    rec = record("patches_avgdown")
+    run, counts, spec = records_solve(PATCHES, "patches_avgdown")
+    agree = check_avgdown_record(run, rec, rec["history"][0],
+                                 "patches_avgdown")
+    check_route(run, counts, spec, "patches_avgdown")
+    staged = run_solve(RECORDS_BASE + PATCHES + [
+        "smoother = xla", "max_NL_iterations = 2"], "patches_staged")
+    srel = abs(staged["history"][0] - run["history"][0]) / run["history"][0]
+    check(srel <= 1e-5, f"patches: staged smoother step 1 differs: {srel}")
+    out["patches_avgdown"] = {
+        **agree, "staged_first_step": staged["history"][0],
+        "staged_rel_diff": srel, "staged_linear_iters":
+        staged["linear_iters"], "staged_s_per_iteration":
+        staged["s_per_iteration"], "relax_plan_4_sweeps":
+        patch_plan_table(spec), "residual_calls_per_application":
+        residual_calls_of(spec), **counts, **run}
+    out["runs"] = {"patches": counts}
     emit(out)
     return out
 
@@ -2468,6 +2732,12 @@ PATH_CASES = {
     "sharded7": {"multisweep_relax_halo": "slab_240x144x144_edge",
                  "residual": "path_bottom_4", "tower_down": "sharded_path_16",
                  "tower_up": "sharded_path_16"},
+    # the patches hierarchy with average_down (phase records): its largest
+    # patch for gsrb_relax and the residual's two forms, the base chain for
+    # the towers (no level of it takes the wavefront)
+    "patches": {"gsrb_relax": "patch_d6_144", "residual": "patch_d6_144",
+                "residual_restrict": "patch_d6_144",
+                "tower_down": "path_l0_64", "tower_up": "path_l0_64"},
 }
 # the path whose run gives a kernel's top-level launches
 MAIN_PATH = {"multisweep_relax": "periodic",
@@ -2479,7 +2749,8 @@ MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def kernels_line(kernels: dict | None, solve: dict | None,
                  scale7: dict | None, periodic: dict | None,
-                 sharded: dict | None = None) -> dict:
+                 sharded: dict | None = None,
+                 records: dict | None = None) -> dict:
     """The per-kernel summary. The top-level numbers of a row are those of
     the kernel's main path: the scale7 run (the canonical full-depth path)
     or, for the multisweep kernel, which only a periodic x reaches, the
@@ -2487,10 +2758,12 @@ def kernels_line(kernels: dict | None, solve: dict | None,
     shape that path gives it, error, time, plain time and bound at that
     shape (PATH_CASES), and the wrapper calls (launches) and kernel launches
     (device_launches) of that path's run, which was driven with the counters
-    set to 0 just before. *_solve are the counts of the 4-level solve."""
+    set to 0 just before; for the patches path also its wrapper calls by
+    level shape). *_solve are the counts of the 4-level solve."""
     runs = {"scale7": scale7, "periodic": periodic,
             **{p: (sharded["runs"][p] if sharded else None)
-               for p in ("sharded_x", "sharded_pencil", "sharded7")}}
+               for p in ("sharded_x", "sharded_pencil", "sharded7")},
+            "patches": records["runs"]["patches"] if records else None}
 
     def measured(name: str, path: str) -> dict:
         if kernels is None:
@@ -2519,6 +2792,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                 # launch's form and blocks, where the kernel has forms
                 **{k: rec[k] for k in ("nsweeps", "form", "blocks")
                    if k in rec}}
+            if run and name in run.get("by_shape", {}):
+                paths[path]["calls_by_shape"] = run["by_shape"][name]
         top = paths[main]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -2545,8 +2820,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
     return {"kernels": rows}
 
 
-PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "periodic",
-          "cli", "sharded")
+PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "records",
+          "periodic", "cli", "sharded")
 # asked for by name only: the default run needs one card
 ON_REQUEST = ("cards",)
 
@@ -2569,7 +2844,8 @@ def main() -> int:
     t_start = time.perf_counter()
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "solve": phase_solve, "lock3": phase_lock3,
-           "scale7": phase_scale7, "periodic": phase_periodic,
+           "scale7": phase_scale7, "records": phase_records,
+           "periodic": phase_periodic,
            "cli": phase_cli, "sharded": phase_sharded, "cards": phase_cards}
     done: dict = {}
     try:
@@ -2589,7 +2865,7 @@ def main() -> int:
           "seconds": round(time.perf_counter() - t_start, 1)})
     line = kernels_line(done.get("kernels"), done.get("solve"),
                         done.get("scale7"), done.get("periodic"),
-                        done.get("sharded"))
+                        done.get("sharded"), done.get("records"))
     if set(PHASES) <= set(wanted):
         never = [f"{r['name']} ({path})" for r in line["kernels"]
                  for path, rec in r["paths"].items() if not rec["launches"]]

@@ -107,6 +107,80 @@ def test_two_level_f64_fields(f64_pair):
     assert all(not p.requires_grad for p in tres.psi)
 
 
+def test_average_down_history(f64_pair):
+    """average_down = 1 on the same two-level BBH, f64 on both sides, 8
+    Picard steps at most (the JAX package holds itself to the lower floor
+    in tests/test_nonlinear.py::test_average_down_lowers_plateau).
+
+    Readings of this test (printed below; 1 thread, x86-64 CPU):
+
+        entry  JAX value   |port-JAX|/JAX  |port-JAX|/first  iters J/port
+        0      2.513e-02   8.3e-16         8.3e-16           3 / 3
+        1      3.779e-04   1.1e-11         1.6e-13           3 / 3
+        2      9.489e-07   4.3e-09         1.6e-13           3 / 3
+        3      8.787e-09   2.0e-06         6.9e-13           3 / 3
+        4      3.702e-11   4.6e-04         6.8e-13           3 / 3
+
+    Both converged at entry 4; the port's floor 3.70e-11 against 7.89e-9
+    without average_down.
+
+    Entries 0-1 are held to 1e-8 relative, the later ones to 1e-11 of the
+    first entry (the rule of test_two_level_f64_history), Krylov counts
+    equal while the history contracts and +-1 on a step that does not,
+    `converged` equal. The port's floor with average_down must lie below
+    0.2 of its floor without (f64_pair's port run)."""
+    kw = small_bbh_kw(average_down=True, max_nl_iterations=8)
+    jres = jnl.poisson_solve(JCfg(**kw), verbose=False)
+    tres = tnl.poisson_solve(TCfg(**kw), device="cpu", verbose=False)
+    jh, th = jres.dpsi_norm_history, tres.dpsi_norm_history
+    print("average_down readings (entry, jax, rel diff, diff/first, iters):")
+    for i, (t, j) in enumerate(zip(th, jh)):
+        print(i, j, abs(t - j) / j, abs(t - j) / jh[0],
+              jres.linear_iters[i], tres.linear_iters[i])
+    assert len(th) == len(jh)
+    for t, j in zip(th[:2], jh[:2]):
+        assert abs(t - j) <= 1e-8 * j, (t, j)
+    for t, j in zip(th[2:], jh[2:]):
+        assert abs(t - j) <= 1e-11 * jh[0], (t, j)
+    for i, (a, b) in enumerate(zip(tres.linear_iters, jres.linear_iters)):
+        contracting = i == 0 or jh[i] <= 0.5 * jh[i - 1]
+        assert a == b or (not contracting and abs(a - b) <= 1), (
+            tres.linear_iters, jres.linear_iters)
+    assert tres.converged == jres.converged
+    floor = min(f64_pair[1].dpsi_norm_history)
+    assert min(th) < 0.2 * floor, (min(th), floor)
+
+
+def test_f32_preconditioner_plateau(f64_pair):
+    """The Picard plateau without average_down under the f32
+    preconditioner (precond_precision = single, the staged smoother on both
+    sides), 6 steps, against the f64 plateau of f64_pair.
+
+    Readings (1 thread, x86-64 CPU): plateau (entries 3-5) JAX 7.9715e-9,
+    port 8.4280e-9, f64 7.8862e-9 on both sides (to 4e-6); flat to 1e-3 on
+    both sides. The two f32 plateaus differ by 6 %; step 1 agrees to
+    4.1e-9 relative, step 2 to 3.2e-5, step 3 to 2.7 %: the plateau is
+    what the covered coarse cells, which no norm sees, carry from the first
+    steps, and each f32 arithmetic rounds them its own way. Each f32 plateau is
+    held within 15 % of the f64 one and flat to 1 %; entry 0 to 1e-8
+    relative between JAX and the port. (On an H100 the 7-level plateau
+    reads 1.3146e-7 with the kernels, 2.0187e-7 with the staged smoother
+    and 1.8218e-7 at f64: scripts/records_probe.py.)"""
+    kw = small_bbh_kw(precond_precision="single", smoother="xla")
+    jres = jnl.poisson_solve(JCfg(**kw), verbose=False)
+    tres = tnl.poisson_solve(TCfg(**kw), device="cpu", verbose=False)
+    floor = f64_pair[0].dpsi_norm_history[3:]
+    jh, th = jres.dpsi_norm_history, tres.dpsi_norm_history
+    print("f32 plateau (entry, jax, port, f64):")
+    for i, (j, t, f) in enumerate(zip(jh, th, f64_pair[0].dpsi_norm_history)):
+        print(i, j, t, f)
+    assert abs(th[0] - jh[0]) <= 1e-8 * jh[0]
+    for h in (jh, th):
+        plateau = h[3:]
+        assert len(plateau) == 3 and max(plateau) <= 1.01 * min(plateau)
+        assert all(abs(p - f) <= 0.15 * f for p, f in zip(plateau, floor))
+
+
 def test_mixed_precision_kernel_path():
     """precond_precision = single, smoother = pallas on both sides (JAX:
     Pallas interpret mode; port: the kernels' plain versions).
