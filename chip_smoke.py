@@ -23,7 +23,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
            a level cut over a mesh (the periodic box's 64x256x256 x-slabs
            and 128x128x256 pencils, the 7-level hierarchy's local slabs,
            odd offsets), each against its plain version and, every shard
-           joined, against the whole-level kernel. Times: CUDA events
+           joined, against the whole-level kernel, and through mg.relax
+           both per call (whole levels split and joined) and resident
+           (shards kept, aCoef cut and padded with the coefficients), the
+           two timed side by side at the timed cases. Times: CUDA events
            around a batch of calls back to back, over the batch. For each
            timed whole-level march case also its launch (tile width, x
            segments, steps of the longest block, rounds), the time of one
@@ -109,9 +112,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
            periodic box on 4 x-slabs and on (2, 2) pencils and the 7-level
            hierarchy on 4 x-slabs, each beside the same run without a mesh
            (Krylov counts, K, step 1, the 7-level lock; the halo kernels
-           launched in every iteration, no plain version), and the CLI's
-           calls on the periodic box with the mesh (the sharding line, K
-           against the run without one)
+           launched in every iteration, no plain version; every depth the
+           mesh cuts kept on its shards through the preconditioner: the
+           splits, joins, coefficient splits and pad builds of each
+           iteration exactly what one coefficient build and its
+           preconditioner applications imply, shard_coef_builds_of and
+           shard_traffic_of), one preconditioner application with the mesh
+           and without (what it splits, joins, exchanges and moves, and its
+           wall time), and the CLI's calls on the periodic box with the
+           mesh (the sharding line, K against the run without one)
+  lowdim   ops/lowdim's 3-D V-cycle solve (32^3, f64, no kernel) on the
+           card against the same solve on the CPU, to 1e-12
 
 Asked for by name only (the default run needs one card):
 
@@ -174,6 +185,7 @@ from mg_ic_code_tpu_torch.io.logging import set_verbosity  # noqa: E402
 from mg_ic_code_tpu_torch.parallel import distributed as dist  # noqa: E402
 from mg_ic_code_tpu_torch.parallel import halo  # noqa: E402
 from mg_ic_code_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from mg_ic_code_tpu_torch.parallel import shards  # noqa: E402
 from mg_ic_code_tpu_torch.physics import diagnostics as dg  # noqa: E402
 from mg_ic_code_tpu_torch.physics import level_data as ld  # noqa: E402
 from mg_ic_code_tpu_torch.solver import composite as comp  # noqa: E402
@@ -299,6 +311,27 @@ def time_ms(fn, reps: int = 12, warmup: int = 3) -> float:
         t1.record()
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1) / batch)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def wall_ms(fn, reps: int = 9, warmup: int = 2) -> float:
+    """Median over `reps` of one call's wall time with every visible card
+    synchronised before and after it: for work that leaves its results on
+    several cards, which one card's CUDA events do not wait for."""
+    def sync_all():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        times.append(1e3 * (time.perf_counter() - t0))
     times.sort()
     return times[len(times) // 2]
 
@@ -1200,8 +1233,8 @@ def shard_operands(f, kinds, mshape, H: int, rho: float = 2.0,
     sliced to H, as halo.sharded_relax does for chunks of mixed depth."""
     mesh = pmesh.make_mesh(["cuda:0"] * math.prod(mshape), mshape)
     counts = tuple(mshape) + (1,) * (3 - len(mshape))
-    devs = halo._grid(mesh, counts)
-    sh = {k: halo._split(f[k], counts, devs) for k in ("u", "rhs", "a")}
+    devs = shards.grid(mesh, counts)
+    sh = {k: shards.split_dict(f[k], counts, devs) for k in ("u", "rhs", "a")}
     n_loc = [f["u"].shape[ax] // counts[ax] for ax in range(3)]
     px = kinds[0][0] == P
     meta = halo._metas(devs, counts, n_loc, px)
@@ -1312,7 +1345,7 @@ def check_shard_case(case, dtype) -> dict:
         for _ in range(2):
             outs = {k: call(o, 2) for k, o in shard_operands(
                 dict(f, u=u), kinds, mshape, 4).items()}
-            u = halo._join(outs, counts, u.device)
+            u = shards.join_dict(outs, counts, u.device)
         return u
 
     sharded = sharded_sweeps()
@@ -1334,6 +1367,20 @@ def check_shard_case(case, dtype) -> dict:
         check(torch.equal(via_relax, sharded),
               f"{name} {cid}: mg.relax with the mesh is not the shards' "
               f"kernels joined")
+        # the resident form: u and rhs kept on their shards, aCoef cut and
+        # padded once with the coefficients (mg.build_level_coefs)
+        rcoefs = mg.build_level_coefs(spec, f["a"])
+        u_s, r_s = (halo.split_level(spec, 0, f[k]) for k in ("u", "rhs"))
+        before = dict(kernel_counts.HALO)
+        resident = mg.relax(spec, rcoefs, 0, u_s, r_s, 4)
+        moved = {k: v - before[k] for k, v in kernel_counts.HALO.items()}
+        check(moved["level_splits"] == moved["level_joins"] == 0
+              and moved["coef_splits"] == moved["coef_pad_builds"] == 0,
+              f"{name} {cid}: the resident relax split or padded: {moved}")
+        check(torch.equal(resident.join(), sharded),
+              f"{name} {cid}: the resident relax is not the shards' kernels "
+              f"joined")
+        rec["resident_relax"] = {"halo": moved, "bitwise": True}
     whole = fs.multisweep_relax(f["u"], f["rhs"], f["a"], nsweeps=2, **kw)
     whole = fs.multisweep_relax(whole, f["rhs"], f["a"], nsweeps=2, **kw)
     torch.cuda.synchronize()
@@ -1363,6 +1410,12 @@ def check_shard_case(case, dtype) -> dict:
             bound_ms=b, bound_by=by,
             whole_level_relax_ms={
                 "sharded": time_ms(sharded_sweeps, reps=6, warmup=1),
+                **({"resident": time_ms(lambda: mg.relax(
+                    spec, rcoefs, 0, u_s, r_s, 4), reps=6, warmup=1),
+                    "per_call": time_ms(lambda: mg.relax(
+                        spec, coefs, 0, f["u"], f["rhs"], 4), reps=6,
+                        warmup=1)}
+                   if "resident_relax" in rec else {}),
                 "unsharded_two_launches": time_ms(lambda: fs.multisweep_relax(
                     fs.multisweep_relax(f["u"], f["rhs"], f["a"], nsweeps=2,
                                         **kw), f["rhs"], f["a"], nsweeps=2,
@@ -1489,7 +1542,7 @@ def run_solve(overrides, label: str, keep: dict | None = None,
     cfg = mgt.load_params(params, overrides=list(overrides))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stamps, calls, reserved, k_hist = [], [], [], []
+    stamps, calls, halos, reserved, k_hist = [], [], [], [], []
 
     def hook(nl_iter, state):
         torch.cuda.synchronize()
@@ -1497,6 +1550,7 @@ def run_solve(overrides, label: str, keep: dict | None = None,
         if nl_iter:  # the K the iteration before this one was solved with
             k_hist.append(state["constant_K"])
         calls.append(dict(kernel_counts.LAUNCHES))
+        halos.append(dict(kernel_counts.HALO))
         reserved.append(torch.cuda.memory_reserved())
 
     t0 = time.perf_counter()
@@ -1528,6 +1582,10 @@ def run_solve(overrides, label: str, keep: dict | None = None,
         "s_per_iteration": per_iter,
         "kernel_order": list(kernel_counts.KERNELS),
         "kernel_calls_per_iteration": calls_per_iter,
+        # splits, joins, pads and bytes of the sharded path per iteration
+        # (kernel_counts.HALO; zero without a mesh)
+        "halo_per_iteration": [{k: b[k] - a[k] for k in a}
+                               for a, b in zip(halos, halos[1:])],
         "memory_reserved_per_iteration": reserved[1:],
         "total_s": time.perf_counter() - t0,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -1687,6 +1745,104 @@ def residual_calls_of(spec) -> dict:
                   for d in range(geom.max_depth + 1))
     return {"residual": (nmg - 1) * entries + nmg,
             "residual_restrict": nmg * (entries - 1)}
+
+
+UNCUT = (1, 1, 1)
+
+
+def shard_traffic_of(spec, const_b: bool = True) -> dict:
+    """Splits and joins of cut levels (kernel_counts.HALO) per
+    preconditioner application of a hierarchy on a mesh, from its cuts
+    (multigrid._shard_counts) alone. Per V-cycle: a refined level the mesh
+    cuts splits its residual, the coarse correction under it and, with a
+    constant bCoef, its CF-folded rhs (3), and joins its restricted
+    residual into the parent and its correction (2); a cut base level
+    splits its residual and joins its correction (1, 1), and its depth
+    chain splits or joins nothing between two cut depths with equal
+    counts; where the next depth is cut otherwise or not at all, the
+    restricted residual is joined (1) and the correction under the shards
+    split (1), and a cut depth taken up whole splits its u and rhs and
+    joins its result (2, 1) at every visit (num_mg per visit of the depth
+    above); a cut bottom depth is solved whole (3 joins, 3 splits, its
+    residual split and joined per call). The composite residual between
+    two V-cycles takes every cut level whole (2 splits, 1 join). No
+    coefficient is split and no pad built."""
+    s = j = 0
+
+    def chain(ls, d, resident, visits):
+        nonlocal s, j
+        c = mg._shard_counts(ls, d)
+        if c == UNCUT:
+            return
+        if not resident:
+            s, j = s + 2 * visits, j + visits
+        if d + 1 == ls.ndepths:
+            check(mg._use_direct_bottom(ls),
+                  "shard_traffic_of: a cut bottom depth without the direct "
+                  "solve")
+            s, j = s + 3 * visits, j + 3 * visits
+            return
+        same = mg._shard_counts(ls, d + 1) == c
+        if not same:
+            s, j = s + visits, j + visits
+        chain(ls, d + 1, same, visits * max(ls.num_mg, 1))
+
+    cut_levels = 0
+    for l, ls in enumerate(spec.level_specs):
+        if mg._shard_counts(ls, 0) == UNCUT:
+            continue
+        cut_levels += 1
+        if l == 0:
+            s, j = s + 1, j + 1
+            chain(ls, 0, True, 1)
+        else:
+            s, j = s + (3 if const_b else 2), j + 2
+    m = spec.num_mg_iterations
+    return {"level_splits": m * s + (m - 1) * 2 * cut_levels,
+            "level_joins": m * j + (m - 1) * cut_levels,
+            "coef_splits": 0, "coef_pad_builds": 0}
+
+
+def check_halo_counts(run: dict, spec, what: str) -> dict:
+    """Every Picard iteration of a sharded run split, joined, cut and
+    padded exactly what one coefficient build (shard_coef_builds_of) and
+    two preconditioner applications per Krylov iteration
+    (shard_traffic_of) imply; returns both."""
+    build, app = shard_coef_builds_of(spec), shard_traffic_of(spec)
+    for got, krylov in zip(run["halo_per_iteration"], run["linear_iters"]):
+        want = {k: build.get(k, 0) + 2 * krylov * app[k] for k in app}
+        check({k: got[k] for k in want} == want,
+              f"{what}: halo counts {got} in an iteration of {krylov} "
+              f"Krylov iterations, the hierarchy implies {want}")
+    return {"per_build": build, "per_application": app}
+
+
+def shard_coef_builds_of(spec, device_type: str = "cuda",
+                         const_b: bool = True) -> dict:
+    """Coefficient splits and pad builds of one composite.build_coefs on a
+    mesh: per depth the mesh cuts, in each coefficient set (the f64 one,
+    and the f32 one of a mixed-precision preconditioner), aCoef's shards
+    and either the halo kernels' aCoef pads (f32 with kernels allowed, a
+    constant bCoef, z not cut, nsmooth a multiple of the kernels' chunk,
+    no odd periodic extent) or lambda's shards for the plain sharded ops
+    (and bCoef's where it varies)."""
+    out = {"coef_splits": 0, "coef_pad_builds": 0}
+    dtypes = [torch.float64] + (
+        [torch.float32] if spec.precond_dtype == "float32" else [])
+    for ls in spec.level_specs:
+        for dtype in dtypes:
+            for d in range(ls.ndepths):
+                counts = mg._shard_counts(ls, d)
+                if counts == UNCUT:
+                    continue
+                kernel = (const_b and counts[2] == 1
+                          and mg._kernels_allowed_for(ls, dtype, device_type)
+                          and fs.sharded_plan(tuple(ls.boxes[d].shape),
+                                              ls.nsmooth, ls.kinds))
+                out["coef_splits"] += 1 + (0 if kernel else 1) + (
+                    0 if const_b else 1)
+                out["coef_pad_builds"] += 1 if kernel else 0
+    return out
 
 
 def check_route(run: dict, counts: dict, spec, what: str) -> None:
@@ -2475,11 +2631,56 @@ def check_sharded_run(run, ref, counts, what: str, kernel: str,
 
 
 def sharded_solve(overrides, label, mesh_shape, params: str) -> tuple:
-    """run_solve with a mesh of one card; the counts of that run alone."""
+    """run_solve with a mesh of one card; the counts of that run alone,
+    its splits and joins held to what its hierarchy implies
+    (check_halo_counts)."""
     kernel_counts.reset()
-    run = run_solve(overrides, label, params=params,
-                    mesh=one_card_mesh(mesh_shape))
-    return run, kernel_counts.snapshot()
+    keep: dict = {}
+    mesh = one_card_mesh(mesh_shape)
+    run = run_solve(overrides, label, keep=keep, params=params, mesh=mesh)
+    counts = kernel_counts.snapshot()
+    spec = comp.make_amr_spec(keep["geom"], keep["cfg"], mesh.home, mesh)
+    run["halo_counts"] = check_halo_counts(run, spec, label)
+    return run, counts
+
+
+def precond_application(overrides, params: str, mesh, reps: int = 5) -> dict:
+    """One preconditioner application (composite.precond) of the run's
+    first Picard iteration, from the initial psi, with `mesh` or without
+    (None): what it split, joined, exchanged and moved (kernel_counts.HALO,
+    held to shard_traffic_of with a mesh) and its wall time to completion
+    on the card (median of `reps`, after one warm application)."""
+    cfg = mgt.load_params(params, overrides=list(overrides))
+    geom = generate_hierarchy(cfg)
+    dev = torch.device("cuda") if mesh is None else mesh.home
+    spec = comp.make_amr_spec(geom, cfg, dev, mesh)
+    fields = [ld.problem_fields(geom, cfg, l, torch.float64, dev)
+              for l in range(geom.num_levels)]
+    psi = ld.initial_state(geom, cfg, torch.float64, dev)["psi"]
+    a, rhs, _ = nl.prepare_iteration(geom, cfg, fields, psi)
+    coefs = comp.build_coefs(spec, a)
+    comp.precond(spec, coefs, rhs)
+    torch.cuda.synchronize()
+    kernel_counts.reset()
+    comp.precond(spec, coefs, rhs)
+    torch.cuda.synchronize()
+    moved = dict(kernel_counts.HALO)
+    if mesh is not None:
+        want = shard_traffic_of(spec)
+        check({k: moved[k] for k in want} == want,
+              f"precond application {mesh.shape}: {moved}, the hierarchy "
+              f"implies {want}")
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp.precond(spec, coefs, rhs)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    del coefs, a, rhs, fields, psi
+    torch.cuda.empty_cache()
+    return {"halo": moved, "wall_ms": sorted(times)[reps // 2],
+            "wall_ms_runs": times}
 
 
 SHARDED7 = ["max_level = 6", "max_NL_iterations = 3",
@@ -2492,6 +2693,7 @@ def phase_sharded() -> dict:
     runs = {}
     # the periodic box at 256^3: unsharded, 4 x-slabs, (2, 2) pencils
     ref = run_solve(PERIODIC_BASE, "periodic_unsharded", params=PERIODIC)
+    app_ref = precond_application(PERIODIC_BASE, PERIODIC, None)
     for path, mshape, kernel, other in (
             ("sharded_x", SHARD_X, "multisweep_relax_halo",
              "multisweep_relax_tiled_pre"),
@@ -2513,6 +2715,11 @@ def phase_sharded() -> dict:
                      "launches": counts["launches"],
                      "device_launches": counts["device_launches"],
                      "plain_calls": counts["plain_calls"],
+                     "halo": counts["halo"],
+                     "precond_application": {
+                         "sharded": precond_application(
+                             PERIODIC_BASE, PERIODIC, one_card_mesh(mshape)),
+                         "unsharded": app_ref},
                      "launches_per_picard_iteration": {
                          k: v / n_iter for k, v in counts["launches"].items()}}
 
@@ -2544,6 +2751,12 @@ def phase_sharded() -> dict:
                        "launches": counts7["launches"],
                        "device_launches": counts7["device_launches"],
                        "plain_calls": counts7["plain_calls"],
+                       "halo": counts7["halo"],
+                       "precond_application": {
+                           "sharded": precond_application(
+                               SHARDED7, CANONICAL, one_card_mesh(SHARD_X)),
+                           "unsharded": precond_application(
+                               SHARDED7, CANONICAL, None)},
                        "launches_per_picard_iteration": {
                            k: v / n7 for k, v in counts7["launches"].items()}}
 
@@ -2601,10 +2814,15 @@ def phase_cards() -> dict:
     """The sharded solve over every visible card: the mesh main.run builds
     by itself where it sees more than one (main.choose_mesh ->
     distributed.host_mesh), beside one card named as often and the run
-    without a mesh. Each level stays whole on cuda:0 and every sharded
-    relax or residual cuts it, copies the shards to their cards and joins
-    them back (the placement gap, parallel/mesh.py): this phase measures
-    what that costs across cards."""
+    without a mesh, each sharded run's splits and joins held to its
+    hierarchy (check_halo_counts). Inside the preconditioner every depth
+    the mesh cuts stays on its cards and only the pads cross between them;
+    each cut level is split once a V-cycle where the V-cycle takes up its
+    residual and joined once for its correction, and the Krylov vectors,
+    the composite operator and the Picard state stay whole on cuda:0 (the
+    placement gap that is left, parallel/mesh.py): this phase measures what
+    those copies cost across cards, and one relax of the periodic box's
+    256^3 level in its per-call and its resident form."""
     n = torch.cuda.device_count()
     check(n >= 2, f"cards: needs more than one card, found {n}")
     out = {"phase": "cards", "device_count": n,
@@ -2626,9 +2844,14 @@ def phase_cards() -> dict:
                 ("cards", cards),
                 ("one_card", one_card_mesh(tuple(cards.sizes)))):
             kernel_counts.reset()
-            run = run_solve(over, f"{what}_{label}", params=params,
-                            mesh=mesh)
+            keep: dict = {}
+            run = run_solve(over, f"{what}_{label}", keep=keep,
+                            params=params, mesh=mesh)
             counts = kernel_counts.snapshot()
+            check_halo_counts(run, comp.make_amr_spec(
+                keep["geom"], keep["cfg"], torch.device("cuda"), mesh),
+                f"cards {what} {label}")
+            del keep
             torch.cuda.empty_cache()
             agree = check_sharded_run(run, ref, counts, f"cards {what} "
                                       f"{label}", "multisweep_relax_halo",
@@ -2638,7 +2861,8 @@ def phase_cards() -> dict:
                           **{k: run[k] for k in keys},
                           "step1_rel_diff": agree["step1_rel_diff"],
                           "K_rel_diff": agree["K_rel_diff"],
-                          "launches": counts["launches"]}
+                          "launches": counts["launches"],
+                          "halo": counts["halo"]}
         rec["cards_equal_one_card"] = all(
             rec["cards"][k] == rec["one_card"][k]
             for k in ("history", "constant_K", "linear_iters"))
@@ -2662,6 +2886,18 @@ def phase_cards() -> dict:
                 relax_ms[label] = time_ms(
                     lambda: mg.relax(spec, coefs, 0, f["u"], f["rhs"], 4),
                     reps=6, warmup=1)
+                if mesh is not None:
+                    # wall times with every card synchronised: the
+                    # resident form leaves its shards on their cards
+                    rcoefs = mg.build_level_coefs(spec, f["a"])
+                    u_s, r_s = (halo.split_level(spec, 0, f[k])
+                                for k in ("u", "rhs"))
+                    relax_ms[f"{label}_per_call_wall"] = wall_ms(
+                        lambda: mg.relax(spec, coefs, 0, f["u"], f["rhs"],
+                                         4))
+                    relax_ms[f"{label}_resident_wall"] = wall_ms(
+                        lambda: mg.relax(spec, rcoefs, 0, u_s, r_s, 4))
+                    del rcoefs, u_s, r_s
             rec["whole_level_relax_ms"] = relax_ms
             del f
             torch.cuda.empty_cache()
@@ -2688,6 +2924,39 @@ def phase_cards() -> dict:
           f"cards cli: history not contracting: {body['history']}")
     out["cli"] = {"seconds": time.perf_counter() - t0, "sharding_line": said,
                   "launches": launches, **body}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------- lowdim
+
+
+def phase_lowdim() -> dict:
+    """ops/lowdim's 3-D V-cycle solve (the dimension-generic operators, no
+    kernel) on the card against the same solve on the CPU: f64, the
+    history's length, convergence below 1e-10 and the solution to 1e-12
+    of its largest value."""
+    from mg_ic_code_tpu_torch.ops import lowdim
+
+    n = 32
+    gen = torch.Generator().manual_seed(5)
+    a = 0.5 + 1.5 * torch.rand((n, n, n), generator=gen,
+                               dtype=torch.float64)
+    rhs = torch.randn((n, n, n), generator=gen, dtype=torch.float64)
+    kw = dict(alpha=1.0, beta=1.0, dx=1.0 / n, tol=1e-10,
+              kinds=((D, D), (N, D), (P, P)))
+    t0 = time.perf_counter()
+    u, hist = lowdim.mg_solve(rhs, a, device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    u_cpu, hist_cpu = lowdim.mg_solve(rhs, a, device="cpu", **kw)
+    err = float((u.cpu() - u_cpu).abs().max() / u_cpu.abs().max())
+    check(u.is_cuda and len(hist) == len(hist_cpu) and hist[-1] < 1e-10
+          and err <= 1e-12,
+          f"lowdim: card {hist} vs CPU {hist_cpu}, rel err {err}")
+    out = {"phase": "lowdim", "shape": [n] * 3, "history": hist,
+           "history_cpu": hist_cpu, "rel_err": err, "tolerance": 1e-12,
+           "seconds": seconds}
     emit(out)
     return out
 
@@ -2821,7 +3090,7 @@ def kernels_line(kernels: dict | None, solve: dict | None,
 
 
 PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "records",
-          "periodic", "cli", "sharded")
+          "periodic", "cli", "sharded", "lowdim")
 # asked for by name only: the default run needs one card
 ON_REQUEST = ("cards",)
 
@@ -2846,7 +3115,8 @@ def main() -> int:
            "solve": phase_solve, "lock3": phase_lock3,
            "scale7": phase_scale7, "records": phase_records,
            "periodic": phase_periodic,
-           "cli": phase_cli, "sharded": phase_sharded, "cards": phase_cards}
+           "cli": phase_cli, "sharded": phase_sharded,
+           "lowdim": phase_lowdim, "cards": phase_cards}
     done: dict = {}
     try:
         with torch.no_grad():

@@ -18,6 +18,10 @@ one launch (csrc/multisweep.cu, csrc/multisweep_halo.cu).
 `PLAIN_CALLS[name]` goes up each time the plain PyTorch version of that
 kernel runs. A run on the GPU can thereby show that its path went through
 the kernels and never through a plain version.
+
+`HALO[name]` counts what the sharded path copies (parallel/shards.py says
+what each name counts): level splits and joins, coefficient splits and pad
+builds, pad exchanges and the bytes moved between mesh positions.
 """
 
 KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
@@ -27,6 +31,9 @@ KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_CALLS: dict[str, int] = {k: 0 for k in KERNELS}
+HALO_COUNTS = ("level_splits", "level_joins", "coef_splits",
+               "coef_pad_builds", "pad_exchanges", "bytes_moved")
+HALO: dict[str, int] = {k: 0 for k in HALO_COUNTS}
 
 
 def count_launch(name: str, device_launches: int) -> None:
@@ -40,9 +47,11 @@ def reset() -> None:
         LAUNCHES[k] = 0
         DEVICE_LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in HALO_COUNTS:
+        HALO[k] = 0
 
 
 def snapshot() -> dict:
     return {"launches": dict(LAUNCHES),
             "device_launches": dict(DEVICE_LAUNCHES),
-            "plain_calls": dict(PLAIN_CALLS)}
+            "plain_calls": dict(PLAIN_CALLS), "halo": dict(HALO)}

@@ -13,11 +13,18 @@ the halo exchange between them and the global checkerboard are then
 exactly those of four cards, which is how one card drives the sharded
 path (and how the CPU tests name eight `cpu` entries).
 
-PLACEMENT GAP: every level stays whole on the mesh's first device (its
-"home"). Only the smoother and the residual of a sharded depth work in
-per-shard tensors on the shards' devices (parallel/halo.py), which they
-cut from the whole level and join back into it per call. Keeping a
-sharded level resident on its devices between calls is a later step.
+PLACEMENT GAP: the preconditioner keeps every depth the mesh cuts on its
+shards (parallel/shards.ShardSet) from the moment a V-cycle takes it up:
+the smoother, the residual and its restriction, the prolongation and the
+post-smooth work shard by shard and exchange only pads, and the
+coefficients are cut and padded once per coefficient build
+(parallel/halo.shard_coefs). What stays whole on the mesh's first device
+(its "home") is the rest of the solve, as shard_level_list places it: the
+Krylov vectors, the composite operator with its coarse-fine term, the
+Picard state (prepare_iteration / finish_iteration) and the file writers.
+So a cut level is split once a V-cycle where the V-cycle takes up its
+residual (and its coarse correction and folded rhs) and its correction is
+joined once; keeping those resident too is the next step.
 """
 
 from __future__ import annotations
@@ -66,14 +73,19 @@ class Mesh:
         """The device whole levels live on (the mesh's first)."""
         return self.devices[0]
 
-    def device_at(self, coords: dict[str, int]) -> torch.device:
-        """The device at mesh coordinates `coords` (axes left out: 0)."""
+    def position_at(self, coords: dict[str, int]) -> int:
+        """The flat (row-major) position of mesh coordinates `coords`
+        (axes left out: 0); the home is position 0."""
         flat = 0
         for name, size in zip(self.axis_names, self.sizes):
             c = coords.get(name, 0)
             assert 0 <= c < size, (name, c, size)
             flat = flat * size + c
-        return self.devices[flat]
+        return flat
+
+    def device_at(self, coords: dict[str, int]) -> torch.device:
+        """The device at mesh coordinates `coords` (axes left out: 0)."""
+        return self.devices[self.position_at(coords)]
 
 
 def make_mesh(devices=None, shape: tuple[int, ...] | None = None) -> Mesh:
@@ -135,7 +147,8 @@ def level_spec(
 def shard_level_list(u_list, mesh: Mesh):
     """Place every level array for a solve on `mesh`. Each level goes
     whole to the mesh's home device (the placement gap of the module
-    docstring); the sharded depths cut it per smoother and residual call."""
+    docstring); the preconditioner cuts the levels the mesh cuts once a
+    V-cycle and keeps them on their shards inside it."""
     return [u.to(mesh.home) for u in u_list]
 
 

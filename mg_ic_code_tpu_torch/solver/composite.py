@@ -29,6 +29,8 @@ from mg_ic_code_tpu_torch.config import SolverConfig
 from mg_ic_code_tpu_torch.grid.geometry import HierarchyGeom
 from mg_ic_code_tpu_torch.ops import stencils as st
 from mg_ic_code_tpu_torch.ops.ghosts import fill_ghosts
+from mg_ic_code_tpu_torch.parallel import halo
+from mg_ic_code_tpu_torch.parallel.shards import ShardSet
 from mg_ic_code_tpu_torch.solver import multigrid as mg
 from mg_ic_code_tpu_torch.solver import reductions as red
 from mg_ic_code_tpu_torch.solver.bicgstab import BiCGStabResult, bicgstab
@@ -124,7 +126,10 @@ def build_coefs(spec: AMRSolverSpec, a_list, b_list=None) -> tuple[dict, ...]:
     """Per-level coefficient structures (with depth chains under level 0).
 
     With mixed-precision preconditioning, each level also carries an "lp"
-    sub-dict holding float32 casts of the whole depth chain."""
+    sub-dict holding float32 casts of the whole depth chain. With a mesh,
+    each set carries the shards and halo-kernel pads of every depth the
+    mesh cuts (parallel/halo.shard_coefs, "shards"): made here, once per
+    coefficient build, and never inside a preconditioner application."""
     out = []
     lp_dtype = (
         precision.PRECOND_DTYPE if spec.precond_dtype == "float32" else None
@@ -143,6 +148,9 @@ def build_coefs(spec: AMRSolverSpec, a_list, b_list=None) -> tuple[dict, ...]:
                 # preconditioner silently falls back to the launch-bound
                 # BiCGStab bottom tower
                 c["lp"]["binv"] = c["binv"].to(lp_dtype)
+            if "shards" in c:
+                c["lp"]["shards"] = halo.shard_coefs(spec.level_specs[l],
+                                                     c["lp"])
         out.append(c)
     return tuple(out)
 
@@ -220,12 +228,33 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
     restricted fine residual; the base level runs the full MG depth chain;
     upsweep prolongs (piecewise-constant) and post-smooths. Entries run
     one after another (sibling patches write DISJOINT covered regions, so
-    within-depth order is free)."""
+    within-depth order is free).
+
+    A level the mesh cuts (multigrid._shard_counts at its depth 0) is
+    split once, when the downsweep takes up its residual; its correction
+    stays on the shards through the smoother, the residual's restriction
+    (the restricted residual, an eighth of the bytes, is joined into the
+    parent's covered part), the prolongation and the post-smooth, and is
+    joined once, for its children and the caller. The base level's depth
+    chain stays sharded as mg_vcycle says. Each level's rhs and every
+    correction handed back stay whole on the mesh's home."""
     geom = spec.geom
     nl = spec.num_levels
     r = list(r_list)
     e: list = [None] * nl
     copied: set = set()  # parents whose r is this V-cycle's own copy
+
+    def taken_up(l):
+        """Level l's residual as the V-cycle works on it: its shards where
+        the mesh cuts the level (one split), else the tensor itself."""
+        ls = spec.level_specs[l]
+        if mg._shard_counts(ls, 0) == (1, 1, 1):
+            return r[l]
+        return halo.split_level(ls, 0, r[l])
+
+    def zeros(x):
+        return x.zeros_like() if isinstance(x, ShardSet) else (
+            torch.zeros_like(x))
 
     # downsweep: depths descending — every child restricts into its parent
     # before the parent's depth runs
@@ -233,21 +262,22 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
         for l in geom.entries_at_depth(depth):
             ls = spec.level_specs[l]
             cl = _lp(coefs[l], use_lp)
-            el = torch.zeros_like(r[l])
-            el = mg.relax(ls, cl, 0, el, r[l], spec.nsmooth)
+            rl = taken_up(l)
+            el = mg.relax(ls, cl, 0, zeros(rl), rl, spec.nsmooth)
             p = geom.parent[l]
             if p not in copied:  # r[p] may be the caller's tensor
                 r[p] = r[p].clone()
                 copied.add(p)
             # the restricted residual written over the covered part
-            mg.residual_restrict_homog(ls, cl, 0, el, r[l],
+            mg.residual_restrict_homog(ls, cl, 0, el, rl,
                                        out=r[p][geom.child_slices(p, l)])
             e[l] = el
 
-    e[0] = mg.mg_vcycle(
-        spec.level_specs[0], _lp(coefs[0], use_lp), torch.zeros_like(r[0]),
-        r[0],
-    )
+    r0 = taken_up(0)
+    e[0] = mg.mg_vcycle(spec.level_specs[0], _lp(coefs[0], use_lp),
+                        zeros(r0), r0)
+    if isinstance(e[0], ShardSet):
+        e[0] = e[0].join()
 
     # upsweep: depths ascending — every parent's correction is complete
     # before its children prolong from it
@@ -256,7 +286,7 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
             ls = spec.level_specs[l]
             p = geom.parent[l]
             ec = e[p][geom.child_slices(p, l)]
-            e[l] = st.prolong_inc(e[l], ec)
+            e[l] = mg.prolong_inc(e[l], ec)
             # post-smooth with CF ghosts interpolated from the coarse
             # correction (homogeneous ghosts here amplify the CF mismatch
             # by 1/dx^2 per level — see mg.relax_cf)
@@ -264,6 +294,8 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
                 ls, _lp(coefs[l], use_lp), e[l], r[l], spec.nsmooth,
                 geom, l, e[p],
             )
+            if isinstance(e[l], ShardSet):
+                e[l] = e[l].join()
     return e
 
 

@@ -33,6 +33,7 @@ from mg_ic_code_tpu_torch.ops.ghosts import (
     CF, PERIODIC, PHYS_DIRICHLET, FaceKinds, face_kinds,
     fill_ghosts_homogeneous,
 )
+from mg_ic_code_tpu_torch.parallel.shards import ShardSet
 from mg_ic_code_tpu_torch.solver.bicgstab import bicgstab
 
 
@@ -160,6 +161,13 @@ def build_level_coefs(spec: LevelMGSpec, a0, b0=None) -> dict:
     coefs = {"a": tuple(a_chain), "b": tuple(b_chain), "lam": tuple(lam_chain)}
     if _use_direct_bottom(spec):
         coefs["binv"] = _bottom_inverse(spec, coefs)
+    if spec.mesh is not None:
+        # the cut depths' coefficients on their shards, padded for the halo
+        # kernels: made with the coefficients they are cut from, so a new
+        # build never reads an old one's
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        coefs["shards"] = halo.shard_coefs(spec, coefs)
     return coefs
 
 
@@ -302,22 +310,13 @@ def relax(spec: LevelMGSpec, coefs: dict, d: int, u, rhs, n: int):
     if n <= 0:
         return u
     b = coefs["b"][d]
-    counts = _shard_counts(spec, d)
-    if counts != (1, 1, 1):
+    if _shard_counts(spec, d) != (1, 1, 1):
+        # a depth cut over the mesh: the halo kernels or the plain sharded
+        # ops on its shards (parallel/halo.relax; whole tensors are split
+        # and joined per call)
         from mg_ic_code_tpu_torch.parallel import halo
 
-        sx, sy, sz = counts
-        if b is None and (sy > 1 or sz > 1):
-            # pencils / blocks: the prepadded halo kernel on each pencil
-            # (the plain pencil ops where it does not apply)
-            return halo.sharded_relax_2d(spec, coefs, d, u, rhs, n)
-        if b is None:
-            return halo.sharded_relax(spec, coefs, d, u, rhs, n)
-        # variable bCoef: cell-centred, no halo of its own — the plain
-        # pencil ops with b keep the explicit exchange
-        relax_fn, _ = halo.make_sharded_level_ops_2d(
-            spec, spec.mesh, d, nsweeps=n, with_b=True)
-        return relax_fn(coefs["a"][d], b, coefs["lam"][d], u, rhs)
+        return halo.relax(spec, coefs, d, u, rhs, n)
     for kind, s in relax_kernel_plan(spec, u, n, const_b=b is None):
         if kind in ("wave", "multisweep"):
             one_launch = (wf.wavefront_relax if kind == "wave"
@@ -361,10 +360,19 @@ def relax_cf(
     b = coefs["b"][0]
     if b is None and level > 0:
         rhs_cf = cf_folded_rhs(spec, geom, level, rhs, coarse_u)
+        if isinstance(u, ShardSet):
+            # the folded rhs of a level the mesh cuts: split once
+            from mg_ic_code_tpu_torch.parallel import halo
+
+            rhs_cf = halo.split_level(spec, 0, rhs_cf)
         return relax(spec, coefs, 0, u, rhs_cf, n)
 
-    # variable bCoef: no folded identity — per-pass ghost-fill loop
+    # variable bCoef: no folded identity — per-pass ghost-fill loop, on the
+    # whole level (a level the mesh cuts is joined for it)
     from mg_ic_code_tpu_torch.ops.ghosts import fill_ghosts
+
+    if isinstance(u, ShardSet):
+        u = u.join()
 
     for i in range(2 * n):
         u_gh = fill_ghosts(
@@ -397,18 +405,10 @@ def residual_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs):
     `fused_sweeps.resident_residual` and, at the big levels, of its
     `pallas_kernels.residual`. A depth cut over a mesh takes the sharded
     residual (plain ops with the exchanged ghost planes, parallel/halo)."""
-    counts = _shard_counts(spec, d)
-    if counts != (1, 1, 1):
+    if _shard_counts(spec, d) != (1, 1, 1):
         from mg_ic_code_tpu_torch.parallel import halo
 
-        b = coefs["b"][d]
-        if b is None and counts[1] == 1 and counts[2] == 1:
-            return halo.sharded_residual(spec, coefs, d, u, rhs)
-        _, residual_fn = halo.make_sharded_level_ops_2d(
-            spec, spec.mesh, d, with_b=b is not None)
-        if b is None:
-            return residual_fn(coefs["a"][d], u, rhs)
-        return residual_fn(coefs["a"][d], b, u, rhs)
+        return halo.residual(spec, coefs, d, u, rhs)
     if _kernels_allowed(spec, u):
         from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 
@@ -428,11 +428,17 @@ def residual_restrict_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs,
     (nx/2, ny/2, nz/2) tensor or view, e.g. the covered part of a parent
     level) or a new tensor: on the kernel path of a depth on one device the
     residual kernel's restricted form (one launch, the fine residual never
-    written), else restrict_full of residual_homog (a depth cut over a
-    mesh: parallel/halo's sharded residual). The one dispatch of both
-    places that restrict a residual: the AMR downsweep and the staged
-    depths of mg_vcycle."""
-    if _kernels_allowed(spec, u) and _shard_counts(spec, d) == (1, 1, 1):
+    written), else restrict_full of residual_homog. A depth cut over a
+    mesh restricts every shard's residual on its own device
+    (parallel/halo.residual_restrict: shard sets in, the next depth's shard
+    set out where it is cut alike). The one dispatch of both places that
+    restrict a residual: the AMR downsweep and the staged depths of
+    mg_vcycle."""
+    if _shard_counts(spec, d) != (1, 1, 1):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        return halo.residual_restrict(spec, coefs, d, u, rhs, out=out)
+    if _kernels_allowed(spec, u):
         from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 
         return fs.residual_restrict(
@@ -448,6 +454,16 @@ def apply_homog(spec: LevelMGSpec, coefs: dict, d: int, u):
         _ghost(spec, d, u), coefs["a"][d], coefs["b"][d],
         spec.alpha, spec.beta, spec.dx[d],
     )
+
+
+def jacobi_sweep(spec: LevelMGSpec, coefs: dict, d: int, u, rhs,
+                 weight: float = 0.5):
+    """Weighted Jacobi relaxation: u += w * lambda * (rhs - L(u)) — the
+    reference's levelJacobi alternative smoother
+    (VariableCoeffPoissonOperator.cpp:360-385, weight 0.5). No path of the
+    solve calls it, as in the JAX package."""
+    res = residual_homog(spec, coefs, d, u, rhs)
+    return u + weight * coefs["lam"][d] * res
 
 
 def level_precond(spec: LevelMGSpec, coefs: dict, d: int, rhs):
@@ -487,6 +503,16 @@ def bottom_solve(spec: LevelMGSpec, coefs: dict, d: int, u, rhs):
     return u + out.x
 
 
+def prolong_inc(u, ec):
+    """u + the piecewise-constant prolongation of the coarse correction:
+    shard by shard where u is a shard set (parallel/halo.prolong_inc)."""
+    if isinstance(u, ShardSet):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        return halo.prolong_inc(u, ec)
+    return st.prolong_inc(u, ec)
+
+
 def mg_vcycle(spec: LevelMGSpec, coefs: dict, u, rhs, d: int = 0):
     """Correction-scheme gamma-cycle over the depth chain: pre-smooth, fused
     restrict(residual), recurse gamma times (gamma = spec.num_mg: 1 gives
@@ -497,8 +523,20 @@ def mg_vcycle(spec: LevelMGSpec, coefs: dict, u, rhs, d: int = 0):
     V-cycle of even shapes, the whole tower below runs as the down-pass and
     up-pass kernels around the bottom solve (ops/coarse_tower) instead of
     the staged per-depth recursion. The tower runs only where no depth from
-    d down is cut over a mesh (the sharded depths stay staged, each relax
-    and residual going through parallel/halo)."""
+    d down is cut over a mesh.
+
+    A depth cut over a mesh stays on its shards (parallel/shards.ShardSet)
+    through the smoother, the residual and its restriction: shard sets in,
+    shard sets out, and the next depth's shards stay where they are when it
+    is cut alike. Where the next depth is not cut, or is cut otherwise, the
+    restricted residual is joined once and the chain goes on whole; a cut
+    depth taken up whole (u and rhs tensors) is split on entry and joined
+    on return."""
+    if _shard_counts(spec, d) != (1, 1, 1) and not isinstance(u, ShardSet):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        return mg_vcycle(spec, coefs, halo.split_level(spec, d, u),
+                         halo.split_level(spec, d, rhs), d).join()
     if _kernels_allowed(spec, u) and all(
         _shard_counts(spec, dd) == (1, 1, 1)
         for dd in range(d, spec.ndepths)
@@ -509,20 +547,19 @@ def mg_vcycle(spec: LevelMGSpec, coefs: dict, u, rhs, d: int = 0):
             return ct.tower_vcycle(spec, coefs, d, u, rhs)
     u = relax(spec, coefs, d, u, rhs, spec.nsmooth)
     if d + 1 < spec.ndepths:
-        if _shard_counts(spec, d) == (1, 1, 1):
-            rc = residual_restrict_homog(spec, coefs, d, u, rhs)
-        else:
-            # a depth cut over a mesh restricts the whole level's staged
-            # residual, as the JAX package's sharded arrays do
-            rc = st.restrict_residual(
-                _ghost(spec, d, u), rhs, coefs["a"][d], coefs["b"][d],
-                spec.alpha, spec.beta, spec.dx[d],
-            )
-        ec = torch.zeros_like(rc)
+        rc = residual_restrict_homog(spec, coefs, d, u, rhs)
+        ec = (rc.zeros_like() if isinstance(rc, ShardSet)
+              else torch.zeros_like(rc))
         for _ in range(max(spec.num_mg, 1)):
             ec = mg_vcycle(spec, coefs, ec, rc, d + 1)
-        u = st.prolong_inc(u, ec)
+        u = prolong_inc(u, ec)
         u = relax(spec, coefs, d, u, rhs, spec.nsmooth)
+    elif isinstance(u, ShardSet):
+        # a bottom depth the mesh cuts: the direct solve takes it whole
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        u = halo.split_level(spec, d, bottom_solve(spec, coefs, d, u.join(),
+                                                   rhs.join()))
     else:
         u = bottom_solve(spec, coefs, d, u, rhs)
     return u

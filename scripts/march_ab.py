@@ -32,7 +32,9 @@ and times the whole-level march's device time at its timed cases, under
 "split"; the towers' and gsrb_relax's device times from the kernels line
 ("<kernel> <case> device_ms" under "cases"). Last, the same probe times one
 preconditioner application (composite.precond, two AMR V-cycles in f32)
-on the 7-level hierarchy and on the periodic box from the initial psi: the
+on the 7-level hierarchy and on the periodic box from the initial psi,
+each without a mesh and (PRECOND_CASES) with the sharded phase's meshes of
+one card named four times: the
 wall time to completion on the card, the host's time to enqueue it from an
 idle card, and the card's busy time (the kernels and copies torch.profiler
 sees), with the wrapper calls it made; and the staged chain the periodic
@@ -45,6 +47,16 @@ every run's times and, per case, each tree's runs, median and spread
 over A (A's median over its own), for the times under "cases", the host
 times under "host_us" and the split under "split". Each run's whole output
 goes beside it (<out>.<i><tree>.log). Exits non-zero when a run fails.
+
+`--phases` widens the chip_smoke.py run of every tree (default
+env,build,kernels; the kernels phase must be among them). With `sharded`
+among them the summary has a "sharded" field as well: per sharded run of
+that phase (sharded_x, sharded_pencil, sharded7) the median seconds per
+Picard iteration and, where the tree's phase measures it, the wall time of
+one preconditioner application with the mesh and without; the kernels
+phase's whole-level sharded relax at the timed shard cases (per call,
+resident where the tree has it, unsharded) is under "cases" as
+"<kernel> <case> whole_level_<form>".
 """
 
 from __future__ import annotations
@@ -188,12 +200,14 @@ def _timed(fn):
 
 _precond = {}
 with torch.no_grad():
-    for _label, _over, _params in PRECOND_CASES:
+    for _label, _over, _params, _mshape in PRECOND_CASES:
         _params = getattr(chip_smoke, _params)
         _cfg = chip_smoke.mgt.load_params(_params, overrides=list(_over))
         _geom = chip_smoke.generate_hierarchy(_cfg)
         _dev = torch.device("cuda")
-        _spec = chip_smoke.comp.make_amr_spec(_geom, _cfg, _dev)
+        _mesh = None if _mshape is None else chip_smoke.one_card_mesh(
+            _mshape)
+        _spec = chip_smoke.comp.make_amr_spec(_geom, _cfg, _dev, _mesh)
         _fields = [chip_smoke.ld.problem_fields(_geom, _cfg, l, torch.float64,
                                                 _dev)
                    for l in range(_geom.num_levels)]
@@ -206,6 +220,7 @@ with torch.no_grad():
         _run()
         torch.cuda.synchronize()
         _k0 = dict(chip_smoke.kernel_counts.LAUNCHES)
+        _h0 = dict(getattr(chip_smoke.kernel_counts, "HALO", {}))
         _run()
         _calls = {k: v - _k0[k]
                   for k, v in chip_smoke.kernel_counts.LAUNCHES.items()
@@ -213,6 +228,10 @@ with torch.no_grad():
         for _k, _v in _timed(_run).items():
             _precond[f"{_label} {_k}"] = _v
         _precond[f"{_label} calls"] = _calls
+        if _h0:
+            _precond[f"{_label} halo"] = {
+                k: v - _h0[k]
+                for k, v in chip_smoke.kernel_counts.HALO.items()}
         del _spec, _fields, _psi, _a, _rhs, _coefs, _run
         torch.cuda.empty_cache()
     _spec = chip_smoke.chain_spec((256, 256, 256), (0, 0, 0), chip_smoke.ALL_P,
@@ -235,9 +254,16 @@ print(json.dumps({"phase": "precond_probe", "precond": _precond}),
 """
 PRECOND_CASES = (
     ("scale7", ("max_level = 6", "precond_precision = single",
-                "verbosity = 0"), "CANONICAL"),
+                "verbosity = 0"), "CANONICAL", None),
     ("periodic", ("precond_precision = single", "verbosity = 0"),
-     "PERIODIC"))
+     "PERIODIC", None),
+    # the sharded phase's meshes, one card named four times
+    ("periodic_x4", ("precond_precision = single", "verbosity = 0"),
+     "PERIODIC", (4,)),
+    ("periodic_2x2", ("precond_precision = single", "verbosity = 0"),
+     "PERIODIC", (2, 2)),
+    ("scale7_x4", ("max_level = 6", "precond_precision = single",
+                   "verbosity = 0"), "CANONICAL", (4,)))
 SPLIT_CASES = ("path_l0_64", "path_l1_96x80x80", "path_l2_128x80x80",
                "path_l3_176x64x64", "path_l4_272x80x80")
 PHASES = "env,build,kernels"
@@ -256,13 +282,13 @@ def timer_source(name: str = "time_ms") -> str:
     raise RuntimeError(f"{path}: no {name}")
 
 
-def runner() -> str:
+def runner(phases: str = PHASES) -> str:
     """Runs chip_smoke.py's main() in the tree whose root is the working
     directory, with this tree's time_ms in place of its own and the host
     probe of the tower wrappers."""
     return ("import json, os, statistics, sys, time\n"
             "sys.path.insert(0, os.getcwd())\n"
-            f"sys.argv = ['chip_smoke.py', '--phases', '{PHASES}']\n"
+            f"sys.argv = ['chip_smoke.py', '--phases', '{phases}']\n"
             "import chip_smoke\n"
             "import torch\n"
             + timer_source() + "\n"
@@ -301,6 +327,29 @@ def march_times(rec: dict) -> dict:
                 out[f"{name} {c['case']}"] = r["ms"]
             if r.get("device_ms") is not None:
                 out[f"{name} {c['case']} device_ms"] = r["device_ms"]
+            for form, ms in r.get("whole_level_relax_ms", {}).items():
+                out[f"{name} {c['case']} whole_level_{form}"] = ms
+    return out
+
+
+def sharded_times(stdout: str) -> dict:
+    """{"<run> s_per_iteration": median, "<run> precond_<form>_ms": wall}
+    of the sharded phase's line of one run ({} where it did not run)."""
+    for line in stdout.splitlines():
+        if line.startswith("{") and '"phase": "sharded"' in line:
+            rec = json.loads(line)
+            break
+    else:
+        return {}
+    out = {}
+    for run in ("sharded_x", "sharded_pencil", "sharded7"):
+        r = rec[run]
+        out[f"{run} s_per_iteration"] = statistics.median(
+            r["s_per_iteration"])
+        out[f"{run} unsharded_s_per_iteration"] = statistics.median(
+            r["unsharded_s_per_iteration"])
+        for form, app in r.get("precond_application", {}).items():
+            out[f"{run} precond_{form}_ms"] = app["wall_ms"]
     return out
 
 
@@ -342,10 +391,11 @@ def build_seconds(stdout: str):
     return None
 
 
-def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
+def run_tree(root: str, log_path: str, timeout: float,
+             phases: str = PHASES) -> tuple[dict, float]:
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", runner()], cwd=root,
+        [sys.executable, "-c", runner(phases)], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=timeout)
     with open(log_path, "w") as f:
@@ -358,6 +408,7 @@ def run_tree(root: str, log_path: str, timeout: float) -> tuple[dict, float]:
              "host_us": host_times(proc.stdout),
              "split": split_times(proc.stdout),
              "precond": precond_times(proc.stdout),
+             "sharded": sharded_times(proc.stdout),
              "build_s": build_seconds(proc.stdout)},
             time.perf_counter() - t0)
 
@@ -397,7 +448,12 @@ def main() -> int:
                     help="tree names in the order they run, comma-separated")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds one run may take")
+    ap.add_argument("--phases", default=PHASES,
+                    help="chip_smoke.py phases of every run (with kernels)")
     args = ap.parse_args()
+    if "kernels" not in args.phases.split(","):
+        print("--phases must include kernels", file=sys.stderr)
+        return 2
     roots = {"A": os.path.abspath(args.parent), "B": ROOT}
     for v in args.variant:
         name, _, path = v.partition("=")
@@ -423,7 +479,7 @@ def main() -> int:
     runs = []
     for i, tree in enumerate(order):
         rec, secs = run_tree(roots[tree], f"{args.out}.{i}{tree}.log",
-                             args.timeout)
+                             args.timeout, args.phases)
         runs.append({"tree": tree, "seconds": secs, **rec})
         print(f"run {i} {tree}: {secs:.1f} s", flush=True)
     result = {"card": card[0] if card else None, "order": order,
@@ -431,7 +487,8 @@ def main() -> int:
               "cases": summarize(runs, list(roots)),
               "host_us": summarize(runs, list(roots), "host_us"),
               "split": summarize(runs, list(roots), "split"),
-              "precond": summarize(runs, list(roots), "precond")}
+              "precond": summarize(runs, list(roots), "precond"),
+              "sharded": summarize(runs, list(roots), "sharded")}
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     for case, row in result["cases"].items():
@@ -444,7 +501,7 @@ def main() -> int:
         print(case + " host: " + ", ".join(
             f"{t} {row[t + '_median']:.1f} us" for t in roots if t in row),
             flush=True)
-    for field in ("split", "precond"):
+    for field in ("split", "precond", "sharded"):
         for case, row in result[field].items():
             print(case + ": " + ", ".join(
                 f"{t} {row[t + '_median']:.4g}" for t in roots if t in row),
