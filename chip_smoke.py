@@ -112,15 +112,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
            periodic box on 4 x-slabs and on (2, 2) pencils and the 7-level
            hierarchy on 4 x-slabs, each beside the same run without a mesh
            (Krylov counts, K, step 1, the 7-level lock; the halo kernels
-           launched in every iteration, no plain version; every depth the
-           mesh cuts kept on its shards through the preconditioner: the
-           splits, joins, coefficient splits and pad builds of each
-           iteration exactly what one coefficient build and its
-           preconditioner applications imply, shard_coef_builds_of and
-           shard_traffic_of), one preconditioner application with the mesh
-           and without (what it splits, joins, exchanges and moves, and its
-           wall time), and the CLI's calls on the periodic box with the
-           mesh (the sharding line, K against the run without one)
+           launched in every iteration, no plain version; every level the
+           mesh cuts kept on its shards from placement to the result: the
+           splits, joins, level windows, coefficient splits, joins and pad
+           builds of each iteration exactly what one coefficient build, its
+           preconditioner applications, the composite operator, the prepare
+           and the finish imply, shard_coef_builds_of, shard_traffic_of,
+           picard_windows_of; the bytes moved between mesh positions per
+           Picard iteration beside the preconditioner-only placement's),
+           one preconditioner
+           application with the mesh and without (what it splits, joins,
+           exchanges and moves, and its wall time), the CLI's calls on the
+           periodic box with the mesh (the sharding line, K against the run
+           without one), and entry.dryrun_multichip(4) on cuda:0 named four
+           times
   lowdim   ops/lowdim's 3-D V-cycle solve (32^3, f64, no kernel) on the
            card against the same solve on the CPU, to 1e-12
 
@@ -129,8 +134,10 @@ Asked for by name only (the default run needs one card):
   cards    the sharded solve over every visible card (at least two), with
            the mesh main.run builds by itself on such a host, beside one
            card named as often and the run without a mesh: the periodic box
-           and the 7-level hierarchy, held as in the sharded phase, then
-           the CLI's calls with no mesh given (the sharding line).
+           and the 7-level hierarchy, held as in the sharded phase, with
+           each card's peak memory (every card past cuda:0 must hold at
+           least a fifth of the unsharded run's peak), then the CLI's calls
+           with no mesh given (the sharding line).
            python3 chip_smoke.py --phases env,build,cards
 
 Then one line {"kernels": [...]} (per kernel: launches on its main path =
@@ -176,6 +183,7 @@ from mg_ic_code_tpu_torch.grid.boxes import Box  # noqa: E402
 from mg_ic_code_tpu_torch.grid.tagging import generate_hierarchy  # noqa: E402
 from mg_ic_code_tpu_torch.ops import coarse_tower as ct  # noqa: E402
 from mg_ic_code_tpu_torch.ops import cuda_ext, kernel_counts  # noqa: E402
+from mg_ic_code_tpu_torch.ops import cf_interp as cfi  # noqa: E402
 from mg_ic_code_tpu_torch.ops import fused_sweeps as fs  # noqa: E402
 from mg_ic_code_tpu_torch.ops import stencils as st  # noqa: E402
 from mg_ic_code_tpu_torch.ops import wavefront as wf  # noqa: E402
@@ -1750,23 +1758,35 @@ def residual_calls_of(spec) -> dict:
 UNCUT = (1, 1, 1)
 
 
+def _cut_pairs(spec) -> list:
+    """The refined entries that read or write another level by level
+    windows: those whose level or parent the mesh cuts at depth 0, each
+    with whether it has coarse-fine faces (cf_interp.cf_faces)."""
+    geom = spec.geom
+    cut = [mg._shard_counts(ls, 0) != UNCUT for ls in spec.level_specs]
+    return [(l, bool(cfi.cf_faces(geom, l)))
+            for l in range(1, spec.num_levels)
+            if cut[l] or cut[geom.parent[l]]]
+
+
 def shard_traffic_of(spec, const_b: bool = True) -> dict:
-    """Splits and joins of cut levels (kernel_counts.HALO) per
+    """Splits, joins and level windows (kernel_counts.HALO) per
     preconditioner application of a hierarchy on a mesh, from its cuts
-    (multigrid._shard_counts) alone. Per V-cycle: a refined level the mesh
-    cuts splits its residual, the coarse correction under it and, with a
-    constant bCoef, its CF-folded rhs (3), and joins its restricted
-    residual into the parent and its correction (2); a cut base level
-    splits its residual and joins its correction (1, 1), and its depth
-    chain splits or joins nothing between two cut depths with equal
-    counts; where the next depth is cut otherwise or not at all, the
-    restricted residual is joined (1) and the correction under the shards
-    split (1), and a cut depth taken up whole splits its u and rhs and
-    joins its result (2, 1) at every visit (num_mg per visit of the depth
-    above); a cut bottom depth is solved whole (3 joins, 3 splits, its
-    residual split and joined per call). The composite residual between
-    two V-cycles takes every cut level whole (2 splits, 1 join). No
-    coefficient is split and no pad built."""
+    (multigrid._shard_counts) alone. The AMR levels split and join nothing:
+    a cut level comes in and goes out as its shards. What splits and joins
+    is the base level's depth chain: no split or join between two cut
+    depths with equal counts; where the next depth is cut otherwise or not
+    at all, the restricted residual is joined (1) and the correction under
+    the shards split (1), and a cut depth taken up whole splits its u and
+    rhs and joins its result (2, 1) at every visit (num_mg per visit of
+    the depth above); a cut bottom depth is solved whole (3 joins, 3
+    splits, its residual split and joined per call). Level windows: per
+    V-cycle every refined entry whose level or parent is cut writes its
+    restricted residual into the parent (1), reads the coarse correction
+    under it (1) and, where it has coarse-fine faces, the faces' coarse
+    planes of its post-smooth (1); between two V-cycles the composite
+    residual's coarse-fine term reads them again (1). No coefficient is
+    split or joined and no pad built."""
     s = j = 0
 
     def chain(ls, d, resident, visits):
@@ -1787,61 +1807,113 @@ def shard_traffic_of(spec, const_b: bool = True) -> dict:
             s, j = s + visits, j + visits
         chain(ls, d + 1, same, visits * max(ls.num_mg, 1))
 
-    cut_levels = 0
-    for l, ls in enumerate(spec.level_specs):
-        if mg._shard_counts(ls, 0) == UNCUT:
-            continue
-        cut_levels += 1
-        if l == 0:
-            s, j = s + 1, j + 1
-            chain(ls, 0, True, 1)
-        else:
-            s, j = s + (3 if const_b else 2), j + 2
+    chain(spec.level_specs[0], 0, True, 1)
+    pairs = _cut_pairs(spec)
+    per_cycle = sum(2 + cf for _, cf in pairs)
+    between = sum(cf for _, cf in pairs)
     m = spec.num_mg_iterations
-    return {"level_splits": m * s + (m - 1) * 2 * cut_levels,
-            "level_joins": m * j + (m - 1) * cut_levels,
-            "coef_splits": 0, "coef_pad_builds": 0}
+    return {"level_splits": m * s, "level_joins": m * j,
+            "level_windows": m * per_cycle + (m - 1) * between,
+            "coef_splits": 0, "coef_joins": 0, "coef_pad_builds": 0}
 
 
-def check_halo_counts(run: dict, spec, what: str) -> dict:
-    """Every Picard iteration of a sharded run split, joined, cut and
-    padded exactly what one coefficient build (shard_coef_builds_of) and
+def picard_windows_of(spec, krylov: int, average_down: bool = False) -> int:
+    """Level windows of one Picard iteration outside the preconditioner:
+    every refined entry whose level or parent is cut and that has
+    coarse-fine faces reads the faces' coarse planes once in each ghosted
+    psi of prepare_iteration (two on a periodic domain: K's integrand and
+    the rhs), in the initial residual and in each of BiCGStab's two
+    operator applications a Krylov iteration; with average_down every such
+    entry writes its restriction into its parent once."""
+    pairs = _cut_pairs(spec)
+    n_cf = sum(cf for _, cf in pairs)
+    prepare = 2 if spec.geom.bc.periodic else 1
+    return (prepare + 1 + 2 * krylov) * n_cf + (
+        len(pairs) if average_down else 0)
+
+
+HALO_DERIVED = ("level_splits", "level_joins", "level_windows",
+                "coef_splits", "coef_joins", "coef_pad_builds")
+# what poisson_solve joins of each cut level at its end: psi, dpsi and the
+# ten physics field arrays (phi, rho_grad, the six A_ij, A^2, psi_bh)
+RESULT_ARRAYS = 12
+
+
+def result_joins_of(spec) -> int:
+    """Level joins of a sharded solve's result (after its last
+    iteration): every array of NLResult of every level the mesh cuts."""
+    return RESULT_ARRAYS * sum(mg._shard_counts(ls, 0) != UNCUT
+                               for ls in spec.level_specs)
+
+
+def check_halo_counts(run: dict, spec, what: str,
+                      average_down: bool = False) -> dict:
+    """Every Picard iteration of a sharded run split, joined, windowed, cut
+    and padded exactly what one coefficient build (shard_coef_builds_of),
     two preconditioner applications per Krylov iteration
-    (shard_traffic_of) imply; returns both."""
+    (shard_traffic_of) and the composite operator, the prepare and the
+    finish of the iteration (picard_windows_of) imply, and after the last
+    one the result's joins (result_joins_of); returns the parts."""
     build, app = shard_coef_builds_of(spec), shard_traffic_of(spec)
-    for got, krylov in zip(run["halo_per_iteration"], run["linear_iters"]):
-        want = {k: build.get(k, 0) + 2 * krylov * app[k] for k in app}
+    last = len(run["linear_iters"]) - 1
+    for i, (got, krylov) in enumerate(zip(run["halo_per_iteration"],
+                                          run["linear_iters"])):
+        want = {k: build.get(k, 0) + 2 * krylov * app.get(k, 0)
+                for k in HALO_DERIVED}
+        want["level_windows"] += picard_windows_of(spec, krylov,
+                                                   average_down)
+        if i == last:
+            want["level_joins"] += result_joins_of(spec)
         check({k: got[k] for k in want} == want,
               f"{what}: halo counts {got} in an iteration of {krylov} "
               f"Krylov iterations, the hierarchy implies {want}")
-    return {"per_build": build, "per_application": app}
+    return {"per_build": build, "per_application": app,
+            "result_joins": result_joins_of(spec),
+            "picard_windows_per_iteration": [
+                picard_windows_of(spec, k, average_down)
+                for k in run["linear_iters"]]}
 
 
 def shard_coef_builds_of(spec, device_type: str = "cuda",
                          const_b: bool = True) -> dict:
-    """Coefficient splits and pad builds of one composite.build_coefs on a
-    mesh: per depth the mesh cuts, in each coefficient set (the f64 one,
-    and the f32 one of a mixed-precision preconditioner), aCoef's shards
-    and either the halo kernels' aCoef pads (f32 with kernels allowed, a
+    """Coefficient splits, joins and pad builds of one composite.build_coefs
+    on a mesh. aCoef (and a variable bCoef) arrive on the shards, so depth
+    0 cuts nothing; the chain below is coarsened on the shards and, where
+    a depth is cut otherwise than the one above, resharded: one join of
+    each array, and one split where the new depth is cut. A cut bottom
+    depth joins its a, lambda (and b) for the dense inverse, and each
+    coefficient set then cuts it as coefficients that arrive whole: aCoef,
+    and lambda (and b) for the plain sharded ops. Pads: per depth the
+    mesh cuts, in the f32 set of a mixed-precision preconditioner, the
+    halo kernels' aCoef pads where they run (f32 with kernels allowed, a
     constant bCoef, z not cut, nsmooth a multiple of the kernels' chunk,
-    no odd periodic extent) or lambda's shards for the plain sharded ops
-    (and bCoef's where it varies)."""
-    out = {"coef_splits": 0, "coef_pad_builds": 0}
+    no odd periodic extent)."""
+    out = {"coef_splits": 0, "coef_joins": 0, "coef_pad_builds": 0}
+    arrays = 1 if const_b else 2
     dtypes = [torch.float64] + (
         [torch.float32] if spec.precond_dtype == "float32" else [])
     for ls in spec.level_specs:
+        cuts = [mg._shard_counts(ls, d) for d in range(ls.ndepths)]
+        for d in range(1, ls.ndepths):
+            if cuts[d - 1] != UNCUT and cuts[d] != cuts[d - 1]:
+                out["coef_joins"] += arrays
+                out["coef_splits"] += arrays if cuts[d] != UNCUT else 0
+        whole_bottom = cuts[-1] != UNCUT and mg._use_direct_bottom(ls)
+        if whole_bottom:
+            out["coef_joins"] += 1 + arrays
         for dtype in dtypes:
             for d in range(ls.ndepths):
-                counts = mg._shard_counts(ls, d)
+                counts = cuts[d]
                 if counts == UNCUT:
                     continue
                 kernel = (const_b and counts[2] == 1
                           and mg._kernels_allowed_for(ls, dtype, device_type)
                           and fs.sharded_plan(tuple(ls.boxes[d].shape),
                                               ls.nsmooth, ls.kinds))
-                out["coef_splits"] += 1 + (0 if kernel else 1) + (
-                    0 if const_b else 1)
                 out["coef_pad_builds"] += 1 if kernel else 0
+                if whole_bottom and d == ls.ndepths - 1:
+                    out["coef_splits"] += 1 + (0 if kernel else 1) + (
+                        0 if const_b else 1)
     return out
 
 
@@ -2368,14 +2440,29 @@ CLI_OVERRIDES = ["max_level = 6", "max_NL_iterations = 2",
                  "precond_precision = single", "verbosity = 0"]
 
 
+def stack_sums(stack) -> tuple:
+    """(components, itemsize, nx * ny, per-component sums, per-component
+    absolute sums, values) of one box's component stack: a tensor, or a
+    cut level's stack held as its shards (summed shard by shard)."""
+    if not isinstance(stack, shards.ShardSet):
+        return (stack.shape[0], stack.element_size(),
+                stack.shape[1] * stack.shape[2],
+                stack.sum(dim=(1, 2, 3)).cpu(),
+                stack.abs().sum(dim=(1, 2, 3)).cpu(), stack.numel())
+    parts = [stack.shards[k] for k in sorted(stack.shards)]
+    sums = sum(p.sum(dim=(1, 2, 3)).cpu() for p in parts)
+    abss = sum(p.abs().sum(dim=(1, 2, 3)).cpu() for p in parts)
+    return (parts[0].shape[0], parts[0].element_size(),
+            stack.shape[0] * stack.shape[1], sums, abss,
+            sum(p.numel() for p in parts))
+
+
 def check_pieces(pieces, base_off: int, cells: int, stack, what: str):
     """The (offset, size, sum) of the pieces the writers stream for one
     box: every tile within the byte limit, each component's pieces contiguous from its offset to
     its end, and each component's sum equal to the device's (1e-10 of the
     component's absolute sum: the tiles are added in another order)."""
-    ncomp = stack.shape[0]
-    isz = stack.element_size()
-    nxy = stack.shape[1] * stack.shape[2]
+    ncomp, isz, nxy, dev, scale, _ = stack_sums(stack)
     limit = max(chio._STREAM_MAX_BYTES, ncomp * nxy * isz)
     by_comp = [[] for _ in range(ncomp)]
     for off, size, total in pieces:
@@ -2396,9 +2483,7 @@ def check_pieces(pieces, base_off: int, cells: int, stack, what: str):
         check(tile_bytes <= limit, f"{what}: tile of {tile_bytes} bytes")
     host = torch.tensor([sum(x[2] for x in pl) for pl in by_comp],
                         dtype=torch.float64)
-    dev = stack.sum(dim=(1, 2, 3)).cpu()
-    scale = stack.abs().sum(dim=(1, 2, 3)).cpu().clamp_min(1e-300)
-    worst = float(((host - dev).abs() / scale).max())
+    worst = float(((host - dev).abs() / scale.clamp_min(1e-300)).max())
     check(worst <= 1e-10, f"{what}: checksum off by {worst}")
     return ntiles, worst
 
@@ -2426,10 +2511,11 @@ def cli_streamed(overrides, params: str = CANONICAL, mesh=None) -> dict:
                       for o, flat in chio._fab_pieces(off, cells, stack)]
             nt, worst = check_pieces(pieces, off, cells, stack,
                                      f"{what} entry {e}")
-            off += stack.shape[0] * cells
+            ncomp, _, _, _, _, values = stack_sums(stack)
+            off += ncomp * cells
             stats["boxes"] += 1
             stats["tiles"] += nt
-            stats["values"] += stack.numel()
+            stats["values"] += values
             stats["worst_checksum"] = max(stats["worst_checksum"], worst)
 
     def snapshot(nl_iter, state):
@@ -2657,6 +2743,9 @@ def precond_application(overrides, params: str, mesh, reps: int = 5) -> dict:
     fields = [ld.problem_fields(geom, cfg, l, torch.float64, dev)
               for l in range(geom.num_levels)]
     psi = ld.initial_state(geom, cfg, torch.float64, dev)["psi"]
+    if mesh is not None:  # placed as poisson_solve places them
+        fields = pmesh.shard_fields(fields, mesh, geom)
+        psi = pmesh.shard_level_list(psi, mesh, geom)
     a, rhs, _ = nl.prepare_iteration(geom, cfg, fields, psi)
     coefs = comp.build_coefs(spec, a)
     comp.precond(spec, coefs, rhs)
@@ -2685,6 +2774,26 @@ def precond_application(overrides, params: str, mesh, reps: int = 5) -> dict:
 
 SHARDED7 = ["max_level = 6", "max_NL_iterations = 3",
             "precond_precision = single", "verbosity = 0"]
+# bytes moved between mesh positions per Picard iteration when only the
+# preconditioner kept the cut depths on their shards and the Krylov
+# vectors, the f64 operator and the Picard state were whole on the home:
+# this phase's reading of that placement (PERF.md §6; NVIDIA H100 80GB
+# HBM3, 700.00 W)
+HOME_PLACEMENT_BYTES_PER_ITERATION = {
+    "sharded_x": 2.27e9, "sharded_pencil": 2.30e9, "sharded7": 4.09e9}
+
+
+def bytes_per_iteration(run: dict, label: str) -> dict:
+    """The bytes moved between mesh positions in each Picard iteration of
+    a sharded run (the last one with the result's joins), beside the
+    preconditioner-only placement's per iteration."""
+    per = [h["bytes_moved"] for h in run["halo_per_iteration"]]
+    return {"bytes_moved_per_iteration": per,
+            "bytes_moved_first_iteration": per[0],
+            "home_placement_bytes_moved_per_iteration":
+            HOME_PLACEMENT_BYTES_PER_ITERATION[label],
+            "ratio_to_home_placement":
+            per[0] / HOME_PLACEMENT_BYTES_PER_ITERATION[label]}
 
 
 def phase_sharded() -> dict:
@@ -2712,6 +2821,7 @@ def phase_sharded() -> dict:
         runs[path] = counts
         n_iter = len(run["history"])
         out[path] = {"mesh": list(mshape), **agree, **run,
+                     **bytes_per_iteration(run, path),
                      "launches": counts["launches"],
                      "device_launches": counts["device_launches"],
                      "plain_calls": counts["plain_calls"],
@@ -2748,6 +2858,7 @@ def phase_sharded() -> dict:
     runs["sharded7"] = counts7
     n7 = len(h)
     out["sharded7"] = {"mesh": list(SHARD_X), **lock, **agree7, **run7,
+                       **bytes_per_iteration(run7, "sharded7"),
                        "launches": counts7["launches"],
                        "device_launches": counts7["device_launches"],
                        "plain_calls": counts7["plain_calls"],
@@ -2805,6 +2916,13 @@ def phase_sharded() -> dict:
         "main.run, files read back" if chio.HAVE_H5PY else
         "main.run's calls, the writers' pieces summed and not written"),
         **cli}
+    # the port's dry run: one full step of three small hierarchies on a
+    # mesh naming cuda:0 four times against the same step without one
+    from mg_ic_code_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    out["dryrun_multichip"] = {"n": 4, **entry.dryrun_multichip(4, "cuda:0"),
+                               "seconds": time.perf_counter() - t0}
     out["runs"] = runs
     emit(out)
     return out
@@ -2814,15 +2932,15 @@ def phase_cards() -> dict:
     """The sharded solve over every visible card: the mesh main.run builds
     by itself where it sees more than one (main.choose_mesh ->
     distributed.host_mesh), beside one card named as often and the run
-    without a mesh, each sharded run's splits and joins held to its
-    hierarchy (check_halo_counts). Inside the preconditioner every depth
-    the mesh cuts stays on its cards and only the pads cross between them;
-    each cut level is split once a V-cycle where the V-cycle takes up its
-    residual and joined once for its correction, and the Krylov vectors,
-    the composite operator and the Picard state stay whole on cuda:0 (the
-    placement gap that is left, parallel/mesh.py): this phase measures what
-    those copies cost across cards, and one relax of the periodic box's
-    256^3 level in its per-call and its resident form."""
+    without a mesh, each sharded run's splits, joins and windows held to
+    its hierarchy (check_halo_counts). Every level the mesh cuts stays on
+    its cards from placement to the end of the solve (parallel/mesh.py):
+    only pads, ghost planes, level windows and the depth chain's reshards
+    cross between cards, and the result is joined on cuda:0 once at the
+    end. The phase reads each card's peak memory over the four-card run
+    and checks that every card past cuda:0 held its share (at least a
+    fifth of the unsharded run's peak), and times one relax of the
+    periodic box's 256^3 level in its per-call and its resident form."""
     n = torch.cuda.device_count()
     check(n >= 2, f"cards: needs more than one card, found {n}")
     out = {"phase": "cards", "device_count": n,
@@ -2845,8 +2963,12 @@ def phase_cards() -> dict:
                 ("one_card", one_card_mesh(tuple(cards.sizes)))):
             kernel_counts.reset()
             keep: dict = {}
+            for i in range(n):
+                torch.cuda.synchronize(i)
+                torch.cuda.reset_peak_memory_stats(i)
             run = run_solve(over, f"{what}_{label}", keep=keep,
                             params=params, mesh=mesh)
+            peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
             counts = kernel_counts.snapshot()
             check_halo_counts(run, comp.make_amr_spec(
                 keep["geom"], keep["cfg"], torch.device("cuda"), mesh),
@@ -2862,12 +2984,22 @@ def phase_cards() -> dict:
                           "step1_rel_diff": agree["step1_rel_diff"],
                           "K_rel_diff": agree["K_rel_diff"],
                           "launches": counts["launches"],
-                          "halo": counts["halo"]}
+                          "halo": counts["halo"],
+                          "bytes_moved_per_iteration": [
+                              h["bytes_moved"]
+                              for h in run["halo_per_iteration"]],
+                          "max_memory_allocated_per_card": peaks}
         rec["cards_equal_one_card"] = all(
             rec["cards"][k] == rec["one_card"][k]
             for k in ("history", "constant_K", "linear_iters"))
-        rec["max_memory_allocated_per_card"] = [
-            torch.cuda.max_memory_allocated(i) for i in range(n)]
+        peaks = rec["cards"]["max_memory_allocated_per_card"]
+        floor = ref["max_memory_allocated"] / 5
+        check(all(p >= floor for p in peaks[1:]),
+              f"cards {what}: cards past cuda:0 peak at {peaks[1:]} bytes, "
+              f"below a fifth of the unsharded run's "
+              f"{ref['max_memory_allocated']}: they do not hold their "
+              f"shards")
+        rec["peak_floor_per_card"] = floor
         out[what] = rec
         if what == "periodic":
             # one relax of its 256^3 level (4 sweeps) on each mesh

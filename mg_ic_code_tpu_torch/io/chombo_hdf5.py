@@ -21,9 +21,13 @@ scalar box-compound attribute. A level group holds one box per dense patch
 at that depth (box-major data layout, the format's native union-of-boxes
 convention).
 
-Level data arrives as torch tensors on the solve's device. The writers
-move it to the host in z-slab tiles of at most `_STREAM_MAX_BYTES`, never
-as a whole level.
+Level data arrives as torch tensors on the solve's device, or, for a level
+cut over a mesh, as parallel/shards.ShardSet: the component stacks are
+made shard by shard on the shards' devices. The writers move it to the
+host in z-slab tiles of at most `_STREAM_MAX_BYTES`, never as a whole
+level; a cut level's tiles are put together on the host from its shards
+(parallel/distributed.stream_global_slabs), the same tiles, values and
+bytes as the whole level's.
 """
 
 from __future__ import annotations
@@ -173,8 +177,12 @@ def _fab_pieces(base_off: int, cells: int, stack):
     [c*cells + nx*ny*a, c*cells + nx*ny*b), so no more than one ~32 MB tile
     is ever on the host (no full-level copy)."""
     from mg_ic_code_tpu_torch.parallel import distributed as dist
+    from mg_ic_code_tpu_torch.parallel.shards import ShardSet
 
-    nx, ny = stack.shape[1], stack.shape[2]
+    # a cut level's shape is its spatial shape; a whole stack leads with
+    # the components
+    nx, ny = tuple(stack.shape[-3:-1]) if isinstance(stack, ShardSet) else (
+        stack.shape[1], stack.shape[2])
     # z-slab tiles of at most _STREAM_MAX_BYTES; the device transposes each
     # to (ncomp, nz_tile, ny, nx) before the copy, so that on the host each
     # component of the block is already in Fortran order of (nx, ny, nz_tile)
@@ -198,7 +206,14 @@ SOLVER_DATA_NAMES = ["dpsi", "rhs"] + list(MULTIGRID_VARIABLE_NAMES)
 
 def solver_data_stack(dpsi, rhs, psi, fields):
     """The plotfile's components of one box, stacked in file order:
-    dpsi, rhs and the 8 multigrid vars (psi, the six A_ij, phi)."""
+    dpsi, rhs and the 8 multigrid vars (psi, the six A_ij, phi); a cut
+    level's shard by shard."""
+    from mg_ic_code_tpu_torch.parallel.shards import per_shard
+
+    return per_shard(_solver_data_stack, dpsi, rhs, psi, fields)
+
+
+def _solver_data_stack(dpsi, rhs, psi, fields):
     aij = fields["aij"]
     return torch.stack([
         dpsi, rhs, psi,
@@ -278,6 +293,8 @@ def write_final_data(
 
     Memory-bounded: the 29-var stacks stream to the host in ~32 MB z-slab
     tiles (see write_solver_data / _stream_fab_into)."""
+    from mg_ic_code_tpu_torch.parallel.shards import per_shard
+
     _require_h5py()
     nl = geom.max_depth + 1
     with h5py.File(path, "w") as f:
@@ -312,8 +329,9 @@ def write_final_data(
             off = 0
             for e in ents:
                 cells = int(np.prod(geom.boxes[e].shape))
-                stack = ld.grchombo_output_stack(
-                    psi_list[e], fields_list[e], cfg, constant_K
+                stack = per_shard(
+                    ld.grchombo_output_stack, psi_list[e], fields_list[e],
+                    cfg, constant_K
                 )
                 _stream_fab_into(dset, off, cells, stack)
                 off += NUM_GRCHOMBO_VARS * cells

@@ -16,10 +16,13 @@ returns 2 BEFORE the solve, not at the first snapshot.
 With more than one card visible the level arrays are sharded over all of
 them (parallel/distributed.host_mesh, topology from the base grid), as the
 JAX package's command line does; `mesh` names a mesh instead (one card may
-appear in it several times). Until sharded levels stay resident on their
-cards (the placement gap, parallel/mesh.py) that is SLOWER than one card:
-every sharded smoother call copies its level out to the cards and back.
-Make one card visible (CUDA_VISIBLE_DEVICES) to run unsharded.
+appear in it several times). Every level the mesh cuts then stays on its
+cards for the whole solve (parallel/mesh.py): only pads, ghost planes,
+level windows and the depth chain's reshards cross between them, and the
+plotfiles stream their tiles from the shards. One process drives all the
+cards and launches every shard's work itself, so the sharded run is still
+slower than one card on the configurations measured (PERF.md); make one
+card visible (CUDA_VISIBLE_DEVICES) to run unsharded.
 """
 
 from __future__ import annotations

@@ -52,13 +52,16 @@ def _upsample2(c: torch.Tensor, axis: int, order: int = 2) -> torch.Tensor:
     return torch.movedim(out, 0, axis)
 
 
-def _coarse_plane_for_face(
-    coarse_u: torch.Tensor, geom: HierarchyGeom, level: int, axis: int,
-    side: int, wrap: bool = False,
-) -> torch.Tensor:
-    """Coarse values tangentially interpolated onto the fine ghost plane of
-    the (axis, side) face of `level`'s box. Returns a 2D array shaped like
-    the face's tangential fine extent.
+def coarse_plane_read(geom: HierarchyGeom, level: int, axis: int, side: int,
+                      wrap: bool = False, fine=None):
+    """What the coarse plane of the (axis, side) face of `level` reads from
+    the parent: (idx, pads) — the index of the parent array (the normal
+    coarse plane as an int, each tangential axis as a slice clipped to the
+    parent box) and the edge-replication pads [(lo, hi)] per tangential
+    axis that extend the clipped read to the interpolation stencil.
+    `fine` = ((lo, hi) per tangential axis, global fine indices inclusive)
+    restricts the plane to a part of the face (a shard's); default the
+    whole face of the level's box.
 
     `wrap` handles a fine face AT a periodic domain boundary (the CF
     neighbour lives on the far side of the domain): the normal parent
@@ -90,9 +93,11 @@ def _coarse_plane_for_face(
     )
 
     taxes = [t for t in range(3) if t != axis]
+    if fine is None:
+        fine = [(fine_box.lo[t], fine_box.hi[t]) for t in taxes]
     # coarse tangential ranges grown by 1 for the interpolation stencil
-    want_lo = [fine_box.lo[t] // 2 - 1 for t in taxes]
-    want_hi = [fine_box.hi[t] // 2 + 1 for t in taxes]
+    want_lo = [f_lo // 2 - 1 for f_lo, _ in fine]
+    want_hi = [f_hi // 2 + 1 for _, f_hi in fine]
 
     idx: list = [None, None, None]
     idx[axis] = cg - crse_box.lo[axis]
@@ -102,16 +107,32 @@ def _coarse_plane_for_face(
         ahi = min(whi, crse_box.hi[t])
         idx[t] = slice(alo - crse_box.lo[t], ahi - crse_box.lo[t] + 1)
         pads.append((alo - wlo, whi - ahi))
+    return tuple(idx), pads
 
-    plane = coarse_u[tuple(idx)]  # 2D, tangential coarse extent (+available pad)
+
+def plane_from_read(plane: torch.Tensor, pads) -> torch.Tensor:
+    """The fine ghost plane from the 2D coarse read of coarse_plane_read:
+    edge-replicated where the read was clipped (at the coarse box / domain
+    edge), then refined by 2 along both tangential axes."""
     if any(p != (0, 0) for p in pads):
-        # clipped at the coarse box / domain edge: extend with edge values
         flat = [pads[1][0], pads[1][1], pads[0][0], pads[0][1]]
         plane = F.pad(plane[None, None], flat, mode="replicate")[0, 0]
 
     plane = _upsample2(plane, 0)
     plane = _upsample2(plane, 1)
     return plane
+
+
+def _coarse_plane_for_face(
+    coarse_u: torch.Tensor, geom: HierarchyGeom, level: int, axis: int,
+    side: int, wrap: bool = False,
+) -> torch.Tensor:
+    """Coarse values tangentially interpolated onto the fine ghost plane of
+    the (axis, side) face of `level`'s box. Returns a 2D array shaped like
+    the face's tangential fine extent (coarse_plane_read, then
+    plane_from_read)."""
+    idx, pads = coarse_plane_read(geom, level, axis, side, wrap)
+    return plane_from_read(coarse_u[idx], pads)
 
 
 def cf_faces(geom: HierarchyGeom, level: int) -> tuple:
@@ -141,6 +162,13 @@ def cf_faces(geom: HierarchyGeom, level: int) -> tuple:
     return tuple(out)
 
 
+def _placed(*xs) -> bool:
+    """Whether any of `xs` is a level cut over the mesh."""
+    from mg_ic_code_tpu_torch.parallel.shards import ShardSet
+
+    return any(isinstance(x, ShardSet) for x in xs)
+
+
 def add_cf_coarse_term(
     arr: torch.Tensor,
     geom: HierarchyGeom,
@@ -154,10 +182,18 @@ def add_cf_coarse_term(
     is LINEAR in the ghost and therefore separable from the homogeneous
     part: L_full(u, coarse) = L_homog(u) - (beta/dx^2)·bCoef·W_COARSE·plane
     at face cells (pass scale = -beta/dx^2 for L, +beta/dx^2 for residuals
-    and rhs folds). Returns a new tensor; `arr` is not modified."""
+    and rhs folds). Returns a new tensor; `arr` is not modified. Where
+    `arr` or `coarse_u` is a level cut over the mesh (a shard set), the
+    term goes on shard by shard, each shard's face planes read from the
+    parent through one level window (parallel/halo.add_cf_coarse_term)."""
     faces = cf_faces(geom, level)
     if not faces:
         return arr
+    if _placed(arr, coarse_u):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        return halo.add_cf_coarse_term(arr, geom, level, coarse_u, scale,
+                                       b_coef, faces)
     arr = arr.clone()
     for axis, side, wrap in faces:
         plane = _coarse_plane_for_face(

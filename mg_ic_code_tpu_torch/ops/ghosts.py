@@ -136,49 +136,40 @@ def _edge_pad(plane: torch.Tensor, pads) -> torch.Tensor:
     return F.pad(plane[None, None], flat, mode="replicate")[0, 0]
 
 
-def _inhomog_plane(
-    u, geom, level, axis, side, coarse_u, homogeneous_phys, dirichlet_shift,
-    tang_grown,
-):
-    """One inhomogeneous ghost plane (keepdims) of `u` along (axis, side):
-    quadratic CF interpolation from the coarse level, physical
-    Dirichlet/Neumann value fills, or periodic wrap. `tang_grown` marks
-    tangential axes already grown by one ghost (the CF coarse plane must be
-    edge-padded to match)."""
-    n = u.shape[axis]
-    i0, i1 = (0, 1) if side == 0 else (n - 1, n - 2)
-    u0, u1 = _take(u, axis, i0), _take(u, axis, i1)
-
-    is_cf = geom.face_is_cf(level, axis, side)
-    wrap = False
+def face_class(geom: HierarchyGeom, level: int, axis: int, side: int):
+    """How the depth-0 ghost plane of the (axis, side) face is filled:
+    ("wrap", False) a periodic face the level spans; ("cf", wrap) a
+    coarse-fine face (any non-spanning periodic face included, `wrap` where
+    it sits AT the domain boundary and its coarse neighbour wraps around);
+    ("phys", False) a physical face."""
     if geom.bc.periodic:
         box, dom = geom.boxes[level], geom.domain_boxes[level]
         spans = box.lo[axis] == dom.lo[axis] and box.hi[axis] == dom.hi[axis]
         if spans:
-            return _take(u, axis, n - 1 if side == 0 else 0)
+            return "wrap", False
         # ANY non-spanning periodic face is a CF face — including one AT
         # the domain boundary, whose coarse neighbour wraps around
-        is_cf = True
         at_dom = (
             box.lo[axis] == dom.lo[axis]
             if side == 0
             else box.hi[axis] == dom.hi[axis]
         )
-        wrap = at_dom
+        return "cf", at_dom
+    if geom.face_is_cf(level, axis, side):
+        return "cf", False
+    return "phys", False
 
-    if is_cf:
+
+def face_ghost(geom, level, axis, side, cls: str, u0, u1, plane,
+               homogeneous_phys, dirichlet_shift):
+    """THE depth-0 ghost rule of a CF or physical face from the two
+    interior planes u0, u1 (keepdims): the quadratic CF interpolation with
+    the coarse term W_COARSE * plane (None: homogeneous CF), or the
+    physical Dirichlet / Neumann value fill. The whole level's fill and
+    the per-shard one (parallel/halo.fill_ghosts) both apply it."""
+    if cls == "cf":
         ghost = _cf.W_U0 * u0 + _cf.W_U1 * u1
-        if coarse_u is not None:
-            plane = _cf._coarse_plane_for_face(
-                coarse_u, geom, level, axis, side, wrap=wrap
-            ).to(u.dtype)
-            pads = [(0, 0)] * 3
-            for t in range(3):
-                if t != axis and tang_grown[t]:
-                    pads[t] = (1, 1)
-            plane = plane.unsqueeze(axis)
-            if any(p != (0, 0) for p in pads):
-                plane = _edge_pad(plane, pads)
+        if plane is not None:
             ghost = ghost + _cf.W_COARSE * plane
         return ghost
 
@@ -195,6 +186,39 @@ def _inhomog_plane(
     raise ValueError(f"bogus bc flag {flag}")
 
 
+def _inhomog_plane(
+    u, geom, level, axis, side, coarse_u, homogeneous_phys, dirichlet_shift,
+    tang_grown,
+):
+    """One inhomogeneous ghost plane (keepdims) of `u` along (axis, side):
+    quadratic CF interpolation from the coarse level, physical
+    Dirichlet/Neumann value fills, or periodic wrap. `tang_grown` marks
+    tangential axes already grown by one ghost (the CF coarse plane must be
+    edge-padded to match)."""
+    n = u.shape[axis]
+    i0, i1 = (0, 1) if side == 0 else (n - 1, n - 2)
+    u0, u1 = _take(u, axis, i0), _take(u, axis, i1)
+
+    cls, wrap = face_class(geom, level, axis, side)
+    if cls == "wrap":
+        return _take(u, axis, n - 1 if side == 0 else 0)
+
+    plane = None
+    if cls == "cf" and coarse_u is not None:
+        plane = _cf._coarse_plane_for_face(
+            coarse_u, geom, level, axis, side, wrap=wrap
+        ).to(u.dtype)
+        pads = [(0, 0)] * 3
+        for t in range(3):
+            if t != axis and tang_grown[t]:
+                pads[t] = (1, 1)
+        plane = plane.unsqueeze(axis)
+        if any(p != (0, 0) for p in pads):
+            plane = _edge_pad(plane, pads)
+    return face_ghost(geom, level, axis, side, cls, u0, u1, plane,
+                      homogeneous_phys, dirichlet_shift)
+
+
 def fill_ghosts(
     u: torch.Tensor,
     geom: HierarchyGeom,
@@ -205,7 +229,17 @@ def fill_ghosts(
 ) -> torch.Tensor:
     """Full (depth-0) ghost fill: quadratic CF interpolation from the
     coarser level (None for homogeneous CF) plus physical BCs, assembled
-    per axis by concatenation like fill_ghosts_homogeneous."""
+    per axis by concatenation like fill_ghosts_homogeneous.
+
+    A level cut over the mesh (a shard set: `u`, or the coarse level of a
+    whole `u`) is filled shard by shard (parallel/halo.fill_ghosts): its
+    face ghosts are the whole level's, bit for bit; its edge and corner
+    ghosts, which no 7-point stencil reads, are not filled."""
+    if _cf._placed(u, coarse_u):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        return halo.fill_ghosts(u, geom, level, coarse_u, homogeneous_phys,
+                                dirichlet_shift)
     g = u
     tang_grown = [False, False, False]
     for axis in range(3):

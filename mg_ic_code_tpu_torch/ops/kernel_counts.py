@@ -20,8 +20,9 @@ kernel runs. A run on the GPU can thereby show that its path went through
 the kernels and never through a plain version.
 
 `HALO[name]` counts what the sharded path copies (parallel/shards.py says
-what each name counts): level splits and joins, coefficient splits and pad
-builds, pad exchanges and the bytes moved between mesh positions.
+what each name counts): level splits and joins, level windows,
+coefficient splits, joins and pad builds, pad exchanges and the bytes
+moved between mesh positions.
 """
 
 KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
@@ -31,8 +32,9 @@ KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_CALLS: dict[str, int] = {k: 0 for k in KERNELS}
-HALO_COUNTS = ("level_splits", "level_joins", "coef_splits",
-               "coef_pad_builds", "pad_exchanges", "bytes_moved")
+HALO_COUNTS = ("level_splits", "level_joins", "level_windows",
+               "coef_splits", "coef_joins", "coef_pad_builds",
+               "pad_exchanges", "bytes_moved")
 HALO: dict[str, int] = {k: 0 for k in HALO_COUNTS}
 
 

@@ -10,6 +10,8 @@ later step: `initialize` refuses it rather than run alone.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -85,8 +87,11 @@ def gather_global(x):
     an array already on the host). The JAX package's API; the port's
     writers stream tiles (stream_global_slabs) and only
     tests/test_torch_parallel.py calls this."""
+    from mg_ic_code_tpu_torch.parallel.shards import require_whole
+
     if isinstance(x, np.ndarray):
         return x
+    require_whole(x, "gather_global (stream_global_slabs reads shards)")
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -98,9 +103,20 @@ def stream_global_slabs(x, axis: int = 0, max_bytes: int = 1 << 25,
     at most `max_bytes` (at least one slice), so that no more than one tile
     is ever on the host. `perm`, when given, permutes each tile's axes on
     the device before the copy (the writers ask for Fortran order this
-    way). A host array yields itself as one tile."""
+    way). A host array yields itself as one tile.
+
+    A level cut over the mesh (parallel/shards.ShardSet, its shards
+    perhaps with leading axes, as the writers' component stacks) yields
+    the same tiles as the whole level would: each tile is put together on
+    the host from the part of it every shard holds, copied from the
+    shard's device (permuted there), and no shard is joined on a card."""
+    from mg_ic_code_tpu_torch.parallel.shards import ShardSet
+
     if isinstance(x, np.ndarray):
         yield 0, x if perm is None else x.transpose(perm)
+        return
+    if isinstance(x, ShardSet):
+        yield from _shard_tiles(x, axis, max_bytes, perm)
         return
     n = x.shape[axis]
     row_bytes = (x.numel() // max(n, 1)) * x.element_size()
@@ -110,3 +126,30 @@ def stream_global_slabs(x, axis: int = 0, max_bytes: int = 1 << 25,
         if perm is not None:
             tile = tile.permute(*perm)
         yield a, tile.contiguous().cpu().numpy()
+
+
+def _shard_tiles(x, axis: int, max_bytes: int, perm):
+    """stream_global_slabs of a shard set: the whole level's tiles."""
+    first = next(iter(x.shards.values()))
+    lead = first.dim() - 3
+    shape = tuple(first.shape[:lead]) + tuple(x.shape)
+    n = shape[axis]
+    row_bytes = math.prod(shape) // max(n, 1) * first.element_size()
+    rows = max(1, min(n, int(max_bytes) // max(row_bytes, 1)))
+    order = tuple(range(len(shape))) if perm is None else tuple(perm)
+    for a in range(0, n, rows):
+        m = min(rows, n - a)
+        tshape = list(shape)
+        tshape[axis] = m
+        tile = torch.empty([tshape[i] for i in order], dtype=first.dtype)
+        for k, s in x.shards.items():
+            org = (0,) * lead + x.origin(k)
+            lo = max(a, org[axis])
+            hi = min(a + m, org[axis] + s.shape[axis])
+            if lo >= hi:
+                continue
+            part = s.narrow(axis, lo - org[axis], hi - lo).permute(*order)
+            dst = [slice(o, o + w) for o, w in zip(org, s.shape)]
+            dst[axis] = slice(lo - a, hi - a)
+            tile[tuple(dst[i] for i in order)] = part.cpu()
+        yield a, tile.numpy()

@@ -41,7 +41,9 @@ from mg_ic_code_tpu_torch.ops import kernel_counts
 from mg_ic_code_tpu_torch.ops import stencils as st
 from mg_ic_code_tpu_torch.ops.ghosts import PERIODIC, ghost_plane
 from mg_ic_code_tpu_torch.parallel.mesh import AXIS
-from mg_ic_code_tpu_torch.parallel.shards import ShardSet, copy_to
+from mg_ic_code_tpu_torch.parallel.shards import (
+    ShardSet, copy_to, parts, window,
+)
 from mg_ic_code_tpu_torch.parallel.shards import grid as _grid
 
 _I = slice(1, -1)
@@ -114,20 +116,24 @@ def _pad_yz(block, kinds, rho: float):
 
 
 def _ring_exchange_axis(shards: dict, axis: int, nshards: int, devs: dict,
-                        depth: int = 1):
+                        depth: int = 1, wrap: bool = True):
     """The `depth`-deep boundary slabs of every shard along array `axis`,
     each copied to the neighbour that reads it: (from_lo, from_hi), where
     from_lo[k] is the top of k's lower neighbour along the ring and
-    from_hi[k] the bottom of its upper one. All copies are made before
-    anything is updated. One pad exchange."""
+    from_hi[k] the bottom of its upper one. Without `wrap` (the axis is
+    not periodic) the first shard gets no from_lo and the last no from_hi:
+    the caller fills the domain faces. All copies are made before anything
+    is updated. One pad exchange."""
     kernel_counts.HALO["pad_exchanges"] += 1
     from_lo, from_hi = {}, {}
     for k in shards:
-        lo = shards[_neighbour(k, axis, -1, nshards)]
-        hi = shards[_neighbour(k, axis, 1, nshards)]
-        from_lo[k] = copy_to(lo.narrow(axis, lo.shape[axis] - depth, depth),
-                             devs[k])
-        from_hi[k] = copy_to(hi.narrow(axis, 0, depth), devs[k])
+        if wrap or k[axis] > 0:
+            lo = shards[_neighbour(k, axis, -1, nshards)]
+            from_lo[k] = copy_to(
+                lo.narrow(axis, lo.shape[axis] - depth, depth), devs[k])
+        if wrap or k[axis] < nshards - 1:
+            hi = shards[_neighbour(k, axis, 1, nshards)]
+            from_hi[k] = copy_to(hi.narrow(axis, 0, depth), devs[k])
     return from_lo, from_hi
 
 
@@ -141,7 +147,8 @@ def _axis_planes(shards: dict, axis: int, kind_lo: str, kind_hi: str,
         return arr.narrow(axis, i0, 1)
 
     if nshards > 1:
-        from_lo, from_hi = _ring_exchange_axis(shards, axis, nshards, devs)
+        from_lo, from_hi = _ring_exchange_axis(shards, axis, nshards, devs,
+                                               wrap=periodic)
         if not periodic:
             for k, arr in shards.items():
                 n = arr.shape[axis]
@@ -391,7 +398,7 @@ def _exchange_rows(shards: dict, H: int, nshards: int, periodic_x: bool,
     Unless x is periodic (the ring wrap IS the boundary rule), the first
     shard takes `lo_fill` below and the last `hi_fill` above."""
     from_left, from_right = _ring_exchange_axis(shards, 0, nshards, devs,
-                                                depth=H)
+                                                depth=H, wrap=periodic_x)
     if not periodic_x:
         for k in shards:
             if k[0] == 0:
@@ -482,7 +489,7 @@ def _deep_pad_axis(shards: dict, axis: int, H: int, nshards: int, kinds,
         return lo, hi
 
     from_lo, from_hi = _ring_exchange_axis(shards, axis, nshards, devs,
-                                           depth=H)
+                                           depth=H, wrap=periodic)
     if not periodic:
         for k, arr in shards.items():
             if k[axis] == 0:
@@ -541,7 +548,8 @@ def _route(spec, d: int, b_none: bool, dtype, device_type: str,
 
 def _coef_item(spec, coefs: dict, d: int, entry: dict, name: str):
     """entry[name], made where it is missing: "a", "lam", "b" the
-    coefficient's shards (one coefficient split each), "apad" the x-slabs'
+    coefficient's shards (the coefficient itself where it was made on the
+    shards, else one coefficient split each), "apad" the x-slabs'
     aCoef pads, "apre" the pencils' prepadded aCoef (one pad build each),
     at the halo kernels' pad depth."""
     if name in entry:
@@ -551,8 +559,12 @@ def _coef_item(spec, coefs: dict, d: int, entry: dict, name: str):
     counts = mg._shard_counts(spec, d)
     if name in ("a", "lam", "b"):
         t = coefs[name][d]
-        entry[name] = None if t is None else ShardSet.split(
-            t, spec.mesh, counts, spec.boxes[d].lo, "coef_splits")
+        if isinstance(t, ShardSet):  # made on the shards: nothing to cut
+            assert t.counts == counts, (t.counts, counts)
+            entry[name] = t
+        else:
+            entry[name] = None if t is None else ShardSet.split(
+                t, spec.mesh, counts, spec.boxes[d].lo, "coef_splits")
         return entry[name]
     a_s = _coef_item(spec, coefs, d, entry, "a")
     H = _kernel_pad_depth()
@@ -768,7 +780,8 @@ def residual(spec, coefs: dict, d: int, u, rhs):
     return out.join() if whole else out
 
 
-def residual_restrict(spec, coefs: dict, d: int, u, rhs, out=None):
+def residual_restrict(spec, coefs: dict, d: int, u, rhs, out=None,
+                      keep: bool = False):
     """restrict_full(rhs - L(u)) at a depth the mesh cuts: every shard's
     residual (exchanged ghost planes) restricted on its own device. Exact
     where each shard's edges fall on coarse-cell edges: an even local
@@ -776,12 +789,19 @@ def residual_restrict(spec, coefs: dict, d: int, u, rhs, out=None):
     `out` is given and depth d+1 is cut as d is, the coarse shards stay
     where they are (the shard set of d+1); otherwise they are joined once,
     into `out` (e.g. the covered part of a parent level) or a new tensor
-    on the home device."""
+    on the home device. `keep`: the coarse shards stay where they are, as
+    a shard set of this depth's cut and half its shape (the AMR
+    downsweep writes it into the parent's covered part by a level
+    window)."""
     (u_s, rhs_s), whole = _resident(spec, d, u, rhs)
     assert all(n % 2 == 0 for n in u_s.n_loc), (
         f"per-shard restriction needs even local extents, got {u_s.n_loc}")
     coarse = {k: st.restrict_full(r) for k, r in
               _residual_shards(spec, coefs, d, u_s, rhs_s).items()}
+    if keep:
+        assert not whole and out is None
+        return u_s.like(coarse, tuple(n // 2 for n in u_s.shape),
+                        tuple(l // 2 for l in u_s.lo))
     if not whole and out is None and d + 1 < spec.ndepths and (
             _cut_of(spec, d + 1) == u_s.counts):
         return u_s.like(coarse, tuple(spec.boxes[d + 1].shape),
@@ -804,3 +824,167 @@ def prolong_inc(u: ShardSet, ec) -> ShardSet:
     ec_s = ec.shards if isinstance(ec, ShardSet) else u.region(ec)
     return u.like({k: st.prolong_inc(s, ec_s[k])
                    for k, s in u.shards.items()})
+
+
+# ----------------------------------- the composite operator on the shards
+
+
+def apply_homog(spec, coefs: dict, d: int, u: ShardSet) -> ShardSet:
+    """L(u) with homogeneous ghosts at a depth the mesh cuts, shard by
+    shard: each shard's one-ring ghost planes from its neighbours (a plane
+    exchange per cut axis) and the face rules at the level's faces
+    (_block_ghost), then the whole level's per-cell expression
+    (st.apply_op). Each shard is the whole-level operator's
+    (multigrid.apply_homog) on that shard, bit for bit: the same ghost
+    values, the same arithmetic."""
+    entry = _coef_entry(coefs, d)
+    a = _coef_item(spec, coefs, d, entry, "a").shards
+    b = None
+    if coefs["b"][d] is not None:
+        b = _coef_item(spec, coefs, d, entry, "b").shards
+    gh = _block_ghost(spec, d, u.counts, u.shards, u.devs)
+    return u.like({k: st.apply_op(gh[k], a[k], None if b is None else b[k],
+                                  spec.alpha, spec.beta, spec.dx[d])
+                   for k in u.shards})
+
+
+def cf_planes(geom, level: int, coarse_u, like, faces) -> dict:
+    """{(k, axis, side): the coarse term's fine ghost plane of face (axis,
+    side) over part k of `like`} for every part of the placed level `like`
+    (a shard set, or a whole level whose parent is cut) that lies on one of
+    `faces` (cf_interp.cf_faces). Each part's plane is the whole face's
+    (cf_interp._coarse_plane_for_face) over the part's tangential extent,
+    bit for bit: the parent cells it reads — the normal coarse plane and a
+    ring of one cell around the part's coarse extent, clipped at the
+    parent's box — come in ONE level window for all parts and faces, and
+    the clipped edges are replicated as the whole face's are."""
+    from mg_ic_code_tpu_torch.ops import cf_interp as cfi
+
+    box = geom.boxes[level]
+    shape = like.shape if isinstance(like, ShardSet) else tuple(like.shape)
+    regions, devs, pos, reads = {}, {}, {}, {}
+    for axis, side, wrap in faces:
+        taxes = [t for t in range(3) if t != axis]
+        for k, (t, org, dev, p) in parts(like).items():
+            n = tuple(t.shape[-3:])
+            if (org[axis] != 0 if side == 0
+                    else org[axis] + n[axis] != shape[axis]):
+                continue
+            fine = [(box.lo[tt] + org[tt], box.lo[tt] + org[tt] + n[tt] - 1)
+                    for tt in taxes]
+            idx, pads = cfi.coarse_plane_read(geom, level, axis, side, wrap,
+                                              fine)
+            lo = tuple(i if ax == axis else i.start for ax, i in
+                       enumerate(idx))
+            hi = tuple(i + 1 if ax == axis else i.stop for ax, i in
+                       enumerate(idx))
+            key = (k, axis, side)
+            regions[key], devs[key], pos[key] = (lo, hi), dev, p
+            reads[key] = (pads, fine)
+    if not regions:
+        return {}
+    out = {}
+    for key, w in window(coarse_u, regions, devs, pos).items():
+        pads, fine = reads[key]
+        plane = cfi.plane_from_read(w.squeeze(key[1]), pads)
+        # the read refines to fine cells [2 (lo // 2), 2 (hi // 2) + 1]
+        out[key] = plane[tuple(slice(f0 - 2 * (f0 // 2),
+                                     f1 - 2 * (f0 // 2) + 1)
+                               for f0, f1 in fine)]
+    return out
+
+
+def add_cf_coarse_term(arr, geom, level: int, coarse_u, scale, b_coef,
+                       faces):
+    """cf_interp.add_cf_coarse_term where `arr` (or its parent `coarse_u`)
+    is a level cut over the mesh: the term on every face cell of every
+    part of `arr` that lies on a CF face, in cf_faces' order, from the face
+    planes of cf_planes (one level window). Each shard is the whole level's
+    result on that shard, bit for bit."""
+    from mg_ic_code_tpu_torch.ops import cf_interp as cfi
+
+    planes = cf_planes(geom, level, coarse_u, arr, faces)
+    out = arr.clone()
+    b_parts = None if b_coef is None else parts(b_coef)
+    for axis, side, _ in faces:
+        for k, (t, _, _, _) in parts(out).items():
+            plane = planes.get((k, axis, side))
+            if plane is None:
+                continue
+            idx: list = [slice(None)] * 3
+            idx[axis] = 0 if side == 0 else t.shape[axis] - 1
+            term = scale * cfi.W_COARSE * plane.to(t.dtype)
+            if b_parts is not None:
+                term = term * b_parts[k][0][tuple(idx)]
+            t[tuple(idx)] += term
+    return out
+
+
+def fill_ghosts(u, geom, level: int, coarse_u, homogeneous_phys: bool = False,
+                dirichlet_shift: float = 0.0, planes: dict | None = None):
+    """ghosts.fill_ghosts where `u` (or its parent `coarse_u`) is a level
+    cut over the mesh: every part of `u` with a one-ring ghost. A seam
+    takes the neighbour's plane (one plane exchange per cut axis, the wrap
+    included where the level spans a periodic axis); a face of the level
+    takes ghosts.face_ghost with the part's own planes and, on a CF face,
+    the coarse plane of cf_planes (`planes`, or one level window here).
+    The face ghosts are the whole level's, bit for bit; edge and corner
+    ghosts are left 0 (no 7-point stencil reads them)."""
+    from mg_ic_code_tpu_torch.ops import cf_interp as cfi
+    from mg_ic_code_tpu_torch.ops.ghosts import face_class, face_ghost
+
+    if planes is None and coarse_u is not None:
+        planes = cf_planes(geom, level, coarse_u, u,
+                           cfi.cf_faces(geom, level))
+    cut = isinstance(u, ShardSet)
+    counts = u.counts if cut else (1, 1, 1)
+    pieces = parts(u)
+    out = {k: F.pad(t, (1, 1, 1, 1, 1, 1)) for k, (t, _, _, _) in
+           pieces.items()}
+    for axis in range(3):
+        n = counts[axis]
+        periodic = face_class(geom, level, axis, 0)[0] == "wrap"
+        seams = ({}, {})
+        if n > 1:
+            seams = _ring_exchange_axis(u.shards, axis, n, u.devs,
+                                        wrap=periodic)
+        for k, (t, _, _, _) in pieces.items():
+            m = t.shape[axis]
+            for side in (0, 1):
+                edge = k[axis] == (0 if side == 0 else n - 1)
+                if not edge or (periodic and n > 1):
+                    plane = seams[side][k]
+                elif periodic:
+                    plane = t.narrow(axis, m - 1 if side == 0 else 0, 1)
+                else:
+                    cls, _ = face_class(geom, level, axis, side)
+                    i0, i1 = (0, 1) if side == 0 else (m - 1, m - 2)
+                    cplane = None
+                    if cls == "cf" and planes:
+                        cplane = planes[(k, axis, side)].to(
+                            t.dtype).unsqueeze(axis)
+                    plane = face_ghost(
+                        geom, level, axis, side, cls, t.narrow(axis, i0, 1),
+                        t.narrow(axis, i1, 1), cplane, homogeneous_phys,
+                        dirichlet_shift)
+                idx: list = [_I, _I, _I]
+                idx[axis] = slice(0, 1) if side == 0 else slice(m + 1, m + 2)
+                out[k][tuple(idx)] = plane
+    return u.like(out) if cut else out[(0, 0, 0)]
+
+
+def gsrb_color(spec, coefs: dict, u: ShardSet, u_gh: ShardSet,
+               rhs: ShardSet, color: int) -> ShardSet:
+    """st.gsrb_color at depth 0 on every shard of a ghosted level
+    (fill_ghosts), the checkerboard in the level's global frame (each
+    shard offset by its origin)."""
+    entry = _coef_entry(coefs, 0)
+    a = _coef_item(spec, coefs, 0, entry, "a").shards
+    lam = _coef_item(spec, coefs, 0, entry, "lam").shards
+    b = _coef_item(spec, coefs, 0, entry, "b")
+    lo = spec.boxes[0].lo
+    return u.like({k: st.gsrb_color(
+        u_gh.shards[k], rhs.shards[k], a[k], None if b is None else
+        b.shards[k], lam[k], spec.alpha, spec.beta, spec.dx[0],
+        tuple(l + o for l, o in zip(lo, u.origin(k))), color)
+        for k in u.shards})

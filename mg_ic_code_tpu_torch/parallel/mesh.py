@@ -13,18 +13,21 @@ the halo exchange between them and the global checkerboard are then
 exactly those of four cards, which is how one card drives the sharded
 path (and how the CPU tests name eight `cpu` entries).
 
-PLACEMENT GAP: the preconditioner keeps every depth the mesh cuts on its
-shards (parallel/shards.ShardSet) from the moment a V-cycle takes it up:
-the smoother, the residual and its restriction, the prolongation and the
-post-smooth work shard by shard and exchange only pads, and the
-coefficients are cut and padded once per coefficient build
-(parallel/halo.shard_coefs). What stays whole on the mesh's first device
-(its "home") is the rest of the solve, as shard_level_list places it: the
-Krylov vectors, the composite operator with its coarse-fine term, the
-Picard state (prepare_iteration / finish_iteration) and the file writers.
-So a cut level is split once a V-cycle where the V-cycle takes up its
-residual (and its coarse correction and folded rhs) and its correction is
-joined once; keeping those resident too is the next step.
+PLACEMENT: as the JAX package places every level that level_spec cuts
+on its devices for the whole solve, shard_level_list / shard_fields hold
+every level the mesh cuts as a parallel/shards.ShardSet from the solve's
+placement to its end: the state and the physics fields, aCoef and rhs,
+every Krylov vector and the preconditioner's input and output. The
+composite operator with its coarse-fine term, the reductions, the Picard
+state's updates and the file writers' tiles work shard by shard. What
+stays whole on the mesh's first device (its "home") is every level the
+mesh does not cut (the JAX package's replicated levels), the depths of
+the depth chain below the last cut one, the 0-d scalars (Krylov
+coefficients, norms, K) and the solve's result, which poisson_solve joins
+once at its end. Between mesh positions cross only the pads and ghost
+planes of the shards' exchanges, the level windows (the part of one cut
+level that another level's shards read or write) and the depth chain's
+reshards (parallel/shards.py counts each).
 """
 
 from __future__ import annotations
@@ -144,20 +147,33 @@ def level_spec(
     return tuple(name if c > 1 else None for name, c in zip(AXES, counts))
 
 
-def shard_level_list(u_list, mesh: Mesh):
-    """Place every level array for a solve on `mesh`. Each level goes
-    whole to the mesh's home device (the placement gap of the module
-    docstring); the preconditioner cuts the levels the mesh cuts once a
-    V-cycle and keeps them on their shards inside it."""
-    return [u.to(mesh.home) for u in u_list]
+def place(u: torch.Tensor, mesh: Mesh, lo=(0, 0, 0)):
+    """One level array as the solve holds it on `mesh`: cut into its
+    shards on their devices where shard_counts cuts it (one level split),
+    else whole on the home."""
+    from mg_ic_code_tpu_torch.parallel.shards import ShardSet
+
+    counts = shard_counts(mesh, tuple(u.shape))
+    if counts == (1, 1, 1):
+        return u.to(mesh.home)
+    return ShardSet.split(u, mesh, counts, lo)
 
 
-def shard_fields(fields_list, mesh: Mesh):
+def shard_level_list(u_list, mesh: Mesh, geom: HierarchyGeom | None = None):
+    """Place every level array for a solve on `mesh` (`place`): the levels
+    the mesh cuts as shard sets, the rest whole on the home. `geom` gives
+    the shard sets their levels' lo."""
+    return [place(u, mesh, (0, 0, 0) if geom is None else geom.boxes[l].lo)
+            for l, u in enumerate(u_list)]
+
+
+def shard_fields(fields_list, mesh: Mesh, geom: HierarchyGeom | None = None):
     """Place the static physics fields (a dict per level) like the state."""
-    put = lambda a: a.to(mesh.home)  # noqa: E731
-    return [
-        {k: ({kk: put(vv) for kk, vv in v.items()}
-             if isinstance(v, dict) else put(v))
-         for k, v in fields.items()}
-        for fields in fields_list
-    ]
+    out = []
+    for l, fields in enumerate(fields_list):
+        lo = (0, 0, 0) if geom is None else geom.boxes[l].lo
+        put = lambda a: place(a, mesh, lo)  # noqa: E731
+        out.append({k: ({kk: put(vv) for kk, vv in v.items()}
+                        if isinstance(v, dict) else put(v))
+                    for k, v in fields.items()})
+    return out

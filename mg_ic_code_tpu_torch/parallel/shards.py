@@ -1,31 +1,45 @@
-"""One depth of one level cut over a device mesh, held as per-shard tensors.
+"""One level (or one depth of one) cut over a device mesh, held as per-shard
+tensors.
 
-A `ShardSet` is what the preconditioner keeps between calls at every depth
-the mesh cuts (multigrid._shard_counts): the shard tensors keyed
-(ix, iy, iz) as parallel/halo keys them, each on its own device, with the
-counts, the devices, the global shape and lo of the depth. The halo
-functions (parallel/halo.py) take and return shard sets, so a level cut
-over the mesh is split once when the V-cycle takes it up and joined once
-when it is done, instead of once per smoother and residual call.
+A `ShardSet` is how the solve holds every level the mesh cuts
+(mesh.shard_counts at depth 0) from poisson_solve's placement to the end
+of the solve, and every depth below it that the preconditioner cuts
+(multigrid._shard_counts): the shard tensors keyed (ix, iy, iz) as
+parallel/halo keys them, each on its own device, with the counts, the
+devices, the mesh positions, the global shape and lo of the level. It is
+a Krylov vector (arithmetic shard by shard, 0-d scalars moved to each
+shard's device), the operand of the per-shard composite operator,
+reductions and physics (`per_shard`), and what the writers stream tiles
+from (distributed.stream_global_slabs). Levels the mesh does not cut stay
+whole tensors on the mesh's home.
 
-Every split and join goes through `split` / `join` here, and every copy
-between shards through `copy_to`; each is counted in
-ops/kernel_counts.HALO:
+Every copy between mesh positions goes through this module and is
+counted in ops/kernel_counts.HALO:
 
   level_splits / level_joins — whole tensors cut into shards / shards put
                                back together (a join into a view of a
-                               parent level included);
-  coef_splits                — coefficient arrays cut into shards
-                               (halo.shard_coefs, once per coefficient
-                               build, or per call where a caller's
-                               coefficients carry no shards);
+                               parent level included): the depth chain's
+                               reshards, the placement and the result;
+  level_windows              — reads of the part of one level under each
+                               shard (or the whole) of another, and writes
+                               of such parts back (`window`,
+                               `read_window`, `write_window`): the coarse
+                               correction, the restricted residual, the
+                               coarse-fine faces, average_down;
+  coef_splits / coef_joins   — coefficient arrays cut into shards / put
+                               back together (halo.shard_coefs for
+                               coefficients that arrive whole; the
+                               coefficient chain's reshards below a cut
+                               depth);
   coef_pad_builds            — coefficient pads assembled from shards;
   pad_exchanges              — one array's boundary slabs exchanged along
                                one cut axis between all its shards;
-  bytes_moved                — bytes copied from one mesh position to
-                               another (the home is position 0): what
-                               crosses a link when the positions are
-                               distinct cards.
+  bytes_moved                — bytes of level data copied from one mesh
+                               position to another (the home is position
+                               0): what crosses a link when the positions
+                               are distinct cards. 0-d scalars (Krylov
+                               coefficients, partial sums) are not
+                               counted.
 """
 
 from __future__ import annotations
@@ -103,11 +117,74 @@ def join_dict(shards: dict, counts, home, pos: dict | None = None,
     return out
 
 
+def on_device(x, dev):
+    """A 0-d tensor moved to `dev` (a Krylov scalar, K); anything else as
+    it is."""
+    if isinstance(x, torch.Tensor) and x.dim() == 0 and x.device != dev:
+        return x.to(dev)
+    return x
+
+
+def _pick(x, k, dev, counts):
+    """`x` as shard k sees it: a shard set's shard k, a 0-d tensor on the
+    shard's device, dicts, lists and tuples item by item."""
+    if isinstance(x, ShardSet):
+        assert x.counts == counts, ("shard sets of one call must be cut "
+                                    "alike", x.counts, counts)
+        return x.shards[k]
+    if isinstance(x, dict):
+        return {kk: _pick(v, k, dev, counts) for kk, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_pick(v, k, dev, counts) for v in x)
+    return on_device(x, dev)
+
+
+def _first_set(x):
+    """The first shard set in `x` (nested dicts, lists, tuples), or None."""
+    if isinstance(x, ShardSet):
+        return x
+    items = x.values() if isinstance(x, dict) else (
+        x if isinstance(x, (list, tuple)) else ())
+    for v in items:
+        got = _first_set(v)
+        if got is not None:
+            return got
+    return None
+
+
+def per_shard(fn, *args, **kwargs):
+    """fn applied shard by shard where an argument holds a shard set: each
+    call sees shard k of every shard set (inside dicts, lists and tuples
+    too) and every 0-d tensor on shard k's device; the results come back
+    as a shard set of the same cut. Without a shard set among the
+    arguments, fn(*args, **kwargs)."""
+    ref = _first_set((args, kwargs))
+    if ref is None:
+        return fn(*args, **kwargs)
+    return ref.like({k: fn(*_pick(args, k, dev, ref.counts),
+                           **_pick(kwargs, k, dev, ref.counts))
+                     for k, dev in ref.devs.items()})
+
+
+def require_whole(x, where: str):
+    """Raise where a shard set reaches a path that takes whole tensors
+    only: a cut level is never joined quietly."""
+    if isinstance(x, ShardSet):
+        raise TypeError(
+            f"{where}: a level cut over the mesh reached a path that takes "
+            f"whole tensors only (cut {x.counts}, shape {x.shape})")
+    return x
+
+
 @dataclasses.dataclass(eq=False)
 class ShardSet:
-    """One depth of one level cut over the mesh: `shards[k]` on
-    `devs[k]`, k = (ix, iy, iz), each of shape shape/counts; `home` is the
-    device a join puts the whole level on (the mesh's home)."""
+    """One level (or depth) cut over the mesh: `shards[k]` on `devs[k]`,
+    k = (ix, iy, iz), each of shape shape/counts (a shard may carry leading
+    axes, or a ghost ring, where a per-shard function made one: `shape`
+    is the level's spatial shape); `pos[k]` the shard's mesh position,
+    `home` the device a join puts the whole level on (the mesh's home).
+    Arithmetic works shard by shard against a shard set of the same cut
+    or a scalar, so that BiCGStab takes shard sets as its vector leaves."""
 
     shards: dict
     counts: tuple
@@ -131,10 +208,20 @@ class ShardSet:
         return cls(split_dict(whole, counts, devs, pos), counts, devs, pos,
                    shape, tuple(lo), mesh.home)
 
-    def join(self, out=None) -> torch.Tensor:
+    @classmethod
+    def make(cls, mesh, counts, shape, fn, lo=(0, 0, 0)) -> "ShardSet":
+        """A shard set made in place: shards[k] = fn(k, slices of shard k
+        in the level, device of k); nothing is copied."""
+        counts, shape = tuple(counts), tuple(shape)
+        devs, pos = grid(mesh, counts), positions(mesh, counts)
+        return cls({k: fn(k, local_slices(k, counts, shape), dev)
+                    for k, dev in devs.items()}, counts, devs, pos, shape,
+                   tuple(lo), mesh.home)
+
+    def join(self, out=None, what: str = "level_joins") -> torch.Tensor:
         """The whole tensor on the home device, or written into `out`:
-        one level join."""
-        kernel_counts.HALO["level_joins"] += 1
+        one level join (or one coefficient join: `what`)."""
+        kernel_counts.HALO[what] += 1
         return join_dict(self.shards, self.counts, self.home, self.pos, out)
 
     def like(self, shards: dict, shape=None, lo=None) -> "ShardSet":
@@ -144,9 +231,18 @@ class ShardSet:
                         tuple(shape or self.shape),
                         tuple(self.lo if lo is None else lo), self.home)
 
+    def map(self, fn) -> "ShardSet":
+        """fn applied to every shard, on its own device."""
+        return self.like({k: fn(s) for k, s in self.shards.items()})
+
     def zeros_like(self) -> "ShardSet":
-        return self.like({k: torch.zeros_like(s)
-                          for k, s in self.shards.items()})
+        return self.map(torch.zeros_like)
+
+    def clone(self) -> "ShardSet":
+        return self.map(torch.clone)
+
+    def to(self, dtype) -> "ShardSet":
+        return self.map(lambda s: s.to(dtype))
 
     def axpy(self, alpha: float, x: "ShardSet") -> "ShardSet":
         """self + alpha * x, shard by shard (no copy between shards)."""
@@ -154,15 +250,44 @@ class ShardSet:
         return self.like({k: s + alpha * x.shards[k]
                           for k, s in self.shards.items()})
 
+    def _binary(self, other, op) -> "ShardSet":
+        if isinstance(other, ShardSet):
+            assert other.counts == self.counts and (
+                other.shape == self.shape), (other.counts, self.counts)
+            return self.like({k: op(s, other.shards[k])
+                              for k, s in self.shards.items()})
+        if isinstance(other, torch.Tensor) and other.dim() > 0:
+            raise TypeError("a shard set combines with a shard set of its "
+                            "cut or a scalar, not a whole tensor")
+        return self.like({k: op(s, on_device(other, self.devs[k]))
+                          for k, s in self.shards.items()})
+
+    def __add__(self, other):
+        return self._binary(other, lambda a, b: a + b)
+
+    def __sub__(self, other):
+        return self._binary(other, lambda a, b: a - b)
+
+    def __mul__(self, other):
+        return self._binary(other, lambda a, b: a * b)
+
+    def __rmul__(self, other):
+        return self._binary(other, lambda a, b: b * a)
+
     def region(self, whole) -> dict:
         """The part of a whole tensor (or a strided view of one, e.g. the
         coarse correction under this level) that lies under each shard,
         copied to the shard's device: `whole` has this set's counts cut
-        into the same positions (one level split)."""
+        into the same positions (one level split: the depth chain's
+        prolongation from a depth that is not cut)."""
         assert all(whole.shape[ax] % self.counts[ax] == 0
                    for ax in range(3)), (tuple(whole.shape), self.counts)
         kernel_counts.HALO["level_splits"] += 1
         return split_dict(whole, self.counts, self.devs, self.pos)
+
+    def origin(self, k) -> tuple:
+        """Shard k's first cell in the level's array (0-based)."""
+        return tuple(k[ax] * self.n_loc[ax] for ax in range(3))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -175,3 +300,99 @@ class ShardSet:
     @property
     def n_loc(self) -> tuple:
         return tuple(self.shape[ax] // self.counts[ax] for ax in range(3))
+
+
+def zeros_like(x):
+    """torch.zeros_like of a tensor or a shard set."""
+    return x.zeros_like() if isinstance(x, ShardSet) else torch.zeros_like(x)
+
+
+def parts(x) -> dict:
+    """{key: (tensor, origin in the level's array, device, mesh position)}
+    of a placed level: a shard set's shards, a whole tensor as one part at
+    the home (position 0)."""
+    if isinstance(x, ShardSet):
+        return {k: (s, x.origin(k), x.devs[k], x.pos[k])
+                for k, s in x.shards.items()}
+    return {(0, 0, 0): (x, (0, 0, 0), x.device, 0)}
+
+
+def _overlap(lo_a, hi_a, lo_b, hi_b):
+    lo = tuple(max(a, b) for a, b in zip(lo_a, lo_b))
+    hi = tuple(min(a, b) for a, b in zip(hi_a, hi_b))
+    return None if any(l >= h for l, h in zip(lo, hi)) else (lo, hi)
+
+
+def _sl(lo, hi, off=(0, 0, 0)):
+    return tuple(slice(l - o, h - o) for l, h, o in zip(lo, hi, off))
+
+
+def window(src, regions: dict, devs: dict, pos: dict) -> dict:
+    """One level window: for every key, the box `regions[key]` = (lo, hi)
+    of the placed level `src` (array coordinates, inside the level),
+    copied to devs[key] from whichever of src's parts it spans (several,
+    where src is cut otherwise than the reader). Bytes are counted where a
+    piece's position differs from pos[key]."""
+    kernel_counts.HALO["level_windows"] += 1
+    src_parts = parts(src)
+    dtype = next(iter(src_parts.values()))[0].dtype
+    out = {}
+    for key, (lo, hi) in regions.items():
+        buf = torch.empty(tuple(h - l for l, h in zip(lo, hi)), dtype=dtype,
+                          device=devs[key])
+        for t, org, _, p in src_parts.values():
+            hit = _overlap(lo, hi, org, tuple(
+                o + n for o, n in zip(org, t.shape[-3:])))
+            if hit is None:
+                continue
+            piece = t[_sl(*hit, org)]
+            buf[_sl(*hit, lo)].copy_(piece)
+            if p != pos[key]:
+                kernel_counts.HALO["bytes_moved"] += (
+                    piece.numel() * piece.element_size())
+        out[key] = buf
+    return out
+
+
+def read_window(src, off, shape, cut=None):
+    """The box of `src` at offset `off` (array coordinates) and of
+    `shape`: laid out in the cut of the shard set `cut` (its counts,
+    devices and positions: shard k holds the part of the box under cut's
+    shard k) as a shard set of that cut, or, without `cut`, as one whole
+    tensor at src's home. One level window."""
+    shape = tuple(shape)
+    if cut is None:
+        home = src.home if isinstance(src, ShardSet) else src.device
+        key = (0, 0, 0)
+        hi = tuple(o + n for o, n in zip(off, shape))
+        return window(src, {key: (tuple(off), hi)}, {key: home},
+                      {key: 0})[key]
+    out = ShardSet({}, cut.counts, cut.devs, cut.pos, shape,
+                   tuple(off), cut.home)
+    regions = {}
+    for k in cut.devs:
+        lo = tuple(o + a for o, a in zip(off, out.origin(k)))
+        regions[k] = (lo, tuple(l + n for l, n in zip(lo, out.n_loc)))
+    out.shards = window(src, regions, cut.devs, cut.pos)
+    return out
+
+
+def write_window(dst, off, vals) -> None:
+    """Write the placed values `vals` (a shard set or a whole tensor) into
+    the box of `dst` at offset `off`, in place, each piece into whichever
+    of dst's parts holds it: one level window."""
+    kernel_counts.HALO["level_windows"] += 1
+    dst_parts = parts(dst)
+    for v, vorg, _, vp in parts(vals).values():
+        lo = tuple(o + a for o, a in zip(off, vorg))
+        hi = tuple(l + n for l, n in zip(lo, v.shape[-3:]))
+        for t, org, _, p in dst_parts.values():
+            hit = _overlap(lo, hi, org, tuple(
+                o + n for o, n in zip(org, t.shape[-3:])))
+            if hit is None:
+                continue
+            piece = v[_sl(*hit, lo)]
+            t[_sl(*hit, org)].copy_(piece)
+            if p != vp:
+                kernel_counts.HALO["bytes_moved"] += (
+                    piece.numel() * piece.element_size())

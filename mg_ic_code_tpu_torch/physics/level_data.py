@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from mg_ic_code_tpu_torch.config import SolverConfig
@@ -38,18 +39,28 @@ def m_value(cfg: SolverConfig, constant_K):
 
 def problem_fields(
     geom: HierarchyGeom, cfg: SolverConfig, level: int,
-    dtype=torch.float64, device=None,
+    dtype=torch.float64, device=None, region=None,
 ) -> dict:
     """Static per-level fields: phi, rho_grad, A^2, psi_bh (+ raw A_ij for
-    output). Everything the reference stores in multigrid_vars except psi."""
+    output). Everything the reference stores in multigrid_vars except psi.
+    `region` (slices of the level's array, e.g. one shard's) evaluates the
+    fields of that part only, from the same cell coordinates."""
     device = resolve_device(device)
 
     def dev(c):
         return torch.as_tensor(c, dtype=dtype, device=device)
 
-    x, y, z = [dev(c) for c in geom.coords(level)]
-    xg, yg, zg = [dev(c) for c in geom.coords(level, grow=1)]
+    x, y, z = geom.coords(level)
+    xg, yg, zg = geom.coords(level, grow=1)
     shape = geom.shape(level)
+    if region is not None:
+        cut = lambda c, ax, g: np.take(  # noqa: E731
+            c, range(region[ax].start, region[ax].stop + 2 * g), axis=ax)
+        x, y, z = cut(x, 0, 0), cut(y, 1, 0), cut(z, 2, 0)
+        xg, yg, zg = cut(xg, 0, 1), cut(yg, 1, 1), cut(zg, 2, 1)
+        shape = tuple(sl.stop - sl.start for sl in region)
+    x, y, z = dev(x), dev(y), dev(z)
+    xg, yg, zg = dev(xg), dev(yg), dev(zg)
 
     phi_gh = torch.broadcast_to(
         phi_profile(xg, yg, zg, cfg), tuple(s + 2 for s in shape)

@@ -13,6 +13,10 @@ port's, so iteration counts agree with it.
 The operator applies with homogeneous physical BCs (Krylov directions carry
 no boundary inhomogeneity); the caller folds inhomogeneous BCs into the
 initial residual, as Chombo's solve() does.
+
+A vector is a tensor or a list of leaves, each a tensor or a level cut
+over the mesh (parallel/shards.ShardSet, whose arithmetic runs shard by
+shard): the recurrence is written in operators, so it runs on both.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from mg_ic_code_tpu_torch.parallel.shards import ShardSet, zeros_like
 
 
 class BiCGStabResult(NamedTuple):
@@ -33,11 +39,11 @@ class BiCGStabResult(NamedTuple):
 
 
 def _leaves(x):
-    return [x] if isinstance(x, torch.Tensor) else list(x)
+    return [x] if isinstance(x, (torch.Tensor, ShardSet)) else list(x)
 
 
 def _map(fn, *xs):
-    if isinstance(xs[0], torch.Tensor):
+    if isinstance(xs[0], (torch.Tensor, ShardSet)):
         return fn(*xs)
     return [fn(*parts) for parts in zip(*xs)]
 
@@ -51,15 +57,15 @@ def _scale(a, x):
 
 
 def _add(x, y):
-    return _map(torch.add, x, y)
+    return _map(lambda xi, yi: xi + yi, x, y)
 
 
 def _sub(x, y):
-    return _map(torch.sub, x, y)
+    return _map(lambda xi, yi: xi - yi, x, y)
 
 
 def _zeros_like(x):
-    return _map(torch.zeros_like, x)
+    return _map(zeros_like, x)
 
 
 MAX_RESTARTS = 4

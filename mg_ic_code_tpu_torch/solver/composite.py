@@ -15,6 +15,12 @@ reference (Main_PoissonSolver.cpp:103-184):
   * precond — m_num_mg_iterations AMR V-cycles (MultilevelLinearOp::preCond).
   * solve_linear — BiCGStab over the composite vector with volume-weighted
     dots and max-norm convergence (solver.m_normType = 0).
+
+With a mesh, the composite vector holds every level the mesh cuts as a
+parallel/shards.ShardSet and the rest whole on the mesh's home (`place`):
+the operator, the residuals, the V-cycle and the Krylov vectors work on
+them shard by shard, and one level reads another's part under its shards
+by level windows. Nothing here joins a cut level.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ from mg_ic_code_tpu_torch.grid.geometry import HierarchyGeom
 from mg_ic_code_tpu_torch.ops import stencils as st
 from mg_ic_code_tpu_torch.ops.ghosts import fill_ghosts
 from mg_ic_code_tpu_torch.parallel import halo
-from mg_ic_code_tpu_torch.parallel.shards import ShardSet
+from mg_ic_code_tpu_torch.parallel.shards import (
+    ShardSet, per_shard, read_window, write_window, zeros_like,
+)
 from mg_ic_code_tpu_torch.solver import multigrid as mg
 from mg_ic_code_tpu_torch.solver import reductions as red
 from mg_ic_code_tpu_torch.solver.bicgstab import BiCGStabResult, bicgstab
@@ -122,14 +130,44 @@ def make_amr_spec(
     )
 
 
+def place(spec: AMRSolverSpec, u_list):
+    """The level list as the solve holds it with spec's mesh
+    (parallel/mesh.shard_level_list): every level the mesh cuts as its
+    shards (a whole tensor split once), the rest whole on the mesh's home;
+    without a mesh the list as it is."""
+    mesh = spec.level_specs[0].mesh
+    if mesh is None:
+        return list(u_list)
+    from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.shard_level_list(u_list, mesh, spec.geom)
+
+
+def check_placed(spec: AMRSolverSpec, u_list, what: str) -> None:
+    """Raise unless every level is held as spec's mesh places it: a shard
+    set of its cut where the mesh cuts it (multigrid._shard_counts at
+    depth 0), a whole tensor elsewhere."""
+    for l, u in enumerate(u_list):
+        counts = mg._shard_counts(spec.level_specs[l], 0)
+        cut = counts != (1, 1, 1)
+        if cut != isinstance(u, ShardSet) or (
+                cut and u.counts != counts):
+            raise ValueError(
+                f"{what}: level {l} is not placed as the mesh cuts it "
+                f"(cut {counts}); composite.place places a level list")
+
+
 def build_coefs(spec: AMRSolverSpec, a_list, b_list=None) -> tuple[dict, ...]:
     """Per-level coefficient structures (with depth chains under level 0).
 
     With mixed-precision preconditioning, each level also carries an "lp"
     sub-dict holding float32 casts of the whole depth chain. With a mesh,
-    each set carries the shards and halo-kernel pads of every depth the
-    mesh cuts (parallel/halo.shard_coefs, "shards"): made here, once per
-    coefficient build, and never inside a preconditioner application."""
+    aCoef arrives placed (a level the mesh cuts as its shards): the chain
+    is made on the shards (multigrid.build_level_coefs), and each set
+    carries the shards and halo-kernel pads of every depth the mesh cuts
+    (parallel/halo.shard_coefs, "shards"): made here, once per coefficient
+    build, and never inside a preconditioner application."""
+    check_placed(spec, a_list, "build_coefs")
     out = []
     lp_dtype = (
         precision.PRECOND_DTYPE if spec.precond_dtype == "float32" else None
@@ -196,16 +234,17 @@ def composite_apply(
             out.append(au)
         else:
             # inhomogeneous physical BCs (the initial residual only): the
-            # full QuadCFInterp + BC-value ghost assembly
+            # full QuadCFInterp + BC-value ghost assembly (shard by shard
+            # on a cut level)
             u_gh = fill_ghosts(
                 u_list[l], geom, l,
                 coarse_u=u_list[geom.parent[l]] if l > 0 else None,
                 homogeneous_phys=False,
             )
             out.append(
-                st.apply_op(
-                    u_gh, c["a"][0], c["b"][0], spec.alpha, spec.beta,
-                    geom.dx[l],
+                per_shard(
+                    st.apply_op, u_gh, c["a"][0], c["b"][0], spec.alpha,
+                    spec.beta, geom.dx[l],
                 )
             )
     return out
@@ -221,6 +260,23 @@ def composite_residual(
 # ----------------------------------------------------------------- V-cycle
 
 
+def _covered_offset(geom: HierarchyGeom, p: int, l: int) -> tuple:
+    """Where child l's covered part starts in its parent p's array."""
+    return tuple(sl.start for sl in geom.child_slices(p, l))
+
+
+def _under(geom: HierarchyGeom, p: int, l: int, ep, el):
+    """The part of parent p's `ep` that child l covers, laid out as `el`:
+    a view where both are whole, else one level window (shard k of a cut
+    child holds the coarse cells under its own shard)."""
+    sl = geom.child_slices(p, l)
+    if not isinstance(ep, ShardSet) and not isinstance(el, ShardSet):
+        return ep[sl]
+    shape = tuple(s.stop - s.start for s in sl)
+    return read_window(ep, _covered_offset(geom, p, l), shape,
+                       el if isinstance(el, ShardSet) else None)
+
+
 def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
     """One AMR V-cycle on the correction equation A e = r, from zero initial
     correction. Downsweep smooths each level with homogeneous CF ghosts and
@@ -230,31 +286,20 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
     one after another (sibling patches write DISJOINT covered regions, so
     within-depth order is free).
 
-    A level the mesh cuts (multigrid._shard_counts at its depth 0) is
-    split once, when the downsweep takes up its residual; its correction
-    stays on the shards through the smoother, the residual's restriction
-    (the restricted residual, an eighth of the bytes, is joined into the
-    parent's covered part), the prolongation and the post-smooth, and is
-    joined once, for its children and the caller. The base level's depth
-    chain stays sharded as mg_vcycle says. Each level's rhs and every
-    correction handed back stay whole on the mesh's home."""
+    A level the mesh cuts comes in and goes out as its shards: the
+    smoother, the residual's restriction, the prolongation and the
+    post-smooth run on them. Where a child or its parent is cut, the
+    restricted residual goes into the parent's covered part by a level
+    window write (each shard's restriction into whichever parent shards
+    hold it), and the coarse correction under the child, and the CF faces'
+    coarse planes of the post-smooth, come by level windows. The base
+    level's depth chain stays sharded as mg_vcycle says; nothing here
+    splits or joins a level."""
     geom = spec.geom
     nl = spec.num_levels
     r = list(r_list)
     e: list = [None] * nl
     copied: set = set()  # parents whose r is this V-cycle's own copy
-
-    def taken_up(l):
-        """Level l's residual as the V-cycle works on it: its shards where
-        the mesh cuts the level (one split), else the tensor itself."""
-        ls = spec.level_specs[l]
-        if mg._shard_counts(ls, 0) == (1, 1, 1):
-            return r[l]
-        return halo.split_level(ls, 0, r[l])
-
-    def zeros(x):
-        return x.zeros_like() if isinstance(x, ShardSet) else (
-            torch.zeros_like(x))
 
     # downsweep: depths descending — every child restricts into its parent
     # before the parent's depth runs
@@ -262,22 +307,24 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
         for l in geom.entries_at_depth(depth):
             ls = spec.level_specs[l]
             cl = _lp(coefs[l], use_lp)
-            rl = taken_up(l)
-            el = mg.relax(ls, cl, 0, zeros(rl), rl, spec.nsmooth)
+            rl = r[l]
+            el = mg.relax(ls, cl, 0, zeros_like(rl), rl, spec.nsmooth)
             p = geom.parent[l]
             if p not in copied:  # r[p] may be the caller's tensor
                 r[p] = r[p].clone()
                 copied.add(p)
             # the restricted residual written over the covered part
-            mg.residual_restrict_homog(ls, cl, 0, el, rl,
-                                       out=r[p][geom.child_slices(p, l)])
+            if isinstance(el, ShardSet) or isinstance(r[p], ShardSet):
+                rc = mg.residual_restrict_homog(
+                    ls, cl, 0, el, rl, keep=isinstance(el, ShardSet))
+                write_window(r[p], _covered_offset(geom, p, l), rc)
+            else:
+                mg.residual_restrict_homog(ls, cl, 0, el, rl,
+                                           out=r[p][geom.child_slices(p, l)])
             e[l] = el
 
-    r0 = taken_up(0)
     e[0] = mg.mg_vcycle(spec.level_specs[0], _lp(coefs[0], use_lp),
-                        zeros(r0), r0)
-    if isinstance(e[0], ShardSet):
-        e[0] = e[0].join()
+                        zeros_like(r[0]), r[0])
 
     # upsweep: depths ascending — every parent's correction is complete
     # before its children prolong from it
@@ -285,8 +332,7 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
         for l in geom.entries_at_depth(depth):
             ls = spec.level_specs[l]
             p = geom.parent[l]
-            ec = e[p][geom.child_slices(p, l)]
-            e[l] = mg.prolong_inc(e[l], ec)
+            e[l] = mg.prolong_inc(e[l], _under(geom, p, l, e[p], e[l]))
             # post-smooth with CF ghosts interpolated from the coarse
             # correction (homogeneous ghosts here amplify the CF mismatch
             # by 1/dx^2 per level — see mg.relax_cf)
@@ -294,8 +340,6 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
                 ls, _lp(coefs[l], use_lp), e[l], r[l], spec.nsmooth,
                 geom, l, e[p],
             )
-            if isinstance(e[l], ShardSet):
-                e[l] = e[l].join()
     return e
 
 
@@ -306,7 +350,9 @@ def precond(spec: AMRSolverSpec, coefs, r_list):
     With precond_dtype set, the whole preconditioner runs in reduced
     precision (cast in, cast out); the outer Krylov arithmetic stays in the
     operand dtype. With pre_cond_solver_depth >= 0 the V-cycle chain wraps
-    into an inner loosely-converged BiCGStab (deep-precondition mode)."""
+    into an inner loosely-converged BiCGStab (deep-precondition mode).
+    With a mesh, `r_list` is placed (`place`) and so is the result."""
+    check_placed(spec, r_list, "precond")
     if spec.pre_cond_solver_depth >= 0:
         inner = bicgstab(
             functools.partial(composite_apply, spec, coefs),
@@ -331,7 +377,7 @@ def _vcycle_precond(spec: AMRSolverSpec, coefs, r_list):
     )
     if use_lp:
         r_list = [r.to(precision.PRECOND_DTYPE) for r in r_list]
-    e = [torch.zeros_like(r) for r in r_list]
+    e = [zeros_like(r) for r in r_list]
     for it in range(spec.num_mg_iterations):
         res = (
             r_list
@@ -394,10 +440,13 @@ def solve_linear(
     Inhomogeneous physical BCs are folded into the initial residual (the
     Krylov iteration itself runs with homogeneous BCs), as Chombo's
     solver.define(..., homogeneousBC=false) + solve() arrangement does.
+    With a mesh, rhs_list and x0_list are placed (`place`), and so is the
+    solution.
     """
     geom = spec.geom
+    check_placed(spec, rhs_list, "solve_linear")
     if x0_list is None:
-        x0_list = [torch.zeros_like(r) for r in rhs_list]
+        x0_list = [zeros_like(r) for r in rhs_list]
 
     r0 = composite_residual(spec, coefs, x0_list, rhs_list, False)
 

@@ -147,19 +147,35 @@ def build_level_coefs(spec: LevelMGSpec, a0, b0=None) -> dict:
     bottom operator's inverse: the coarse solve then costs ONE matrix
     product instead of a BiCGStab iteration tower (dozens of tiny
     launch-bound ops). The operator is linear and fixed per coefficient
-    build, so this is exact, not approximate."""
+    build, so this is exact, not approximate.
+
+    aCoef (and bCoef) of a level the mesh cuts arrive as shard sets: the
+    chain is coarsened and lambda made shard by shard while the depths are
+    cut alike, and resharded (one coefficient join, and a split where the
+    next depth is cut otherwise) where the cut changes or ends; nothing is
+    cut at depth 0. A cut bottom depth with the dense inverse is joined
+    (halo.shard_coefs then cuts it for the sharded ops, as coefficients
+    that arrive whole)."""
     a_chain, b_chain, lam_chain = [a0], [b0], []
     for d in range(1, spec.ndepths):
-        a_chain.append(st.coarsen_coef(a_chain[-1], spec.avg_type))
+        a_chain.append(_coarsen_coef_at(spec, d, a_chain[-1]))
         b_chain.append(
-            None if b0 is None else st.coarsen_coef(b_chain[-1], spec.avg_type)
+            None if b0 is None else _coarsen_coef_at(spec, d, b_chain[-1])
         )
+    from mg_ic_code_tpu_torch.parallel.shards import per_shard
+
     for d in range(spec.ndepths):
-        lam_chain.append(
-            st.gsrb_lambda(a_chain[d], spec.alpha, spec.beta, spec.dx[d])
-        )
+        lam_chain.append(per_shard(
+            st.gsrb_lambda, a_chain[d], spec.alpha, spec.beta, spec.dx[d]))
     coefs = {"a": tuple(a_chain), "b": tuple(b_chain), "lam": tuple(lam_chain)}
     if _use_direct_bottom(spec):
+        d = spec.ndepths - 1
+        # the dense inverse and the bottom solve take the bottom depth
+        # whole: a cut one is joined (one coefficient join each array)
+        for k in ("a", "b", "lam"):
+            if isinstance(coefs[k][d], ShardSet):
+                coefs[k] = coefs[k][:d] + (
+                    coefs[k][d].join(what="coef_joins"),)
         coefs["binv"] = _bottom_inverse(spec, coefs)
     if spec.mesh is not None:
         # the cut depths' coefficients on their shards, padded for the halo
@@ -169,6 +185,26 @@ def build_level_coefs(spec: LevelMGSpec, a0, b0=None) -> dict:
 
         coefs["shards"] = halo.shard_coefs(spec, coefs)
     return coefs
+
+
+def _coarsen_coef_at(spec: LevelMGSpec, d: int, c):
+    """Depth d's coefficient from depth d-1's: whole, or shard by shard
+    where d-1 is cut, resharded to depth d's cut where it differs (one
+    coefficient join, then one coefficient split where d is cut)."""
+    if not isinstance(c, ShardSet):
+        return st.coarsen_coef(c, spec.avg_type)
+    assert all(n % 2 == 0 for n in c.n_loc), (
+        f"per-shard coarsening needs even local extents, got {c.n_loc}")
+    box = spec.boxes[d]
+    coarse = c.like({k: st.coarsen_coef(s, spec.avg_type)
+                     for k, s in c.shards.items()}, box.shape, box.lo)
+    counts = _shard_counts(spec, d)
+    if counts == c.counts:
+        return coarse
+    whole = coarse.join(what="coef_joins")
+    if counts == (1, 1, 1):
+        return whole
+    return ShardSet.split(whole, spec.mesh, counts, box.lo, "coef_splits")
 
 
 def _bottom_inverse(spec: LevelMGSpec, coefs: dict):
@@ -186,6 +222,9 @@ def _bottom_inverse(spec: LevelMGSpec, coefs: dict):
 
 
 def _ghost(spec: LevelMGSpec, d: int, u):
+    from mg_ic_code_tpu_torch.parallel.shards import require_whole
+
+    require_whole(u, "the whole-level ghost fill")
     return fill_ghosts_homogeneous(u, spec.kinds, spec.rho[d])
 
 
@@ -359,20 +398,32 @@ def relax_cf(
 
     b = coefs["b"][0]
     if b is None and level > 0:
+        # a level the mesh cuts folds its rhs shard by shard
         rhs_cf = cf_folded_rhs(spec, geom, level, rhs, coarse_u)
-        if isinstance(u, ShardSet):
-            # the folded rhs of a level the mesh cuts: split once
-            from mg_ic_code_tpu_torch.parallel import halo
-
-            rhs_cf = halo.split_level(spec, 0, rhs_cf)
         return relax(spec, coefs, 0, u, rhs_cf, n)
 
-    # variable bCoef: no folded identity — per-pass ghost-fill loop, on the
-    # whole level (a level the mesh cuts is joined for it)
+    # variable bCoef: no folded identity — per-pass ghost-fill loop; where
+    # the level or its parent is cut, shard by shard with the coarse face
+    # planes read once (one level window)
     from mg_ic_code_tpu_torch.ops.ghosts import fill_ghosts
 
-    if isinstance(u, ShardSet):
-        u = u.join()
+    if isinstance(u, ShardSet) or isinstance(coarse_u, ShardSet):
+        from mg_ic_code_tpu_torch.ops.cf_interp import cf_faces
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        planes = halo.cf_planes(geom, level, coarse_u, u,
+                                cf_faces(geom, level))
+        for i in range(2 * n):
+            u_gh = halo.fill_ghosts(u, geom, level, None, True,
+                                    planes=planes)
+            if isinstance(u, ShardSet):
+                u = halo.gsrb_color(spec, coefs, u, u_gh, rhs, i % 2)
+            else:
+                u = st.gsrb_color(
+                    u_gh, rhs, coefs["a"][0], coefs["b"][0],
+                    coefs["lam"][0], spec.alpha, spec.beta, spec.dx[0],
+                    spec.boxes[0].lo, i % 2)
+        return u
 
     for i in range(2 * n):
         u_gh = fill_ghosts(
@@ -423,7 +474,7 @@ def residual_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs):
 
 
 def residual_restrict_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs,
-                            out=None):
+                            out=None, keep: bool = False):
     """restrict_full(rhs - L(u)) with homogeneous ghosts, into `out` (an
     (nx/2, ny/2, nz/2) tensor or view, e.g. the covered part of a parent
     level) or a new tensor: on the kernel path of a depth on one device the
@@ -433,11 +484,13 @@ def residual_restrict_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs,
     (parallel/halo.residual_restrict: shard sets in, the next depth's shard
     set out where it is cut alike). The one dispatch of both places that
     restrict a residual: the AMR downsweep and the staged depths of
-    mg_vcycle."""
+    mg_vcycle. `keep` (a cut depth's shard sets): the restricted shards
+    stay on their devices (halo.residual_restrict)."""
     if _shard_counts(spec, d) != (1, 1, 1):
         from mg_ic_code_tpu_torch.parallel import halo
 
-        return halo.residual_restrict(spec, coefs, d, u, rhs, out=out)
+        return halo.residual_restrict(spec, coefs, d, u, rhs, out=out,
+                                      keep=keep)
     if _kernels_allowed(spec, u):
         from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 
@@ -450,6 +503,12 @@ def residual_restrict_homog(spec: LevelMGSpec, coefs: dict, d: int, u, rhs,
 
 
 def apply_homog(spec: LevelMGSpec, coefs: dict, d: int, u):
+    """L(u) with homogeneous ghosts; a depth held as a shard set shard by
+    shard (parallel/halo.apply_homog: bit for bit the whole level's)."""
+    if isinstance(u, ShardSet):
+        from mg_ic_code_tpu_torch.parallel import halo
+
+        return halo.apply_homog(spec, coefs, d, u)
     return st.apply_op(
         _ghost(spec, d, u), coefs["a"][d], coefs["b"][d],
         spec.alpha, spec.beta, spec.dx[d],

@@ -6,6 +6,12 @@ re-linearise the Hamiltonian constraint around the current psi (aCoef/rhs
 from SetLevelData formulas), solve the linear system with MG-preconditioned
 BiCGStab, then update psi += dpsi and check the composite norm of dpsi for
 convergence/divergence. The whole solve runs under `torch.no_grad()`.
+
+With a mesh, every level the mesh cuts is a parallel/shards.ShardSet from
+the placement to the end of the solve (the state, the physics fields,
+aCoef, rhs): the Picard steps below run shard by shard, reading the part
+of a parent under a child's shards by level windows, and the result is
+joined once, at the end.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from mg_ic_code_tpu_torch.grid.geometry import HierarchyGeom
 from mg_ic_code_tpu_torch.ops.ghosts import fill_ghosts
 from mg_ic_code_tpu_torch.physics import level_data as ld
 from mg_ic_code_tpu_torch.io.logging import pout
+from mg_ic_code_tpu_torch.parallel.shards import (
+    ShardSet, per_shard, write_window,
+)
 from mg_ic_code_tpu_torch.solver import composite as comp
 from mg_ic_code_tpu_torch.solver import reductions as red
 
@@ -50,7 +59,8 @@ def ghosted_psi(geom: HierarchyGeom, psi_list, level: int):
     """psi with ghosts: CF-quadratic from the coarser level, physical
     Dirichlet at value 1 + bc_value (psi -> 1 + dpsi_face asymptotically:
     the initial guess is psi=1 and every dpsi carries face value bc_value),
-    Neumann/periodic as configured."""
+    Neumann/periodic as configured. A cut level: a shard set of ghosted
+    shards (face ghosts only, ghosts.fill_ghosts)."""
     return fill_ghosts(
         psi_list[level], geom, level,
         coarse_u=psi_list[geom.parent[level]] if level > 0 else None,
@@ -64,7 +74,8 @@ def compute_constant_k(geom: HierarchyGeom, cfg: SolverConfig, fields, psi_list)
     with the integrand of SetLevelData.cpp:131-187
     (Main_PoissonSolver.cpp:137-150)."""
     integrand = [
-        ld.constant_k_integrand(
+        per_shard(
+            ld.constant_k_integrand,
             ghosted_psi(geom, psi_list, l), fields[l], cfg, geom.dx[l]
         )
         for l in range(geom.num_levels)
@@ -78,21 +89,29 @@ def prepare_iteration(
     geom: HierarchyGeom, cfg: SolverConfig, fields, psi_list
 ):
     """Coefficient/rhs setup for one Picard iteration (the set_a_coef /
-    set_b_coef / set_rhs + constant-K block of the reference's loop)."""
+    set_b_coef / set_rhs + constant-K block of the reference's loop); a
+    cut level's shard by shard."""
     constant_K = (
         compute_constant_k(geom, cfg, fields, psi_list)
         if cfg.is_periodic
         else torch.zeros((), dtype=psi_list[0].dtype,
-                         device=psi_list[0].device)
+                         device=_home(psi_list[0]))
     )
     a_list, rhs_list = [], []
     for l in range(geom.num_levels):
         psi_gh = ghosted_psi(geom, psi_list, l)
-        a_list.append(ld.set_a_coef(psi_list[l], fields[l], cfg, constant_K))
+        a_list.append(per_shard(ld.set_a_coef, psi_list[l], fields[l], cfg,
+                                constant_K))
         rhs_list.append(
-            ld.set_rhs(psi_gh, fields[l], cfg, geom.dx[l], constant_K)
+            per_shard(ld.set_rhs, psi_gh, fields[l], cfg, geom.dx[l],
+                      constant_K)
         )
     return a_list, rhs_list, constant_K
+
+
+def _home(x):
+    """The device a level's 0-d results live on: a shard set's home."""
+    return x.home if isinstance(x, ShardSet) else x.device
 
 
 def finish_iteration(
@@ -102,7 +121,9 @@ def finish_iteration(
     (computeNorm, Main_PoissonSolver.cpp:208). With `average_down`, covered
     coarse cells are then replaced by the restriction of the finer level
     (framework extension: keeps the coarse linearisation consistent with
-    the fine solution and lowers the Picard plateau)."""
+    the fine solution and lowers the Picard plateau). Where a child or its
+    parent is cut, each shard's restriction goes into the parent's
+    covered part by a level window write."""
     from mg_ic_code_tpu_torch.ops import stencils as st
 
     psi = [p + d for p, d in zip(psi_list, dpsi_list)]
@@ -111,7 +132,19 @@ def finish_iteration(
         # a fresh tensor, so the in-place write touches no caller state
         for c in range(geom.num_levels - 1, 0, -1):
             p = geom.parent[c]
-            psi[p][geom.child_slices(p, c)] = st.restrict_full(psi[c])
+            sl = geom.child_slices(p, c)
+            pc = psi[c]
+            if isinstance(pc, ShardSet):
+                assert all(n % 2 == 0 for n in pc.n_loc), pc.n_loc
+                rc = pc.like({k: st.restrict_full(x)
+                              for k, x in pc.shards.items()},
+                             tuple(n // 2 for n in pc.shape))
+                write_window(psi[p], tuple(x.start for x in sl), rc)
+            elif isinstance(psi[p], ShardSet):
+                write_window(psi[p], tuple(x.start for x in sl),
+                             st.restrict_full(pc))
+            else:
+                psi[p][sl] = st.restrict_full(pc)
     return psi, red.composite_norm(dpsi_list, geom, p=2)
 
 
@@ -161,10 +194,12 @@ def poisson_solve(
     state)` is called before each linear solve — the slot where the
     reference writes its per-iteration HDF5 snapshot. `initial_psi`
     warm-starts from a previous solution. `mesh` (parallel/mesh.Mesh) runs
-    the sharded solve: the state is placed by parallel.mesh's policy and
-    the smoother and residual of every depth that shards take the
-    explicit-halo path (parallel/halo.py); the solve runs on the mesh's
-    home device, which `device` None resolves to."""
+    the sharded solve: every level the mesh cuts is made (fields, psi,
+    dpsi) or placed (`initial_psi`) as its shards on their devices and
+    stays so to the end of the solve — `output_hook` receives those shard
+    sets — and the result's psi, dpsi and fields are joined once at the
+    end; the levels the mesh does not cut live on the mesh's home device,
+    which `device` None resolves to."""
     if mesh is not None and device is None:
         device = mesh.home
     device = precision.resolve_device(device)
@@ -181,21 +216,22 @@ def poisson_solve(
     if verbose is None:
         verbose = cfg.verbosity >= 2
 
-    fields = [
-        ld.problem_fields(geom, cfg, l, dtype, device)
-        for l in range(geom.num_levels)
-    ]
-    state = ld.initial_state(geom, cfg, dtype, device)
-    psi, dpsi = state["psi"], state["dpsi"]
+    if mesh is None:
+        fields = [
+            ld.problem_fields(geom, cfg, l, dtype, device)
+            for l in range(geom.num_levels)
+        ]
+        state = ld.initial_state(geom, cfg, dtype, device)
+        psi, dpsi = state["psi"], state["dpsi"]
+    else:
+        fields, psi, dpsi = _placed_state(geom, cfg, dtype, mesh)
     if initial_psi is not None:
         psi = [torch.as_tensor(p, dtype=dtype, device=device)
                for p in initial_psi]
-    if mesh is not None:
-        from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+        if mesh is not None:
+            from mg_ic_code_tpu_torch.parallel import mesh as pmesh
 
-        psi = pmesh.shard_level_list(psi, mesh)
-        dpsi = pmesh.shard_level_list(dpsi, mesh)
-        fields = pmesh.shard_fields(fields, mesh)
+            psi = pmesh.shard_level_list(psi, mesh, geom)
 
     history: list[float] = []
     lin_iters: list[int] = []
@@ -251,6 +287,8 @@ def poisson_solve(
             "NL iterations did not converge - may need a better initial guess"
         )
 
+    if mesh is not None:
+        psi, dpsi, fields = _joined(psi), _joined(dpsi), _joined(fields)
     return NLResult(
         psi=psi,
         dpsi=dpsi,
@@ -262,3 +300,60 @@ def poisson_solve(
         geom=geom,
         fields=fields,
     )
+
+
+def _placed_state(geom: HierarchyGeom, cfg: SolverConfig, dtype, mesh):
+    """(fields, psi, dpsi) of a sharded solve: every level the mesh cuts
+    made on its shards, each shard's fields evaluated on its own device
+    from its own cells' coordinates (ld.problem_fields(region=)), psi = 1
+    and dpsi = 0 there; the rest whole on the home. No level is ever whole
+    on one device."""
+    from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+
+    fields, psi, dpsi = [], [], []
+    for l in range(geom.num_levels):
+        shape, lo = geom.shape(l), geom.boxes[l].lo
+        counts = pmesh.shard_counts(mesh, shape)
+        if counts == (1, 1, 1):
+            fields.append(ld.problem_fields(geom, cfg, l, dtype, mesh.home))
+            psi.append(torch.ones(shape, dtype=dtype, device=mesh.home))
+            dpsi.append(torch.zeros(shape, dtype=dtype, device=mesh.home))
+            continue
+        per = ShardSet.make(mesh, counts, shape, lambda k, sl, dev: (
+            ld.problem_fields(geom, cfg, l, dtype, dev, region=sl)), lo)
+        fields.append(_transposed(per))
+        psi.append(ShardSet.make(mesh, counts, shape, lambda k, sl, dev: (
+            torch.ones(tuple(s.stop - s.start for s in sl), dtype=dtype,
+                       device=dev)), lo))
+        dpsi.append(psi[-1].zeros_like())
+    return fields, psi, dpsi
+
+
+def _transposed(per: ShardSet) -> dict:
+    """A shard set whose shards are field dicts as a dict of shard sets
+    (nested dicts alike)."""
+    first = next(iter(per.shards.values()))
+
+    def pick(path):
+        out = {}
+        for k, d in per.shards.items():
+            for key in path:
+                d = d[key]
+            out[k] = d
+        return per.like(out)
+
+    return {name: ({kk: pick((name, kk)) for kk in v}
+                   if isinstance(v, dict) else pick((name,)))
+            for name, v in first.items()}
+
+
+def _joined(x):
+    """Every shard set in `x` (lists and dicts of them) joined whole on
+    the home: one level join each."""
+    if isinstance(x, ShardSet):
+        return x.join()
+    if isinstance(x, dict):
+        return {k: _joined(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_joined(v) for v in x]
+    return x

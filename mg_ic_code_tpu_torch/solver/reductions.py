@@ -5,6 +5,15 @@ dotProduct of MultilevelLinearOp: cells of a coarse level covered by the
 next finer level are excluded, and integral-type reductions are weighted by
 each level's cell volume dx^3. Every reduction returns a 0-d tensor on the
 operands' device (no host synchronisation here).
+
+A level the mesh cuts (a parallel/shards.ShardSet) is reduced shard by
+shard: each shard masks the covered cells of its own region, and its
+partial result (a 0-d tensor) goes to the home, where the partials are
+combined in a fixed order — the shard keys sorted, x index first, then y,
+then z — so that two runs give the same bits. A maximum is the whole
+level's exactly; a sum reassociates (((p0 + p1) + p2) + ... instead of one
+sum over the level): its value differs from the whole level's by a few
+ulps of the sum (tests/test_torch_resident_solve.py reads it).
 """
 
 from __future__ import annotations
@@ -12,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from mg_ic_code_tpu_torch.grid.geometry import HierarchyGeom
+from mg_ic_code_tpu_torch.parallel.shards import ShardSet
 
 
 def covered_mask(shape, geom: HierarchyGeom, l: int, device=None):
@@ -26,15 +36,47 @@ def covered_mask(shape, geom: HierarchyGeom, l: int, device=None):
     return mask
 
 
+def _covered_in(geom: HierarchyGeom, l: int, org, n) -> list:
+    """The slices, local to the part [org, org + n) of entry l's array, of
+    the cells its children cover there (one per child that reaches it)."""
+    out = []
+    for c in geom.children(l):
+        sl = geom.child_slices(l, c)
+        lo = [max(s.start, o) for s, o in zip(sl, org)]
+        hi = [min(s.stop, o + m) for s, o, m in zip(sl, org, n)]
+        if all(a < b for a, b in zip(lo, hi)):
+            out.append(tuple(slice(a - o, b - o)
+                             for a, b, o in zip(lo, hi, org)))
+    return out
+
+
+def _mask_shards(u: ShardSet, geom: HierarchyGeom, l: int, fill) -> dict:
+    """Every shard of `u` with the covered cells of its region replaced by
+    `fill` (the shard itself where none is covered)."""
+    out = {}
+    for k, s in u.shards.items():
+        covered = _covered_in(geom, l, u.origin(k), u.n_loc)
+        if covered:
+            s = s.clone()
+            for sl in covered:
+                s[sl] = fill
+        out[k] = s
+    return out
+
+
 def mask_covered(u_list, geom: HierarchyGeom, fill=0.0):
     """Values with the fine-covered region of each entry replaced by `fill`
     (identity on childless entries). Multi-patch entries mask the
-    (disjoint) region under every child patch."""
+    (disjoint) region under every child patch; a cut entry is masked
+    shard by shard."""
     out = []
     for l, u in enumerate(u_list):
         kids = geom.children(l)
         if not kids:
             out.append(u)
+            continue
+        if isinstance(u, ShardSet):
+            out.append(u.like(_mask_shards(u, geom, l, fill)))
             continue
         u = u.clone()
         for c in kids:
@@ -43,10 +85,33 @@ def mask_covered(u_list, geom: HierarchyGeom, fill=0.0):
     return out
 
 
+def _home_sum(u: ShardSet, partials: dict):
+    """The partials of every shard at the home, added in key order."""
+    tot = None
+    for k in sorted(partials):
+        p = partials[k].to(u.home)
+        tot = p if tot is None else tot + p
+    return tot
+
+
+def _level_sum(u, fn):
+    """sum(fn(u)) over a whole level, or the ordered sum of its shards'."""
+    if isinstance(u, ShardSet):
+        return _home_sum(u, {k: torch.sum(fn(s, k))
+                             for k, s in u.shards.items()})
+    return torch.sum(fn(u, None))
+
+
 def composite_max_norm(u_list, geom: HierarchyGeom):
     """Max-norm over valid (uncovered) cells — computeNorm with p=0 /
     BiCGStab normType 0."""
-    vals = [torch.max(torch.abs(u)) for u in mask_covered(u_list, geom)]
+    vals = []
+    for u in mask_covered(u_list, geom):
+        if isinstance(u, ShardSet):
+            vals += [torch.max(torch.abs(u.shards[k])).to(u.home)
+                     for k in sorted(u.shards)]
+        else:
+            vals.append(torch.max(torch.abs(u)))
     return torch.max(torch.stack(vals))
 
 
@@ -58,7 +123,7 @@ def composite_norm(u_list, geom: HierarchyGeom, p: int = 2):
     tot = 0.0
     for l, u in enumerate(mask_covered(u_list, geom)):
         vol = geom.dx[l] ** 3
-        tot = tot + vol * torch.sum(torch.abs(u) ** p)
+        tot = tot + vol * _level_sum(u, lambda x, _: torch.abs(x) ** p)
     return tot ** (1.0 / p)
 
 
@@ -66,7 +131,7 @@ def composite_sum(u_list, geom: HierarchyGeom):
     """computeSum: volume-weighted integral over valid cells."""
     tot = 0.0
     for l, u in enumerate(mask_covered(u_list, geom)):
-        tot = tot + geom.dx[l] ** 3 * torch.sum(u)
+        tot = tot + geom.dx[l] ** 3 * _level_sum(u, lambda x, _: x)
     return tot
 
 
@@ -76,5 +141,7 @@ def composite_dot(u_list, v_list, geom: HierarchyGeom):
     tot = 0.0
     masked_u = mask_covered(u_list, geom)
     for l, (u, v) in enumerate(zip(masked_u, v_list)):
-        tot = tot + geom.dx[l] ** 3 * torch.sum(u * v)
+        shards = v.shards if isinstance(v, ShardSet) else None
+        tot = tot + geom.dx[l] ** 3 * _level_sum(
+            u, lambda x, k: x * (v if shards is None else shards[k]))
     return tot

@@ -213,6 +213,10 @@ with torch.no_grad():
                    for l in range(_geom.num_levels)]
         _psi = chip_smoke.ld.initial_state(_geom, _cfg, torch.float64,
                                            _dev)["psi"]
+        if _mesh is not None and hasattr(chip_smoke.comp, "place"):
+            # a tree whose solve holds the cut levels on their shards
+            _fields = chip_smoke.pmesh.shard_fields(_fields, _mesh, _geom)
+            _psi = chip_smoke.comp.place(_spec, _psi)
         _a, _rhs, _ = chip_smoke.nl.prepare_iteration(_geom, _cfg, _fields,
                                                       _psi)
         _coefs = chip_smoke.comp.build_coefs(_spec, _a)

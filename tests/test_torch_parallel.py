@@ -34,6 +34,7 @@ from mg_ic_code_tpu_torch.ops import kernel_counts
 from mg_ic_code_tpu_torch.parallel import distributed as tdist
 from mg_ic_code_tpu_torch.parallel import halo as thalo
 from mg_ic_code_tpu_torch.parallel import mesh as tmesh
+from mg_ic_code_tpu_torch.parallel.shards import ShardSet
 from mg_ic_code_tpu_torch.solver import multigrid as tmg
 
 torch.set_num_threads(1)
@@ -129,7 +130,9 @@ def test_mesh_needs_a_device_or_names_one():
 def test_gather_and_placement_match_jax():
     """gather_global gives the JAX package's host value of the same level;
     is_coordinator agrees on one process; shard_level_list / shard_fields
-    put every level whole on the mesh's home device, values unchanged."""
+    put a level the mesh does not cut whole on the mesh's home device and
+    a level it cuts as its shards (the JAX package's placement), values
+    unchanged."""
     x = _rng(3).standard_normal((16, 8, 4))
     jm, tm = _mesh_pair()
     jx = jmesh.shard_level_list([jnp.asarray(x)],
@@ -143,6 +146,12 @@ def test_gather_and_placement_match_jax():
     for t in (placed[0], fields[0]["a"], fields[0]["d"]["b"]):
         assert t.device == tm.home
         np.testing.assert_array_equal(t.numpy(), x)
+    big = _rng(4).standard_normal((64, 8, 4))
+    cut = tmesh.shard_level_list([_t(big)], tm)[0]
+    cut_f = tmesh.shard_fields([{"d": {"b": _t(big)}}], tm)[0]["d"]["b"]
+    for t in (cut, cut_f):
+        assert isinstance(t, ShardSet) and t.counts == (8, 1, 1)
+        np.testing.assert_array_equal(t.join().numpy(), big)
     # the one cut rule, per level and per depth
     assert tmesh.shard_counts(tm, (64, 8, 4)) == (8, 1, 1)
     for too_small in ((16, 8, 4), (56, 8, 4), (60, 8, 4)):
@@ -428,8 +437,9 @@ def test_sharded_relax_2d_matches_jax(bc):
 
 def test_composite_solve_with_mesh_matches_jax_and_unsharded():
     """solve_linear on a 32^3 level cut into 8 pencils ((4, 2) mesh, f64:
-    the plain sharded ops at depth 0) against the JAX package's sharded
-    solve and against the port's solve without a mesh, 1e-10."""
+    the plain sharded ops at depth 0; the level placed as its shards and
+    the solution handed back so) against the JAX package's sharded solve
+    and against the port's solve without a mesh, 1e-10."""
     from mg_ic_code_tpu.config import SolverConfig as JCfg
     from mg_ic_code_tpu.solver import composite as jcomp
     from mg_ic_code_tpu_torch.config import SolverConfig as TCfg
@@ -453,8 +463,11 @@ def test_composite_solve_with_mesh_matches_jax_and_unsharded():
     outs = {}
     for label, mesh in (("sharded", tm), ("unsharded", None)):
         ts = tcomp.make_amr_spec(tg, TCfg(**kw), "cpu", mesh)
-        tc = tcomp.build_coefs(ts, [_t(a)])
-        outs[label] = tcomp.solve_linear(ts, tc, [_t(rhs)])
+        tc = tcomp.build_coefs(ts, tcomp.place(ts, [_t(a)]))
+        out = tcomp.solve_linear(ts, tc, tcomp.place(ts, [_t(rhs)]))
+        assert isinstance(out.x[0], ShardSet) == (mesh is not None)
+        outs[label] = out._replace(x=[
+            x.join() if isinstance(x, ShardSet) else x for x in out.x])
         assert bool(outs[label].converged)
     assert tmg._shard_counts(
         tcomp.make_amr_spec(tg, TCfg(**kw), "cpu", tm).level_specs[0], 0
@@ -471,7 +484,8 @@ def test_sharded_bbh_two_picard_iterations():
     the JAX package's sharded run and the port's unsharded run: f64,
     1e-10. Where the JAX package places its levels (the min_local of its
     shard_level_list, which test_sharded_bbh_end_to_end lowers) changes no
-    value; the port keeps every level whole on the mesh's home device."""
+    value; the port holds every level the mesh cuts as its shards and
+    joins the result at the end."""
     from mg_ic_code_tpu.config import SolverConfig as JCfg
     from mg_ic_code_tpu.solver import nonlinear as jnl
     from mg_ic_code_tpu_torch.config import SolverConfig as TCfg

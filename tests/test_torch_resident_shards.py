@@ -1,12 +1,14 @@
-"""The preconditioner with a mesh holds the depths the mesh cuts on their
-shards (parallel/shards.ShardSet) between calls: held against the JAX
-package's sharded preconditioner on the conftest's 8 virtual CPU devices
-(the same numpy inputs, f64, 1e-10 of max|reference|), against the per-call
-form it replaces (every relax and residual of a cut depth splitting and
-joining whole levels, the restriction of a cut depth taken whole: bitwise
-on the CPU), against a fresh coefficient build (no pad of an older build is
-read), and in its split / join counts (kernel_counts.HALO) against the
-counts its hierarchy and mesh imply (chip_smoke.shard_traffic_of,
+"""The preconditioner with a mesh holds the levels and depths the mesh cuts
+on their shards (parallel/shards.ShardSet): it takes and returns the level
+list as composite.place holds it (every cut level as its shards), held
+against the JAX package's sharded preconditioner on the conftest's 8
+virtual CPU devices (the same numpy inputs, f64, 1e-10 of max|reference|),
+against the per-call form (whole levels and whole coefficients, every
+relax and residual of a cut depth splitting and joining them, the
+restriction of a cut depth taken whole: bitwise on the CPU), against a
+fresh coefficient build (no pad of an older build is read), and in its
+split / join / window counts (kernel_counts.HALO) against the counts its
+hierarchy and mesh imply (chip_smoke.shard_traffic_of,
 shard_coef_builds_of) and against counts worked out by hand.
 
 The hierarchy: a 32^3 base (depth chain 32, 16, 8, 4) with one refined
@@ -48,20 +50,23 @@ CUTS = {"x4": ([(4, 1, 1), (1, 1, 1), (1, 1, 1), (1, 1, 1)], (4, 1, 1)),
                        (2, 2, 1)),
         "pencil_4x2": ([(4, 2, 1), (1, 2, 1), (1, 1, 1), (1, 1, 1)],
                        (4, 2, 1))}
-# splits and joins of one application (two V-cycles), worked out by hand
-# from CUTS and the rules of composite.amr_vcycle / multigrid.mg_vcycle:
-#   x4: per V-cycle the base splits r0 (1), joins its restricted residual
-#   at the uncut depth 1 (1), splits the correction under its shards (1)
-#   and joins e0 (1); the refined level splits r1, the coarse correction
-#   and the CF-folded rhs (3) and joins its restriction and e1 (2): 5 / 4.
-#   Between the two V-cycles the composite residual splits u and rhs and
-#   joins the residual of both cut levels: + 4 / + 2. 2 * 5 + 4, 2 * 4 + 2.
-#   pencil_2x2: depth 1 cut alike: the same counts as x4.
-#   pencil_4x2: depth 1 cut otherwise: + 1 join and + 1 split at depth 0's
-#   restriction, + 2 splits and + 1 join taking depth 1 up whole, + 1 join
-#   and + 1 split at its own restriction to the uncut depth 2: 8 / 6 per
-#   V-cycle, 2 * 8 + 4, 2 * 6 + 2.
-BY_HAND = {"x4": (14, 10), "pencil_2x2": (14, 10), "pencil_4x2": (20, 14)}
+# splits, joins and level windows of one application (two V-cycles),
+# worked out by hand from CUTS and the rules of composite.amr_vcycle /
+# multigrid.mg_vcycle. The levels come in and go out as their shards, so
+# only the base's depth chain splits and joins:
+#   x4: per V-cycle the base joins its restricted residual at the uncut
+#   depth 1 (1) and splits the correction under its shards (1): 2 / 2.
+#   pencil_2x2: depth 1 cut alike, depth 2 not: the same counts at depth
+#   1's restriction.
+#   pencil_4x2: depth 1 cut otherwise: 1 join and 1 split at depth 0's
+#   restriction, 2 splits and 1 join taking depth 1 up whole, 1 join and 1
+#   split at its own restriction to the uncut depth 2: 4 / 3 per V-cycle.
+#   Windows: the refined level (cut, six coarse-fine faces) writes its
+#   restriction into the base (1), reads the coarse correction under it
+#   (1) and its faces' coarse planes for the post-smooth (1) per V-cycle,
+#   and the composite residual between the two reads the planes once
+#   more: 2 * 3 + 1.
+BY_HAND = {"x4": (2, 2, 7), "pencil_2x2": (2, 2, 7), "pencil_4x2": (8, 6, 7)}
 
 
 def _rng(seed):
@@ -102,6 +107,44 @@ def T(xs):
     return cv.level_list_from_numpy(xs, "cpu")
 
 
+def P(spec, xs):
+    """The numpy levels placed as the solve holds them on spec's mesh."""
+    return tcomp.place(spec, T(xs))
+
+
+def W(xs):
+    """Placed levels whole again (the cut ones joined)."""
+    return [x.join() if isinstance(x, ShardSet) else x for x in xs]
+
+
+def whole_coefs(coefs):
+    """A coefficient build with every shard set joined and no cached
+    shards: the per-call form's coefficients, cut per call."""
+    def whole(t):
+        return t.join(what="coef_joins") if isinstance(t, ShardSet) else t
+
+    out = []
+    for c in coefs:
+        c = {k: (tuple(whole(t) for t in v) if k in ("a", "b", "lam")
+                 else v) for k, v in c.items() if k != "shards"}
+        if "lp" in c:
+            c["lp"] = whole_coefs([c["lp"]])[0]
+        out.append(c)
+    return out
+
+
+def placed_as_cut(spec, xs):
+    """Every level the mesh cuts a shard set of its cut, the others whole
+    tensors on the home."""
+    for ls, x in zip(spec.level_specs, xs):
+        counts = tmg._shard_counts(ls, 0)
+        if counts == (1, 1, 1):
+            assert isinstance(x, torch.Tensor)
+        else:
+            assert isinstance(x, ShardSet) and x.counts == counts
+            assert all(s.device == x.devs[k] for k, s in x.shards.items())
+
+
 def port(mesh_name, periodic=False, **kw):
     """(spec, geom) of the port with the mesh (None: no mesh)."""
     _, tg = hierarchy(periodic)
@@ -138,7 +181,8 @@ def test_cuts_are_as_stated():
 def test_precond_with_mesh_matches_jax(mesh_name, periodic):
     """composite.precond (two AMR V-cycles) with the mesh against the JAX
     package's precond on its sharded arrays, f64, 1e-10; the port's
-    correction comes back whole on the mesh's home."""
+    correction comes back placed as its input: every cut level as its
+    shards."""
     jg, tg = hierarchy(periodic)
     jm = jmesh.make_mesh(jax.devices()[:NDEV[mesh_name]], MESHES[mesh_name])
     jspec = jcomp.make_amr_spec(jg, JCfg(**cfg_kw()), jm)
@@ -148,11 +192,10 @@ def test_precond_with_mesh_matches_jax(mesh_name, periodic):
         [jnp.asarray(x) for x in xs], jg, jm)
     jco = jcomp.build_coefs_jit(jspec, put(a))
     ref = jcomp.precond_jit(jspec, jco, put(r))
-    tco = tcomp.build_coefs(tspec, T(a))
-    out = tcomp.precond(tspec, tco, T(r))
-    assert all(isinstance(e, torch.Tensor) and e.device == torch.device(
-        "cpu") for e in out)
-    close_lists(out, ref, 1e-10)
+    tco = tcomp.build_coefs(tspec, P(tspec, a))
+    out = tcomp.precond(tspec, tco, P(tspec, r))
+    placed_as_cut(tspec, out)
+    close_lists(W(out), ref, 1e-10)
 
 
 # ---------------------------------------- against the per-call form (bitwise)
@@ -223,20 +266,23 @@ PRECISIONS = {"f64_plain": dict(),
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_resident_precond_is_the_per_call_form_bitwise(mesh_name, periodic,
                                                        prec):
-    """The resident preconditioner against its per-call form, bit for
-    bit: f64 through the plain sharded ops, f32 through the halo kernels'
-    plain versions (smoother = pallas). A per-shard residual restricted on
-    its shard evaluates every coarse cell as the whole level's staged
-    restriction does."""
+    """The resident preconditioner against its per-call form on whole
+    levels and whole coefficients, bit for bit: f64 through the plain
+    sharded ops, f32 through the halo kernels' plain versions (smoother =
+    pallas). A per-shard residual restricted on its shard evaluates every
+    coarse cell as the whole level's staged restriction does; the windows
+    read and write the same values as the whole levels' slices; the
+    coefficient chain coarsened on the shards is the whole chain."""
     spec, tg = port(mesh_name, periodic, **PRECISIONS[prec])
     a, r = fields(tg, 8)
-    coefs = tcomp.build_coefs(spec, T(a))
+    coefs = tcomp.build_coefs(spec, P(spec, a))
+    pc_coefs = whole_coefs(coefs)
     kernel_counts.reset()
-    out = tcomp.precond(spec, coefs, T(r))
+    out = tcomp.precond(spec, coefs, P(spec, r))
     resident = kernel_counts.snapshot()
-    ref = per_call_precond(spec, coefs, T(r))
+    ref = per_call_precond(spec, pc_coefs, T(r))
     per_call = kernel_counts.snapshot()
-    for x, y in zip(out, ref):
+    for x, y in zip(W(out), ref):
         assert torch.equal(x, y)
     if prec == "f32_kernels":
         assert sum(resident["plain_calls"].values()) > 0
@@ -255,17 +301,18 @@ def test_resident_precond_matches_unsharded():
     sharded, tg = port("x4")
     plain, _ = port(None)
     a, r = fields(tg, 9)
-    out = tcomp.precond(sharded, tcomp.build_coefs(sharded, T(a)), T(r))
+    out = tcomp.precond(sharded, tcomp.build_coefs(sharded, P(sharded, a)),
+                        P(sharded, r))
     ref = tcomp.precond(plain, tcomp.build_coefs(plain, T(a)), T(r))
-    close_lists(out, [x.numpy() for x in ref], 1e-11)
+    close_lists(W(out), [x.numpy() for x in ref], 1e-11)
 
 
 @pytest.mark.parametrize("mesh_name", ["x4", "pencil_4x2"])
 def test_variable_bcoef_precond_matches_jax_and_counts(mesh_name):
     """A variable bCoef: the cut depths relax through the block ops on
-    their shards, and relax_cf joins a cut level for its per-pass ghost
-    loop (a join in place of the CF-folded rhs's split). Against the JAX
-    package's sharded precond, f64, 1e-10; its counts against
+    their shards, and relax_cf runs its per-pass ghost loop on the shards
+    of a cut level (the coarse face planes read once, one window). Against
+    the JAX package's sharded precond, f64, 1e-10; its counts against
     shard_traffic_of / shard_coef_builds_of with const_b=False."""
     jg, tg = hierarchy(False)
     jm = jmesh.make_mesh(jax.devices()[:NDEV[mesh_name]], MESHES[mesh_name])
@@ -277,13 +324,14 @@ def test_variable_bcoef_precond_matches_jax_and_counts(mesh_name):
         [jnp.asarray(x) for x in xs], jg, jm)
     ref = jcomp.precond_jit(jspec, jcomp.build_coefs_jit(jspec, put(a),
                                                          put(b)), put(r))
+    pa, pb, pr = P(tspec, a), P(tspec, b), P(tspec, r)
     kernel_counts.reset()
-    tco = tcomp.build_coefs(tspec, T(a), T(b))
+    tco = tcomp.build_coefs(tspec, pa, pb)
     build = kernel_counts.snapshot()["halo"]
     kernel_counts.reset()
-    out = tcomp.precond(tspec, tco, T(r))
+    out = tcomp.precond(tspec, tco, pr)
     app = kernel_counts.snapshot()["halo"]
-    close_lists(out, ref, 1e-10)
+    close_lists(W(out), ref, 1e-10)
     want = chip_smoke.shard_coef_builds_of(tspec, "cpu", const_b=False)
     assert {k: build[k] for k in want} == want
     want = chip_smoke.shard_traffic_of(tspec, const_b=False)
@@ -304,19 +352,21 @@ def test_a_new_build_never_reads_an_old_ones_pads(mesh_name):
     spec, tg = port(mesh_name, **PRECISIONS["f32_kernels"])
     a1, r = fields(tg, 10)
     a2, _ = fields(tg, 11)
-    c1 = tcomp.build_coefs(spec, T(a1))
-    out1 = tcomp.precond(spec, c1, T(r))
-    c2 = tcomp.build_coefs(spec, T(a2))
-    out2 = tcomp.precond(spec, c2, T(r))
-    again1 = tcomp.precond(spec, c1, T(r))
-    fresh2 = tcomp.precond(spec, tcomp.build_coefs(spec, T(a2)), T(r))
+    pr = P(spec, r)
+    c1 = tcomp.build_coefs(spec, P(spec, a1))
+    out1 = W(tcomp.precond(spec, c1, pr))
+    c2 = tcomp.build_coefs(spec, P(spec, a2))
+    out2 = W(tcomp.precond(spec, c2, pr))
+    again1 = W(tcomp.precond(spec, c1, pr))
+    fresh2 = W(tcomp.precond(spec, tcomp.build_coefs(spec, P(spec, a2)),
+                             pr))
     for x, y, z, w in zip(out1, again1, out2, fresh2):
         assert torch.equal(x, y) and torch.equal(z, w)
     assert "apad" in c2[0]["lp"]["shards"][0] or (
         "apre" in c2[0]["lp"]["shards"][0])
     stale = [dict(c, lp=dict(c["lp"], shards=o["lp"]["shards"]))
              for c, o in zip(c2, c1)]
-    out_stale = tcomp.precond(spec, stale, T(r))
+    out_stale = W(tcomp.precond(spec, stale, pr))
     assert not all(torch.equal(x, y) for x, y in zip(out_stale, fresh2))
 
 
@@ -328,44 +378,57 @@ def test_a_new_build_never_reads_an_old_ones_pads(mesh_name):
 def test_split_join_counts_are_the_derived_counts(mesh_name, prec):
     """kernel_counts.HALO of one build_coefs and of one preconditioner
     application against chip_smoke's derivation from the hierarchy and the
-    mesh, and against the counts worked out by hand (BY_HAND): no
-    coefficient split and no pad built inside an application, and no split
-    or join between two cut depths with equal counts."""
+    mesh, and against the counts worked out by hand (BY_HAND): nothing cut
+    at depth 0 of a build, no coefficient split and no pad built inside an
+    application, no split or join of an AMR level and none between two cut
+    depths with equal counts."""
     spec, tg = port(mesh_name, **PRECISIONS[prec])
-    a, r = fields(tg, 12)
+    pa, pr = (P(spec, x) for x in fields(tg, 12))
     kernel_counts.reset()
-    coefs = tcomp.build_coefs(spec, T(a))
+    coefs = tcomp.build_coefs(spec, pa)
     build = kernel_counts.snapshot()["halo"]
     want = chip_smoke.shard_coef_builds_of(spec, "cpu")
     assert {k: build[k] for k in want} == want
     assert build["level_splits"] == build["level_joins"] == 0
+    assert build["level_windows"] == 0
+    # the chain is resharded only where the cut ends or changes: 8^3 is
+    # never cut, and pencil_4x2 cuts 16^3 otherwise than 32^3
+    assert build["coef_joins"] == 1 + (mesh_name == "pencil_4x2")
+    assert build["coef_splits"] == (mesh_name == "pencil_4x2")
     kernel_counts.reset()
-    tcomp.precond(spec, coefs, T(r))
+    tcomp.precond(spec, coefs, pr)
     app = kernel_counts.snapshot()["halo"]
     want = chip_smoke.shard_traffic_of(spec)
     assert {k: app[k] for k in want} == want
-    assert (app["level_splits"], app["level_joins"]) == BY_HAND[mesh_name]
+    assert (app["level_splits"], app["level_joins"],
+            app["level_windows"]) == BY_HAND[mesh_name]
     assert app["coef_splits"] == app["coef_pad_builds"] == 0
     assert app["pad_exchanges"] > 0 and app["bytes_moved"] > 0
 
 
 def test_counts_of_a_run_are_builds_and_applications():
     """Over a linear solve: one coefficient build and two preconditioner
-    applications per Krylov iteration, nothing else (the composite operator
-    and the Krylov vectors stay whole on the mesh's home)."""
+    applications per Krylov iteration split and join what they imply, and
+    nothing else does (the composite operator and the Krylov vectors work
+    on the shards); the operator's coarse-fine term reads one window in
+    the initial residual and in each of its two applications a Krylov
+    iteration."""
     spec, tg = port("pencil_4x2", **PRECISIONS["f32_kernels"])
-    a, r = fields(tg, 13)
+    pa, pr = (P(spec, x) for x in fields(tg, 13))
     kernel_counts.reset()
-    coefs = tcomp.build_coefs(spec, T(a))
-    out = tcomp.solve_linear(spec, coefs, T(r))
+    coefs = tcomp.build_coefs(spec, pa)
+    out = tcomp.solve_linear(spec, coefs, pr)
     got = kernel_counts.snapshot()["halo"]
     app = chip_smoke.shard_traffic_of(spec)
     build = chip_smoke.shard_coef_builds_of(spec, "cpu")
     apps = 2 * int(out.iters)
     assert apps > 0
+    placed_as_cut(spec, out.x)
     assert got["level_splits"] == apps * app["level_splits"]
     assert got["level_joins"] == apps * app["level_joins"]
+    assert got["level_windows"] == apps * app["level_windows"] + (1 + apps)
     assert got["coef_splits"] == build["coef_splits"]
+    assert got["coef_joins"] == build["coef_joins"]
     assert got["coef_pad_builds"] == build["coef_pad_builds"]
 
 
