@@ -126,6 +126,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
            periodic box with the mesh (the sharding line, K against the run
            without one), and entry.dryrun_multichip(4) on cuda:0 named four
            times
+  processes
+           the sharded solve over two processes on one card: this script
+           started twice as workers (--worker) by torchrun, whose
+           environment they read as the command line's entry does;
+           torch.distributed with gloo (the tensors that cross between the
+           processes are staged through host memory: a card cannot be
+           shared under NCCL), two
+           positions of cuda:0 per process, a mesh of four; the periodic
+           box on 4 x-slabs and the 7 levels (2 Picard iterations), each
+           held bit for bit (history, Krylov counts, K) to the sharded
+           phase's run of one process over cuda:0 named four times, HALO
+           per iteration summed over the processes to what the hierarchy
+           implies (check_halo_counts), the halo kernel's calls summed
+           over the processes and every other kernel's on each process
+           (those run on the depths the mesh does not cut, which every
+           process computes whole) to the one process's; the bytes and
+           messages between the processes, s/iteration and each process's
+           peak memory. First NCCL is asked for with both processes on
+           cuda:0: it must raise the port's error (SharedCardError). A
+           worker that fails, times out or exits non-zero fails the script
   lowdim   ops/lowdim's 3-D V-cycle solve (32^3, f64, no kernel) on the
            card against the same solve on the CPU, to 1e-12
 
@@ -139,11 +159,21 @@ Asked for by name only (the default run needs one card):
            least a fifth of the unsharded run's peak), then the CLI's calls
            with no mesh given (the sharding line).
            python3 chip_smoke.py --phases env,build,cards
+  processes_cards
+           the processes phase's runs over one process per visible card (at
+           least two; NCCL; each worker's mesh the one the command line
+           builds, main.choose_mesh's), held bit for bit to one process
+           driving the same cards (main.choose_mesh's mesh of one process
+           that sees them all), with s/iteration beside that run's and the
+           unsharded run's and each process's peak memory on its card.
+           python3 chip_smoke.py --phases env,build,processes_cards
 
 Then one line {"kernels": [...]} (per kernel: launches on its main path =
 wrapper calls that reached the card in the scale7 run, in the periodic
 run for the multisweep kernel, in the sharded periodic runs for the halo
-kernels (x-slabs / pencils), device_launches = the kernel launches those
+kernels (x-slabs / pencils; the `processes` path: the periodic x-slabs over
+two processes, launches summed over them), device_launches = the kernel
+launches those
 calls enqueued, error against the plain version, time, plain time and bound
 at that path's shape; the same for the 4-level solve; and under "paths" the
 same numbers for EVERY path the kernel is on, each at that path's own
@@ -168,6 +198,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1241,23 +1272,24 @@ def shard_operands(f, kinds, mshape, H: int, rho: float = 2.0,
     sliced to H, as halo.sharded_relax does for chunks of mixed depth."""
     mesh = pmesh.make_mesh(["cuda:0"] * math.prod(mshape), mshape)
     counts = tuple(mshape) + (1,) * (3 - len(mshape))
-    devs = shards.grid(mesh, counts)
-    sh = {k: shards.split_dict(f[k], counts, devs) for k in ("u", "rhs", "a")}
+    lay = shards.layout(mesh, counts)
+    devs = lay.devs
+    sh = {k: shards.split_dict(f[k], lay) for k in ("u", "rhs", "a")}
     n_loc = [f["u"].shape[ax] // counts[ax] for ax in range(3)]
     px = kinds[0][0] == P
     meta = halo._metas(devs, counts, n_loc, px)
     if len(mshape) == 1:
         hm = max(H, h_max or H)
         sl = slice(hm - H, hm + H)
-        pads = (halo._u_rows(sh["u"], kinds, rho, H, counts[0], devs),
-                halo._coef_rows(sh["rhs"], hm, counts[0], px, devs),
-                halo._coef_rows(sh["a"], hm, counts[0], px, devs))
+        pads = (halo._u_rows(sh["u"], kinds, rho, H, counts[0], lay),
+                halo._coef_rows(sh["rhs"], hm, counts[0], px, lay),
+                halo._coef_rows(sh["a"], hm, counts[0], px, lay))
         return {k: {"u": sh["u"][k], "rhs": sh["rhs"][k], "a": sh["a"][k],
                     "pads": (pads[0][k], pads[1][k][sl], pads[2][k][sl]),
                     "meta": meta[k]}
                 for k in devs}
     pre = {n: halo._prepad(sh[n], H, "ghost" if n == "u" else "zero", kinds,
-                           rho, counts, devs) for n in sh}
+                           rho, counts, lay) for n in sh}
     return {k: {"pre": (pre["u"][k], pre["rhs"][k], pre["a"][k]),
                 "meta": meta[k], "ny_global": f["u"].shape[1]} for k in devs}
 
@@ -1353,7 +1385,8 @@ def check_shard_case(case, dtype) -> dict:
         for _ in range(2):
             outs = {k: call(o, 2) for k, o in shard_operands(
                 dict(f, u=u), kinds, mshape, 4).items()}
-            u = shards.join_dict(outs, counts, u.device)
+            u = shards.join_dict(outs, shards.layout(one_card_mesh(
+                mshape), counts), u.device)
         return u
 
     sharded = sharded_sweeps()
@@ -2774,6 +2807,9 @@ def precond_application(overrides, params: str, mesh, reps: int = 5) -> dict:
 
 SHARDED7 = ["max_level = 6", "max_NL_iterations = 3",
             "precond_precision = single", "verbosity = 0"]
+# the sharded phase's one-process runs (periodic x-slabs, 7 levels), which
+# the processes phase holds its runs over two processes to
+SHARDED_REFERENCE: dict = {}
 # bytes moved between mesh positions per Picard iteration when only the
 # preconditioner kept the cut depths on their shards and the Krylov
 # vectors, the f64 operator and the Picard state were whole on the home:
@@ -2819,6 +2855,7 @@ def phase_sharded() -> dict:
               f"{path}: another rung ran: {counts}")
         check(run["constant_K"] < 0.0, f"{path}: K {run['constant_K']}")
         runs[path] = counts
+        SHARDED_REFERENCE[path] = run
         n_iter = len(run["history"])
         out[path] = {"mesh": list(mshape), **agree, **run,
                      **bytes_per_iteration(run, path),
@@ -2856,6 +2893,7 @@ def phase_sharded() -> dict:
     check(all(i <= 3 for i in run7["linear_iters"]),
           f"sharded7: Krylov {run7['linear_iters']}")
     runs["sharded7"] = counts7
+    SHARDED_REFERENCE["sharded7"] = run7
     n7 = len(h)
     out["sharded7"] = {"mesh": list(SHARD_X), **lock, **agree7, **run7,
                        **bytes_per_iteration(run7, "sharded7"),
@@ -3060,6 +3098,267 @@ def phase_cards() -> dict:
     return out
 
 
+# ------------------------------------------------------------- processes
+
+# the 7 levels stop at 2 Picard iterations over processes (the contract's
+# time budget); their first two entries are the 3-iteration run's
+PROCESSES7 = [o if not o.startswith("max_NL") else "max_NL_iterations = 2"
+              for o in SHARDED7]
+# the configurations the workers solve: (name, overrides, parameters, the
+# sharded phase's reference run)
+PROCESS_RUNS = (("periodic", PERIODIC_BASE, PERIODIC, "sharded_x"),
+                ("sharded7", PROCESSES7, CANONICAL, "sharded7"))
+# the kernels that run on the shards of a cut level (each process its own
+# shards' calls); every other kernel runs on the depths the mesh does not
+# cut, which every process holds whole and computes
+SHARD_KERNELS = ("multisweep_relax_halo", "multisweep_relax_tiled_pre")
+PROCESS_KEYS = ("levels", "history", "linear_iters", "K_history",
+                "constant_K", "s_per_iteration", "total_s",
+                "kernel_calls_per_iteration", "halo_per_iteration",
+                "max_memory_allocated")
+
+
+def process_worker(args) -> int:
+    """One process of the run over several processes (`--worker`), started
+    by torchrun (RANK, WORLD_SIZE, LOCAL_RANK in its environment): with
+    `--shared-card-check`, first NCCL from that environment with every
+    process on cuda:0, which must raise the port's error before NCCL is
+    built (the group is then left, and started again); then `--backend`
+    from torchrun's environment as the command line's entry brings it up
+    (NCCL: card LOCAL_RANK; gloo: every process on cuda:0), and the
+    PROCESS_RUNS solves on the mesh over every process's positions:
+    `--positions` of them on this process's card, or with 0 the mesh the
+    command line builds (main.choose_mesh: this process's card); one line
+    PROCESS_RESULT {...} with each run and its counts."""
+    rank, nprocs = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    out: dict = {"rank": rank, "nprocs": nprocs, "backend": args.backend}
+    if args.shared_card_check:
+        try:
+            dist.initialize(backend="nccl", local_rank=0)
+            dist.finalize()
+            out["shared_card_error"] = None
+        except dist.SharedCardError as e:
+            out["shared_card_error"] = str(e)
+    t0 = time.perf_counter()
+    dist.initialize(backend=args.backend)
+    out["initialize_s"] = time.perf_counter() - t0
+    devices = [f"cuda:{torch.cuda.current_device()}"] * args.positions
+    try:
+        with torch.no_grad():
+            for name, over, params, _ in PROCESS_RUNS:
+                cfg = mgt.load_params(params, overrides=list(over))
+                mesh = (dist.host_mesh(cfg.n_cells, devices) if devices
+                        else cli_main.choose_mesh(cfg, torch.device("cuda")))
+                check(mesh is not None and mesh.size == nprocs * max(
+                    1, args.positions), f"process {rank}: mesh {mesh}")
+                kernel_counts.reset()
+                run = run_solve(over, name, params=params, mesh=mesh)
+                counts = kernel_counts.snapshot()
+                out[name] = {**{k: run[k] for k in PROCESS_KEYS},
+                             "mesh": mesh.shape,
+                             "owners": list(mesh.owners),
+                             "devices": [str(d) for d in mesh.devices],
+                             "launches": counts["launches"],
+                             "device_launches": counts["device_launches"],
+                             "plain_calls": counts["plain_calls"],
+                             "halo": counts["halo"]}
+                torch.cuda.empty_cache()
+    except SmokeFailure as e:
+        print(f"process {rank} FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    print("PROCESS_RESULT " + json.dumps(out), flush=True)
+    dist.finalize()
+    return 0
+
+
+def spawn_workers(nprocs: int, backend: str, positions: int,
+                  shared_card_check: bool, timeout_s: float) -> list:
+    """Start `nprocs` workers of this script (process_worker) under
+    torchrun (`torch.distributed.run --standalone`), in a temporary
+    directory (their pout.<n> logs), wait for them at most `timeout_s`
+    seconds, and return their results; a worker that fails, times out or
+    says nothing fails the phase (every worker is stopped first)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nprocs}", os.path.abspath(__file__),
+           "--worker", "--backend", backend, "--positions", str(positions)]
+    if shared_card_check:
+        cmd.append("--shared-card-check")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mg_ic_workers_") as tmp, \
+            open(os.path.join(tmp, "workers.log"), "w+") as log:
+        # a session of its own: torchrun and its workers are stopped
+        # together
+        p = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                             cwd=tmp, start_new_session=True)
+        try:
+            p.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        log.seek(0)
+        text = log.read()
+    results = sorted((json.loads(ln.split("PROCESS_RESULT ", 1)[1])
+                      for ln in text.splitlines()
+                      if "PROCESS_RESULT {" in ln), key=lambda w: w["rank"])
+    check(p.returncode == 0 and [w["rank"] for w in results]
+          == list(range(nprocs)),
+          f"{nprocs} workers ({backend}) exited {p.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s with results of ranks "
+          f"{[w['rank'] for w in results]}:\n{text[-3000:]}")
+    return results
+
+
+def check_process_runs(workers: list, ref: dict, spec, what: str) -> dict:
+    """Runs of the same configuration over several processes against one
+    process driving the same mesh positions: history, Krylov counts and
+    K bit for bit (for as many Picard iterations as the workers ran);
+    HALO per iteration summed over the workers exactly what the hierarchy
+    implies (check_halo_counts); each iteration's calls of the shard
+    kernels summed over the workers, and of every other kernel on each
+    worker, those of the one process. Returns what the phase prints."""
+    n = len(workers[0]["history"])
+    for w in workers:
+        for k in ("history", "linear_iters", "K_history"):
+            check(w[k] == ref[k][:n],
+                  f"{what}: process {workers.index(w)} {k} {w[k]}, one "
+                  f"process {ref[k][:n]}")
+    halo = [{k: sum(w["halo_per_iteration"][i][k] for w in workers)
+             for k in workers[0]["halo_per_iteration"][i]}
+            for i in range(n)]
+    check_halo_counts({"halo_per_iteration": halo,
+                       "linear_iters": workers[0]["linear_iters"]}, spec,
+                      what)
+    order = list(kernel_counts.KERNELS)
+    for i in range(n):
+        want = ref["kernel_calls_per_iteration"][i]
+        for j, name in enumerate(order):
+            got = [w["kernel_calls_per_iteration"][i][j] for w in workers]
+            ok = (sum(got) == want[j] if name in SHARD_KERNELS
+                  else all(g == want[j] for g in got))
+            check(ok, f"{what}: iteration {i} {name} calls {got} over the "
+                  f"processes, {want[j]} on one")
+    halo_kernel = order.index("multisweep_relax_halo")
+    check(all(w["kernel_calls_per_iteration"][i][halo_kernel] > 0
+              for w in workers for i in range(n)),
+          f"{what}: a process made no halo kernel call in an iteration")
+    for w in workers:
+        check(all(v == 0 for v in w["plain_calls"].values()),
+              f"{what}: a plain version ran: {w['plain_calls']}")
+        check_one_launch(w, what)
+    between = [h["bytes_between_processes"] for h in halo]
+    check(all(b > 0 for b in between),
+          f"{what}: no bytes between processes: {between}")
+    return {"history": workers[0]["history"],
+            "linear_iters": workers[0]["linear_iters"],
+            "constant_K": workers[0]["constant_K"],
+            "one_process_history": ref["history"][:n],
+            "bit_for_bit": True,
+            "bytes_between_processes_per_iteration": between,
+            "messages_per_iteration": [h["messages"] for h in halo],
+            "bytes_moved_per_iteration": [h["bytes_moved"] for h in halo],
+            "s_per_iteration": [w["s_per_iteration"] for w in workers],
+            "one_process_s_per_iteration": ref["s_per_iteration"][:n],
+            "max_memory_allocated": [w["max_memory_allocated"]
+                                     for w in workers],
+            "one_process_max_memory_allocated": ref["max_memory_allocated"],
+            "launches": {k: sum(w["launches"][k] for w in workers)
+                         for k in order},
+            "device_launches": {k: sum(w["device_launches"][k]
+                                       for w in workers) for k in order},
+            "launches_per_process": [w["launches"] for w in workers]}
+
+
+def _process_spec(over, params: str, mesh):
+    cfg = mgt.load_params(params, overrides=list(over))
+    geom = generate_hierarchy(cfg)
+    return comp.make_amr_spec(geom, cfg, mesh.home, mesh)
+
+
+def phase_processes() -> dict:
+    """The sharded solve over two processes on one card (gloo, tensors
+    staged through host memory, each process two positions of a mesh of
+    four on cuda:0): the periodic box on 4 x-slabs and the 7 levels (2
+    Picard iterations) held bit for bit to the sharded phase's runs of
+    one process over cuda:0 named four times (check_process_runs); and
+    NCCL asked for with both processes on cuda:0 raises the port's
+    error."""
+    out = {"phase": "processes", "backend": "gloo, staged through host "
+           "memory (both processes on cuda:0)", "processes": 2,
+           "positions_per_process": 2}
+    t0 = time.perf_counter()
+    workers = spawn_workers(2, "gloo", 2, shared_card_check=True,
+                            timeout_s=400)
+    out["workers_s"] = time.perf_counter() - t0
+    out["shared_card_errors"] = [w["shared_card_error"] for w in workers]
+    check(all(e and "one card" in e for e in out["shared_card_errors"]),
+          f"processes: NCCL on one shared card did not raise the port's "
+          f"error: {out['shared_card_errors']}")
+    out["initialize_s"] = [w["initialize_s"] for w in workers]
+    for name, over, params, label in PROCESS_RUNS:
+        mesh = one_card_mesh(SHARD_X)
+        ref = SHARDED_REFERENCE.get(label)
+        if ref is None:  # the sharded phase did not run: one process here
+            ref, _ = sharded_solve(SHARDED7 if label == "sharded7" else over,
+                                   label, SHARD_X, params)
+            torch.cuda.empty_cache()
+        spec = _process_spec(over, params, mesh)
+        rec = check_process_runs([w[name] for w in workers], ref, spec,
+                                 f"processes {name}")
+        out[name] = {"mesh": workers[0][name]["mesh"],
+                     "owners": workers[0][name]["owners"], **rec}
+    PROCESS_COUNTS["processes"] = {
+        k: out["periodic"][k] for k in ("launches", "device_launches")}
+    emit(out)
+    return out
+
+
+def phase_processes_cards() -> dict:
+    """The sharded solve over one process per visible card (NCCL, at least
+    two, started by torchrun), each process one position of the mesh the
+    command line builds (main.choose_mesh): the periodic box and the 7
+    levels (2 Picard iterations) held bit for bit, as in the processes
+    phase, to one process driving the same cards (the mesh main.run builds
+    by itself on such a host, as the cards phase), with s/iteration beside
+    that run's and the unsharded run's, and each process's peak memory on
+    its card."""
+    n = torch.cuda.device_count()
+    check(n >= 2, f"processes_cards: needs more than one card, found {n}")
+    out = {"phase": "processes_cards", "backend": "nccl", "processes": n,
+           "names": [torch.cuda.get_device_name(i) for i in range(n)]}
+    refs = {}
+    for name, over, params, _ in PROCESS_RUNS:
+        cfg = mgt.load_params(params, overrides=list(over))
+        cards = cli_main.choose_mesh(cfg, torch.device("cuda"))
+        check(cards is not None and cards.size == n,
+              f"processes_cards: main.choose_mesh gave {cards}")
+        un = run_solve(over, f"{name}_unsharded", params=params)
+        torch.cuda.empty_cache()
+        kernel_counts.reset()
+        one = run_solve(over, f"{name}_cards", params=params, mesh=cards)
+        torch.cuda.empty_cache()
+        refs[name] = (one, un, cards)
+    t0 = time.perf_counter()
+    workers = spawn_workers(n, "nccl", 0, shared_card_check=False,
+                            timeout_s=600)
+    out["workers_s"] = time.perf_counter() - t0
+    out["initialize_s"] = [w["initialize_s"] for w in workers]
+    for name, over, params, _ in PROCESS_RUNS:
+        one, un, cards = refs[name]
+        spec = _process_spec(over, params, cards)
+        rec = check_process_runs([w[name] for w in workers], one, spec,
+                                 f"processes_cards {name}")
+        out[name] = {"mesh": workers[0][name]["mesh"],
+                     "devices": workers[0][name]["devices"], **rec,
+                     "unsharded_s_per_iteration": un["s_per_iteration"],
+                     "unsharded_max_memory_allocated":
+                     un["max_memory_allocated"]}
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------------- lowdim
 
 
@@ -3140,6 +3439,11 @@ PATH_CASES = {
                 "residual_restrict": "patch_d6_144",
                 "tower_down": "path_l0_64", "tower_up": "path_l0_64"},
 }
+# the periodic box on 4 x-slabs over two processes (phase processes): the
+# kernels of the sharded x-slabs at the same shapes, launched by both
+PATH_CASES["processes"] = dict(PATH_CASES["sharded_x"])
+# the processes phase's launches, summed over its processes
+PROCESS_COUNTS: dict = {}
 # the path whose run gives a kernel's top-level launches
 MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
@@ -3164,7 +3468,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
     runs = {"scale7": scale7, "periodic": periodic,
             **{p: (sharded["runs"][p] if sharded else None)
                for p in ("sharded_x", "sharded_pencil", "sharded7")},
-            "patches": records["runs"]["patches"] if records else None}
+            "patches": records["runs"]["patches"] if records else None,
+            "processes": PROCESS_COUNTS.get("processes")}
 
     def measured(name: str, path: str) -> dict:
         if kernels is None:
@@ -3222,9 +3527,9 @@ def kernels_line(kernels: dict | None, solve: dict | None,
 
 
 PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "records",
-          "periodic", "cli", "sharded", "lowdim")
+          "periodic", "cli", "sharded", "processes", "lowdim")
 # asked for by name only: the default run needs one card
-ON_REQUEST = ("cards",)
+ON_REQUEST = ("cards", "processes_cards")
 
 
 def main() -> int:
@@ -3232,7 +3537,21 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + ON_REQUEST))
+    # one process of the processes phases (process_worker), started by them
+    # under torchrun
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--positions", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--shared-card-check", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker:
+        if not torch.cuda.is_available():
+            print("chip_smoke worker: no CUDA device available",
+                  file=sys.stderr)
+            return 1
+        return process_worker(args)
     wanted = [p for p in args.phases.split(",") if p]
     unknown = [p for p in wanted if p not in PHASES + ON_REQUEST]
     if unknown:
@@ -3248,7 +3567,9 @@ def main() -> int:
            "scale7": phase_scale7, "records": phase_records,
            "periodic": phase_periodic,
            "cli": phase_cli, "sharded": phase_sharded,
-           "lowdim": phase_lowdim, "cards": phase_cards}
+           "processes": phase_processes,
+           "lowdim": phase_lowdim, "cards": phase_cards,
+           "processes_cards": phase_processes_cards}
     done: dict = {}
     try:
         with torch.no_grad():

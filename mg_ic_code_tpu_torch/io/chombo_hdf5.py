@@ -27,10 +27,14 @@ made shard by shard on the shards' devices. The writers move it to the
 host in z-slab tiles of at most `_STREAM_MAX_BYTES`, never as a whole
 level; a cut level's tiles are put together on the host from its shards
 (parallel/distributed.stream_global_slabs), the same tiles, values and
-bytes as the whole level's.
+bytes as the whole level's. Over several processes the writers are
+collective: every process makes the same stacks and drains the same
+tiles, and the coordinator (process 0) alone opens and writes the file.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -188,6 +192,8 @@ def _fab_pieces(base_off: int, cells: int, stack):
     # component of the block is already in Fortran order of (nx, ny, nz_tile)
     for z0, blk in dist.stream_global_slabs(
             stack, axis=3, max_bytes=_STREAM_MAX_BYTES, perm=(0, 3, 2, 1)):
+        if blk is None:  # another process's tile: the coordinator's
+            continue
         for c in range(blk.shape[0]):
             yield base_off + c * cells + nx * ny * z0, blk[c].reshape(-1)
 
@@ -195,10 +201,24 @@ def _fab_pieces(base_off: int, cells: int, stack):
 def _stream_fab_into(dset, base_off: int, cells: int, stack) -> None:
     """Write one box's record into the flat dataset piece by piece
     (`_fab_pieces`). With `dset = None` every device operation and every
-    device-to-host copy still happens and nothing is written."""
+    device-to-host copy still happens and nothing is written: the form of
+    every process but the coordinator, which drains the same tiles."""
     for s0, flat in _fab_pieces(base_off, cells, stack):
         if dset is not None:
             dset[s0:s0 + flat.size] = flat
+
+
+@contextlib.contextmanager
+def _coordinator_file(path: str):
+    """The file opened for writing on the coordinator, None on every
+    other process (which drains the same tiles and writes nothing)."""
+    from mg_ic_code_tpu_torch.parallel import distributed as dist
+
+    if not dist.is_coordinator():
+        yield None
+        return
+    with h5py.File(path, "w") as f:
+        yield f
 
 
 SOLVER_DATA_NAMES = ["dpsi", "rhs"] + list(MULTIGRID_VARIABLE_NAMES)
@@ -241,7 +261,14 @@ def write_solver_data(
     _require_h5py()
     names = SOLVER_DATA_NAMES
     nl = geom.max_depth + 1
-    with h5py.File(path, "w") as f:
+    with _coordinator_file(path) as f:
+        if f is None:
+            for d in range(nl):
+                for e in geom.entries_at_depth(d):
+                    _stream_fab_into(None, 0, 0, solver_data_stack(
+                        dpsi_list[e], rhs_list[e], psi_list[e],
+                        fields_list[e]))
+            return
         f.attrs.create("num_components", np.int32(len(names)))
         f.attrs.create("num_levels", np.int32(nl))
         f.attrs.create("max_level", np.int32(nl - 1))
@@ -297,7 +324,17 @@ def write_final_data(
 
     _require_h5py()
     nl = geom.max_depth + 1
-    with h5py.File(path, "w") as f:
+
+    def stack_of(e):
+        return per_shard(ld.grchombo_output_stack, psi_list[e],
+                         fields_list[e], cfg, constant_K)
+
+    with _coordinator_file(path) as f:
+        if f is None:
+            for d in range(nl):
+                for e in geom.entries_at_depth(d):
+                    _stream_fab_into(None, 0, 0, stack_of(e))
+            return
         f.attrs.create("max_level", np.int32(nl - 1))
         f.attrs.create("num_levels", np.int32(nl))
         f.attrs.create("iteration", np.int32(0))
@@ -329,11 +366,7 @@ def write_final_data(
             off = 0
             for e in ents:
                 cells = int(np.prod(geom.boxes[e].shape))
-                stack = per_shard(
-                    ld.grchombo_output_stack, psi_list[e], fields_list[e],
-                    cfg, constant_K
-                )
-                _stream_fab_into(dset, off, cells, stack)
+                _stream_fab_into(dset, off, cells, stack_of(e))
                 off += NUM_GRCHOMBO_VARS * cells
 
 

@@ -19,10 +19,21 @@ JAX package's command line does; `mesh` names a mesh instead (one card may
 appear in it several times). Every level the mesh cuts then stays on its
 cards for the whole solve (parallel/mesh.py): only pads, ghost planes,
 level windows and the depth chain's reshards cross between them, and the
-plotfiles stream their tiles from the shards. One process drives all the
-cards and launches every shard's work itself, so the sharded run is still
-slower than one card on the configurations measured (PERF.md); make one
-card visible (CUDA_VISIBLE_DEVICES) to run unsharded.
+plotfiles stream their tiles from the shards. One process driving all the
+cards launches every shard's work itself, so that run is still slower
+than one card on the configurations measured (PERF.md); make one card
+visible (CUDA_VISIBLE_DEVICES) to run unsharded.
+
+Over several processes, one per card, as torchrun starts them:
+
+    torchrun --nproc-per-node=4 -m mg_ic_code_tpu_torch.main params.txt
+
+the module's entry (and `cli()`) first brings up torch.distributed
+(parallel/distributed.initialize: NCCL, the environment torchrun sets;
+the role of scripts/run_tpu_pod.sh for the JAX package), the mesh spans
+every process's card, each process writes its log to `pout.<n>` (process
+0 also to stdout), the coordinator alone writes the files, and every
+process returns the same exit code.
 """
 
 from __future__ import annotations
@@ -33,6 +44,15 @@ import torch
 
 
 def run(argv: list[str], device=None, mesh=None) -> int:
+    """The command line's run (see the module docstring): 0, or 2 where
+    the solve did not converge or cannot run; over several processes the
+    largest of the processes' codes, on every one."""
+    from mg_ic_code_tpu_torch.parallel import distributed as dist
+
+    return dist.agree_max(_run(argv, device, mesh))
+
+
+def _run(argv: list[str], device=None, mesh=None) -> int:
     if len(argv) < 2:
         print(f" usage {argv[0]} <input_file_name> ", file=sys.stderr)
         return 0
@@ -113,16 +133,19 @@ def run(argv: list[str], device=None, mesh=None) -> int:
 
 
 def choose_mesh(cfg, device, mesh=None):
-    """The mesh of a run: `mesh` as given, else one over every visible card
-    when there are several (the MPI rank decomposition's role; x slabs or
+    """The mesh of a run: `mesh` as given, else one over every process's
+    card where several processes run, or over every visible card where one
+    process sees several (the MPI rank decomposition's role; x slabs or
     (x, y) pencils by the base grid, parallel/distributed.host_mesh), else
     None. Says so when there is one."""
     from mg_ic_code_tpu_torch.io.logging import pout
+    from mg_ic_code_tpu_torch.parallel import distributed as dist
 
-    if mesh is None and device.type == "cuda" and (
+    if mesh is None and dist.process_count() > 1:
+        mesh = dist.host_mesh(cfg.n_cells, None if device.type == "cuda"
+                              else [device])
+    elif mesh is None and device.type == "cuda" and (
             torch.cuda.device_count() > 1):
-        from mg_ic_code_tpu_torch.parallel import distributed as dist
-
         mesh = dist.host_mesh(cfg.n_cells)
     if mesh is not None:
         pout(f"sharding over {mesh.size} devices "
@@ -130,10 +153,24 @@ def choose_mesh(cfg, device, mesh=None):
     return mesh
 
 
+def main(argv: list[str], device=None, backend=None) -> int:
+    """The process's whole run: torch.distributed brought up where
+    torchrun (or the environment it sets) asks for several processes
+    (NCCL unless `backend` names another), `run` on `device` (None: the
+    card), and torch.distributed left again."""
+    from mg_ic_code_tpu_torch.parallel import distributed as dist
+
+    dist.initialize(backend=backend)
+    try:
+        return run(argv, device)
+    finally:
+        dist.finalize()
+
+
 def cli() -> None:
     """console_scripts entry point."""
-    sys.exit(run(sys.argv))
+    sys.exit(main(sys.argv))
 
 
 if __name__ == "__main__":
-    sys.exit(run(sys.argv))
+    sys.exit(main(sys.argv))

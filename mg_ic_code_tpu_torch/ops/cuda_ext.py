@@ -10,11 +10,19 @@ flags, so an unchanged tree reuses it.
 
 There is no fallback: without `nvcc`, or when a source does not compile,
 `lib()` raises.
+
+Several processes may reach `lib()` at once (one per card under torchrun,
+or the workers of chip_smoke.py's `processes` phase), all with the same
+build directory: the build is taken under an exclusive lock on a file
+beside the library (`locked_build`), so that one process builds while the
+others wait and then load what it built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -165,6 +173,30 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mgk_tower_barriers.argtypes = [ci, ci, vp]
 
 
+@contextlib.contextmanager
+def _exclusive(lock_path: str):
+    """An exclusive lock on `lock_path` (created where missing), held for
+    the block: another process (or another open of the file) waits."""
+    with open(lock_path, "a") as f:
+        fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+
+
+def locked_build(path: str, build) -> tuple[bool, str | None]:
+    """Make `path` with `build(path)` (which returns its log) unless it is
+    there, under the lock `path + ".lock"`: one process builds, the others
+    wait and find it built. Returns (whether it was there, the log)."""
+    if os.path.exists(path):
+        return True, None
+    with _exclusive(path + ".lock"):
+        if os.path.exists(path):
+            return True, None
+        return False, build(path)
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
@@ -175,11 +207,13 @@ def lib() -> ctypes.CDLL:
     os.makedirs(bdir, exist_ok=True)
     path = os.path.join(bdir, f"libmgk_{_source_hash()}.so")
     log_path = path[:-3] + ".log"
-    cached = os.path.exists(path)
-    if not cached:
-        log = _build(path, bdir)
+    def build(p):
+        log = _build(p, bdir)
         with open(log_path, "w") as f:
             f.write(log)
+        return log
+
+    cached, _ = locked_build(path, build)
     loaded = ctypes.CDLL(path)
     _declare(loaded)
     _lib = loaded

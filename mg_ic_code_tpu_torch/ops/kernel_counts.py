@@ -22,7 +22,11 @@ the kernels and never through a plain version.
 `HALO[name]` counts what the sharded path copies (parallel/shards.py says
 what each name counts): level splits and joins, level windows,
 coefficient splits, joins and pad builds, pad exchanges and the bytes
-moved between mesh positions.
+moved between mesh positions, and over several processes the bytes and
+messages that crossed between processes (parallel/transport.py). Over
+several processes each event is counted once, by process 0, and each copy
+by the process that owns its destination, so that the counts of all
+processes add up to those of one process driving the same mesh.
 """
 
 KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
@@ -34,7 +38,8 @@ DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_CALLS: dict[str, int] = {k: 0 for k in KERNELS}
 HALO_COUNTS = ("level_splits", "level_joins", "level_windows",
                "coef_splits", "coef_joins", "coef_pad_builds",
-               "pad_exchanges", "bytes_moved")
+               "pad_exchanges", "bytes_moved", "bytes_between_processes",
+               "messages")
 HALO: dict[str, int] = {k: 0 for k in HALO_COUNTS}
 
 

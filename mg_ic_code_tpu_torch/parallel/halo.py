@@ -30,6 +30,14 @@ per call. Shards are keyed by their (ix, iy, iz) position; a mesh axis
 that does not cut the level puts every shard at its coordinate 0 (the JAX
 package's replicas along that axis compute the same values, and the port
 computes them once).
+
+Over several processes (parallel/mesh.py) each process runs the loops over
+its own shards, and every exchange is one plan of copies that every
+process derives from the layout (`lay`: a shard set, or shards.Layout —
+the mesh, the counts, this process's devices and every shard's position)
+and carries out through parallel/transport.py: the planes a shard reads
+from another process's shard arrive as messages, all of one exchange in
+one batch.
 """
 
 from __future__ import annotations
@@ -37,14 +45,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mg_ic_code_tpu_torch.ops import kernel_counts
 from mg_ic_code_tpu_torch.ops import stencils as st
 from mg_ic_code_tpu_torch.ops.ghosts import PERIODIC, ghost_plane
 from mg_ic_code_tpu_torch.parallel.mesh import AXIS
+from mg_ic_code_tpu_torch.parallel import transport
 from mg_ic_code_tpu_torch.parallel.shards import (
-    ShardSet, copy_to, parts, window,
+    ShardSet, copy_to, count_event, layout, parts, window,
 )
-from mg_ic_code_tpu_torch.parallel.shards import grid as _grid
 
 _I = slice(1, -1)
 
@@ -95,12 +102,12 @@ def _fill_local_yz(u_gh, kinds, rho: float, x_slice=_I):
 
 
 def _sharded_ghost(u_locs: dict, kinds, rho: float, nshards: int,
-                   periodic_x: bool, devs: dict) -> dict:
+                   periodic_x: bool, lay) -> dict:
     """Each shard's one-ring ghosted array: x neighbour planes (the 1-D
     instance of _axis_planes: mesh-edge shards take the physical / CF rule)
     and local y/z fills."""
     from_left, from_right = _axis_planes(
-        u_locs, 0, kinds[0][0], kinds[0][1], rho, periodic_x, nshards, devs)
+        u_locs, 0, kinds[0][0], kinds[0][1], rho, periodic_x, nshards, lay)
     out = {}
     for k, u_loc in u_locs.items():
         u_ext = torch.cat([from_left[k], u_loc, from_right[k]], dim=0)
@@ -115,30 +122,50 @@ def _pad_yz(block, kinds, rho: float):
                           x_slice=slice(None))
 
 
-def _ring_exchange_axis(shards: dict, axis: int, nshards: int, devs: dict,
+def _ring_exchange_axis(shards: dict, axis: int, nshards: int, lay,
                         depth: int = 1, wrap: bool = True):
     """The `depth`-deep boundary slabs of every shard along array `axis`,
     each copied to the neighbour that reads it: (from_lo, from_hi), where
     from_lo[k] is the top of k's lower neighbour along the ring and
-    from_hi[k] the bottom of its upper one. Without `wrap` (the axis is
-    not periodic) the first shard gets no from_lo and the last no from_hi:
-    the caller fills the domain faces. All copies are made before anything
-    is updated. One pad exchange."""
-    kernel_counts.HALO["pad_exchanges"] += 1
+    from_hi[k] the bottom of its upper one (this process's shards' k;
+    `shards` holds this process's shards, all of one shape). Without
+    `wrap` (the axis is not periodic) the first shard gets no from_lo and
+    the last no from_hi: the caller fills the domain faces. All copies are
+    made before anything is updated. One pad exchange."""
+    count_event(lay.mesh, "pad_exchanges")
     from_lo, from_hi = {}, {}
-    for k in shards:
+    # a slab's shape and dtype, for a receiver: its own shard's (a process
+    # with no shard here is neither end of any of these transfers)
+    first = next(iter(shards.values()), None)
+    shape = dtype = None
+    if first is not None:
+        shape = tuple(depth if ax == axis else n
+                      for ax, n in enumerate(first.shape))
+        dtype = first.dtype
+    plan = []
+
+    def slab(got, k, src, start):
+        def get():
+            t = shards[src]
+            return t.narrow(axis, t.shape[axis] - depth if start else 0,
+                            depth)
+        return transport.Transfer(
+            lay.pos[src], lay.pos[k], shape, dtype, get,
+            lambda t: got.__setitem__(k, copy_to(t, lay.devs[k])))
+
+    for k in sorted(lay.pos):
         if wrap or k[axis] > 0:
-            lo = shards[_neighbour(k, axis, -1, nshards)]
-            from_lo[k] = copy_to(
-                lo.narrow(axis, lo.shape[axis] - depth, depth), devs[k])
+            plan.append(slab(from_lo, k, _neighbour(k, axis, -1, nshards),
+                             True))
         if wrap or k[axis] < nshards - 1:
-            hi = shards[_neighbour(k, axis, 1, nshards)]
-            from_hi[k] = copy_to(hi.narrow(axis, 0, depth), devs[k])
+            plan.append(slab(from_hi, k, _neighbour(k, axis, 1, nshards),
+                             False))
+    transport.exchange(lay.mesh, plan)
     return from_lo, from_hi
 
 
 def _axis_planes(shards: dict, axis: int, kind_lo: str, kind_hi: str,
-                 rho: float, periodic: bool, nshards: int, devs: dict):
+                 rho: float, periodic: bool, nshards: int, lay):
     """The two ghost planes of every shard along `axis`: the neighbours'
     planes over the ring when the axis is cut (nshards > 1), else the local
     wrap / BC rule; shards at a non-periodic domain face take the physical
@@ -147,7 +174,7 @@ def _axis_planes(shards: dict, axis: int, kind_lo: str, kind_hi: str,
         return arr.narrow(axis, i0, 1)
 
     if nshards > 1:
-        from_lo, from_hi = _ring_exchange_axis(shards, axis, nshards, devs,
+        from_lo, from_hi = _ring_exchange_axis(shards, axis, nshards, lay,
                                                wrap=periodic)
         if not periodic:
             for k, arr in shards.items():
@@ -170,7 +197,7 @@ def _axis_planes(shards: dict, axis: int, kind_lo: str, kind_hi: str,
     return lo, hi
 
 
-def _block_ghost(spec, d: int, counts, uu: dict, devs: dict) -> dict:
+def _block_ghost(spec, d: int, counts, uu: dict, lay) -> dict:
     """Each shard's one-ring ghosted array on a pencil or block cut: the
     one-cell planes of every cut axis exchanged one axis after the other on
     the progressively extended array, so corner and edge values ride along
@@ -180,7 +207,7 @@ def _block_ghost(spec, d: int, counts, uu: dict, devs: dict) -> dict:
     ext = uu
     for ax in range(3):
         lo, hi = _axis_planes(ext, ax, kinds[ax][0], kinds[ax][1], rho,
-                              kinds[ax][0] == PERIODIC, counts[ax], devs)
+                              kinds[ax][0] == PERIODIC, counts[ax], lay)
         ext = {k: torch.cat([lo[k], e, hi[k]], dim=ax)
                for k, e in ext.items()}
     return ext
@@ -189,7 +216,7 @@ def _block_ghost(spec, d: int, counts, uu: dict, devs: dict) -> dict:
 # ------------------------------------------------------- plain level ops
 
 
-def _slab_ops(spec, d: int, nshards: int, devs: dict, nsweeps: int,
+def _slab_ops(spec, d: int, nshards: int, lay, nsweeps: int,
               overlap: bool = True):
     """The x-slab plain ops on shard dicts: (relax_shards(a, lam, uu, rhs),
     residual_shards(a, uu, rhs)), see make_sharded_level_ops."""
@@ -221,7 +248,7 @@ def _slab_ops(spec, d: int, nshards: int, devs: dict, nsweeps: int,
         return uc - lam_s * (lofu - rhs_s)
 
     def half_plain(i, uu, a, lam, rhs):
-        u_gh = _sharded_ghost(uu, kinds, rho, nshards, periodic_x, devs)
+        u_gh = _sharded_ghost(uu, kinds, rho, nshards, periodic_x, lay)
         out = {}
         for k, u in uu.items():
             lofu = st.apply_op(u_gh[k], a[k], None, alpha, beta, dx)
@@ -232,7 +259,7 @@ def _slab_ops(spec, d: int, nshards: int, devs: dict, nsweeps: int,
         color = i % 2
         # 1. the exchange of the boundary planes
         from_left, from_right = _axis_planes(
-            uu, 0, kinds[0][0], kinds[0][1], rho, periodic_x, nshards, devs)
+            uu, 0, kinds[0][0], kinds[0][1], rho, periodic_x, nshards, lay)
         out = {}
         for k, u in uu.items():
             s0 = lo_sum(k)
@@ -257,14 +284,14 @@ def _slab_ops(spec, d: int, nshards: int, devs: dict, nsweeps: int,
         return uu
 
     def residual_shards(a, uu, rhs):
-        u_gh = _sharded_ghost(uu, kinds, rho, nshards, periodic_x, devs)
+        u_gh = _sharded_ghost(uu, kinds, rho, nshards, periodic_x, lay)
         return {k: st.residual(u_gh[k], rhs[k], a[k], None, alpha, beta, dx)
                 for k in uu}
 
     return relax_shards, residual_shards
 
 
-def _block_ops(spec, d: int, counts, devs: dict, nsweeps: int):
+def _block_ops(spec, d: int, counts, lay, nsweeps: int):
     """The pencil / block plain ops on shard dicts, bCoef `b` None or
     variable: (relax_shards(a, b, lam, uu, rhs),
     residual_shards(a, b, uu, rhs)), see make_sharded_level_ops_2d."""
@@ -278,7 +305,7 @@ def _block_ops(spec, d: int, counts, devs: dict, nsweeps: int):
 
     def relax_shards(a, b, lam, uu, rhs):
         for i in range(2 * nsweeps):
-            u_gh = _block_ghost(spec, d, counts, uu, devs)
+            u_gh = _block_ghost(spec, d, counts, uu, lay)
             out = {}
             for k, uc in uu.items():
                 lofu = st.apply_op(u_gh[k], a[k], None if b is None else b[k],
@@ -291,7 +318,7 @@ def _block_ops(spec, d: int, counts, devs: dict, nsweeps: int):
         return uu
 
     def residual_shards(a, b, uu, rhs):
-        u_gh = _block_ghost(spec, d, counts, uu, devs)
+        u_gh = _block_ghost(spec, d, counts, uu, lay)
         return {k: st.residual(u_gh[k], rhs[k], a[k],
                                None if b is None else b[k], alpha, beta, dx)
                 for k in uu}
@@ -321,7 +348,7 @@ def make_sharded_level_ops(spec, mesh, d: int = 0, nsweeps: int | None = None,
         nsweeps = spec.nsmooth
     counts = (mesh.shape[AXIS], 1, 1)
     lo = spec.boxes[d].lo
-    relax_s, residual_s = _slab_ops(spec, d, counts[0], _grid(mesh, counts),
+    relax_s, residual_s = _slab_ops(spec, d, counts[0], layout(mesh, counts),
                                     nsweeps, overlap)
 
     def cut(t, what="level_splits"):
@@ -361,7 +388,7 @@ def make_sharded_level_ops_2d(spec, mesh, d: int = 0,
         nsweeps = spec.nsmooth
     counts = _shard_counts(spec, d)
     lo = spec.boxes[d].lo
-    relax_s, residual_s = _block_ops(spec, d, counts, _grid(mesh, counts),
+    relax_s, residual_s = _block_ops(spec, d, counts, layout(mesh, counts),
                                      nsweeps)
 
     def cut(t, what="level_splits"):
@@ -391,20 +418,21 @@ def make_sharded_level_ops_2d(spec, mesh, d: int = 0,
 
 
 def _exchange_rows(shards: dict, H: int, nshards: int, periodic_x: bool,
-                   devs: dict, lo_fill=None, hi_fill=None) -> dict:
+                   lay, lo_fill=None, hi_fill=None) -> dict:
     """(2H, ny, nz) halo pad of every x-slab: rows [0,H) = the lower
     neighbour's top H rows, rows [H,2H) = the upper neighbour's bottom H
     rows (the deep-halo generalisation of the reference's face Copiers).
     Unless x is periodic (the ring wrap IS the boundary rule), the first
-    shard takes `lo_fill` below and the last `hi_fill` above."""
-    from_left, from_right = _ring_exchange_axis(shards, 0, nshards, devs,
+    shard takes `lo_fill(its shard)` below and the last `hi_fill(its
+    shard)` above."""
+    from_left, from_right = _ring_exchange_axis(shards, 0, nshards, lay,
                                                 depth=H, wrap=periodic_x)
     if not periodic_x:
-        for k in shards:
+        for k, s in shards.items():
             if k[0] == 0:
-                from_left[k] = lo_fill
+                from_left[k] = lo_fill(s)
             if k[0] == nshards - 1:
-                from_right[k] = hi_fill
+                from_right[k] = hi_fill(s)
     return {k: torch.cat([from_left[k], from_right[k]], dim=0)
             for k in shards}
 
@@ -420,36 +448,33 @@ def _metas(devs: dict, counts, n_loc, periodic_x: bool) -> dict:
 
 
 def _u_rows(u_s: dict, kinds, rho: float, H: int, nshards: int,
-            devs: dict) -> dict:
+            lay) -> dict:
     """The u pads of every x-slab for a chunk of H/2 sweeps: the
     neighbours' rows, and at a non-periodic domain face the face's ghost
     plane H deep (the kernel applies the face's rule itself; the JAX
     kernel reads the plane next to the slab at its first pass)."""
-    periodic_x = kinds[0][0] == PERIODIC
-    lo_fill = hi_fill = None
-    if not periodic_x:
-        ul, uh = u_s[(0, 0, 0)], u_s[(nshards - 1, 0, 0)]
-        rows = (H,) + tuple(ul.shape[1:])
-        lo_fill = _bc_plane(kinds[0][0], ul[:1], ul[1:2], rho).expand(rows)
-        hi_fill = _bc_plane(kinds[0][1], uh[-1:], uh[-2:-1], rho).expand(rows)
-    return _exchange_rows(u_s, H, nshards, periodic_x, devs, lo_fill,
-                          hi_fill)
+    def rows(u):
+        return (H,) + tuple(u.shape[1:])
+
+    return _exchange_rows(
+        u_s, H, nshards, kinds[0][0] == PERIODIC, lay,
+        lambda u: _bc_plane(kinds[0][0], u[:1], u[1:2], rho).expand(rows(u)),
+        lambda u: _bc_plane(kinds[0][1], u[-1:], u[-2:-1],
+                            rho).expand(rows(u)))
 
 
 def _coef_rows(arr_s: dict, H: int, nshards: int, periodic_x: bool,
-               devs: dict) -> dict:
+               lay) -> dict:
     """The rhs or aCoef pads of every x-slab: the neighbours' rows, zeros
     beyond a non-periodic domain face."""
-    def zeros(k):
-        a = arr_s[k]
+    def zeros(a):
         return torch.zeros((H,) + tuple(a.shape[1:]), dtype=a.dtype,
                            device=a.device)
-    return _exchange_rows(arr_s, H, nshards, periodic_x, devs,
-                          zeros((0, 0, 0)), zeros((nshards - 1, 0, 0)))
+    return _exchange_rows(arr_s, H, nshards, periodic_x, lay, zeros, zeros)
 
 
 def _deep_pad_axis(shards: dict, axis: int, H: int, nshards: int, kinds,
-                   rho: float, fill: str, devs: dict):
+                   rho: float, fill: str, lay):
     """(lo_pad, hi_pad) dicts of depth H along `axis`: the neighbour
     shards' slabs when the axis is cut, else the local wrap (periodic) or
     the fill rule; shards at a non-periodic domain face take the fill rule
@@ -488,7 +513,7 @@ def _deep_pad_axis(shards: dict, axis: int, H: int, nshards: int, kinds,
                 lo[k], hi[k] = fill_pads(arr)
         return lo, hi
 
-    from_lo, from_hi = _ring_exchange_axis(shards, axis, nshards, devs,
+    from_lo, from_hi = _ring_exchange_axis(shards, axis, nshards, lay,
                                            depth=H, wrap=periodic)
     if not periodic:
         for k, arr in shards.items():
@@ -500,16 +525,16 @@ def _deep_pad_axis(shards: dict, axis: int, H: int, nshards: int, kinds,
 
 
 def _prepad(arr_s: dict, H: int, x_fill: str, kinds, rho: float, counts,
-            devs: dict) -> dict:
+            lay) -> dict:
     """Every pencil prepadded by H on both sides of x and y: a deep x
     exchange, then a deep y exchange of the x-EXTENDED array, so that the
     diagonal neighbours' corners ride along (x_fill: _deep_pad_axis)."""
     x_lo, x_hi = _deep_pad_axis(arr_s, 0, H, counts[0], kinds, rho, x_fill,
-                                devs)
+                                lay)
     ext = {k: torch.cat([x_lo[k], a, x_hi[k]], dim=0)
            for k, a in arr_s.items()}
     y_lo, y_hi = _deep_pad_axis(ext, 1, H, counts[1], kinds, rho, "zero",
-                                devs)
+                                lay)
     return {k: torch.cat([y_lo[k], e, y_hi[k]], dim=1)
             for k, e in ext.items()}
 
@@ -568,14 +593,14 @@ def _coef_item(spec, coefs: dict, d: int, entry: dict, name: str):
         return entry[name]
     a_s = _coef_item(spec, coefs, d, entry, "a")
     H = _kernel_pad_depth()
-    kernel_counts.HALO["coef_pad_builds"] += 1
+    count_event(spec.mesh, "coef_pad_builds")
     kinds = spec.kinds
     if name == "apad":
         entry[name] = _coef_rows(a_s.shards, H, counts[0],
-                                 kinds[0][0] == PERIODIC, a_s.devs)
+                                 kinds[0][0] == PERIODIC, a_s)
     else:
         entry[name] = _prepad(a_s.shards, H, "zero", kinds, spec.rho[d],
-                              counts, a_s.devs)
+                              counts, a_s)
     return entry[name]
 
 
@@ -673,11 +698,11 @@ def sharded_relax(spec, coefs: dict, d: int, u: ShardSet, rhs: ShardSet,
     meta = _metas(u.devs, u.counts, u.n_loc, periodic_x)
     # rhs does not change while relaxing: its pads once, at the deepest
     # chunk's depth, and sliced per chunk (as aCoef's)
-    rpad = _coef_rows(rhs.shards, h_max, nshards, periodic_x, u.devs)
+    rpad = _coef_rows(rhs.shards, h_max, nshards, periodic_x, u)
     u_s = u.shards
     for c in chunks:
         H = 2 * c
-        upad = _u_rows(u_s, kinds, rho, H, nshards, u.devs)
+        upad = _u_rows(u_s, kinds, rho, H, nshards, u)
         sl = slice(h_max - H, h_max + H)
         u_s = {k: fs.multisweep_relax(
             u_s[k], rhs.shards[k], a_s[k], nsweeps=c,
@@ -711,10 +736,10 @@ def sharded_relax_2d(spec, coefs: dict, d: int, u: ShardSet, rhs: ShardSet,
     kw = dict(kinds=kinds, rho=rho, alpha=spec.alpha, beta=spec.beta,
               dx=spec.dx[d], lo=spec.boxes[d].lo)
     meta = _metas(u.devs, counts, u.n_loc, kinds[0][0] == PERIODIC)
-    r_pre = _prepad(rhs.shards, H, "zero", kinds, rho, counts, u.devs)
+    r_pre = _prepad(rhs.shards, H, "zero", kinds, rho, counts, u)
     u_s = u.shards
     for _ in range(n // chunk):
-        u_pre = _prepad(u_s, H, "ghost", kinds, rho, counts, u.devs)
+        u_pre = _prepad(u_s, H, "ghost", kinds, rho, counts, u)
         u_s = {k: fs.multisweep_relax_tiled_pre(
             u_pre[k], r_pre[k], a_pre[k], meta[k], ny_global=shape[1],
             nsweeps=chunk, **kw) for k in u_s}
@@ -742,11 +767,11 @@ def relax(spec, coefs: dict, d: int, u, rhs, n: int):
         a = _coef_item(spec, coefs, d, entry, "a").shards
         lam = _coef_item(spec, coefs, d, entry, "lam").shards
         if route == "slab_plain":
-            relax_s, _ = _slab_ops(spec, d, u_s.counts[0], u_s.devs, n)
+            relax_s, _ = _slab_ops(spec, d, u_s.counts[0], u_s, n)
             shards = relax_s(a, lam, u_s.shards, rhs_s.shards)
         else:
             b_s = _coef_item(spec, coefs, d, entry, "b")
-            relax_s, _ = _block_ops(spec, d, u_s.counts, u_s.devs, n)
+            relax_s, _ = _block_ops(spec, d, u_s.counts, u_s, n)
             shards = relax_s(a, None if b_s is None else b_s.shards, lam,
                              u_s.shards, rhs_s.shards)
         out = u_s.like(shards)
@@ -763,11 +788,11 @@ def _residual_shards(spec, coefs: dict, d: int, u_s: ShardSet,
     b = coefs["b"][d]
     counts = u_s.counts
     if b is None and counts[1] == 1 and counts[2] == 1:
-        _, residual_s = _slab_ops(spec, d, counts[0], u_s.devs, 0)
+        _, residual_s = _slab_ops(spec, d, counts[0], u_s, 0)
         return residual_s(a, u_s.shards, rhs_s.shards)
     b_s = None if b is None else _coef_item(spec, coefs, d, entry,
                                             "b").shards
-    _, residual_s = _block_ops(spec, d, counts, u_s.devs, 0)
+    _, residual_s = _block_ops(spec, d, counts, u_s, 0)
     return residual_s(a, b_s, u_s.shards, rhs_s.shards)
 
 
@@ -842,7 +867,7 @@ def apply_homog(spec, coefs: dict, d: int, u: ShardSet) -> ShardSet:
     b = None
     if coefs["b"][d] is not None:
         b = _coef_item(spec, coefs, d, entry, "b").shards
-    gh = _block_ghost(spec, d, u.counts, u.shards, u.devs)
+    gh = _block_ghost(spec, d, u.counts, u.shards, u)
     return u.like({k: st.apply_op(gh[k], a[k], None if b is None else b[k],
                                   spec.alpha, spec.beta, spec.dx[d])
                    for k in u.shards})
@@ -865,8 +890,7 @@ def cf_planes(geom, level: int, coarse_u, like, faces) -> dict:
     regions, devs, pos, reads = {}, {}, {}, {}
     for axis, side, wrap in faces:
         taxes = [t for t in range(3) if t != axis]
-        for k, (t, org, dev, p) in parts(like).items():
-            n = tuple(t.shape[-3:])
+        for k, (_, org, n, dev, p) in parts(like).items():
             if (org[axis] != 0 if side == 0
                     else org[axis] + n[axis] != shape[axis]):
                 continue
@@ -883,8 +907,10 @@ def cf_planes(geom, level: int, coarse_u, like, faces) -> dict:
             reads[key] = (pads, fine)
     if not regions:
         return {}
+    mesh = next((x.mesh for x in (like, coarse_u) if isinstance(x, ShardSet)),
+                None)
     out = {}
-    for key, w in window(coarse_u, regions, devs, pos).items():
+    for key, w in window(coarse_u, regions, devs, pos, mesh).items():
         pads, fine = reads[key]
         plane = cfi.plane_from_read(w.squeeze(key[1]), pads)
         # the read refines to fine cells [2 (lo // 2), 2 (hi // 2) + 1]
@@ -907,9 +933,9 @@ def add_cf_coarse_term(arr, geom, level: int, coarse_u, scale, b_coef,
     out = arr.clone()
     b_parts = None if b_coef is None else parts(b_coef)
     for axis, side, _ in faces:
-        for k, (t, _, _, _) in parts(out).items():
+        for k, (t, _, _, _, _) in parts(out).items():
             plane = planes.get((k, axis, side))
-            if plane is None:
+            if t is None or plane is None:
                 continue
             idx: list = [slice(None)] * 3
             idx[axis] = 0 if side == 0 else t.shape[axis] - 1
@@ -938,17 +964,16 @@ def fill_ghosts(u, geom, level: int, coarse_u, homogeneous_phys: bool = False,
                            cfi.cf_faces(geom, level))
     cut = isinstance(u, ShardSet)
     counts = u.counts if cut else (1, 1, 1)
-    pieces = parts(u)
-    out = {k: F.pad(t, (1, 1, 1, 1, 1, 1)) for k, (t, _, _, _) in
-           pieces.items()}
+    pieces = {k: p.t for k, p in parts(u).items() if p.t is not None}
+    out = {k: F.pad(t, (1, 1, 1, 1, 1, 1)) for k, t in pieces.items()}
     for axis in range(3):
         n = counts[axis]
         periodic = face_class(geom, level, axis, 0)[0] == "wrap"
         seams = ({}, {})
         if n > 1:
-            seams = _ring_exchange_axis(u.shards, axis, n, u.devs,
+            seams = _ring_exchange_axis(u.shards, axis, n, u,
                                         wrap=periodic)
-        for k, (t, _, _, _) in pieces.items():
+        for k, t in pieces.items():
             m = t.shape[axis]
             for side in (0, 1):
                 edge = k[axis] == (0 if side == 0 else n - 1)

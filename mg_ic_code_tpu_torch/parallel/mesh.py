@@ -28,6 +28,18 @@ once at its end. Between mesh positions cross only the pads and ghost
 planes of the shards' exchanges, the level windows (the part of one cut
 level that another level's shards read or write) and the depth chain's
 reshards (parallel/shards.py counts each).
+
+PROCESSES: a mesh may span several processes (parallel/distributed.py,
+one process per card): every position has an owning process, positions
+are process-major (a process's positions are consecutive, the first
+process's first), and every process holds the same Mesh with its own
+`rank`. A process makes and keeps only the shards at its own positions
+(its ShardSets hold those alone, the layout of the others is known
+everywhere), and `home` is its first position's device: the levels the
+mesh does not cut are whole on every process's home, and every process
+computes them, as the JAX package's replicated levels. What crosses
+between processes goes through parallel/transport.py. A mesh of one
+process (every position owned by process 0) is the single-process mesh.
 """
 
 from __future__ import annotations
@@ -52,16 +64,43 @@ MIN_LOCAL_NX = 8
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Devices in row-major order over the named axes (one device may
-    repeat). `shape` maps each axis name to its size, as a JAX mesh's."""
+    repeat). `shape` maps each axis name to its size, as a JAX mesh's.
+    `owners[p]` is the process that owns position p (empty: process 0
+    owns every position) and `rank` the process holding this Mesh; a
+    device of another process's position is that process's name for it."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
+    owners: tuple[int, ...] = ()
+    rank: int = 0
 
     def __post_init__(self):
         assert len(self.axis_names) == len(self.sizes)
         assert math.prod(self.sizes) == len(self.devices), (
             self.sizes, len(self.devices))
+        if not self.owners:
+            object.__setattr__(self, "owners", (0,) * len(self.devices))
+        owners = list(self.owners)
+        if (len(owners) != len(self.devices) or owners != sorted(owners)
+                or sorted(set(owners)) != list(range(owners[-1] + 1))
+                or self.rank not in owners):
+            raise ValueError(
+                f"mesh: the owners {owners} of {len(self.devices)} positions "
+                f"must be processes 0, 1, ... in process-major order, "
+                f"process {self.rank} among them")
+
+    @property
+    def nprocs(self) -> int:
+        return self.owners[-1] + 1
+
+    def owner(self, position: int) -> int:
+        """The process that owns mesh position `position`."""
+        return self.owners[position]
+
+    def is_local(self, position: int) -> bool:
+        """Whether `position` is this process's."""
+        return self.owners[position] == self.rank
 
     @property
     def shape(self) -> dict[str, int]:
@@ -72,9 +111,15 @@ class Mesh:
         return len(self.devices)
 
     @property
+    def home_position(self) -> int:
+        """This process's first position."""
+        return self.owners.index(self.rank)
+
+    @property
     def home(self) -> torch.device:
-        """The device whole levels live on (the mesh's first)."""
-        return self.devices[0]
+        """The device whole levels live on: this process's first (on one
+        process the mesh's first)."""
+        return self.devices[self.home_position]
 
     def position_at(self, coords: dict[str, int]) -> int:
         """The flat (row-major) position of mesh coordinates `coords`
@@ -91,11 +136,14 @@ class Mesh:
         return self.devices[self.position_at(coords)]
 
 
-def make_mesh(devices=None, shape: tuple[int, ...] | None = None) -> Mesh:
+def make_mesh(devices=None, shape: tuple[int, ...] | None = None,
+              owners=(), rank: int = 0) -> Mesh:
     """Device mesh: 1-D over x-slabs by default, 2-D (x, y) pencils or 3-D
     (x, y, z) blocks when `shape` has two or three entries. `devices` None
     means every visible CUDA device, in index order, and raises where there
-    is none; the CPU is used only when the caller names CPU devices."""
+    is none; the CPU is used only when the caller names CPU devices.
+    `owners` and `rank`: the positions' processes and this one's (Mesh);
+    distributed.host_mesh gives them over several processes."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -104,10 +152,12 @@ def make_mesh(devices=None, shape: tuple[int, ...] | None = None) -> Mesh:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devices = tuple(torch.device(d) for d in devices)
+    owners = tuple(owners)
     if shape is None or len(shape) == 1:
-        return Mesh(devices, (AXIS,), (len(devices),))
+        return Mesh(devices, (AXIS,), (len(devices),), owners, rank)
     assert len(shape) in (2, 3) and math.prod(shape) == len(devices)
-    return Mesh(devices, AXES[: len(shape)], tuple(int(s) for s in shape))
+    return Mesh(devices, AXES[: len(shape)], tuple(int(s) for s in shape),
+                owners, rank)
 
 
 def patch_axis(mesh: Mesh, nparts: int) -> str | None:

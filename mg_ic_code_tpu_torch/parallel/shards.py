@@ -40,28 +40,43 @@ counted in ops/kernel_counts.HALO:
                                are distinct cards. 0-d scalars (Krylov
                                coefficients, partial sums) are not
                                counted.
+
+OVER SEVERAL PROCESSES (mesh.Mesh's owners): a shard set holds the shards
+of this process's positions only, and knows every shard's position
+(`pos`); `devs` lists its own. Every function here is then collective:
+every process calls it in the same order, derives the same plan of copies
+from the layout and carries it out through parallel/transport.py — a split
+of a whole level (which every process holds) slices it where it is, a join
+or a window into a whole level gathers the parts to every process, an
+exchange sends each part where it is read. Process 0 counts the events
+above, the process that owns a copy's destination its bytes, so that the
+processes' counts add up to those of one process.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 
 import torch
 
 from mg_ic_code_tpu_torch.ops import kernel_counts
+from mg_ic_code_tpu_torch.parallel import transport
 from mg_ic_code_tpu_torch.parallel.mesh import AXES
+from mg_ic_code_tpu_torch.parallel.transport import WHOLE, Transfer
 
 
 def grid(mesh, counts) -> dict:
-    """{(ix, iy, iz): device} of a level cut counts[axis] ways per axis; a
-    mesh axis that does not cut the level puts every shard at its
-    coordinate 0."""
-    return {k: mesh.device_at(_coords(k, counts)) for k in _keys(counts)}
+    """{(ix, iy, iz): device} of this process's shards of a level cut
+    counts[axis] ways per axis; a mesh axis that does not cut the level
+    puts every shard at its coordinate 0."""
+    return {k: mesh.device_at(_coords(k, counts)) for k in _keys(counts)
+            if mesh.is_local(mesh.position_at(_coords(k, counts)))}
 
 
 def positions(mesh, counts) -> dict:
-    """{(ix, iy, iz): flat mesh position} of the same shards."""
+    """{(ix, iy, iz): flat mesh position} of every shard of the cut."""
     return {k: mesh.position_at(_coords(k, counts)) for k in _keys(counts)}
 
 
@@ -73,16 +88,37 @@ def _coords(k, counts) -> dict:
     return {AXES[ax]: k[ax] for ax in range(3) if counts[ax] > 1}
 
 
-def copy_to(t: torch.Tensor, device, moved: bool = True) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where the shards of a cut live: the mesh, the counts, this
+    process's shards' devices (`devs`) and every shard's position
+    (`pos`). A ShardSet carries the same four."""
+
+    mesh: object
+    counts: tuple
+    devs: dict
+    pos: dict
+
+
+def layout(mesh, counts) -> Layout:
+    counts = tuple(counts)
+    return Layout(mesh, counts, grid(mesh, counts), positions(mesh, counts))
+
+
+def count_event(mesh, what: str) -> None:
+    """One event of kernel_counts.HALO: counted by process 0 alone (every
+    process makes the same events)."""
+    if mesh is None or mesh.rank == 0:
+        kernel_counts.HALO[what] += 1
+
+
+def copy_to(t: torch.Tensor, device) -> torch.Tensor:
     """A contiguous copy of `t` on `device`, never a view or `t` itself.
-    `moved`: the copy goes from one mesh position to another (counted in
-    bytes_moved). A copy between two cards is a plain blocking copy: it
-    is ordered after the kernel that wrote `t` on its card (no
-    non_blocking copy without an event)."""
+    A copy between two cards is a plain blocking copy: it is ordered after
+    the kernel that wrote `t` on its card (no non_blocking copy without an
+    event)."""
     out = torch.empty(t.shape, dtype=t.dtype, device=device)
     out.copy_(t)
-    if moved:
-        kernel_counts.HALO["bytes_moved"] += t.numel() * t.element_size()
     return out
 
 
@@ -93,27 +129,50 @@ def local_slices(k, counts, shape) -> tuple:
                  for ax in range(3))
 
 
-def split_dict(arr, counts, devs: dict, pos: dict | None = None) -> dict:
-    """The shards of a whole array, each copied to its device (bytes
-    counted where the shard's position is not the home's: `pos`)."""
-    return {k: copy_to(arr[local_slices(k, counts, arr.shape)], dev,
-                       moved=pos is not None and pos[k] != 0)
-            for k, dev in devs.items()}
+def split_dict(arr, lay) -> dict:
+    """This process's shards of a whole array (which every process
+    holds), each copied to its device from the process's own copy of the
+    whole; bytes counted where a shard's position is not the home's (0)."""
+    out = {}
+    plan = []
+    for k in sorted(lay.pos):
+        sl = local_slices(k, lay.counts, arr.shape)
+        piece = arr[sl]
+        plan.append(Transfer(
+            WHOLE, lay.pos[k], tuple(piece.shape), arr.dtype,
+            lambda piece=piece: piece,
+            lambda t, k=k: out.__setitem__(k, copy_to(t, lay.devs[k]))))
+    transport.exchange(lay.mesh, plan)
+    return out
 
 
-def join_dict(shards: dict, counts, home, pos: dict | None = None,
+def join_dict(shards: dict, lay, home, shape=None, dtype=None,
               out=None) -> torch.Tensor:
     """The whole array on `home` from its shards, or written into `out`
-    (a tensor or a view of one, e.g. a parent level's covered part)."""
-    k0 = next(iter(shards))
-    shape = tuple(shards[k0].shape[ax] * counts[ax] for ax in range(3))
+    (a tensor or a view of one, e.g. a parent level's covered part); over
+    several processes every process ends with the whole (an all-gather).
+    `shape` and `dtype` are the whole's (default: from a shard of this
+    process); a shard may carry leading axes only where one is here."""
+    first = next(iter(shards.values()), None)
+    if dtype is None:
+        dtype = first.dtype
+    lead = () if first is None else tuple(first.shape[:-3])
+    if shape is None:
+        shape = tuple(first.shape[-3 + ax] * lay.counts[ax]
+                      for ax in range(3))
+    shape = lead + tuple(shape[-3:])
     if out is None:
-        out = torch.empty(shape, dtype=shards[k0].dtype, device=home)
+        out = torch.empty(shape, dtype=dtype, device=home)
     assert tuple(out.shape) == shape, (tuple(out.shape), shape)
-    for k, s in shards.items():
-        out[local_slices(k, counts, shape)].copy_(s)
-        if pos is not None and pos[k] != 0:
-            kernel_counts.HALO["bytes_moved"] += s.numel() * s.element_size()
+    plan = []
+    for k in sorted(lay.pos):
+        sl = (slice(None),) * len(lead) + local_slices(k, lay.counts,
+                                                        shape[-3:])
+        view = out[sl]
+        plan.append(Transfer(
+            lay.pos[k], WHOLE, tuple(view.shape), dtype,
+            lambda k=k: shards[k], lambda t, view=view: view.copy_(t)))
+    transport.exchange(lay.mesh, plan)
     return out
 
 
@@ -157,7 +216,8 @@ def per_shard(fn, *args, **kwargs):
     call sees shard k of every shard set (inside dicts, lists and tuples
     too) and every 0-d tensor on shard k's device; the results come back
     as a shard set of the same cut. Without a shard set among the
-    arguments, fn(*args, **kwargs)."""
+    arguments, fn(*args, **kwargs). Over several processes, this
+    process's shards."""
     ref = _first_set((args, kwargs))
     if ref is None:
         return fn(*args, **kwargs)
@@ -181,10 +241,13 @@ class ShardSet:
     """One level (or depth) cut over the mesh: `shards[k]` on `devs[k]`,
     k = (ix, iy, iz), each of shape shape/counts (a shard may carry leading
     axes, or a ghost ring, where a per-shard function made one: `shape`
-    is the level's spatial shape); `pos[k]` the shard's mesh position,
-    `home` the device a join puts the whole level on (the mesh's home).
-    Arithmetic works shard by shard against a shard set of the same cut
-    or a scalar, so that BiCGStab takes shard sets as its vector leaves."""
+    is the level's spatial shape); `pos[k]` the mesh position of every
+    shard, `home` the device a join puts the whole level on (the mesh's
+    home), `mesh` the mesh. Over several processes `shards` and `devs`
+    hold this process's shards alone (perhaps none: `dtype` is then the
+    set's own). Arithmetic works shard by shard against a shard set of the
+    same cut or a scalar, so that BiCGStab takes shard sets as its vector
+    leaves."""
 
     shards: dict
     counts: tuple
@@ -193,43 +256,55 @@ class ShardSet:
     shape: tuple
     lo: tuple
     home: torch.device
+    mesh: object
+    dtype: torch.dtype
 
     @classmethod
     def split(cls, whole, mesh, counts, lo=(0, 0, 0),
               what: str = "level_splits") -> "ShardSet":
-        """Cut a whole tensor (or a view) into shards on their devices:
-        one level split, or one coefficient split (`what`)."""
-        counts = tuple(counts)
+        """Cut a whole tensor (or a view), which every process holds, into
+        shards on their devices: one level split, or one coefficient split
+        (`what`)."""
+        lay = layout(mesh, counts)
         shape = tuple(whole.shape)
-        assert all(shape[ax] % counts[ax] == 0 for ax in range(3)), (
-            shape, counts)
-        devs, pos = grid(mesh, counts), positions(mesh, counts)
-        kernel_counts.HALO[what] += 1
-        return cls(split_dict(whole, counts, devs, pos), counts, devs, pos,
-                   shape, tuple(lo), mesh.home)
+        assert all(shape[ax] % lay.counts[ax] == 0 for ax in range(3)), (
+            shape, lay.counts)
+        count_event(mesh, what)
+        return cls(split_dict(whole, lay), lay.counts, lay.devs, lay.pos,
+                   shape, tuple(lo), mesh.home, mesh, whole.dtype)
 
     @classmethod
-    def make(cls, mesh, counts, shape, fn, lo=(0, 0, 0)) -> "ShardSet":
+    def make(cls, mesh, counts, shape, fn, lo=(0, 0, 0),
+             dtype=None) -> "ShardSet":
         """A shard set made in place: shards[k] = fn(k, slices of shard k
-        in the level, device of k); nothing is copied."""
-        counts, shape = tuple(counts), tuple(shape)
-        devs, pos = grid(mesh, counts), positions(mesh, counts)
-        return cls({k: fn(k, local_slices(k, counts, shape), dev)
-                    for k, dev in devs.items()}, counts, devs, pos, shape,
-                   tuple(lo), mesh.home)
+        in the level, device of k) for this process's shards; nothing is
+        copied. `dtype`: the shards' (default: the first one's)."""
+        lay, shape = layout(mesh, counts), tuple(shape)
+        shards = {k: fn(k, local_slices(k, lay.counts, shape), dev)
+                  for k, dev in lay.devs.items()}
+        if shards:
+            dtype = _dtype_of(next(iter(shards.values())), dtype)
+        return cls(shards, lay.counts, lay.devs, lay.pos, shape, tuple(lo),
+                   mesh.home, mesh, dtype)
 
     def join(self, out=None, what: str = "level_joins") -> torch.Tensor:
-        """The whole tensor on the home device, or written into `out`:
-        one level join (or one coefficient join: `what`)."""
-        kernel_counts.HALO[what] += 1
-        return join_dict(self.shards, self.counts, self.home, self.pos, out)
+        """The whole tensor on the home device (on every process), or
+        written into `out`: one level join (or one coefficient join:
+        `what`)."""
+        count_event(self.mesh, what)
+        return join_dict(self.shards, self, self.home, self.shape,
+                         self.dtype, out)
 
-    def like(self, shards: dict, shape=None, lo=None) -> "ShardSet":
+    def like(self, shards: dict, shape=None, lo=None,
+             dtype=None) -> "ShardSet":
         """A shard set of the same cut holding `shards` (of a depth of
         `shape` and `lo`; default this one's)."""
+        if shards:
+            dtype = _dtype_of(next(iter(shards.values())), dtype)
         return ShardSet(shards, self.counts, self.devs, self.pos,
                         tuple(shape or self.shape),
-                        tuple(self.lo if lo is None else lo), self.home)
+                        tuple(self.lo if lo is None else lo), self.home,
+                        self.mesh, dtype or self.dtype)
 
     def map(self, fn) -> "ShardSet":
         """fn applied to every shard, on its own device."""
@@ -242,7 +317,8 @@ class ShardSet:
         return self.map(torch.clone)
 
     def to(self, dtype) -> "ShardSet":
-        return self.map(lambda s: s.to(dtype))
+        return self.like({k: s.to(dtype) for k, s in self.shards.items()},
+                         dtype=dtype)
 
     def axpy(self, alpha: float, x: "ShardSet") -> "ShardSet":
         """self + alpha * x, shard by shard (no copy between shards)."""
@@ -282,24 +358,29 @@ class ShardSet:
         prolongation from a depth that is not cut)."""
         assert all(whole.shape[ax] % self.counts[ax] == 0
                    for ax in range(3)), (tuple(whole.shape), self.counts)
-        kernel_counts.HALO["level_splits"] += 1
-        return split_dict(whole, self.counts, self.devs, self.pos)
+        count_event(self.mesh, "level_splits")
+        return split_dict(whole, self)
 
     def origin(self, k) -> tuple:
         """Shard k's first cell in the level's array (0-based)."""
         return tuple(k[ax] * self.n_loc[ax] for ax in range(3))
 
     @property
-    def dtype(self) -> torch.dtype:
-        return next(iter(self.shards.values())).dtype
-
-    @property
     def device(self) -> torch.device:
-        return next(iter(self.shards.values())).device
+        """A shard's device (the home where this process holds none)."""
+        return next(iter(self.shards.values())).device if self.shards \
+            else self.home
 
     @property
     def n_loc(self) -> tuple:
         return tuple(self.shape[ax] // self.counts[ax] for ax in range(3))
+
+
+def _dtype_of(t, dtype):
+    """The dtype of a shard (a tensor, or a dict of them), else `dtype`."""
+    while isinstance(t, dict):
+        t = next(iter(t.values()))
+    return t.dtype if isinstance(t, torch.Tensor) else dtype
 
 
 def zeros_like(x):
@@ -307,14 +388,28 @@ def zeros_like(x):
     return x.zeros_like() if isinstance(x, ShardSet) else torch.zeros_like(x)
 
 
+# one part of a placed level: its tensor (None where another process holds
+# it), its origin in the level's array, its spatial extent, device and
+# mesh position (WHOLE for a whole level, which every process holds)
+Part = collections.namedtuple("Part", "t org n dev pos")
+
+
 def parts(x) -> dict:
-    """{key: (tensor, origin in the level's array, device, mesh position)}
-    of a placed level: a shard set's shards, a whole tensor as one part at
-    the home (position 0)."""
+    """{key: Part} of every part of a placed level, in key order: a shard
+    set's shards (this process's with their tensors), a whole tensor as
+    one part."""
     if isinstance(x, ShardSet):
-        return {k: (s, x.origin(k), x.devs[k], x.pos[k])
-                for k, s in x.shards.items()}
-    return {(0, 0, 0): (x, (0, 0, 0), x.device, 0)}
+        return {k: Part(x.shards.get(k), x.origin(k), x.n_loc,
+                        x.devs.get(k), x.pos[k]) for k in sorted(x.pos)}
+    return {(0, 0, 0): Part(x, (0, 0, 0), tuple(x.shape[-3:]), x.device,
+                            WHOLE)}
+
+
+def _mesh_of(*xs):
+    for x in xs:
+        if isinstance(x, ShardSet):
+            return x.mesh
+    return None
 
 
 def _overlap(lo_a, hi_a, lo_b, hi_b):
@@ -327,30 +422,36 @@ def _sl(lo, hi, off=(0, 0, 0)):
     return tuple(slice(l - o, h - o) for l, h, o in zip(lo, hi, off))
 
 
-def window(src, regions: dict, devs: dict, pos: dict) -> dict:
-    """One level window: for every key, the box `regions[key]` = (lo, hi)
-    of the placed level `src` (array coordinates, inside the level),
-    copied to devs[key] from whichever of src's parts it spans (several,
-    where src is cut otherwise than the reader). Bytes are counted where a
-    piece's position differs from pos[key]."""
-    kernel_counts.HALO["level_windows"] += 1
+def window(src, regions: dict, devs: dict, pos: dict, mesh=None) -> dict:
+    """One level window: for every key of `regions` (every process gives
+    them all, in the same order), the box `regions[key]` = (lo, hi) of the
+    placed level `src` (array coordinates, inside the level), copied to
+    devs[key] from whichever of src's parts it spans (several, where src
+    is cut otherwise than the reader); pos[key] is the reader's mesh
+    position (WHOLE: every process reads the box). Returns the boxes of
+    this process's readers. Bytes are counted where a piece's position
+    differs from the reader's. `mesh`: the readers' (default src's)."""
     src_parts = parts(src)
-    dtype = next(iter(src_parts.values()))[0].dtype
-    out = {}
+    mesh = mesh or _mesh_of(src)
+    count_event(mesh, "level_windows")
+    dtype = src.dtype
+    out, plan = {}, []
     for key, (lo, hi) in regions.items():
-        buf = torch.empty(tuple(h - l for l, h in zip(lo, hi)), dtype=dtype,
-                          device=devs[key])
-        for t, org, _, p in src_parts.values():
-            hit = _overlap(lo, hi, org, tuple(
-                o + n for o, n in zip(org, t.shape[-3:])))
+        here = pos[key] == WHOLE or mesh is None or mesh.is_local(pos[key])
+        if here:
+            out[key] = torch.empty(tuple(h - l for l, h in zip(lo, hi)),
+                                   dtype=dtype, device=devs[key])
+        for p in src_parts.values():
+            hit = _overlap(lo, hi, p.org, tuple(
+                o + n for o, n in zip(p.org, p.n)))
             if hit is None:
                 continue
-            piece = t[_sl(*hit, org)]
-            buf[_sl(*hit, lo)].copy_(piece)
-            if p != pos[key]:
-                kernel_counts.HALO["bytes_moved"] += (
-                    piece.numel() * piece.element_size())
-        out[key] = buf
+            plan.append(Transfer(
+                p.pos, pos[key], tuple(h - l for l, h in zip(*hit)), dtype,
+                lambda p=p, hit=hit: p.t[_sl(*hit, p.org)],
+                lambda t, key=key, lo=lo, hit=hit:
+                    out[key][_sl(*hit, lo)].copy_(t)))
+    transport.exchange(mesh, plan)
     return out
 
 
@@ -359,40 +460,43 @@ def read_window(src, off, shape, cut=None):
     `shape`: laid out in the cut of the shard set `cut` (its counts,
     devices and positions: shard k holds the part of the box under cut's
     shard k) as a shard set of that cut, or, without `cut`, as one whole
-    tensor at src's home. One level window."""
+    tensor at src's home (on every process). One level window."""
     shape = tuple(shape)
     if cut is None:
         home = src.home if isinstance(src, ShardSet) else src.device
         key = (0, 0, 0)
         hi = tuple(o + n for o, n in zip(off, shape))
         return window(src, {key: (tuple(off), hi)}, {key: home},
-                      {key: 0})[key]
-    out = ShardSet({}, cut.counts, cut.devs, cut.pos, shape,
-                   tuple(off), cut.home)
+                      {key: WHOLE})[key]
+    out = ShardSet({}, cut.counts, cut.devs, cut.pos, shape, tuple(off),
+                   cut.home, cut.mesh, src.dtype)
     regions = {}
-    for k in cut.devs:
+    for k in sorted(cut.pos):
         lo = tuple(o + a for o, a in zip(off, out.origin(k)))
         regions[k] = (lo, tuple(l + n for l, n in zip(lo, out.n_loc)))
-    out.shards = window(src, regions, cut.devs, cut.pos)
+    out.shards = window(src, regions, cut.devs, cut.pos, cut.mesh)
     return out
 
 
 def write_window(dst, off, vals) -> None:
     """Write the placed values `vals` (a shard set or a whole tensor) into
     the box of `dst` at offset `off`, in place, each piece into whichever
-    of dst's parts holds it: one level window."""
-    kernel_counts.HALO["level_windows"] += 1
+    of dst's parts holds it (every process into its own copy of a whole
+    `dst`): one level window."""
+    mesh = _mesh_of(dst, vals)
+    count_event(mesh, "level_windows")
     dst_parts = parts(dst)
-    for v, vorg, _, vp in parts(vals).values():
-        lo = tuple(o + a for o, a in zip(off, vorg))
-        hi = tuple(l + n for l, n in zip(lo, v.shape[-3:]))
-        for t, org, _, p in dst_parts.values():
-            hit = _overlap(lo, hi, org, tuple(
-                o + n for o, n in zip(org, t.shape[-3:])))
+    plan = []
+    for v in parts(vals).values():
+        lo = tuple(o + a for o, a in zip(off, v.org))
+        hi = tuple(l + n for l, n in zip(lo, v.n))
+        for p in dst_parts.values():
+            hit = _overlap(lo, hi, p.org, tuple(
+                o + n for o, n in zip(p.org, p.n)))
             if hit is None:
                 continue
-            piece = v[_sl(*hit, lo)]
-            t[_sl(*hit, org)].copy_(piece)
-            if p != vp:
-                kernel_counts.HALO["bytes_moved"] += (
-                    piece.numel() * piece.element_size())
+            plan.append(Transfer(
+                v.pos, p.pos, tuple(h - l for l, h in zip(*hit)), dst.dtype,
+                lambda v=v, lo=lo, hit=hit: v.t[_sl(*hit, lo)],
+                lambda t, p=p, hit=hit: p.t[_sl(*hit, p.org)].copy_(t)))
+    transport.exchange(mesh, plan)

@@ -11,7 +11,12 @@ With a mesh, every level the mesh cuts is a parallel/shards.ShardSet from
 the placement to the end of the solve (the state, the physics fields,
 aCoef, rhs): the Picard steps below run shard by shard, reading the part
 of a parent under a child's shards by level windows, and the result is
-joined once, at the end.
+joined once, at the end. A mesh over several processes (one per card,
+parallel/distributed.py) runs this loop on every process alike: each
+works on its own shards, every reduced value (the norms, K, BiCGStab's
+scalars) is the same bits on all of them, so they take the same steps and
+stop together; `output_hook` is called on every process and the result is
+joined on every process.
 """
 
 from __future__ import annotations
@@ -320,19 +325,22 @@ def _placed_state(geom: HierarchyGeom, cfg: SolverConfig, dtype, mesh):
             dpsi.append(torch.zeros(shape, dtype=dtype, device=mesh.home))
             continue
         per = ShardSet.make(mesh, counts, shape, lambda k, sl, dev: (
-            ld.problem_fields(geom, cfg, l, dtype, dev, region=sl)), lo)
-        fields.append(_transposed(per))
+            ld.problem_fields(geom, cfg, l, dtype, dev, region=sl)), lo,
+            dtype)
+        fields.append(_transposed(per, lambda: ld.problem_fields(
+            geom, cfg, l, dtype, mesh.home, region=(slice(0, 1),) * 3)))
         psi.append(ShardSet.make(mesh, counts, shape, lambda k, sl, dev: (
             torch.ones(tuple(s.stop - s.start for s in sl), dtype=dtype,
-                       device=dev)), lo))
+                       device=dev)), lo, dtype))
         dpsi.append(psi[-1].zeros_like())
     return fields, psi, dpsi
 
 
-def _transposed(per: ShardSet) -> dict:
+def _transposed(per: ShardSet, template) -> dict:
     """A shard set whose shards are field dicts as a dict of shard sets
-    (nested dicts alike)."""
-    first = next(iter(per.shards.values()))
+    (nested dicts alike); `template()` gives a dict of the same names
+    where this process holds no shard."""
+    first = next(iter(per.shards.values()), None) or template()
 
     def pick(path):
         out = {}
@@ -349,7 +357,7 @@ def _transposed(per: ShardSet) -> dict:
 
 def _joined(x):
     """Every shard set in `x` (lists and dicts of them) joined whole on
-    the home: one level join each."""
+    the home (of every process): one level join each."""
     if isinstance(x, ShardSet):
         return x.join()
     if isinstance(x, dict):

@@ -14,6 +14,13 @@ then z — so that two runs give the same bits. A maximum is the whole
 level's exactly; a sum reassociates (((p0 + p1) + p2) + ... instead of one
 sum over the level): its value differs from the whole level's by a few
 ulps of the sum (tests/test_torch_resident_solve.py reads it).
+
+Over several processes every process gathers every shard's partial (an
+all-gather of the bits, parallel/transport.allgather_parts, not an
+all-reduce, whose order the backend picks) and adds them in the same key
+order: every process holds the one-process result bit for bit, so that
+every decision taken on a reduced value (BiCGStab's convergence and
+breakdown tests, the Picard stop) is the same on all of them.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from mg_ic_code_tpu_torch.grid.geometry import HierarchyGeom
+from mg_ic_code_tpu_torch.parallel import transport
 from mg_ic_code_tpu_torch.parallel.shards import ShardSet
 
 
@@ -85,11 +93,17 @@ def mask_covered(u_list, geom: HierarchyGeom, fill=0.0):
     return out
 
 
-def _home_sum(u: ShardSet, partials: dict):
+def _gathered(u: ShardSet, partials: dict, dtype) -> dict:
+    """Every shard's partial (this process's in `partials`) at the home."""
+    return transport.allgather_parts(u.mesh, u.pos, partials, dtype, u.home)
+
+
+def _home_sum(u: ShardSet, partials: dict, dtype):
     """The partials of every shard at the home, added in key order."""
     tot = None
-    for k in sorted(partials):
-        p = partials[k].to(u.home)
+    every = _gathered(u, partials, dtype)
+    for k in sorted(every):
+        p = every[k]
         tot = p if tot is None else tot + p
     return tot
 
@@ -97,8 +111,9 @@ def _home_sum(u: ShardSet, partials: dict):
 def _level_sum(u, fn):
     """sum(fn(u)) over a whole level, or the ordered sum of its shards'."""
     if isinstance(u, ShardSet):
-        return _home_sum(u, {k: torch.sum(fn(s, k))
-                             for k, s in u.shards.items()})
+        parts = {k: torch.sum(fn(s, k)) for k, s in u.shards.items()}
+        dtype = next(iter(parts.values())).dtype if parts else u.dtype
+        return _home_sum(u, parts, dtype)
     return torch.sum(fn(u, None))
 
 
@@ -108,8 +123,9 @@ def composite_max_norm(u_list, geom: HierarchyGeom):
     vals = []
     for u in mask_covered(u_list, geom):
         if isinstance(u, ShardSet):
-            vals += [torch.max(torch.abs(u.shards[k])).to(u.home)
-                     for k in sorted(u.shards)]
+            every = _gathered(u, {k: torch.max(torch.abs(s)) for k, s in
+                                  u.shards.items()}, u.dtype)
+            vals += [every[k] for k in sorted(every)]
         else:
             vals.append(torch.max(torch.abs(u)))
     return torch.max(torch.stack(vals))

@@ -111,9 +111,19 @@ def test_policy_matches_jax():
     assert tmesh.patch_axis(tm, 4) == jmesh.patch_axis(jm, 4)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
 def test_mesh_needs_a_device_or_names_one():
     """make_mesh / host_mesh never fall to the CPU by themselves; a
-    multi-process bootstrap refuses rather than run alone."""
+    multi-process bootstrap that cannot start raises rather than run
+    alone: NCCL (the default backend) without a CUDA device, and gloo
+    when no other process answers within the timeout."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tmesh.make_mesh()
@@ -123,8 +133,15 @@ def test_mesh_needs_a_device_or_names_one():
     assert m.home == torch.device("cpu") and m.shape == {"x": 2, "y": 2}
     assert m.device_at({"x": 1, "y": 1}) == torch.device("cpu")
     tdist.initialize()  # one process: a no-op
-    with pytest.raises(NotImplementedError):
-        tdist.initialize("localhost:1234", num_processes=2, process_id=0)
+    assert tdist.process_count() == 1 and not tdist.is_initialized()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="NCCL needs a CUDA device"):
+            tdist.initialize("localhost:1234", num_processes=2,
+                             process_id=0)
+    with pytest.raises(RuntimeError, match="could not start"):
+        tdist.initialize(f"localhost:{_free_port()}", num_processes=2,
+                         process_id=1, backend="gloo", timeout=1)
+    assert not tdist.is_initialized()
 
 
 def test_gather_and_placement_match_jax():

@@ -250,16 +250,18 @@ def test_inhomogeneous_ghosts_on_shards(bc):
 
 def test_whole_only_paths_refuse_a_cut_level():
     """A cut level handed to a path that takes whole levels only raises:
-    the whole-level ghost fill, the bottom solve, gather_global, and a
-    composite entry point handed whole levels where the mesh cuts them."""
+    the whole-level ghost fill, the bottom solve, and a composite entry
+    point handed whole levels where the mesh cuts them. gather_global is
+    collective, as the JAX package's: it gathers a cut level whole (one
+    level join) rather than refuse it."""
     geom = hier("dirichlet")
     _, sharded = specs(geom, mesh_of("x4"))
     u = tcomp.place(sharded, levels(geom, 9))
     ls = sharded.level_specs[0]
     with pytest.raises(TypeError):
         tmg._ghost(ls, 0, u[0])
-    with pytest.raises(TypeError):
-        tdist.gather_global(u[0])
+    np.testing.assert_array_equal(tdist.gather_global(u[0]),
+                                  u[0].join().numpy())
     with pytest.raises(ValueError):
         tcomp.build_coefs(sharded, levels(geom, 3, 0.5, 2.0))
     with pytest.raises(ValueError):
