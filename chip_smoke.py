@@ -88,6 +88,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
            within one of 2,3,2,2,3,3,3,2), the forest once more with the
            staged smoother (step 1 to 1e-5). Each run with kernels is held
            to the route its hierarchy implies (check_route)
+  forest_batching
+           the records' patches configuration with forest_batching = force:
+           its three same-shape pairs (depths 4-6) each swept by the
+           batched kernels, one launch a pair (gsrb_relax_batch,
+           residual_restrict_batch); held to the patches record as records
+           holds it, to the single and batched calls by shape its batch
+           groups imply (1008 + 504 gsrb_relax and 504 + 252
+           residual_restrict calls in 42 applications, against 2016 and
+           1008 sequential), no plain version, and bit for bit to the
+           records phase's sequential run where that ran (history, Krylov,
+           K), with s/iteration beside it
   periodic the periodic scalar-field box (params/periodic.txt: is_periodic
            = 1, the constant-K branch, the triple-sine field) at its full
            256^3, 3 Picard steps: K finite and negative, a contracting
@@ -282,6 +293,14 @@ SOURCES = {
     "multisweep_relax_tiled_pre": (
         "mg_ic_code_tpu_torch/csrc/multisweep_halo.cu",
         "mg_ic_code_tpu/ops/fused_sweeps.py:1540"),
+    # the batched forms of gsrb_relax and residual_restrict (a batch group's
+    # same-shape patches in one launch): the JAX package sweeps a group as
+    # one vmapped XLA body (solver/composite.py:340-399), no Pallas kernel,
+    # so they serve the rows of the single forms
+    "gsrb_relax_batch": ("mg_ic_code_tpu_torch/csrc/gsrb_relax.cu",
+                         "mg_ic_code_tpu/ops/fused_sweeps.py:1032"),
+    "residual_restrict_batch": ("mg_ic_code_tpu_torch/csrc/residual.cu",
+                                "mg_ic_code_tpu/ops/fused_sweeps.py:1055"),
 }
 # rows of the TPU kernel table (PERF.md) that one Hopper kernel serves
 TPU_KERNELS = {
@@ -310,6 +329,9 @@ TPU_KERNELS = {
     "multisweep_relax_halo": ["mg_ic_code_tpu/ops/fused_sweeps.py:378",
                               "mg_ic_code_tpu/ops/fused_sweeps.py:1397"],
     "multisweep_relax_tiled_pre": ["mg_ic_code_tpu/ops/fused_sweeps.py:1540"],
+    "gsrb_relax_batch": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
+    "residual_restrict_batch": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
+                                "mg_ic_code_tpu/ops/pallas_kernels.py:389"],
 }
 
 
@@ -955,6 +977,158 @@ def check_gsrb_case(case, dtype) -> dict:
             "gsrb_relax": check_gsrb(cid, f, lo, kw, dtype, False)}
 
 
+# batches of same-shape sibling patches (gsrb_relax_batch,
+# residual_restrict_batch): (id, shape, kinds, rho, the patches' lo, timed).
+# The canonical patches hierarchy's three pairs (depths 4-6, every lo a
+# multiple of 8: the first patch at its LEVEL_CASES lo, the second beside
+# it), a pair at odd parity, three patches, a small pair with every face
+# kind (the one-block slab form), and the largest pair in f64 too
+# (BATCH_F64).
+BATCH_CASES = [
+    ("batch_d4_72x80x80_pair", (72, 80, 80), ALL_C, 2.0,
+     ((376, 472, 472), (376, 552, 472)), True),
+    ("batch_d5_104x96x96_pair", (104, 96, 96), ALL_C, 2.0,
+     ((768, 976, 976), (768, 1072, 976)), True),
+    ("batch_d6_144_pair", (144, 144, 144), ALL_C, 2.0,
+     ((1568, 1976, 1976), (1568, 2120, 1976)), True),
+    ("batch_odd_parity_pair", (72, 80, 80), ALL_C, 2.0,
+     ((377, 472, 472), (377, 552, 472)), False),
+    ("batch_three_48", (48, 48, 48), ALL_C, 2.0,
+     ((488, 488, 488), (536, 488, 488), (584, 488, 488)), False),
+    ("batch_one_block_mixed", (16, 16, 16), ((D, N), (C, D), (N, C)), 0.5,
+     ((1, 0, 0), (1, 16, 0)), False),
+]
+BATCH_F64 = ("batch_d6_144_pair", "batch_odd_parity_pair")
+
+
+def batch_forms(shape, itemsize: int, kinds, patches: int) -> tuple:
+    """The geometry fs.gsrb_geometry picks for a batch of `patches` levels
+    of `shape` at the card's capacity, and every form that takes it."""
+    cap = fs.gsrb_capacity(torch.device("cuda"), itemsize)
+    picked = fs.gsrb_geometry(shape, itemsize, False, kinds, cap,
+                              patches=patches)
+    forms = [picked.form]
+    for form in fs.GSRB_FORMS:
+        try:
+            fs.gsrb_geometry(shape, itemsize, False, kinds, cap, form=form,
+                             patches=patches)
+        except ValueError:
+            continue
+        if form not in forms:
+            forms.append(form)
+    return picked, forms
+
+
+def check_batch_case(case, dtype) -> dict:
+    """gsrb_relax_batch (4 sweeps) and residual_restrict_batch on P patches
+    against their plain versions (TOL) and BIT FOR BIT against P single
+    calls of gsrb_relax / residual_restrict; every form gsrb_geometry can
+    pick for the batch (forced by gsrb_batch_launch); one launch a call,
+    the inputs untouched, each restricted residual into its own parent's
+    slice. Timed: each batched form's device and host time per call beside
+    P single calls', the plain version's time and the bound (P times a
+    single call's bytes over HBM_BYTES_S)."""
+    cid, shape, kinds, rho, los, timed = case
+    npatch = len(los)
+    fields = [level_fields(shape, dtype, seed=20 + k) for k in range(npatch)]
+    us, rhss, as_ = ([f[k] for f in fields] for k in ("u", "rhs", "a"))
+    kw = dict(kinds=kinds, rho=rho, alpha=1.0, beta=-1.0, dx=0.37)
+    isz = us[0].element_size()
+    ncells = math.prod(shape)
+    rec = {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
+           "patches": npatch, "lo": [list(lo) for lo in los],
+           "tolerance": TOL[dtype]}
+    u_in = [u.clone() for u in us]
+    relax = dict(nsweeps=4, los=los, **kw)
+    ref = fs.gsrb_relax_batch_plain(us, rhss, as_, **relax)
+    single = [fs.gsrb_relax(u, r, a, nsweeps=4, lo=lo, **kw)
+              for u, r, a, lo in zip(us, rhss, as_, los)]
+    geom, forms = batch_forms(shape, isz, kinds, npatch)
+    worst = (0.0, 0.0)
+    for form in forms:
+        out = one_launch("gsrb_relax_batch", lambda: (
+            fs.gsrb_relax_batch(us, rhss, as_, **relax) if form == geom.form
+            else fs.gsrb_batch_launch(us, rhss, as_, form=form, **relax)))
+        torch.cuda.synchronize()
+        for k, (o, r, one) in enumerate(zip(out, ref, single)):
+            err, rel = rel_err(o, r)
+            worst = max(worst, (rel, err))
+            check(rel <= TOL[dtype] and bool(torch.isfinite(o).all()),
+                  f"gsrb_relax_batch {cid} {dtype} {form} patch {k}: rel "
+                  f"err {rel} > {TOL[dtype]}")
+            check(torch.equal(o, one),
+                  f"gsrb_relax_batch {cid} {dtype} {form} patch {k}: not "
+                  f"bit for bit the single call")
+        check(all(torch.equal(a, b) for a, b in zip(u_in, us)),
+              f"gsrb_relax_batch {cid} {dtype} {form}: input modified")
+    rec["gsrb_relax_batch"] = {
+        "max_abs_err": worst[1], "rel_err": worst[0], "form": geom.form,
+        "blocks_per_patch": geom.blocks, "forms_checked": forms,
+        "equals_single_calls": True}
+    # the restricted residual, each patch into its own parent's slice
+    half = tuple(n // 2 for n in shape)
+    parents = [torch.full(tuple(n + 3 for n in half), -7.0, dtype=dtype,
+                          device="cuda") for _ in range(npatch)]
+    views = [p[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]]
+             for p in parents]
+    rref = fs.residual_restrict_batch_plain(us, rhss, as_, **kw)
+    rsingle = [fs.residual_restrict(u, r, a, **kw)
+               for u, r, a in zip(us, rhss, as_)]
+    rc = one_launch("residual_restrict_batch",
+                    lambda: fs.residual_restrict_batch(us, rhss, as_, **kw))
+    one_launch("residual_restrict_batch", lambda: fs.residual_restrict_batch(
+        us, rhss, as_, outs=views, **kw))
+    torch.cuda.synchronize()
+    worst = (0.0, 0.0)
+    for k in range(npatch):
+        err, rel = rel_err(rc[k], rref[k])
+        worst = max(worst, (rel, err))
+        check(rel <= TOL[dtype], f"residual_restrict_batch {cid} {dtype} "
+              f"patch {k}: rel err {rel}")
+        check(torch.equal(rc[k], rsingle[k]) and torch.equal(views[k],
+                                                              rsingle[k]),
+              f"residual_restrict_batch {cid} {dtype} patch {k}: not bit "
+              f"for bit the single call")
+        rest = parents[k].clone()
+        rest[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]] = -7.0
+        check(bool((rest == -7.0).all()), f"residual_restrict_batch {cid}: "
+              f"wrote outside patch {k}'s slice")
+    rec["residual_restrict_batch"] = {
+        "max_abs_err": worst[1], "rel_err": worst[0],
+        "equals_single_calls": True, "into_slices": True,
+        "geometry": fs.residual_batch_geometry(us, rhss, as_)._asdict()}
+    if timed:
+        runs = {
+            "gsrb_relax_batch": (
+                lambda: fs.gsrb_relax_batch(us, rhss, as_, **relax),
+                lambda: [fs.gsrb_relax(u, r, a, nsweeps=4, lo=lo, **kw)
+                         for u, r, a, lo in zip(us, rhss, as_, los)],
+                lambda: fs.gsrb_relax_batch_plain(us, rhss, as_, **relax),
+                level_bytes(ncells, isz, 4), 4 * 32.0 * ncells),
+            "residual_restrict_batch": (
+                lambda: fs.residual_restrict_batch(us, rhss, as_, **kw),
+                lambda: [fs.residual_restrict(u, r, a, **kw)
+                         for u, r, a in zip(us, rhss, as_)],
+                lambda: fs.residual_restrict_batch_plain(us, rhss, as_,
+                                                         **kw),
+                level_bytes(ncells, isz, 3) + ncells * isz / 8,
+                16.0 * ncells)}
+        for name, (run, singles, plain, nbytes, flops) in runs.items():
+            b, by = bound_ms(npatch * nbytes, npatch * flops)
+            rec[name].update(
+                ms=time_ms(run), device_ms=device_ms(run),
+                host_us=host_us(run), singles_ms=time_ms(singles),
+                singles_device_ms=device_ms(singles),
+                singles_host_us=host_us(singles),
+                plain_ms=time_ms(plain, reps=10, warmup=1), bound_ms=b,
+                bound_by=by)
+        if len(forms) > 1:
+            rec["gsrb_relax_batch"]["forms_device_ms"] = {
+                form: device_ms(lambda: fs.gsrb_batch_launch(
+                    us, rhss, as_, form=form, **relax)) for form in forms}
+    return rec
+
+
 def one_launch_kernels() -> dict:
     """The two wrappers of the kernel that carries a chunk of sweeps in one
     launch (x open / any face kinds): name -> (wrapper, plain version,
@@ -1472,6 +1646,10 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         for case in GSRB_CASES:
             checks.append(check_gsrb_case(case, dtype))
+        for case in BATCH_CASES:
+            if dtype == torch.float32 or case[0] in BATCH_F64:
+                checks.append(check_batch_case(case, dtype))
+                torch.cuda.empty_cache()
         for case in RESIDUAL_CASES:
             checks.append(check_residual_case(case, dtype))
         for case in TOWER_CASES:
@@ -1554,8 +1732,10 @@ SMALL_LEVEL_KERNELS = ("gsrb_relax", "residual", "residual_restrict",
 TOWERS = ("tower_down", "tower_up")
 
 
-# kernels whose wrapper call is one kernel launch on the solve paths
-ONE_LAUNCH = TOWERS + ("gsrb_relax", "residual", "residual_restrict")
+# kernels whose wrapper call is one kernel launch on the solve paths (the
+# batched forms: groups of at most fs.BATCH_MAX patches)
+ONE_LAUNCH = TOWERS + ("gsrb_relax", "residual", "residual_restrict",
+                       "gsrb_relax_batch", "residual_restrict_batch")
 
 
 def check_one_launch(counts: dict, what: str) -> None:
@@ -1755,23 +1935,55 @@ def check_residual_calls(run: dict, what: str,
                   f"Krylov iterations, not {2 * krylov * n}")
 
 
+def batched_groups_of(spec) -> list:
+    """The batch groups (AMRSolverSpec.batch_groups) that amr_vcycle runs
+    as batches, bCoef constant: those the mesh cuts no patch of
+    (composite._group_batchable)."""
+    return [g for g in spec.batch_groups
+            if all(mg._shard_counts(spec.level_specs[x], 0) == UNCUT
+                   for x in g)]
+
+
+def batch_calls_of(spec, group) -> int:
+    """Wrapper calls of a batched kernel per batched call of `group`: one
+    on the home, or one per mesh position the group is spread over
+    (composite.batch_positions)."""
+    pos = comp.batch_positions(spec, group)
+    return 1 if pos is None else len(set(pos))
+
+
 def relax_calls_of(spec) -> dict:
     """Wrapper calls of the relax kernels per preconditioner application,
     by kernel and level shape ("nx x ny x nz"), on a hierarchy whose base
     chain runs in the towers: every refined entry relaxes twice a V-cycle
     (the downsweep and the post-smooth with CF ghosts), each relax the
-    launches relax_kernel_plan gives its shape at f32 on the card."""
+    launches relax_kernel_plan gives its shape at f32 on the card; a batch
+    group (batched_groups_of) as a group: gsrb_relax_batch's calls
+    (batch_calls_of) where its shape takes gsrb_relax, one march launch per
+    patch where it takes the march (gsrb_relax_batch only where there is
+    a group)."""
     kernel = {"resident": "gsrb_relax", "wave": "wavefront_relax",
               "multisweep": "multisweep_relax"}
     out: dict = {name: {} for name in kernel.values()}
+    groups = batched_groups_of(spec)
+    if groups:
+        out["gsrb_relax_batch"] = {}
+    grouped = {x: g for g in groups for x in g}
     for e in range(1, spec.num_levels):
+        g = grouped.get(e)
+        if g is not None and e != g[0]:
+            continue  # counted with its group's first patch
         ls = spec.level_specs[e]
         shape = ls.boxes[0].shape
         key = "x".join(map(str, shape))
         for kind, _ in mg.plan_for(ls, shape, torch.float32, "cuda",
                                    spec.nsmooth):
-            calls = out[kernel[kind]]
-            calls[key] = calls.get(key, 0) + 2 * spec.num_mg_iterations
+            name, n = kernel[kind], 1
+            if g is not None:
+                name, n = (("gsrb_relax_batch", batch_calls_of(spec, g))
+                           if kind == "resident" else (name, len(g)))
+            calls = out[name]
+            calls[key] = calls.get(key, 0) + 2 * spec.num_mg_iterations * n
     return out
 
 
@@ -1780,12 +1992,19 @@ def residual_calls_of(spec) -> dict:
     tower at its top depth: the composite residual between V-cycles takes
     every entry whole and each V-cycle's bottom solve its depth (residual);
     every refined entry restricts its residual into its parent once a
-    V-cycle (residual_restrict)."""
+    V-cycle (residual_restrict), a batch group in its batched calls
+    (residual_restrict_batch, batch_calls_of; only where there is a
+    group)."""
     geom, nmg = spec.geom, spec.num_mg_iterations
     entries = sum(len(geom.entries_at_depth(d))
                   for d in range(geom.max_depth + 1))
-    return {"residual": (nmg - 1) * entries + nmg,
-            "residual_restrict": nmg * (entries - 1)}
+    groups = batched_groups_of(spec)
+    out = {"residual": (nmg - 1) * entries + nmg,
+           "residual_restrict": nmg * (entries - 1 - sum(map(len, groups)))}
+    if groups:
+        out["residual_restrict_batch"] = nmg * sum(
+            batch_calls_of(spec, g) for g in groups)
+    return out
 
 
 UNCUT = (1, 1, 1)
@@ -1800,6 +2019,13 @@ def _cut_pairs(spec) -> list:
     return [(l, bool(cfi.cf_faces(geom, l)))
             for l in range(1, spec.num_levels)
             if cut[l] or cut[geom.parent[l]]]
+
+
+def _placed_groups(spec) -> list:
+    """The batch groups computed at mesh positions
+    (composite.batch_positions), bCoef constant."""
+    return [g for g in batched_groups_of(spec)
+            if comp.batch_positions(spec, g) is not None]
 
 
 def shard_traffic_of(spec, const_b: bool = True) -> dict:
@@ -1818,8 +2044,13 @@ def shard_traffic_of(spec, const_b: bool = True) -> dict:
     restricted residual into the parent (1), reads the coarse correction
     under it (1) and, where it has coarse-fine faces, the faces' coarse
     planes of its post-smooth (1); between two V-cycles the composite
-    residual's coarse-fine term reads them again (1). No coefficient is
-    split or joined and no pad built."""
+    residual's coarse-fine term reads them again (1). A batch group
+    computed at mesh positions (_placed_groups) moves its patches there
+    and back once a V-cycle (2 patch_moves), and each of its patches
+    writes, reads and reads planes as a cut pair does (2 + 1 level windows
+    per V-cycle) but never between V-cycles (its correction is whole on
+    the home there). No coefficient is split or joined and no pad
+    built."""
     s = j = 0
 
     def chain(ls, d, resident, visits):
@@ -1844,10 +2075,15 @@ def shard_traffic_of(spec, const_b: bool = True) -> dict:
     pairs = _cut_pairs(spec)
     per_cycle = sum(2 + cf for _, cf in pairs)
     between = sum(cf for _, cf in pairs)
+    in_pairs = {l for l, _ in pairs}
+    placed = _placed_groups(spec) if const_b else []
+    per_cycle += sum(2 + bool(cfi.cf_faces(spec.geom, x))
+                     for g in placed for x in g if x not in in_pairs)
     m = spec.num_mg_iterations
     return {"level_splits": m * s, "level_joins": m * j,
             "level_windows": m * per_cycle + (m - 1) * between,
-            "coef_splits": 0, "coef_joins": 0, "coef_pad_builds": 0}
+            "coef_splits": 0, "coef_joins": 0, "coef_pad_builds": 0,
+            "patch_moves": m * 2 * len(placed)}
 
 
 def picard_windows_of(spec, krylov: int, average_down: bool = False) -> int:
@@ -1866,7 +2102,8 @@ def picard_windows_of(spec, krylov: int, average_down: bool = False) -> int:
 
 
 HALO_DERIVED = ("level_splits", "level_joins", "level_windows",
-                "coef_splits", "coef_joins", "coef_pad_builds")
+                "coef_splits", "coef_joins", "coef_pad_builds",
+                "patch_moves")
 # what poisson_solve joins of each cut level at its end: psi, dpsi and the
 # ten physics field arrays (phi, rho_grad, the six A_ij, A^2, psi_bh)
 RESULT_ARRAYS = 12
@@ -1920,11 +2157,16 @@ def shard_coef_builds_of(spec, device_type: str = "cuda",
     mesh cuts, in the f32 set of a mixed-precision preconditioner, the
     halo kernels' aCoef pads where they run (f32 with kernels allowed, a
     constant bCoef, z not cut, nsmooth a multiple of the kernels' chunk,
-    no odd periodic extent)."""
-    out = {"coef_splits": 0, "coef_joins": 0, "coef_pad_builds": 0}
+    no odd periodic extent). Each batch group computed at mesh positions
+    places its patches' aCoef and lambda there once per coefficient set
+    (one patch move each)."""
+    out = {"coef_splits": 0, "coef_joins": 0, "coef_pad_builds": 0,
+           "patch_moves": 0}
     arrays = 1 if const_b else 2
     dtypes = [torch.float64] + (
         [torch.float32] if spec.precond_dtype == "float32" else [])
+    if const_b:
+        out["patch_moves"] = len(_placed_groups(spec)) * len(dtypes)
     for ls in spec.level_specs:
         cuts = [mg._shard_counts(ls, d) for d in range(ls.ndepths)]
         for d in range(1, ls.ndepths):
@@ -1961,13 +2203,17 @@ def check_route(run: dict, counts: dict, spec, what: str) -> None:
     apps = 2 * sum(run["linear_iters"])
     want = {name: {k: n * apps for k, n in calls.items()}
             for name, calls in relax_calls_of(spec).items()}
-    check(counts["by_shape"] == want,
+    by_shape = {k: v for k, v in counts["by_shape"].items()
+                if v or k in want}
+    check(by_shape == want,
           f"{what}: relax calls by shape {counts['by_shape']}, the "
           f"hierarchy implies {want}")
     check(ct.tower_supported(
         spec.level_specs[0], {"b": (None,) * spec.level_specs[0].ndepths},
         0), f"{what}: the base chain does not start in the tower")
     launched = set(SMALL_LEVEL_KERNELS) | {k for k, v in want.items() if v}
+    if residual_calls_of(spec).get("residual_restrict_batch"):
+        launched.add("residual_restrict_batch")
     check(all(counts["launches"][k] > 0 for k in launched)
           and all(counts["launches"][k] == 0 for k in kernel_counts.KERNELS
                   if k not in launched),
@@ -2005,18 +2251,21 @@ def wave_plan_table() -> dict:
 
 @contextlib.contextmanager
 def calls_by_shape(names=("gsrb_relax", "wavefront_relax",
-                          "multisweep_relax")):
+                          "multisweep_relax", "gsrb_relax_batch")):
     """Counts the calls of the named relax (or residual) wrappers by level
     shape while the block runs (the wrappers the solver reaches through
-    their modules); yields {name: {"nx x ny x nz": calls}}."""
+    their modules; a batched wrapper by its patches' shape); yields {name:
+    {"nx x ny x nz": calls}}."""
     mods = {"gsrb_relax": fs, "wavefront_relax": wf, "multisweep_relax": fs,
-            "residual": fs, "residual_restrict": fs}
+            "residual": fs, "residual_restrict": fs, "gsrb_relax_batch": fs,
+            "residual_restrict_batch": fs}
     seen: dict = {n: {} for n in names}
     saved = {n: getattr(mods[n], n) for n in names}
 
     def counted(name, fn):
         def call(u, *args, **kw):
-            key = "x".join(map(str, u.shape))
+            shape = u[0].shape if isinstance(u, (list, tuple)) else u.shape
+            key = "x".join(map(str, shape))
             seen[name][key] = seen[name].get(key, 0) + 1
             return fn(u, *args, **kw)
         return call
@@ -2090,6 +2339,14 @@ PLATEAU7_FLAT = 1.01
 # then three sibling patches at each of depths 4-6
 PATCHES = ["level_decomposition = patches", "average_down = 1",
            "max_NL_iterations = 12", "precond_precision = single"]
+
+
+# the records phase's patches run (sequential: forest_batching = auto, no
+# mesh), which the forest_batching phase holds its batched run to
+RECORDS_PATCHES: dict = {}
+# the forest_batching phase's run: the records' patches configuration with
+# its same-shape sibling patches swept as batches
+FOREST_FORCE = PATCHES + ["forest_batching = force"]
 
 
 def record(name: str) -> dict:
@@ -2212,6 +2469,7 @@ def phase_records() -> dict:
     agree = check_avgdown_record(run, rec, rec["history"][0],
                                  "patches_avgdown")
     check_route(run, counts, spec, "patches_avgdown")
+    RECORDS_PATCHES.update(run=run, by_shape=counts["by_shape"])
     staged = run_solve(RECORDS_BASE + PATCHES + [
         "smoother = xla", "max_NL_iterations = 2"], "patches_staged")
     srel = abs(staged["history"][0] - run["history"][0]) / run["history"][0]
@@ -2226,6 +2484,73 @@ def phase_records() -> dict:
     out["runs"] = {"patches": counts}
     emit(out)
     return out
+
+
+def sequential_calls_of(spec) -> dict:
+    """What relax_calls_of / residual_calls_of give the same hierarchy
+    with every entry on its own (forest_batching = off), per
+    preconditioner application: the calls a batched run replaces."""
+    import dataclasses
+
+    seq = dataclasses.replace(spec, batch_groups=())
+    return {"gsrb_relax": sum(relax_calls_of(seq)["gsrb_relax"].values()),
+            "residual_restrict": residual_calls_of(seq)["residual_restrict"]}
+
+
+def phase_forest_batching() -> dict:
+    """The records' patches configuration (PATCHES: 13 entries, the
+    same-shape pairs at depths 4-6) with forest_batching = force: each pair
+    swept by the batched kernels, one launch for the pair
+    (gsrb_relax_batch, residual_restrict_batch). Held to the record as the
+    records phase holds the sequential run (check_avgdown_record), to the
+    route and the wrapper calls its batch groups imply (check_route: every
+    single and batched call by shape, no plain version), and, where the
+    records phase ran in the same call, bit for bit to that phase's
+    sequential run (history, Krylov counts, K); s/iteration beside it."""
+    rec = record("patches_avgdown")
+    run, counts, spec = records_solve(FOREST_FORCE, "patches_force")
+    groups = spec.batch_groups
+    check(len(groups) == 3 and all(len(g) == 2 for g in groups)
+          and batched_groups_of(spec) == list(groups),
+          f"patches_force: batch groups {groups}")
+    agree = check_avgdown_record(run, rec, rec["history"][0],
+                                 "patches_force")
+    check_route(run, counts, spec, "patches_force")
+    apps = 2 * sum(run["linear_iters"])
+    relax, res = relax_calls_of(spec), residual_calls_of(spec)
+    want = {"gsrb_relax": sum(relax["gsrb_relax"].values()),
+            "gsrb_relax_batch": sum(relax["gsrb_relax_batch"].values()),
+            "residual_restrict": res["residual_restrict"],
+            "residual_restrict_batch": res["residual_restrict_batch"]}
+    got = {k: counts["launches"][k] for k in want}
+    check(got == {k: n * apps for k, n in want.items()},
+          f"patches_force: calls {got} in {apps} applications, the batch "
+          f"groups imply {want} each")
+    out = {"phase": "forest_batching", "overrides": FOREST_FORCE,
+           "batch_groups": [list(g) for g in groups],
+           "group_shapes": ["x".join(map(str, spec.geom.shape(g[0])))
+                            for g in groups],
+           "applications": apps, "calls_per_application": want,
+           "sequential_calls_per_application": sequential_calls_of(spec),
+           **agree, **counts, **run}
+    seq = RECORDS_PATCHES.get("run")
+    if seq is not None:
+        for k in ("history", "linear_iters", "K_history"):
+            check(run[k] == seq[k], f"patches_force: {k} {run[k]}, the "
+                  f"sequential run {seq[k]}")
+        out.update(bit_for_bit_sequential=True,
+                   sequential_s_per_iteration=seq["s_per_iteration"],
+                   sequential_by_shape=RECORDS_PATCHES["by_shape"])
+    else:
+        out["bit_for_bit_sequential"] = "not checked: the records phase " \
+                                        "did not run in this call"
+    FOREST_COUNTS["forest_batching"] = counts
+    emit(out)
+    return out
+
+
+# the forest_batching phase's counts (its kernels' main path)
+FOREST_COUNTS: dict = {}
 
 
 # -------------------------------------------------------------- periodic
@@ -2832,6 +3157,174 @@ def bytes_per_iteration(run: dict, label: str) -> dict:
             per[0] / HOME_PLACEMENT_BYTES_PER_ITERATION[label]}
 
 
+# the JAX package's test forest on a mesh (tests/test_forest.py
+# two_patch_geom(n=16), forest_cfg): a 16^3 base and two sibling
+# (8, 12, 12) patches that no mesh here cuts (8 / 4 and 12 / 2 cells fall
+# below MIN_LOCAL_NX), so forest_batching = auto batches them and spreads
+# the pair over the mesh's patch axis
+FOREST_CFG = dict(alpha=1.0, beta=-1.0, max_level=1, n_cells=(16, 16, 16),
+                  L=1.0, num_mg_smooth=4, num_mg_iterations=2,
+                  max_iterations=60, tolerance=1e-11, is_periodic=False)
+# the forest's solve with a mesh against the one without, f64 throughout
+# (the JAX test's tolerance)
+FOREST_RTOL, FOREST_ATOL = 1e-9, 1e-11
+
+
+def two_patch_forest(n: int = 16):
+    """The JAX package's two_patch_geom: a base of n^3 and two sibling
+    patches of (n/2, 3n/4, 3n/4) at depth 1, separated in x, every domain
+    face Dirichlet, L = 1."""
+    from mg_ic_code_tpu_torch.grid.geometry import BCSpec, HierarchyGeom
+
+    dom0 = Box.from_shape((n, n, n))
+    a = Box((n // 4, 5 * n // 8, 5 * n // 8),
+            (3 * n // 4 - 1, 11 * n // 8 - 1, 11 * n // 8 - 1))
+    b = Box((5 * n // 4, 5 * n // 8, 5 * n // 8),
+            (7 * n // 4 - 1, 11 * n // 8 - 1, 11 * n // 8 - 1))
+    return HierarchyGeom(
+        boxes=(dom0, a, b), domain_boxes=(dom0, dom0.refine(2),
+                                          dom0.refine(2)),
+        dx=(1.0 / n, 0.5 / n, 0.5 / n), domain_length=(1.0, 1.0, 1.0),
+        bc=BCSpec(), parent=(-1, 0, 0))
+
+
+def forest_solve(mesh, seed: int = 7, device: str = "cuda", **over) -> dict:
+    """composite.solve_linear on two_patch_forest (aCoef in [0.5, 2] and
+    rhs from `seed`, zero start) with `mesh` (None: one `device`): its
+    spec, the solution joined, Krylov count, the counts of the coefficient
+    build and of the solve, its wall time and where each batched patch was
+    computed (its placed aCoef's device)."""
+    from mg_ic_code_tpu_torch.config import SolverConfig
+
+    geom = two_patch_forest()
+    cfg = SolverConfig(**{**FOREST_CFG, **over})
+    dev = torch.device(device) if mesh is None else mesh.home
+    spec = comp.make_amr_spec(geom, cfg, dev, mesh)
+    g = torch.Generator().manual_seed(seed)
+    a = [(0.5 + 1.5 * torch.rand(geom.shape(l), generator=g,
+                                 dtype=torch.float64)).to(dev)
+         for l in range(geom.num_levels)]
+    rhs = [torch.randn(geom.shape(l), generator=g,
+                       dtype=torch.float64).to(dev)
+           for l in range(geom.num_levels)]
+    a, rhs = comp.place(spec, a), comp.place(spec, rhs)
+    kernel_counts.reset()
+    coefs = comp.build_coefs(spec, a)
+    build = kernel_counts.snapshot()
+    kernel_counts.reset()
+    sync = lambda: [torch.cuda.synchronize(i)  # noqa: E731
+                    for i in range(torch.cuda.device_count())]
+    sync()
+    t0 = time.perf_counter()
+    out = comp.solve_linear(spec, coefs, rhs)
+    sync()
+    wall = time.perf_counter() - t0
+    solve = kernel_counts.snapshot()  # the solve's, not the joins below
+    x = [v.join() if isinstance(v, shards.ShardSet) else v for v in out.x]
+    at = {x_: str(coefs[x_]["at"]["a"][0].device) for g_ in spec.batch_groups
+          for x_ in g_ if "at" in coefs[x_] and coefs[x_]["at"]["a"][0]
+          is not None}
+    return {"spec": spec, "x": x, "iters": int(out.iters),
+            "converged": bool(out.converged), "build": build,
+            "solve": solve, "wall_s": wall, "patch_devices": at}
+
+
+def forest_halo_want(spec, iters: int,
+                     device_type: str = "cuda") -> tuple[dict, dict]:
+    """(build, solve): the HALO counts (HALO_DERIVED) one build_coefs and
+    one solve_linear of `iters` Krylov iterations imply on the forest's
+    mesh: shard_coef_builds_of, then two preconditioner applications an
+    iteration (shard_traffic_of) and the coarse-fine windows of the
+    operator in the initial residual and its two applications an
+    iteration (as picard_windows_of)."""
+    build = shard_coef_builds_of(spec, device_type)
+    app = shard_traffic_of(spec)
+    apps = 2 * iters
+    solve = {k: apps * app.get(k, 0) for k in HALO_DERIVED}
+    solve["level_windows"] += (1 + apps) * sum(
+        cf for _, cf in _cut_pairs(spec))
+    return {k: build.get(k, 0) for k in HALO_DERIVED}, solve
+
+
+def check_forest_halo(run: dict, what: str) -> dict:
+    """The forest run's HALO counts against forest_halo_want."""
+    spec = run["spec"]
+    build, solve = forest_halo_want(spec, run["iters"],
+                                    spec.level_specs[0].mesh.home.type)
+    for want, got, part in ((build, run["build"]["halo"], "build"),
+                            (solve, run["solve"]["halo"], "solve")):
+        check({k: got[k] for k in want} == want,
+              f"{what}: {part} halo {got}, the forest implies {want}")
+    return {"build": run["build"]["halo"], "solve": run["solve"]["halo"]}
+
+
+def forest_on_mesh(mesh, ref: dict | None, what: str) -> dict:
+    """The forest on `mesh` (forest_batching = auto): its batch group
+    ((1, 2)) at positions (0, 0) and (0, 1) of the mesh, the f64 solve
+    against the one without a mesh (`ref`, or solved here) to FOREST_RTOL /
+    FOREST_ATOL, and its HALO counts what the placement implies
+    (check_forest_halo); then the card's f32 preconditioner through the
+    batched kernels, bit for bit the same mesh with forest_batching = off
+    (the pair one after the other on the home), its batched calls what
+    the placement implies, no plain version. On a mesh of CPU positions
+    (the tests) the f32 run takes the kernels' plain versions
+    (smoother = pallas), and their calls are held instead."""
+    cpu = mesh.home.type == "cpu"
+    f32 = dict(precond_precision="single", smoother="pallas") if cpu else {}
+    calls_of = "plain_calls" if cpu else "launches"
+    if ref is None:
+        ref = forest_solve(None, device=mesh.home.type,
+                           precond_precision="double")
+    f64 = forest_solve(mesh, precond_precision="double")
+    spec = f64["spec"]
+    want_pos = (mesh.position_at({"x": 0, "y": 0}),
+                mesh.position_at({"y": 1}))
+    check(spec.batch_groups == ((1, 2),)
+          and comp.batch_positions(spec, (1, 2)) == want_pos,
+          f"{what}: batch groups {spec.batch_groups} at "
+          f"{comp.batch_positions(spec, (1, 2))}, not ((1, 2),) at "
+          f"{want_pos}")
+    worst = 0.0
+    for l, (xs, xr) in enumerate(zip(f64["x"], ref["x"])):
+        xs = xs.to(xr.device)
+        excess = ((xs - xr).abs() - FOREST_RTOL * xr.abs()).max()
+        worst = max(worst, float((xs - xr).abs().max()))
+        check(f64["converged"] and float(excess) <= FOREST_ATOL,
+              f"{what}: level {l} differs from the solve without a mesh "
+              f"beyond rtol {FOREST_RTOL} / atol {FOREST_ATOL}")
+    halo64 = check_forest_halo(f64, f"{what} f64")
+    run32 = forest_solve(mesh, **f32)
+    off = forest_solve(mesh, forest_batching="off", **f32)
+    check(all(torch.equal(a, b) for a, b in zip(run32["x"], off["x"]))
+          and run32["iters"] == off["iters"],
+          f"{what} f32: the batched solve is not bit for bit the "
+          f"sequential one on the same mesh")
+    halo32 = check_forest_halo(run32, f"{what} f32")
+    calls = run32["solve"][calls_of]
+    apps = 2 * run32["iters"]
+    per = residual_calls_of(spec)["residual_restrict_batch"]
+    check(calls["gsrb_relax_batch"]
+          == apps * sum(relax_calls_of(run32["spec"])["gsrb_relax_batch"]
+                        .values()) > 0
+          and calls["residual_restrict_batch"] == apps * per
+          and off["solve"][calls_of]["gsrb_relax_batch"] == 0,
+          f"{what} f32: batched calls {calls}")
+    check(cpu or all(v == 0 for v in run32["solve"]["plain_calls"].values()),
+          f"{what} f32: a plain version ran {run32['solve']['plain_calls']}")
+    return {"mesh": mesh.shape, "devices": [str(d) for d in mesh.devices],
+            "batch_groups": [list(g) for g in spec.batch_groups],
+            "positions": list(want_pos),
+            "patch_devices": run32["patch_devices"],
+            "f64": {"iters": f64["iters"], "unsharded_iters": ref["iters"],
+                    "max_abs_diff": worst, "rtol": FOREST_RTOL,
+                    "atol": FOREST_ATOL, "halo": halo64,
+                    "wall_s": f64["wall_s"],
+                    "unsharded_wall_s": ref["wall_s"]},
+            "f32": {"iters": run32["iters"], "bit_for_bit_off": True,
+                    "halo": halo32, calls_of: calls,
+                    "wall_s": run32["wall_s"], "off_wall_s": off["wall_s"]}}
+
+
 def phase_sharded() -> dict:
     out = {"phase": "sharded", "mesh_device": "cuda:0",
            "note": "one card named once per mesh position"}
@@ -2961,6 +3454,10 @@ def phase_sharded() -> dict:
     t0 = time.perf_counter()
     out["dryrun_multichip"] = {"n": 4, **entry.dryrun_multichip(4, "cuda:0"),
                                "seconds": time.perf_counter() - t0}
+    # the JAX package's forest test on a (4, 2) mesh of cuda:0 named eight
+    # times: its sibling pair batched, one patch at (0, 0), one at (0, 1)
+    out["forest"] = forest_on_mesh(one_card_mesh((4, 2)), None,
+                                   "sharded forest")
     out["runs"] = runs
     emit(out)
     return out
@@ -3072,6 +3569,19 @@ def phase_cards() -> dict:
             del f
             torch.cuda.empty_cache()
 
+    # the forest on (2, 2) over cuda:0-3: its two patches computed on two
+    # cards, beside cuda:0 named four times
+    if n >= 4:
+        four = pmesh.make_mesh([f"cuda:{i}" for i in range(4)], (2, 2))
+        ref = forest_solve(None, precond_precision="double")
+        rec = {"cards": forest_on_mesh(four, ref, "cards forest"),
+               "one_card": forest_on_mesh(one_card_mesh((2, 2)), ref,
+                                          "cards forest one card")}
+        devs = sorted(set(rec["cards"]["patch_devices"].values()))
+        check(len(devs) == 2, f"cards forest: the patches computed on "
+              f"{devs}, not on two cards")
+        out["forest"] = rec
+
     # main.run's calls with no mesh given: it shards by itself
     buf = io.StringIO()
     kernel_counts.reset()
@@ -3163,12 +3673,85 @@ def process_worker(args) -> int:
                              "plain_calls": counts["plain_calls"],
                              "halo": counts["halo"]}
                 torch.cuda.empty_cache()
+            if devices and nprocs * args.positions == 4:
+                out["forest"] = forest_record(forest_solve(
+                    forest_process_mesh(dist.host_mesh(devices=devices))))
     except SmokeFailure as e:
         print(f"process {rank} FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     print("PROCESS_RESULT " + json.dumps(out), flush=True)
     dist.finalize()
     return 0
+
+
+def forest_process_mesh(mesh):
+    """The forest's mesh over four positions (2, 1, 2): its pair on the x
+    axis, at positions 0 and 2, which over two processes of two positions
+    each are different processes'."""
+    return pmesh.make_mesh(mesh.devices, (2, 1, 2), mesh.owners, mesh.rank)
+
+
+def forest_record(run: dict) -> dict:
+    """What a process reports of a forest_solve: a digest of every level
+    of the solution, the Krylov count, the counts of the build and the
+    solve, where its batched patches were computed."""
+    import hashlib
+
+    return {"x": [hashlib.sha256(v.cpu().contiguous().numpy().tobytes())
+                  .hexdigest()[:16] for v in run["x"]],
+            "iters": run["iters"], "build": run["build"],
+            "solve": run["solve"], "patch_devices": run["patch_devices"],
+            "positions": comp.batch_positions(run["spec"], (1, 2)),
+            "owners": list(run["spec"].level_specs[0].mesh.owners)}
+
+
+def check_process_forest(workers: list, ref: dict) -> dict:
+    """The forest over the processes against one process over the same
+    positions (`ref`, a forest_record): the solution bit for bit, the
+    pair's chunks on different processes, each process's batched calls its
+    own chunk's (summed: the one process's), HALO summed over the
+    processes the one process's (bytes and messages between processes
+    apart), no plain version."""
+    pos = ref["positions"]
+    owners = workers[0]["owners"]
+    check(pos is not None and all(tuple(w["positions"]) == tuple(pos)
+                                  for w in workers)
+          and owners[pos[0]] != owners[pos[1]],
+          f"processes forest: the pair at {pos} of owners {owners}")
+    for w in workers:
+        check(w["x"] == ref["x"] and w["iters"] == ref["iters"],
+              f"processes forest: process {workers.index(w)} solution "
+              f"{w['x']} ({w['iters']} Krylov), one process {ref['x']} "
+              f"({ref['iters']})")
+        check(all(v == 0 for v in w["solve"]["plain_calls"].values()),
+              f"processes forest: a plain version ran {w['solve']}")
+        check(w["solve"]["launches"]["gsrb_relax_batch"] > 0,
+              f"processes forest: process {workers.index(w)} launched no "
+              f"batch")
+    local = ("bytes_between_processes", "messages")
+    for part in ("build", "solve"):
+        got = {k: sum(w[part]["halo"][k] for w in workers)
+               for k in ref[part]["halo"] if k not in local}
+        want = {k: v for k, v in ref[part]["halo"].items() if k not in local}
+        check(got == want, f"processes forest: {part} halo summed {got}, "
+              f"one process {want}")
+    for k in ("gsrb_relax_batch", "residual_restrict_batch"):
+        got = sum(w["solve"]["launches"][k] for w in workers)
+        check(got == ref["solve"]["launches"][k],
+              f"processes forest: {k} calls {got} over the processes, "
+              f"{ref['solve']['launches'][k]} on one")
+    between = sum(w["solve"]["halo"]["bytes_between_processes"]
+                  for w in workers)
+    check(between > 0, "processes forest: nothing crossed between the "
+          "processes")
+    return {"positions": list(pos), "owners": owners, "bit_for_bit": True,
+            "iters": ref["iters"],
+            "batch_calls_per_process": [w["solve"]["launches"][
+                "gsrb_relax_batch"] for w in workers],
+            "bytes_between_processes": between,
+            "halo_solve_summed": {k: sum(w["solve"]["halo"][k]
+                                         for w in workers)
+                                  for k in ref["solve"]["halo"]}}
 
 
 def spawn_workers(nprocs: int, backend: str, positions: int,
@@ -3311,6 +3894,11 @@ def phase_processes() -> dict:
                      "owners": workers[0][name]["owners"], **rec}
     PROCESS_COUNTS["processes"] = {
         k: out["periodic"][k] for k in ("launches", "device_launches")}
+    # the forest's pair batched with one chunk on each process
+    ref = forest_record(forest_solve(forest_process_mesh(one_card_mesh(
+        (4,)))))
+    out["forest"] = check_process_forest([w["forest"] for w in workers],
+                                         ref)
     emit(out)
     return out
 
@@ -3438,6 +4026,15 @@ PATH_CASES = {
     "patches": {"gsrb_relax": "patch_d6_144", "residual": "patch_d6_144",
                 "residual_restrict": "patch_d6_144",
                 "tower_down": "path_l0_64", "tower_up": "path_l0_64"},
+    # the same forest with its pairs batched (phase forest_batching): the
+    # batched forms at its largest pair, the single ones at its largest
+    # single patch
+    "forest_batching": {"gsrb_relax_batch": "batch_d6_144_pair",
+                        "residual_restrict_batch": "batch_d6_144_pair",
+                        "gsrb_relax": "patch_d6_112",
+                        "residual_restrict": "patch_d6_112",
+                        "residual": "patch_d6_144",
+                        "tower_down": "path_l0_64", "tower_up": "path_l0_64"},
 }
 # the periodic box on 4 x-slabs over two processes (phase processes): the
 # kernels of the sharded x-slabs at the same shapes, launched by both
@@ -3447,7 +4044,9 @@ PROCESS_COUNTS: dict = {}
 # the path whose run gives a kernel's top-level launches
 MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
-             "multisweep_relax_tiled_pre": "sharded_pencil"}
+             "multisweep_relax_tiled_pre": "sharded_pencil",
+             "gsrb_relax_batch": "forest_batching",
+             "residual_restrict_batch": "forest_batching"}
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_us")
 
@@ -3469,6 +4068,7 @@ def kernels_line(kernels: dict | None, solve: dict | None,
             **{p: (sharded["runs"][p] if sharded else None)
                for p in ("sharded_x", "sharded_pencil", "sharded7")},
             "patches": records["runs"]["patches"] if records else None,
+            "forest_batching": FOREST_COUNTS.get("forest_batching"),
             "processes": PROCESS_COUNTS.get("processes")}
 
     def measured(name: str, path: str) -> dict:
@@ -3527,7 +4127,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
 
 
 PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "records",
-          "periodic", "cli", "sharded", "processes", "lowdim")
+          "forest_batching", "periodic", "cli", "sharded", "processes",
+          "lowdim")
 # asked for by name only: the default run needs one card
 ON_REQUEST = ("cards", "processes_cards")
 
@@ -3565,6 +4166,7 @@ def main() -> int:
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "solve": phase_solve, "lock3": phase_lock3,
            "scale7": phase_scale7, "records": phase_records,
+           "forest_batching": phase_forest_batching,
            "periodic": phase_periodic,
            "cli": phase_cli, "sharded": phase_sharded,
            "processes": phase_processes,

@@ -45,6 +45,21 @@
 // same arithmetic in the same order (gsrb_update_row): gsrb_full_sweep ==
 // gsrb_relax(nsweeps = 1) bitwise. The pass kernel (one launch per colour
 // pass) is the entry point of gsrb_full_sweep / gsrb_half_sweep.
+//
+// A batch (mgk_gsrb_relax_batch: the same-shape sibling patches of an AMR
+// depth, which the JAX package sweeps as one vmapped XLA body): P levels of
+// one shape, face kinds and checker parity in ONE cooperative launch, each
+// given by its own pointers (a table of P base pointers: no stacked copy).
+// Blocks [k * tiles, (k + 1) * tiles) take patch k in the form and grid one
+// patch takes at capacity / P, and every grid barrier serves all patches.
+// Where the P patches' arrays overflow the L2 that one patch's fit (two
+// 144^3 f32 patches: 96 MB), the passes of patches side by side go to
+// device memory and the batch ran 25 % slower than P single calls on an
+// H100; there the "serial" form takes the patches one after the other,
+// every block on each, in one patch's grid form at the whole capacity (a
+// launch and its wrapper call saved, not the barriers). Each cell's update
+// is the single launch's, so a batch is bit for bit P single calls; one
+// call is a batch of one.
 #include <cooperative_groups.h>
 
 #include "gsrb_walk.cuh"
@@ -151,21 +166,26 @@ namespace {
 // (fused_sweeps.GSRB_MAX_SLABS); the forms' codes (fused_sweeps.GSRB_FORMS).
 constexpr int kThreads = 512;
 constexpr int kMaxSlabs = 256;
-enum RelaxForm { FORM_GRID = 0, FORM_SLAB = 1 };
+// patches of one batch at most (fused_sweeps.BATCH_MAX)
+constexpr int kMaxBatch = 16;
+enum RelaxForm { FORM_GRID = 0, FORM_SLAB = 1, FORM_SERIAL = 2 };
 
 // Everything one launch needs, passed by value as a __grid_constant__
-// kernel parameter.
+// kernel parameter: patch k's operands at index k.
 template <typename T>
 struct RelaxArgs {
   LevelParams<T> p;
-  const T* u;                // the caller's state, only read
-  const T* rhs;
-  const T* a;
-  const T* b;                // null: constant bCoef
-  T* out;
+  const T* u[kMaxBatch];     // the caller's state, only read
+  const T* rhs[kMaxBatch];
+  const T* a[kMaxBatch];
+  const T* b[kMaxBatch];     // null: constant bCoef
+  T* out[kMaxBatch];
   int par, npass, per;        // sum(lo) & 1, 2 * nsweeps, periodic_axes
   bool vec;                   // slab form: rows in 16-byte pieces
-  int xtiles;                 // slab form: tiles along x (blocks / along y)
+  int tiles;                  // blocks of one patch
+  int npatch;                 // patches
+  bool serial;                // every block on every patch in turn
+  int xtiles;                 // slab form: tiles along x (tiles / along y)
   // slab form: the first plane of each x tile, then nx; the first row of
   // each y tile, then ny
   int start[2 * kMaxSlabs + 2];
@@ -175,26 +195,31 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 relax_grid_kernel(const __grid_constant__ RelaxArgs<T> g) {
   cg::grid_group grid = cg::this_grid();
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+  // this block's patch (serial: every patch in turn), and its place among
+  // the patch's blocks
+  const int own = g.serial ? 0 : blockIdx.x / g.tiles;
+  const int first = (blockIdx.x - own * g.tiles) * blockDim.x + threadIdx.x;
+  const int stride = g.tiles * blockDim.x;
   bool many;
   const Walk w = pair_walk(g.p, first, stride, many);
-  const T* u0 = g.u;
-  const auto get = [u0](int q) { return u0[q]; };
-  const bool update = g.npass > 0;
-  if (g.per == 1)
-    first_pass<false, 1>(g.out, get, g.rhs, g.a, g.b, g.p, g.par, update, w,
-                         many);
-  else if (g.per == 0)
-    first_pass<false, 0>(g.out, get, g.rhs, g.a, g.b, g.p, g.par, update, w,
-                         many);
-  else
-    first_pass<false, -1>(g.out, get, g.rhs, g.a, g.b, g.p, g.par, update, w,
-                          many);
-  for (int pass = 1; pass < g.npass; ++pass) {
-    grid.sync();
-    pass_in_place<false>(g.out, g.rhs, g.a, g.b, g.p, (g.par + pass) & 1, w,
-                         many, g.per);
+  for (int patch = own; patch < (g.serial ? g.npatch : own + 1); ++patch) {
+    const T* u0 = g.u[patch];
+    const T *rhs = g.rhs[patch], *a = g.a[patch], *b = g.b[patch];
+    T* out = g.out[patch];
+    const auto get = [u0](int q) { return u0[q]; };
+    const bool update = g.npass > 0;
+    if (g.per == 1)
+      first_pass<false, 1>(out, get, rhs, a, b, g.p, g.par, update, w, many);
+    else if (g.per == 0)
+      first_pass<false, 0>(out, get, rhs, a, b, g.p, g.par, update, w, many);
+    else
+      first_pass<false, -1>(out, get, rhs, a, b, g.p, g.par, update, w,
+                            many);
+    for (int pass = 1; pass < g.npass; ++pass) {
+      grid.sync();
+      pass_in_place<false>(out, rhs, a, b, g.p, (g.par + pass) & 1, w, many,
+                           g.per);
+    }
   }
 }
 
@@ -319,8 +344,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   const LevelParams<float>& p = g.p;
   const int nx = p.nx, ny = p.ny, nz = p.nz;
-  const int tx = g.xtiles, ty = gridDim.x / tx;
-  const int ix = blockIdx.x / ty, iy = blockIdx.x - ix * ty;
+  // this block's patch, and its tile of the patch
+  const int patch = blockIdx.x / g.tiles;
+  const int tile = blockIdx.x - patch * g.tiles;
+  const int tx = g.xtiles, ty = g.tiles / tx;
+  const int ix = tile / ty, iy = tile - ix * ty;
   Tile t;
   t.i0 = g.start[ix];
   t.bx = g.start[ix + 1] - t.i0;
@@ -332,11 +360,11 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   const int cells = t.bx * t.by * nz;
   float* A = W + (t.bx + 2) * t.sx;
   float* R = A + cells;
-  float* out = g.out;
+  float* out = g.out[patch];
   // the window from the caller's u (not its corners, which no cell reads),
   // a and rhs of the tile
   const int wrows = (t.bx + 2) * (t.by + 2);
-  copy_rows<true>(W, g.u, wrows, nz, vec,
+  copy_rows<true>(W, g.u[patch], wrows, nz, vec,
                   [&](int r, int& gr, int& wr) {
                     const int li = r / (t.by + 2) - 1;
                     const int lj = r - (li + 1) * (t.by + 2) - 1;
@@ -352,12 +380,12 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
     gr = (t.i0 + li) * ny + t.j0 + lj;
     wr = (li + 1) * (t.by + 2) + lj + 1;
   };
-  copy_rows<true>(A, g.a, t.bx * t.by, nz, vec,
+  copy_rows<true>(A, g.a[patch], t.bx * t.by, nz, vec,
                   [&](int r, int& gr, int& wr) {
                     own_rows(r, gr, wr);
                     wr = r;
                   });
-  copy_rows<true>(R, g.rhs, t.bx * t.by, nz, vec,
+  copy_rows<true>(R, g.rhs[patch], t.bx * t.by, nz, vec,
                   [&](int r, int& gr, int& wr) {
                     own_rows(r, gr, wr);
                     wr = r;
@@ -469,9 +497,13 @@ cudaError_t relax_capacity(int smem, int* capacity) {
   return err;
 }
 
+// npatch levels of one shape: patch k's operands u[k], rhs[k], a[k], b[k]
+// (b null, or b[k] null: constant bCoef) and out[k]; `blocks` blocks a
+// patch, npatch * blocks in the launch.
 template <typename T>
-cudaError_t relax_impl(const void* u, const void* rhs, const void* a,
-                       const void* b, void* out, int nx, int ny, int nz,
+cudaError_t relax_impl(const void* const* u, const void* const* rhs,
+                       const void* const* a, const void* const* b,
+                       void* const* out, int npatch, int nx, int ny, int nz,
                        const int* kinds, double rho, double alpha,
                        double beta, double dx, int base, int nsweeps,
                        int form, int per, int blocks, int xtiles,
@@ -479,24 +511,34 @@ cudaError_t relax_impl(const void* u, const void* rhs, const void* a,
   const long long rows = (long long)nx * ny;
   if (nsweeps < 0 || 2 * nsweeps >= (1 << 16) || blocks < 1 || per < -1 ||
       per > 1 || rows * nz >= (1LL << 31) || form < FORM_GRID ||
-      form > FORM_SLAB)
+      form > FORM_SERIAL || npatch < 1 || npatch > kMaxBatch)
     return cudaErrorInvalidValue;
   RelaxArgs<T> g = {};
   g.p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  g.u = (const T*)u;
-  g.rhs = (const T*)rhs;
-  g.a = (const T*)a;
-  g.b = (const T*)b;
-  g.out = (T*)out;
+  bool has_b = false;
+  unsigned long long bits = 0;  // of every pointer of the slab form
+  for (int k = 0; k < npatch; ++k) {
+    g.u[k] = (const T*)u[k];
+    g.rhs[k] = (const T*)rhs[k];
+    g.a[k] = (const T*)a[k];
+    g.b[k] = b ? (const T*)b[k] : nullptr;
+    g.out[k] = (T*)out[k];
+    has_b = has_b || g.b[k] != nullptr;
+    bits |= (unsigned long long)u[k] | (unsigned long long)rhs[k] |
+            (unsigned long long)a[k] | (unsigned long long)out[k];
+  }
   g.par = ((base % 2) + 2) % 2;
   g.npass = 2 * nsweeps;
   g.per = per;
+  g.tiles = blocks;
+  g.npatch = npatch;
+  g.serial = form == FORM_SERIAL;
   const void* kern = (const void*)relax_grid_kernel<T>;
-  if (form != FORM_GRID) {
+  if (form == FORM_SLAB) {
     // the slab form: f32, constant b, x and y cut in order into xtiles x
     // (blocks / xtiles) tiles, each tile's window, a and rhs within smem
     const int tx = xtiles, ty = xtiles > 0 ? blocks / xtiles : 0;
-    if (sizeof(T) != 4 || b != nullptr || blocks > kMaxSlabs || tx < 1 ||
+    if (sizeof(T) != 4 || has_b || blocks > kMaxSlabs || tx < 1 ||
         tx * ty != blocks || starts[0] != 0 || starts[tx] != nx ||
         starts[tx + 1] != 0 || starts[tx + 1 + ty] != ny)
       return cudaErrorInvalidValue;
@@ -517,16 +559,16 @@ cudaError_t relax_impl(const void* u, const void* rhs, const void* a,
         smem)
       return cudaErrorInvalidValue;
     g.xtiles = tx;
-    g.vec = nz % 4 == 0 &&
-            (((unsigned long long)u | (unsigned long long)rhs |
-              (unsigned long long)a | (unsigned long long)out) & 15) == 0;
+    g.vec = nz % 4 == 0 && (bits & 15) == 0;
     kern = slab_kernel(per);
   } else {
     smem = 0;
   }
   void* params[] = {(void*)&g};
-  return cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(kThreads),
-                                     params, (size_t)smem, st);
+  return cudaLaunchCooperativeKernel(kern,
+                                     dim3(g.serial ? blocks : blocks * npatch),
+                                     dim3(kThreads), params, (size_t)smem,
+                                     st);
 }
 
 }  // namespace
@@ -546,13 +588,45 @@ extern "C" int mgk_gsrb_relax(const void* u, const void* rhs, const void* a,
                               int xtiles, const int* starts, int smem,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const void* const us[1] = {u};
+  const void* const rs[1] = {rhs};
+  const void* const as[1] = {a};
+  const void* const bs[1] = {b};
+  void* const os[1] = {out};
   return (int)(is_double
-      ? relax_impl<double>(u, rhs, a, b, out, nx, ny, nz, kinds, rho, alpha,
-                           beta, dx, base, nsweeps, form, per, blocks,
+      ? relax_impl<double>(us, rs, as, bs, os, 1, nx, ny, nz, kinds, rho,
+                           alpha, beta, dx, base, nsweeps, form, per, blocks,
                            xtiles, starts, smem, st)
-      : relax_impl<float>(u, rhs, a, b, out, nx, ny, nz, kinds, rho, alpha,
-                          beta, dx, base, nsweeps, form, per, blocks,
+      : relax_impl<float>(us, rs, as, bs, os, 1, nx, ny, nz, kinds, rho,
+                          alpha, beta, dx, base, nsweeps, form, per, blocks,
                           xtiles, starts, smem, st));
+}
+
+// C entry point of the batch: npatch (at most kMaxBatch) levels of one
+// shape, face kinds and parity (base = sum(lo) of any of them), constant
+// bCoef, patch k's state u[k], rhs[k], a[k] (only read) and result out[k];
+// `blocks` (and the slab form's xtiles, starts, smem) are one patch's launch
+// geometry (fused_sweeps.gsrb_geometry at capacity / npatch): npatch *
+// blocks blocks in one cooperative launch; in the serial form (form 2) one
+// patch's grid form at the whole capacity, `blocks` blocks taking the
+// patches in turn. The same arithmetic per cell as mgk_gsrb_relax.
+extern "C" int mgk_gsrb_relax_batch(const void* const* u,
+                                    const void* const* rhs,
+                                    const void* const* a, void* const* out,
+                                    int npatch, int is_double, int nx, int ny,
+                                    int nz, const int* kinds, double rho,
+                                    double alpha, double beta, double dx,
+                                    int base, int nsweeps, int form, int per,
+                                    int blocks, int xtiles, const int* starts,
+                                    int smem, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(is_double
+      ? relax_impl<double>(u, rhs, a, nullptr, out, npatch, nx, ny, nz,
+                           kinds, rho, alpha, beta, dx, base, nsweeps, form,
+                           per, blocks, xtiles, starts, smem, st)
+      : relax_impl<float>(u, rhs, a, nullptr, out, npatch, nx, ny, nz, kinds,
+                          rho, alpha, beta, dx, base, nsweeps, form, per,
+                          blocks, xtiles, starts, smem, st));
 }
 
 // C entry point: *capacity <- blocks of every gsrb_relax kernel of the type

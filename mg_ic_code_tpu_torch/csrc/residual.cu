@@ -47,6 +47,13 @@
 //    and residual_restrict gives restrict_full of residual, bit for bit.
 //  * The tile height, the segment length, and so the grid, come from Python
 //    (ops/fused_sweeps.residual_geometry), per level shape.
+//  * A batch (mgk_residual_batch, the restricted form of the same-shape
+//    sibling patches of an AMR depth): P levels of one shape in one launch,
+//    blockIdx.y the patch, each with its own pointers and its own output
+//    strides (each into its own parent's covered part). The segments are
+//    cut so that the P x tiles x segments blocks fill one wave. A cell's
+//    value does not depend on the launch, so a batch is bit for bit P
+//    single calls; one call is a batch of one.
 #include <cstddef>
 
 #include "residual_device.cuh"
@@ -63,6 +70,21 @@ constexpr int kRing = 5;
 constexpr int kMaxThreads = 512;
 constexpr int kMaxChunks = 4;
 constexpr int kMaxSmem = 232448;  // the H100's 227 KB a block
+
+// patches of one batch at most (fused_sweeps.BATCH_MAX)
+constexpr int kMaxBatch = 16;
+
+// The operands of a launch: patch k's at index k (out strides: the
+// restricted form's).
+template <typename T>
+struct Operands {
+  const T* u[kMaxBatch];
+  const T* rhs[kMaxBatch];
+  const T* a[kMaxBatch];
+  const T* b[kMaxBatch];  // null: constant bCoef
+  T* out[kMaxBatch];
+  long long osx[kMaxBatch], osy[kMaxBatch];
+};
 
 // The launch ops/fused_sweeps.residual_geometry picks.
 struct ResidualGeom {
@@ -232,11 +254,16 @@ __device__ __forceinline__ void rows_residual(
 
 template <typename T, int VZ, bool VEC, bool RESTRICT>
 __global__ void __launch_bounds__(kMaxThreads)
-    residual_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
-                    const T* __restrict__ a, const T* __restrict__ b,
-                    T* __restrict__ out, const LevelParams<T> p,
-                    const ResidualGeom g, const long long osx,
-                    const long long osy) {
+    residual_kernel(const __grid_constant__ Operands<T> ops,
+                    const LevelParams<T> p, const ResidualGeom g) {
+  // this block's patch
+  const int patch = blockIdx.y;
+  const T* __restrict__ u = ops.u[patch];
+  const T* __restrict__ rhs = ops.rhs[patch];
+  const T* __restrict__ a = ops.a[patch];
+  const T* __restrict__ b = ops.b[patch];
+  T* __restrict__ out = ops.out[patch];
+  const long long osx = ops.osx[patch], osy = ops.osy[patch];
   extern __shared__ __align__(16) unsigned char residual_smem[];
   T* const ring = reinterpret_cast<T*>(residual_smem);
   const unsigned ring_s =
@@ -449,22 +476,51 @@ cudaError_t with_form(int vz, int vec, int restricted, F&& f) {
 }
 
 template <typename T>
-cudaError_t launch(const void* u, const void* rhs, const void* a,
-                   const void* b, void* out, const LevelParams<T>& p,
-                   const ResidualGeom& g, int vz, int vec, int restricted,
-                   int blocks, int threads, int smem, long long osx,
-                   long long osy, cudaStream_t stream) {
+cudaError_t launch(const Operands<T>& ops, int npatch,
+                   const LevelParams<T>& p, const ResidualGeom& g, int vz,
+                   int vec, int restricted, int blocks, int threads,
+                   int smem, cudaStream_t stream) {
   return with_form<T>(vz, vec, restricted, [&](auto form) {
     using F = decltype(form);
     cudaError_t err =
         raise_smem<typename F::T, F::VZ, F::VEC, F::RESTRICT>();
     if (err != cudaSuccess) return err;
     residual_kernel<typename F::T, F::VZ, F::VEC, F::RESTRICT>
-        <<<blocks, threads, smem, stream>>>(
-            (const T*)u, (const T*)rhs, (const T*)a, (const T*)b, (T*)out,
-            p, g, osx, osy);
+        <<<dim3(blocks, npatch), threads, smem, stream>>>(ops, p, g);
     return cudaGetLastError();
   });
+}
+
+// npatch levels of one shape (geo), patch k's operands at index k of each
+// table (b null, or b[k] null: constant bCoef; osx, osy null: 0).
+template <typename T>
+cudaError_t residual_impl(const void* const* u, const void* const* rhs,
+                          const void* const* a, const void* const* b,
+                          void* const* out, const long long* osx,
+                          const long long* osy, int npatch, const int* kinds,
+                          double rho, double alpha, double beta, double dx,
+                          const int* geo, cudaStream_t st) {
+  const int nx = geo[1], ny = geo[2], nz = geo[3];
+  const int vz = geo[4], vec = geo[5], restricted = geo[6];
+  const ResidualGeom g{geo[7], geo[8], geo[9], geo[11], geo[12]};
+  const int blocks = geo[8] * geo[10], threads = geo[13], smem = geo[14];
+  if (threads > kMaxThreads || smem > kMaxSmem || npatch < 1 ||
+      npatch > kMaxBatch)
+    return cudaErrorInvalidValue;
+  Operands<T> ops = {};
+  for (int k = 0; k < npatch; ++k) {
+    ops.u[k] = (const T*)u[k];
+    ops.rhs[k] = (const T*)rhs[k];
+    ops.a[k] = (const T*)a[k];
+    ops.b[k] = b ? (const T*)b[k] : nullptr;
+    ops.out[k] = (T*)out[k];
+    ops.osx[k] = osx ? osx[k] : 0;
+    ops.osy[k] = osy ? osy[k] : 0;
+  }
+  const auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta,
+                                      dx);
+  return launch<T>(ops, npatch, p, g, vz, vec, restricted, blocks, threads,
+                   smem, st);
 }
 
 }  // namespace
@@ -479,21 +535,36 @@ extern "C" int mgk_residual(const void* u, const void* rhs, const void* a,
                             double rho, double alpha, double beta, double dx,
                             const int* geo, long long osx, long long osy,
                             void* stream) {
-  const int is_double = geo[0], nx = geo[1], ny = geo[2], nz = geo[3];
-  const int vz = geo[4], vec = geo[5], restricted = geo[6];
-  const ResidualGeom g{geo[7], geo[8], geo[9], geo[11], geo[12]};
-  const int blocks = geo[8] * geo[10], threads = geo[13], smem = geo[14];
-  if (threads > kMaxThreads || smem > kMaxSmem) return cudaErrorInvalidValue;
+  const void* const us[1] = {u};
+  const void* const rs[1] = {rhs};
+  const void* const as[1] = {a};
+  const void* const bs[1] = {b};
+  void* const os[1] = {out};
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_double) {
-    auto p = make_level_params<double>(nx, ny, nz, kinds, rho, alpha, beta,
-                                       dx);
-    return (int)launch<double>(u, rhs, a, b, out, p, g, vz, vec, restricted,
-                               blocks, threads, smem, osx, osy, st);
-  }
-  auto p = make_level_params<float>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch<float>(u, rhs, a, b, out, p, g, vz, vec, restricted,
-                            blocks, threads, smem, osx, osy, st);
+  return (int)(geo[0]
+      ? residual_impl<double>(us, rs, as, bs, os, &osx, &osy, 1, kinds, rho,
+                              alpha, beta, dx, geo, st)
+      : residual_impl<float>(us, rs, as, bs, os, &osx, &osy, 1, kinds, rho,
+                             alpha, beta, dx, geo, st));
+}
+
+// C entry point of the batch: npatch (at most kMaxBatch) levels of one
+// shape and face kinds, constant bCoef, patch k's u[k], rhs[k], a[k] and
+// out[k] with its strides osx[k], osy[k] (the restricted form; geo as
+// mgk_residual's, its segments cut for npatch patches), in one launch.
+extern "C" int mgk_residual_batch(const void* const* u,
+                                  const void* const* rhs,
+                                  const void* const* a, void* const* out,
+                                  const long long* osx, const long long* osy,
+                                  int npatch, const int* kinds, double rho,
+                                  double alpha, double beta, double dx,
+                                  const int* geo, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(geo[0]
+      ? residual_impl<double>(u, rhs, a, nullptr, out, osx, osy, npatch,
+                              kinds, rho, alpha, beta, dx, geo, st)
+      : residual_impl<float>(u, rhs, a, nullptr, out, osx, osy, npatch,
+                             kinds, rho, alpha, beta, dx, geo, st));
 }
 
 // Blocks of the instantiation (is_double, VZ, VEC, restricted) with

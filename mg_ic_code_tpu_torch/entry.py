@@ -15,7 +15,9 @@ JAX package):
   x-slabs, two sibling 32^3 patches under the same base, and, where n is
   even and at least 4, a 32^3-base 2-level hierarchy on (n/2, 2) pencils.
   The dpsi norms must agree (NORM_RTOL), and every cut level of the result
-  must come back as its shards.
+  must come back as its shards. Each case reports its batch groups
+  (composite.AMRSolverSpec.batch_groups: the same-shape sibling patches
+  swept as one batch), as the JAX package's dry run prints them.
 
 Both run on the CUDA device unless the caller names another (`device`);
 a mesh names that device n times unless `devices` lists the positions.
@@ -146,10 +148,12 @@ def dryrun_multichip(n_devices: int, device=None, devices=None) -> dict:
     without one (module docstring): x-slabs on a 64^3-base 2-level
     hierarchy, a 2-patch forest under the same base, (n/2, 2) pencils on a
     32^3 base where n is even and at least 4. Returns {case: {norm,
-    serial_norm, rel_diff, limit, krylov, cuts}}; raises where a norm
-    differs by more than NORM_RTOL or a cut level lost its placement."""
+    serial_norm, rel_diff, limit, krylov, cuts, batch_groups}}; raises
+    where a norm differs by more than NORM_RTOL or a cut level lost its
+    placement."""
     from mg_ic_code_tpu_torch.grid.boxes import Box
     from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+    from mg_ic_code_tpu_torch.solver import composite as comp
 
     device = precision.resolve_device(device)
     devices = list(devices) if devices is not None else [device] * n_devices
@@ -176,5 +180,7 @@ def dryrun_multichip(n_devices: int, device=None, devices=None) -> dict:
         out[name] = {"norm": norm, "serial_norm": serial, "rel_diff": rel,
                      "limit": NORM_RTOL[prec], "krylov": it,
                      "serial_krylov": it_serial, "mesh": mesh.shape,
-                     "cuts": _check_cut(geom, mesh, psi, name)}
+                     "cuts": _check_cut(geom, mesh, psi, name),
+                     "batch_groups": comp.make_amr_spec(
+                         geom, cfg, device, mesh).batch_groups}
     return out

@@ -121,6 +121,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci,
         ci, ci, ci, pi, ci, vp,
     ]
+    lib.mgk_gsrb_relax_batch.restype = ci
+    lib.mgk_gsrb_relax_batch.argtypes = [
+        pvp, pvp, pvp, pvp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci,
+        ci, ci, ci, ci, pi, ci, vp,
+    ]
     lib.mgk_gsrb_capacity.restype = ci
     lib.mgk_gsrb_capacity.argtypes = [ci, ci, pi]
     lib.mgk_gsrb_pass.restype = ci
@@ -131,6 +136,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     cll = ctypes.c_longlong
     lib.mgk_residual.argtypes = [
         vp, vp, vp, vp, vp, pi, cd, cd, cd, cd, pi, cll, cll, vp,
+    ]
+    lib.mgk_residual_batch.restype = ci
+    pll = ctypes.POINTER(cll)
+    lib.mgk_residual_batch.argtypes = [
+        pvp, pvp, pvp, pvp, pll, pll, ci, pi, cd, cd, cd, cd, pi, vp,
     ]
     lib.mgk_residual_capacity.restype = ci
     lib.mgk_residual_capacity.argtypes = [ci, ci, ci, ci, ci, ci, pi]

@@ -17,6 +17,12 @@ and the residual that feeds restriction, each as
 same launch (the restriction that follows every residual the V-cycles
 restrict); its plain version is `restrict_full` of `residual_plain`.
 
+`gsrb_relax_batch` / `residual_restrict_batch` take the same-shape sibling
+patches of an AMR depth (solver/composite.py's batch groups) as ONE launch
+of the same kernel, each patch by its own pointers; their plain versions
+are the single ones patch by patch, and a batch is bit for bit the single
+calls.
+
 Beside them:
 
   * `multisweep_relax` (csrc/multisweep.cu): the same sweeps as
@@ -186,6 +192,18 @@ def gsrb_relax_plain(
     )
 
 
+def gsrb_relax_batch_plain(
+    us, rhss, as_, *, nsweeps: int, kinds: FaceKinds, rho: float,
+    alpha: float, beta: float, dx: float, los,
+):
+    """The plain PyTorch version of `gsrb_relax_batch`: the sweeps of
+    each patch (its lo `los[k]`), as gsrb_relax_plain."""
+    kernel_counts.PLAIN_CALLS["gsrb_relax_batch"] += 1
+    return [gsrb_sweeps_folded(
+        u, rhs, a, None, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
+        beta=beta, dx=dx, lo=lo) for u, rhs, a, lo in zip(us, rhss, as_, los)]
+
+
 def multisweep_relax_plain(
     u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
     beta: float, dx: float, lo,
@@ -263,6 +281,18 @@ def residual_restrict_plain(
         u, rhs, a, b, kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx))
 
 
+def residual_restrict_batch_plain(
+    us, rhss, as_, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float,
+):
+    """The plain PyTorch version of `residual_restrict_batch`: each
+    patch's restricted residual, as residual_restrict_plain."""
+    kernel_counts.PLAIN_CALLS["residual_restrict_batch"] += 1
+    return [restrict_full(_residual_values(
+        u, rhs, a, None, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
+        dx=dx)) for u, rhs, a in zip(us, rhss, as_)]
+
+
 def _residual_values(u, rhs, a, b, *, kinds: FaceKinds, rho: float,
                      alpha: float, beta: float, dx: float):
     """The body of both plain versions; it counts nothing."""
@@ -311,6 +341,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# patches of one batched launch at most (kMaxBatch of csrc/gsrb_relax.cu and
+# csrc/residual.cu): a larger group goes in launches of this many
+BATCH_MAX = 16
+
+
+def check_batch_args(name: str, us, *others):
+    """The batched kernels take P >= 1 patches, each with the operands of
+    check_level_args, all of one shape, dtype and device (lists of equal
+    length: patch k's at index k); raise otherwise."""
+    if not us or any(len(o) != len(us) for o in others):
+        raise ValueError(f"{name}: {len(us)} patches, operand lists "
+                         f"{[len(o) for o in others]}")
+    for k, u in enumerate(us):
+        check_level_args(name, u, *(o[k] for o in others))
+        if (u.shape, u.dtype, u.device) != (
+                us[0].shape, us[0].dtype, us[0].device):
+            raise ValueError(
+                f"{name}: patch {k} is {tuple(u.shape)} {u.dtype} "
+                f"{u.device}, patch 0 {tuple(us[0].shape)} {us[0].dtype} "
+                f"{us[0].device}")
+
+
+def _table(ts):
+    """ctypes void*[len(ts)] of the tensors' data pointers."""
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
 # The one-launch gsrb_relax (csrc/gsrb_relax.cu): threads per block of
 # either form (kThreads), the most blocks of the slab form
 # (kMaxSlabs), the forms' codes (RelaxForm), the shared memory a slab block
@@ -322,7 +379,7 @@ def _ptr(t):
 # 176x64x64 (4800 and 5632), by 5-6 % either way (scripts/gsrb_probe.py).
 GSRB_THREADS = 512
 GSRB_MAX_SLABS = 256
-GSRB_FORMS = {"grid": 0, "slab": 1}
+GSRB_FORMS = {"grid": 0, "slab": 1, "serial": 2}
 GSRB_SLAB_SMEM = 232448
 GSRB_ONE_BLOCK_CELLS = 4096
 GSRB_SLAB_MIN_TILE = 6144
@@ -330,7 +387,7 @@ GSRB_SLAB_MIN_TILE = 6144
 
 class GsrbGeometry(NamedTuple):
     """The launch of one gsrb_relax call (gsrb_geometry)."""
-    form: str      # "grid" or "slab"
+    form: str      # "grid" or "slab"; a batch also "serial"
     per: int       # 1 every axis periodic, 0 none, -1 some
     blocks: int
     xsplit: tuple  # slab forms: (first plane, planes) of each x tile
@@ -404,10 +461,18 @@ def slab_tiles(shape, itemsize: int, capacity: int):
 
 
 def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
-                  capacity: int, form: str | None = None) -> GsrbGeometry:
+                  capacity: int, form: str | None = None,
+                  patches: int = 1) -> GsrbGeometry:
     """The launch of gsrb_relax on a level of `shape` for `capacity` blocks
     running at once (gsrb_capacity; a cooperative launch needs all of them
-    resident). The slab form where it applies, f32 with constant b and a
+    resident); for a batch of `patches` levels of the shape
+    (gsrb_relax_batch) the launch of one of them at capacity // patches,
+    `blocks` then a patch's, or, where the batch's four arrays a level
+    overflow the L2 cache that one level's fit (exceeds_l2), the "serial"
+    form: one level's grid form at the whole capacity, its blocks taking
+    the patches in turn (side by side, their passes went to device memory:
+    25 % slower than single calls for two 144^3 f32 patches on an H100).
+    The slab form where it applies, f32 with constant b and a
     split of x and y into tiles that fits (slab_tiles, each axis cut evenly
     by even_split), and where it is the faster: one block, or tiles of
     GSRB_SLAB_MIN_TILE cells or more. Else the grid form: a z pair a thread
@@ -419,7 +484,17 @@ def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
     if nx * ny * nz >= 2 ** 31:
         raise ValueError(f"gsrb_relax: {nx * ny * nz} cells (below 2^31)")
     per = periodic_axes(kinds)
-    capacity = int(capacity)
+    if form == "serial" or (form is None and patches > 1 and exceeds_l2(
+            (patches * nx, ny, nz), itemsize)
+            and not exceeds_l2((nx, ny, nz), itemsize)):
+        if patches < 2:
+            raise ValueError("gsrb_relax: the serial form takes a batch")
+        return gsrb_geometry(shape, itemsize, with_b, kinds, capacity,
+                             "grid")._replace(form="serial")
+    capacity = int(capacity) // int(patches)
+    if capacity < 1:
+        raise ValueError(f"gsrb_relax: {patches} patches exceed the "
+                         f"capacity")
     tiles = None
     if form != "grid" and itemsize == 4 and not with_b:
         tiles = slab_tiles((nx, ny, nz), itemsize, capacity)
@@ -454,14 +529,14 @@ def gsrb_capacity(device, itemsize: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _relax_launch(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
-                  index: int, form: str | None):
-    """(geometry, the C entry's geometry arguments) of a level, kept: the
-    solver calls gsrb_relax with a few shapes many times, and its host time
-    is part of every call's."""
+                  index: int, form: str | None, patches: int = 1):
+    """(geometry, the C entry's geometry arguments) of a level (of each of
+    a batch of `patches`), kept: the solver calls gsrb_relax with a few
+    shapes many times, and its host time is part of every call's."""
     geom = gsrb_geometry(shape, itemsize, with_b, kinds, gsrb_capacity(
-        torch.device("cuda", index), itemsize), form)
+        torch.device("cuda", index), itemsize), form, patches)
     starts = (geom.xsplit[0] + (shape[0],) + geom.ysplit[0] + (shape[1],)
-              if geom.form != "grid" else (0,))
+              if geom.form == "slab" else (0,))
     return geom, (kinds_array(kinds), GSRB_FORMS[geom.form], geom.per,
                   geom.blocks, len(geom.xsplit[0]),
                   (ctypes.c_int * len(starts))(*starts), geom.smem)
@@ -505,6 +580,57 @@ def gsrb_launch(
         float(dx), int(sum(lo)), int(nsweeps), *args[1:])
     cuda_ext.check(err, "gsrb_relax")
     return out
+
+
+def gsrb_relax_batch(
+    us, rhss, as_, *, nsweeps: int, kinds: FaceKinds, rho: float,
+    alpha: float, beta: float, dx: float, los,
+):
+    """gsrb_relax of P same-shape levels of one parity with constant
+    bCoef (the sibling patches of a batch group), patch k's operands at
+    index k of the lists and its lo at los[k]: a list of P new tensors.
+    CUDA tensors go to the kernel, ONE cooperative launch for up to
+    BATCH_MAX patches (gsrb_batch_launch); CPU tensors take the plain
+    version."""
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
+              dx=dx, los=los)
+    if us[0].device.type == "cpu":
+        return gsrb_relax_batch_plain(us, rhss, as_, **kw)
+    return gsrb_batch_launch(us, rhss, as_, **kw)
+
+
+def gsrb_batch_launch(
+    us, rhss, as_, *, nsweeps: int, kinds: FaceKinds, rho: float,
+    alpha: float, beta: float, dx: float, los, form: str | None = None,
+):
+    """gsrb_relax_batch's launches on CUDA tensors (mgk_gsrb_relax_batch):
+    one per BATCH_MAX patches, in the form gsrb_geometry picks for that
+    many patches at the card's capacity, or in `form`."""
+    check_batch_args("gsrb_relax_batch", us, rhss, as_)
+    if nsweeps < 0:
+        raise ValueError(f"gsrb_relax_batch: nsweeps {nsweeps}")
+    if len(los) != len(us) or len({sum(lo) % 2 for lo in los}) != 1:
+        raise ValueError(f"gsrb_relax_batch: the patches' parities differ "
+                         f"(lo {list(los)})")
+    u0 = us[0]
+    nx, ny, nz = u0.shape
+    outs = []
+    for c in range(0, len(us), BATCH_MAX):
+        part = slice(c, c + BATCH_MAX)
+        n = len(us[part])
+        _, args = _relax_launch(tuple(u0.shape), u0.element_size(), False,
+                                kinds, u0.device.index, form, n)
+        out = [torch.empty_like(u) for u in us[part]]
+        kernel_counts.count_launch("gsrb_relax_batch", 1)
+        err = on_stream(
+            cuda_ext.lib().mgk_gsrb_relax_batch, u0, _table(us[part]),
+            _table(rhss[part]), _table(as_[part]), _table(out), n,
+            int(u0.dtype == torch.float64), nx, ny, nz, args[0], float(rho),
+            float(alpha), float(beta), float(dx), int(sum(los[0])),
+            int(nsweeps), *args[1:])
+        cuda_ext.check(err, "gsrb_relax_batch")
+        outs += out
+    return outs
 
 
 def on_stream(fn, t, *args):
@@ -1014,13 +1140,15 @@ def residual_slot(ty: int, nz: int, itemsize: int, with_b: bool) -> int:
 def residual_geometry(shape, itemsize: int, vz: int, vec: bool,
                       restrict: bool, with_b: bool, sms: int, per_sm,
                       ty: int | None = None,
-                      xseg: int | None = None) -> ResidualGeometry:
+                      xseg: int | None = None,
+                      patches: int = 1) -> ResidualGeometry:
     """The tiles and x segments of a residual launch on a card with `sms`
     multiprocessors: the lowest even tile height whose row pairs hold
     RESIDUAL_WORK groups of VZ cells (a thread each; at most the level's
     rows), then the shortest segments (even in the restricted form) whose
     blocks fit one wave: sms x per_sm(threads, smem), the blocks one
-    multiprocessor runs at once (on the card, mgk_residual_capacity).
+    multiprocessor runs at once (on the card, mgk_residual_capacity),
+    shared by the `patches` levels of a batch (residual_restrict_batch).
     `ty` / `xseg` ask for another launch (scripts/residual_probe.py times
     them); one that does not fit a block's threads or shared memory
     raises."""
@@ -1039,7 +1167,7 @@ def residual_geometry(shape, itemsize: int, vz: int, vec: bool,
         raise ValueError(f"residual: no launch for {tuple(shape)}, itemsize "
                          f"{itemsize}, ty {ty}")
     if xseg is None:
-        nseg = max(1, sms * per_sm(threads, smem) // ntiles)
+        nseg = max(1, sms * per_sm(threads, smem) // (ntiles * patches))
         xseg = -(-nx // min(nseg, nx))
         xseg += xseg % step
     if xseg % step or xseg < 1:
@@ -1063,23 +1191,26 @@ def residual_capacity(index: int, itemsize: int, vz: int, vec: bool,
 
 
 def _residual_geometry(shape, itemsize: int, restrict: bool, with_b: bool,
-                       aligned: bool, index: int) -> ResidualGeometry:
+                       aligned: bool, index: int,
+                       patches: int = 1) -> ResidualGeometry:
     """residual_geometry on CUDA device `index`."""
     vz, vec = residual_form(shape[2], itemsize, aligned)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     per_sm = functools.partial(residual_capacity, index, itemsize, vz, vec,
                                restrict)
     return residual_geometry(shape, itemsize, vz, vec, restrict, with_b, sms,
-                             per_sm)
+                             per_sm, patches=patches)
 
 
 @functools.lru_cache(maxsize=None)
 def _residual_launch(shape, itemsize: int, kinds: FaceKinds, restrict: bool,
-                     with_b: bool, aligned: bool, index: int):
-    """(geometry, kinds array, geometry array) of a residual launch, kept
-    as gsrb_relax's are (the solver calls the residual with a few shapes
-    many times)."""
-    g = _residual_geometry(shape, itemsize, restrict, with_b, aligned, index)
+                     with_b: bool, aligned: bool, index: int,
+                     patches: int = 1):
+    """(geometry, kinds array, geometry array) of a residual launch (of a
+    batch of `patches`), kept as gsrb_relax's are (the solver calls the
+    residual with a few shapes many times)."""
+    g = _residual_geometry(shape, itemsize, restrict, with_b, aligned, index,
+                           patches)
     geo = (int(itemsize == 8), *shape, g.vz, int(g.vec), int(restrict), g.ty,
            g.ntiles, g.xseg, g.nseg, shape[2] // g.vz, g.slot, g.threads,
            g.smem)
@@ -1171,3 +1302,70 @@ def residual_restrict(
             f"residual_restrict: out strides {out.stride()} (z contiguous)")
     residual_launch("residual_restrict", u, rhs, a, b, out, **kw)
     return out
+
+
+def residual_restrict_batch(
+    us, rhss, as_, *, kinds: FaceKinds, rho: float, alpha: float,
+    beta: float, dx: float, outs=None,
+):
+    """residual_restrict of P same-shape levels with constant bCoef (the
+    sibling patches of a batch group), patch k's operands at index k of the
+    lists, each restricted residual written into outs[k] (a view with z
+    contiguous, e.g. its own parent's covered part) or a new tensor:
+    returns the P restricted residuals. CUDA tensors go to the kernel, ONE
+    launch for up to BATCH_MAX patches (mgk_residual_batch, blocks over the
+    patches' tiles and segments); CPU tensors take the plain version."""
+    kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx)
+    shape = tuple(us[0].shape)
+    if len(shape) != 3 or any(n % 2 for n in shape):
+        raise ValueError(f"residual_restrict_batch: every axis must be "
+                         f"even, got {shape}")
+    half = tuple(n // 2 for n in shape)
+    outs = [None] * len(us) if outs is None else list(outs)
+    for o in outs:
+        if o is not None and (tuple(o.shape) != half or o.dtype != us[0].dtype
+                              or o.device != us[0].device):
+            raise ValueError(
+                f"residual_restrict_batch: out {tuple(o.shape)} {o.dtype} "
+                f"{o.device} for {half} {us[0].dtype} {us[0].device}")
+    if us[0].device.type == "cpu":
+        rcs = residual_restrict_batch_plain(us, rhss, as_, **kw)
+        return [rc if o is None else o.copy_(rc) for rc, o in zip(rcs, outs)]
+    check_batch_args("residual_restrict_batch", us, rhss, as_)
+    outs = [us[0].new_empty(half) if o is None else o for o in outs]
+    for o in outs:
+        if o.stride(2) != 1 or min(o.stride()) < 0:
+            raise ValueError(f"residual_restrict_batch: out strides "
+                             f"{o.stride()} (z contiguous)")
+    u0 = us[0]
+    for c in range(0, len(us), BATCH_MAX):
+        part = slice(c, c + BATCH_MAX)
+        n = len(us[part])
+        _, kinds_c, geo = _residual_launch(
+            shape, u0.element_size(), kinds, True, False,
+            _batch_aligned(us[part], rhss[part], as_[part]),
+            u0.device.index, n)
+        strides = lambda ax: (ctypes.c_longlong * n)(  # noqa: E731
+            *(o.stride(ax) for o in outs[part]))
+        kernel_counts.count_launch("residual_restrict_batch", 1)
+        err = on_stream(cuda_ext.lib().mgk_residual_batch, u0,
+                        _table(us[part]), _table(rhss[part]),
+                        _table(as_[part]), _table(outs[part]), strides(0),
+                        strides(1), n, kinds_c, float(rho), float(alpha),
+                        float(beta), float(dx), geo)
+        cuda_ext.check(err, "residual_restrict_batch")
+    return outs
+
+
+def _batch_aligned(us, rhss, as_) -> bool:
+    """Whether every patch's operands start on 16 bytes (_aligned)."""
+    return all(_aligned((u.data_ptr(), r.data_ptr(), a.data_ptr()), True)
+               for u, r, a in zip(us, rhss, as_))
+
+
+def residual_batch_geometry(us, rhss, as_) -> ResidualGeometry:
+    """The geometry residual_restrict_batch's launch takes for these CUDA
+    operands (at most BATCH_MAX patches)."""
+    return _residual_geometry(tuple(us[0].shape), us[0].element_size(), True,
+                              False, _batch_aligned(us, rhss, as_),
+                              us[0].device.index, len(us))

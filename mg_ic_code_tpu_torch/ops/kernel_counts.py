@@ -14,14 +14,19 @@ cooperative launch (csrc/tower.cu); wavefront_relax and multisweep_relax,
 two wrappers of one kernel, and multisweep_relax_halo /
 multisweep_relax_tiled_pre, the same march on one shard of a sharded level
 (an x-slab with its pads, a prepadded pencil), all passes of the chunk in
-one launch (csrc/multisweep.cu, csrc/multisweep_halo.cu).
+one launch (csrc/multisweep.cu, csrc/multisweep_halo.cu);
+gsrb_relax_batch and residual_restrict_batch, the batched forms of
+gsrb_relax and residual_restrict (the same kernels: the same-shape sibling
+patches of a batch group in one launch, up to fused_sweeps.BATCH_MAX).
 `PLAIN_CALLS[name]` goes up each time the plain PyTorch version of that
 kernel runs. A run on the GPU can thereby show that its path went through
 the kernels and never through a plain version.
 
 `HALO[name]` counts what the sharded path copies (parallel/shards.py says
 what each name counts): level splits and joins, level windows,
-coefficient splits, joins and pad builds, pad exchanges and the bytes
+coefficient splits, joins and pad builds, pad exchanges, the moves of a
+batch group's patches to the mesh positions that compute them and back
+(patch_moves), and the bytes
 moved between mesh positions, and over several processes the bytes and
 messages that crossed between processes (parallel/transport.py). Over
 several processes each event is counted once, by process 0, and each copy
@@ -31,14 +36,15 @@ processes add up to those of one process driving the same mesh.
 
 KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
            "tower_up", "wavefront_relax", "multisweep_relax",
-           "multisweep_relax_halo", "multisweep_relax_tiled_pre")
+           "multisweep_relax_halo", "multisweep_relax_tiled_pre",
+           "gsrb_relax_batch", "residual_restrict_batch")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_CALLS: dict[str, int] = {k: 0 for k in KERNELS}
 HALO_COUNTS = ("level_splits", "level_joins", "level_windows",
                "coef_splits", "coef_joins", "coef_pad_builds",
-               "pad_exchanges", "bytes_moved", "bytes_between_processes",
+               "pad_exchanges", "patch_moves", "bytes_moved", "bytes_between_processes",
                "messages")
 HALO: dict[str, int] = {k: 0 for k in HALO_COUNTS}
 

@@ -163,14 +163,29 @@ def make_mesh(devices=None, shape: tuple[int, ...] | None = None,
 def patch_axis(mesh: Mesh, nparts: int) -> str | None:
     """Mesh axis to spread a stacked sibling-patch axis over: prefer y
     (keeping x free for interior slab sharding); the axis size must divide
-    the patch count. None = no usable axis. The JAX package's forest
-    batching asks it; no path of the port does yet (forest batching is not
-    ported): tests/test_torch_parallel.py holds it to the JAX decision."""
+    the patch count. None = no usable axis. tests/test_torch_parallel.py
+    holds it to the JAX decision."""
     for name in (AXIS_Y, AXIS):
         sz = mesh.shape.get(name, 1)
         if sz > 1 and nparts % sz == 0:
             return name
     return None
+
+
+def patch_positions(mesh: Mesh, nparts: int) -> tuple[int, ...] | None:
+    """The mesh position of each of `nparts` sibling patches batched
+    together (solver/composite.py's batch groups), the counterpart of the
+    JAX package's `_stack_patches`: with patch_axis(mesh, nparts) = name,
+    the patches cut in order into as many chunks as that axis has
+    positions, chunk k at coordinate k of the axis and 0 along the others
+    (the port keeps uncut levels whole on one position, its reading of the
+    JAX package's replicated levels). None where no axis is usable: the
+    group then runs whole on the home."""
+    name = patch_axis(mesh, nparts)
+    if name is None:
+        return None
+    per = nparts // mesh.shape[name]
+    return tuple(mesh.position_at({name: i // per}) for i in range(nparts))
 
 
 def shard_counts(mesh: Mesh, shape) -> tuple[int, int, int]:

@@ -34,6 +34,13 @@ counted in ops/kernel_counts.HALO:
   coef_pad_builds            — coefficient pads assembled from shards;
   pad_exchanges              — one array's boundary slabs exchanged along
                                one cut axis between all its shards;
+  patch_moves                — the whole patches of a batch group (their
+                               state, or their coefficients once per
+                               build) copied to the mesh positions that
+                               compute them, or back to every holder of
+                               the whole level (`to_positions`,
+                               `from_positions`): one per group and
+                               direction;
   bytes_moved                — bytes of level data copied from one mesh
                                position to another (the home is position
                                0): what crosses a link when the positions
@@ -500,3 +507,51 @@ def write_window(dst, off, vals) -> None:
                 lambda v=v, lo=lo, hit=hit: v.t[_sl(*hit, lo)],
                 lambda t, p=p, hit=hit: p.t[_sl(*hit, p.org)].copy_(t)))
     transport.exchange(mesh, plan)
+
+
+# ------------------------------------------- a batch group's patches
+
+
+def at_position(mesh, pos: int, t, shape, lo=(0, 0, 0),
+                dtype=None) -> ShardSet:
+    """A whole level held at ONE mesh position `pos` as a shard set of one
+    shard (`t`, None where `pos` is another process's): how a batch group's
+    patch is held where it is computed, so that level windows read and
+    write it as any placed level (`parts` gives it that position)."""
+    k = (0, 0, 0)
+    here = mesh.is_local(pos)
+    return ShardSet({k: t} if here else {}, (1, 1, 1),
+                    {k: mesh.devices[pos]} if here else {}, {k: pos},
+                    tuple(shape), tuple(lo), mesh.home, mesh,
+                    t.dtype if t is not None else dtype)
+
+
+def to_positions(mesh, tensors, positions) -> list:
+    """Each whole tensor of `tensors` (which every process holds) copied to
+    the device of its mesh position positions[k]: a list of the copies,
+    None where the position is another process's. One plan, one
+    patch_moves; bytes counted where a position is not the home's (0)."""
+    count_event(mesh, "patch_moves")
+    out: list = [None] * len(tensors)
+    plan = []
+    for i, (t, p) in enumerate(zip(tensors, positions)):
+        plan.append(Transfer(
+            WHOLE, p, tuple(t.shape), t.dtype, lambda t=t: t,
+            lambda x, i=i, p=p: out.__setitem__(
+                i, copy_to(x, mesh.devices[p]))))
+    transport.exchange(mesh, plan)
+    return out
+
+
+def from_positions(mesh, tensors, positions, shapes, dtype) -> list:
+    """The tensors held at their mesh positions (tensors[k] at
+    positions[k], None where another process's) back as whole tensors on
+    the home of every process. One plan, one patch_moves."""
+    count_event(mesh, "patch_moves")
+    out = [torch.empty(tuple(s), dtype=dtype, device=mesh.home)
+           for s in shapes]
+    plan = [Transfer(p, WHOLE, tuple(s), dtype, lambda i=i: tensors[i],
+                     lambda x, i=i: out[i].copy_(x))
+            for i, (p, s) in enumerate(zip(positions, shapes))]
+    transport.exchange(mesh, plan)
+    return out

@@ -21,6 +21,17 @@ parallel/shards.ShardSet and the rest whole on the mesh's home (`place`):
 the operator, the residuals, the V-cycle and the Krylov vectors work on
 them shard by shard, and one level reads another's part under its shards
 by level windows. Nothing here joins a cut level.
+
+FOREST BATCHING (`forest_batching`, the JAX package's batch groups): the
+same-shape sibling patches of a depth (`AMRSolverSpec.batch_groups`) are
+smoothed and restricted as ONE batch in amr_vcycle, through the batched
+forms of the kernels (multigrid.relax_batch / residual_restrict_batch).
+Where the mesh has an axis for the group (parallel/mesh.patch_positions),
+each chunk of it is computed at its own position: its coefficients are
+placed there once per build_coefs, and within a V-cycle its residual goes
+there and its correction comes back (parallel/shards.to_positions /
+from_positions), the restricted residual goes to the parent and the
+coarse values come from it by level windows.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ from mg_ic_code_tpu_torch.grid.geometry import HierarchyGeom
 from mg_ic_code_tpu_torch.ops import stencils as st
 from mg_ic_code_tpu_torch.ops.ghosts import fill_ghosts
 from mg_ic_code_tpu_torch.parallel import halo
+from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+from mg_ic_code_tpu_torch.parallel import shards
 from mg_ic_code_tpu_torch.parallel.shards import (
     ShardSet, per_shard, read_window, write_window, zeros_like,
 )
@@ -70,6 +83,10 @@ class AMRSolverSpec:
     # only needs smoother-grade accuracy, and the f32 kernels are the
     # production path). None = same precision as the operands.
     precond_dtype: str | None = None
+    # groups of same-shape sibling entries that amr_vcycle sweeps as ONE
+    # batch (_sibling_batch_groups, per cfg.forest_batching); () = every
+    # entry on its own
+    batch_groups: tuple[tuple[int, ...], ...] = ()
 
     @property
     def num_levels(self) -> int:
@@ -84,21 +101,14 @@ def make_amr_spec(
     (parallel/mesh.Mesh, optional) puts the smoother and the residual on
     the explicit-halo path wherever a depth's axes shard usefully
     (multigrid._shard_counts); `device` is then the mesh's first (its
-    home, where the levels live)."""
+    home, where the levels live). `cfg.forest_batching` gives the batch
+    groups (_sibling_batch_groups)."""
     device = precision.resolve_device(device)
     if cfg.smoother_precision == "bfloat16":
         raise NotImplementedError(
             "smoother_precision = bfloat16: the CUDA kernels sweep at "
             "operand precision; reduced-precision colour passes are not "
             "ported (use auto or single)"
-        )
-    if getattr(cfg, "forest_batching", "auto") == "force":
-        raise NotImplementedError(
-            "forest_batching = force: sweeping same-shape sibling patches "
-            "as one batch (the JAX package's composite._sibling_batch_groups) "
-            "is not ported yet (ROADMAP queue 1, item 6); auto and off run "
-            "the patches one after the other, as the JAX package does "
-            "without a mesh"
         )
     level_specs = tuple(
         mg.make_level_spec(
@@ -127,7 +137,81 @@ def make_amr_spec(
         hang=cfg.hang,
         pre_cond_solver_depth=cfg.pre_cond_solver_depth,
         precond_dtype=precision.precond_dtype(cfg.precond_precision, device),
+        batch_groups=_sibling_batch_groups(
+            geom, level_specs, getattr(cfg, "forest_batching", "auto"), mesh
+        ),
     )
+
+
+def _sibling_batch_groups(
+    geom: HierarchyGeom, level_specs, mode: str, mesh
+) -> tuple[tuple[int, ...], ...]:
+    """Same-depth sibling entries that can run as one batched sweep (the
+    JAX package's rule).
+
+    Batchable = identical box shape, face kinds, dx, and global checker
+    parity (sum(lo) mod 2 — the GSRB colour mask depends on lo only through
+    this). Policy: "off" = never; "force" = every group of >= 2 (the test
+    mode, and the one-card launch-reduction mode); "auto" = only groups a
+    device mesh does not cut (multigrid._shard_counts == (1, 1, 1)):
+    exactly the case where the sequential sweep would leave every other
+    mesh position idle while the home computes every patch."""
+    if mode == "off":
+        return ()
+    by_key: dict = {}
+    for e in range(1, geom.num_levels):
+        ls = level_specs[e]
+        key = (
+            geom.depth_of(e), geom.boxes[e].shape, ls.kinds,
+            sum(geom.boxes[e].lo) % 2, geom.dx[e],
+        )
+        by_key.setdefault(key, []).append(e)
+    out = []
+    for ents in by_key.values():
+        if len(ents) < 2:
+            continue
+        if mode == "auto":
+            if mesh is None:
+                continue
+            if mg._shard_counts(level_specs[ents[0]], 0) != (1, 1, 1):
+                continue  # cut patches already use the whole mesh
+        out.append(tuple(ents))
+    return tuple(sorted(out))
+
+
+def batch_positions(spec: AMRSolverSpec, group) -> tuple | None:
+    """The mesh position that computes each patch of a batch group
+    (parallel/mesh.patch_positions), or None: no mesh, or no mesh axis
+    for the group (it then runs as one batch on the home)."""
+    mesh = spec.level_specs[0].mesh
+    return None if mesh is None else pmesh.patch_positions(mesh, len(group))
+
+
+def _group_batchable(spec: AMRSolverSpec, coefs, group) -> bool:
+    """Whether a batch group runs as a batch: b constant (the batched
+    kernels and the JAX package's batched body take none), and no patch
+    cut by the mesh (a cut patch stays on its shards, which a batch would
+    have to join). Otherwise its entries run one after the other."""
+    return all(coefs[x]["b"][0] is None and mg._shard_counts(
+        spec.level_specs[x], 0) == (1, 1, 1) for x in group)
+
+
+def _batchable(spec: AMRSolverSpec, coefs, depth_entries) -> list:
+    """Split a depth's entries into [(group tuple) | single entry, ...] in
+    entry order, honouring spec.batch_groups (_group_batchable)."""
+    in_group = {ent: g for g in spec.batch_groups for ent in g}
+    plan, seen = [], set()
+    for l in depth_entries:
+        if l in seen:
+            continue
+        g = in_group.get(l)
+        if g is not None and _group_batchable(spec, coefs, g):
+            plan.append(g)
+            seen.update(g)
+        else:
+            plan.append(l)
+            seen.add(l)
+    return plan
 
 
 def place(spec: AMRSolverSpec, u_list):
@@ -166,7 +250,10 @@ def build_coefs(spec: AMRSolverSpec, a_list, b_list=None) -> tuple[dict, ...]:
     is made on the shards (multigrid.build_level_coefs), and each set
     carries the shards and halo-kernel pads of every depth the mesh cuts
     (parallel/halo.shard_coefs, "shards"): made here, once per coefficient
-    build, and never inside a preconditioner application."""
+    build, and never inside a preconditioner application. A batch group
+    computed at its mesh positions (batch_positions) gets aCoef and lambda
+    of each patch at its position, in every coefficient set ("at": the
+    chunk's coefficients, placed once per build)."""
     check_placed(spec, a_list, "build_coefs")
     out = []
     lp_dtype = (
@@ -190,6 +277,21 @@ def build_coefs(spec: AMRSolverSpec, a_list, b_list=None) -> tuple[dict, ...]:
                 c["lp"]["shards"] = halo.shard_coefs(spec.level_specs[l],
                                                      c["lp"])
         out.append(c)
+    mesh = spec.level_specs[0].mesh
+    for g in spec.batch_groups:
+        pos = batch_positions(spec, g)
+        if pos is None or not _group_batchable(spec, out, g):
+            continue
+        sets = [[out[x] for x in g]]
+        if "lp" in out[g[0]]:
+            sets.append([out[x]["lp"] for x in g])
+        for cs in sets:
+            placed = shards.to_positions(
+                mesh, [c["a"][0] for c in cs] + [c["lam"][0] for c in cs],
+                pos + pos)
+            for i, c in enumerate(cs):
+                c["at"] = {"a": (placed[i],), "b": (None,),
+                           "lam": (placed[len(g) + i],)}
     return tuple(out)
 
 
@@ -294,25 +396,36 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
     hold it), and the coarse correction under the child, and the CF faces'
     coarse planes of the post-smooth, come by level windows. The base
     level's depth chain stays sharded as mg_vcycle says; nothing here
-    splits or joins a level."""
+    splits or joins a level.
+
+    The sibling patches of a batch group (spec.batch_groups, _batchable)
+    run as one batch instead (_batch_down / _batch_up: the JAX package's
+    vmapped branches), bit for bit what they get one after the other."""
     geom = spec.geom
     nl = spec.num_levels
     r = list(r_list)
     e: list = [None] * nl
     copied: set = set()  # parents whose r is this V-cycle's own copy
+    held: dict = {}  # batch group -> its patches' r at their positions
+
+    def own_copy(p):
+        if p not in copied:  # r[p] may be the caller's tensor
+            r[p] = r[p].clone()
+            copied.add(p)
 
     # downsweep: depths descending — every child restricts into its parent
     # before the parent's depth runs
     for depth in range(geom.max_depth, 0, -1):
-        for l in geom.entries_at_depth(depth):
+        for l in _batchable(spec, coefs, geom.entries_at_depth(depth)):
+            if isinstance(l, tuple):
+                _batch_down(spec, coefs, l, r, e, own_copy, held, use_lp)
+                continue
             ls = spec.level_specs[l]
             cl = _lp(coefs[l], use_lp)
             rl = r[l]
             el = mg.relax(ls, cl, 0, zeros_like(rl), rl, spec.nsmooth)
             p = geom.parent[l]
-            if p not in copied:  # r[p] may be the caller's tensor
-                r[p] = r[p].clone()
-                copied.add(p)
+            own_copy(p)
             # the restricted residual written over the covered part
             if isinstance(el, ShardSet) or isinstance(r[p], ShardSet):
                 rc = mg.residual_restrict_homog(
@@ -329,7 +442,10 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
     # upsweep: depths ascending — every parent's correction is complete
     # before its children prolong from it
     for depth in range(1, geom.max_depth + 1):
-        for l in geom.entries_at_depth(depth):
+        for l in _batchable(spec, coefs, geom.entries_at_depth(depth)):
+            if isinstance(l, tuple):
+                _batch_up(spec, coefs, l, r, e, held, use_lp)
+                continue
             ls = spec.level_specs[l]
             p = geom.parent[l]
             e[l] = mg.prolong_inc(e[l], _under(geom, p, l, e[p], e[l]))
@@ -341,6 +457,113 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
                 geom, l, e[p],
             )
     return e
+
+
+def _local_chunks(mesh, pos) -> list:
+    """The indices of a batch group's patches by position, in order, for
+    this process's positions only."""
+    by_pos: dict = {}
+    for i, p in enumerate(pos):
+        by_pos.setdefault(p, []).append(i)
+    return [idx for p, idx in by_pos.items() if mesh.is_local(p)]
+
+
+def _batch_down(spec: AMRSolverSpec, coefs, g, r, e, own_copy, held,
+                use_lp: bool) -> None:
+    """The downsweep of batch group g: its patches smoothed from zero in
+    one batch (multigrid.relax_batch) and their residuals restricted in one
+    batch (multigrid.residual_restrict_batch), each into its own parent's
+    covered part (a view of a whole parent, a level window into a cut
+    one). With positions (batch_positions) each chunk of the group is
+    computed at its own: the patches' residuals go there (one patch move),
+    the restricted ones come to the parents by level windows, and the
+    corrections and residuals stay there for _batch_up."""
+    geom = spec.geom
+    lss = [spec.level_specs[x] for x in g]
+    cls = [_lp(coefs[x], use_lp) for x in g]
+    par = [geom.parent[x] for x in g]
+    for p in par:
+        own_copy(p)
+    pos = batch_positions(spec, g)
+    if pos is None:
+        rs = [r[x] for x in g]
+        els = mg.relax_batch(lss, cls, 0, [torch.zeros_like(t) for t in rs],
+                             rs, spec.nsmooth)
+        outs = [None if isinstance(r[p], ShardSet)
+                else r[p][geom.child_slices(p, x)] for x, p in zip(g, par)]
+        rcs = mg.residual_restrict_batch(lss, cls, 0, els, rs, outs)
+        for x, p, el, rc, o in zip(g, par, els, rcs, outs):
+            if o is None:
+                write_window(r[p], _covered_offset(geom, p, x), rc)
+            e[x] = el
+        return
+    mesh = spec.level_specs[0].mesh
+    rs = shards.to_positions(mesh, [r[x] for x in g], pos)
+    held[g] = rs
+    els: list = [None] * len(g)
+    rcs: list = [None] * len(g)
+    for idx in _local_chunks(mesh, pos):
+        sub = lambda xs: [xs[i] for i in idx]  # noqa: E731
+        c_at = [cls[i]["at"] for i in idx]
+        out = mg.relax_batch(sub(lss), c_at, 0,
+                             [torch.zeros_like(rs[i]) for i in idx], sub(rs),
+                             spec.nsmooth)
+        rc = mg.residual_restrict_batch(sub(lss), c_at, 0, out, sub(rs))
+        for i, el_i, rc_i in zip(idx, out, rc):
+            els[i], rcs[i] = el_i, rc_i
+    for i, (x, p) in enumerate(zip(g, par)):
+        shape = geom.shape(x)
+        half = tuple(n // 2 for n in shape)
+        write_window(r[p], _covered_offset(geom, p, x), shards.at_position(
+            mesh, pos[i], rcs[i], half, dtype=r[x].dtype))
+        e[x] = shards.at_position(mesh, pos[i], els[i], shape,
+                                  geom.boxes[x].lo, r[x].dtype)
+
+
+def _batch_up(spec: AMRSolverSpec, coefs, g, r, e, held,
+              use_lp: bool) -> None:
+    """The upsweep of batch group g, as the JAX package's: each patch's
+    coarse correction prolonged and its CF coarse term folded into its
+    rhs (entry by entry, each from its parent's correction), then the
+    post-smooth in one batch (multigrid.relax_batch). With positions, the
+    coarse values come to each patch's position by level windows and the
+    corrections go back to the home (one patch move)."""
+    geom = spec.geom
+    lss = [spec.level_specs[x] for x in g]
+    cls = [_lp(coefs[x], use_lp) for x in g]
+    par = [geom.parent[x] for x in g]
+    pos = batch_positions(spec, g)
+    smooth = spec.nsmooth > 0
+    us = [mg.prolong_inc(e[x], _under(geom, p, x, e[p], e[x]))
+          for x, p in zip(g, par)]
+    if pos is None:
+        if smooth:
+            rhss = [mg.cf_folded_rhs(ls, geom, x, r[x], e[p])
+                    for ls, x, p in zip(lss, g, par)]
+            us = mg.relax_batch(lss, cls, 0, us, rhss, spec.nsmooth)
+        for x, u in zip(g, us):
+            e[x] = u
+        return
+    mesh = spec.level_specs[0].mesh
+    rs = held.pop(g)
+    k = (0, 0, 0)
+    local = [u.shards.get(k) for u in us]
+    if smooth:
+        rhss = [mg.cf_folded_rhs(ls, geom, x, shards.at_position(
+            mesh, q, rx, geom.shape(x), geom.boxes[x].lo, r[x].dtype),
+            e[p]).shards.get(k)
+            for ls, x, p, q, rx in zip(lss, g, par, pos, rs)]
+        for idx in _local_chunks(mesh, pos):
+            out = mg.relax_batch([lss[i] for i in idx],
+                                 [cls[i]["at"] for i in idx], 0,
+                                 [local[i] for i in idx],
+                                 [rhss[i] for i in idx], spec.nsmooth)
+            for i, u in zip(idx, out):
+                local[i] = u
+    back = shards.from_positions(mesh, local, pos,
+                                 [geom.shape(x) for x in g], r[g[0]].dtype)
+    for x, u in zip(g, back):
+        e[x] = u
 
 
 def precond(spec: AMRSolverSpec, coefs, r_list):

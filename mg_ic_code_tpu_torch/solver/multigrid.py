@@ -375,6 +375,82 @@ def relax(spec: LevelMGSpec, coefs: dict, d: int, u, rhs, n: int):
     return u
 
 
+def relax_batch(specs, coefs_list, d: int, us, rhss, n: int) -> list:
+    """`relax` of same-shape sibling patches (a batch group of
+    solver/composite.py: one shape, face kinds, dx and parity, constant
+    bCoef, on one device), patch k by specs[k], coefs_list[k], us[k] and
+    rhss[k]: the counterpart of the JAX package's vmapped `relax_xla`.
+    The group takes the route relax_kernel_plan gives ONE of its patches,
+    in its batched form: the GSRB kernel's batch (fs.gsrb_relax_batch, one
+    launch for the group), the staged body on the stacked patches (a
+    leading patch axis through the ghost fill and the colour update), or,
+    on the wave and multisweep rungs, which have no batched form, one
+    march launch per patch. Every patch gets bit for bit what `relax`
+    gives it alone."""
+    from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
+    from mg_ic_code_tpu_torch.ops import wavefront as wf
+
+    out = list(us)
+    if n <= 0:
+        return out
+    spec = specs[0]
+    assert all(c["b"][d] is None for c in coefs_list), (
+        "relax_batch: constant bCoef only")
+    for kind, s in relax_kernel_plan(spec, out[0], n):
+        if kind in ("wave", "multisweep"):
+            one_launch = (wf.wavefront_relax if kind == "wave"
+                          else fs.multisweep_relax)
+            out = [one_launch(
+                u.contiguous(), rhs.contiguous(), c["a"][d], nsweeps=s,
+                lo=sp.boxes[d].lo, **_level_kw(spec, d))
+                for sp, c, u, rhs in zip(specs, coefs_list, out, rhss)]
+        elif kind == "resident":
+            out = fs.gsrb_relax_batch(
+                [u.contiguous() for u in out],
+                [rhs.contiguous() for rhs in rhss],
+                [c["a"][d] for c in coefs_list], nsweeps=s,
+                los=[sp.boxes[d].lo for sp in specs], **_level_kw(spec, d))
+        else:
+            u = torch.stack(out)
+            rhs = torch.stack(list(rhss))
+            a = torch.stack([c["a"][d] for c in coefs_list])
+            lam = torch.stack([c["lam"][d] for c in coefs_list])
+            for i in range(2 * s):
+                u = st.gsrb_color(
+                    fill_ghosts_homogeneous(u, spec.kinds, spec.rho[d]), rhs,
+                    a, None, lam, spec.alpha, spec.beta, spec.dx[d],
+                    spec.boxes[d].lo, i % 2)
+            out = list(u.unbind(0))
+    return out
+
+
+def residual_restrict_batch(specs, coefs_list, d: int, us, rhss,
+                            outs=None) -> list:
+    """`residual_restrict_homog` of the patches of a batch group (as
+    relax_batch), each restricted residual into outs[k] (e.g. its parent's
+    covered part) or a new tensor: the residual kernel's batch on the
+    kernel path (fs.residual_restrict_batch, one launch for the group),
+    else restrict_full of the staged residual on the stacked patches. Bit
+    for bit residual_restrict_homog of each patch."""
+    from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
+
+    spec = specs[0]
+    assert all(c["b"][d] is None for c in coefs_list), (
+        "residual_restrict_batch: constant bCoef only")
+    if _kernels_allowed(spec, us[0]):
+        return fs.residual_restrict_batch(
+            [u.contiguous() for u in us], [rhs.contiguous() for rhs in rhss],
+            [c["a"][d] for c in coefs_list], outs=outs, **_level_kw(spec, d))
+    res = st.residual(
+        fill_ghosts_homogeneous(torch.stack(list(us)), spec.kinds,
+                                spec.rho[d]),
+        torch.stack(list(rhss)), torch.stack([c["a"][d] for c in coefs_list]),
+        None, spec.alpha, spec.beta, spec.dx[d])
+    rcs = st.restrict_full(res).unbind(0)
+    outs = [None] * len(rcs) if outs is None else outs
+    return [rc if o is None else o.copy_(rc) for rc, o in zip(rcs, outs)]
+
+
 def relax_cf(
     spec: LevelMGSpec, coefs: dict, u, rhs, n: int,
     geom: HierarchyGeom, level: int, coarse_u,

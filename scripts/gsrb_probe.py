@@ -78,7 +78,7 @@ def main() -> int:
         for shape in SHAPES:
             f = chip_smoke.level_fields(shape, torch.float32, seed=1)
             rec = {"shape": list(shape), "forms": {}}
-            for form in fs.GSRB_FORMS:
+            for form in ("grid", "slab"):  # the forms of one level
                 geom = fs.gsrb_geometry(shape, 4, False, KINDS, cap, form)
                 rec["forms"][form] = dict(blocks=geom.blocks,
                                           **sweep_times(f, geom))

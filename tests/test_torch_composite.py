@@ -112,7 +112,8 @@ def test_spec_fields_match(f64, mixed):
                      "avg_type", "tol", "max_iter", "hang",
                      "pre_cond_solver_depth", "precond_dtype"):
             assert getattr(tspec, name) == getattr(jspec, name), name
-        assert not hasattr(tspec, "batch_groups")
+        # no same-shape siblings in this chain: no batch group either side
+        assert tspec.batch_groups == jspec.batch_groups == ()
         hash(tspec)
     assert mixed[1].precond_dtype == "float32" and f64[1].precond_dtype is None
 
@@ -152,10 +153,10 @@ def sibling_forest():
 
 @pytest.mark.parametrize("mode", ["auto", "off", "force"])
 def test_forest_batching(mode):
-    """forest_batching = force (sibling patches swept as one batch) is not
-    ported and raises instead of being ignored; auto and off run the
-    patches one after the other, which is what the JAX package computes
-    without a mesh: it forms a batch group only under force."""
+    """forest_batching = force sweeps the sibling pair as one batch: the
+    spec builds with the JAX package's batch group ((1, 2),); auto and off
+    run the patches one after the other, which is what the JAX package
+    computes without a mesh: it forms a batch group only under force."""
     jg, tg = sibling_forest()
     base = dict(n_cells=(16, 16, 16), max_level=1)
     jgroups = jcomp.make_amr_spec(
@@ -163,8 +164,9 @@ def test_forest_batching(mode):
     cfg = TCfg(forest_batching=mode, **base)
     if mode == "force":
         assert jgroups == ((1, 2),)
-        with pytest.raises(NotImplementedError, match="forest_batching"):
-            tcomp.make_amr_spec(tg, cfg, device="cpu")
+        spec = tcomp.make_amr_spec(tg, cfg, device="cpu")
+        assert spec.batch_groups == jgroups
+        assert spec.num_levels == 3
         return
     assert jgroups == ()
     spec = tcomp.make_amr_spec(tg, cfg, device="cpu")

@@ -696,3 +696,56 @@ def test_cuda_residual_restrict_matches_plain(case, dt):
     assert torch.equal(view, out)
     parent[1:1 + half[0], 2:2 + half[1], :half[2]] = -7.0
     assert bool((parent == -7.0).all())
+
+
+# the batched forms (a batch group's same-shape patches in one launch):
+# (shape, kinds, the patches' lo): a slab-form pair, three patches in the
+# grid form at odd parity, the 144^3 pair in the serial form (two patches'
+# arrays over the L2)
+BATCH_CASES = [
+    ((72, 80, 80), ((C, C),) * 3, ((376, 472, 472), (376, 552, 472))),
+    ((48, 48, 48), KINDS, ((1, 0, 0), (49, 0, 0), (1, 48, 2))),
+    ((144, 144, 144), ((C, C),) * 3, ((1568, 1976, 1976), (1568, 2120, 1976))),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", BATCH_CASES,
+                         ids=["pair_slab", "three_odd", "pair_144"])
+def test_cuda_batched_kernels_match_plain_and_single(case, dt):
+    """gsrb_relax_batch and residual_restrict_batch in every form
+    gsrb_geometry takes for the batch: each patch within the plain
+    version's tolerance and bit for bit the single wrapper's; one launch a
+    call."""
+    _need_cuda()
+    shape, kinds, los = case
+    npdt, rtol = DTYPES[dt]
+    fs_ = [{k: torch.from_numpy(v).cuda()
+            for k, v in fields(shape, npdt, seed=k).items()}
+           for k in range(len(los))]
+    us, rhss, as_ = ([f[k] for f in fs_] for k in ("u", "rhs", "a"))
+    kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.25)
+    ref = tfs.gsrb_relax_batch_plain(us, rhss, as_, nsweeps=4, los=los, **kw)
+    single = [tfs.gsrb_relax(u, r, a, nsweeps=4, lo=lo, **kw)
+              for u, r, a, lo in zip(us, rhss, as_, los)]
+    cap = tfs.gsrb_capacity(us[0].device, us[0].element_size())
+    for form in tfs.GSRB_FORMS:
+        try:
+            tfs.gsrb_geometry(shape, us[0].element_size(), False, kinds, cap,
+                              form, patches=len(los))
+        except ValueError:
+            continue
+        kernel_counts.reset()
+        out = tfs.gsrb_batch_launch(us, rhss, as_, nsweeps=4, los=los,
+                                    form=form, **kw)
+        assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax_batch"] == 1
+        for o, r, s in zip(out, ref, single):
+            assert float((o - r).abs().max()) <= rtol * float(
+                r.abs().max())
+            assert torch.equal(o, s), form
+    kernel_counts.reset()
+    rc = tfs.residual_restrict_batch(us, rhss, as_, **kw)
+    assert kernel_counts.DEVICE_LAUNCHES["residual_restrict_batch"] == 1
+    for o, u, r, a in zip(rc, us, rhss, as_):
+        assert torch.equal(o, tfs.residual_restrict(u, r, a, **kw))

@@ -10,7 +10,9 @@ four positions alone (`solo`). All three run the same things: the
 writers on a forest, main.run on the canonical parameters (3 levels,
 16^3 base, (2, 2) pencils), the periodic box at 32^3 on x-slabs and on
 pencils, a periodic box whose cut depths the second process holds no
-shard of, and the command line's entry, main.main, whose mesh over the
+shard of, the JAX package's test forest with its sibling pair batched and
+spread over the processes (one patch on each), and the command line's
+entry, main.main, whose mesh over the
 two processes main.choose_mesh builds (one position a process; the one
 process names the same two). Every result of the two processes is held
 to the one process's bit for bit (histories, Krylov counts, K, the
@@ -323,12 +325,38 @@ def test_kernel_calls_add_up(runs, run):
             assert w0[k] == w1[k] == solo[k], k
 
 
+def test_forest_pair_on_two_processes(runs):
+    """The forest's batch group (1, 2) sits at positions 0 and 2 of its
+    (2, 1, 2) mesh, one patch on each process: each process launches the
+    batched kernels (their plain versions) for its own patch only, the
+    two add up to the one process's calls, the solution is the one
+    process's bit for bit, and HALO (the patch moves included) and the
+    bytes by (source, destination) add up to its counts."""
+    w0, w1, solo = (runs[n]["forest"] for n in ("w0", "w1", "solo"))
+    assert solo["batch_groups"] == [[1, 2]] and solo["positions"] == [0, 2]
+    assert [w0["owners"][p] for p in w0["positions"]] == [0, 1]
+    for got in (w0, w1):
+        assert got["x"] == solo["x"]
+        assert got["linear_iters"] == solo["linear_iters"]
+    for k in ("gsrb_relax_batch", "residual_restrict_batch"):
+        assert w0["plain_calls"][k] > 0 and w1["plain_calls"][k] > 0
+        assert w0["plain_calls"][k] + w1["plain_calls"][k] == \
+            solo["plain_calls"][k], k
+    got = _sum(w0["halo"], w1["halo"])
+    assert got["patch_moves"] == solo["halo"]["patch_moves"] > 0
+    assert {k: got[k] for k in kernel_counts.HALO_COUNTS[:-2]} == {
+        k: solo["halo"][k] for k in kernel_counts.HALO_COUNTS[:-2]}
+    assert _traffic(w0, w1) == _traffic(solo)
+    assert got["bytes_between_processes"] == _bytes_between(
+        _traffic(solo), OWNERS) > 0
+
+
 def test_plans_identical_on_every_process(runs):
     """Every plan of copies (its sources and destinations, in order) is the
     same on both processes and the one process's, the process that holds
     no shard of the y-cut box's levels included: each derives it from the
     layout alone."""
-    for run in RUNS:
+    for run in RUNS + ("forest",):
         want = runs["solo"][run]
         assert want["plans"] > 0
         for name in ("w0", "w1"):

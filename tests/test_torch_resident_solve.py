@@ -585,6 +585,8 @@ def test_dryrun_multichip_matches_jax_full_step():
     got = entry.dryrun_multichip(4, "cpu")
     assert set(got) == {"x_slabs", "forest", "pencils"}
     assert got["x_slabs"]["cuts"] == [(4, 1, 1), (4, 1, 1)]
+    # the forest's 32^3 patches are cut on four x-slabs: no batch group
+    assert got["forest"]["batch_groups"] == ()
     assert abs(got["x_slabs"]["norm"] - ref) <= 1e-10 * ref
 
     jfn, jargs = ge.entry()

@@ -34,6 +34,12 @@ and the files it wrote. Runs, in order:
              the periodic box at 8 x 32 x 32 on the (2, 2) pencils: every
              cut depth is cut along y alone, at positions 0 and 1, so that
              over two processes the second holds no shard of any of them
+  forest     composite.solve_linear on the JAX package's test forest (a
+             16^3 base, two sibling 8x12x12 patches) on a (2, 1, 2) mesh of
+             the four positions, f32 preconditioner on the kernels' paths:
+             the pair is a batch group computed on the x axis, at
+             positions 0 and 2, which over two processes are each
+             process's own
   entry      the command line's entry, main.main, on the canonical
              parameters, last (it leaves torch.distributed): over the
              processes the mesh is the one main.choose_mesh builds, one CPU
@@ -223,6 +229,47 @@ def periodic_run(mesh, extra=()) -> dict:
                                       verbose=False))
 
 
+def forest_run(mesh) -> dict:
+    """composite.solve_linear on the forest (aCoef and rhs from a numpy
+    seed, zero start) on `mesh` reshaped to (2, 1, 2)."""
+    import numpy as np
+    import torch
+
+    from mg_ic_code_tpu_torch.config import SolverConfig
+    from mg_ic_code_tpu_torch.grid.boxes import Box
+    from mg_ic_code_tpu_torch.grid.geometry import BCSpec, HierarchyGeom
+    from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+    from mg_ic_code_tpu_torch.parallel.shards import ShardSet
+    from mg_ic_code_tpu_torch.solver import composite as comp
+
+    fmesh = pmesh.make_mesh(mesh.devices, (2, 1, 2), mesh.owners, mesh.rank)
+    dom0 = Box.from_shape((16, 16, 16))
+    geom = HierarchyGeom(
+        boxes=(dom0, Box((4, 10, 10), (11, 21, 21)),
+               Box((20, 10, 10), (27, 21, 21))),
+        domain_boxes=(dom0, dom0.refine(2), dom0.refine(2)),
+        dx=(1 / 16, 1 / 32, 1 / 32), domain_length=(1.0,) * 3, bc=BCSpec(),
+        parent=(-1, 0, 0))
+    cfg = SolverConfig(alpha=1.0, beta=-1.0, max_level=1,
+                       n_cells=(16, 16, 16), num_mg_smooth=4,
+                       num_mg_iterations=2, max_iterations=60,
+                       tolerance=1e-11, precond_precision="single",
+                       smoother="pallas")
+    spec = comp.make_amr_spec(geom, cfg, "cpu", fmesh)
+    rng = np.random.default_rng(17)
+    a = [torch.tensor(rng.uniform(0.5, 2.0, geom.shape(l)))
+         for l in range(3)]
+    rhs = [torch.tensor(rng.standard_normal(geom.shape(l)))
+           for l in range(3)]
+    coefs = comp.build_coefs(spec, comp.place(spec, a))
+    out = comp.solve_linear(spec, coefs, comp.place(spec, rhs))
+    x = [v.join() if isinstance(v, ShardSet) else v for v in out.x]
+    return {"batch_groups": [list(g) for g in spec.batch_groups],
+            "positions": list(comp.batch_positions(spec, (1, 2))),
+            "owners": list(fmesh.owners), "linear_iters": int(out.iters),
+            "x": [digest(v) for v in x]}
+
+
 def main() -> None:
     outdir = sys.argv[1]
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -269,6 +316,7 @@ def main() -> None:
     pencils = pmesh.make_mesh(mesh.devices, (2, 2), mesh.owners, mesh.rank)
     record("periodic_pencil", periodic_run, pencils)
     record("periodic_ycut", periodic_run, pencils, YCUT)
+    record("forest", forest_run, mesh)
     os.makedirs("entry")
     os.chdir("entry")
     if nprocs > 1:
