@@ -49,7 +49,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
            shared memory, grid barriers per call), one grid barrier's time
            (a probe of 64 barriers against none), the wrapper's host time
            per call, and the device's own time per call (the batch enqueued
-           behind a wait, where the host time would otherwise show)
+           behind a wait, where the host time would otherwise show). The
+           bf16 tier (smoother_precision = bfloat16): gsrb_relax in every
+           form at every f32 level case the tier's path can send it (all
+           but the march rungs' 512x96x96, 960x144x144 and 256^3) and every
+           GSRB_CASES case with constant b, and both towers at every
+           TOWER_CASES chain, each against its plain bf16 version
+           (BF16_TOL; tower_down depth by depth from the inputs the kernel
+           gave each depth, tower_up as a chain), bit for bit against its
+           twin (the plain version with the kernels' colour select; the
+           towers as against the plain version) and against its f32 form
+           (BF16_CONTRACT), counted under *_bf16; the timed ones beside the
+           f32 form's times
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
            the card; the launch counters show the path went through the
@@ -99,6 +110,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
            1008 sequential), no plain version, and bit for bit to the
            records phase's sequential run where that ran (history, Krylov,
            K), with s/iteration beside it
+  bf16_tier
+           smoother_precision = bfloat16 end to end: the 4-level solve with
+           the records' patches settings (average_down = 1), beside the f32
+           run of the same configuration: converged below the tolerance
+           within 20 Picard iterations, every entry finite (no error
+           caught), the tier's launches as the hierarchy implies, no f32
+           gsrb_relax or tower launch, no plain version; the records'
+           limits (step 1 to 1e-5 and steps 2-4 to 2 % of the f32 run's,
+           Krylov within one, entry 7 <= 5e-10, below 1e-10 by entry 8)
+           reported with their readings and whether each is met;
+           s/iteration and peak memory beside the f32 run's. Then
+           make_amr_spec on the card refuses the tier on the scale7 and
+           periodic hierarchies (their march rungs have no bf16 form yet)
   periodic the periodic scalar-field box (params/periodic.txt: is_periodic
            = 1, the constant-K branch, the triple-sine field) at its full
            256^3, 3 Picard steps: K finite and negative, a contracting
@@ -204,6 +228,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import math
@@ -301,6 +326,14 @@ SOURCES = {
                          "mg_ic_code_tpu/ops/fused_sweeps.py:1032"),
     "residual_restrict_batch": ("mg_ic_code_tpu_torch/csrc/residual.cu",
                                 "mg_ic_code_tpu/ops/fused_sweeps.py:1055"),
+    # the bf16 tier of gsrb_relax and the towers (smoother_precision =
+    # bfloat16: the TPU kernels' compute_dtype)
+    "gsrb_relax_bf16": ("mg_ic_code_tpu_torch/csrc/gsrb_relax.cu",
+                        "mg_ic_code_tpu/ops/fused_sweeps.py:1032"),
+    "tower_down_bf16": ("mg_ic_code_tpu_torch/csrc/tower.cu",
+                        "mg_ic_code_tpu/ops/coarse_tower.py:206"),
+    "tower_up_bf16": ("mg_ic_code_tpu_torch/csrc/tower.cu",
+                      "mg_ic_code_tpu/ops/coarse_tower.py:234"),
 }
 # rows of the TPU kernel table (PERF.md) that one Hopper kernel serves
 TPU_KERNELS = {
@@ -332,6 +365,9 @@ TPU_KERNELS = {
     "gsrb_relax_batch": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
     "residual_restrict_batch": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
                                 "mg_ic_code_tpu/ops/pallas_kernels.py:389"],
+    "gsrb_relax_bf16": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
+    "tower_down_bf16": ["mg_ic_code_tpu/ops/coarse_tower.py:206"],
+    "tower_up_bf16": ["mg_ic_code_tpu/ops/coarse_tower.py:234"],
 }
 
 
@@ -749,12 +785,13 @@ TOWER_CASES = [
 ]
 
 
-def gsrb_forms(u, with_b: bool, kinds) -> tuple:
-    """The geometry fused_sweeps.gsrb_geometry picks for the level, and its
-    form then every other form that takes it (the slab form only f32 levels
-    with constant b whose tiles fit a block's shared memory)."""
+def gsrb_forms(u, with_b: bool, kinds, compute: int = 0) -> tuple:
+    """The geometry fused_sweeps.gsrb_geometry picks for the level (at the
+    capacity of the kernels of `compute`: 1 the bf16 tier), and its form
+    then every other form that takes it (the slab form only f32 levels with
+    constant b whose tiles fit a block's shared memory)."""
     isz = u.element_size()
-    cap = fs.gsrb_capacity(u.device, isz)
+    cap = fs.gsrb_capacity(u.device, isz, compute)
     picked = fs.gsrb_geometry(u.shape, isz, with_b, kinds, cap)
     forms = [picked.form]
     for form in fs.GSRB_FORMS:
@@ -814,6 +851,103 @@ def check_gsrb(cid: str, f: dict, lo, kw: dict, dtype, timed: bool,
     return rec
 
 
+# The bf16 tier (smoother_precision = bfloat16). A kernel against:
+#  * its twin (the plain version with the kernels' colour select,
+#    fs.gsrb_sweeps_folded(_where=True): a pass leaves the other colour's
+#    cells as they are): bit for bit; tower_down depth by depth, each
+#    depth's relaxation from the state and rhs the kernel gave it (its
+#    residual and restriction stay f32 and are held at TOL), tower_up as a
+#    whole chain;
+#  * its plain bf16 version (what the wrapper runs on the CPU; the JAX
+#    body's twin), of max|plain|: the plain version keeps the JAX body's
+#    arithmetic colour select, s = acc + par * (s - acc), which in bf16 moves
+#    a kept cell by an ulp of the would-be update acc, not of the cell, where
+#    the kernel never writes a kept cell: BF16_TOL (read on the card up to
+#    2.15 % of max|plain| for gsrb_relax, 1.5 % for a tower_down depth and
+#    2.3 % for a tower_up chain; other inputs can read more: 6.2 % at the
+#    64^3 chain's 8^3 depth on the CPU with other seeds); a tower as
+#    against its twin;
+#  * its f32 form, of max|f32| (f32 dtype and not equal as well): within the
+#    JAX package's contract (tests/test_fused_sweeps.py::
+#    test_bf16_compute_tier_tracks_f32), BF16_CONTRACT; of a tower call, its
+#    depth-0 state and its result, its other outputs reported.
+BF16 = "bfloat16"
+BF16_TOL = 0.05
+BF16_CONTRACT = 0.05
+# level cases the tier's path never sends to gsrb_relax (the march rungs
+# take them)
+BF16_SKIP = ("path_l5_512x96x96", "big_960x144x144", "periodic_path_256")
+
+
+def tier_twin(u, rhs, a, **kw):
+    """The bf16 tier as its kernels compute it (fs.gsrb_sweeps_folded with
+    the kernels' colour select)."""
+    return fs.gsrb_sweeps_folded(u, rhs, a, compute_dtype=BF16, _where=True,
+                                 **kw)
+
+
+def check_against_f32(what: str, out, f32, tol: float) -> float:
+    """The tier's result against the f32 form's: f32, not equal, within tol
+    of max|f32|; returns that ratio."""
+    err, rel = rel_err(out, f32)
+    check(out.dtype == torch.float32 and 0 < err and rel <= tol,
+          f"{what}: {out.dtype}, {rel} of max|f32| against the f32 form "
+          f"(must differ, limit {tol})")
+    return rel
+
+
+def check_gsrb_bf16(cid: str, f: dict, lo, kw: dict, timed: bool,
+                    bound: tuple | None, f32_rec: dict) -> dict:
+    """gsrb_relax in the bf16 tier (4 sweeps, constant b) through the
+    wrapper (the form gsrb_geometry picks at the tier kernels' capacity)
+    and in every other form that takes the level: one launch a call,
+    counted under gsrb_relax_bf16, the input untouched; against its plain
+    bf16 version (BF16_TOL), bit for bit against its twin (tier_twin) and
+    against the f32 kernel's result (BF16_CONTRACT).
+    Timed: as check_gsrb, beside the f32 form's times from `f32_rec`."""
+    tier = dict(compute_dtype=BF16)
+    relax = lambda fn, **x: fn(f["u"], f["rhs"], f["a"], None, nsweeps=4,
+                               lo=lo, **kw, **x)
+    ref = relax(fs.gsrb_relax_plain, **tier)
+    twin = tier_twin(f["u"], f["rhs"], f["a"], nsweeps=4, lo=lo, **kw)
+    f32 = relax(fs.gsrb_relax)
+    u_in = f["u"].clone()
+    geom, forms = gsrb_forms(f["u"], False, kw["kinds"], compute=1)
+    worst, against = (0.0, 0.0), 0.0
+    for form in forms:
+        out = one_launch("gsrb_relax_bf16", lambda: (
+            relax(fs.gsrb_relax, **tier) if form == geom.form
+            else relax(fs.gsrb_launch, form=form, **tier)))
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        worst = max(worst, (rel, err))
+        check(rel <= BF16_TOL and bool(torch.isfinite(out).all()),
+              f"gsrb_relax_bf16 {cid} {form}: {rel} of max|plain| > "
+              f"{BF16_TOL}")
+        check(torch.equal(out, twin), f"gsrb_relax_bf16 {cid} {form}: not "
+              f"bit for bit its twin: {rel_err(out, twin)}")
+        against = max(against, check_against_f32(
+            f"gsrb_relax_bf16 {cid} {form}", out, f32, BF16_CONTRACT))
+        check(torch.equal(u_in, f["u"]),
+              f"gsrb_relax_bf16 {cid} {form}: input modified")
+    rec = {"max_abs_err": worst[1], "rel_err": worst[0],
+           "tolerance": BF16_TOL, "equals_twin": True, "against_f32": against,
+           "against_f32_limit": BF16_CONTRACT, "form": geom.form,
+           "blocks": geom.blocks, "forms_checked": forms}
+    if timed:
+        run = lambda: relax(fs.gsrb_relax, **tier)
+        rec.update(
+            ms=time_ms(run), device_ms=device_ms(run), host_us=host_us(run),
+            plain_ms=time_ms(lambda: relax(fs.gsrb_relax_plain, **tier),
+                             reps=10, warmup=1),
+            bound_ms=bound[0], bound_by=bound[1],
+            forms_device_ms={form: device_ms(lambda: relax(
+                fs.gsrb_launch, form=form, **tier)) for form in forms},
+            f32_ms=f32_rec.get("ms"), f32_device_ms=f32_rec.get("device_ms"),
+            f32_host_us=f32_rec.get("host_us"), f32_form=f32_rec["form"])
+    return rec
+
+
 def check_level_case(case, dtype) -> dict:
     cid, shape, kinds, lo, rho, with_b, timed = case
     f = level_fields(shape, dtype, seed=1, with_b=with_b)
@@ -826,6 +960,11 @@ def check_level_case(case, dtype) -> dict:
     rec["gsrb_relax"] = check_gsrb(
         cid, f, lo, kw, dtype, timed,
         bound_ms(level_bytes(ncells, isz, narr), 4 * 32.0 * ncells))
+    if dtype == torch.float32 and cid not in BF16_SKIP:
+        rec["gsrb_relax_bf16"] = check_gsrb_bf16(
+            cid, f, lo, kw, timed,
+            bound_ms(level_bytes(ncells, isz, 4), 4 * 32.0 * ncells),
+            rec["gsrb_relax"])
 
     rec.update(check_residual(cid, f, kw, dtype, timed))
     return rec
@@ -972,9 +1111,13 @@ def check_gsrb_case(case, dtype) -> dict:
     cid, shape, kinds, lo, with_b = case
     f = level_fields(shape, dtype, seed=5, with_b=with_b)
     kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.37)
-    return {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
-            "tolerance": TOL[dtype],
-            "gsrb_relax": check_gsrb(cid, f, lo, kw, dtype, False)}
+    rec = {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
+           "tolerance": TOL[dtype],
+           "gsrb_relax": check_gsrb(cid, f, lo, kw, dtype, False)}
+    if dtype == torch.float32 and not with_b:
+        rec["gsrb_relax_bf16"] = check_gsrb_bf16(cid, f, lo, kw, False, None,
+                                                 rec["gsrb_relax"])
+    return rec
 
 
 # batches of same-shape sibling patches (gsrb_relax_batch,
@@ -1386,7 +1529,129 @@ def check_tower_case(case, dtype) -> dict:
             bound_ms=b, bound_by=by)
         if dtype == torch.float32 and blocks > 1:
             rec["geometry"]["barrier_us"] = barrier_us(blocks)
+    if dtype == torch.float32:
+        rec.update(check_tower_bf16(cid, spec, f, a_list, timed, rec))
     return rec
+
+
+def tower_depths_bf16(what: str, spec, states, starts, rhs_list,
+                      a_list) -> list:
+    """Depth k of a bf16 tower call: states[k], the state the kernel wrote,
+    is bit for bit its twin's relaxation (tier_twin) of starts[k] against
+    rhs_list[k], the state and rhs the kernel gave that depth, and within
+    BF16_TOL of max|plain| of the plain bf16 version's. Returns each
+    depth's reading against the plain version."""
+    out = []
+    for k, (x, u0, rhs) in enumerate(zip(states, starts, rhs_list)):
+        kw = dict(nsweeps=spec.nsmooth, kinds=spec.kinds, rho=spec.rho[k],
+                  alpha=spec.alpha, beta=spec.beta, dx=spec.dx[k],
+                  lo=spec.boxes[k].lo)
+        twin = tier_twin(u0, rhs, a_list[k], **kw)
+        check(torch.equal(x, twin), f"{what} depth {k}: not bit for bit its "
+              f"twin: {rel_err(x, twin)}")
+        rel = rel_err(x, fs.gsrb_sweeps_folded(u0, rhs, a_list[k],
+                                               compute_dtype=BF16, **kw))[1]
+        check(rel <= BF16_TOL and bool(torch.isfinite(x).all()),
+              f"{what} depth {k}: {rel} of max|plain| > {BF16_TOL}")
+        out.append(rel)
+    return out
+
+
+def check_tower_bf16(cid: str, spec, f: dict, a_list, timed: bool,
+                     f32_rec: dict) -> dict:
+    """tower_down and tower_up in the bf16 tier (the spec's smoother_compute
+    "bfloat16"): one launch a call counted under *_bf16, the inputs
+    untouched. tower_down depth by depth (tower_depths_bf16: bit for bit
+    against the twin and within BF16_TOL of the plain bf16 version,
+    from the inputs the kernel gave each depth; its shared-memory tail
+    writes every depth's state too), its restricted residuals within TOL of
+    the plain f32 residual and restriction of the kernel's states; tower_up
+    (whose tail keeps the states of its depths in shared memory) as a
+    whole chain: bit for bit its twin (the plain version with the kernels'
+    colour select), within BF16_TOL of the plain version; against
+    the f32 kernel's from the same inputs: tower_down's depth-0 state (one
+    relaxation of the caller's u) and tower_up's result at BF16_CONTRACT,
+    every output's deviation reported; tower_down's outputs against the
+    plain version's whole chain reported. Timed: as check_tower_case,
+    beside the f32 form's times and bounds from `f32_rec` (the operands
+    stay f32)."""
+    sb = dataclasses.replace(spec, smoother_compute=BF16)
+    nd = spec.ndepths
+    inputs = [t.clone() for t in [f["u"], f["rhs"]] + a_list]
+    down = lambda sp, fn: fn(sp, 0, f["u"], f["rhs"], a_list)
+    kd = one_launch("tower_down_bf16", lambda: down(sb, ct.tower_down))
+    pd, fd = down(sb, ct.tower_down_plain), down(spec, ct.tower_down)
+    torch.cuda.synchronize()
+    states, rests = list(kd[0]) + [kd[2]], list(kd[1])
+    rhs_in = [f["rhs"]] + rests
+    per_depth = tower_depths_bf16(
+        f"tower_down_bf16 {cid}", spec, states,
+        [f["u"]] + [torch.zeros_like(r) for r in rests], rhs_in, a_list)
+    rest_err = 0.0
+    for k in range(nd - 1):
+        kw = dict(kinds=spec.kinds, rho=spec.rho[k], alpha=spec.alpha,
+                  beta=spec.beta, dx=spec.dx[k])
+        ref = ct._restrict_pairs(fs.residual_plain(states[k], rhs_in[k],
+                                                   a_list[k], **kw))
+        rest_err = max(rest_err, rel_err(rests[k], ref)[1])
+    check(rest_err <= TOL[torch.float32], f"tower_down_bf16 {cid}: "
+          f"restricted residual {rest_err} of max|plain| > TOL")
+    flat = lambda o: list(o[0]) + list(o[1]) + [o[2]]  # noqa: E731
+    against = check_against_f32(f"tower_down_bf16 {cid} depth 0",
+                                kd[0][0], fd[0][0], BF16_CONTRACT)
+    out = {"tower_down_bf16": {
+        "max_abs_err": max(rel_err(x, p)[0] for x, p in zip(
+            states, list(pd[0]) + [pd[2]])),
+        "rel_err": max(per_depth), "per_depth_rel_err": per_depth,
+        "tolerance": BF16_TOL, "equals_twin": True,
+        "restricted_rel_err": rest_err,
+        "chain_rel_err_plain": max(rel_err(x, p)[1] for x, p in zip(
+            flat(kd), flat(pd))),
+        "against_f32": against, "against_f32_limit": BF16_CONTRACT,
+        "outputs_against_f32": [rel_err(x, y)[1] for x, y in zip(
+            flat(kd), flat(fd))]}}
+    pu, pr, pb = pd
+    e_bot = 0.5 * pb
+    rhs_list = [f["rhs"]] + list(pr)
+    up_in = [e_bot.clone()] + [t.clone() for t in list(pu) + list(pr)]
+    up = lambda sp, fn: fn(sp, 0, e_bot, list(pu), rhs_list[:-1],
+                           a_list[:-1])
+    ku = one_launch("tower_up_bf16", lambda: up(sb, ct.tower_up))
+    ref, f32 = up(sb, ct.tower_up_plain), up(spec, ct.tower_up)
+    torch.cuda.synchronize()
+    # tower_up has no f32 step but the prolongation's one add, which the
+    # plain version makes alike: the whole chain is its twin bit for bit
+    twin = ct.tower_up_plain(sb, 0, e_bot, list(pu), rhs_list[:-1],
+                             a_list[:-1], _where=True)
+    check(torch.equal(ku, twin), f"tower_up_bf16 {cid}: not bit for bit its "
+          f"twin: {rel_err(ku, twin)}")
+    err, rel = rel_err(ku, ref)
+    check(rel <= BF16_TOL and bool(torch.isfinite(ku).all()),
+          f"tower_up_bf16 {cid}: {rel} of max|plain| > {BF16_TOL}")
+    out["tower_up_bf16"] = {
+        "max_abs_err": err, "rel_err": rel, "tolerance": BF16_TOL,
+        "equals_twin": True,
+        "against_f32": check_against_f32(f"tower_up_bf16 {cid}", ku, f32,
+                                         BF16_CONTRACT),
+        "against_f32_limit": BF16_CONTRACT}
+    check(all(torch.equal(x, y) for x, y in zip(
+        inputs + up_in, [f["u"], f["rhs"]] + a_list + [e_bot] + list(pu)
+        + list(pr))), f"tower_bf16 {cid}: an input was written")
+    if timed:
+        for name, run, plain, f32_name in (
+                ("tower_down_bf16", lambda: down(sb, ct.tower_down),
+                 lambda: down(sb, ct.tower_down_plain), "tower_down"),
+                ("tower_up_bf16", lambda: up(sb, ct.tower_up),
+                 lambda: up(sb, ct.tower_up_plain), "tower_up")):
+            ref32 = f32_rec[f32_name]
+            out[name].update(
+                ms=time_ms(run), device_ms=device_ms(run),
+                host_us=host_us(run),
+                plain_ms=time_ms(plain, reps=10, warmup=1),
+                bound_ms=ref32["bound_ms"], bound_by=ref32["bound_by"],
+                f32_ms=ref32["ms"], f32_device_ms=ref32["device_ms"],
+                f32_host_us=ref32["host_us"])
+    return out
 
 
 # sharded cases: (id, level shape, kinds, lo, mesh shape, shard, timed). The
@@ -1735,7 +2000,8 @@ TOWERS = ("tower_down", "tower_up")
 # kernels whose wrapper call is one kernel launch on the solve paths (the
 # batched forms: groups of at most fs.BATCH_MAX patches)
 ONE_LAUNCH = TOWERS + ("gsrb_relax", "residual", "residual_restrict",
-                       "gsrb_relax_batch", "residual_restrict_batch")
+                       "gsrb_relax_batch", "residual_restrict_batch",
+                       "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16")
 
 
 def check_one_launch(counts: dict, what: str) -> None:
@@ -1813,8 +2079,12 @@ def run_solve(overrides, label: str, keep: dict | None = None,
     }
 
 
+# the solve phase's configuration (the bf16_tier phase's with average_down)
+SOLVE_BASE = ["max_level = 3", "precond_precision = single", "verbosity = 0"]
+
+
 def phase_solve() -> dict:
-    base = ["max_level = 3", "precond_precision = single", "verbosity = 0"]
+    base = SOLVE_BASE
     kernel_counts.reset()
     main = run_solve(base, "main")
     counts = kernel_counts.snapshot()  # the main path's run, nothing else
@@ -2551,6 +2821,136 @@ def phase_forest_batching() -> dict:
 
 # the forest_batching phase's counts (its kernels' main path)
 FOREST_COUNTS: dict = {}
+
+
+# ------------------------------------------------------------- bf16_tier
+
+# the bf16_tier phase's counts (the tier kernels' main paths)
+BF16_COUNTS: dict = {}
+BF16_OVERRIDE = ["smoother_precision = bfloat16"]
+# the tier's end-to-end run: the 4-level canonical solve (SOLVE_BASE) with
+# the records' patches settings (level_decomposition = patches,
+# average_down = 1; at max_level 3 the same four boxes), with room for the
+# tier's slower Picard contraction (it converged by entry 14 in the plain
+# versions on the CPU: scripts/bf16_tier.py, patches3). Without
+# average_down (the solve phase's run) and at the records' full depth
+# (max_level 6) the tier does not converge, in the JAX package's arithmetic
+# as in the kernels' (scripts/bf16_tier.py; PERF.md section 6).
+BF16_SOLVE = SOLVE_BASE + ["level_decomposition = patches",
+                           "average_down = 1", "max_NL_iterations = 20"]
+
+
+def check_tier_route(run: dict, counts: dict, spec, what: str) -> None:
+    """The kernels of a run in the bf16 tier: every relaxation of every
+    entry a gsrb_relax_bf16 call as often as the hierarchy and the Krylov
+    counts imply (relax_calls_of, counted by shape at the gsrb_relax
+    wrapper, which takes the tier's calls), the base chain in the towers'
+    tier, the residual's two forms as at f32 (residual_calls_of); no f32
+    gsrb_relax or tower launch (no batch group, constant b: nothing the
+    tier leaves at f32), no march, no plain version, one launch a call."""
+    check(not spec.batch_groups, f"{what}: batch groups {spec.batch_groups}")
+    check(all(ls.smoother_compute == BF16 for ls in spec.level_specs),
+          f"{what}: smoother_compute not bfloat16 on every level")
+    apps = 2 * sum(run["linear_iters"])
+    want = {k: n * apps for k, n in relax_calls_of(spec)["gsrb_relax"].items()}
+    got = {k: v for k, v in counts["by_shape"]["gsrb_relax"].items() if v}
+    launches = counts["launches"]
+    check(got == want and launches["gsrb_relax_bf16"] == sum(want.values())
+          and sum(want.values()) > 0,
+          f"{what}: gsrb_relax_bf16 calls {launches['gsrb_relax_bf16']}, by "
+          f"shape {got}; the hierarchy implies {want}")
+    launched = {"gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16",
+                "residual", "residual_restrict"}
+    check(all(launches[k] > 0 for k in launched)
+          and all(launches[k] == 0 for k in kernel_counts.KERNELS
+                  if k not in launched),
+          f"{what}: kernels launched {launches}, the tier's path takes "
+          f"{sorted(launched)}")
+    check_one_launch(counts, what)
+    check(all(v == 0 for v in counts["plain_calls"].values()),
+          f"{what}: a plain version ran on the card's path: {counts}")
+    check_residual_calls(run, what, residual_calls_of(spec))
+
+
+def tier_against_f32(run: dict, f32: dict) -> dict:
+    """A bf16 run beside the f32 run of the same configuration, with the
+    records' limits, each reading with its limit and whether it is met
+    (step 1 within 1e-5 of the f32 run's; steps 2-4 within 2 %; Krylov at
+    most one more a Picard iteration; entry 7 at most 5e-10 and below
+    1e-10 by entry 8), and both runs' s/iteration and peak memory."""
+    h, h32 = run["history"], f32["history"]
+    it, it32 = run["linear_iters"], f32["linear_iters"]
+    step1 = abs(h[0] - h32[0]) / h32[0]
+    steps = [abs(a - b) / b for a, b in zip(h[1:4], h32[1:4])]
+    extra = [a - b for a, b in zip(it, it32)]
+    limits = {
+        "step1_rel_diff_f32": [step1, 1e-5, step1 <= 1e-5],
+        "steps2_4_rel_diff_f32": [steps, 2e-2, bool(steps)
+                                  and max(steps) <= 2e-2],
+        "krylov_minus_f32": [extra, 1, max(extra) <= 1],
+        "entry7": [h[6] if len(h) > 6 else None, 5e-10,
+                   len(h) < 7 or h[6] <= 5e-10],
+        "below_1e-10_by_entry_8": [len(h), 8, len(h) <= 8]}
+    return {"records_limits": limits,
+            "records_limits_met": all(v[2] for v in limits.values()),
+            "history_f32": h32, "linear_iters_f32": it32,
+            "s_per_iteration": run["s_per_iteration"],
+            "s_per_iteration_f32": f32["s_per_iteration"],
+            "max_memory_allocated": run["max_memory_allocated"],
+            "max_memory_allocated_f32": f32["max_memory_allocated"]}
+
+
+def phase_bf16_tier() -> dict:
+    """smoother_precision = bfloat16 end to end: BF16_SOLVE through
+    load_params -> generate_hierarchy -> poisson_solve, beside the f32 run
+    of the same configuration. The bf16 run must converge (every entry
+    finite, below the tolerance within its 20 Picard iterations; a
+    NonConvergenceError ends the phase) and go the tier's route
+    (check_tier_route: the tier's launches as the hierarchy implies, no f32
+    gsrb_relax or tower launch, no plain version); the records' limits are
+    reported beside the f32 run's readings (tier_against_f32), each with
+    whether it is met. Then the gate on the card: make_amr_spec refuses the
+    tier on the scale7 and periodic hierarchies, whose march rungs have no
+    bf16 form yet."""
+    out = {"phase": "bf16_tier", "overrides": BF16_SOLVE + BF16_OVERRIDE}
+    f32 = run_solve(BF16_SOLVE, "solve_avgdown_f32")
+    kernel_counts.reset()
+    with calls_by_shape() as by_shape:
+        run = run_solve(BF16_SOLVE + BF16_OVERRIDE, "solve_avgdown_bf16")
+    counts = dict(kernel_counts.snapshot(), by_shape=by_shape)
+    cfg = mgt.load_params(CANONICAL, overrides=BF16_SOLVE + BF16_OVERRIDE)
+    spec = comp.make_amr_spec(generate_hierarchy(cfg), cfg)
+    h = run["history"]
+    check(all(math.isfinite(x) for x in h) and run["converged"]
+          and h[-1] < cfg.tolerance,
+          f"solve_avgdown_bf16: not converged: history {h}, Krylov "
+          f"{run['linear_iters']}")
+    check(f32["converged"], f"solve_avgdown_f32: history {f32['history']}")
+    check(run["levels"] == f32["levels"], f"solve_avgdown_bf16: levels "
+          f"{run['levels']}, f32 {f32['levels']}")
+    check_tier_route(run, counts, spec, "solve_avgdown_bf16")
+    BF16_COUNTS["bf16_tier"] = counts
+    torch.cuda.empty_cache()
+    out["solve_avgdown"] = {**tier_against_f32(run, f32), **counts, **run}
+
+    gate = {}
+    for name, params, over, rung in (
+            ("scale7", CANONICAL, ["max_level = 6"], "wave"),
+            ("periodic", PERIODIC, [], "multisweep")):
+        cfg = mgt.load_params(params, overrides=over + BF16_OVERRIDE + [
+            "precond_precision = single", "verbosity = 0"])
+        geom = generate_hierarchy(cfg)
+        try:
+            comp.make_amr_spec(geom, cfg)
+            refused = None
+        except NotImplementedError as e:
+            refused = str(e)
+        check(refused is not None and f"the {rung} rung" in refused,
+              f"bf16 gate on {name}: {refused}")
+        gate[name] = refused
+    out["gate"] = gate
+    emit(out)
+    return out
 
 
 # -------------------------------------------------------------- periodic
@@ -3679,7 +4079,12 @@ def process_worker(args) -> int:
     except SmokeFailure as e:
         print(f"process {rank} FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    print("PROCESS_RESULT " + json.dumps(out), flush=True)
+    # the line in ONE write: the workers share one log file, and print()
+    # writes a line longer than the stream's buffer and its newline apart,
+    # so the other worker's line could land between them
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(),
+             ("PROCESS_RESULT " + json.dumps(out) + "\n").encode())
     dist.finalize()
     return 0
 
@@ -4036,6 +4441,11 @@ PATH_CASES = {
                         "residual": "patch_d6_144",
                         "tower_down": "path_l0_64", "tower_up": "path_l0_64"},
 }
+# the bf16 tier (phase bf16_tier): the 4-level solve with average_down
+# (its largest level, its base chain)
+PATH_CASES["bf16_tier"] = {"gsrb_relax_bf16": "path_l3_176x64x64",
+                           "tower_down_bf16": "path_l0_64",
+                           "tower_up_bf16": "path_l0_64"}
 # the periodic box on 4 x-slabs over two processes (phase processes): the
 # kernels of the sharded x-slabs at the same shapes, launched by both
 PATH_CASES["processes"] = dict(PATH_CASES["sharded_x"])
@@ -4046,7 +4456,9 @@ MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
              "multisweep_relax_tiled_pre": "sharded_pencil",
              "gsrb_relax_batch": "forest_batching",
-             "residual_restrict_batch": "forest_batching"}
+             "residual_restrict_batch": "forest_batching",
+             "gsrb_relax_bf16": "bf16_tier", "tower_down_bf16": "bf16_tier",
+             "tower_up_bf16": "bf16_tier"}
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_us")
 
@@ -4069,6 +4481,7 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                for p in ("sharded_x", "sharded_pencil", "sharded7")},
             "patches": records["runs"]["patches"] if records else None,
             "forest_batching": FOREST_COUNTS.get("forest_batching"),
+            "bf16_tier": BF16_COUNTS.get("bf16_tier"),
             "processes": PROCESS_COUNTS.get("processes")}
 
     def measured(name: str, path: str) -> dict:
@@ -4095,8 +4508,10 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                                     else None),
                 **{k: rec.get(k) for k in MEASURED},
                 # sweeps per timed call, where the kernel takes a count; the
-                # launch's form and blocks, where the kernel has forms
-                **{k: rec[k] for k in ("nsweeps", "form", "blocks")
+                # launch's form and blocks, where the kernel has forms; the
+                # f32 form's times beside the bf16 tier's
+                **{k: rec[k] for k in ("nsweeps", "form", "blocks", "f32_ms",
+                                       "f32_device_ms", "f32_host_us")
                    if k in rec}}
             if run and name in run.get("by_shape", {}):
                 paths[path]["calls_by_shape"] = run["by_shape"][name]
@@ -4127,8 +4542,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
 
 
 PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "records",
-          "forest_batching", "periodic", "cli", "sharded", "processes",
-          "lowdim")
+          "forest_batching", "bf16_tier", "periodic", "cli", "sharded",
+          "processes", "lowdim")
 # asked for by name only: the default run needs one card
 ON_REQUEST = ("cards", "processes_cards")
 
@@ -4167,6 +4582,7 @@ def main() -> int:
            "solve": phase_solve, "lock3": phase_lock3,
            "scale7": phase_scale7, "records": phase_records,
            "forest_batching": phase_forest_batching,
+           "bf16_tier": phase_bf16_tier,
            "periodic": phase_periodic,
            "cli": phase_cli, "sharded": phase_sharded,
            "processes": phase_processes,

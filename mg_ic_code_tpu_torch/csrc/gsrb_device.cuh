@@ -10,9 +10,28 @@
 // of any size, int where the level is below 2^31 cells. PER says which axes
 // are periodic when the caller knows it: 1 every axis, 0 none, -1 read
 // p.periodic (a branch the compiler resolves by computing both forms).
+// C is the type of the colour passes' arithmetic: the storage type T
+// itself, or __nv_bfloat16 beside float storage (smoother_precision =
+// bfloat16: gsrb_update_row_bf16).
 #pragma once
 
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "mg_kernels.h"
+
+// x as colour passes of compute type C read it: unchanged where C is the
+// storage type T, else rounded to bf16 and held in T (exactly). The state
+// is rounded so where it enters a relaxation: the caller's u, a prolonged
+// state; every value a bf16 pass writes is a bf16 value already.
+template <typename C, typename T>
+__device__ __forceinline__ T as_compute(T x) {
+  if constexpr (std::is_same<C, T>::value)
+    return x;
+  else
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // The neighbours of a cell along one axis, one load each way whatever the
 // axis: across a periodic face the wrapped neighbour, across another face
@@ -90,49 +109,108 @@ __device__ __forceinline__ RowFold<T> row_fold(const LevelParams<T>& p, int i,
   return r;
 }
 
+// The update of gsrb_update_row in the bf16 tier (T float, C bf16): the
+// fold in f32, each operation rounded once as in the plain version
+// (fused_sweeps.gsrb_sweeps_folded; no contraction into an fma), each folded
+// term (K, lambda * rhs, P, the weights PA = P * wa and PB = P * wb of an
+// open axis) rounded to bf16 once; then, in bf16 with one rounding an
+// operation and in the plain version's order, acc = K * uc + T and per axis
+// acc + P * (up + um) across a periodic one, else (acc + PA * up) + PB * um.
+// The operations are __hmul_rn / __hadd_rn: the compiler contracts __hmul
+// and __hadd into a bf16 fma (one rounding where torch rounds twice).
+// uc and the neighbours hold bf16 values (as_compute), so reading them as
+// bf16 is exact. The result is a bf16 value, returned in f32 exactly.
+// 1/diag is the division in every kernel of the tier, the towers' too (not
+// their recip()), so that each is its plain version's twin bit for bit.
+template <int PER>
+__device__ __forceinline__ float gsrb_update_row_bf16(
+    float uc, const float (&up)[3], const float (&um)[3], float av, float rv,
+    const RowFold<float>& rf, const LevelParams<float>& p, int k) {
+  const auto bf = [](float x) { return __float2bfloat16_rn(x); };
+  const float diag = __fadd_rn(__fmul_rn(p.alpha, av), p.six_b_inv);
+  const float lam = __fdiv_rn(1.0f, diag);
+  const float P = __fmul_rn(lam, p.b_inv);
+  const bool pz = PER < 0 ? p.periodic[2] != 0 : PER == 1;
+  const AxisFold<float> z = axis_fold<float>(k, p.nz, p.c0[2][0],
+                                             p.c1[2][0], p.c0[2][1],
+                                             p.c1[2][1]);
+  const float c_sum = pz ? rf.c_xy : rf.c_xy + z.c;
+  const float k_uc =
+      __fadd_rn(__fsub_rn(1.0f, __fmul_rn(lam, __fmul_rn(p.alpha, av))),
+                __fmul_rn(P, __fsub_rn(c_sum, 6.0f)));
+  __nv_bfloat16 acc =
+      __hadd_rn(__hmul_rn(bf(k_uc), bf(uc)), bf(__fmul_rn(lam, rv)));
+  const bool per[3] = {rf.px, rf.py, pz};
+  const AxisFold<float>* fold[3] = {&rf.x, &rf.y, &z};
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const AxisFold<float>& f = *fold[ax];
+    if (per[ax]) {
+      acc = __hadd_rn(
+          acc, __hmul_rn(bf(P), __hadd_rn(bf(up[ax]), bf(um[ax]))));
+    } else {
+      acc = __hadd_rn(acc, __hmul_rn(bf(__fmul_rn(P, f.wa)),
+                                     bf(f.hi ? 0.0f : up[ax])));
+      acc = __hadd_rn(acc, __hmul_rn(bf(__fmul_rn(P, f.wb)),
+                                     bf(f.lo ? 0.0f : um[ax])));
+    }
+  }
+  return __bfloat162float(acc);
+}
+
 // The new value of cell (i, j, k) from its own value uc, its neighbours
 // (up[axis], um[axis]: i + 1 and i - 1 along each axis, as axis_pair gives
 // them), a = av, rhs = rv, bCoef = bv (with_b; else constant 1) and the
 // row's terms rf (row_fold of (i, j)). FAST: 1/diag by recip() (within an
-// ulp of the quotient; the towers), else by division (gsrb_relax).
-template <typename T, bool FAST, int PER>
+// ulp of the quotient; the towers), else by division (gsrb_relax). C: the
+// arithmetic's type (gsrb_update_row_bf16 where it is not T, which divides
+// whatever FAST says; constant b).
+template <typename T, bool FAST, int PER, typename C = T>
 __device__ __forceinline__ T gsrb_update_row(T uc, const T (&up)[3],
                                              const T (&um)[3], T av, T rv,
                                              bool with_b, T bv,
                                              const RowFold<T>& rf,
                                              const LevelParams<T>& p, int k) {
-  const T diag = p.alpha * av + p.six_b_inv;
-  const T lam = FAST ? recip(diag) : (T)1 / diag;
-  T P = lam * p.b_inv;
-  if (with_b) P = P * bv;
-  const bool pz = PER < 0 ? p.periodic[2] != 0 : PER == 1;
-  T nb = (T)0;  // neighbour part of the update
-  fold_axis<T>(up[0], um[0], rf.px, rf.x, P, nb);
-  fold_axis<T>(up[1], um[1], rf.py, rf.y, P, nb);
-  const AxisFold<T> z = axis_fold<T>(k, p.nz, p.c0[2][0], p.c1[2][0],
-                                     p.c0[2][1], p.c1[2][1]);
-  fold_axis<T>(up[2], um[2], pz, z, P, nb);
-  // c0 feed-through of the faces this cell touches
-  const T c_sum = pz ? rf.c_xy : rf.c_xy + z.c;
-  const T k_uc = ((T)1 - lam * (p.alpha * av)) + P * (c_sum - (T)6);
-  return (k_uc * uc + lam * rv) + nb;
+  if constexpr (!std::is_same<C, T>::value) {
+    static_assert(std::is_same<T, float>::value &&
+                      std::is_same<C, __nv_bfloat16>::value,
+                  "the bf16 tier sweeps f32 storage");
+    return gsrb_update_row_bf16<PER>(uc, up, um, av, rv, rf, p, k);
+  } else {
+    const T diag = p.alpha * av + p.six_b_inv;
+    const T lam = FAST ? recip(diag) : (T)1 / diag;
+    T P = lam * p.b_inv;
+    if (with_b) P = P * bv;
+    const bool pz = PER < 0 ? p.periodic[2] != 0 : PER == 1;
+    T nb = (T)0;  // neighbour part of the update
+    fold_axis<T>(up[0], um[0], rf.px, rf.x, P, nb);
+    fold_axis<T>(up[1], um[1], rf.py, rf.y, P, nb);
+    const AxisFold<T> z = axis_fold<T>(k, p.nz, p.c0[2][0], p.c1[2][0],
+                                       p.c0[2][1], p.c1[2][1]);
+    fold_axis<T>(up[2], um[2], pz, z, P, nb);
+    // c0 feed-through of the faces this cell touches
+    const T c_sum = pz ? rf.c_xy : rf.c_xy + z.c;
+    const T k_uc = ((T)1 - lam * (p.alpha * av)) + P * (c_sum - (T)6);
+    return (k_uc * uc + lam * rv) + nb;
+  }
 }
 
 // gsrb_update_row with the row's terms worked out for the one cell.
-template <typename T, bool FAST = false, int PER = -1>
+template <typename T, bool FAST = false, int PER = -1, typename C = T>
 __device__ __forceinline__ T gsrb_update(T uc, const T (&up)[3],
                                          const T (&um)[3], T av, T rv,
                                          bool with_b, T bv,
                                          const LevelParams<T>& p, int i,
                                          int j, int k) {
-  return gsrb_update_row<T, FAST, PER>(uc, up, um, av, rv, with_b, bv,
-                                       row_fold<T, PER>(p, i, j), p, k);
+  return gsrb_update_row<T, FAST, PER, C>(uc, up, um, av, rv, with_b, bv,
+                                          row_fold<T, PER>(p, i, j), p, k);
 }
 
 // The new value of cell (i, j, k) at linear index idx, its state read
-// through get(q), from a = av, rhs = rv and b (null: constant bCoef = 1).
+// through get(q), from a = av, rhs = rv and b (null: constant bCoef = 1),
+// in the arithmetic of C.
 template <typename T, typename I, bool FAST = false, int PER = -1,
-          typename Get>
+          typename C = T, typename Get>
 __device__ __forceinline__ T gsrb_cell(const Get& get, T av, T rv,
                                        const T* b, const LevelParams<T>& p,
                                        int i, int j, int k, I idx) {
@@ -142,6 +220,8 @@ __device__ __forceinline__ T gsrb_cell(const Get& get, T av, T rv,
   axis_pair<T, I, PER>(get, idx, j, p.ny, sy, p.periodic[1], up[1], um[1]);
   axis_pair<T, I, PER>(get, idx, k, p.nz, (I)1, p.periodic[2], up[2],
                        um[2]);
-  return gsrb_update<T, FAST, PER>(get(idx), up, um, av, rv, b != nullptr,
-                                   b != nullptr ? b[idx] : (T)0, p, i, j, k);
+  return gsrb_update<T, FAST, PER, C>(get(idx), up, um, av, rv,
+                                      b != nullptr,
+                                      b != nullptr ? b[idx] : (T)0, p, i, j,
+                                      k);
 }

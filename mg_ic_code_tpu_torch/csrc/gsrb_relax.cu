@@ -43,7 +43,18 @@
 //    1024 threads a block: the update is issue-bound.
 // Both forms compute exactly what the pass kernel below computes, with the
 // same arithmetic in the same order (gsrb_update_row): gsrb_full_sweep ==
-// gsrb_relax(nsweeps = 1) bitwise. The pass kernel (one launch per colour
+// gsrb_relax(nsweeps = 1) bitwise.
+//
+// The bf16 tier (smoother_precision = bfloat16; mgk_gsrb_relax's `compute`
+// 1, f32 levels with constant b): the same two forms with the colour passes'
+// arithmetic in bf16 (C = __nv_bfloat16 beside T = float:
+// gsrb_update_row_bf16), the counterpart of resident_relax's compute_dtype
+// (the body resident_relax_values: fold in f32, round the folded terms and
+// the state to bf16 once, passes in bf16, the result back in f32). The
+// state is rounded where it enters: the grid form's first pass rounds every
+// cell it reads from the caller's u (both colours), the slab form its window
+// once loaded. Storage stays f32 (bf16 values in f32: no halved tile, no
+// packed pairs); the f32 and f64 instantiations are the ones without it. The pass kernel (one launch per colour
 // pass) is the entry point of gsrb_full_sweep / gsrb_half_sweep.
 //
 // A batch (mgk_gsrb_relax_batch: the same-shape sibling patches of an AMR
@@ -191,7 +202,7 @@ struct RelaxArgs {
   int start[2 * kMaxSlabs + 2];
 };
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads, 1)
 relax_grid_kernel(const __grid_constant__ RelaxArgs<T> g) {
   cg::grid_group grid = cg::this_grid();
@@ -206,19 +217,21 @@ relax_grid_kernel(const __grid_constant__ RelaxArgs<T> g) {
     const T* u0 = g.u[patch];
     const T *rhs = g.rhs[patch], *a = g.a[patch], *b = g.b[patch];
     T* out = g.out[patch];
-    const auto get = [u0](int q) { return u0[q]; };
+    const auto get = [u0](int q) { return as_compute<C>(u0[q]); };
     const bool update = g.npass > 0;
     if (g.per == 1)
-      first_pass<false, 1>(out, get, rhs, a, b, g.p, g.par, update, w, many);
+      first_pass<false, 1, C>(out, get, rhs, a, b, g.p, g.par, update, w,
+                              many);
     else if (g.per == 0)
-      first_pass<false, 0>(out, get, rhs, a, b, g.p, g.par, update, w, many);
+      first_pass<false, 0, C>(out, get, rhs, a, b, g.p, g.par, update, w,
+                              many);
     else
-      first_pass<false, -1>(out, get, rhs, a, b, g.p, g.par, update, w,
-                            many);
+      first_pass<false, -1, C>(out, get, rhs, a, b, g.p, g.par, update, w,
+                               many);
     for (int pass = 1; pass < g.npass; ++pass) {
       grid.sync();
-      pass_in_place<false>(out, rhs, a, b, g.p, (g.par + pass) & 1, w, many,
-                           g.per);
+      pass_in_place<false, C>(out, rhs, a, b, g.p, (g.par + pass) & 1, w,
+                              many, g.per);
     }
   }
 }
@@ -297,8 +310,8 @@ constexpr int kRowCells = 4;
 // colour in the tile, as items (li, lj, seg) of the (bx, by, L) box, L =
 // ceil(nz / 2 / kRowCells) segments a row: segment seg takes the z pairs
 // seg, seg + L, ... of row (li, lj) (neighbouring threads on neighbouring
-// pairs), all its loads ahead of its stores.
-template <int PER>
+// pairs), all its loads ahead of its stores; in the arithmetic of C.
+template <int PER, typename C>
 __device__ __forceinline__ void tile_pass(float* W, const float* A,
                                           const float* R, const Tile& t,
                                           const LevelParams<float>& p,
@@ -328,9 +341,9 @@ __device__ __forceinline__ void tile_pass(float* W, const float* A,
       um[1] = W[c - nz];
       up[2] = W[k == nz - 1 ? (zper ? c - (nz - 1) : c) : c + 1];
       um[2] = W[k == 0 ? (zper ? c + (nz - 1) : c) : c - 1];
-      v[s] = gsrb_update_row<float, false, PER>(W[c], up, um, A[own + k],
-                                                R[own + k], false, 0.0f, rf,
-                                                p, k);
+      v[s] = gsrb_update_row<float, false, PER, C>(W[c], up, um, A[own + k],
+                                                   R[own + k], false, 0.0f,
+                                                   rf, p, k);
       idx[s] = live ? c : -1;
     }
 #pragma unroll
@@ -339,7 +352,7 @@ __device__ __forceinline__ void tile_pass(float* W, const float* A,
   }
 }
 
-template <int PER>
+template <int PER, typename C>
 __global__ void __launch_bounds__(kThreads, 1)
 relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   const LevelParams<float>& p = g.p;
@@ -395,6 +408,13 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   w.init(threadIdx.x, blockDim.x, t.by, segs);
   copies_done();
   __syncthreads();
+  if constexpr (!std::is_same<C, float>::value) {
+    // the bf16 tier rounds the caller's state where it lands (the halo that
+    // comes in between passes was written by passes: bf16 values already)
+    for (int m = threadIdx.x; m < (t.bx + 2) * t.sx; m += blockDim.x)
+      W[m] = as_compute<C>(W[m]);
+    __syncthreads();
+  }
   // rows a neighbour reads: the first and last planes along a cut x, the
   // first and last rows along a cut y
   const int xrows = tx > 1 ? 2 * t.by : 0, yrows = ty > 1 ? 2 * t.bx : 0;
@@ -412,7 +432,7 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
     wr = (li + 1) * (t.by + 2) + lj + 1;
   };
   for (int pass = 0; pass < g.npass; ++pass) {
-    tile_pass<PER>(W, A, R, t, p, (g.par + pass) & 1, w, segs);
+    tile_pass<PER, C>(W, A, R, t, p, (g.par + pass) & 1, w, segs);
     __syncthreads();
     if (pass + 1 == g.npass) break;
     if (xrows + yrows > 0) {
@@ -468,29 +488,38 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   copy_rows<false>(W, out, t.bx * t.by, nz, vec, own_rows);
 }
 
-// The slab kernels: every axis periodic, none, some.
-const void* const kSlabKernels[3] = {(const void*)relax_slab_kernel<1>,
-                                     (const void*)relax_slab_kernel<0>,
-                                     (const void*)relax_slab_kernel<-1>};
+// The slab kernels: every axis periodic, none, some; f32 arithmetic, then
+// the bf16 tier's.
+const void* const kSlabKernels[2][3] = {
+    {(const void*)relax_slab_kernel<1, float>,
+     (const void*)relax_slab_kernel<0, float>,
+     (const void*)relax_slab_kernel<-1, float>},
+    {(const void*)relax_slab_kernel<1, __nv_bfloat16>,
+     (const void*)relax_slab_kernel<0, __nv_bfloat16>,
+     (const void*)relax_slab_kernel<-1, __nv_bfloat16>}};
 
+template <typename C>
 const void* slab_kernel(int per) {
-  return kSlabKernels[per == 1 ? 0 : per == 0 ? 1 : 2];
+  return kSlabKernels[std::is_same<C, __nv_bfloat16>::value ? 1 : 0]
+                     [per == 1 ? 0 : per == 0 ? 1 : 2];
 }
 
-// Blocks of every kernel of the type that the current device runs at once,
-// the slab kernels with `smem` bytes of shared memory each (the wrapper's
-// budget), asked once per kernel and device; also sets that shared-memory
-// limit on the slab kernels.
-template <typename T>
+// Blocks of every kernel of the type and arithmetic that the current device
+// runs at once, the slab kernels with `smem` bytes of shared memory each (the
+// wrapper's budget), asked once per kernel and device; also sets that
+// shared-memory limit on the slab kernels.
+template <typename T, typename C>
 cudaError_t relax_capacity(int smem, int* capacity) {
   static int cache_grid[kMaxDevices] = {};
   static int cache_slab[3][kMaxDevices] = {};
   int cap = 0;
-  cudaError_t err = march_capacity((const void*)relax_grid_kernel<T>,
+  cudaError_t err = march_capacity((const void*)relax_grid_kernel<T, C>,
                                    kThreads, 0, cache_grid, &cap);
+  const int tier = std::is_same<C, __nv_bfloat16>::value ? 1 : 0;
   for (int f = 0; f < 3 && err == cudaSuccess && sizeof(T) == 4; ++f) {
     int c = 0;
-    err = march_capacity(kSlabKernels[f], kThreads, smem, cache_slab[f], &c);
+    err = march_capacity(kSlabKernels[tier][f], kThreads, smem,
+                         cache_slab[f], &c);
     cap = c < cap ? c : cap;
   }
   *capacity = cap;
@@ -499,8 +528,8 @@ cudaError_t relax_capacity(int smem, int* capacity) {
 
 // npatch levels of one shape: patch k's operands u[k], rhs[k], a[k], b[k]
 // (b null, or b[k] null: constant bCoef) and out[k]; `blocks` blocks a
-// patch, npatch * blocks in the launch.
-template <typename T>
+// patch, npatch * blocks in the launch; the passes in the arithmetic of C.
+template <typename T, typename C>
 cudaError_t relax_impl(const void* const* u, const void* const* rhs,
                        const void* const* a, const void* const* b,
                        void* const* out, int npatch, int nx, int ny, int nz,
@@ -533,7 +562,8 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
   g.tiles = blocks;
   g.npatch = npatch;
   g.serial = form == FORM_SERIAL;
-  const void* kern = (const void*)relax_grid_kernel<T>;
+  if (!std::is_same<C, T>::value && has_b) return cudaErrorInvalidValue;
+  const void* kern = (const void*)relax_grid_kernel<T, C>;
   if (form == FORM_SLAB) {
     // the slab form: f32, constant b, x and y cut in order into xtiles x
     // (blocks / xtiles) tiles, each tile's window, a and rhs within smem
@@ -560,7 +590,7 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
       return cudaErrorInvalidValue;
     g.xtiles = tx;
     g.vec = nz % 4 == 0 && (bits & 15) == 0;
-    kern = slab_kernel(per);
+    kern = slab_kernel<C>(per);
   } else {
     smem = 0;
   }
@@ -575,14 +605,16 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
 
 // C entry point (csrc/mg_kernels.h's conventions): nsweeps red-black sweeps
 // of the level u into out (u, rhs, a, b only read; b may be null: constant
-// bCoef = 1). base = sum(lo). The launch geometry comes from
+// bCoef = 1). base = sum(lo). compute: 0 the passes at the operands'
+// precision, 1 in bf16 (f32 operands, b null). The launch geometry comes from
 // fused_sweeps.gsrb_geometry: form (RelaxForm), per (1 every axis periodic,
 // 0 none, -1 some), blocks, and for the slab form xtiles (tiles along x;
 // blocks / xtiles along y), starts (the first plane of each x tile, then
 // nx; the first row of each y tile, then ny) and smem bytes.
 extern "C" int mgk_gsrb_relax(const void* u, const void* rhs, const void* a,
-                              const void* b, void* out, int is_double, int nx,
-                              int ny, int nz, const int* kinds, double rho,
+                              const void* b, void* out, int is_double,
+                              int compute, int nx, int ny, int nz,
+                              const int* kinds, double rho,
                               double alpha, double beta, double dx, int base,
                               int nsweeps, int form, int per, int blocks,
                               int xtiles, const int* starts, int smem,
@@ -593,13 +625,19 @@ extern "C" int mgk_gsrb_relax(const void* u, const void* rhs, const void* a,
   const void* const as[1] = {a};
   const void* const bs[1] = {b};
   void* const os[1] = {out};
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+    return (int)cudaErrorInvalidValue;
+  if (compute == 1)
+    return (int)relax_impl<float, __nv_bfloat16>(
+        us, rs, as, bs, os, 1, nx, ny, nz, kinds, rho, alpha, beta, dx, base,
+        nsweeps, form, per, blocks, xtiles, starts, smem, st);
   return (int)(is_double
-      ? relax_impl<double>(us, rs, as, bs, os, 1, nx, ny, nz, kinds, rho,
-                           alpha, beta, dx, base, nsweeps, form, per, blocks,
-                           xtiles, starts, smem, st)
-      : relax_impl<float>(us, rs, as, bs, os, 1, nx, ny, nz, kinds, rho,
-                          alpha, beta, dx, base, nsweeps, form, per, blocks,
-                          xtiles, starts, smem, st));
+      ? relax_impl<double, double>(us, rs, as, bs, os, 1, nx, ny, nz, kinds,
+                                   rho, alpha, beta, dx, base, nsweeps, form,
+                                   per, blocks, xtiles, starts, smem, st)
+      : relax_impl<float, float>(us, rs, as, bs, os, 1, nx, ny, nz, kinds,
+                                 rho, alpha, beta, dx, base, nsweeps, form,
+                                 per, blocks, xtiles, starts, smem, st));
 }
 
 // C entry point of the batch: npatch (at most kMaxBatch) levels of one
@@ -621,18 +659,25 @@ extern "C" int mgk_gsrb_relax_batch(const void* const* u,
                                     int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_double
-      ? relax_impl<double>(u, rhs, a, nullptr, out, npatch, nx, ny, nz,
-                           kinds, rho, alpha, beta, dx, base, nsweeps, form,
-                           per, blocks, xtiles, starts, smem, st)
-      : relax_impl<float>(u, rhs, a, nullptr, out, npatch, nx, ny, nz, kinds,
-                          rho, alpha, beta, dx, base, nsweeps, form, per,
-                          blocks, xtiles, starts, smem, st));
+      ? relax_impl<double, double>(u, rhs, a, nullptr, out, npatch, nx, ny,
+                                   nz, kinds, rho, alpha, beta, dx, base,
+                                   nsweeps, form, per, blocks, xtiles, starts,
+                                   smem, st)
+      : relax_impl<float, float>(u, rhs, a, nullptr, out, npatch, nx, ny, nz,
+                                 kinds, rho, alpha, beta, dx, base, nsweeps,
+                                 form, per, blocks, xtiles, starts, smem,
+                                 st));
 }
 
 // C entry point: *capacity <- blocks of every gsrb_relax kernel of the type
-// that the current device runs at once, the slab kernels with `smem` bytes
-// of shared memory each.
-extern "C" int mgk_gsrb_capacity(int is_double, int smem, int* capacity) {
-  return (int)(is_double ? relax_capacity<double>(smem, capacity)
-                         : relax_capacity<float>(smem, capacity));
+// and arithmetic (compute as mgk_gsrb_relax's) that the current device runs
+// at once, the slab kernels with `smem` bytes of shared memory each.
+extern "C" int mgk_gsrb_capacity(int is_double, int compute, int smem,
+                                 int* capacity) {
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+    return (int)cudaErrorInvalidValue;
+  if (compute == 1)
+    return (int)relax_capacity<float, __nv_bfloat16>(smem, capacity);
+  return (int)(is_double ? relax_capacity<double, double>(smem, capacity)
+                         : relax_capacity<float, float>(smem, capacity));
 }

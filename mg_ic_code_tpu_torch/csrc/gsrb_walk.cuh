@@ -16,9 +16,9 @@
 // copied for each pass. Where the stride is a whole number of x planes (the
 // wrappers size the grid so: fused_sweeps.pair_grid_blocks), a thread keeps
 // its (j, k pair) and steps along x only: the y terms of its cells stay out
-// of the loop. FAST and PER are gsrb_cell's; b is the variable bCoef (null:
-// constant). Cells are indexed by int: the wrappers take levels below 2^31
-// cells.
+// of the loop. FAST, PER and C (the arithmetic's type) are gsrb_cell's; b
+// is the variable bCoef (null: constant). Cells are indexed by int: the
+// wrappers take levels below 2^31 cells.
 #pragma once
 
 #include "gsrb_device.cuh"
@@ -52,7 +52,7 @@ struct Walk {
 // One colour pass in place on u (device or shared memory) over the
 // (nx, ny, ceil(nz/2)) z pairs of the walk: the cell of the pass's colour
 // in each. COL: the walk steps along x only.
-template <int U, bool COL, int PER, bool FAST, typename T>
+template <int U, bool COL, int PER, bool FAST, typename C, typename T>
 __device__ __forceinline__ void pass_u(T* u, const T* rhs, const T* a,
                                        const T* b, const LevelParams<T>& p,
                                        int par, Walk w) {
@@ -68,8 +68,8 @@ __device__ __forceinline__ void pass_u(T* u, const T* rhs, const T* a,
       j = live ? j : 0;
       k = live ? k : 0;
       const int q = (i * p.ny + j) * p.nz + k;
-      v[s] = gsrb_cell<T, int, FAST, PER>(get, a[q], rhs[q], b, p, i, j, k,
-                                          q);
+      v[s] = gsrb_cell<T, int, FAST, PER, C>(get, a[q], rhs[q], b, p, i, j,
+                                             k, q);
       idx[s] = live ? q : -1;
       if (COL)
         w.a += w.sa;
@@ -92,42 +92,42 @@ __device__ __forceinline__ int periodic_axes(const LevelParams<T>& p) {
   return n == 3 ? 1 : n == 0 ? 0 : -1;
 }
 
-template <int PER, bool FAST, typename T>
+template <int PER, bool FAST, typename C, typename T>
 __device__ __forceinline__ void pass_per(T* u, const T* rhs, const T* a,
                                          const T* b, const LevelParams<T>& p,
                                          int par, const Walk& w, bool many) {
   const bool col = w.sb == 0 && w.sc == 0;
   if (many && col)
-    pass_u<2, true, PER, FAST>(u, rhs, a, b, p, par, w);
+    pass_u<2, true, PER, FAST, C>(u, rhs, a, b, p, par, w);
   else if (col)
-    pass_u<1, true, PER, FAST>(u, rhs, a, b, p, par, w);
+    pass_u<1, true, PER, FAST, C>(u, rhs, a, b, p, par, w);
   else if (many)
-    pass_u<2, false, PER, FAST>(u, rhs, a, b, p, par, w);
+    pass_u<2, false, PER, FAST, C>(u, rhs, a, b, p, par, w);
   else
-    pass_u<1, false, PER, FAST>(u, rhs, a, b, p, par, w);
+    pass_u<1, false, PER, FAST, C>(u, rhs, a, b, p, par, w);
 }
 
 // A colour pass in the form `per` (periodic_axes) says.
-template <bool FAST, typename T>
+template <bool FAST, typename C, typename T>
 __device__ __forceinline__ void pass_in_place(T* u, const T* rhs, const T* a,
                                               const T* b,
                                               const LevelParams<T>& p,
                                               int par, const Walk& w,
                                               bool many, int per) {
   if (per == 1)
-    pass_per<1, FAST>(u, rhs, a, b, p, par, w, many);
+    pass_per<1, FAST, C>(u, rhs, a, b, p, par, w, many);
   else if (per == 0)
-    pass_per<0, FAST>(u, rhs, a, b, p, par, w, many);
+    pass_per<0, FAST, C>(u, rhs, a, b, p, par, w, many);
   else
-    pass_per<-1, FAST>(u, rhs, a, b, p, par, w, many);
+    pass_per<-1, FAST, C>(u, rhs, a, b, p, par, w, many);
 }
 
 // The first colour pass of a level from the state `get`, written out whole
 // into u: the pass's cells get the update, the other cell of each z pair
 // (k ^ 1) its value from `get` (exact: the pass reads only the other colour
 // and the cell itself). Without a pass to make (update false) both get the
-// value from `get`.
-template <int U, bool FAST, int PER, typename T, typename Get>
+// value from `get` (which rounds the state where C asks: as_compute).
+template <int U, bool FAST, int PER, typename C, typename T, typename Get>
 __device__ __forceinline__ void first_pass_u(T* u, const Get& get,
                                              const T* rhs, const T* a,
                                              const T* b,
@@ -147,8 +147,8 @@ __device__ __forceinline__ void first_pass_u(T* u, const Get& get,
       j = own ? j : 0;
       k = own ? k : 0;
       const int q = own ? row + k : 0;
-      v[s] = update ? gsrb_cell<T, int, FAST, PER>(get, a[q], rhs[q], b, p,
-                                                   i, j, k, q)
+      v[s] = update ? gsrb_cell<T, int, FAST, PER, C>(get, a[q], rhs[q], b,
+                                                      p, i, j, k, q)
                     : get(q);
       pv[s] = get(row + kp);
       idx[s] = own ? q : -1;
@@ -163,16 +163,16 @@ __device__ __forceinline__ void first_pass_u(T* u, const Get& get,
   }
 }
 
-template <bool FAST, int PER, typename T, typename Get>
+template <bool FAST, int PER, typename C, typename T, typename Get>
 __device__ __forceinline__ void first_pass(T* u, const Get& get, const T* rhs,
                                            const T* a, const T* b,
                                            const LevelParams<T>& p, int par,
                                            bool update, const Walk& w,
                                            bool many) {
   if (many)
-    first_pass_u<2, FAST, PER>(u, get, rhs, a, b, p, par, update, w);
+    first_pass_u<2, FAST, PER, C>(u, get, rhs, a, b, p, par, update, w);
   else
-    first_pass_u<1, FAST, PER>(u, get, rhs, a, b, p, par, update, w);
+    first_pass_u<1, FAST, PER, C>(u, get, rhs, a, b, p, par, update, w);
 }
 
 // The walk over level p's z pairs from item `first` by `stride`, and

@@ -49,6 +49,15 @@
 // tail, one before each pass and one after each depth but the last (18,
 // 27). Every array is read with plain loads, never the read-only path: the
 // launch writes u and the restricted rhs between grid barriers.
+//
+// The bf16 tier (smoother_precision = bfloat16; the C entries' `compute` 1,
+// f32 chains): every depth's colour passes in bf16 (C = __nv_bfloat16 beside
+// T = float: gsrb_update_row_bf16), the counterpart of the TPU towers'
+// compute_dtype (each depth's relax is resident_relax_values). Each depth's
+// relax rounds its starting state to bf16: depth 0's u from the caller where
+// tower_down's first pass (or the tail) reads it, the prolonged state where
+// tower_up writes it; the depths below start from zero, which is exact. The
+// residual, the restriction and the prolongation stay f32.
 #include <cooperative_groups.h>
 
 #include "gsrb_walk.cuh"
@@ -135,7 +144,9 @@ __device__ __forceinline__ void restrict_depth(const T* u, const T* rhs,
 }
 
 // u = uin + e[i/2, j/2, k/2] over depth p, e the depth below.
-template <int U, typename T>
+// The sum is rounded as the passes of C read it (as_compute): it is the state
+// the depth's relax starts from.
+template <int U, typename C, typename T>
 __device__ __forceinline__ void prolong_u(T* u, const T* uin, const T* e,
                                           const LevelParams<T>& p, Walk w) {
   const int cy = p.ny >> 1, cz = p.nz >> 1;
@@ -147,7 +158,8 @@ __device__ __forceinline__ void prolong_u(T* u, const T* uin, const T* e,
       const bool live = w.a < p.nx;
       const int i = live ? w.a : 0, j = live ? w.b : 0, k = live ? w.c : 0;
       const int m = (i * p.ny + j) * p.nz + k;
-      v[s] = uin[m] + e[((i >> 1) * cy + (j >> 1)) * cz + (k >> 1)];
+      v[s] = as_compute<C>(uin[m] +
+                           e[((i >> 1) * cy + (j >> 1)) * cz + (k >> 1)]);
       idx[s] = live ? m : -1;
       w.next();
     }
@@ -157,23 +169,23 @@ __device__ __forceinline__ void prolong_u(T* u, const T* uin, const T* e,
   }
 }
 
-template <typename T>
+template <typename C, typename T>
 __device__ __forceinline__ void prolong_depth(T* u, const T* uin, const T* e,
                                               const LevelParams<T>& p,
                                               int first, int stride) {
   Walk w;
   w.init(first, stride, p.ny, p.nz);
   if (p.nx * p.ny * p.nz > stride)
-    prolong_u<2>(u, uin, e, p, w);
+    prolong_u<2, C>(u, uin, e, p, w);
   else
-    prolong_u<1>(u, uin, e, p, w);
+    prolong_u<1, C>(u, uin, e, p, w);
 }
 
 // tower_down's depths [tail, ndep) in this block's shared memory: u, a and
 // the rhs of the depth at work, the restricted rhs of the next beside it
 // (the two rhs buffers alternate). Each depth's state and restricted rhs are
 // written out for tower_up.
-template <typename T>
+template <typename T, typename C>
 __device__ void tail_down(const TowerArgs<T>& g, T* sm) {
   const int t = g.tail, n0 = cells_of(g.p[t]);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -188,15 +200,15 @@ __device__ void tail_down(const TowerArgs<T>& g, T* sm) {
     T* rhs = (d - t) & 1 ? R1 : R0;
     for (int m = tid; m < n; m += nt) {
       A[m] = g.a[d][m];
-      U[m] = d == 0 ? g.top[m] : (T)0;
+      U[m] = d == 0 ? as_compute<C>(g.top[m]) : (T)0;
     }
     bool many;
     const Walk w = pair_walk(p, tid, nt, many);
     __syncthreads();
     for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
-      pass_in_place<true>(U, rhs, A, (const T*)nullptr, p,
-                          (g.par[d] + pass) & 1, w, many,
-                          periodic_axes(p));
+      pass_in_place<true, C>(U, rhs, A, (const T*)nullptr, p,
+                             (g.par[d] + pass) & 1, w, many,
+                             periodic_axes(p));
       __syncthreads();
     }
     for (int m = tid; m < n; m += nt) g.u[d][m] = U[m];
@@ -212,7 +224,7 @@ __device__ void tail_down(const TowerArgs<T>& g, T* sm) {
 // tower_up's depths ndep-2 .. tail in this block's shared memory: the state
 // at work and the correction from below alternate between two buffers,
 // beside a and rhs. Only the last (depth tail) is written out.
-template <typename T>
+template <typename T, typename C>
 __device__ void tail_up(const TowerArgs<T>& g, T* sm) {
   const int t = g.tail, bot = g.ndep - 1;
   const int n0 = cells_of(g.p[t]), n1 = cells_of(g.p[t + 1]);
@@ -235,20 +247,21 @@ __device__ void tail_up(const TowerArgs<T>& g, T* sm) {
       A[m] = g.a[d][m];
       R[m] = g.r[d][m];
     }
-    prolong_depth(u, g.uin[d], (d - t) & 1 ? U0 : U1, p, tid, nt);
+    prolong_depth<C>(u, g.uin[d], (d - t) & 1 ? U0 : U1, p, tid, nt);
     bool many;
     const Walk w = pair_walk(p, tid, nt, many);
     __syncthreads();
     for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
-      pass_in_place<true>(u, R, A, (const T*)nullptr, p, (g.par[d] + pass) & 1,
-                          w, many, periodic_axes(p));
+      pass_in_place<true, C>(u, R, A, (const T*)nullptr, p,
+                             (g.par[d] + pass) & 1, w, many,
+                             periodic_axes(p));
       __syncthreads();
     }
   }
   for (int m = tid; m < n0; m += nt) g.u[t][m] = U0[m];
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads, 1)
 tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
   cg::grid_group grid = cg::this_grid();
@@ -264,14 +277,16 @@ tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
     // the depth its rhs
     if (d == 0) {
       const T* u0 = g.top;
-      first_pass<true, -1>(g.u[0], [u0](int q) { return u0[q]; }, g.r[0],
-                           g.a[0], (const T*)nullptr, p, g.par[0], np > 0, w,
-                           many);
+      first_pass<true, -1, C>(g.u[0],
+                              [u0](int q) { return as_compute<C>(u0[q]); },
+                              g.r[0], g.a[0], (const T*)nullptr, p, g.par[0],
+                              np > 0, w, many);
     }
     for (int pass = 1; pass < np; ++pass) {
       grid.sync();
-      pass_in_place<true>(g.u[d], g.r[d], g.a[d], (const T*)nullptr, p,
-                          (g.par[d] + pass) & 1, w, many, periodic_axes(p));
+      pass_in_place<true, C>(g.u[d], g.r[d], g.a[d], (const T*)nullptr, p,
+                             (g.par[d] + pass) & 1, w, many,
+                             periodic_axes(p));
     }
     if (d + 1 == g.ndep) break;
     grid.sync();
@@ -286,7 +301,7 @@ tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
       restrict_depth(g.u[d], g.r[d], g.a[d], g.r[d + 1], p, first, stride,
                      [&](int m, int ci, int cj, int ck, T v) {
                        un[m] = update && ((ci + cj + ck + parn) & 1) == 0
-                           ? gsrb_cell<T, int, true>(
+                           ? gsrb_cell<T, int, true, -1, C>(
                                  [](int) { return (T)0; }, an[m], v,
                                  (const T*)nullptr, pn, ci, cj, ck, m)
                            : (T)0;
@@ -298,10 +313,10 @@ tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
     }
   }
   if (g.tail < g.ndep && blockIdx.x == 0)
-    tail_down(g, reinterpret_cast<T*>(tower_smem));
+    tail_down<T, C>(g, reinterpret_cast<T*>(tower_smem));
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads, 1)
 tower_up_kernel(const __grid_constant__ TowerArgs<T> g) {
   cg::grid_group grid = cg::this_grid();
@@ -310,20 +325,22 @@ tower_up_kernel(const __grid_constant__ TowerArgs<T> g) {
   const int bot = g.ndep - 1;
   const int top = g.tail < bot ? g.tail : bot;  // tail depths [top, bot)
   if (top < bot) {
-    if (blockIdx.x == 0) tail_up(g, reinterpret_cast<T*>(tower_smem));
+    if (blockIdx.x == 0) tail_up<T, C>(g, reinterpret_cast<T*>(tower_smem));
     if (top > 0) grid.sync();
   }
   for (int d = top - 1; d >= 0; --d) {
     const LevelParams<T>& p = g.p[d];
     T* u = g.u[d];
-    prolong_depth(u, g.uin[d], d + 1 == bot ? g.top : (const T*)g.u[d + 1],
-                  p, first, stride);
+    prolong_depth<C>(u, g.uin[d],
+                     d + 1 == bot ? g.top : (const T*)g.u[d + 1], p, first,
+                     stride);
     bool many;
     const Walk w = pair_walk(p, first, stride, many);
     for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
       grid.sync();
-      pass_in_place<true>(u, g.r[d], g.a[d], (const T*)nullptr, p,
-                          (g.par[d] + pass) & 1, w, many, periodic_axes(p));
+      pass_in_place<true, C>(u, g.r[d], g.a[d], (const T*)nullptr, p,
+                             (g.par[d] + pass) & 1, w, many,
+                             periodic_axes(p));
     }
     if (d > 0) grid.sync();
   }
@@ -337,18 +354,19 @@ tower_barriers_kernel(int n) {
   for (int i = 0; i < n; ++i) grid.sync();
 }
 
-// Blocks of both tower kernels the current device runs at once with `smem`
-// bytes of dynamic shared memory each (the wrapper's budget), asked once per
-// kernel and device; also sets that shared-memory limit on both.
-template <typename T>
+// Blocks of both tower kernels of the type and arithmetic the current device
+// runs at once with `smem` bytes of dynamic shared memory each (the wrapper's
+// budget), asked once per kernel and device; also sets that shared-memory
+// limit on both.
+template <typename T, typename C>
 cudaError_t tower_capacity(int smem, int* capacity) {
   static int cache_down[kMaxDevices] = {};
   static int cache_up[kMaxDevices] = {};
   int down = 0, up = 0;
-  cudaError_t err = march_capacity((const void*)tower_down_kernel<T>,
+  cudaError_t err = march_capacity((const void*)tower_down_kernel<T, C>,
                                    kThreads, smem, cache_down, &down);
   if (err != cudaSuccess) return err;
-  err = march_capacity((const void*)tower_up_kernel<T>, kThreads, smem,
+  err = march_capacity((const void*)tower_up_kernel<T, C>, kThreads, smem,
                        cache_up, &up);
   if (err != cudaSuccess) return err;
   *capacity = down < up ? down : up;
@@ -399,8 +417,8 @@ cudaError_t launch_tower(const void* kern, TowerArgs<T>& g, int blocks,
 
 // Down pass. u0, rhs0: the caller's depth-0 state and rhs (read only). out:
 // one buffer of every depth's smoothed state (depth 0 first), then the
-// restricted rhs of depths 1 .. ndep-1.
-template <typename T>
+// restricted rhs of depths 1 .. ndep-1. C: the passes' arithmetic.
+template <typename T, typename C>
 cudaError_t tower_down_impl(const void* u0, const void* rhs0, void* out,
                             const void* const* a, int ndep, const int* shapes,
                             const int* kinds, const double* dxs,
@@ -423,14 +441,14 @@ cudaError_t tower_down_impl(const void* u0, const void* rhs0, void* out,
   }
   for (int d = 0; d < ndep; ++d) g.a[d] = (const T*)a[d];
   g.top = (const T*)u0;
-  return launch_tower<T>((const void*)tower_down_kernel<T>, g, blocks, smem,
-                         st);
+  return launch_tower<T>((const void*)tower_down_kernel<T, C>, g, blocks,
+                         smem, st);
 }
 
 // Up pass. e_bot: the solved bottom depth; u_in, rhs, a: ndep-1 arrays each
 // (depths 0 .. ndep-2); out: one buffer of the new states of depths 0 ..
-// ndep-2 (depth 0, the result, first).
-template <typename T>
+// ndep-2 (depth 0, the result, first). C: the passes' arithmetic.
+template <typename T, typename C>
 cudaError_t tower_up_impl(const void* e_bot, const void* const* u_in,
                           const void* const* rhs, const void* const* a,
                           void* out, int ndep, const int* shapes,
@@ -451,8 +469,8 @@ cudaError_t tower_up_impl(const void* e_bot, const void* const* u_in,
     g.a[d] = (const T*)a[d];
   }
   g.top = (const T*)e_bot;
-  return launch_tower<T>((const void*)tower_up_kernel<T>, g, blocks, smem,
-                         st);
+  return launch_tower<T>((const void*)tower_up_kernel<T, C>, g, blocks,
+                         smem, st);
 }
 
 }  // namespace
@@ -460,39 +478,52 @@ cudaError_t tower_up_impl(const void* e_bot, const void* const* u_in,
 // C entry points (csrc/mg_kernels.h's conventions). shapes: ndep * 3 ints;
 // dxs, rhos: ndep doubles; bases: ndep ints (sum(lo) per depth); blocks,
 // tail, smem: the launch geometry (ops/coarse_tower.tower_geometry).
+// compute: 0 the passes at the operands' precision, 1 in bf16 (f32).
 extern "C" int mgk_tower_down(const void* u0, const void* rhs0, void* out,
-                              const void* const* a, int is_double, int ndep,
-                              const int* shapes, const int* kinds,
-                              const double* dxs, const double* rhos,
-                              const int* bases, double alpha, double beta,
-                              int nsmooth, int blocks, int tail, int smem,
-                              void* stream) {
+                              const void* const* a, int is_double,
+                              int compute, int ndep, const int* shapes,
+                              const int* kinds, const double* dxs,
+                              const double* rhos, const int* bases,
+                              double alpha, double beta, int nsmooth,
+                              int blocks, int tail, int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+    return (int)cudaErrorInvalidValue;
+  if (compute == 1)
+    return (int)tower_down_impl<float, __nv_bfloat16>(
+        u0, rhs0, out, a, ndep, shapes, kinds, dxs, rhos, bases, alpha, beta,
+        nsmooth, blocks, tail, smem, st);
   return (int)(is_double
-      ? tower_down_impl<double>(u0, rhs0, out, a, ndep, shapes, kinds, dxs,
-                                rhos, bases, alpha, beta, nsmooth, blocks,
-                                tail, smem, st)
-      : tower_down_impl<float>(u0, rhs0, out, a, ndep, shapes, kinds, dxs,
-                               rhos, bases, alpha, beta, nsmooth, blocks,
-                               tail, smem, st));
+      ? tower_down_impl<double, double>(u0, rhs0, out, a, ndep, shapes, kinds,
+                                        dxs, rhos, bases, alpha, beta,
+                                        nsmooth, blocks, tail, smem, st)
+      : tower_down_impl<float, float>(u0, rhs0, out, a, ndep, shapes, kinds,
+                                      dxs, rhos, bases, alpha, beta, nsmooth,
+                                      blocks, tail, smem, st));
 }
 
 extern "C" int mgk_tower_up(const void* e_bot, const void* const* u_in,
                             const void* const* rhs, const void* const* a,
-                            void* out, int is_double, int ndep,
+                            void* out, int is_double, int compute, int ndep,
                             const int* shapes, const int* kinds,
                             const double* dxs, const double* rhos,
                             const int* bases, double alpha, double beta,
                             int nsmooth, int blocks, int tail, int smem,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+    return (int)cudaErrorInvalidValue;
+  if (compute == 1)
+    return (int)tower_up_impl<float, __nv_bfloat16>(
+        e_bot, u_in, rhs, a, out, ndep, shapes, kinds, dxs, rhos, bases,
+        alpha, beta, nsmooth, blocks, tail, smem, st);
   return (int)(is_double
-      ? tower_up_impl<double>(e_bot, u_in, rhs, a, out, ndep, shapes, kinds,
-                              dxs, rhos, bases, alpha, beta, nsmooth, blocks,
-                              tail, smem, st)
-      : tower_up_impl<float>(e_bot, u_in, rhs, a, out, ndep, shapes, kinds,
-                             dxs, rhos, bases, alpha, beta, nsmooth, blocks,
-                             tail, smem, st));
+      ? tower_up_impl<double, double>(e_bot, u_in, rhs, a, out, ndep, shapes,
+                                      kinds, dxs, rhos, bases, alpha, beta,
+                                      nsmooth, blocks, tail, smem, st)
+      : tower_up_impl<float, float>(e_bot, u_in, rhs, a, out, ndep, shapes,
+                                    kinds, dxs, rhos, bases, alpha, beta,
+                                    nsmooth, blocks, tail, smem, st));
 }
 
 // C entry point of the barrier probe: one cooperative launch of `blocks`
@@ -505,9 +536,15 @@ extern "C" int mgk_tower_barriers(int blocks, int n, void* stream) {
       params, 0, (cudaStream_t)stream);
 }
 
-// C entry point: *capacity <- blocks of both tower kernels of the type that
-// the current device runs at once with `smem` bytes of shared memory each.
-extern "C" int mgk_tower_capacity(int is_double, int smem, int* capacity) {
-  return (int)(is_double ? tower_capacity<double>(smem, capacity)
-                         : tower_capacity<float>(smem, capacity));
+// C entry point: *capacity <- blocks of both tower kernels of the type and
+// arithmetic (compute as mgk_tower_down's) that the current device runs at
+// once with `smem` bytes of shared memory each.
+extern "C" int mgk_tower_capacity(int is_double, int compute, int smem,
+                                  int* capacity) {
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+    return (int)cudaErrorInvalidValue;
+  if (compute == 1)
+    return (int)tower_capacity<float, __nv_bfloat16>(smem, capacity);
+  return (int)(is_double ? tower_capacity<double, double>(smem, capacity)
+                         : tower_capacity<float, float>(smem, capacity));
 }

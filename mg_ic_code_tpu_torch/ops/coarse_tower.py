@@ -20,6 +20,12 @@ version (`tower_down_plain` / `tower_up_plain`) that the wrappers take only
 for CPU tensors. The per-depth math is the same the staged path runs, so the tower
 matches the per-depth V-cycle to reorder tolerance.
 
+Under the spec's smoother_compute "bfloat16" (the bf16 tier) every depth's
+colour passes run in bf16, each depth's relax rounding its starting state,
+as the JAX package's towers do (their compute_dtype); the residual, the
+restriction and the prolongation stay f32. Those launches are counted
+under tower_down_bf16 / tower_up_bf16.
+
 Reference structure this fuses: the MG depth recursion AMRMultiGrid drives
 through VariableCoeffPoissonOperator::levelGSRB / restrictResidual /
 prolongIncrement.
@@ -48,45 +54,53 @@ def _restrict_pairs(f: torch.Tensor) -> torch.Tensor:
     return t[:, 0::2] + t[:, 1::2]
 
 
-def _relax_kw(spec, d: int, k: int) -> dict:
+def _relax_kw(spec, d: int, k: int, _where: bool = False) -> dict:
     return dict(
         nsweeps=spec.nsmooth, kinds=spec.kinds, rho=spec.rho[d + k],
         alpha=spec.alpha, beta=spec.beta, dx=spec.dx[d + k],
-        lo=spec.boxes[d + k].lo,
+        lo=spec.boxes[d + k].lo, compute_dtype=spec.smoother_compute,
+        _where=_where,
     )
 
 
-def tower_down_plain(spec, d: int, u, rhs, a_list):
+def tower_down_plain(spec, d: int, u, rhs, a_list, _where: bool = False):
     """Plain PyTorch down pass over depths [d, end). Returns
-    (u_list[0..ndep-2], rhs_list[1..ndep-1], u_bot)."""
-    kernel_counts.PLAIN_CALLS["tower_down"] += 1
+    (u_list[0..ndep-2], rhs_list[1..ndep-1], u_bot). `_where`: each
+    depth's relaxation with the kernels' colour select
+    (fused_sweeps.gsrb_sweeps_folded)."""
+    kernel_counts.PLAIN_CALLS[fs.tier_name(
+        "tower_down", spec.smoother_compute)] += 1
     ndep = spec.ndepths - d
     u_outs, r_outs = [], []
     for k in range(ndep - 1):
-        kw = _relax_kw(spec, d, k)
+        kw = _relax_kw(spec, d, k, _where)
         u = fs.gsrb_relax_plain(u, rhs, a_list[k], **kw)
         u_outs.append(u)
-        kw.pop("nsweeps"), kw.pop("lo")
+        for key in ("nsweeps", "lo", "compute_dtype", "_where"):
+            kw.pop(key)
         res = fs.residual_plain(u, rhs, a_list[k], **kw)
         rhs = _restrict_pairs(res)
         r_outs.append(rhs)
         u = torch.zeros_like(rhs)
     u_bot = fs.gsrb_relax_plain(
-        u, rhs, a_list[ndep - 1], **_relax_kw(spec, d, ndep - 1)
+        u, rhs, a_list[ndep - 1], **_relax_kw(spec, d, ndep - 1, _where)
     )
     return u_outs, r_outs, u_bot
 
 
-def tower_up_plain(spec, d: int, e_bot, u_list, rhs_list, a_list):
+def tower_up_plain(spec, d: int, e_bot, u_list, rhs_list, a_list,
+                   _where: bool = False):
     """Plain PyTorch up pass: prolong-increment + post-smooth per depth,
-    from the bottom correction to depth d. Returns the depth-d state."""
-    kernel_counts.PLAIN_CALLS["tower_up"] += 1
+    from the bottom correction to depth d. Returns the depth-d state.
+    `_where` as tower_down_plain's."""
+    kernel_counts.PLAIN_CALLS[fs.tier_name(
+        "tower_up", spec.smoother_compute)] += 1
     ndep = spec.ndepths - d
     e = e_bot
     for k in range(ndep - 2, -1, -1):
         u = st.prolong_inc(u_list[k], e)
         e = fs.gsrb_relax_plain(
-            u, rhs_list[k], a_list[k], **_relax_kw(spec, d, k)
+            u, rhs_list[k], a_list[k], **_relax_kw(spec, d, k, _where)
         )
     return e
 
@@ -156,13 +170,15 @@ def tower_geometry(shapes, itemsize: int, capacity: int):
             tail, smem)
 
 
-def tower_capacity(device, itemsize: int) -> int:
-    """Blocks of both tower kernels (at TOWER_SMEM) that the CUDA device
-    runs at once (mgk_tower_capacity)."""
+def tower_capacity(device, itemsize: int, compute: int = 0) -> int:
+    """Blocks of both tower kernels of the item size and arithmetic
+    (compute 1: the bf16 tier) at TOWER_SMEM that the CUDA device runs at
+    once (mgk_tower_capacity)."""
     cap = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = cuda_ext.lib().mgk_tower_capacity(
-            int(itemsize == 8), TOWER_SMEM[itemsize], ctypes.byref(cap))
+            int(itemsize == 8), int(compute), TOWER_SMEM[itemsize],
+            ctypes.byref(cap))
     cuda_ext.check(err, "tower capacity")
     return cap.value
 
@@ -194,8 +210,8 @@ class _Chain(NamedTuple):
                         # tower_geometry's last
 
 
-# chains by (id(spec), d, dtype, device index); each entry keeps its spec,
-# so an id is not reused while it is cached
+# chains by (id(spec), d, dtype, device index, the tier); each entry keeps
+# its spec, so an id is not reused while it is cached
 _CHAINS: dict = {}
 
 
@@ -203,19 +219,25 @@ def _chain(spec, d: int, ref) -> _Chain:
     """The static arguments of the chain [d, end) of `spec` for tensors like
     `ref`, kept per chain: the solver calls the tower with a few chains
     many times, and its host time is part of every call's."""
-    key = (id(spec), d, ref.dtype, ref.device.index)
+    compute = int(fs.compute_type(spec.smoother_compute) is not None)
+    key = (id(spec), d, ref.dtype, ref.device.index, compute)
     hit = _CHAINS.get(key)
     if hit is not None and hit[0] is spec:
         return hit[1]
     ndep = spec.ndepths - d
     if not 2 <= ndep <= MAX_DEPTHS:
         raise ValueError(f"tower: {ndep} depths (2 to {MAX_DEPTHS})")
+    if compute and ref.dtype != torch.float32:
+        raise TypeError(f"tower: the bf16 tier takes float32 chains, got "
+                        f"{ref.dtype}")
     shapes = tuple(tuple(int(n) for n in spec.boxes[d + k].shape)
                    for k in range(ndep))
     isz = ref.element_size()
-    geometry = tower_geometry(shapes, isz, tower_capacity(ref.device, isz))
+    geometry = tower_geometry(shapes, isz,
+                              tower_capacity(ref.device, isz, compute))
     args = (
-        int(isz == 8), ndep, (ctypes.c_int * (3 * ndep))(*sum(shapes, ())),
+        int(isz == 8), compute, ndep,
+        (ctypes.c_int * (3 * ndep))(*sum(shapes, ())),
         fs.kinds_array(spec.kinds),
         (ctypes.c_double * ndep)(*[float(x) for x in spec.dx[d:]]),
         (ctypes.c_double * ndep)(*[float(x) for x in spec.rho[d:]]),
@@ -270,7 +292,8 @@ def tower_down(spec, d: int, u, rhs, a_list):
         raise ValueError(f"tower_down: need {ndep} arrays of a")
     _check_chain("tower_down", ch.shapes, u, ((u,), (rhs,), a_list))
     out = torch.empty(ch.down_cells, dtype=u.dtype, device=u.device)
-    kernel_counts.count_launch("tower_down", 1)
+    kernel_counts.count_launch(
+        fs.tier_name("tower_down", spec.smoother_compute), 1)
     err = fs.on_stream(
         cuda_ext.lib().mgk_tower_down, u, u.data_ptr(), rhs.data_ptr(),
         out.data_ptr(), _ptrs(a_list), *ch.args)
@@ -295,7 +318,8 @@ def tower_up(spec, d: int, e_bot, u_list, rhs_list, a_list):
                  (u_list, rhs_list, a_list))
     _check_chain("tower_up", ch.shapes[ndep - 1:], e_bot, ((e_bot,),))
     out = torch.empty(ch.up_cells, dtype=e_bot.dtype, device=e_bot.device)
-    kernel_counts.count_launch("tower_up", 1)
+    kernel_counts.count_launch(
+        fs.tier_name("tower_up", spec.smoother_compute), 1)
     err = fs.on_stream(
         cuda_ext.lib().mgk_tower_up, e_bot, e_bot.data_ptr(), _ptrs(u_list),
         _ptrs(rhs_list), _ptrs(a_list), out.data_ptr(), *ch.args)

@@ -48,6 +48,15 @@ with P = lam*beta/dx^2 (times bCoef when it varies), PA/PB = P times
 (0 across a non-periodic face, 1+c1 at it, 1 inside), K carrying the c0
 feed-through, T = lam*rhs. A colour pass p keeps the cells with
 (i+j+k+sum(lo)+p) odd and updates the others.
+
+The bf16 tier (`compute_dtype = "bfloat16"`, the spec's smoother_compute
+under `smoother_precision = bfloat16`): `gsrb_relax` of an f32 level with
+constant b runs its colour passes in bf16, as the JAX package's
+resident_relax_values does: the fold (P, PA/PB, K, T) in f32 and rounded to
+bf16 once, the state rounded to bf16 where the call starts, every pass's
+operation in bf16, the result cast back to f32. Its launches are counted
+under `gsrb_relax_bf16` (kernel_counts). The residual, the restriction, the
+batched forms and the marches take no tier.
 """
 
 from __future__ import annotations
@@ -145,6 +154,35 @@ def _fold_coefs(rv, av, *, kinds: FaceKinds, rho: float, alpha: float,
     return P, pab, k_uc, lam * rv
 
 
+def compute_type(compute_dtype):
+    """The colour passes' arithmetic type of a `compute_dtype` (the spec's
+    smoother_compute): None for the operands' own, torch.bfloat16 for
+    "bfloat16" (or torch.bfloat16); raises on anything else."""
+    if compute_dtype is None:
+        return None
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype {compute_dtype!r} (None or bfloat16)")
+
+
+def tier_name(name: str, compute_dtype) -> str:
+    """The counter of a kernel's launches in the tier: `name` at the
+    operands' precision, `name`_bf16 in the bf16 tier."""
+    return name if compute_type(compute_dtype) is None else name + "_bf16"
+
+
+def check_tier(name: str, u, b, compute_dtype) -> None:
+    """The bf16 tier takes f32 levels with constant b only (the path never
+    sends it another; a silent f32 sweep would hide the fault)."""
+    if compute_type(compute_dtype) is None:
+        return
+    if u.dtype != torch.float32:
+        raise TypeError(f"{name}: the bf16 tier takes float32 levels, got "
+                        f"{u.dtype}")
+    if b is not None:
+        raise ValueError(f"{name}: the bf16 tier takes constant b only")
+
+
 def _parity(shape, dtype, base: int, device) -> torch.Tensor:
     """(i+j+k+base)&1 as a float mask."""
     ii = _iota(shape, 0, device)
@@ -156,16 +194,37 @@ def _parity(shape, dtype, base: int, device) -> torch.Tensor:
 def gsrb_sweeps_folded(
     u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
     alpha: float, beta: float, dx: float, lo, colors=None,
+    compute_dtype=None, _where: bool = False,
 ):
     """nsweeps red-black sweeps of a whole level in plain PyTorch, from the
     folded form (the arithmetic of the kernels, operation for operation).
     `colors`, when given, is the sequence of colour passes to run instead
     (colour c updates the cells with (i+j+k+sum(lo)+c) even). The body of
-    every plain version of a GSRB kernel; it counts nothing."""
+    every plain version of a GSRB kernel; it counts nothing.
+
+    `compute_dtype` "bfloat16": the bf16 tier, the twin of the JAX
+    package's resident_relax_values with that compute_dtype: the fold in
+    f32, each folded term and the state rounded to bf16 once,
+    the passes in bf16 (each torch op rounding), the colour select kept
+    arithmetic as there, the result cast back to u's dtype.
+
+    `_where`: a pass leaves the cells of the other colour as they are (a
+    select, not the arithmetic s = acc + par * (s - acc), which in bf16
+    moves a kept cell by an ulp of acc): the kernels' own colour select,
+    against which a kernel of the tier is held bit for bit."""
+    cdt = compute_type(compute_dtype)
+    if cdt is not None:  # the fold in f32, as the JAX body's
+        rhs, a = rhs.float(), a.float()
+        b = None if b is None else b.float()
     P, pab, k_uc, t_rhs = _fold_coefs(
         rhs, a, kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx, bv=b,
     )
     s = u
+    if cdt is not None:
+        cast = lambda x: None if x is None else x.to(cdt)  # noqa: E731
+        P, k_uc, t_rhs = cast(P), cast(k_uc), cast(t_rhs)
+        pab = {ax: (cast(pa), cast(pb)) for ax, (pa, pb) in pab.items()}
+        s = u.to(cdt)
     par0 = _parity(s.shape, s.dtype, sum(lo), s.device)
     pars = (par0, 1.0 - par0)
     for p in (range(2 * nsweeps) if colors is None else colors):
@@ -176,19 +235,22 @@ def gsrb_sweeps_folded(
             vm = torch.roll(s, 1, axis)
             acc = (acc + P * (vp + vm) if pa is None
                    else acc + pa * vp + pb * vm)
-        s = acc + pars[p & 1] * (s - acc)
-    return s
+        s = (torch.where(pars[p & 1] != 0, s, acc) if _where
+             else acc + pars[p & 1] * (s - acc))
+    return s if cdt is None else s.to(u.dtype)
 
 
 def gsrb_relax_plain(
     u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
-    alpha: float, beta: float, dx: float, lo,
+    alpha: float, beta: float, dx: float, lo, compute_dtype=None,
+    _where: bool = False,
 ):
-    """The plain PyTorch version of `gsrb_relax`."""
-    kernel_counts.PLAIN_CALLS["gsrb_relax"] += 1
+    """The plain PyTorch version of `gsrb_relax` (and of its bf16 tier,
+    counted under gsrb_relax_bf16; `_where` as gsrb_sweeps_folded's)."""
+    kernel_counts.PLAIN_CALLS[tier_name("gsrb_relax", compute_dtype)] += 1
     return gsrb_sweeps_folded(
         u, rhs, a, b, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
-        beta=beta, dx=dx, lo=lo,
+        beta=beta, dx=dx, lo=lo, compute_dtype=compute_dtype, _where=_where,
     )
 
 
@@ -515,26 +577,29 @@ def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
     return GsrbGeometry("grid", per, blocks, ((), ()), ((), ()), 0)
 
 
-def gsrb_capacity(device, itemsize: int) -> int:
-    """Blocks of every gsrb_relax kernel of the item size (the slab kernels
-    at GSRB_SLAB_SMEM) that the CUDA device runs at once
-    (mgk_gsrb_capacity)."""
+def gsrb_capacity(device, itemsize: int, compute: int = 0) -> int:
+    """Blocks of every gsrb_relax kernel of the item size and arithmetic
+    (compute 1: the bf16 tier) (the slab kernels at GSRB_SLAB_SMEM) that the
+    CUDA device runs at once (mgk_gsrb_capacity)."""
     cap = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = cuda_ext.lib().mgk_gsrb_capacity(
-            int(itemsize == 8), GSRB_SLAB_SMEM, ctypes.byref(cap))
+            int(itemsize == 8), int(compute), GSRB_SLAB_SMEM,
+            ctypes.byref(cap))
     cuda_ext.check(err, "gsrb_relax capacity")
     return cap.value
 
 
 @functools.lru_cache(maxsize=None)
 def _relax_launch(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
-                  index: int, form: str | None, patches: int = 1):
+                  index: int, form: str | None, patches: int = 1,
+                  compute: int = 0):
     """(geometry, the C entry's geometry arguments) of a level (of each of
-    a batch of `patches`), kept: the solver calls gsrb_relax with a few
-    shapes many times, and its host time is part of every call's."""
+    a batch of `patches`) in the arithmetic `compute` (1: the bf16 tier),
+    kept: the solver calls gsrb_relax with a few shapes many times, and its
+    host time is part of every call's."""
     geom = gsrb_geometry(shape, itemsize, with_b, kinds, gsrb_capacity(
-        torch.device("cuda", index), itemsize), form, patches)
+        torch.device("cuda", index), itemsize, compute), form, patches)
     starts = (geom.xsplit[0] + (shape[0],) + geom.ysplit[0] + (shape[1],)
               if geom.form == "slab" else (0,))
     return geom, (kinds_array(kinds), GSRB_FORMS[geom.form], geom.per,
@@ -544,39 +609,48 @@ def _relax_launch(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
 
 def gsrb_relax(
     u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
-    alpha: float, beta: float, dx: float, lo,
+    alpha: float, beta: float, dx: float, lo, compute_dtype=None,
 ):
     """nsweeps red-black GSRB sweeps of a whole level (homogeneous ghosts,
     optional variable bCoef `b`). Returns a new tensor; the inputs are only
     read. CUDA tensors go to the kernel (one cooperative launch in the form
-    gsrb_geometry picks); CPU tensors take the plain version."""
+    gsrb_geometry picks); CPU tensors take the plain version.
+    `compute_dtype` "bfloat16": the bf16 tier (f32 operands and constant b
+    only; raises otherwise), counted under gsrb_relax_bf16."""
     if u.device.type == "cpu":
+        check_tier("gsrb_relax", u, b, compute_dtype)
         return gsrb_relax_plain(
             u, rhs, a, b, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
-            beta=beta, dx=dx, lo=lo,
+            beta=beta, dx=dx, lo=lo, compute_dtype=compute_dtype,
         )
     return gsrb_launch(u, rhs, a, b, nsweeps=nsweeps, kinds=kinds, rho=rho,
-                       alpha=alpha, beta=beta, dx=dx, lo=lo)
+                       alpha=alpha, beta=beta, dx=dx, lo=lo,
+                       compute_dtype=compute_dtype)
 
 
 def gsrb_launch(
     u, rhs, a, b=None, *, nsweeps: int, kinds: FaceKinds, rho: float,
     alpha: float, beta: float, dx: float, lo, form: str | None = None,
+    compute_dtype=None,
 ):
     """gsrb_relax's launch on CUDA tensors, in the form gsrb_geometry picks
-    or in `form` (the measurements compare the forms)."""
+    or in `form` (the measurements compare the forms), in the arithmetic
+    `compute_dtype` says (gsrb_relax)."""
     check_level_args("gsrb_relax", u, rhs, a, b)
+    check_tier("gsrb_relax", u, b, compute_dtype)
     if nsweeps < 0:
         raise ValueError(f"gsrb_relax: nsweeps {nsweeps}")
+    compute = int(compute_type(compute_dtype) is not None)
     geom, args = _relax_launch(tuple(u.shape), u.element_size(),
-                               b is not None, kinds, u.device.index, form)
+                               b is not None, kinds, u.device.index, form,
+                               1, compute)
     out = torch.empty_like(u)
     nx, ny, nz = u.shape
-    kernel_counts.count_launch("gsrb_relax", 1)
+    kernel_counts.count_launch(tier_name("gsrb_relax", compute_dtype), 1)
     err = on_stream(
         cuda_ext.lib().mgk_gsrb_relax, u, u.data_ptr(), rhs.data_ptr(),
         a.data_ptr(), _ptr(b), out.data_ptr(), int(u.dtype == torch.float64),
-        nx, ny, nz, args[0], float(rho), float(alpha), float(beta),
+        compute, nx, ny, nz, args[0], float(rho), float(alpha), float(beta),
         float(dx), int(sum(lo)), int(nsweeps), *args[1:])
     cuda_ext.check(err, "gsrb_relax")
     return out

@@ -63,9 +63,12 @@ class LevelMGSpec:
     # is small enough, else preconditioned BiCGStab (Chombo's default
     # AMRMultiGrid bottom solver); "direct" / "bicgstab" force one
     bottom: str = "auto"
-    # reduced-precision colour passes ("bfloat16"): the field keeps its
-    # place, but the kernels sweep at operand precision and
-    # composite.make_amr_spec refuses smoother_precision = bfloat16
+    # reduced-precision colour passes ("bfloat16", resolved from
+    # cfg.smoother_precision by composite.make_amr_spec): the bf16 tier of
+    # the GSRB kernel on the "resident" rung (constant b only) and of the
+    # towers; the residual, the restriction, the batch groups and the
+    # staged body stay at operand precision. composite.smoother_tier_gate
+    # refuses it where a march or a mesh-cut depth would need it.
     smoother_compute: str | None = None
     # device mesh (parallel/mesh.Mesh) of the explicit-halo path: where a
     # depth's axes shard usefully (_shard_counts), relax / residual run per
@@ -365,9 +368,12 @@ def relax(spec: LevelMGSpec, coefs: dict, d: int, u, rhs, n: int):
                 lo=spec.boxes[d].lo, **_level_kw(spec, d),
             )
         elif kind == "resident":
+            # the bf16 tier for constant b only (the JAX package's variable-b
+            # resident call takes none)
             u = fs.gsrb_relax(
                 u.contiguous(), rhs.contiguous(), coefs["a"][d], b,
                 nsweeps=s, lo=spec.boxes[d].lo, **_level_kw(spec, d),
+                compute_dtype=spec.smoother_compute if b is None else None,
             )
         else:
             for i in range(2 * s):

@@ -47,8 +47,9 @@ def launch(f, geom, nsweeps: int) -> torch.Tensor:
     out = torch.empty_like(u)
     err = cuda_ext.lib().mgk_gsrb_relax(
         u.data_ptr(), f["rhs"].data_ptr(), f["a"].data_ptr(), None,
-        out.data_ptr(), 0, nx, ny, nz, fs.kinds_array(KINDS), 2.0, 1.0, -1.0,
-        0.37, 0, nsweeps, fs.GSRB_FORMS[geom.form], geom.per, geom.blocks,
+        out.data_ptr(), 0, 0, nx, ny, nz, fs.kinds_array(KINDS), 2.0, 1.0,
+        -1.0, 0.37, 0, nsweeps, fs.GSRB_FORMS[geom.form], geom.per,
+        geom.blocks,
         len(geom.xsplit[0]), (ctypes.c_int * len(starts))(*starts),
         geom.smem, torch.cuda.current_stream().cuda_stream)
     cuda_ext.check(err, "gsrb_relax probe")

@@ -57,6 +57,16 @@ one preconditioner application with the mesh and without; the kernels
 phase's whole-level sharded relax at the timed shard cases (per call,
 resident where the tree has it, unsharded) is under "cases" as
 "<kernel> <case> whole_level_<form>".
+
+`--bitwise` holds every tree's outputs bit for bit to tree A's: in each
+tree's first run the bitwise probe hashes the f32 and f64 outputs of every
+gsrb_relax form at every level case, every gsrb_relax_batch form at every
+batch, the one-sweep and one-pass entry points and both towers at every
+chain (each tree's own case tables and seeds), and keeps the 4-level
+canonical solve's and the records' patches run's Picard histories, Krylov
+counts and K as exact decimal strings. The summary's "bitwise" field lists,
+per tree, the keys equal to A's, those that differ and those one tree
+lacks; the script exits 1 when a key differs.
 """
 
 from __future__ import annotations
@@ -256,6 +266,84 @@ with torch.no_grad():
 print(json.dumps({"phase": "precond_probe", "precond": _precond}),
       flush=True)
 """
+# Run in a tree's first run with --bitwise, after the other probes: hashes of
+# the f32 and f64 outputs of gsrb_relax (4 sweeps) in every form that takes
+# the level at every LEVEL_CASES and GSRB_CASES case, gsrb_relax_batch
+# (every form) at every BATCH_CASES batch, the one-sweep and one-pass entry
+# points, tower_down / tower_up at every TOWER_CASES chain, with the tree's
+# own tables and seeds (chip_smoke.level_fields: the same inputs in every
+# tree), and the exact decimal strings of the Picard histories, Krylov
+# counts and K of the 4-level canonical solve and of the records' patches
+# configuration with average_down, printed as one line.
+BITWISE_PROBE = """
+import hashlib
+
+
+def _digest(ts):
+    torch.cuda.synchronize()
+    m = hashlib.sha256()
+    for t in ts:
+        m.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return m.hexdigest()[:20]
+
+
+_cs, _hash = chip_smoke, {}
+with torch.no_grad():
+    for _dt in (torch.float32, torch.float64):
+        _n = str(_dt)[6:]
+        _cases = [(c[0], c[1], c[2], c[3], c[4], c[5], 1)
+                  for c in _cs.LEVEL_CASES]
+        _cases += [(c[0], c[1], c[2], c[3], 2.0, c[4], 5)
+                   for c in _cs.GSRB_CASES]
+        for _cid, _shape, _kinds, _lo, _rho, _wb, _seed in _cases:
+            _f = _cs.level_fields(_shape, _dt, seed=_seed, with_b=_wb)
+            _kw = dict(kinds=_kinds, rho=_rho, alpha=1.0, beta=-1.0, dx=0.37)
+            for _form in _cs.gsrb_forms(_f["u"], _wb, _kinds)[1]:
+                _hash[f"gsrb_relax {_cid} {_n} {_form}"] = _digest([
+                    _cs.fs.gsrb_launch(_f["u"], _f["rhs"], _f["a"], _f["b"],
+                                       nsweeps=4, lo=_lo, form=_form, **_kw)])
+            del _f
+            torch.cuda.empty_cache()
+        for _cid, _shape, _kinds, _rho, _los, _ in _cs.BATCH_CASES:
+            _fs = [_cs.level_fields(_shape, _dt, seed=20 + k)
+                   for k in range(len(_los))]
+            _us, _rs, _as = ([f[k] for f in _fs] for k in ("u", "rhs", "a"))
+            _kw = dict(kinds=_kinds, rho=_rho, alpha=1.0, beta=-1.0, dx=0.37)
+            for _form in _cs.batch_forms(_shape, _us[0].element_size(),
+                                         _kinds, len(_los))[1]:
+                _hash[f"gsrb_relax_batch {_cid} {_n} {_form}"] = _digest(
+                    _cs.fs.gsrb_batch_launch(_us, _rs, _as, nsweeps=4,
+                                             los=_los, form=_form, **_kw))
+        _f = _cs.level_fields((96, 80, 80), _dt, seed=7, with_b=True)
+        _kw = dict(kinds=_cs.ALL_C, rho=2.0, alpha=1.0, beta=-1.0, dx=0.37,
+                   lo=(49, 40, 40))
+        _args = (_f["u"], _f["rhs"], _f["a"], _f["b"])
+        _hash[f"gsrb_full_sweep {_n}"] = _digest(
+            [_cs.fs.gsrb_full_sweep(*_args, **_kw)])
+        _hash[f"gsrb_half_sweep {_n}"] = _digest(
+            [_cs.fs.gsrb_half_sweep(*_args, color=c, **_kw) for c in (0, 1)])
+        for _cid, _shape, _kinds, _lo, _ in _cs.TOWER_CASES:
+            _spec = _cs.chain_spec(_shape, _lo, _kinds, dx0=0.11)
+            _f = _cs.level_fields(_shape, _dt, seed=2)
+            _al = [_f["a"]]
+            for _ in range(1, _spec.ndepths):
+                _al.append(_cs.st.coarsen_coef(_al[-1], "harmonic")
+                           .contiguous())
+            _u, _r, _b = _cs.ct.tower_down(_spec, 0, _f["u"], _f["rhs"], _al)
+            _hash[f"tower_down {_cid} {_n}"] = _digest(
+                list(_u) + list(_r) + [_b])
+            _hash[f"tower_up {_cid} {_n}"] = _digest([_cs.ct.tower_up(
+                _spec, 0, 0.5 * _b, list(_u), [_f["rhs"]] + list(_r)[:-1],
+                _al[:-1])])
+    for _label, _over in (
+            ("solve", ["max_level = 3", "precond_precision = single",
+                       "verbosity = 0"]),
+            ("patches_avgdown", _cs.RECORDS_BASE + _cs.PATCHES)):
+        _run = _cs.run_solve(list(_over), _label)
+        for _k in ("history", "linear_iters", "K_history"):
+            _hash[f"{_label} {_k}"] = [repr(x) for x in _run[_k]]
+print(json.dumps({"phase": "bitwise", "hashes": _hash}), flush=True)
+"""
 PRECOND_CASES = (
     ("scale7", ("max_level = 6", "precond_precision = single",
                 "verbosity = 0"), "CANONICAL", None),
@@ -286,10 +374,11 @@ def timer_source(name: str = "time_ms") -> str:
     raise RuntimeError(f"{path}: no {name}")
 
 
-def runner(phases: str = PHASES) -> str:
+def runner(phases: str = PHASES, bitwise: bool = False) -> str:
     """Runs chip_smoke.py's main() in the tree whose root is the working
     directory, with this tree's time_ms in place of its own and the host
-    probe of the tower wrappers."""
+    probe of the tower wrappers; then the split and precond probes, and
+    with `bitwise` the bitwise probe."""
     return ("import json, os, statistics, sys, time\n"
             "sys.path.insert(0, os.getcwd())\n"
             f"sys.argv = ['chip_smoke.py', '--phases', '{phases}']\n"
@@ -305,7 +394,8 @@ def runner(phases: str = PHASES) -> str:
             "    flush=True)\n"
             + timer_source("device_ms") + "\n" + timer_source("host_us")
             + f"\nSPLIT_CASES = {SPLIT_CASES!r}\n" + SPLIT_PROBE
-            + f"PRECOND_CASES = {PRECOND_CASES!r}\n" + PRECOND_PROBE +
+            + f"PRECOND_CASES = {PRECOND_CASES!r}\n" + PRECOND_PROBE
+            + (BITWISE_PROBE if bitwise else "") +
             "sys.exit(rc)\n")
 
 
@@ -395,11 +485,36 @@ def build_seconds(stdout: str):
     return None
 
 
+def bitwise_hashes(stdout: str) -> dict | None:
+    """The bitwise probe's hashes of one run, None where it did not run."""
+    for line in stdout.splitlines():
+        if line.startswith("{") and '"phase": "bitwise"' in line:
+            return json.loads(line)["hashes"]
+    return None
+
+
+def bitwise_summary(runs: list, trees) -> dict:
+    """Every tree's bitwise hashes against tree A's: the keys equal, the
+    keys that differ, and the keys one of the two lacks."""
+    hashes = {r["tree"]: r["bitwise"] for r in runs
+              if r.get("bitwise") is not None}
+    a, out = hashes["A"], {}
+    for tree in trees[1:]:
+        b = hashes[tree]
+        common = sorted(set(a) & set(b))
+        out[tree] = {"equal": sum(a[k] == b[k] for k in common),
+                     "differ": [k for k in common if a[k] != b[k]],
+                     "only_A": sorted(set(a) - set(b)),
+                     "only_" + tree: sorted(set(b) - set(a))}
+    return out
+
+
 def run_tree(root: str, log_path: str, timeout: float,
-             phases: str = PHASES) -> tuple[dict, float]:
+             phases: str = PHASES,
+             bitwise: bool = False) -> tuple[dict, float]:
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", runner(phases)], cwd=root,
+        [sys.executable, "-c", runner(phases, bitwise)], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=timeout)
     with open(log_path, "w") as f:
@@ -413,6 +528,7 @@ def run_tree(root: str, log_path: str, timeout: float,
              "split": split_times(proc.stdout),
              "precond": precond_times(proc.stdout),
              "sharded": sharded_times(proc.stdout),
+             "bitwise": bitwise_hashes(proc.stdout),
              "build_s": build_seconds(proc.stdout)},
             time.perf_counter() - t0)
 
@@ -454,6 +570,10 @@ def main() -> int:
                     help="seconds one run may take")
     ap.add_argument("--phases", default=PHASES,
                     help="chip_smoke.py phases of every run (with kernels)")
+    ap.add_argument("--bitwise", action="store_true",
+                    help="also hold every tree's outputs bit for bit to "
+                         "tree A's (the bitwise probe, in each tree's "
+                         "first run); exit 1 where one differs")
     args = ap.parse_args()
     if "kernels" not in args.phases.split(","):
         print("--phases must include kernels", file=sys.stderr)
@@ -483,7 +603,8 @@ def main() -> int:
     runs = []
     for i, tree in enumerate(order):
         rec, secs = run_tree(roots[tree], f"{args.out}.{i}{tree}.log",
-                             args.timeout, args.phases)
+                             args.timeout, args.phases,
+                             args.bitwise and tree not in order[:i])
         runs.append({"tree": tree, "seconds": secs, **rec})
         print(f"run {i} {tree}: {secs:.1f} s", flush=True)
     result = {"card": card[0] if card else None, "order": order,
@@ -493,6 +614,8 @@ def main() -> int:
               "split": summarize(runs, list(roots), "split"),
               "precond": summarize(runs, list(roots), "precond"),
               "sharded": summarize(runs, list(roots), "sharded")}
+    if args.bitwise:
+        result["bitwise"] = bitwise_summary(runs, list(roots))
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     for case, row in result["cases"].items():
@@ -510,6 +633,10 @@ def main() -> int:
             print(case + ": " + ", ".join(
                 f"{t} {row[t + '_median']:.4g}" for t in roots if t in row),
                 flush=True)
+    if args.bitwise:
+        print("bitwise: " + json.dumps(result["bitwise"]), flush=True)
+        if any(v["differ"] for v in result["bitwise"].values()):
+            return 1
     return 0
 
 

@@ -119,18 +119,73 @@ def test_spec_fields_match(f64, mixed):
 
 
 def test_bfloat16_smoother_is_refused(f64):
-    """Reduced-precision colour passes are not ported: asking for them
-    raises instead of running at operand precision without a word."""
+    """smoother_precision = bfloat16 (the bf16 tier of gsrb_relax and the
+    towers) is refused only where it has no kernel yet, by
+    composite.smoother_tier_gate: a depth on the wave or multisweep rung
+    (scale7's 512x96x96 and 960x144x144 levels, the periodic box's 256^3
+    depth), asked for device type "cuda" without a card, and a depth a
+    mesh cuts. It is accepted, every level spec's smoother_compute
+    "bfloat16", where every relaxation is a gsrb_relax or tower launch
+    (the 4-level canonical solve, the records' patches forest, on "cuda")
+    and on every CPU configuration without a mesh (the plain versions, or
+    no kernel: f64, smoother = xla, auto on the CPU); auto and single give
+    None."""
+    import torch
+
+    import mg_ic_code_tpu_torch as mgt
+    from mg_ic_code_tpu_torch.grid.tagging import generate_hierarchy
+    from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+
     geom = f64[1].geom
     cfg = TCfg(n_cells=(16, 16, 16), max_level=2,
                smoother_precision="bfloat16")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tcomp.make_amr_spec(geom, cfg, device="cpu")
+    for over in ({}, dict(smoother="xla"), dict(precond_precision="single"),
+                 dict(smoother="pallas", precond_precision="single")):
+        spec = tcomp.make_amr_spec(
+            geom, dataclasses.replace(cfg, **over), device="cpu")
+        assert all(s.smoother_compute == "bfloat16"
+                   for s in spec.level_specs), over
     for ok in ("auto", "single"):
         spec = tcomp.make_amr_spec(
             geom, dataclasses.replace(cfg, smoother_precision=ok),
             device="cpu")
         assert all(s.smoother_compute is None for s in spec.level_specs)
+    # a depth the mesh cuts (16^3 over two positions: two 8-plane slabs)
+    mesh = pmesh.make_mesh(["cpu"] * 2)
+    with pytest.raises(NotImplementedError,
+                       match="level 0 depth 0 .* sharded rung"):
+        tcomp.make_amr_spec(geom, dataclasses.replace(
+            cfg, smoother="pallas", precond_precision="single"),
+            device="cpu", mesh=mesh)
+    tcomp.make_amr_spec(geom, cfg, device="cpu", mesh=mesh)  # no kernel
+
+    params = mgt.__path__[0] + "/params/"
+    cases = {
+        "scale7": ("canonical.txt", ["max_level = 6"],
+                   "level 5 depth 0 \\(512, 96, 96\\) takes the wave rung"),
+        "periodic": ("periodic.txt", [],
+                     "level 0 depth 0 \\(256, 256, 256\\) takes the "
+                     "multisweep rung"),
+        "solve4": ("canonical.txt", ["max_level = 3"], None),
+        "patches": ("canonical.txt", ["max_level = 6", "average_down = 1",
+                                      "level_decomposition = patches"],
+                    None),
+    }
+    for name, (fname, over, raises) in cases.items():
+        c = mgt.load_params(params + fname, overrides=over + [
+            "smoother_precision = bfloat16", "precond_precision = single"])
+        spec = tcomp.make_amr_spec(generate_hierarchy(c, device="cpu"), c,
+                                   device="cpu")
+        assert all(s.smoother_compute == "bfloat16"
+                   for s in spec.level_specs)
+        if raises is None:
+            tcomp.smoother_tier_gate(spec.level_specs, torch.float32, "cuda")
+        else:
+            with pytest.raises(NotImplementedError, match=raises):
+                tcomp.smoother_tier_gate(spec.level_specs, torch.float32,
+                                         "cuda")
+        # no kernel on the card either at f64: nothing to refuse
+        tcomp.smoother_tier_gate(spec.level_specs, torch.float64, "cuda")
 
 
 def sibling_forest():
