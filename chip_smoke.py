@@ -53,14 +53,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
            bf16 tier (smoother_precision = bfloat16): gsrb_relax in every
            form at every f32 level case the tier's path can send it (all
            but the march rungs' 512x96x96, 960x144x144 and 256^3) and every
-           GSRB_CASES case with constant b, and both towers at every
-           TOWER_CASES chain, each against its plain bf16 version
-           (BF16_TOL; tower_down depth by depth from the inputs the kernel
-           gave each depth, tower_up as a chain), bit for bit against its
-           twin (the plain version with the kernels' colour select; the
-           towers as against the plain version) and against its f32 form
-           (BF16_CONTRACT), counted under *_bf16; the timed ones beside the
-           f32 form's times
+           GSRB_CASES case with constant b, both towers at every
+           TOWER_CASES chain, the whole-level march (wavefront_relax,
+           multisweep_relax) at every WAVE_CASES and MULTI_CASES case but
+           512^3 (nsweeps 2 and 4, a and rhs in 16-byte chunks and one
+           element a copy) and both shard marches at every SHARD_CASES
+           case, each against its plain bf16 version (BF16_TOL; tower_down
+           depth by depth from the inputs the kernel gave each depth,
+           tower_up as a chain), bit for bit against its twin (the plain
+           version with the kernels' colour select; the towers as against
+           the plain version), the whole-level march also bit for bit bf16
+           gsrb_relax and every shard case's joined shards bit for bit the
+           whole-level bf16 march, and against its f32 form (BF16_CONTRACT,
+           WAVE_CONTRACT for the wavefront), counted under *_bf16; the
+           timed ones beside the f32 form's times
   solve    the canonical binary-black-hole configuration with max_level = 3
            through load_params -> generate_hierarchy -> poisson_solve on
            the card; the launch counters show the path went through the
@@ -111,18 +117,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
            records phase's sequential run where that ran (history, Krylov,
            K), with s/iteration beside it
   bf16_tier
-           smoother_precision = bfloat16 end to end: the 4-level solve with
-           the records' patches settings (average_down = 1), beside the f32
-           run of the same configuration: converged below the tolerance
-           within 20 Picard iterations, every entry finite (no error
-           caught), the tier's launches as the hierarchy implies, no f32
-           gsrb_relax or tower launch, no plain version; the records'
-           limits (step 1 to 1e-5 and steps 2-4 to 2 % of the f32 run's,
-           Krylov within one, entry 7 <= 5e-10, below 1e-10 by entry 8)
-           reported with their readings and whether each is met;
-           s/iteration and peak memory beside the f32 run's. Then
-           make_amr_spec on the card refuses the tier on the scale7 and
-           periodic hierarchies (their march rungs have no bf16 form yet)
+           smoother_precision = bfloat16 end to end, each run beside the
+           f32 run of the same configuration: the 4-level solve with the
+           records' patches settings (average_down = 1): converged below
+           the tolerance within 20 Picard iterations, every entry finite
+           (no error caught), the tier's launches as the hierarchy implies,
+           no f32 gsrb_relax or tower launch, no plain version; the
+           records' limits (step 1 to 1e-5 and steps 2-4 to 2 % of the f32
+           run's, Krylov within one, entry 7 <= 5e-10, below 1e-10 by entry
+           8) reported with their readings and whether each is met;
+           s/iteration and peak memory beside the f32 run's. Then scale7
+           (max_level = 6, 2 Picard iterations: the wave rung) and the
+           periodic box (3: the multisweep rung): the *_bf16 march and
+           tower launches as often per preconditioner application as the
+           f32 run's f32 ones, no f32 relax launch, no plain version, and
+           the history, K and Krylov counts bit for bit those of the same
+           solve with every tier wrapper replaced by its twin on the card,
+           converged or not (convergence is reported, not asserted). Then
+           the box on 4 x-slabs and on (2, 2) pencils of cuda:0 named four
+           times in the tier, against their f32 runs (the shard marches'
+           *_bf16 launches)
   periodic the periodic scalar-field box (params/periodic.txt: is_periodic
            = 1, the constant-K branch, the triple-sine field) at its full
            256^3, 3 Picard steps: K finite and negative, a contracting
@@ -169,9 +183,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
            processes are staged through host memory: a card cannot be
            shared under NCCL), two
            positions of cuda:0 per process, a mesh of four; the periodic
-           box on 4 x-slabs and the 7 levels (2 Picard iterations), each
-           held bit for bit (history, Krylov counts, K) to the sharded
-           phase's run of one process over cuda:0 named four times, HALO
+           box on 4 x-slabs, the 7 levels (2 Picard iterations) and the
+           box's x-slabs in the bf16 tier, each held bit for bit (history,
+           Krylov counts, K) to the sharded (bf16_tier) phase's run of one
+           process over cuda:0 named four times, HALO
            per iteration summed over the processes to what the hierarchy
            implies (check_halo_counts), the halo kernel's calls summed
            over the processes and every other kernel's on each process
@@ -207,7 +222,11 @@ Then one line {"kernels": [...]} (per kernel: launches on its main path =
 wrapper calls that reached the card in the scale7 run, in the periodic
 run for the multisweep kernel, in the sharded periodic runs for the halo
 kernels (x-slabs / pencils; the `processes` path: the periodic x-slabs over
-two processes, launches summed over them), device_launches = the kernel
+two processes, launches summed over them), in the bf16_tier phase's runs
+for the tier's kernels (the 4-level solve for gsrb_relax_bf16 and the
+towers', scale7, the box, its x-slabs and pencils for the marches'; the
+`bf16_processes` path: the box's x-slabs in the tier over two processes),
+device_launches = the kernel
 launches those
 calls enqueued, error against the plain version, time, plain time and bound
 at that path's shape; the same for the 4-level solve; and under "paths" the
@@ -334,6 +353,17 @@ SOURCES = {
                         "mg_ic_code_tpu/ops/coarse_tower.py:206"),
     "tower_up_bf16": ("mg_ic_code_tpu_torch/csrc/tower.cu",
                       "mg_ic_code_tpu/ops/coarse_tower.py:234"),
+    # the bf16 tier of the marches, whole-level and both shard forms
+    "wavefront_relax_bf16": ("mg_ic_code_tpu_torch/csrc/multisweep.cu",
+                             "mg_ic_code_tpu/ops/wavefront.py:329"),
+    "multisweep_relax_bf16": ("mg_ic_code_tpu_torch/csrc/multisweep.cu",
+                              "mg_ic_code_tpu/ops/fused_sweeps.py:486"),
+    "multisweep_relax_halo_bf16": (
+        "mg_ic_code_tpu_torch/csrc/multisweep_halo.cu",
+        "mg_ic_code_tpu/ops/fused_sweeps.py:378"),
+    "multisweep_relax_tiled_pre_bf16": (
+        "mg_ic_code_tpu_torch/csrc/multisweep_halo.cu",
+        "mg_ic_code_tpu/ops/fused_sweeps.py:1540"),
 }
 # rows of the TPU kernel table (PERF.md) that one Hopper kernel serves
 TPU_KERNELS = {
@@ -369,6 +399,10 @@ TPU_KERNELS = {
     "tower_down_bf16": ["mg_ic_code_tpu/ops/coarse_tower.py:206"],
     "tower_up_bf16": ["mg_ic_code_tpu/ops/coarse_tower.py:234"],
 }
+# the tier of a march serves the rows of its f32 form
+for _name in ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
+              "multisweep_relax_tiled_pre"):
+    TPU_KERNELS[_name + "_bf16"] = TPU_KERNELS[_name]
 
 
 class SmokeFailure(Exception):
@@ -529,22 +563,26 @@ def ptxas_resources() -> tuple[dict, dict]:
     return regs, spills
 
 
-# shard_march_kernel<T, NP, W, D, V, SRC> of csrc/multisweep_halo.cu, mangled
+# shard_march_kernel<T, NP, W, D, V, SRC, C> of csrc/multisweep_halo.cu,
+# mangled
 SHARD_KERNEL = re.compile(
-    r"shard_march_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])ELi([12])E")
+    r"shard_march_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])ELi([12])E"
+    r"(f|d|13__nv_bfloat16)E")
 
 
 def shard_forms(regs: dict, spills: dict) -> dict:
     """Registers and spill stores of every shard march instantiation, by
     form: "<f32|f64> NP<n> W<w> V<0|1> <slab|pre>" (V: a and rhs in 16-byte
-    chunks), with its D (planes fetched ahead)."""
+    chunks), " bf16" after it for the bf16 tier's, with its D (planes
+    fetched ahead)."""
     out = {}
     for name, n in regs.items():
         m = SHARD_KERNEL.search(name)
         if m:
-            t, np_, w, d, v, src = m.groups()
+            t, np_, w, d, v, src, c = m.groups()
             key = (f"{'f32' if t == 'f' else 'f64'} NP{np_} W{w} V{v} "
-                   f"{'slab' if src == '1' else 'pre'}")
+                   f"{'slab' if src == '1' else 'pre'}"
+                   f"{' bf16' if c.endswith('bfloat16') else ''}")
             out[key] = {"D": int(d), "registers": n,
                         "spill_stores": spills.get(name, 0)}
     return out
@@ -1284,16 +1322,18 @@ def one_launch_kernels() -> dict:
     }
 
 
-def march_steps(u, ms: float, bound: float, nsweeps: int = 2) -> dict:
-    """The whole-level march's launch on `u` (fused_sweeps.march_geometry):
-    tile width, x segments, steps of the longest block (its segment, the
-    rind planes at both ends and the drain), rounds of blocks, and from the
-    kernel's time `ms` the time of one step and the fraction of the byte
-    bound reached."""
-    tile, nseg, xseg = fs.march_geometry_on(u, nsweeps)
+def march_steps(u, ms: float, bound: float, nsweeps: int = 2,
+                compute: int = 0) -> dict:
+    """The whole-level march's launch on `u` (fused_sweeps.march_geometry;
+    compute 1: the bf16 tier's form): tile width, x segments, steps of the
+    longest block (its segment, the rind planes at both ends and the
+    drain), rounds of blocks, and from the kernel's time `ms` the time of
+    one step and the fraction of the byte bound reached."""
+    tile, nseg, xseg = fs.march_geometry_on(u, nsweeps, compute)
     inner = tile - 4 * nsweeps
     tiles = -(-u.shape[1] // inner) * -(-u.shape[2] // inner)
-    cap = fs.march_capacity(u.device, u.element_size(), nsweeps, tile)
+    cap = fs.march_capacity(u.device, u.element_size(), nsweeps, tile,
+                            compute)
     steps = xseg + 3 * 2 * nsweeps - 1
     rounds = -(-tiles * nseg // cap)
     return {"tile": tile, "segments": nseg, "xseg": xseg, "blocks": tiles * nseg,
@@ -1357,6 +1397,101 @@ def check_one_launch_case(name: str, case, dtype) -> dict:
             gsrb_relax_ms_4sweeps=time_ms(lambda: fs.gsrb_relax(
                 f["u"], f["rhs"], f["a"], None, nsweeps=4, **kw)),
         )
+    return rec
+
+
+# The bf16 tier of the marches (csrc/multisweep.cu, csrc/multisweep_halo.cu:
+# every float form built again with bf16 colour passes). Each form against
+# its twin (tier_twin, the kernels' colour select) bit for bit, with a and
+# rhs in 16-byte chunks and one element a copy; the whole-level form against
+# bf16 gsrb_relax at the same shape bit for bit (one update,
+# gsrb_update_bf16); every shard form joined against the whole-level form
+# bit for bit; against its plain bf16 version (BF16_TOL) and its f32 form
+# at the JAX package's contract of the family: BF16_CONTRACT, 0.1 for the
+# wavefront (tests/test_wavefront.py::test_wavefront_bf16_tier_tracks_f32).
+WAVE_CONTRACT = 0.1
+# the march case the tier is not held at: 512^3 (the twin's bf16
+# temporaries of 134M cells; no path of the tier sends it)
+BF16_MARCH_SKIP = ("periodic_512",)
+
+
+def misaligned(t):
+    """A copy of t whose storage starts one element past the allocation's
+    start (4 bytes past a 16-byte boundary for f32), so that a march takes
+    its one-element copies of a and rhs."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_march_bf16(name: str, case) -> dict:
+    """wavefront_relax or multisweep_relax (`name`) in the bf16 tier at one
+    case (f32 operands; nsweeps 2 and 4): one launch a call, counted under
+    name_bf16, the input untouched; bit for bit its twin and bf16
+    gsrb_relax at the same shape, with a and rhs as made (16-byte chunks
+    where nz allows) and misaligned (one element a copy); against its plain
+    bf16 version (BF16_TOL) and its f32 form (the family's contract).
+    Timed: its time, device and host time per call beside the f32 form's
+    in this call, the plain bf16 version's time, the bound (the f32 form's
+    bytes: the operands stay f32) and its launch (march_steps)."""
+    fn, plain, chunks, _ = one_launch_kernels()[name]
+    cid, shape, kinds, lo, rho, timed = case
+    tname = fs.tier_name(name, BF16)
+    tier = dict(compute_dtype=BF16)
+    contract = WAVE_CONTRACT if name == "wavefront_relax" else BF16_CONTRACT
+    f = level_fields(shape, torch.float32, seed=3)
+    kw = dict(kinds=kinds, rho=rho, alpha=1.0, beta=-1.0, dx=0.37, lo=lo)
+    u_in = f["u"].clone()
+    chunked = shape[2] % 4 == 0
+    worst, against, paths = (0.0, 0.0), 0.0, []
+    for ns in chunks:
+        args = (f["u"], f["rhs"], f["a"])
+        twin = tier_twin(*args, nsweeps=ns, **kw)
+        gsrb = fs.gsrb_relax(*args, None, nsweeps=ns, **kw, **tier)
+        ref = plain(*args, nsweeps=ns, **kw, **tier)
+        f32 = fn(*args, nsweeps=ns, **kw)
+        operands = [("V1" if chunked else "V0", f["rhs"], f["a"])]
+        if chunked:
+            operands.append(("V0", misaligned(f["rhs"]), misaligned(f["a"])))
+        for v, rhs, a in operands:
+            out = one_launch(tname, lambda: fn(f["u"], rhs, a, nsweeps=ns,
+                                               **kw, **tier))
+            torch.cuda.synchronize()
+            what = f"{tname} {cid} nsweeps {ns} {v}"
+            paths.append(v)
+            check(torch.equal(out, twin), f"{what}: not bit for bit its "
+                  f"twin: {rel_err(out, twin)}")
+            check(torch.equal(out, gsrb), f"{what}: not bit for bit bf16 "
+                  f"gsrb_relax: {rel_err(out, gsrb)}")
+            err, rel = rel_err(out, ref)
+            worst = max(worst, (rel, err))
+            check(rel <= BF16_TOL and bool(torch.isfinite(out).all()),
+                  f"{what}: {rel} of max|plain| > {BF16_TOL}")
+            against = max(against, check_against_f32(what, out, f32,
+                                                     contract))
+            check(torch.equal(u_in, f["u"]), f"{what}: input modified")
+        del twin, gsrb, ref, f32, operands
+    rec = {"case": cid, "shape": list(shape), "dtype": "float32", tname: {
+        "rel_err": worst[0], "max_abs_err": worst[1], "tolerance": BF16_TOL,
+        "equals_twin": True, "equals_gsrb_relax_bf16": True,
+        "against_f32": against, "against_f32_limit": contract,
+        "v_paths": sorted(set(paths))}}
+    if timed:
+        args = (f["u"], f["rhs"], f["a"])
+        run = lambda: fn(*args, nsweeps=2, **kw, **tier)
+        run32 = lambda: fn(*args, nsweeps=2, **kw)
+        ncells = math.prod(shape)
+        b, by = bound_ms(level_bytes(ncells, 4, 4), 2 * 32.0 * ncells)
+        ms = time_ms(run)
+        rec[tname].update(
+            nsweeps=2, ms=ms, **march_steps(f["u"], ms, b, compute=1),
+            device_ms=device_ms(run), host_us=host_us(run),
+            f32_ms=time_ms(run32), f32_device_ms=device_ms(run32),
+            f32_host_us=host_us(run32),
+            plain_ms=time_ms(lambda: plain(*args, nsweeps=2, **kw, **tier),
+                             reps=6, warmup=1),
+            bound_ms=b, bound_by=by)
     return rec
 
 
@@ -1734,24 +1869,25 @@ def shard_operands(f, kinds, mshape, H: int, rho: float = 2.0,
 
 
 def shard_launch(ops: dict, loc, nsweeps: int, ms: float,
-                 bound: float) -> dict:
+                 bound: float, compute: int = 0) -> dict:
     """The shard march's launch on one shard
-    (fused_sweeps.shard_geometry_on): tile width, x segments, steps of the
-    longest block, rounds of blocks, the time of one step and the fraction
-    of the byte bound reached, and the instantiation that runs (its form,
-    a and rhs in 16-byte chunks or not, as the C entry reports it for these
-    operands: mgk_multisweep_shard_chunked) with its registers and spill
-    stores (ptxas -v)."""
+    (fused_sweeps.shard_geometry_on; compute 1: the bf16 tier's form): tile
+    width, x segments, steps of the longest block, rounds of blocks, the
+    time of one step and the fraction of the byte bound reached, and the
+    instantiation that runs (its form, a and rhs in 16-byte chunks or not,
+    as the C entry reports it for these operands:
+    mgk_multisweep_shard_chunked) with its registers and spill stores
+    (ptxas -v)."""
     pre = "pre" in ops
     arrays = ops["pre"] if pre else (ops["u"], ops["rhs"], ops["a"],
                                      *ops["pads"])
     u = arrays[0]
     isz = u.element_size()
     tile, nseg, xseg = fs.shard_geometry_on(tuple(loc), nsweeps, isz,
-                                            u.device.index, pre)
+                                            u.device.index, pre, compute)
     inner = tile - 4 * nsweeps
     tiles = -(-loc[1] // inner) * -(-loc[2] // inner)
-    cap = fs.shard_capacity(u.device, isz, nsweeps, tile, pre)
+    cap = fs.shard_capacity(u.device, isz, nsweeps, tile, pre, compute)
     steps = xseg + 3 * 2 * nsweeps - 1
     rounds = -(-tiles * nseg // cap)
     chunks = ctypes.c_int(0)
@@ -1760,7 +1896,8 @@ def shard_launch(ops: dict, loc, nsweeps: int, ms: float,
         *(t.data_ptr() for t in arrays), *(None,) * (3 * pre),
         ctypes.byref(chunks)), "multisweep shard chunked")
     form = (f"{'f32' if isz == 4 else 'f64'} NP{2 * nsweeps} W{tile} "
-            f"V{chunks.value} {'pre' if pre else 'slab'}")
+            f"V{chunks.value} {'pre' if pre else 'slab'}"
+            f"{' bf16' if compute else ''}")
     return {"tile": tile, "segments": nseg, "xseg": xseg,
             "blocks": tiles * nseg, "capacity": cap,
             "steps_per_block": steps, "rounds": rounds,
@@ -1903,6 +2040,110 @@ def check_shard_case(case, dtype) -> dict:
     return rec
 
 
+def shard_relax(ops: dict, ns: int, kw: dict, how: str = "kernel"):
+    """One shard's sweeps (shard_operands' `ops`): `how` "kernel" the
+    wrapper (the halo kernel or the prepadded one), "f32" the same at the
+    operands' precision, "plain" / "twin" its plain version in the bf16
+    tier (twin: with the kernels' colour select); every other `how` runs
+    the tier."""
+    extra = {} if how == "f32" else dict(compute_dtype=BF16)
+    if how == "twin":
+        extra["_where"] = True
+    wrapper = how in ("kernel", "f32")
+    if "pads" in ops:
+        if wrapper:
+            return fs.multisweep_relax(
+                ops["u"], ops["rhs"], ops["a"], nsweeps=ns,
+                halo=ops["pads"] + (ops["meta"],), **kw, **extra)
+        return fs.multisweep_relax_halo_plain(
+            ops["u"], ops["rhs"], ops["a"], *ops["pads"], ops["meta"],
+            nsweeps=ns, **kw, **extra)
+    fn = (fs.multisweep_relax_tiled_pre if wrapper
+          else fs.multisweep_relax_tiled_pre_plain)
+    return fn(*ops["pre"], ops["meta"], ny_global=ops["ny_global"],
+              nsweeps=ns, **kw, **extra)
+
+
+def check_shard_bf16(case) -> dict:
+    """The bf16 tier of the halo kernel (x-slab) or the prepadded one
+    (pencil) on one shard of a SHARD_CASES level (f32; nsweeps 2 and 4):
+    one launch a call, counted under its name with _bf16; bit for bit its
+    twin (the plain version with the kernels' colour select), against its
+    plain bf16 version (BF16_TOL) and its f32 form (BF16_CONTRACT); then 4
+    sweeps of the whole level as the sharded path runs them in the tier
+    (every shard's kernel per chunk of 2, joined) bit for bit the
+    whole-level bf16 march (two launches of 2). Timed: its time, device
+    and host time per call beside the f32 form's, the plain bf16 version's
+    time, the bound and its launch (shard_launch)."""
+    cid, shape, kinds, lo, mshape, key, timed = case
+    name = ("multisweep_relax_halo" if len(mshape) == 1
+            else "multisweep_relax_tiled_pre")
+    tname = fs.tier_name(name, BF16)
+    f = level_fields(shape, torch.float32, seed=4)
+    kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.37, lo=lo)
+    counts = tuple(mshape) + (1,) * (3 - len(mshape))
+    loc = [shape[ax] // counts[ax] for ax in range(3)]
+    h_max = SHARD_COEF_HMAX.get(cid)
+    worst, against = (0.0, 0.0), 0.0
+    for ns in fs.MULTISWEEP_CHUNKS:
+        ops = shard_operands(f, kinds, mshape, 2 * ns, h_max=h_max)[key]
+        out = one_launch(tname, lambda: shard_relax(ops, ns, kw))
+        torch.cuda.synchronize()
+        what = f"{tname} {cid} nsweeps {ns}"
+        twin = shard_relax(ops, ns, kw, "twin")
+        check(torch.equal(out, twin),
+              f"{what}: not bit for bit its twin: {rel_err(out, twin)}")
+        err, rel = rel_err(out, shard_relax(ops, ns, kw, "plain"))
+        worst = max(worst, (rel, err))
+        check(rel <= BF16_TOL and bool(torch.isfinite(out).all()),
+              f"{what}: {rel} of max|plain| > {BF16_TOL}")
+        against = max(against, check_against_f32(
+            what, out, shard_relax(ops, ns, kw, "f32"), BF16_CONTRACT))
+
+    def sharded_sweeps():
+        u = f["u"]
+        for _ in range(2):
+            outs = {k: shard_relax(o, 2, kw) for k, o in shard_operands(
+                dict(f, u=u), kinds, mshape, 4).items()}
+            u = shards.join_dict(outs, shards.layout(one_card_mesh(
+                mshape), counts), u.device)
+        return u
+
+    sharded = sharded_sweeps()
+    whole = f["u"]
+    for _ in range(2):
+        whole = fs.multisweep_relax(whole, f["rhs"], f["a"], nsweeps=2,
+                                    compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(sharded, whole), f"{tname} {cid}: the shards joined "
+          f"are not the whole-level bf16 march: {rel_err(sharded, whole)}")
+    rec = {"case": cid, "shape": loc, "level": list(shape),
+           "mesh": list(mshape), "shard": list(key), "dtype": "float32",
+           tname: {"rel_err": worst[0], "max_abs_err": worst[1],
+                   "tolerance": BF16_TOL, "equals_twin": True,
+                   "against_f32": against,
+                   "against_f32_limit": BF16_CONTRACT,
+                   "joined_equals_whole_level": True}}
+    if timed:
+        ops = shard_operands(f, kinds, mshape, 4)[key]
+        nin = (math.prod(loc) + 2 * 4 * loc[1] * loc[2] if "pads" in ops
+               else ops["pre"][0].numel())
+        ncells = math.prod(loc)
+        b, by = bound_ms(4 * (3 * nin + ncells), 2 * 32.0 * ncells)
+        run = lambda: shard_relax(ops, 2, kw)
+        run32 = lambda: shard_relax(ops, 2, kw, "f32")
+        ms = time_ms(run)
+        rec[tname].update(
+            nsweeps=2, ms=ms, **shard_launch(ops, loc, 2, ms, b, compute=1),
+            device_ms=device_ms(run), host_us=host_us(run),
+            f32_ms=time_ms(run32), f32_device_ms=device_ms(run32),
+            f32_host_us=host_us(run32),
+            plain_ms=time_ms(lambda: shard_relax(ops, 2, kw, "plain"),
+                             reps=6, warmup=1),
+            bound_ms=b, bound_by=by)
+    return rec
+
+
 def phase_kernels() -> dict:
     checks = []
     for dtype in (torch.float32, torch.float64):
@@ -1925,10 +2166,16 @@ def phase_kernels() -> dict:
                     continue
                 checks.append(check_one_launch_case(name, case, dtype))
                 torch.cuda.empty_cache()
+                if dtype == torch.float32 and case[0] not in BF16_MARCH_SKIP:
+                    checks.append(check_march_bf16(name, case))
+                    torch.cuda.empty_cache()
         checks.append(check_sweep_entry_points(dtype))
         for case in SHARD_CASES:
             checks.append(check_shard_case(case, dtype))
             torch.cuda.empty_cache()
+            if dtype == torch.float32:
+                checks.append(check_shard_bf16(case))
+                torch.cuda.empty_cache()
     # wrappers raise on what the kernels do not take (no silent fallback)
     u = torch.zeros((8, 8, 8), dtype=torch.float32, device="cuda")
     kw = dict(nsweeps=1, kinds=ALL_D, rho=2.0, alpha=1.0, beta=-1.0, dx=1.0,
@@ -1970,15 +2217,16 @@ def phase_kernels() -> dict:
             continue
         raise SmokeFailure("multisweep_relax accepted a bad call")
     # the shard marches' launches at the timed cases, on a line of their own
+    tier = {n: " bf16" if n.endswith("_bf16") else "" for n in (
+        "multisweep_relax_halo", "multisweep_relax_tiled_pre",
+        "multisweep_relax_halo_bf16", "multisweep_relax_tiled_pre_bf16")}
     emit({"phase": "shard_launch", "cases": {
-        f"{c['case']} {c['dtype']}": {
+        f"{c['case']} {c['dtype']}{tier[n]}": {
             k: c[n][k] for k in ("tile", "segments", "xseg", "blocks",
                                  "steps_per_block", "us_per_step", "form",
                                  "D", "registers", "spill_stores")
             if k in c[n]}
-        for c in checks for n in ("multisweep_relax_halo",
-                                  "multisweep_relax_tiled_pre")
-        if "tile" in c.get(n, {})}})
+        for c in checks for n in tier if "tile" in c.get(n, {})}})
     out = {"phase": "kernels",
            "kernels": list(kernel_counts.KERNELS),
            "tolerance": {"float32": TOL[torch.float32],
@@ -2001,7 +2249,10 @@ TOWERS = ("tower_down", "tower_up")
 # batched forms: groups of at most fs.BATCH_MAX patches)
 ONE_LAUNCH = TOWERS + ("gsrb_relax", "residual", "residual_restrict",
                        "gsrb_relax_batch", "residual_restrict_batch",
-                       "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16")
+                       "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16",
+                       "wavefront_relax_bf16", "multisweep_relax_bf16",
+                       "multisweep_relax_halo_bf16",
+                       "multisweep_relax_tiled_pre_bf16")
 
 
 def check_one_launch(counts: dict, what: str) -> None:
@@ -2838,6 +3089,150 @@ BF16_OVERRIDE = ["smoother_precision = bfloat16"]
 # as in the kernels' (scripts/bf16_tier.py; PERF.md section 6).
 BF16_SOLVE = SOLVE_BASE + ["level_decomposition = patches",
                            "average_down = 1", "max_NL_iterations = 20"]
+# the tier on the march rungs: scale7 (7 levels, no average_down: not
+# expected to converge) and the periodic box (PERIODIC_BASE), each beside
+# its f32 run and bit for bit the same solve with every tier wrapper
+# replaced by its twin on the card; the box on 4 x-slabs and (2, 2) pencils
+# of one card beside their f32 runs
+BF16_SCALE7 = ["max_level = 6", "max_NL_iterations = 2",
+               "precond_precision = single", "verbosity = 0"]
+# the relax kernels that take the tier, each counted under its name with
+# _bf16 there; every other kernel runs at f32 in a run of the tier
+TIER_RELAX = ("gsrb_relax", "wavefront_relax", "multisweep_relax",
+              "multisweep_relax_halo", "multisweep_relax_tiled_pre",
+              "tower_down", "tower_up")
+TIER_WRAPPERS: dict = {}
+
+
+def install_relax(mode: str) -> None:
+    """What sweeps the levels and the towers of a solve on the card:
+    `kernel` the wrappers (the kernels, the solver's own path); `plain` /
+    `twin` the plain versions on the card's tensors in place of every
+    relax wrapper the solver reaches (gsrb_relax, wavefront_relax,
+    multisweep_relax and its halo= form, multisweep_relax_tiled_pre, the
+    towers): the JAX body's arithmetic, its arithmetic colour select
+    included, or (twin) with the kernels' colour select, which the tier's
+    kernels are held to bit for bit. The residual and restriction kernels
+    run in every mode. (scripts/bf16_tier.py --relax.)"""
+    mods = {"gsrb_relax": fs, "wavefront_relax": wf, "multisweep_relax": fs,
+            "multisweep_relax_tiled_pre": fs, "tower_down": ct,
+            "tower_up": ct}
+    if not TIER_WRAPPERS:
+        TIER_WRAPPERS.update({n: getattr(m, n) for n, m in mods.items()})
+    if mode == "kernel":
+        for n, m in mods.items():
+            setattr(m, n, TIER_WRAPPERS[n])
+        return
+    where = mode == "twin"
+
+    def multisweep(u, rhs, a, halo=None, **kw):
+        if halo is None:
+            return fs.multisweep_relax_plain(u, rhs, a, _where=where, **kw)
+        return fs.multisweep_relax_halo_plain(u, rhs, a, *halo,
+                                              _where=where, **kw)
+
+    fs.gsrb_relax = lambda u, rhs, a, b=None, **kw: fs.gsrb_relax_plain(
+        u, rhs, a, b, _where=where, **kw)
+    wf.wavefront_relax = lambda u, rhs, a, **kw: wf.wavefront_relax_plain(
+        u, rhs, a, _where=where, **kw)
+    fs.multisweep_relax = multisweep
+    fs.multisweep_relax_tiled_pre = lambda *args, **kw: (
+        fs.multisweep_relax_tiled_pre_plain(*args, _where=where, **kw))
+    ct.tower_down = lambda *args: ct.tower_down_plain(*args, _where=where)
+    ct.tower_up = lambda *args: ct.tower_up_plain(*args, _where=where)
+
+
+def tier_solve(overrides, label: str, params: str = CANONICAL,
+               relax: str = "kernel") -> dict:
+    """load_params -> generate_hierarchy -> poisson_solve on the card, the
+    levels and towers swept as install_relax(`relax`) says, the counters
+    set to 0 just before: a solve that need not converge (a
+    NonConvergenceError ends it and is reported). The Picard history as
+    far as it got, K, the Krylov counts and final linear residuals, each
+    iteration's seconds, the peak memory, the counts of the run and the
+    relax wrappers' calls by shape."""
+    cfg = mgt.load_params(params, overrides=list(overrides))
+    geom = generate_hierarchy(cfg)
+    log: list = []
+    inner = nl.nl_iteration
+
+    def logged(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        log.append((float(out[2]), float(out[3]), int(out[4]["iters"]),
+                    float(out[4]["final_rnorm"]),
+                    time.perf_counter() - t0))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    install_relax(relax)
+    nl.nl_iteration = logged
+    kernel_counts.reset()
+    raised = None
+    try:
+        with calls_by_shape() as by_shape:
+            poisson_solve(cfg, geom=geom, verbose=False)
+    except nl.NonConvergenceError as e:
+        raised = f"NonConvergenceError: {e}"
+    finally:
+        nl.nl_iteration = inner
+        install_relax("kernel")
+    counts = dict(kernel_counts.snapshot(), by_shape=by_shape)
+    return {"label": label, "overrides": list(overrides), "relax": relax,
+            "levels": [list(b.shape) for b in geom.boxes], "raised": raised,
+            "history": [x[0] for x in log], "K_history": [x[1] for x in log],
+            "linear_iters": [x[2] for x in log],
+            "linear_residuals": [x[3] for x in log],
+            "s_per_iteration": [x[4] for x in log],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "spec": comp.make_amr_spec(geom, cfg), "counts": counts}
+
+
+def check_tier_against_f32(run: dict, f32: dict, what: str) -> dict:
+    """The kernels of a run of the tier against the f32 run of the same
+    configuration: every relax kernel the f32 run launched launched under
+    its _bf16 name instead (TIER_RELAX), every other kernel at f32, each
+    as often per preconditioner application (two a Krylov iteration) as in
+    the f32 run, and no other kernel; one launch a call; no plain
+    version."""
+    got, base = run["counts"]["launches"], f32["counts"]["launches"]
+    apps, apps32 = 2 * sum(run["linear_iters"]), 2 * sum(f32["linear_iters"])
+    want = {(fs.tier_name(k, BF16) if k in TIER_RELAX else k): n
+            for k, n in base.items() if n}
+    check(apps > 0 and {k for k, n in got.items() if n} == set(want)
+          and all(got[k] * apps32 == n * apps for k, n in want.items()),
+          f"{what}: launches {got} in {apps} preconditioner applications; "
+          f"the f32 run's {base} in {apps32}")
+    check_one_launch(run["counts"], what)
+    check(all(v == 0 for v in run["counts"]["plain_calls"].values()),
+          f"{what}: a plain version ran on the card's path: "
+          f"{run['counts']['plain_calls']}")
+    return {"applications": apps, "applications_f32": apps32,
+            "launches_per_application": {k: got[k] / apps for k in want}}
+
+
+def same_solve(a: dict, b: dict, what: str) -> None:
+    """Two solves' Picard histories, K, Krylov counts and final linear
+    residuals bit for bit (NaN equal to NaN), and the same end."""
+    def equal(x, y):
+        return len(x) == len(y) and all(
+            p == q or (math.isnan(p) and math.isnan(q)) for p, q in zip(x, y))
+
+    for k in ("history", "K_history", "linear_residuals"):
+        check(equal(a[k], b[k]), f"{what}: {k} {a[k]} against {b[k]}")
+    check(a["linear_iters"] == b["linear_iters"]
+          and a["raised"] == b["raised"],
+          f"{what}: Krylov {a['linear_iters']} ({a['raised']}) against "
+          f"{b['linear_iters']} ({b['raised']})")
+
+
+def tier_record(run: dict) -> dict:
+    """What the phase prints of a tier_solve."""
+    return {k: v for k, v in run.items() if k not in ("spec", "counts")} | {
+        k: run["counts"][k] for k in ("launches", "device_launches",
+                                      "plain_calls", "by_shape")}
 
 
 def check_tier_route(run: dict, counts: dict, spec, what: str) -> None:
@@ -2901,17 +3296,28 @@ def tier_against_f32(run: dict, f32: dict) -> dict:
 
 
 def phase_bf16_tier() -> dict:
-    """smoother_precision = bfloat16 end to end: BF16_SOLVE through
-    load_params -> generate_hierarchy -> poisson_solve, beside the f32 run
-    of the same configuration. The bf16 run must converge (every entry
-    finite, below the tolerance within its 20 Picard iterations; a
-    NonConvergenceError ends the phase) and go the tier's route
-    (check_tier_route: the tier's launches as the hierarchy implies, no f32
-    gsrb_relax or tower launch, no plain version); the records' limits are
-    reported beside the f32 run's readings (tier_against_f32), each with
-    whether it is met. Then the gate on the card: make_amr_spec refuses the
-    tier on the scale7 and periodic hierarchies, whose march rungs have no
-    bf16 form yet."""
+    """smoother_precision = bfloat16 end to end, each run beside the f32
+    run of the same configuration:
+      * BF16_SOLVE (the 4-level solve with average_down) must converge
+        (every entry finite, below the tolerance within its 20 Picard
+        iterations; a NonConvergenceError ends the phase) and go the
+        tier's route (check_tier_route); the records' limits are reported
+        beside the f32 run's readings (tier_against_f32);
+      * scale7 (BF16_SCALE7: the wave rung at 512x96x96 and 960x144x144)
+        and the periodic box (PERIODIC_BASE: the multisweep rung at 256^3)
+        go the tier's route against their f32 runs (check_tier_against_f32:
+        the *_bf16 march launches as often per preconditioner application
+        as the f32 marches, no f32 relax launch, no plain version; scale7's
+        relax calls by shape as its hierarchy implies, relax_calls_of), and
+        each is bit for bit (NaN-aware; converged or not) the same solve
+        with every tier wrapper replaced by its twin on the card
+        (install_relax("twin")); their histories, Krylov counts and
+        s/iteration are reported, convergence asserted on neither;
+      * the box on 4 x-slabs and on (2, 2) pencils of cuda:0 (sharded_solve:
+        its splits and joins held to check_halo_counts) against its f32
+        runs (check_tier_against_f32: the shard marches' *_bf16 launches),
+        step 1 beside the unsharded tier run's; the x-slab run is the
+        processes phase's one-process reference in the tier."""
     out = {"phase": "bf16_tier", "overrides": BF16_SOLVE + BF16_OVERRIDE}
     f32 = run_solve(BF16_SOLVE, "solve_avgdown_f32")
     kernel_counts.reset()
@@ -2933,22 +3339,81 @@ def phase_bf16_tier() -> dict:
     torch.cuda.empty_cache()
     out["solve_avgdown"] = {**tier_against_f32(run, f32), **counts, **run}
 
-    gate = {}
-    for name, params, over, rung in (
-            ("scale7", CANONICAL, ["max_level = 6"], "wave"),
-            ("periodic", PERIODIC, [], "multisweep")):
-        cfg = mgt.load_params(params, overrides=over + BF16_OVERRIDE + [
-            "precond_precision = single", "verbosity = 0"])
-        geom = generate_hierarchy(cfg)
-        try:
-            comp.make_amr_spec(geom, cfg)
-            refused = None
-        except NotImplementedError as e:
-            refused = str(e)
-        check(refused is not None and f"the {rung} rung" in refused,
-              f"bf16 gate on {name}: {refused}")
-        gate[name] = refused
-    out["gate"] = gate
+    # the march rungs, unsharded: the kernels, their twins, the f32 run
+    for name, over, params, march in (
+            ("scale7", BF16_SCALE7, CANONICAL, "wavefront_relax"),
+            ("periodic", PERIODIC_BASE, PERIODIC, "multisweep_relax")):
+        ref32 = tier_solve(over, f"{name}_f32", params)
+        torch.cuda.empty_cache()
+        tier = tier_solve(over + BF16_OVERRIDE, f"{name}_bf16", params)
+        torch.cuda.empty_cache()
+        twin = tier_solve(over + BF16_OVERRIDE, f"{name}_bf16_twin", params,
+                          relax="twin")
+        torch.cuda.empty_cache()
+        what = f"{name}_bf16"
+        check(tier["levels"] == ref32["levels"] and tier["history"],
+              f"{what}: levels {tier['levels']}, history {tier['history']}")
+        check(all(ls.smoother_compute == BF16
+                  for ls in tier["spec"].level_specs),
+              f"{what}: smoother_compute not bfloat16 on every level")
+        route = check_tier_against_f32(tier, ref32, what)
+        check(tier["counts"]["launches"][fs.tier_name(march, BF16)] > 0,
+              f"{what}: no {march} launch in the tier")
+        if name == "scale7":
+            apps = route["applications"]
+            want = {n: {k: c * apps for k, c in calls.items()}
+                    for n, calls in relax_calls_of(tier["spec"]).items()}
+            got = {n: c for n, c in tier["counts"]["by_shape"].items()
+                   if c or n in want}
+            check(got == want, f"{what}: relax calls by shape "
+                  f"{tier['counts']['by_shape']}, the hierarchy implies "
+                  f"{want}")
+        same_solve(tier, twin, f"{what} against its twins")
+        BF16_COUNTS[f"bf16_{name}"] = tier["counts"]
+        h, h32 = tier["history"], ref32["history"]
+        out[name] = {**tier_record(tier), **route, "equals_twin_solve": True,
+                     "step1_rel_diff_f32": abs(h[0] - h32[0]) / h32[0],
+                     "history_f32": h32,
+                     "linear_iters_f32": ref32["linear_iters"],
+                     "K_history_f32": ref32["K_history"],
+                     "s_per_iteration_f32": ref32["s_per_iteration"],
+                     "max_memory_allocated_f32":
+                     ref32["max_memory_allocated"],
+                     "twin_s_per_iteration": twin["s_per_iteration"]}
+
+    # the box's shards in the tier (one card named four times)
+    for path, mshape in (("sharded_x", SHARD_X),
+                         ("sharded_pencil", SHARD_PENCIL)):
+        run32, counts32 = sharded_solve(PERIODIC_BASE, f"{path}_f32", mshape,
+                                        PERIODIC)
+        torch.cuda.empty_cache()
+        run, counts = sharded_solve(PERIODIC_BASE + BF16_OVERRIDE,
+                                    f"bf16_{path}", mshape, PERIODIC)
+        torch.cuda.empty_cache()
+        what = f"bf16_{path}"
+        route = check_tier_against_f32(
+            {"counts": counts, "linear_iters": run["linear_iters"]},
+            {"counts": counts32, "linear_iters": run32["linear_iters"]},
+            what)
+        kernel = ("multisweep_relax_halo_bf16" if path == "sharded_x"
+                  else "multisweep_relax_tiled_pre_bf16")
+        m = kernel_counts.KERNELS.index(kernel)
+        check(all(c[m] > 0 for c in run["kernel_calls_per_iteration"]),
+              f"{what}: an iteration made no {kernel} call")
+        BF16_COUNTS[what] = counts
+        SHARDED_REFERENCE[what] = run
+        h = run["history"]
+        hu = out["periodic"]["history"]
+        out[what] = {"mesh": list(mshape), **run, **route,
+                     "launches": counts["launches"],
+                     "device_launches": counts["device_launches"],
+                     "plain_calls": counts["plain_calls"],
+                     "halo": counts["halo"],
+                     "step1_rel_diff_unsharded_bf16":
+                     abs(h[0] - hu[0]) / hu[0],
+                     "history_f32": run32["history"],
+                     "linear_iters_f32": run32["linear_iters"],
+                     "s_per_iteration_f32": run32["s_per_iteration"]}
     emit(out)
     return out
 
@@ -4017,11 +4482,16 @@ PROCESSES7 = [o if not o.startswith("max_NL") else "max_NL_iterations = 2"
 # the configurations the workers solve: (name, overrides, parameters, the
 # sharded phase's reference run)
 PROCESS_RUNS = (("periodic", PERIODIC_BASE, PERIODIC, "sharded_x"),
-                ("sharded7", PROCESSES7, CANONICAL, "sharded7"))
+                ("sharded7", PROCESSES7, CANONICAL, "sharded7"),
+                # the box's x-slabs in the bf16 tier (phase bf16_tier's run)
+                ("periodic_bf16", PERIODIC_BASE + BF16_OVERRIDE, PERIODIC,
+                 "bf16_sharded_x"))
 # the kernels that run on the shards of a cut level (each process its own
 # shards' calls); every other kernel runs on the depths the mesh does not
 # cut, which every process holds whole and computes
-SHARD_KERNELS = ("multisweep_relax_halo", "multisweep_relax_tiled_pre")
+SHARD_KERNELS = ("multisweep_relax_halo", "multisweep_relax_tiled_pre",
+                 "multisweep_relax_halo_bf16",
+                 "multisweep_relax_tiled_pre_bf16")
 PROCESS_KEYS = ("levels", "history", "linear_iters", "K_history",
                 "constant_K", "s_per_iteration", "total_s",
                 "kernel_calls_per_iteration", "halo_per_iteration",
@@ -4228,8 +4698,10 @@ def check_process_runs(workers: list, ref: dict, spec, what: str) -> dict:
                   else all(g == want[j] for g in got))
             check(ok, f"{what}: iteration {i} {name} calls {got} over the "
                   f"processes, {want[j]} on one")
-    halo_kernel = order.index("multisweep_relax_halo")
-    check(all(w["kernel_calls_per_iteration"][i][halo_kernel] > 0
+    halo_kernels = [order.index(k) for k in ("multisweep_relax_halo",
+                                             "multisweep_relax_halo_bf16")]
+    check(all(sum(w["kernel_calls_per_iteration"][i][k]
+                  for k in halo_kernels) > 0
               for w in workers for i in range(n)),
           f"{what}: a process made no halo kernel call in an iteration")
     for w in workers:
@@ -4268,11 +4740,11 @@ def _process_spec(over, params: str, mesh):
 def phase_processes() -> dict:
     """The sharded solve over two processes on one card (gloo, tensors
     staged through host memory, each process two positions of a mesh of
-    four on cuda:0): the periodic box on 4 x-slabs and the 7 levels (2
-    Picard iterations) held bit for bit to the sharded phase's runs of
-    one process over cuda:0 named four times (check_process_runs); and
-    NCCL asked for with both processes on cuda:0 raises the port's
-    error."""
+    four on cuda:0): the periodic box on 4 x-slabs, the 7 levels (2
+    Picard iterations) and the box's x-slabs in the bf16 tier held bit for
+    bit to the runs of one process over cuda:0 named four times (the
+    sharded and bf16_tier phases'; check_process_runs); and NCCL asked for
+    with both processes on cuda:0 raises the port's error."""
     out = {"phase": "processes", "backend": "gloo, staged through host "
            "memory (both processes on cuda:0)", "processes": 2,
            "positions_per_process": 2}
@@ -4299,6 +4771,8 @@ def phase_processes() -> dict:
                      "owners": workers[0][name]["owners"], **rec}
     PROCESS_COUNTS["processes"] = {
         k: out["periodic"][k] for k in ("launches", "device_launches")}
+    PROCESS_COUNTS["bf16_processes"] = {
+        k: out["periodic_bf16"][k] for k in ("launches", "device_launches")}
     # the forest's pair batched with one chunk on each process
     ref = forest_record(forest_solve(forest_process_mesh(one_card_mesh(
         (4,)))))
@@ -4446,9 +4920,29 @@ PATH_CASES = {
 PATH_CASES["bf16_tier"] = {"gsrb_relax_bf16": "path_l3_176x64x64",
                            "tower_down_bf16": "path_l0_64",
                            "tower_up_bf16": "path_l0_64"}
+# the tier on the march rungs (phase bf16_tier): scale7's finest level on
+# the wave rung, the box's 256^3 on the multisweep rung, its x-slabs and
+# pencils, each with the tier's kernels below the march (the towers, the
+# pencils' 8^3 gsrb_relax)
+PATH_CASES["bf16_scale7"] = {"wavefront_relax_bf16": "path_l6_960x144x144",
+                             "gsrb_relax_bf16": "path_l3_176x64x64",
+                             "tower_down_bf16": "path_l0_64",
+                             "tower_up_bf16": "path_l0_64"}
+PATH_CASES["bf16_periodic"] = {"multisweep_relax_bf16": "periodic_256",
+                               "tower_down_bf16": "periodic_path_128",
+                               "tower_up_bf16": "periodic_path_128"}
+PATH_CASES["bf16_sharded_x"] = {
+    "multisweep_relax_halo_bf16": "slab_64x256x256_P",
+    "tower_down_bf16": "sharded_path_16_P",
+    "tower_up_bf16": "sharded_path_16_P"}
+PATH_CASES["bf16_sharded_pencil"] = {
+    "multisweep_relax_tiled_pre_bf16": "pencil_128x128x256_P",
+    "gsrb_relax_bf16": "sharded_pencil_8_P"}
 # the periodic box on 4 x-slabs over two processes (phase processes): the
-# kernels of the sharded x-slabs at the same shapes, launched by both
+# kernels of the sharded x-slabs at the same shapes, launched by both; the
+# same in the tier
 PATH_CASES["processes"] = dict(PATH_CASES["sharded_x"])
+PATH_CASES["bf16_processes"] = dict(PATH_CASES["bf16_sharded_x"])
 # the processes phase's launches, summed over its processes
 PROCESS_COUNTS: dict = {}
 # the path whose run gives a kernel's top-level launches
@@ -4458,7 +4952,11 @@ MAIN_PATH = {"multisweep_relax": "periodic",
              "gsrb_relax_batch": "forest_batching",
              "residual_restrict_batch": "forest_batching",
              "gsrb_relax_bf16": "bf16_tier", "tower_down_bf16": "bf16_tier",
-             "tower_up_bf16": "bf16_tier"}
+             "tower_up_bf16": "bf16_tier",
+             "wavefront_relax_bf16": "bf16_scale7",
+             "multisweep_relax_bf16": "bf16_periodic",
+             "multisweep_relax_halo_bf16": "bf16_sharded_x",
+             "multisweep_relax_tiled_pre_bf16": "bf16_sharded_pencil"}
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_us")
 
@@ -4481,8 +4979,11 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                for p in ("sharded_x", "sharded_pencil", "sharded7")},
             "patches": records["runs"]["patches"] if records else None,
             "forest_batching": FOREST_COUNTS.get("forest_batching"),
-            "bf16_tier": BF16_COUNTS.get("bf16_tier"),
-            "processes": PROCESS_COUNTS.get("processes")}
+            **{p: BF16_COUNTS.get(p) for p in (
+                "bf16_tier", "bf16_scale7", "bf16_periodic",
+                "bf16_sharded_x", "bf16_sharded_pencil")},
+            "processes": PROCESS_COUNTS.get("processes"),
+            "bf16_processes": PROCESS_COUNTS.get("bf16_processes")}
 
     def measured(name: str, path: str) -> dict:
         if kernels is None:

@@ -57,17 +57,26 @@ struct AxisFold {
   T c;          // c0 of the faces the cell touches
 };
 
+// The fold of a cell at the low face (lo), the high face (hi), both or
+// neither: the marches pass their own face flags (a shard's x faces may be
+// seams).
 template <typename T>
-__device__ __forceinline__ AxisFold<T> axis_fold(int i, int n, T c0lo,
+__device__ __forceinline__ AxisFold<T> face_fold(bool lo, bool hi, T c0lo,
                                                  T c1lo, T c0hi, T c1hi) {
   const T one = (T)1;
   AxisFold<T> f;
-  f.lo = i == 0;
-  f.hi = i == n - 1;
+  f.lo = lo;
+  f.hi = hi;
   f.wa = f.hi ? (T)0 : (f.lo ? one + c1lo : one);
   f.wb = f.lo ? (T)0 : (f.hi ? one + c1hi : one);
   f.c = (f.lo ? c0lo : (T)0) + (f.hi ? c0hi : (T)0);
   return f;
+}
+
+template <typename T>
+__device__ __forceinline__ AxisFold<T> axis_fold(int i, int n, T c0lo,
+                                                 T c1lo, T c0hi, T c1hi) {
+  return face_fold<T>(i == 0, i == n - 1, c0lo, c1lo, c0hi, c1hi);
 }
 
 // Adds (weight_plus * up + weight_minus * um) of one axis to acc: P * (up +
@@ -109,8 +118,12 @@ __device__ __forceinline__ RowFold<T> row_fold(const LevelParams<T>& p, int i,
   return r;
 }
 
-// The update of gsrb_update_row in the bf16 tier (T float, C bf16): the
-// fold in f32, each operation rounded once as in the plain version
+// The update of one cell in the bf16 tier (T float, C bf16), from its
+// value uc, its neighbours (up[axis], um[axis]), a = av, rhs = rv, whether
+// each axis is periodic (per), the folds of the three axes (fx, fy, fz:
+// unused on a periodic axis) and c_sum, the c0 feed-through of the faces
+// the cell touches, summed x, then y, then z over the non-periodic axes:
+// the fold in f32, each operation rounded once as in the plain version
 // (fused_sweeps.gsrb_sweeps_folded; no contraction into an fma), each folded
 // term (K, lambda * rhs, P, the weights PA = P * wa and PB = P * wb of an
 // open axis) rounded to bf16 once; then, in bf16 with one rounding an
@@ -122,26 +135,23 @@ __device__ __forceinline__ RowFold<T> row_fold(const LevelParams<T>& p, int i,
 // bf16 is exact. The result is a bf16 value, returned in f32 exactly.
 // 1/diag is the division in every kernel of the tier, the towers' too (not
 // their recip()), so that each is its plain version's twin bit for bit.
-template <int PER>
-__device__ __forceinline__ float gsrb_update_row_bf16(
+// The one update of the tier: gsrb_update_row_bf16 (gsrb_relax, the towers)
+// and the marches (csrc/multisweep.cu, csrc/multisweep_halo.cu) call it.
+__device__ __forceinline__ float gsrb_update_bf16(
     float uc, const float (&up)[3], const float (&um)[3], float av, float rv,
-    const RowFold<float>& rf, const LevelParams<float>& p, int k) {
+    const bool (&per)[3], const AxisFold<float>& fx,
+    const AxisFold<float>& fy, const AxisFold<float>& fz, float c_sum,
+    float alpha, float six_b_inv, float b_inv) {
   const auto bf = [](float x) { return __float2bfloat16_rn(x); };
-  const float diag = __fadd_rn(__fmul_rn(p.alpha, av), p.six_b_inv);
+  const float diag = __fadd_rn(__fmul_rn(alpha, av), six_b_inv);
   const float lam = __fdiv_rn(1.0f, diag);
-  const float P = __fmul_rn(lam, p.b_inv);
-  const bool pz = PER < 0 ? p.periodic[2] != 0 : PER == 1;
-  const AxisFold<float> z = axis_fold<float>(k, p.nz, p.c0[2][0],
-                                             p.c1[2][0], p.c0[2][1],
-                                             p.c1[2][1]);
-  const float c_sum = pz ? rf.c_xy : rf.c_xy + z.c;
+  const float P = __fmul_rn(lam, b_inv);
   const float k_uc =
-      __fadd_rn(__fsub_rn(1.0f, __fmul_rn(lam, __fmul_rn(p.alpha, av))),
+      __fadd_rn(__fsub_rn(1.0f, __fmul_rn(lam, __fmul_rn(alpha, av))),
                 __fmul_rn(P, __fsub_rn(c_sum, 6.0f)));
   __nv_bfloat16 acc =
       __hadd_rn(__hmul_rn(bf(k_uc), bf(uc)), bf(__fmul_rn(lam, rv)));
-  const bool per[3] = {rf.px, rf.py, pz};
-  const AxisFold<float>* fold[3] = {&rf.x, &rf.y, &z};
+  const AxisFold<float>* fold[3] = {&fx, &fy, &fz};
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
     const AxisFold<float>& f = *fold[ax];
@@ -156,6 +166,22 @@ __device__ __forceinline__ float gsrb_update_row_bf16(
     }
   }
   return __bfloat162float(acc);
+}
+
+// gsrb_update_bf16 of cell (i, j, k) from the row's terms rf (row_fold of
+// (i, j)): the bf16 form of gsrb_update_row.
+template <int PER>
+__device__ __forceinline__ float gsrb_update_row_bf16(
+    float uc, const float (&up)[3], const float (&um)[3], float av, float rv,
+    const RowFold<float>& rf, const LevelParams<float>& p, int k) {
+  const bool pz = PER < 0 ? p.periodic[2] != 0 : PER == 1;
+  const AxisFold<float> z = axis_fold<float>(k, p.nz, p.c0[2][0],
+                                             p.c1[2][0], p.c0[2][1],
+                                             p.c1[2][1]);
+  const float c_sum = pz ? rf.c_xy : rf.c_xy + z.c;
+  const bool per[3] = {rf.px, rf.py, pz};
+  return gsrb_update_bf16(uc, up, um, av, rv, per, rf.x, rf.y, z, c_sum,
+                          p.alpha, p.six_b_inv, p.b_inv);
 }
 
 // The new value of cell (i, j, k) from its own value uc, its neighbours

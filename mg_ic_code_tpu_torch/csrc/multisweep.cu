@@ -64,6 +64,20 @@
 //    bitwise).
 //  * Dead columns (outside a non-periodic y or z face) are updated like
 //    the others, without a branch; they are read only with weight 0.
+//  * The bf16 tier (smoother_precision = bfloat16; mgk_multisweep_relax's
+//    `compute` 1): every form is built again with C = __nv_bfloat16 beside
+//    T = float. Its passes compute gsrb_update_bf16 (csrc/gsrb_device.cuh),
+//    the update of gsrb_relax's tier, from the march's own neighbour reads
+//    and face folds, so that the bf16 march is bf16 gsrb_relax bit for bit:
+//    1/diag by division, the fold in f32 rounded to bf16 once, each bf16
+//    operation rounded once in the plain version's order. The residual form
+//    and its recip() above are the f32 / f64 forms' only. The x faces fold
+//    as the y and z faces do (the JAX slab and wavefront bodies re-derive an
+//    x ghost row in bf16 instead: not carried over). Every u value a pass
+//    reads goes through as_compute (the state rounded where it enters: the
+//    copies bring raw f32 into the ring; rounding a value a pass wrote
+//    changes nothing). The ring, a and rhs stay f32: shared memory as in
+//    f32.
 #include <cstdint>
 #include <type_traits>
 
@@ -73,8 +87,9 @@ namespace {
 
 // The forms built: (type, colour passes NP = 2*nsweeps, tile width W,
 // planes fetched ahead D), each twice: with a and rhs in 16-byte chunks (V)
-// and without. Each must fit the 227 KB of shared memory a block may use:
-// R * (PLANE + 2*W*W) * sizeof(T) with R = NP + D + 1.
+// and without; each float form also in the bf16 tier (C =
+// __nv_bfloat16). Each must fit the 227 KB of shared memory a block may
+// use: R * (PLANE + 2*W*W) * sizeof(T) with R = NP + D + 1.
 // ops/fused_sweeps.MARCH_TILES lists the same widths per (itemsize,
 // nsweeps).
 #define MARCH_FORMS(X) \
@@ -129,6 +144,7 @@ struct MarchPair {
   T wya, wyb;        // weight of the y+1 / y-1 neighbour (0 across a face,
   T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
   T cs6[2];          // c0 feed-through of the y and z faces, minus 6
+  AxisFold<T> fy, fz[2];  // the bf16 tier's folds of the y and z faces
 };
 
 // p[0] = x, p[1] = y in one store (p aligned to twice the element)
@@ -151,6 +167,7 @@ struct MarchThread {
   long long sx;             // plane stride of the level arrays
   int xs, xe, x0, x1, nx;   // planes worked on [xs, xe), written [x0, x1)
   bool wrapx;               // x is periodic: planes are taken modulo nx
+  bool py, pz;              // y, z are periodic
   T alpha, six_b_inv, b_inv;
   T c0xlo, c1xlo, c0xhi, c1xhi;  // x-face ghost rule
   MarchPair<T> p;
@@ -197,6 +214,33 @@ __device__ __forceinline__ void fetch_plane(const MarchThread<T>& w,
   }
 }
 
+// The bf16 tier's update of the pair's column c in plane q (T float): the
+// tier's one update (gsrb_update_bf16) from the neighbours the pass read,
+// rounded to bf16 (up / um along x, then y, then z), a = av, rhs = rv, and
+// the folds of the faces the cell touches: the pair's y and z folds, and
+// x's from q where the step is not steady (no x face in a steady step);
+// c0 summed x, then y, then z over the non-periodic axes, as row_fold and
+// gsrb_update_row_bf16 sum it.
+template <typename T, bool STEADY>
+__device__ __forceinline__ T tier_update(const MarchThread<T>& w, int q,
+                                         int c, T uc, T upv, T umv, T ypv,
+                                         T ymv, T zpv, T zmv, T av, T rv) {
+  const MarchPair<T>& p = w.p;
+  const AxisFold<T> fz = c ? p.fz[1] : p.fz[0];
+  const bool xlo = !STEADY && !w.wrapx && q == 0;
+  const bool xhi = !STEADY && !w.wrapx && q == w.nx - 1;
+  const AxisFold<T> fx =
+      face_fold<T>(xlo, xhi, w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi);
+  T c_sum = (T)0;
+  if (!w.wrapx) c_sum += fx.c;
+  if (!w.py) c_sum += p.fy.c;
+  if (!w.pz) c_sum += fz.c;
+  const bool per[3] = {w.wrapx, w.py, w.pz};
+  const T up[3] = {upv, ypv, zpv}, um[3] = {umv, ymv, zmv};
+  return gsrb_update_bf16(uc, up, um, av, rv, per, fx, p.fy, fz, c_sum,
+                          w.alpha, w.six_b_inv, w.b_inv);
+}
+
 // One step of the march: pass ps works on plane t - ps for ps = 0 .. NP-1,
 // in each pair's column whose cells have this step's colour; plane t + D is
 // fetched; both columns of plane t - NP + 1 are final and written.
@@ -207,10 +251,13 @@ __device__ __forceinline__ void fetch_plane(const MarchThread<T>& w,
 // wraps at most once, and the ring slot of plane t is the compile-time ST. Otherwise `st_rt` is t's slot and every pass is
 // tested. A dead column (outside a non-periodic face) is updated like any
 // other from the zeros and neighbours it has: its values stay finite, are
-// read only with weight 0, and are never written out.
-template <typename T, int NP, int W, int D, bool V, bool STEADY, int ST>
+// read only with weight 0, and are never written out. C: the passes'
+// arithmetic (T, or __nv_bfloat16 beside float: tier_update).
+template <typename T, int NP, int W, int D, bool V, typename C, bool STEADY,
+          int ST>
 __device__ __forceinline__ void march_step(MarchThread<T>& w,
                                            const int t, const int st_rt) {
+  constexpr bool TIER = !std::is_same<C, T>::value;
   using L = WaveLayout<W, W>;
   constexpr int R = NP + D + 1;
   constexpr int HP = L::HP, PZ = L::PZ, PLANE = L::PLANE;
@@ -237,13 +284,19 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
 #pragma unroll
   for (int ps = 0; ps < NP; ++ps) {
     const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
-    aa[ps] = w.alpha * cp[0];
-    rv[ps] = cp[W * W];
-    lam[ps] = recip(aa[ps] + w.six_b_inv);
+    if constexpr (TIER) {  // a itself: the tier folds from it
+      aa[ps] = cp[0];
+      rv[ps] = cp[W * W];
+    } else {
+      aa[ps] = w.alpha * cp[0];
+      rv[ps] = cp[W * W];
+      lam[ps] = recip(aa[ps] + w.six_b_inv);
+    }
   }
   T* const rb = p.cell + h * HP;
 #pragma unroll
-  for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
+  for (int i = 0; i < NP + 2; ++i)
+    own_u[i] = as_compute<C>(rb[slot(1 - i) * PLANE]);
   __syncthreads();
 
   // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
@@ -264,16 +317,19 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
   const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
   const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
   const T cs6 = pick(c, p.cs6);
-  // the in-plane neighbours of every pass, weighted
+  // the in-plane neighbours of every pass, weighted (the tier reads them
+  // in its passes)
   T nb[NP];
+  if constexpr (!TIER) {
 #pragma unroll
-  for (int ps = 0; ps < NP; ++ps) {
-    const int o = slot(-ps) * PLANE;
-    T s = p.wya * yp[o];
-    s = s + p.wyb * ym[o];
-    s = s + wza * zp[o];
-    s = s + wzb * zm[o];
-    nb[ps] = s;
+    for (int ps = 0; ps < NP; ++ps) {
+      const int o = slot(-ps) * PLANE;
+      T s = p.wya * yp[o];
+      s = s + p.wyb * ym[o];
+      s = s + wza * zp[o];
+      s = s + wzb * zm[o];
+      nb[ps] = s;
+    }
   }
   T up = own_u[0], last = (T)0;
   bool have_up = STEADY;
@@ -282,25 +338,36 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
     const int q = t - ps;
     if (!valid(q)) continue;
     const T uc = own_u[ps + 1];
-    T xn = (T)0, csx = (T)0;
-    if (STEADY) {
-      xn = up + own_u[ps + 2];
-    } else {
+    T un;
+    if constexpr (TIER) {
       // beyond an open segment end the cell reads itself
+      const int o = slot(-ps) * PLANE;
       const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
-      const T umv = q > w.xs ? own_u[ps + 2] : uc;
-      const bool lo = !w.wrapx && q == 0;
-      const bool hi = !w.wrapx && q == w.nx - 1;
-      const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
-      const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
-      xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
-      csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
+      const T umv = STEADY || q > w.xs ? own_u[ps + 2] : uc;
+      un = tier_update<T, STEADY>(
+          w, q, c, uc, upv, umv, as_compute<C>(yp[o]), as_compute<C>(ym[o]),
+          as_compute<C>(zp[o]), as_compute<C>(zm[o]), aa[ps], rv[ps]);
+    } else {
+      T xn = (T)0, csx = (T)0;
+      if (STEADY) {
+        xn = up + own_u[ps + 2];
+      } else {
+        // beyond an open segment end the cell reads itself
+        const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
+        const T umv = q > w.xs ? own_u[ps + 2] : uc;
+        const bool lo = !w.wrapx && q == 0;
+        const bool hi = !w.wrapx && q == w.nx - 1;
+        const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
+        const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
+        xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
+        csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
+      }
+      // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
+      const T k6 = STEADY ? cs6 : cs6 + csx;
+      const T s1 = k6 * uc + (nb[ps] + xn);
+      const T s2 = w.b_inv * s1 + rv[ps];
+      un = uc + lam[ps] * (s2 - aa[ps] * uc);
     }
-    // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
-    const T k6 = STEADY ? cs6 : cs6 + csx;
-    const T s1 = k6 * uc + (nb[ps] + xn);
-    const T s2 = w.b_inv * s1 + rv[ps];
-    const T un = uc + lam[ps] * (s2 - aa[ps] * uc);
     rb[slot(-ps) * PLANE] = un;
     up = un;
     have_up = true;
@@ -320,14 +387,15 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
 }
 
 // R steady steps from slot ST on, each with its slot a constant
-template <typename T, int NP, int W, int D, bool V, int ST>
+template <typename T, int NP, int W, int D, bool V, typename C, int ST>
 __device__ __forceinline__ void steady_steps(MarchThread<T>& w, int t) {
-  march_step<T, NP, W, D, V, true, ST>(w, t + ST, ST);
+  march_step<T, NP, W, D, V, C, true, ST>(w, t + ST, ST);
   if constexpr (ST + 1 < NP + D + 1)
-    steady_steps<T, NP, W, D, V, ST + 1>(w, t);
+    steady_steps<T, NP, W, D, V, C, ST + 1>(w, t);
 }
 
-template <typename T, int NP, int W, int D, bool V>
+// C: the passes' arithmetic (T, or __nv_bfloat16 beside float: the tier)
+template <typename T, int NP, int W, int D, bool V, typename C>
 __global__ void __launch_bounds__(W * W / 2, 1)
 march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
              const T* __restrict__ a, T* __restrict__ out,
@@ -353,6 +421,8 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   w.x0 = (int)blockIdx.z * xseg;
   w.x1 = min(p.nx, w.x0 + xseg);
   w.wrapx = p.periodic[0] != 0;
+  w.py = p.periodic[1] != 0;
+  w.pz = p.periodic[2] != 0;
   // a periodic x has no face: both segment ends are open, wherever they lie
   w.xs = w.wrapx ? w.x0 - NP : max(0, w.x0 - NP);
   w.xe = w.wrapx ? w.x1 + NP : min(p.nx, w.x1 + NP);
@@ -411,6 +481,8 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   q.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
   q.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
   const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
+  q.fy = face_fold<T>(ylo, yhi, p.c0[1][0], p.c1[1][0], p.c0[1][1],
+                      p.c1[1][1]);
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int ukc = uk + c;
@@ -430,6 +502,8 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
     q.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
     q.cs6[c] = (csy + ((zlo ? p.c0[2][0] : (T)0) +
                        (zhi ? p.c0[2][1] : (T)0))) - (T)6;
+    q.fz[c] = face_fold<T>(zlo, zhi, p.c0[2][0], p.c1[2][0], p.c0[2][1],
+                           p.c1[2][1]);
   }
 
   q.own_both = q.own[0] && q.own[1] && p.nz % 2 == 0 &&
@@ -466,11 +540,11 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, D, V, false, 0>(w, t, st);
+    march_step<T, NP, W, D, V, C, false, 0>(w, t, st);
   for (; t + R <= hi_s; t += R)  // st == 0 here
-    steady_steps<T, NP, W, D, V, 0>(w, t);
+    steady_steps<T, NP, W, D, V, C, 0>(w, t);
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, D, V, false, 0>(w, t, st);
+    march_step<T, NP, W, D, V, C, false, 0>(w, t, st);
   copy_wait<0>();
 }
 
@@ -482,37 +556,37 @@ constexpr size_t march_smem() {
 
 // blocks of this form the current device runs at once; sets the kernel's
 // shared-memory limit on first use per device
-template <typename T, int NP, int W, int D, bool V>
+template <typename T, int NP, int W, int D, bool V, typename C>
 cudaError_t form_capacity(int* capacity) {
   static_assert(march_smem<T, NP, W, D, V>() <= 232448,
                 "form does not fit the shared memory of a block");
   static int cache[kMaxDevices] = {};
-  return march_capacity((const void*)march_kernel<T, NP, W, D, V>,
+  return march_capacity((const void*)march_kernel<T, NP, W, D, V, C>,
                         W * W / 2, march_smem<T, NP, W, D, V>(),
                         cache, capacity);
 }
 
-template <typename T, int NP, int W, int D, bool V>
+template <typename T, int NP, int W, int D, bool V, typename C>
 cudaError_t launch_form(const T* u, const T* rhs, const T* a, T* out,
                         const LevelParams<T>& p, int base, int xseg,
                         cudaStream_t stream) {
   constexpr int TI = W - 2 * NP;  // written per side
   static_assert(TI > 0 && W % 2 == 0, "tile");
   int capacity = 0;
-  cudaError_t err = form_capacity<T, NP, W, D, V>(&capacity);
+  cudaError_t err = form_capacity<T, NP, W, D, V, C>(&capacity);
   if (err != cudaSuccess) return err;
   if (xseg < 1) return cudaErrorInvalidValue;
   const int nty = (p.ny + TI - 1) / TI, ntz = (p.nz + TI - 1) / TI;
   const int nseg = (p.nx + xseg - 1) / xseg;
   if (nty > 65535 || nseg > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)ntz, (unsigned)nty, (unsigned)nseg);
-  march_kernel<T, NP, W, D, V>
+  march_kernel<T, NP, W, D, V, C>
       <<<grid, W * W / 2, march_smem<T, NP, W, D, V>(), stream>>>(
           u, rhs, a, out, p, base, xseg);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t launch_multisweep(const T* u, const T* rhs, const T* a, T* out,
                               const LevelParams<T>& p, int base, int nsweeps,
                               int tile, int xseg, cudaStream_t stream) {
@@ -529,9 +603,9 @@ cudaError_t launch_multisweep(const T* u, const T* rhs, const T* a, T* out,
 #define MARCH_LAUNCH(TT, NPP, WW, DD)                                     \
   if constexpr (std::is_same<T, TT>::value) {                             \
     if (np == NPP && tile == WW)                                          \
-      return vec ? launch_form<TT, NPP, WW, DD, true>(                    \
+      return vec ? launch_form<TT, NPP, WW, DD, true, C>(                 \
                        u, rhs, a, out, p, base, xseg, stream)             \
-                 : launch_form<TT, NPP, WW, DD, false>(                   \
+                 : launch_form<TT, NPP, WW, DD, false, C>(                \
                        u, rhs, a, out, p, base, xseg, stream);            \
   }
   MARCH_FORMS(MARCH_LAUNCH)
@@ -543,35 +617,51 @@ cudaError_t launch_multisweep(const T* u, const T* rhs, const T* a, T* out,
 
 // C entry point: out <- nsweeps (2 or 4) sweeps of u with tiles of width
 // `tile` (one of MARCH_FORMS) and x segments of `xseg` planes; u is not
-// modified and out must not alias it.
+// modified and out must not alias it. compute: 0 the passes at the
+// operands' precision, 1 in bf16 (f32 operands: the bf16 tier).
 extern "C" int mgk_multisweep_relax(const void* u, const void* rhs,
                                     const void* a, void* out, int is_double,
-                                    int nx, int ny, int nz, const int* kinds,
-                                    double rho, double alpha, double beta,
-                                    double dx, int base, int nsweeps,
-                                    int tile, int xseg, void* stream) {
+                                    int compute, int nx, int ny, int nz,
+                                    const int* kinds, double rho,
+                                    double alpha, double beta, double dx,
+                                    int base, int nsweeps, int tile,
+                                    int xseg, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+    return (int)cudaErrorInvalidValue;
   if (is_double) {
     auto p = make_level_params<double>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_multisweep<double>(
+    return (int)launch_multisweep<double, double>(
         (const double*)u, (const double*)rhs, (const double*)a, (double*)out,
         p, base, nsweeps, tile, xseg, st);
   }
   auto p = make_level_params<float>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_multisweep<float>((const float*)u, (const float*)rhs,
-                                       (const float*)a, (float*)out, p, base,
-                                       nsweeps, tile, xseg, st);
+  if (compute == 1)
+    return (int)launch_multisweep<float, __nv_bfloat16>(
+        (const float*)u, (const float*)rhs, (const float*)a, (float*)out, p,
+        base, nsweeps, tile, xseg, st);
+  return (int)launch_multisweep<float, float>(
+      (const float*)u, (const float*)rhs, (const float*)a, (float*)out, p,
+      base, nsweeps, tile, xseg, st);
 }
 
-// C entry point: *capacity <- blocks of the form (type, nsweeps, tile) that
-// the current device runs at once (the x segments are cut for it).
-extern "C" int mgk_multisweep_capacity(int is_double, int nsweeps, int tile,
+// C entry point: *capacity <- blocks of the form (type, arithmetic as
+// mgk_multisweep_relax's compute, nsweeps, tile) that the current device
+// runs at once (the x segments are cut for it).
+extern "C" int mgk_multisweep_capacity(int is_double, int compute,
+                                       int nsweeps, int tile,
                                        int* capacity) {
   const int np = 2 * nsweeps;
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+    return (int)cudaErrorInvalidValue;
 #define MARCH_CAPACITY(TT, NPP, WW, DD)                               \
   if (is_double == (int)std::is_same<TT, double>::value && np == NPP && \
       tile == WW)                                                     \
-    return (int)form_capacity<TT, NPP, WW, DD, false>(capacity);
+    return (int)(compute == 1 && std::is_same<TT, float>::value       \
+                     ? form_capacity<TT, NPP, WW, DD, false,          \
+                                     tier_t<TT>>(capacity)            \
+                     : form_capacity<TT, NPP, WW, DD, false, TT>(     \
+                           capacity));
   MARCH_FORMS(MARCH_CAPACITY)
 #undef MARCH_CAPACITY
   return (int)cudaErrorInvalidValue;

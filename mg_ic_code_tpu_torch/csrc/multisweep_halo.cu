@@ -42,6 +42,12 @@
 //  * The update in residual form, recip() with a Newton step, dead columns
 //    updated without a branch and read only with weight 0, both finished
 //    columns of a pair in one store: as in the whole level.
+//  * The bf16 tier (`compute` 1 of the entries): every float form built
+//    again with C = __nv_bfloat16, its passes the whole level's tier update
+//    (gsrb_update_bf16 from the same reads, each u value rounded where it is
+//    read, seam and pad planes too), the x faces folded where they are the
+//    domain's and the y faces in the level's frame. So the kept cells of a
+//    shard are, bit for bit, what the whole-level bf16 march gives them.
 #include <cstdint>
 #include <type_traits>
 
@@ -51,8 +57,9 @@ namespace {
 
 // The forms built: (type, colour passes NP = 2*nsweeps, tile width W,
 // planes fetched ahead D), each with a and rhs in 16-byte chunks (V) and
-// without, for both sources. Each must fit the 227 KB of shared memory a
-// block may use: R * (PLANE + 2*W*W) * sizeof(T), R = NP + D + 1.
+// without, for both sources; each float form also in the bf16 tier. Each
+// must fit the 227 KB of shared memory a block may use: R * (PLANE +
+// 2*W*W) * sizeof(T), R = NP + D + 1.
 // The widths are MARCH_FORMS' (csrc/multisweep.cu), which
 // ops/fused_sweeps.MARCH_TILES lists per (itemsize, nsweeps) for both.
 #define SHARD_FORMS(X) \
@@ -144,6 +151,7 @@ struct ShardPair {
   T wya, wyb;        // weight of the y+1 / y-1 neighbour (0 across a face,
   T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
   T cs6[2];          // c0 feed-through of the y and z faces, minus 6
+  AxisFold<T> fy, fz[2];  // the bf16 tier's folds of the y and z faces
 };
 
 template <typename T>
@@ -154,6 +162,7 @@ struct ShardThread {
                             // of out
   int xs, xe, x0, x1, nx;   // planes worked on [xs, xe), written [x0, x1)
   bool face_lo, face_hi;    // plane 0 / nx-1 lies at an x face of the domain
+  bool px, py, pz;          // the level's axes are periodic
   T alpha, six_b_inv, b_inv;
   T c0xlo, c1xlo, c0xhi, c1xhi;  // x-face ghost rule
   ShardPair<T> p;
@@ -222,6 +231,29 @@ __device__ __forceinline__ void fetch_plane(const ShardThread<T>& w, int q,
   }
 }
 
+// The bf16 tier's update of the pair's column c in plane q (T float), as
+// the whole level's (csrc/multisweep.cu: tier_update): the x faces where
+// the shard's are the domain's, none in a steady step.
+template <typename T, bool STEADY>
+__device__ __forceinline__ T tier_update(const ShardThread<T>& w, int q,
+                                         int c, T uc, T upv, T umv, T ypv,
+                                         T ymv, T zpv, T zmv, T av, T rv) {
+  const ShardPair<T>& p = w.p;
+  const AxisFold<T> fz = c ? p.fz[1] : p.fz[0];
+  const bool xlo = !STEADY && w.face_lo && q == 0;
+  const bool xhi = !STEADY && w.face_hi && q == w.nx - 1;
+  const AxisFold<T> fx =
+      face_fold<T>(xlo, xhi, w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi);
+  T c_sum = (T)0;
+  if (!w.px) c_sum += fx.c;
+  if (!w.py) c_sum += p.fy.c;
+  if (!w.pz) c_sum += fz.c;
+  const bool per[3] = {w.px, w.py, w.pz};
+  const T up[3] = {upv, ypv, zpv}, um[3] = {umv, ymv, zmv};
+  return gsrb_update_bf16(uc, up, um, av, rv, per, fx, p.fy, fz, c_sum,
+                          w.alpha, w.six_b_inv, w.b_inv);
+}
+
 // One step of the march: pass ps works on plane t - ps for ps = 0 .. NP-1,
 // in each pair's column whose cells have this step's colour; plane t + D is
 // fetched; both columns of plane t - NP + 1 are final and written.
@@ -229,11 +261,13 @@ __device__ __forceinline__ void fetch_plane(const ShardThread<T>& w, int q,
 // STEADY: every plane t + D .. t - NP lies inside (xs, xe), so no pass needs
 // a validity test or an x-face rule (a domain face bounds the segment), and
 // the ring slot of plane t is the compile-time ST. Otherwise `st_rt` is t's
-// slot and every pass is tested.
-template <typename T, int NP, int W, int D, bool V, int SRC, bool STEADY,
-          int ST>
+// slot and every pass is tested. C: the passes' arithmetic (T, or
+// __nv_bfloat16 beside float: tier_update).
+template <typename T, int NP, int W, int D, bool V, int SRC, typename C,
+          bool STEADY, int ST>
 __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
                                            const int st_rt) {
+  constexpr bool TIER = !std::is_same<C, T>::value;
   using L = WaveLayout<W, W>;
   constexpr int R = NP + D + 1;
   constexpr int HP = L::HP, PZ = L::PZ, PLANE = L::PLANE;
@@ -258,13 +292,19 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
 #pragma unroll
   for (int ps = 0; ps < NP; ++ps) {
     const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
-    aa[ps] = w.alpha * cp[0];
-    rv[ps] = cp[W * W];
-    lam[ps] = recip(aa[ps] + w.six_b_inv);
+    if constexpr (TIER) {  // a itself: the tier folds from it
+      aa[ps] = cp[0];
+      rv[ps] = cp[W * W];
+    } else {
+      aa[ps] = w.alpha * cp[0];
+      rv[ps] = cp[W * W];
+      lam[ps] = recip(aa[ps] + w.six_b_inv);
+    }
   }
   T* const rb = p.cell + h * HP;
 #pragma unroll
-  for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
+  for (int i = 0; i < NP + 2; ++i)
+    own_u[i] = as_compute<C>(rb[slot(1 - i) * PLANE]);
   __syncthreads();
 
   // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
@@ -283,15 +323,17 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
   const T* zm = rb + (dh + c - 1);  // even column: index - 1, odd: same
   const T wza = pick(c, p.wza), wzb = pick(c, p.wzb);
   const T cs6 = pick(c, p.cs6);
-  T nb[NP];
+  T nb[NP];  // the tier reads the in-plane neighbours in its passes
+  if constexpr (!TIER) {
 #pragma unroll
-  for (int ps = 0; ps < NP; ++ps) {
-    const int o = slot(-ps) * PLANE;
-    T s = p.wya * yp[o];
-    s = s + p.wyb * ym[o];
-    s = s + wza * zp[o];
-    s = s + wzb * zm[o];
-    nb[ps] = s;
+    for (int ps = 0; ps < NP; ++ps) {
+      const int o = slot(-ps) * PLANE;
+      T s = p.wya * yp[o];
+      s = s + p.wyb * ym[o];
+      s = s + wza * zp[o];
+      s = s + wzb * zm[o];
+      nb[ps] = s;
+    }
   }
   T up = own_u[0], last = (T)0;
   bool have_up = STEADY;
@@ -300,25 +342,36 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
     const int q = t - ps;
     if (!valid(q)) continue;
     const T uc = own_u[ps + 1];
-    T xn = (T)0, csx = (T)0;
-    if (STEADY) {
-      xn = up + own_u[ps + 2];
-    } else {
+    T un;
+    if constexpr (TIER) {
       // beyond an open segment end (a seam or a cut) the cell reads itself
+      const int o = slot(-ps) * PLANE;
       const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
-      const T umv = q > w.xs ? own_u[ps + 2] : uc;
-      const bool lo = w.face_lo && q == 0;
-      const bool hi = w.face_hi && q == w.nx - 1;
-      const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
-      const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
-      xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
-      csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
+      const T umv = STEADY || q > w.xs ? own_u[ps + 2] : uc;
+      un = tier_update<T, STEADY>(
+          w, q, c, uc, upv, umv, as_compute<C>(yp[o]), as_compute<C>(ym[o]),
+          as_compute<C>(zp[o]), as_compute<C>(zm[o]), aa[ps], rv[ps]);
+    } else {
+      T xn = (T)0, csx = (T)0;
+      if (STEADY) {
+        xn = up + own_u[ps + 2];
+      } else {
+        // beyond an open segment end (a seam or a cut) the cell reads itself
+        const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
+        const T umv = q > w.xs ? own_u[ps + 2] : uc;
+        const bool lo = w.face_lo && q == 0;
+        const bool hi = w.face_hi && q == w.nx - 1;
+        const T wa = hi ? (T)0 : (lo ? (T)1 + w.c1xlo : (T)1);
+        const T wb = lo ? (T)0 : (hi ? (T)1 + w.c1xhi : (T)1);
+        xn = wa * (hi ? (T)0 : upv) + wb * (lo ? (T)0 : umv);
+        csx = (lo ? w.c0xlo : (T)0) + (hi ? w.c0xhi : (T)0);
+      }
+      // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
+      const T k6 = STEADY ? cs6 : cs6 + csx;
+      const T s1 = k6 * uc + (nb[ps] + xn);
+      const T s2 = w.b_inv * s1 + rv[ps];
+      un = uc + lam[ps] * (s2 - aa[ps] * uc);
     }
-    // u' = u + lam*(beta/dx^2*((c0 - 6) u + sum) + rhs - alpha*a*u)
-    const T k6 = STEADY ? cs6 : cs6 + csx;
-    const T s1 = k6 * uc + (nb[ps] + xn);
-    const T s2 = w.b_inv * s1 + rv[ps];
-    const T un = uc + lam[ps] * (s2 - aa[ps] * uc);
     rb[slot(-ps) * PLANE] = un;
     up = un;
     have_up = true;
@@ -338,14 +391,16 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
 }
 
 // R steady steps from slot ST on, each with its slot a constant
-template <typename T, int NP, int W, int D, bool V, int SRC, int ST>
+template <typename T, int NP, int W, int D, bool V, int SRC, typename C,
+          int ST>
 __device__ __forceinline__ void steady_steps(ShardThread<T>& w, int t) {
-  march_step<T, NP, W, D, V, SRC, true, ST>(w, t + ST, ST);
+  march_step<T, NP, W, D, V, SRC, C, true, ST>(w, t + ST, ST);
   if constexpr (ST + 1 < NP + D + 1)
-    steady_steps<T, NP, W, D, V, SRC, ST + 1>(w, t);
+    steady_steps<T, NP, W, D, V, SRC, C, ST + 1>(w, t);
 }
 
-template <typename T, int NP, int W, int D, bool V, int SRC>
+// C: the passes' arithmetic (T, or __nv_bfloat16 beside float: the tier)
+template <typename T, int NP, int W, int D, bool V, int SRC, typename C>
 __global__ void __launch_bounds__(W * W / 2, 1)
 shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
                    const T* __restrict__ a, const T* __restrict__ upad,
@@ -376,6 +431,9 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   w.x1 = min(p.nx, w.x0 + xseg);
   w.face_lo = g.face_lo != 0;
   w.face_hi = g.face_hi != 0;
+  w.px = p.periodic[0] != 0;
+  w.py = p.periodic[1] != 0;
+  w.pz = p.periodic[2] != 0;
   // a segment end at an x face of the domain stops there; every other end
   // (a seam between shards, a cut inside the shard) is open
   w.xs = w.face_lo ? max(0, w.x0 - NP) : w.x0 - NP;
@@ -437,6 +495,8 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   q.wya = yhi ? (T)0 : (ylo ? one + p.c1[1][0] : one);
   q.wyb = ylo ? (T)0 : (yhi ? one + p.c1[1][1] : one);
   const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
+  q.fy = face_fold<T>(ylo, yhi, p.c0[1][0], p.c1[1][0], p.c0[1][1],
+                      p.c1[1][1]);
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int ukc = uk + c;
@@ -456,6 +516,8 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
     q.wzb[c] = zlo ? (T)0 : (zhi ? one + p.c1[2][1] : one);
     q.cs6[c] = (csy + ((zlo ? p.c0[2][0] : (T)0) +
                        (zhi ? p.c0[2][1] : (T)0))) - (T)6;
+    q.fz[c] = face_fold<T>(zlo, zhi, p.c0[2][0], p.c1[2][0], p.c0[2][1],
+                           p.c1[2][1]);
   }
   q.own_both = q.own[0] && q.own[1] && p.nz % 2 == 0 &&
                q.coff[1] == q.coff[0] + 1;
@@ -489,11 +551,11 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, D, V, SRC, false, 0>(w, t, st);
+    march_step<T, NP, W, D, V, SRC, C, false, 0>(w, t, st);
   for (; t + R <= hi_s; t += R)  // st == 0 here
-    steady_steps<T, NP, W, D, V, SRC, 0>(w, t);
+    steady_steps<T, NP, W, D, V, SRC, C, 0>(w, t);
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
-    march_step<T, NP, W, D, V, SRC, false, 0>(w, t, st);
+    march_step<T, NP, W, D, V, SRC, C, false, 0>(w, t, st);
   copy_wait<0>();
 }
 
@@ -505,31 +567,31 @@ constexpr size_t shard_smem() {
 
 // blocks of this form the current device runs at once; sets the kernel's
 // shared-memory limit on first use per device
-template <typename T, int NP, int W, int D, bool V, int SRC>
+template <typename T, int NP, int W, int D, bool V, int SRC, typename C>
 cudaError_t form_capacity(int* capacity) {
   static_assert(shard_smem<T, NP, W, D>() <= 232448,
                 "form does not fit the shared memory of a block");
   static int cache[kMaxDevices] = {};
-  return march_capacity((const void*)shard_march_kernel<T, NP, W, D, V, SRC>,
-                        W * W / 2, shard_smem<T, NP, W, D>(), cache,
-                        capacity);
+  return march_capacity(
+      (const void*)shard_march_kernel<T, NP, W, D, V, SRC, C>, W * W / 2,
+      shard_smem<T, NP, W, D>(), cache, capacity);
 }
 
-template <typename T, int NP, int W, int D, bool V, int SRC>
+template <typename T, int NP, int W, int D, bool V, int SRC, typename C>
 cudaError_t launch_form(const ShardSrc<T>& s, T* out,
                         const LevelParams<T>& p, int base, int xseg,
                         cudaStream_t stream) {
   constexpr int TI = W - 2 * NP;  // written per side
   static_assert(TI > 0 && W % 2 == 0, "tile");
   int capacity = 0;
-  cudaError_t err = form_capacity<T, NP, W, D, V, SRC>(&capacity);
+  cudaError_t err = form_capacity<T, NP, W, D, V, SRC, C>(&capacity);
   if (err != cudaSuccess) return err;
   if (xseg < 1) return cudaErrorInvalidValue;
   const int nty = (p.ny + TI - 1) / TI, ntz = (p.nz + TI - 1) / TI;
   const int nseg = (p.nx + xseg - 1) / xseg;
   if (nty > 65535 || nseg > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)ntz, (unsigned)nty, (unsigned)nseg);
-  shard_march_kernel<T, NP, W, D, V, SRC>
+  shard_march_kernel<T, NP, W, D, V, SRC, C>
       <<<grid, W * W / 2, shard_smem<T, NP, W, D>(), stream>>>(
           s.u, s.rhs, s.a, s.upad, s.rpad, s.apad, out, s.g, p, base, xseg);
   return cudaGetLastError();
@@ -548,7 +610,7 @@ bool chunked_rows(const ShardSrc<T>& s, int nz) {
          aligned16(s.apad);
 }
 
-template <int SRC, typename T>
+template <int SRC, typename C, typename T>
 cudaError_t launch_shard(const ShardSrc<T>& s, T* out,
                          const LevelParams<T>& p, int base, int nsweeps,
                          int tile, int xseg, cudaStream_t stream) {
@@ -563,9 +625,9 @@ cudaError_t launch_shard(const ShardSrc<T>& s, T* out,
 #define SHARD_LAUNCH(TT, NPP, WW, DD)                                    \
   if constexpr (std::is_same<T, TT>::value) {                            \
     if (np == NPP && tile == WW)                                         \
-      return vec ? launch_form<TT, NPP, WW, DD, true, SRC>(              \
+      return vec ? launch_form<TT, NPP, WW, DD, true, SRC, C>(           \
                        s, out, p, base, xseg, stream)                    \
-                 : launch_form<TT, NPP, WW, DD, false, SRC>(             \
+                 : launch_form<TT, NPP, WW, DD, false, SRC, C>(          \
                        s, out, p, base, xseg, stream);                   \
   }
   SHARD_FORMS(SHARD_LAUNCH)
@@ -615,6 +677,12 @@ int entry_chunked(int pre, int ny, int nz, int H, const void* u,
                             nz);
 }
 
+// The tier checks of the entries: compute 0 (the operands' precision) or
+// 1 (bf16 passes, f32 operands only).
+bool bad_compute(int compute, int is_double) {
+  return compute < 0 || compute > 1 || (compute == 1 && is_double);
+}
+
 }  // namespace
 
 // C entry point: out <- nsweeps (2 or 4) sweeps of the (nx, ny, nz) x-slab u
@@ -623,32 +691,39 @@ int entry_chunked(int pre, int ny, int nz, int H, const void* u,
 // slab's low / high x face is a face of the domain (the ghost rule; its pad
 // is not read); else a seam, read from the pad. base = sum(lo) + the slab's
 // x origin in the level. Tiles of width `tile` (one of SHARD_FORMS), x
-// segments of `xseg` planes. out must not alias an input.
+// segments of `xseg` planes. compute: 0 the passes at the operands'
+// precision, 1 in bf16 (the bf16 tier; f32 operands). out must not alias an
+// input.
 extern "C" int mgk_multisweep_halo(const void* u, const void* rhs,
                                    const void* a, const void* upad,
                                    const void* rpad, const void* apad,
-                                   void* out, int is_double, int nx, int ny,
-                                   int nz, const int* kinds, double rho,
-                                   double alpha, double beta, double dx,
-                                   int base, int face_lo, int face_hi,
-                                   int nsweeps, int tile, int xseg,
-                                   void* stream) {
+                                   void* out, int is_double, int compute,
+                                   int nx, int ny, int nz, const int* kinds,
+                                   double rho, double alpha, double beta,
+                                   double dx, int base, int face_lo,
+                                   int face_hi, int nsweeps, int tile,
+                                   int xseg, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (nx < 1) return (int)cudaErrorInvalidValue;
+  if (nx < 1 || bad_compute(compute, is_double))
+    return (int)cudaErrorInvalidValue;
   if (is_double) {
     using T = double;
     auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_shard<SRC_SLAB>(
+    return (int)launch_shard<SRC_SLAB, T>(
         padded_slab((const T*)u, (const T*)rhs, (const T*)a, (const T*)upad,
                     (const T*)rpad, (const T*)apad, p, face_lo, face_hi),
         (T*)out, p, base, nsweeps, tile, xseg, st);
   }
   using T = float;
   auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_shard<SRC_SLAB>(
-      padded_slab((const T*)u, (const T*)rhs, (const T*)a, (const T*)upad,
-                  (const T*)rpad, (const T*)apad, p, face_lo, face_hi),
-      (T*)out, p, base, nsweeps, tile, xseg, st);
+  const auto src = padded_slab((const T*)u, (const T*)rhs, (const T*)a,
+                               (const T*)upad, (const T*)rpad,
+                               (const T*)apad, p, face_lo, face_hi);
+  return compute == 1
+             ? (int)launch_shard<SRC_SLAB, __nv_bfloat16>(
+                   src, (T*)out, p, base, nsweeps, tile, xseg, st)
+             : (int)launch_shard<SRC_SLAB, T>(src, (T*)out, p, base,
+                                              nsweeps, tile, xseg, st);
 }
 
 // C entry point: out (nx, ny, nz) <- nsweeps (2 or 4) sweeps of one pencil of
@@ -656,48 +731,60 @@ extern "C" int mgk_multisweep_halo(const void* u, const void* rhs,
 // H = 2*nsweeps. face_lo / face_hi as for mgk_multisweep_halo; y_off is the
 // pencil's y origin in the level of y extent ny_global (the y face rule
 // fires at global rows 0 and ny_global - 1 only); base = sum(lo) + x origin
-// + y_off; tile and xseg as for mgk_multisweep_halo.
+// + y_off; compute, tile and xseg as for mgk_multisweep_halo.
 extern "C" int mgk_multisweep_pre(const void* u_pre, const void* rhs_pre,
                                   const void* a_pre, void* out, int is_double,
-                                  int nx, int ny, int nz, const int* kinds,
-                                  double rho, double alpha, double beta,
-                                  double dx, int base, int face_lo,
-                                  int face_hi, int y_off, int ny_global,
-                                  int nsweeps, int tile, int xseg,
-                                  void* stream) {
+                                  int compute, int nx, int ny, int nz,
+                                  const int* kinds, double rho, double alpha,
+                                  double beta, double dx, int base,
+                                  int face_lo, int face_hi, int y_off,
+                                  int ny_global, int nsweeps, int tile,
+                                  int xseg, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int H = 2 * nsweeps;
-  if (nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
+  if (nx < 1 || ny < 1 || bad_compute(compute, is_double))
+    return (int)cudaErrorInvalidValue;
   if (is_double) {
     using T = double;
     auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_shard<SRC_PRE>(
+    return (int)launch_shard<SRC_PRE, T>(
         prepadded((const T*)u_pre, (const T*)rhs_pre, (const T*)a_pre, p,
                   face_lo, face_hi, y_off, ny_global, H),
         (T*)out, p, base, nsweeps, tile, xseg, st);
   }
   using T = float;
   auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_shard<SRC_PRE>(
-      prepadded((const T*)u_pre, (const T*)rhs_pre, (const T*)a_pre, p,
-                face_lo, face_hi, y_off, ny_global, H),
-      (T*)out, p, base, nsweeps, tile, xseg, st);
+  const auto src = prepadded((const T*)u_pre, (const T*)rhs_pre,
+                             (const T*)a_pre, p, face_lo, face_hi, y_off,
+                             ny_global, H);
+  return compute == 1
+             ? (int)launch_shard<SRC_PRE, __nv_bfloat16>(
+                   src, (T*)out, p, base, nsweeps, tile, xseg, st)
+             : (int)launch_shard<SRC_PRE, T>(src, (T*)out, p, base, nsweeps,
+                                             tile, xseg, st);
 }
 
-// C entry point: *capacity <- blocks of the shard form (type, nsweeps, tile;
-// pre: the prepadded source) that the current device runs at once (the x
-// segments are cut for it).
-extern "C" int mgk_multisweep_shard_capacity(int is_double, int nsweeps,
-                                             int tile, int pre,
+// C entry point: *capacity <- blocks of the shard form (type, arithmetic as
+// the entries' compute, nsweeps, tile; pre: the prepadded source) that the
+// current device runs at once (the x segments are cut for it).
+extern "C" int mgk_multisweep_shard_capacity(int is_double, int compute,
+                                             int nsweeps, int tile, int pre,
                                              int* capacity) {
   const int np = 2 * nsweeps;
-#define SHARD_CAPACITY(TT, NPP, WW, DD)                                 \
-  if (is_double == (int)std::is_same<TT, double>::value && np == NPP && \
-      tile == WW)                                                       \
-    return (int)(pre ? form_capacity<TT, NPP, WW, DD, false, SRC_PRE>(  \
-                           capacity)                                    \
-                     : form_capacity<TT, NPP, WW, DD, false, SRC_SLAB>( \
-                           capacity));
+  if (bad_compute(compute, is_double)) return (int)cudaErrorInvalidValue;
+#define SHARD_CAPACITY(TT, NPP, WW, DD)                                  \
+  if (is_double == (int)std::is_same<TT, double>::value && np == NPP &&  \
+      tile == WW) {                                                      \
+    if (compute == 1)                                                    \
+      return (int)(pre ? form_capacity<TT, NPP, WW, DD, false, SRC_PRE,  \
+                                       tier_t<TT>>(capacity)             \
+                       : form_capacity<TT, NPP, WW, DD, false, SRC_SLAB, \
+                                       tier_t<TT>>(capacity));           \
+    return (int)(pre ? form_capacity<TT, NPP, WW, DD, false, SRC_PRE,    \
+                                     TT>(capacity)                       \
+                     : form_capacity<TT, NPP, WW, DD, false, SRC_SLAB,   \
+                                     TT>(capacity));                     \
+  }
   SHARD_FORMS(SHARD_CAPACITY)
 #undef SHARD_CAPACITY
   return (int)cudaErrorInvalidValue;

@@ -80,11 +80,33 @@
 //    found, and it was dropped. (Check every instantiation, f32 and f64,
 //    NP = 4 and 8, periodic x and not, whole level and both shard forms, on
 //    the card after any change to a step.)
+//  * The bf16 tier (smoother_precision = bfloat16, the TPU kernels'
+//    compute_dtype): both bodies build every f32 form again with the
+//    passes' arithmetic C = __nv_bfloat16 (tier_t), each pass the update of
+//    gsrb_relax's tier (gsrb_update_bf16, csrc/gsrb_device.cuh) from the
+//    march's own reads, every u value read rounded to bf16 (as_compute),
+//    the ring, a and rhs f32. A joined shard run is then the whole-level
+//    march, and the whole-level march gsrb_relax, bit for bit in the tier.
 #pragma once
 
+#include "gsrb_device.cuh"
 #include "mg_kernels.h"
 
 namespace {
+
+// The passes' arithmetic in the bf16 tier beside storage T: bf16 for f32
+// levels; T itself otherwise (the entries refuse the tier for f64 before a
+// form is reached).
+template <typename T>
+struct TierOf {
+  using type = T;
+};
+template <>
+struct TierOf<float> {
+  using type = __nv_bfloat16;
+};
+template <typename T>
+using tier_t = typename TierOf<T>::type;
 
 // Shared-memory layout of one plane of a TY x TZ tile. The cells of a row
 // are stored by colour: the HZ cells with (row + column) even in one half

@@ -146,23 +146,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mgk_residual_capacity.argtypes = [ci, ci, ci, ci, ci, ci, pi]
     lib.mgk_multisweep_relax.restype = ci
     lib.mgk_multisweep_relax.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci, ci,
-        vp,
+        vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci,
+        ci, vp,
     ]
     lib.mgk_multisweep_capacity.restype = ci
-    lib.mgk_multisweep_capacity.argtypes = [ci, ci, ci, pi]
+    lib.mgk_multisweep_capacity.argtypes = [ci, ci, ci, ci, pi]
     lib.mgk_multisweep_halo.restype = ci
     lib.mgk_multisweep_halo.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci,
-        ci, ci, ci, ci, ci, vp,
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd,
+        ci, ci, ci, ci, ci, ci, vp,
     ]
     lib.mgk_multisweep_pre.restype = ci
     lib.mgk_multisweep_pre.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci, ci,
-        ci, ci, ci, ci, vp,
+        vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci,
+        ci, ci, ci, ci, ci, vp,
     ]
     lib.mgk_multisweep_shard_capacity.restype = ci
-    lib.mgk_multisweep_shard_capacity.argtypes = [ci, ci, ci, ci, pi]
+    lib.mgk_multisweep_shard_capacity.argtypes = [ci, ci, ci, ci, ci, pi]
     lib.mgk_multisweep_shard_chunked.restype = ci
     lib.mgk_multisweep_shard_chunked.argtypes = [
         ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, pi,

@@ -50,13 +50,19 @@ feed-through, T = lam*rhs. A colour pass p keeps the cells with
 (i+j+k+sum(lo)+p) odd and updates the others.
 
 The bf16 tier (`compute_dtype = "bfloat16"`, the spec's smoother_compute
-under `smoother_precision = bfloat16`): `gsrb_relax` of an f32 level with
-constant b runs its colour passes in bf16, as the JAX package's
-resident_relax_values does: the fold (P, PA/PB, K, T) in f32 and rounded to
-bf16 once, the state rounded to bf16 where the call starts, every pass's
-operation in bf16, the result cast back to f32. Its launches are counted
-under `gsrb_relax_bf16` (kernel_counts). The residual, the restriction, the
-batched forms and the marches take no tier.
+under `smoother_precision = bfloat16`): `gsrb_relax` and the marches
+(`multisweep_relax`, its `halo=` form, `multisweep_relax_tiled_pre`,
+`wavefront.wavefront_relax`) of an f32 level with constant b run their
+colour passes in bf16, as the JAX package's resident_relax_values and its
+fused families do: the fold (P, PA/PB, K, T) in f32 and rounded to bf16
+once, the state rounded to bf16 where the call starts, every pass's
+operation in bf16, the result cast back to f32. Every kernel of the tier
+computes one update (csrc/gsrb_device.cuh: gsrb_update_bf16), so each is
+its twin `gsrb_sweeps_folded(compute_dtype="bfloat16", _where=True)` bit
+for bit; the x faces fold as the others do (the JAX slab and wavefront
+bodies re-derive a bf16 x ghost row instead, within their contract of it).
+Launches are counted under the kernel's name with `_bf16` (`tier_name`).
+The residual, the restriction and the batched forms take no tier.
 """
 
 from __future__ import annotations
@@ -268,15 +274,18 @@ def gsrb_relax_batch_plain(
 
 def multisweep_relax_plain(
     u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
-    beta: float, dx: float, lo,
+    beta: float, dx: float, lo, compute_dtype=None, _where: bool = False,
 ):
     """The plain PyTorch version of `multisweep_relax`: the sweeps in their
     natural order, every pass over the whole level (tiling and halo
-    recomputation change where the data lives, not what is computed)."""
-    kernel_counts.PLAIN_CALLS["multisweep_relax"] += 1
+    recomputation change where the data lives, not what is computed); in
+    the bf16 tier counted under multisweep_relax_bf16 (`compute_dtype`,
+    `_where` as gsrb_sweeps_folded's)."""
+    kernel_counts.PLAIN_CALLS[tier_name("multisweep_relax",
+                                        compute_dtype)] += 1
     return gsrb_sweeps_folded(
         u, rhs, a, None, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
-        beta=beta, dx=dx, lo=lo,
+        beta=beta, dx=dx, lo=lo, compute_dtype=compute_dtype, _where=_where,
     )
 
 
@@ -818,62 +827,67 @@ def march_geometry(shape, nsweeps: int, itemsize: int, capacity: int):
     return (tile,) + march_segments(nx, tiles, int(capacity), nsweeps)
 
 
-def march_capacity(device, itemsize: int, nsweeps: int, tile: int) -> int:
-    """Blocks of the march form (itemsize, nsweeps, tile) that the CUDA
-    device runs at once (mgk_multisweep_capacity)."""
+def march_capacity(device, itemsize: int, nsweeps: int, tile: int,
+                   compute: int = 0) -> int:
+    """Blocks of the march form (itemsize, nsweeps, tile; compute 1: its
+    bf16 tier) that the CUDA device runs at once
+    (mgk_multisweep_capacity)."""
     cap = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = cuda_ext.lib().mgk_multisweep_capacity(
-            int(itemsize == 8), int(nsweeps), int(tile), ctypes.byref(cap))
+            int(itemsize == 8), int(compute), int(nsweeps), int(tile),
+            ctypes.byref(cap))
     cuda_ext.check(err, "multisweep_relax capacity")
     return cap.value
 
 
-def march_geometry_on(u, nsweeps: int):
-    """`march_geometry` of the level `u` (a CUDA tensor) on its device,
-    kept per shape: the solver calls the march with a few shapes many
-    times, and its host time is part of every call's."""
+def march_geometry_on(u, nsweeps: int, compute: int = 0):
+    """`march_geometry` of the level `u` (a CUDA tensor) on its device, at
+    the capacity of the form launched (compute 1: the bf16 tier's), kept
+    per shape: the solver calls the march with a few shapes many times,
+    and its host time is part of every call's."""
     return _geometry_on(tuple(u.shape), nsweeps, u.element_size(),
-                        u.device.index)
+                        u.device.index, compute)
 
 
 @functools.lru_cache(maxsize=None)
-def _geometry_on(shape, nsweeps: int, itemsize: int, index: int):
+def _geometry_on(shape, nsweeps: int, itemsize: int, index: int,
+                 compute: int = 0):
     device = torch.device("cuda", index)
     tile = march_tile(shape[1], shape[2], nsweeps, itemsize)
-    return march_geometry(shape, nsweeps, itemsize,
-                          march_capacity(device, itemsize, nsweeps, tile))
+    return march_geometry(shape, nsweeps, itemsize, march_capacity(
+        device, itemsize, nsweeps, tile, compute))
 
 
 def shard_capacity(device, itemsize: int, nsweeps: int, tile: int,
-                   pre: bool) -> int:
+                   pre: bool, compute: int = 0) -> int:
     """Blocks of the shard march form (itemsize, nsweeps, tile; `pre`: the
-    prepadded pencil's) that the CUDA device runs at once
-    (mgk_multisweep_shard_capacity)."""
+    prepadded pencil's; compute 1: its bf16 tier) that the CUDA device runs
+    at once (mgk_multisweep_shard_capacity)."""
     cap = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = cuda_ext.lib().mgk_multisweep_shard_capacity(
-            int(itemsize == 8), int(nsweeps), int(tile), int(pre),
-            ctypes.byref(cap))
+            int(itemsize == 8), int(compute), int(nsweeps), int(tile),
+            int(pre), ctypes.byref(cap))
     cuda_ext.check(err, "multisweep shard capacity")
     return cap.value
 
 
 @functools.lru_cache(maxsize=None)
 def shard_geometry_on(local_shape, nsweeps: int, itemsize: int, index: int,
-                      pre: bool):
+                      pre: bool, compute: int = 0):
     """(tile, nseg, xseg) of one shard march launch (csrc/multisweep_halo.cu,
     whose forms are the whole level's) on CUDA device `index`: the whole
     level's `march_geometry` on the written (nx, ny, nz) of an x-slab or of
     a pencil without its pads (a tile's rind of 2*nsweeps rows reaches into
-    a pencil's y pads), for the shard form's capacity. Kept per shape: the
-    sharded solver calls each shard's march with a few shapes many
-    times."""
+    a pencil's y pads), for the capacity of the shard form launched
+    (compute 1: the bf16 tier's). Kept per shape: the sharded solver calls
+    each shard's march with a few shapes many times."""
     device = torch.device("cuda", index)
     tile = march_tile(local_shape[1], local_shape[2], nsweeps, itemsize)
     return march_geometry(
         local_shape, nsweeps, itemsize,
-        shard_capacity(device, itemsize, nsweeps, tile, pre))
+        shard_capacity(device, itemsize, nsweeps, tile, pre, compute))
 
 
 def _odd_periodic_axis(shape, kinds: FaceKinds) -> bool:
@@ -912,9 +926,10 @@ def multisweep_plan(shape, n: int, kinds: FaceKinds | None,
 def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
                       kinds: FaceKinds, rho: float, alpha: float,
                       beta: float, dx: float, lo, pads=None, meta=None,
-                      ny_global: int | None = None):
+                      ny_global: int | None = None, compute_dtype=None):
     """One launch of the multisweep kernel (csrc/multisweep_march.cuh) on
-    CUDA tensors, counted under `name`; raises on what it does not take.
+    CUDA tensors, counted under `name` (`name`_bf16 in the bf16 tier,
+    `compute_dtype`: f32 operands only); raises on what it does not take.
     The wrappers have checked nsweeps. Three ways to give it the level:
       * whole (`multisweep_relax`, `wavefront_relax`, which is the same
         kernel with x open): C entry mgk_multisweep_relax (csrc/
@@ -929,6 +944,8 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
     H = 2 * int(nsweeps)
     pre = ny_global is not None
     check_level_args(name, u, rhs, a)
+    check_tier(name, u, None, compute_dtype)
+    compute = int(compute_type(compute_dtype) is not None)
     if pads is not None:
         check_level_args(name, *pads)
         if pads[0].device != u.device or pads[0].dtype != u.dtype:
@@ -957,13 +974,14 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
             raise ValueError(f"{name}: y_off {y_off} outside {ny_global}")
     lib = cuda_ext.lib()
     out = torch.empty((nx, ny, nz), dtype=u.dtype, device=u.device)
-    level = (int(u.dtype == torch.float64), nx, ny, nz, kinds_array(kinds),
-             float(rho), float(alpha), float(beta), float(dx))
+    level = (int(u.dtype == torch.float64), compute, nx, ny, nz,
+             kinds_array(kinds), float(rho), float(alpha), float(beta),
+             float(dx))
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernel_counts.count_launch(name, 1)
+        kernel_counts.count_launch(tier_name(name, compute_dtype), 1)
         if meta is None:
-            tile, _, xseg = march_geometry_on(u, nsweeps)
+            tile, _, xseg = march_geometry_on(u, nsweeps, compute)
             err = lib.mgk_multisweep_relax(
                 u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(),
                 *level, int(sum(lo)), int(nsweeps), tile, xseg, stream,
@@ -971,7 +989,7 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
         else:
             tile, _, xseg = shard_geometry_on(
                 (nx, ny, nz), nsweeps, u.element_size(), u.device.index,
-                pre)
+                pre, compute)
             if not pre:
                 err = lib.mgk_multisweep_halo(
                     u.data_ptr(), rhs.data_ptr(), a.data_ptr(),
@@ -993,7 +1011,7 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
 
 def multisweep_relax(
     u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
-    beta: float, dx: float, lo, halo=None,
+    beta: float, dx: float, lo, halo=None, compute_dtype=None,
 ):
     """nsweeps (2 or 4) red-black GSRB sweeps of a whole level with
     homogeneous ghosts and constant bCoef, for any face kinds including
@@ -1009,12 +1027,17 @@ def multisweep_relax(
     there and its pad is never read; a face whose flag is 0 is a seam, read
     from the pad. x_off places the slab in the level, so the checkerboard
     stays global (y_off is not read: an x-slab is never cut in y). Counted
-    as `multisweep_relax_halo`."""
+    as `multisweep_relax_halo`.
+
+    `compute_dtype` "bfloat16": the bf16 tier (f32 operands; raises
+    otherwise), counted under multisweep_relax_bf16 /
+    multisweep_relax_halo_bf16."""
     if nsweeps not in MULTISWEEP_CHUNKS:
         raise ValueError(
             f"multisweep_relax: nsweeps {nsweeps} not in {MULTISWEEP_CHUNKS}")
+    check_tier("multisweep_relax", u, None, compute_dtype)
     kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
-              dx=dx, lo=lo)
+              dx=dx, lo=lo, compute_dtype=compute_dtype)
     if halo is not None:
         upad, rpad, apad, meta = halo
         meta = _meta(meta)
@@ -1036,6 +1059,7 @@ def multisweep_relax(
 def multisweep_relax_tiled_pre(
     u_pre, rhs_pre, a_pre, meta, *, ny_global: int, nsweeps: int,
     kinds: FaceKinds, rho: float, alpha: float, beta: float, dx: float, lo,
+    compute_dtype=None,
 ):
     """nsweeps (2 or 4) red-black GSRB sweeps of one (x, y) pencil of a
     sharded level (parallel/halo.sharded_relax_2d) in one kernel launch,
@@ -1047,14 +1071,16 @@ def multisweep_relax_tiled_pre(
     and ny_global - 1 (never at a seam) and the checkerboard stays global.
     Returns the (nx, ny, nz) pencil. CUDA tensors go to the kernel; CPU
     tensors take the plain version. Counted as
-    `multisweep_relax_tiled_pre`."""
+    `multisweep_relax_tiled_pre` (`multisweep_relax_tiled_pre_bf16` in the
+    bf16 tier, `compute_dtype` as multisweep_relax's)."""
     if nsweeps not in MULTISWEEP_CHUNKS:
         raise ValueError(
             f"multisweep_relax_tiled_pre: nsweeps {nsweeps} not in "
             f"{MULTISWEEP_CHUNKS}")
+    check_tier("multisweep_relax_tiled_pre", u_pre, None, compute_dtype)
     meta = _meta(meta)
     kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
-              dx=dx, lo=lo)
+              dx=dx, lo=lo, compute_dtype=compute_dtype)
     if u_pre.device.type == "cpu":
         return multisweep_relax_tiled_pre_plain(
             u_pre, rhs_pre, a_pre, meta, ny_global=ny_global, **kw)
@@ -1081,27 +1107,33 @@ def _open_pads(arr, axis: int, H: int, keep_lo: bool, keep_hi: bool):
 
 def _halo_sweeps(u_ext, r_ext, a_ext, *, nsweeps: int, kinds: FaceKinds,
                  rho: float, alpha: float, beta: float, dx: float,
-                 base: int):
+                 base: int, compute_dtype=None, _where: bool = False):
     """The plain sweeps of a padded block: every pass over the whole block
     with the folded form, the face rule at the block's ends (only faces of
     the domain are ends that matter: an open end is H = 2*nsweeps cells
     from the cells kept, and what it gets wrong moves inward one cell per
-    pass), parity base `base` at index (0, 0, 0)."""
+    pass), parity base `base` at index (0, 0, 0); `compute_dtype` and
+    `_where` as gsrb_sweeps_folded's."""
     return gsrb_sweeps_folded(
         u_ext, r_ext, a_ext, None, nsweeps=nsweeps, kinds=kinds, rho=rho,
         alpha=alpha, beta=beta, dx=dx, lo=(base, 0, 0),
+        compute_dtype=compute_dtype, _where=_where,
     )
 
 
 def multisweep_relax_halo_plain(
     u, rhs, a, upad, rpad, apad, meta, *, nsweeps: int, kinds: FaceKinds,
     rho: float, alpha: float, beta: float, dx: float, lo,
+    compute_dtype=None, _where: bool = False,
 ):
     """The plain PyTorch version of `multisweep_relax(halo=...)`: the slab
     with its pads (a domain face keeps none) swept pass by pass, the x face
     rule only where an edge flag is set, parity from sum(lo) + x_off (an
-    x-slab is never cut in y: y_off is not read, as in the JAX kernel)."""
-    kernel_counts.PLAIN_CALLS["multisweep_relax_halo"] += 1
+    x-slab is never cut in y: y_off is not read, as in the JAX kernel); in
+    the bf16 tier counted under multisweep_relax_halo_bf16 (`compute_dtype`
+    and `_where` as gsrb_sweeps_folded's)."""
+    kernel_counts.PLAIN_CALLS[tier_name("multisweep_relax_halo",
+                                        compute_dtype)] += 1
     lo_edge, hi_edge, x_off, y_off = _meta(meta)
     H = 2 * nsweeps
     periodic_x = kinds[0][0] == PERIODIC
@@ -1113,6 +1145,7 @@ def multisweep_relax_halo_plain(
         cat(u, upad), cat(rhs, rpad), cat(a, apad), nsweeps=nsweeps,
         kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx,
         base=sum(lo) + x_off - (H if keep_lo else 0),
+        compute_dtype=compute_dtype, _where=_where,
     )
     return out[H if keep_lo else 0:][:u.shape[0]]
 
@@ -1120,13 +1153,17 @@ def multisweep_relax_halo_plain(
 def multisweep_relax_tiled_pre_plain(
     u_pre, rhs_pre, a_pre, meta, *, ny_global: int, nsweeps: int,
     kinds: FaceKinds, rho: float, alpha: float, beta: float, dx: float, lo,
+    compute_dtype=None, _where: bool = False,
 ):
     """The plain PyTorch version of `multisweep_relax_tiled_pre`: the
     prepadded pencil (pads dropped at the domain's faces) swept pass by
     pass, the x face rule only where an edge flag is set, the y face rule
     at global y = 0 and ny_global - 1 (y_off + j), parity from sum(lo) +
-    x_off + y_off."""
-    kernel_counts.PLAIN_CALLS["multisweep_relax_tiled_pre"] += 1
+    x_off + y_off; in the bf16 tier counted under
+    multisweep_relax_tiled_pre_bf16 (`compute_dtype` and `_where` as
+    gsrb_sweeps_folded's)."""
+    kernel_counts.PLAIN_CALLS[tier_name("multisweep_relax_tiled_pre",
+                                        compute_dtype)] += 1
     lo_edge, hi_edge, x_off, y_off = _meta(meta)
     H = 2 * nsweeps
     nx, ny = u_pre.shape[0] - 2 * H, u_pre.shape[1] - 2 * H
@@ -1147,6 +1184,7 @@ def multisweep_relax_tiled_pre_plain(
         cut(u_pre), cut(rhs_pre), cut(a_pre), nsweeps=nsweeps, kinds=kinds,
         rho=rho, alpha=alpha, beta=beta, dx=dx,
         base=sum(lo) + x_off + y_off - x0 - y0,
+        compute_dtype=compute_dtype, _where=_where,
     )
     return out[x0:x0 + nx, y0:y0 + ny]
 

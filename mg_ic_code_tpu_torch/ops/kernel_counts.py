@@ -18,9 +18,11 @@ one launch (csrc/multisweep.cu, csrc/multisweep_halo.cu);
 gsrb_relax_batch and residual_restrict_batch, the batched forms of
 gsrb_relax and residual_restrict (the same kernels: the same-shape sibling
 patches of a batch group in one launch, up to fused_sweeps.BATCH_MAX);
-gsrb_relax_bf16, tower_down_bf16 and tower_up_bf16, the same kernels in
-the bf16 tier (smoother_precision = bfloat16: their colour passes in
-bf16), counted apart so that a run shows where the tier ran and where not.
+gsrb_relax_bf16, tower_down_bf16, tower_up_bf16, wavefront_relax_bf16,
+multisweep_relax_bf16, multisweep_relax_halo_bf16 and
+multisweep_relax_tiled_pre_bf16, the same kernels in the bf16 tier
+(smoother_precision = bfloat16: their colour passes in bf16), counted apart
+so that a run shows where the tier ran and where not.
 `PLAIN_CALLS[name]` goes up each time the plain PyTorch version of that
 kernel runs. A run on the GPU can thereby show that its path went through
 the kernels and never through a plain version.
@@ -41,7 +43,9 @@ KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
            "tower_up", "wavefront_relax", "multisweep_relax",
            "multisweep_relax_halo", "multisweep_relax_tiled_pre",
            "gsrb_relax_batch", "residual_restrict_batch", "gsrb_relax_bf16",
-           "tower_down_bf16", "tower_up_bf16")
+           "tower_down_bf16", "tower_up_bf16", "wavefront_relax_bf16",
+           "multisweep_relax_bf16", "multisweep_relax_halo_bf16",
+           "multisweep_relax_tiled_pre_bf16")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}

@@ -19,7 +19,9 @@ within 3 % of this one, so there is one kernel behind two wrappers, each
 counted under its own name.
 
   * `wavefront_relax`       — CUDA tensors go to the kernel or raise; CPU
-                              tensors take the plain version.
+                              tensors take the plain version. Both take
+                              the bf16 tier (`compute_dtype`), as
+                              `fused_sweeps` says.
   * `wavefront_relax_plain` — the plain PyTorch version. The function is
                               the same as `gsrb_relax`'s, so the plain
                               versions share one body
@@ -72,33 +74,39 @@ def wavefront_plan(shape, n: int, kinds: FaceKinds | None,
 
 def wavefront_relax_plain(
     u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
-    beta: float, dx: float, lo,
+    beta: float, dx: float, lo, compute_dtype=None, _where: bool = False,
 ):
     """The plain PyTorch version of `wavefront_relax`: the sweeps in their
     natural order, every pass over the whole level (the skew changes where
-    the data lives, not what is computed)."""
-    kernel_counts.PLAIN_CALLS["wavefront_relax"] += 1
+    the data lives, not what is computed); in the bf16 tier counted under
+    wavefront_relax_bf16 (`compute_dtype`, `_where` as
+    fused_sweeps.gsrb_sweeps_folded's)."""
+    kernel_counts.PLAIN_CALLS[fs.tier_name("wavefront_relax",
+                                           compute_dtype)] += 1
     return fs.gsrb_sweeps_folded(
         u, rhs, a, None, nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha,
-        beta=beta, dx=dx, lo=lo,
+        beta=beta, dx=dx, lo=lo, compute_dtype=compute_dtype, _where=_where,
     )
 
 
 def wavefront_relax(
     u, rhs, a, *, nsweeps: int, kinds: FaceKinds, rho: float, alpha: float,
-    beta: float, dx: float, lo,
+    beta: float, dx: float, lo, compute_dtype=None,
 ):
     """nsweeps (2 or 4) red-black GSRB sweeps of a whole level with
     homogeneous ghosts and constant bCoef, x not periodic, in one kernel
     launch. Returns a new tensor. CUDA tensors go to the kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version. `compute_dtype` "bfloat16": the bf16
+    tier (f32 operands; raises otherwise), counted under
+    wavefront_relax_bf16."""
     if kinds[0][0] == PERIODIC:
         raise ValueError("wavefront_relax: x must not be periodic")
     if nsweeps not in CHUNKS:
         raise ValueError(
             f"wavefront_relax: nsweeps {nsweeps} not in {CHUNKS}")
+    fs.check_tier("wavefront_relax", u, None, compute_dtype)
     kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
-              dx=dx, lo=lo)
+              dx=dx, lo=lo, compute_dtype=compute_dtype)
     if u.device.type == "cpu":
         return wavefront_relax_plain(u, rhs, a, **kw)
     return fs.multisweep_launch("wavefront_relax", u, rhs, a, **kw)

@@ -679,7 +679,8 @@ def sharded_relax(spec, coefs: dict, d: int, u: ShardSet, rhs: ShardSet,
     rule) and which are seams (the pads), and places the slab in the
     global frame. The halo recompute evaluates every seam row as the owning
     shard does, so the joined result is the unsharded kernel's up to the
-    order of additions."""
+    order of additions (bit for bit in the bf16 tier, which every shard's
+    launch takes from the spec's smoother_compute)."""
     from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 
     shape = tuple(spec.boxes[d].shape)
@@ -706,7 +707,8 @@ def sharded_relax(spec, coefs: dict, d: int, u: ShardSet, rhs: ShardSet,
         sl = slice(h_max - H, h_max + H)
         u_s = {k: fs.multisweep_relax(
             u_s[k], rhs.shards[k], a_s[k], nsweeps=c,
-            halo=(upad[k], rpad[k][sl], apad[k][sl], meta[k]), **kw)
+            halo=(upad[k], rpad[k][sl], apad[k][sl], meta[k]),
+            compute_dtype=spec.smoother_compute, **kw)
             for k in u_s}
     return u.like(u_s)
 
@@ -722,7 +724,7 @@ def sharded_relax_2d(spec, coefs: dict, d: int, u: ShardSet, rhs: ShardSet,
     coefficient build (shard_coefs). The kernel's meta places the pencil
     in the global frame, so the checkerboard and the y face fold stay
     global, and the halo recompute evaluates every seam cell as its owning
-    shard does."""
+    shard does. Every launch takes the spec's bf16 tier (smoother_compute)."""
     from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
 
     shape = tuple(spec.boxes[d].shape)
@@ -742,17 +744,19 @@ def sharded_relax_2d(spec, coefs: dict, d: int, u: ShardSet, rhs: ShardSet,
         u_pre = _prepad(u_s, H, "ghost", kinds, rho, counts, u)
         u_s = {k: fs.multisweep_relax_tiled_pre(
             u_pre[k], r_pre[k], a_pre[k], meta[k], ny_global=shape[1],
-            nsweeps=chunk, **kw) for k in u_s}
+            nsweeps=chunk, compute_dtype=spec.smoother_compute, **kw)
+            for k in u_s}
     return u.like(u_s)
 
 
 def relax(spec, coefs: dict, d: int, u, rhs, n: int):
     """n red+black sweeps at a depth the mesh cuts (multigrid.relax routes
-    here), by _route: the halo kernels (x-slabs, pencils) or the plain
-    sharded ops (f64, `smoother = xla`, a sweep count the chunks do not
-    divide, an odd periodic extent, a cut z axis, variable bCoef). Shard
-    sets in, a shard set out; whole tensors in, the per-call form: split,
-    relax, join."""
+    here), by _route: the halo kernels (x-slabs, pencils), in the spec's
+    bf16 tier where it has one, or the plain sharded ops (f64, `smoother =
+    xla`, a sweep count the chunks do not divide, an odd periodic extent, a
+    cut z axis, variable bCoef), which take no tier, as the JAX package's
+    XLA fallbacks take none. Shard sets in, a shard set out; whole tensors
+    in, the per-call form: split, relax, join."""
     if n <= 0:
         return u
     (u_s, rhs_s), whole = _resident(spec, d, u, rhs)

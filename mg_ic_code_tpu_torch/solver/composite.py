@@ -103,9 +103,9 @@ def make_amr_spec(
     (multigrid._shard_counts); `device` is then the mesh's first (its
     home, where the levels live). `cfg.forest_batching` gives the batch
     groups (_sibling_batch_groups). `cfg.smoother_precision = bfloat16`
-    sets every level's smoother_compute (the bf16 tier of gsrb_relax and
-    the towers); smoother_tier_gate refuses it where a march or a cut depth
-    would need it."""
+    sets every level's smoother_compute (the bf16 tier of gsrb_relax, the
+    marches, the shard marches and the towers; every other relaxation takes
+    none, as in the JAX package)."""
     device = precision.resolve_device(device)
     smoother_compute = ("bfloat16" if cfg.smoother_precision == "bfloat16"
                         else None)
@@ -125,10 +125,6 @@ def make_amr_spec(
         for l in range(geom.num_levels)
     )
     precond = precision.precond_dtype(cfg.precond_precision, device)
-    smoother_tier_gate(level_specs,
-                       torch.float32 if precond == "float32"
-                       else precision.OUTER_DTYPE,
-                       torch.device(device).type)
     return AMRSolverSpec(
         geom=geom,
         alpha=cfg.alpha,
@@ -146,36 +142,6 @@ def make_amr_spec(
             geom, level_specs, getattr(cfg, "forest_batching", "auto"), mesh
         ),
     )
-
-
-def smoother_tier_gate(level_specs, dtype, device_type: str) -> None:
-    """Refuse the bf16 tier (a level spec's smoother_compute) where it has no
-    kernel yet: raises NotImplementedError, naming the level, the depth and
-    the rung, where kernels run (multigrid._kernels_allowed_for: the
-    preconditioner's `dtype` on `device_type`) and a depth's nsmooth
-    sweeps take the wave or multisweep rung (multigrid.plan_for) or a mesh
-    cuts the depth (the shard marches): those forms come in a later slice.
-    Elsewhere every relaxation is a gsrb_relax or tower launch, or no
-    kernel at all (an f64 preconditioner, smoother = xla, auto on the CPU:
-    the key changes nothing there, as in the JAX package). A function of
-    the levels' shapes, face kinds and mesh and of the device type, so that
-    the table can be asked for "cuda" without a card."""
-    for level, ls in enumerate(level_specs):
-        if (ls.smoother_compute is None
-                or not mg._kernels_allowed_for(ls, dtype, device_type)):
-            continue
-        for d, box in enumerate(ls.boxes):
-            shape = tuple(box.shape)
-            rung = ("sharded" if mg._shard_counts(ls, d) != (1, 1, 1)
-                    else next((k for k, _ in mg.plan_for(
-                        ls, shape, dtype, device_type, ls.nsmooth)
-                        if k in ("wave", "multisweep")), None))
-            if rung is not None:
-                raise NotImplementedError(
-                    f"smoother_precision = bfloat16: level {level} depth {d} "
-                    f"{shape} takes the {rung} rung on {device_type}, which "
-                    f"has no bf16 form yet (the march forms come in a later "
-                    f"slice; use auto or single)")
 
 
 def _sibling_batch_groups(

@@ -65,10 +65,11 @@ class LevelMGSpec:
     bottom: str = "auto"
     # reduced-precision colour passes ("bfloat16", resolved from
     # cfg.smoother_precision by composite.make_amr_spec): the bf16 tier of
-    # the GSRB kernel on the "resident" rung (constant b only) and of the
-    # towers; the residual, the restriction, the batch groups and the
-    # staged body stay at operand precision. composite.smoother_tier_gate
-    # refuses it where a march or a mesh-cut depth would need it.
+    # the GSRB kernel on the "resident" rung (constant b only), of the
+    # marches on the "wave" and "multisweep" rungs, of the shard marches at
+    # a depth the mesh cuts (parallel/halo) and of the towers; the
+    # residual, the restriction, the batch groups, the plain sharded ops
+    # and the staged body stay at operand precision, as in the JAX package.
     smoother_compute: str | None = None
     # device mesh (parallel/mesh.Mesh) of the explicit-halo path: where a
     # depth's axes shard usefully (_shard_counts), relax / residual run per
@@ -361,11 +362,14 @@ def relax(spec: LevelMGSpec, coefs: dict, d: int, u, rhs, n: int):
         return halo.relax(spec, coefs, d, u, rhs, n)
     for kind, s in relax_kernel_plan(spec, u, n, const_b=b is None):
         if kind in ("wave", "multisweep"):
+            # the rungs of constant b: the bf16 tier as the JAX package's
+            # fused families take it
             one_launch = (wf.wavefront_relax if kind == "wave"
                           else fs.multisweep_relax)
             u = one_launch(
                 u.contiguous(), rhs.contiguous(), coefs["a"][d], nsweeps=s,
-                lo=spec.boxes[d].lo, **_level_kw(spec, d),
+                lo=spec.boxes[d].lo, compute_dtype=spec.smoother_compute,
+                **_level_kw(spec, d),
             )
         elif kind == "resident":
             # the bf16 tier for constant b only (the JAX package's variable-b

@@ -14,12 +14,14 @@ raised, the hierarchy's cells, the seconds.
         --relax kernel,plain,twin --tiers bfloat16   # the port on the card
 
 `--relax` (the port on the card only) picks what sweeps the levels and the
-towers: `kernel` the CUDA kernels (the solver's own path); `plain` the
-kernels' plain versions on the card's tensors (fused_sweeps.gsrb_relax_plain,
-coarse_tower.tower_*_plain: the JAX body's arithmetic, its arithmetic colour
-select included); `twin` the same with the kernels' colour select
-(`_where`), the arithmetic the tier's kernels are held to bit for bit. The
-residual and restriction kernels run in every mode. It answers whether a
+towers (chip_smoke.install_relax): `kernel` the CUDA kernels (the solver's
+own path); `plain` the kernels' plain versions on the card's tensors in
+place of every relax wrapper the solver reaches (gsrb_relax, the marches
+wavefront_relax and multisweep_relax, the shard marches, the towers: the
+JAX body's arithmetic, its arithmetic colour select included); `twin` the
+same with the kernels' colour select (`_where`), the arithmetic the tier's
+kernels are held to bit for bit. The residual and restriction kernels run
+in every mode. It answers whether a
 run of the tier that misses a limit or fails on the card does so because of
 the kernels or because of the tier's arithmetic, which the plain version
 shares with the JAX package (tests/test_torch_bf16_tier.py).
@@ -36,6 +38,10 @@ Configurations (name: what, Picard iterations by default):
                          (N = 2..6; 6 is the records' configuration); 12
   patches6_t05           patches6 with refine_threshold = 0.5: the deepest
                          level's dx (100/4096) with small patches; 8
+  scale7                 the canonical file at max_level = 6 (the wave
+                         rung at 512x96x96 and 960x144x144); 2
+  periodic               the periodic box (params/periodic.txt, 256^3: the
+                         multisweep rung); 3
 Groups: small (small_ad0, small_ad1), deep (small_ml2, small_ml4).
 The JAX package's solves take minutes each here (canonical3: about half an
 hour on the CPU); the full-size configurations (patches5, patches6) are for
@@ -55,6 +61,8 @@ sys.path.insert(0, ROOT)
 
 CANONICAL = os.path.join(ROOT, "mg_ic_code_tpu_torch", "params",
                          "canonical.txt")
+PERIODIC = os.path.join(ROOT, "mg_ic_code_tpu_torch", "params",
+                        "periodic.txt")
 KERNEL_PATH = ["precond_precision = single", "smoother = pallas"]
 PATCHES = ["level_decomposition = patches", "average_down = 1"]
 
@@ -73,8 +81,8 @@ SMALL_BBH = dict(
     bh1_spin=0.02, bh2_spin=0.02, verbosity=0,
     precond_precision="single", smoother="pallas")
 
-# name: ("small", keyword arguments, iterations) or ("canonical",
-# parameter-file overrides, iterations)
+# name: ("small", keyword arguments, iterations), or ("canonical" /
+# "periodic", parameter-file overrides, iterations)
 CONFIGS = {
     "small_ad0": ("small", dict(average_down=0), 3),
     "small_ad1": ("small", dict(average_down=1), 3),
@@ -86,34 +94,12 @@ CONFIGS = {
        for n in range(2, 7)},
     "patches6_t05": ("canonical", ["max_level = 6", "refine_threshold = 0.5"]
                      + PATCHES, 8),
+    "scale7": ("canonical", ["max_level = 6"], 2),
+    "periodic": ("periodic", [], 3),
 }
+PARAMS = {"canonical": CANONICAL, "periodic": PERIODIC}
 GROUPS = {"small": ["small_ad0", "small_ad1"],
           "deep": ["small_ml2", "small_ml4"]}
-
-
-WRAPPERS: dict = {}
-
-
-def install_relax(mode: str) -> None:
-    """The port's sweeps on the card: `plain` / `twin` put the plain
-    versions (twin: with the kernels' colour select) in place of the
-    gsrb_relax and tower wrappers; `kernel` puts the wrappers back."""
-    from mg_ic_code_tpu_torch.ops import coarse_tower as ct
-    from mg_ic_code_tpu_torch.ops import fused_sweeps as fs
-
-    if not WRAPPERS:
-        WRAPPERS.update(gsrb_relax=fs.gsrb_relax, tower_down=ct.tower_down,
-                        tower_up=ct.tower_up)
-    if mode == "kernel":
-        fs.gsrb_relax = WRAPPERS["gsrb_relax"]
-        ct.tower_down = WRAPPERS["tower_down"]
-        ct.tower_up = WRAPPERS["tower_up"]
-        return
-    where = mode == "twin"
-    fs.gsrb_relax = lambda u, rhs, a, b=None, **kw: fs.gsrb_relax_plain(
-        u, rhs, a, b, _where=where, **kw)
-    ct.tower_down = lambda *args: ct.tower_down_plain(*args, _where=where)
-    ct.tower_up = lambda *args: ct.tower_up_plain(*args, _where=where)
 
 
 def run_port(name: str, tier: str, iterations: int, device: str) -> dict:
@@ -129,9 +115,9 @@ def run_port(name: str, tier: str, iterations: int, device: str) -> dict:
         cfg = SolverConfig(**dict(SMALL_BBH, **over, smoother_precision=tier,
                                   max_nl_iterations=iterations))
     else:
-        cfg = port.load_params(CANONICAL, overrides=over + KERNEL_PATH + [
-            f"max_NL_iterations = {iterations}", "verbosity = 0",
-            f"smoother_precision = {tier}"])
+        cfg = port.load_params(PARAMS[kind], overrides=[
+            *over, *KERNEL_PATH, f"max_NL_iterations = {iterations}",
+            "verbosity = 0", f"smoother_precision = {tier}"])
     geom = generate_hierarchy(cfg, device=device)
     cells = sum(int(torch.tensor(geom.shape(l)).prod())
                 for l in range(geom.num_levels))
@@ -171,9 +157,9 @@ def run_jax(name: str, tier: str, iterations: int) -> dict:
         cfg = SolverConfig(**dict(SMALL_BBH, **over, smoother_precision=tier,
                                   max_nl_iterations=iterations))
     else:
-        cfg = jax_pkg.load_params(CANONICAL, overrides=over + KERNEL_PATH + [
-            f"max_NL_iterations = {iterations}", "verbosity = 0",
-            f"smoother_precision = {tier}"])
+        cfg = jax_pkg.load_params(PARAMS[kind], overrides=[
+            *over, *KERNEL_PATH, f"max_NL_iterations = {iterations}",
+            "verbosity = 0", f"smoother_precision = {tier}"])
     try:
         res = nl.poisson_solve(cfg, verbose=False)
     except nl.NonConvergenceError as e:
@@ -213,6 +199,8 @@ def main() -> int:
         torch.set_num_threads(min(8, os.cpu_count() or 1))
     for mode in modes:
         if args.package == "port" and args.device == "cuda":
+            from chip_smoke import install_relax
+
             install_relax(mode)
         for name in names:
             for tier in args.tiers.split(","):

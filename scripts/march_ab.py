@@ -61,12 +61,17 @@ resident where the tree has it, unsharded) is under "cases" as
 `--bitwise` holds every tree's outputs bit for bit to tree A's: in each
 tree's first run the bitwise probe hashes the f32 and f64 outputs of every
 gsrb_relax form at every level case, every gsrb_relax_batch form at every
-batch, the one-sweep and one-pass entry points and both towers at every
-chain (each tree's own case tables and seeds), and keeps the 4-level
-canonical solve's and the records' patches run's Picard histories, Krylov
-counts and K as exact decimal strings. The summary's "bitwise" field lists,
-per tree, the keys equal to A's, those that differ and those one tree
-lacks; the script exits 1 when a key differs.
+batch, the one-sweep and one-pass entry points, both towers at every chain,
+the whole-level marches at every WAVE_CASES and MULTI_CASES case but 512^3
+and the shard marches at every SHARD_CASES case (nsweeps 2 and 4), and the
+bf16 tier's outputs of each of these where the tree has the tier's form
+(each tree's own case tables and seeds), and keeps the Picard histories,
+Krylov counts and K of the 4-level canonical solve, the records' patches
+run, scale7 and the periodic box, and of the tier's runs where the tree has
+them (the 4-level solve with average_down; scale7 and the box), as exact
+decimal strings. The summary's "bitwise" field lists, per tree, the keys
+equal to A's, those that differ and those one tree lacks; the script exits
+1 when a key differs.
 """
 
 from __future__ import annotations
@@ -270,11 +275,17 @@ print(json.dumps({"phase": "precond_probe", "precond": _precond}),
 # the f32 and f64 outputs of gsrb_relax (4 sweeps) in every form that takes
 # the level at every LEVEL_CASES and GSRB_CASES case, gsrb_relax_batch
 # (every form) at every BATCH_CASES batch, the one-sweep and one-pass entry
-# points, tower_down / tower_up at every TOWER_CASES chain, with the tree's
-# own tables and seeds (chip_smoke.level_fields: the same inputs in every
-# tree), and the exact decimal strings of the Picard histories, Krylov
-# counts and K of the 4-level canonical solve and of the records' patches
-# configuration with average_down, printed as one line.
+# points, tower_down / tower_up at every TOWER_CASES chain, the whole-level
+# marches (chip_smoke.one_launch_kernels) at every case but 512^3 and the
+# shard marches at every SHARD_CASES case, each at nsweeps 2 and 4, with the
+# tree's own tables and seeds (chip_smoke.level_fields: the same inputs in
+# every tree); the bf16 tier's outputs of gsrb_relax, the towers and the
+# marches where the tree has the tier's form (keys a parent lacks are
+# listed, not failed); and the exact decimal strings of the Picard
+# histories, Krylov counts and K of the 4-level canonical solve, the
+# records' patches configuration with average_down, scale7 and the
+# periodic box, and of the tier's runs where the tree has them, printed as
+# one line.
 BITWISE_PROBE = """
 import hashlib
 
@@ -288,6 +299,10 @@ def _digest(ts):
 
 
 _cs, _hash = chip_smoke, {}
+# the tier's forms this tree has: gsrb_relax and the towers, the marches
+_bf16 = "gsrb_relax_bf16" in _cs.kernel_counts.KERNELS
+_bf16_march = "multisweep_relax_bf16" in _cs.kernel_counts.KERNELS
+_B16 = dict(compute_dtype="bfloat16")
 with torch.no_grad():
     for _dt in (torch.float32, torch.float64):
         _n = str(_dt)[6:]
@@ -302,6 +317,12 @@ with torch.no_grad():
                 _hash[f"gsrb_relax {_cid} {_n} {_form}"] = _digest([
                     _cs.fs.gsrb_launch(_f["u"], _f["rhs"], _f["a"], _f["b"],
                                        nsweeps=4, lo=_lo, form=_form, **_kw)])
+            if _bf16 and _dt == torch.float32 and not _wb:
+                for _form in _cs.gsrb_forms(_f["u"], False, _kinds, 1)[1]:
+                    _hash[f"gsrb_relax_bf16 {_cid} {_form}"] = _digest([
+                        _cs.fs.gsrb_launch(_f["u"], _f["rhs"], _f["a"], None,
+                                           nsweeps=4, lo=_lo, form=_form,
+                                           **_kw, **_B16)])
             del _f
             torch.cuda.empty_cache()
         for _cid, _shape, _kinds, _rho, _los, _ in _cs.BATCH_CASES:
@@ -335,13 +356,80 @@ with torch.no_grad():
             _hash[f"tower_up {_cid} {_n}"] = _digest([_cs.ct.tower_up(
                 _spec, 0, 0.5 * _b, list(_u), [_f["rhs"]] + list(_r)[:-1],
                 _al[:-1])])
-    for _label, _over in (
-            ("solve", ["max_level = 3", "precond_precision = single",
-                       "verbosity = 0"]),
-            ("patches_avgdown", _cs.RECORDS_BASE + _cs.PATCHES)):
-        _run = _cs.run_solve(list(_over), _label)
+            if _bf16 and _dt == torch.float32:
+                _sp = _cs.dataclasses.replace(_spec,
+                                              smoother_compute="bfloat16")
+                _u, _r, _b = _cs.ct.tower_down(_sp, 0, _f["u"], _f["rhs"],
+                                               _al)
+                _hash[f"tower_down_bf16 {_cid}"] = _digest(
+                    list(_u) + list(_r) + [_b])
+                _hash[f"tower_up_bf16 {_cid}"] = _digest([_cs.ct.tower_up(
+                    _sp, 0, 0.5 * _b, list(_u), [_f["rhs"]] + list(_r)[:-1],
+                    _al[:-1])])
+        _tiers = [(None, "")]
+        if _bf16_march and _dt == torch.float32:
+            _tiers.append((_B16, " bf16"))
+        for _name, (_fn, _, _chunks, _mc) in (
+                _cs.one_launch_kernels().items()):
+            for _cid, _shape, _kinds, _lo, _rho, _ in _mc:
+                if _cid == "periodic_512":
+                    continue
+                _f = _cs.level_fields(_shape, _dt, seed=3)
+                _kw = dict(kinds=_kinds, rho=_rho, alpha=1.0, beta=-1.0,
+                           dx=0.37, lo=_lo)
+                for _ns in _chunks:
+                    for _x, _t in _tiers:
+                        _hash[f"{_name} {_cid} {_n} ns{_ns}{_t}"] = _digest(
+                            [_fn(_f["u"], _f["rhs"], _f["a"], nsweeps=_ns,
+                                 **_kw, **(_x or {}))])
+                del _f
+                torch.cuda.empty_cache()
+        for _cid, _shape, _kinds, _lo, _ms, _key, _ in _cs.SHARD_CASES:
+            _f = _cs.level_fields(_shape, _dt, seed=4)
+            _kw = dict(kinds=_kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.37,
+                       lo=_lo)
+            for _ns in _cs.fs.MULTISWEEP_CHUNKS:
+                _o = _cs.shard_operands(_f, _kinds, _ms, 2 * _ns,
+                                        h_max=_cs.SHARD_COEF_HMAX.get(_cid))
+                _o = _o[_key]
+                for _x, _t in _tiers:
+                    if "pads" in _o:
+                        _out = _cs.fs.multisweep_relax(
+                            _o["u"], _o["rhs"], _o["a"], nsweeps=_ns,
+                            halo=_o["pads"] + (_o["meta"],), **_kw,
+                            **(_x or {}))
+                    else:
+                        _out = _cs.fs.multisweep_relax_tiled_pre(
+                            *_o["pre"], _o["meta"],
+                            ny_global=_o["ny_global"], nsweeps=_ns, **_kw,
+                            **(_x or {}))
+                    _hash[f"shard {_cid} {_n} ns{_ns}{_t}"] = _digest([_out])
+            del _f
+            torch.cuda.empty_cache()
+    _runs = [("solve", ["max_level = 3", "precond_precision = single",
+                        "verbosity = 0"], _cs.CANONICAL),
+             ("patches_avgdown", _cs.RECORDS_BASE + _cs.PATCHES,
+              _cs.CANONICAL),
+             ("scale7", ["max_level = 6", "max_NL_iterations = 3",
+                         "precond_precision = single", "verbosity = 0"],
+              _cs.CANONICAL),
+             ("periodic", _cs.PERIODIC_BASE, _cs.PERIODIC)]
+    if _bf16:
+        _runs.append(("solve_avgdown_bf16",
+                      _cs.BF16_SOLVE + _cs.BF16_OVERRIDE, _cs.CANONICAL))
+    for _label, _over, _params in _runs:
+        _run = _cs.run_solve(list(_over), _label, params=_params)
         for _k in ("history", "linear_iters", "K_history"):
             _hash[f"{_label} {_k}"] = [repr(x) for x in _run[_k]]
+    # the tier on the march rungs, converged or not
+    if _bf16_march:
+        for _label, _over, _params in (
+                ("scale7_bf16", _cs.BF16_SCALE7, _cs.CANONICAL),
+                ("periodic_bf16", _cs.PERIODIC_BASE, _cs.PERIODIC)):
+            _run = _cs.tier_solve(list(_over) + _cs.BF16_OVERRIDE, _label,
+                                  _params)
+            for _k in ("history", "linear_iters", "K_history", "raised"):
+                _hash[f"{_label} {_k}"] = repr(_run[_k])
 print(json.dumps({"phase": "bitwise", "hashes": _hash}), flush=True)
 """
 PRECOND_CASES = (

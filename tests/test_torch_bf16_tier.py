@@ -107,9 +107,15 @@ def test_gsrb_relax_tier_matches_jax(cid, shape, kinds, lo):
 
 
 def test_tier_refused_where_it_has_no_form():
-    """The wrapper takes the tier for f32 levels with constant b only: an
+    """The wrappers take the tier for f32 levels with constant b only: an
     f64 level or a variable b raises (the path never sends them; a silent
-    f32 sweep would hide the fault), as does an unknown compute type."""
+    f32 sweep would hide the fault), as does an unknown compute type. The
+    same for the four march wrappers (which take no b): wavefront_relax,
+    multisweep_relax and its halo= form, multisweep_relax_tiled_pre, each
+    refusing an f64 level and an unknown compute type, each counted under
+    its _bf16 name in the tier."""
+    from mg_ic_code_tpu_torch.ops import wavefront as twf
+
     shape = (8, 8, 8)
     kw = dict(nsweeps=1, kinds=((D, D),) * 3, rho=2.0, alpha=1.0,
               beta=-1.0, dx=0.1, lo=(0, 0, 0))
@@ -123,6 +129,31 @@ def test_tier_refused_where_it_has_no_form():
         tfs.gsrb_relax(u, u, u, compute_dtype="float16", **kw)
     assert tfs.tier_name("tower_up", BF16) == "tower_up_bf16"
     assert tfs.tier_name("tower_up", None) == "tower_up"
+
+    mkw = dict(kw, nsweeps=2)
+    pads = (torch.ones((8, 8, 8)),) * 3
+    pre = torch.ones((16, 16, 8))
+    marches = {
+        "wavefront_relax": lambda x, **k: twf.wavefront_relax(x, x, x, **k),
+        "multisweep_relax": lambda x, **k: tfs.multisweep_relax(x, x, x, **k),
+        "multisweep_relax_halo": lambda x, **k: tfs.multisweep_relax(
+            x, x, x, halo=tuple(p.to(x.dtype) for p in pads)
+            + ((1, 1, 0, 0),), **k),
+        "multisweep_relax_tiled_pre": lambda x, **k: (
+            tfs.multisweep_relax_tiled_pre(
+                pre.to(x.dtype), pre.to(x.dtype), pre.to(x.dtype),
+                (1, 1, 0, 0), ny_global=8, **k)),
+    }
+    for name, call in marches.items():
+        with pytest.raises(TypeError, match="bf16 tier"):
+            call(u.double(), compute_dtype=BF16, **mkw)
+        with pytest.raises(ValueError, match="compute_dtype"):
+            call(u, compute_dtype="float16", **mkw)
+        kernel_counts.reset()
+        out = call(u, compute_dtype=BF16, **mkw)
+        assert out.dtype == torch.float32
+        assert kernel_counts.PLAIN_CALLS[name + "_bf16"] == 1, name
+        assert kernel_counts.PLAIN_CALLS[name] == 0, name
 
 
 # A V-cycle's tolerances: 4 sweeps down and up at each of 3-4 depths, each

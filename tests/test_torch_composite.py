@@ -118,23 +118,30 @@ def test_spec_fields_match(f64, mixed):
     assert mixed[1].precond_dtype == "float32" and f64[1].precond_dtype is None
 
 
-def test_bfloat16_smoother_is_refused(f64):
-    """smoother_precision = bfloat16 (the bf16 tier of gsrb_relax and the
-    towers) is refused only where it has no kernel yet, by
-    composite.smoother_tier_gate: a depth on the wave or multisweep rung
-    (scale7's 512x96x96 and 960x144x144 levels, the periodic box's 256^3
-    depth), asked for device type "cuda" without a card, and a depth a
-    mesh cuts. It is accepted, every level spec's smoother_compute
-    "bfloat16", where every relaxation is a gsrb_relax or tower launch
-    (the 4-level canonical solve, the records' patches forest, on "cuda")
-    and on every CPU configuration without a mesh (the plain versions, or
-    no kernel: f64, smoother = xla, auto on the CPU); auto and single give
-    None."""
-    import torch
-
+def test_bfloat16_smoother_is_refused(f64, monkeypatch):
+    """smoother_precision = bfloat16 is refused nowhere any more: every
+    relaxation route either takes the tier or, as in the JAX package,
+    takes none. make_amr_spec accepts it on scale7's hierarchy (the wave
+    rung at 512x96x96 and 960x144x144 on "cuda", multigrid.plan_for asked
+    without a card), on the periodic box (the multisweep rung at 256^3),
+    on the 4-level solve and the records' patches, with a mesh that cuts
+    a depth (x-slabs and (2, 2) pencils: the shard marches) and on every
+    CPU configuration; every level spec's smoother_compute is "bfloat16"
+    (auto and single give None). Each route, driven on CPU tensors with
+    the card's plan (relax_kernel_plan as on "cuda", the L2 size term
+    lowered so that a 16^3 level takes the march), counts its launches
+    under its _bf16 name (the plain versions' counters) and none at f32:
+    wavefront_relax_bf16 on the wave rung, multisweep_relax_bf16 on the
+    multisweep rung, gsrb_relax_bf16 on the resident one,
+    multisweep_relax_halo_bf16 / multisweep_relax_tiled_pre_bf16 where
+    the mesh cuts."""
     import mg_ic_code_tpu_torch as mgt
+    from mg_ic_code_tpu_torch.grid.boxes import Box as TBox
     from mg_ic_code_tpu_torch.grid.tagging import generate_hierarchy
+    from mg_ic_code_tpu_torch.ops import fused_sweeps as tfs
+    from mg_ic_code_tpu_torch.parallel import halo as thalo
     from mg_ic_code_tpu_torch.parallel import mesh as pmesh
+    from mg_ic_code_tpu_torch.solver import multigrid as tmg
 
     geom = f64[1].geom
     cfg = TCfg(n_cells=(16, 16, 16), max_level=2,
@@ -150,42 +157,72 @@ def test_bfloat16_smoother_is_refused(f64):
             geom, dataclasses.replace(cfg, smoother_precision=ok),
             device="cpu")
         assert all(s.smoother_compute is None for s in spec.level_specs)
-    # a depth the mesh cuts (16^3 over two positions: two 8-plane slabs)
-    mesh = pmesh.make_mesh(["cpu"] * 2)
-    with pytest.raises(NotImplementedError,
-                       match="level 0 depth 0 .* sharded rung"):
-        tcomp.make_amr_spec(geom, dataclasses.replace(
-            cfg, smoother="pallas", precond_precision="single"),
-            device="cpu", mesh=mesh)
-    tcomp.make_amr_spec(geom, cfg, device="cpu", mesh=mesh)  # no kernel
 
+    rung_kernel = {"wave": "wavefront_relax", "multisweep": "multisweep_relax",
+                   "resident": "gsrb_relax"}
     params = mgt.__path__[0] + "/params/"
     cases = {
         "scale7": ("canonical.txt", ["max_level = 6"],
-                   "level 5 depth 0 \\(512, 96, 96\\) takes the wave rung"),
-        "periodic": ("periodic.txt", [],
-                     "level 0 depth 0 \\(256, 256, 256\\) takes the "
-                     "multisweep rung"),
-        "solve4": ("canonical.txt", ["max_level = 3"], None),
+                   {(512, 96, 96): "wave", (960, 144, 144): "wave"}),
+        "periodic": ("periodic.txt", [], {(256, 256, 256): "multisweep"}),
+        "solve4": ("canonical.txt", ["max_level = 3"], {}),
         "patches": ("canonical.txt", ["max_level = 6", "average_down = 1",
-                                      "level_decomposition = patches"],
-                    None),
+                                      "level_decomposition = patches"], {}),
     }
-    for name, (fname, over, raises) in cases.items():
+    for name, (fname, over, marches) in cases.items():
         c = mgt.load_params(params + fname, overrides=over + [
             "smoother_precision = bfloat16", "precond_precision = single"])
         spec = tcomp.make_amr_spec(generate_hierarchy(c, device="cpu"), c,
                                    device="cpu")
         assert all(s.smoother_compute == "bfloat16"
                    for s in spec.level_specs)
-        if raises is None:
-            tcomp.smoother_tier_gate(spec.level_specs, torch.float32, "cuda")
+        rungs = {}
+        for ls in spec.level_specs:
+            for box in ls.boxes:
+                plan = tmg.plan_for(ls, tuple(box.shape), torch.float32,
+                                    "cuda", ls.nsmooth)
+                if plan[0][0] != "resident":
+                    rungs[tuple(box.shape)] = plan[0][0]
+        assert rungs == marches, (name, rungs)
+
+    # every route on CPU tensors, the card's plan: a 16^3 level of the
+    # march rungs' face kinds, and the same level cut by a mesh
+    monkeypatch.setattr(tfs, "L2_BYTES", 32 << 10)
+    monkeypatch.setattr(tmg, "relax_kernel_plan", lambda s, x, k, const_b=(
+        True): tmg.plan_for(s, x.shape, x.dtype, "cuda", k, const_b))
+    rng = np.random.default_rng(9)
+    u, rhs = (torch.from_numpy(rng.standard_normal((16,) * 3)
+                               .astype(np.float32)) for _ in range(2))
+    a = torch.from_numpy(rng.uniform(0.5, 2.0, (16,) * 3).astype(np.float32))
+    cfl = (("cf", "cf"),) * 3
+    per = (("periodic", "periodic"),) * 3
+    for kinds, mesh, shape, kernel in (
+            (cfl, None, (16,) * 3, "wavefront_relax"),
+            (per, None, (16,) * 3, "multisweep_relax"),
+            (cfl, None, (8,) * 3, "gsrb_relax"),
+            (per, pmesh.make_mesh(["cpu"] * 2), (16,) * 3,
+             "multisweep_relax_halo"),
+            (cfl, pmesh.make_mesh(["cpu"] * 4, (2, 2)), (16,) * 3,
+             "multisweep_relax_tiled_pre")):
+        ls = tmg.LevelMGSpec(
+            kinds=kinds, boxes=(TBox.from_shape(shape),), dx=(0.1,),
+            rho=(2.0,), alpha=1.0, beta=-1.0, nsmooth=4, smoother="pallas",
+            mesh=mesh, smoother_compute="bfloat16")
+        x = [t[:shape[0], :shape[1], :shape[2]].contiguous()
+             for t in (u, rhs, a)]
+        coefs = tmg.build_level_coefs(ls, x[2])
+        if mesh is None:
+            plan = tmg.relax_kernel_plan(ls, x[0], 4)
+            assert rung_kernel[plan[0][0]] == kernel, plan
         else:
-            with pytest.raises(NotImplementedError, match=raises):
-                tcomp.smoother_tier_gate(spec.level_specs, torch.float32,
-                                         "cuda")
-        # no kernel on the card either at f64: nothing to refuse
-        tcomp.smoother_tier_gate(spec.level_specs, torch.float64, "cuda")
+            assert thalo._route(ls, 0, True, torch.float32, "cuda", 4) in (
+                "slab_kernel", "pencil_kernel")
+        kernel_counts.reset()
+        out = tmg.relax(ls, coefs, 0, x[0], x[1], 4)
+        plain = kernel_counts.PLAIN_CALLS
+        assert plain[kernel + "_bf16"] > 0 and plain[kernel] == 0, (
+            kernel, plain)
+        assert out.dtype == torch.float32 and not torch.equal(out, x[0])
 
 
 def sibling_forest():

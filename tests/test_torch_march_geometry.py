@@ -243,12 +243,39 @@ def test_shard_geometry_on_is_the_level_rule_at_the_shard_capacity(
     isz, ns = form
     asked = []
 
-    def capacity(device, itemsize, nsweeps, tile, pre_form):
-        asked.append((device.index, itemsize, nsweeps, tile, pre_form))
+    def capacity(device, itemsize, nsweeps, tile, pre_form, compute):
+        asked.append((device.index, itemsize, nsweeps, tile, pre_form,
+                      compute))
         return 66
 
     monkeypatch.setattr(tfs, "shard_capacity", capacity)
     shape = (240, 144, 144)
     got = tfs.shard_geometry_on.__wrapped__(shape, ns, isz, 3, pre)
     assert got == tfs.march_geometry(shape, ns, isz, 66)
-    assert asked == [(3, isz, ns, tfs.march_tile(144, 144, ns, isz), pre)]
+    assert asked == [(3, isz, ns, tfs.march_tile(144, 144, ns, isz), pre,
+                      0)]
+
+
+@pytest.mark.parametrize("pre", [False, True], ids=["slab", "pre"])
+@pytest.mark.parametrize("ns", [2, 4])
+def test_shard_geometry_on_asks_the_tier_forms_capacity(monkeypatch, ns,
+                                                        pre):
+    """In the bf16 tier (compute 1) the shard geometry is cut for the
+    capacity of the tier's own form (its kernel's registers may differ),
+    with the f32 form's tile; the whole level's likewise
+    (march_geometry_on through march_capacity)."""
+    asked = []
+
+    def capacity(*args):
+        asked.append(args[1:])
+        return 33
+
+    monkeypatch.setattr(tfs, "shard_capacity", capacity)
+    monkeypatch.setattr(tfs, "march_capacity", capacity)
+    shape = (240, 144, 144)
+    tile = tfs.march_tile(144, 144, ns, 4)
+    got = tfs.shard_geometry_on.__wrapped__(shape, ns, 4, 3, pre, 1)
+    assert got == tfs.march_geometry(shape, ns, 4, 33)
+    got = tfs._geometry_on.__wrapped__(shape, ns, 4, 3, 1)
+    assert got == tfs.march_geometry(shape, ns, 4, 33)
+    assert asked == [(4, ns, tile, pre, 1), (4, ns, tile, 1)]
