@@ -588,6 +588,34 @@ def shard_forms(regs: dict, spills: dict) -> dict:
     return out
 
 
+# march_kernel<T, NP, W, D, V, C> of csrc/multisweep.cu, mangled
+MARCH_KERNEL = re.compile(
+    r"march_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])E"
+    r"(f|d|13__nv_bfloat16)E")
+
+
+def tier_forms(regs: dict, spills: dict) -> dict:
+    """Registers and spill stores of every bf16 tier instantiation of both
+    march units, by form: "<whole|slab|pre> NP<n> W<w> V<0|1>" (V: a and
+    rhs in 16-byte chunks), with its D."""
+    out = {}
+    for name, n in regs.items():
+        m = SHARD_KERNEL.search(name)
+        if m:
+            t, np_, w, d, v, src, c = m.groups()
+            where = "slab" if src == "1" else "pre"
+        elif (m := MARCH_KERNEL.search(name)) and "shard_" not in name:
+            t, np_, w, d, v, c = m.groups()
+            where = "whole"
+        else:
+            continue
+        if c.endswith("bfloat16"):
+            out[f"{where} NP{np_} W{w} V{v}"] = {
+                "D": int(d), "registers": n,
+                "spill_stores": spills.get(name, 0)}
+    return out
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     cuda_ext.lib()
@@ -604,8 +632,13 @@ def phase_build() -> dict:
     # every instantiation of the residual march (csrc/residual.cu)
     residual = {name: {"registers": n, "spill_stores": spills.get(name)}
                 for name, n in regs.items() if "residual_kernel" in name}
+    tier = tier_forms(regs, spills)
+    seconds = round(time.perf_counter() - t0, 3)
     out = {
-        "phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+        "phase": "build", "seconds": seconds,
+        # the build from the sources alone (null when the library was found
+        # built: its log is the one that build wrote)
+        "cold_build_s": None if info["cached"] else seconds,
         "cached": info["cached"], "library": os.path.relpath(
             info["library"], ROOT),
         "flags": list(cuda_ext.NVCC_FLAGS),
@@ -617,6 +650,10 @@ def phase_build() -> dict:
         "march_forms": march,
         # the shard forms of csrc/multisweep_halo.cu by form
         "shard_forms": shard_forms(regs, spills),
+        # the bf16 tier's forms of both march units, and their spill stores
+        # in all
+        "tier_forms": tier,
+        "tier_spill_stores": sum(f["spill_stores"] for f in tier.values()),
         "tower_kernels": tower,
         "residual_kernels": residual,
     }
@@ -1425,6 +1462,13 @@ def misaligned(t):
     return out
 
 
+def f32_ratios(r: dict) -> dict:
+    """A timed bf16 march record's times over its f32 form's, both measured
+    in the same call: batched (ms) and device."""
+    return {"f32_ratio": r["ms"] / r["f32_ms"],
+            "device_f32_ratio": r["device_ms"] / r["f32_device_ms"]}
+
+
 def check_march_bf16(name: str, case) -> dict:
     """wavefront_relax or multisweep_relax (`name`) in the bf16 tier at one
     case (f32 operands; nsweeps 2 and 4): one launch a call, counted under
@@ -1492,6 +1536,12 @@ def check_march_bf16(name: str, case) -> dict:
             plain_ms=time_ms(lambda: plain(*args, nsweeps=2, **kw, **tier),
                              reps=6, warmup=1),
             bound_ms=b, bound_by=by)
+        rec[tname].update(f32_ratios(rec[tname]))
+        # the instantiation that ran (a and rhs in 16-byte chunks where nz
+        # allows: the fields are made aligned) with its registers and spills
+        form = f"whole NP4 W{rec[tname]['tile']} V{int(chunked)}"
+        rec[tname].update(form=form, **tier_forms(
+            *ptxas_resources()).get(form, {}))
     return rec
 
 
@@ -2141,6 +2191,7 @@ def check_shard_bf16(case) -> dict:
             plain_ms=time_ms(lambda: shard_relax(ops, 2, kw, "plain"),
                              reps=6, warmup=1),
             bound_ms=b, bound_by=by)
+        rec[tname].update(f32_ratios(rec[tname]))
     return rec
 
 

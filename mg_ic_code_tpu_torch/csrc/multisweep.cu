@@ -66,18 +66,25 @@
 //    the others, without a branch; they are read only with weight 0.
 //  * The bf16 tier (smoother_precision = bfloat16; mgk_multisweep_relax's
 //    `compute` 1): every form is built again with C = __nv_bfloat16 beside
-//    T = float. Its passes compute gsrb_update_bf16 (csrc/gsrb_device.cuh),
-//    the update of gsrb_relax's tier, from the march's own neighbour reads
-//    and face folds, so that the bf16 march is bf16 gsrb_relax bit for bit:
-//    1/diag by division, the fold in f32 rounded to bf16 once, each bf16
-//    operation rounded once in the plain version's order. The residual form
-//    and its recip() above are the f32 / f64 forms' only. The x faces fold
-//    as the y and z faces do (the JAX slab and wavefront bodies re-derive an
-//    x ghost row in bf16 instead: not carried over). Every u value a pass
-//    reads goes through as_compute (the state rounded where it enters: the
-//    copies bring raw f32 into the ring; rounding a value a pass wrote
-//    changes nothing). The ring, a and rhs stay f32: shared memory as in
-//    f32.
+//    T = float. Its passes compute gsrb_relax's tier update
+//    (gsrb_update_bf16, csrc/gsrb_device.cuh; here tier_fold, then the
+//    passes) from the march's own neighbour reads and face folds, so that the bf16
+//    march is bf16 gsrb_relax bit for bit: 1/diag by division, the fold in
+//    f32 rounded to bf16 once, each bf16 operation rounded once in the
+//    plain version's order. The residual form and its recip() above are
+//    the f32 / f64 forms' only. The x faces fold as the y and z faces do
+//    (the JAX slab and wavefront bodies re-derive an x ghost row in bf16
+//    instead: not carried over). As the header says, a plane is folded once,
+//    in place in the a, rhs ring (tier_fold_plane), and u is rounded once,
+//    where its copies land (march_tier_round), not at every pass: the fold
+//    is paid twice a step (the pair's two columns of the plane that enters)
+//    instead of NP times, and no pass converts a u value. A steady step with
+//    every axis periodic or none (PER, a template argument of the steady
+//    steps) runs its passes as the f32 form does: every pass's loads and
+//    terms first, then the chain through x (march_tier_steady); other steps
+//    run march_tier_cell a pass. The ring keeps f32 words: shared memory and
+//    the launch geometry as in f32. What it costs against the f32 form:
+//    PERF.md (the fold ~13 % of the tier's time, the rounding ~4 %).
 #include <cstdint>
 #include <type_traits>
 
@@ -145,6 +152,8 @@ struct MarchPair {
   T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
   T cs6[2];          // c0 feed-through of the y and z faces, minus 6
   AxisFold<T> fy, fz[2];  // the bf16 tier's folds of the y and z faces
+  unsigned my, mz[2];     // and the lanes of their pairs (face_mask)
+  T tcs[2];          // the tier's c0 sum of a plane off the x faces
 };
 
 // p[0] = x, p[1] = y in one store (p aligned to twice the element)
@@ -214,31 +223,62 @@ __device__ __forceinline__ void fetch_plane(const MarchThread<T>& w,
   }
 }
 
-// The bf16 tier's update of the pair's column c in plane q (T float): the
-// tier's one update (gsrb_update_bf16) from the neighbours the pass read,
-// rounded to bf16 (up / um along x, then y, then z), a = av, rhs = rv, and
-// the folds of the faces the cell touches: the pair's y and z folds, and
-// x's from q where the step is not steady (no x face in a steady step);
-// c0 summed x, then y, then z over the non-periodic axes, as row_fold and
-// gsrb_update_row_bf16 sum it.
-template <typename T, bool STEADY>
-__device__ __forceinline__ T tier_update(const MarchThread<T>& w, int q,
-                                         int c, T uc, T upv, T umv, T ypv,
-                                         T ymv, T zpv, T zmv, T av, T rv) {
+// The bf16 tier's fold of plane q in ring slot s (T float), in place: both
+// live columns of the pair (march_tier_fold), c0 summed x, then y, then z
+// over the non-periodic axes as row_fold and gsrb_update_row_bf16 sum it,
+// x's face from q where the step is not steady.
+template <typename T, int W, bool V, bool STEADY>
+__device__ __forceinline__ void tier_fold_plane(const MarchThread<T>& w,
+                                                int q, int s) {
+  constexpr int NPAIR = W * W / 2;
   const MarchPair<T>& p = w.p;
-  const AxisFold<T> fz = c ? p.fz[1] : p.fz[0];
   const bool xlo = !STEADY && !w.wrapx && q == 0;
   const bool xhi = !STEADY && !w.wrapx && q == w.nx - 1;
   const AxisFold<T> fx =
       face_fold<T>(xlo, xhi, w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi);
-  T c_sum = (T)0;
-  if (!w.wrapx) c_sum += fx.c;
-  if (!w.py) c_sum += p.fy.c;
-  if (!w.pz) c_sum += fz.c;
+  T* const co = const_cast<T*>(p.co) + s * 2 * W * W;
+  T c_sum[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    c_sum[c] = p.tcs[c];
+    if (!STEADY) {
+      c_sum[c] = (T)0;
+      if (!w.wrapx) c_sum[c] += fx.c;
+      if (!w.py) c_sum[c] += p.fy.c;
+      if (!w.pz) c_sum[c] += p.fz[c].c;
+    }
+  }
+  if constexpr (V) {  // the pair's columns side by side
+    march_tier_fold2(co, co + W * W, c_sum, p.live, w.alpha, w.six_b_inv,
+                     w.b_inv);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (!p.live[c]) continue;
+      T* const ca = co + (c ^ p.jb) * NPAIR;
+      march_tier_fold(ca, ca + W * W, c_sum[c], w.alpha, w.six_b_inv,
+                      w.b_inv);
+    }
+  }
+}
+
+// The bf16 tier's pass of the pair's column c in plane q (T float) from the
+// plane's fold (P, kt) and the values the pass read (up / um along x, then
+// y, then z), the x faces from q where the step is not steady.
+template <typename T, bool STEADY>
+__device__ __forceinline__ T tier_update(const MarchThread<T>& w, int q,
+                                         int c, T P, T kt, T uc, T upv,
+                                         T umv, T ypv, T ymv, T zpv,
+                                         T zmv) {
+  const MarchPair<T>& p = w.p;
+  const bool xlo = !STEADY && !w.wrapx && q == 0;
+  const bool xhi = !STEADY && !w.wrapx && q == w.nx - 1;
+  const AxisFold<T> fx =
+      face_fold<T>(xlo, xhi, w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi);
   const bool per[3] = {w.wrapx, w.py, w.pz};
   const T up[3] = {upv, ypv, zpv}, um[3] = {umv, ymv, zmv};
-  return gsrb_update_bf16(uc, up, um, av, rv, per, fx, p.fy, fz, c_sum,
-                          w.alpha, w.six_b_inv, w.b_inv);
+  return march_tier_cell<STEADY>(P, kt, uc, up, um, per, fx, p.fy, p.my,
+                                 pick(c, p.fz), pick(c, p.mz));
 }
 
 // One step of the march: pass ps works on plane t - ps for ps = 0 .. NP-1,
@@ -254,7 +294,7 @@ __device__ __forceinline__ T tier_update(const MarchThread<T>& w, int q,
 // read only with weight 0, and are never written out. C: the passes'
 // arithmetic (T, or __nv_bfloat16 beside float: tier_update).
 template <typename T, int NP, int W, int D, bool V, typename C, bool STEADY,
-          int ST>
+          int ST, int PER = -1>
 __device__ __forceinline__ void march_step(MarchThread<T>& w,
                                            const int t, const int st_rt) {
   constexpr bool TIER = !std::is_same<C, T>::value;
@@ -278,16 +318,20 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
   // thread before the barrier of step t - 1. lam = 1 / (alpha*a +
   // 6*beta/dx^2).
   const MarchPair<T>& p = w.p;
+  if constexpr (TIER) {
+    // the tier rounds the u its own copies brought (plane t + 1, and plane
+    // xs at the first step)
+    if (STEADY || t + 1 < w.xe)
+      march_tier_round<HP>(p.cell + slot(1) * PLANE);
+    if (!STEADY && t == w.xs) march_tier_round<HP>(p.cell + slot(0) * PLANE);
+  }
   const int c = (t + p.par) & 1;  // the pair's column this step updates
   const int h = c ^ p.jb;         // its colour half
   T lam[NP], aa[NP], rv[NP], own_u[NP + 2];
+  if constexpr (!TIER) {
 #pragma unroll
-  for (int ps = 0; ps < NP; ++ps) {
-    const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
-    if constexpr (TIER) {  // a itself: the tier folds from it
-      aa[ps] = cp[0];
-      rv[ps] = cp[W * W];
-    } else {
+    for (int ps = 0; ps < NP; ++ps) {
+      const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
       aa[ps] = w.alpha * cp[0];
       rv[ps] = cp[W * W];
       lam[ps] = recip(aa[ps] + w.six_b_inv);
@@ -295,8 +339,17 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
   }
   T* const rb = p.cell + h * HP;
 #pragma unroll
-  for (int i = 0; i < NP + 2; ++i)
-    own_u[i] = as_compute<C>(rb[slot(1 - i) * PLANE]);
+  for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
+  // the tier's steady step with every axis periodic or none reads its own
+  // column as bf16: the top half of each value (march_tier_steady)
+  constexpr bool HOISTED = TIER && STEADY && PER >= 0;
+  [[maybe_unused]] __nv_bfloat16 own_b[NP + 2];
+  if constexpr (HOISTED) {
+#pragma unroll
+    for (int i = 0; i < NP + 2; ++i)
+      own_b[i] = reinterpret_cast<const __nv_bfloat16*>(
+          rb + slot(1 - i) * PLANE)[1];
+  }
   __syncthreads();
 
   // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
@@ -306,6 +359,12 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
         w, STEADY ? t + D - (t + D >= w.nx ? w.nx : 0) : xplane(w, t + D),
         slot(D));
   copy_commit();
+  // the tier folds plane t + 1, whose first pass is the next step's: its a
+  // and rhs are in and seen by all since this barrier, and no pass of this
+  // step reads them (march_tier_steady's loads overlap the fold)
+  if constexpr (TIER)
+    if (STEADY || t + 1 < w.xe)
+      tier_fold_plane<T, W, V, STEADY>(w, t + 1, slot(1));
 
   const int qo = t - NP + 1;  // the plane whose last pass this step runs
   const bool write = qo >= w.x0 && qo < w.x1;
@@ -333,20 +392,27 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
   }
   T up = own_u[0], last = (T)0;
   bool have_up = STEADY;
+  // the tier's steady step with every axis periodic or none: its passes'
+  // terms first, then the chain (march_tier_steady)
+  if constexpr (HOISTED)
+    last = march_tier_steady<NP, R, ST, PLANE, 2 * W * W, W * W, PER>(
+        rb, yp, ym, zp, zm, p.co + (V ? c : h * NPAIR), own_b, p.fy, p.my,
+        pick(c, p.fz), pick(c, p.mz));
 #pragma unroll
-  for (int ps = 0; ps < NP; ++ps) {
+  for (int ps = 0; ps < (HOISTED ? 0 : NP); ++ps) {
     const int q = t - ps;
     if (!valid(q)) continue;
     const T uc = own_u[ps + 1];
     T un;
     if constexpr (TIER) {
-      // beyond an open segment end the cell reads itself
+      // beyond an open segment end the cell reads itself; the plane's
+      // fold: P over a, (K, T) over rhs
       const int o = slot(-ps) * PLANE;
+      const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
       const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
       const T umv = STEADY || q > w.xs ? own_u[ps + 2] : uc;
-      un = tier_update<T, STEADY>(
-          w, q, c, uc, upv, umv, as_compute<C>(yp[o]), as_compute<C>(ym[o]),
-          as_compute<C>(zp[o]), as_compute<C>(zm[o]), aa[ps], rv[ps]);
+      un = tier_update<T, STEADY>(w, q, c, cp[0], cp[W * W], uc, upv, umv,
+                                  yp[o], ym[o], zp[o], zm[o]);
     } else {
       T xn = (T)0, csx = (T)0;
       if (STEADY) {
@@ -386,12 +452,14 @@ __device__ __forceinline__ void march_step(MarchThread<T>& w,
   }
 }
 
-// R steady steps from slot ST on, each with its slot a constant
-template <typename T, int NP, int W, int D, bool V, typename C, int ST>
+// R steady steps from slot ST on, each with its slot a constant (PER: the
+// tier's periodic axes, all 1, none 0, or read -1)
+template <typename T, int NP, int W, int D, bool V, typename C, int ST,
+          int PER = -1>
 __device__ __forceinline__ void steady_steps(MarchThread<T>& w, int t) {
-  march_step<T, NP, W, D, V, C, true, ST>(w, t + ST, ST);
+  march_step<T, NP, W, D, V, C, true, ST, PER>(w, t + ST, ST);
   if constexpr (ST + 1 < NP + D + 1)
-    steady_steps<T, NP, W, D, V, C, ST + 1>(w, t);
+    steady_steps<T, NP, W, D, V, C, ST + 1, PER>(w, t);
 }
 
 // C: the passes' arithmetic (T, or __nv_bfloat16 beside float: the tier)
@@ -402,6 +470,7 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
              const LevelParams<T> p, const int base, const int xseg) {
   using L = WaveLayout<W, W>;
   constexpr int R = NP + D + 1;  // planes in the rings
+  constexpr bool TIER = !std::is_same<C, T>::value;
   constexpr int HZ = L::HZ;
   constexpr int NPAIR = W * HZ;  // z-pairs of the tile: one per thread
   static_assert(D >= 2, "plane t + 1 must be fetched before step t");
@@ -483,6 +552,7 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
   q.fy = face_fold<T>(ylo, yhi, p.c0[1][0], p.c1[1][0], p.c0[1][1],
                       p.c1[1][1]);
+  q.my = face_mask(ylo, yhi);
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int ukc = uk + c;
@@ -504,6 +574,13 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
                        (zhi ? p.c0[2][1] : (T)0))) - (T)6;
     q.fz[c] = face_fold<T>(zlo, zhi, p.c0[2][0], p.c1[2][0], p.c0[2][1],
                            p.c1[2][1]);
+    q.mz[c] = face_mask(zlo, zhi);
+    // the fold's c0 sum where x has no face (x's is 0 + 0: adding it
+    // changes nothing)
+    T cs = (T)0;
+    if (!w.py) cs += q.fy.c;
+    if (!w.pz) cs += q.fz[c].c;
+    q.tcs[c] = cs;
   }
 
   q.own_both = q.own[0] && q.own[1] && p.nz % 2 == 0 &&
@@ -533,16 +610,27 @@ march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   // come from other threads' copies, so plane xs must be in and seen by all
   // before the first step (later planes: the wait and barrier of the step
   // before)
-  if (V) {
+  if (V || TIER) {
     copy_wait<D - 1>();
     __syncthreads();
   }
+  // the tier folds plane xs before the first step (each later plane the
+  // step before its first pass)
+  if constexpr (TIER) tier_fold_plane<T, W, V, false>(w, w.xs, st);
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
     march_step<T, NP, W, D, V, C, false, 0>(w, t, st);
-  for (; t + R <= hi_s; t += R)  // st == 0 here
-    steady_steps<T, NP, W, D, V, C, 0>(w, t);
+  if constexpr (std::is_same<C, T>::value) {
+    for (; t + R <= hi_s; t += R)  // st == 0 here
+      steady_steps<T, NP, W, D, V, C, 0>(w, t);
+  } else if (w.wrapx && w.py && w.pz) {  // the tier, every axis periodic
+    for (; t + R <= hi_s; t += R)
+      steady_steps<T, NP, W, D, V, C, 0, 1>(w, t);
+  } else if (!w.wrapx && !w.py && !w.pz) {  // none periodic
+    for (; t + R <= hi_s; t += R)
+      steady_steps<T, NP, W, D, V, C, 0, 0>(w, t);
+  }  // the tier with some axes periodic: every step the general one
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
     march_step<T, NP, W, D, V, C, false, 0>(w, t, st);
   copy_wait<0>();

@@ -44,8 +44,9 @@
 //    columns of a pair in one store: as in the whole level.
 //  * The bf16 tier (`compute` 1 of the entries): every float form built
 //    again with C = __nv_bfloat16, its passes the whole level's tier update
-//    (gsrb_update_bf16 from the same reads, each u value rounded where it is
-//    read, seam and pad planes too), the x faces folded where they are the
+//    (the header's fold of a plane once, in place, at its first pass, and u
+//    rounded once where its copies land, seam and pad planes too; the
+//    passes from the same reads), the x faces folded where they are the
 //    domain's and the y faces in the level's frame. So the kept cells of a
 //    shard are, bit for bit, what the whole-level bf16 march gives them.
 #include <cstdint>
@@ -152,6 +153,8 @@ struct ShardPair {
   T wza[2], wzb[2];  //   1 + c1 at it, 1 inside), same for z per column
   T cs6[2];          // c0 feed-through of the y and z faces, minus 6
   AxisFold<T> fy, fz[2];  // the bf16 tier's folds of the y and z faces
+  unsigned my, mz[2];     // and the lanes of their pairs (face_mask)
+  T tcs[2];          // the tier's c0 sum of a plane off the x faces
 };
 
 template <typename T>
@@ -231,27 +234,61 @@ __device__ __forceinline__ void fetch_plane(const ShardThread<T>& w, int q,
   }
 }
 
-// The bf16 tier's update of the pair's column c in plane q (T float), as
-// the whole level's (csrc/multisweep.cu: tier_update): the x faces where
+// The bf16 tier's fold of plane q in ring slot s (T float), in place, as the
+// whole level's (csrc/multisweep.cu: tier_fold_plane): the x faces where
 // the shard's are the domain's, none in a steady step.
-template <typename T, bool STEADY>
-__device__ __forceinline__ T tier_update(const ShardThread<T>& w, int q,
-                                         int c, T uc, T upv, T umv, T ypv,
-                                         T ymv, T zpv, T zmv, T av, T rv) {
+template <typename T, int W, bool V, bool STEADY>
+__device__ __forceinline__ void tier_fold_plane(const ShardThread<T>& w,
+                                                int q, int s) {
+  constexpr int NPAIR = W * W / 2;
   const ShardPair<T>& p = w.p;
-  const AxisFold<T> fz = c ? p.fz[1] : p.fz[0];
   const bool xlo = !STEADY && w.face_lo && q == 0;
   const bool xhi = !STEADY && w.face_hi && q == w.nx - 1;
   const AxisFold<T> fx =
       face_fold<T>(xlo, xhi, w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi);
-  T c_sum = (T)0;
-  if (!w.px) c_sum += fx.c;
-  if (!w.py) c_sum += p.fy.c;
-  if (!w.pz) c_sum += fz.c;
+  T* const co = const_cast<T*>(p.co) + s * 2 * W * W;
+  T c_sum[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    c_sum[c] = p.tcs[c];
+    if (!STEADY) {
+      c_sum[c] = (T)0;
+      if (!w.px) c_sum[c] += fx.c;
+      if (!w.py) c_sum[c] += p.fy.c;
+      if (!w.pz) c_sum[c] += p.fz[c].c;
+    }
+  }
+  if constexpr (V) {  // the pair's columns side by side
+    march_tier_fold2(co, co + W * W, c_sum, p.live, w.alpha, w.six_b_inv,
+                     w.b_inv);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (!p.live[c]) continue;
+      T* const ca = co + (c ^ p.jb) * NPAIR;
+      march_tier_fold(ca, ca + W * W, c_sum[c], w.alpha, w.six_b_inv,
+                      w.b_inv);
+    }
+  }
+}
+
+// The bf16 tier's pass of the pair's column c in plane q (T float), as the
+// whole level's (tier_update there): the x faces where the shard's are the
+// domain's, none in a steady step.
+template <typename T, bool STEADY>
+__device__ __forceinline__ T tier_update(const ShardThread<T>& w, int q,
+                                         int c, T P, T kt, T uc, T upv,
+                                         T umv, T ypv, T ymv, T zpv,
+                                         T zmv) {
+  const ShardPair<T>& p = w.p;
+  const bool xlo = !STEADY && w.face_lo && q == 0;
+  const bool xhi = !STEADY && w.face_hi && q == w.nx - 1;
+  const AxisFold<T> fx =
+      face_fold<T>(xlo, xhi, w.c0xlo, w.c1xlo, w.c0xhi, w.c1xhi);
   const bool per[3] = {w.px, w.py, w.pz};
   const T up[3] = {upv, ypv, zpv}, um[3] = {umv, ymv, zmv};
-  return gsrb_update_bf16(uc, up, um, av, rv, per, fx, p.fy, fz, c_sum,
-                          w.alpha, w.six_b_inv, w.b_inv);
+  return march_tier_cell<STEADY>(P, kt, uc, up, um, per, fx, p.fy, p.my,
+                                 pick(c, p.fz), pick(c, p.mz));
 }
 
 // One step of the march: pass ps works on plane t - ps for ps = 0 .. NP-1,
@@ -264,7 +301,7 @@ __device__ __forceinline__ T tier_update(const ShardThread<T>& w, int q,
 // slot and every pass is tested. C: the passes' arithmetic (T, or
 // __nv_bfloat16 beside float: tier_update).
 template <typename T, int NP, int W, int D, bool V, int SRC, typename C,
-          bool STEADY, int ST>
+          bool STEADY, int ST, int PER = -1>
 __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
                                            const int st_rt) {
   constexpr bool TIER = !std::is_same<C, T>::value;
@@ -286,16 +323,20 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
   // before the barrier of step t - 1
   copy_wait<D - 2>();
   const ShardPair<T>& p = w.p;
+  if constexpr (TIER) {
+    // the tier rounds the u its own copies brought (plane t + 1, and plane
+    // xs at the first step: shard, seam or pad planes alike)
+    if (STEADY || t + 1 < w.xe)
+      march_tier_round<HP>(p.cell + slot(1) * PLANE);
+    if (!STEADY && t == w.xs) march_tier_round<HP>(p.cell + slot(0) * PLANE);
+  }
   const int c = (t + p.par) & 1;  // the pair's column this step updates
   const int h = c ^ p.jb;         // its colour half
   T lam[NP], aa[NP], rv[NP], own_u[NP + 2];
+  if constexpr (!TIER) {
 #pragma unroll
-  for (int ps = 0; ps < NP; ++ps) {
-    const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
-    if constexpr (TIER) {  // a itself: the tier folds from it
-      aa[ps] = cp[0];
-      rv[ps] = cp[W * W];
-    } else {
+    for (int ps = 0; ps < NP; ++ps) {
+      const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
       aa[ps] = w.alpha * cp[0];
       rv[ps] = cp[W * W];
       lam[ps] = recip(aa[ps] + w.six_b_inv);
@@ -303,8 +344,17 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
   }
   T* const rb = p.cell + h * HP;
 #pragma unroll
-  for (int i = 0; i < NP + 2; ++i)
-    own_u[i] = as_compute<C>(rb[slot(1 - i) * PLANE]);
+  for (int i = 0; i < NP + 2; ++i) own_u[i] = rb[slot(1 - i) * PLANE];
+  // the tier's steady step with every axis periodic or none reads its own
+  // column as bf16: the top half of each value (march_tier_steady)
+  constexpr bool HOISTED = TIER && STEADY && PER >= 0;
+  [[maybe_unused]] __nv_bfloat16 own_b[NP + 2];
+  if constexpr (HOISTED) {
+#pragma unroll
+    for (int i = 0; i < NP + 2; ++i)
+      own_b[i] = reinterpret_cast<const __nv_bfloat16*>(
+          rb + slot(1 - i) * PLANE)[1];
+  }
   __syncthreads();
 
   // plane t + D: its slot held plane t + D - R = t - NP - 1, which the
@@ -312,6 +362,12 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
   if (STEADY || t + D < w.xe)
     fetch_plane<T, NP, W, V, SRC>(w, t + D, slot(D));
   copy_commit();
+  // the tier folds plane t + 1, whose first pass is the next step's: its a
+  // and rhs are in and seen by all since this barrier, and no pass of this
+  // step reads them (march_tier_steady's loads overlap the fold)
+  if constexpr (TIER)
+    if (STEADY || t + 1 < w.xe)
+      tier_fold_plane<T, W, V, STEADY>(w, t + 1, slot(1));
 
   const int qo = t - NP + 1;  // the plane whose last pass this step runs
   const bool write = qo >= w.x0 && qo < w.x1;
@@ -337,20 +393,27 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
   }
   T up = own_u[0], last = (T)0;
   bool have_up = STEADY;
+  // the tier's steady step with every axis periodic or none: its passes'
+  // terms first, then the chain (march_tier_steady)
+  if constexpr (HOISTED)
+    last = march_tier_steady<NP, R, ST, PLANE, 2 * W * W, W * W, PER>(
+        rb, yp, ym, zp, zm, p.co + (V ? c : h * NPAIR), own_b, p.fy, p.my,
+        pick(c, p.fz), pick(c, p.mz));
 #pragma unroll
-  for (int ps = 0; ps < NP; ++ps) {
+  for (int ps = 0; ps < (HOISTED ? 0 : NP); ++ps) {
     const int q = t - ps;
     if (!valid(q)) continue;
     const T uc = own_u[ps + 1];
     T un;
     if constexpr (TIER) {
-      // beyond an open segment end (a seam or a cut) the cell reads itself
+      // beyond an open segment end (a seam or a cut) the cell reads itself;
+      // the plane's fold: P over a, (K, T) over rhs
       const int o = slot(-ps) * PLANE;
+      const T* cp = p.co + slot(-ps) * 2 * W * W + (V ? c : h * NPAIR);
       const T upv = have_up ? up : (q + 1 < w.xe ? own_u[ps] : uc);
       const T umv = STEADY || q > w.xs ? own_u[ps + 2] : uc;
-      un = tier_update<T, STEADY>(
-          w, q, c, uc, upv, umv, as_compute<C>(yp[o]), as_compute<C>(ym[o]),
-          as_compute<C>(zp[o]), as_compute<C>(zm[o]), aa[ps], rv[ps]);
+      un = tier_update<T, STEADY>(w, q, c, cp[0], cp[W * W], uc, upv, umv,
+                                  yp[o], ym[o], zp[o], zm[o]);
     } else {
       T xn = (T)0, csx = (T)0;
       if (STEADY) {
@@ -390,13 +453,14 @@ __device__ __forceinline__ void march_step(ShardThread<T>& w, const int t,
   }
 }
 
-// R steady steps from slot ST on, each with its slot a constant
+// R steady steps from slot ST on, each with its slot a constant (PER: the
+// tier's periodic axes, all 1, none 0, or read -1)
 template <typename T, int NP, int W, int D, bool V, int SRC, typename C,
-          int ST>
+          int ST, int PER = -1>
 __device__ __forceinline__ void steady_steps(ShardThread<T>& w, int t) {
-  march_step<T, NP, W, D, V, SRC, C, true, ST>(w, t + ST, ST);
+  march_step<T, NP, W, D, V, SRC, C, true, ST, PER>(w, t + ST, ST);
   if constexpr (ST + 1 < NP + D + 1)
-    steady_steps<T, NP, W, D, V, SRC, C, ST + 1>(w, t);
+    steady_steps<T, NP, W, D, V, SRC, C, ST + 1, PER>(w, t);
 }
 
 // C: the passes' arithmetic (T, or __nv_bfloat16 beside float: the tier)
@@ -409,6 +473,7 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
                    const LevelParams<T> p, const int base, const int xseg) {
   using L = WaveLayout<W, W>;
   constexpr int R = NP + D + 1;  // planes in the rings
+  constexpr bool TIER = !std::is_same<C, T>::value;
   constexpr int HZ = L::HZ;
   constexpr int NPAIR = W * HZ;  // z-pairs of the tile: one per thread
   static_assert(D >= 2, "plane t + 1 must be fetched before step t");
@@ -497,6 +562,7 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   const T csy = (ylo ? p.c0[1][0] : (T)0) + (yhi ? p.c0[1][1] : (T)0);
   q.fy = face_fold<T>(ylo, yhi, p.c0[1][0], p.c1[1][0], p.c0[1][1],
                       p.c1[1][1]);
+  q.my = face_mask(ylo, yhi);
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int ukc = uk + c;
@@ -518,6 +584,13 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
                        (zhi ? p.c0[2][1] : (T)0))) - (T)6;
     q.fz[c] = face_fold<T>(zlo, zhi, p.c0[2][0], p.c1[2][0], p.c0[2][1],
                            p.c1[2][1]);
+    q.mz[c] = face_mask(zlo, zhi);
+    // the fold's c0 sum where x has no face (x's is 0 + 0: adding it
+    // changes nothing)
+    T cs = (T)0;
+    if (!w.py) cs += q.fy.c;
+    if (!w.pz) cs += q.fz[c].c;
+    q.tcs[c] = cs;
   }
   q.own_both = q.own[0] && q.own[1] && p.nz % 2 == 0 &&
                q.coff[1] == q.coff[0] + 1;
@@ -544,16 +617,27 @@ shard_march_kernel(const T* __restrict__ u, const T* __restrict__ rhs,
   // come from other threads' copies, so plane xs must be in and seen by all
   // before the first step (later planes: the wait and barrier of the step
   // before)
-  if (V) {
+  if (V || TIER) {
     copy_wait<D - 1>();
     __syncthreads();
   }
+  // the tier folds plane xs before the first step (each later plane the
+  // step before its first pass)
+  if constexpr (TIER) tier_fold_plane<T, W, V, false>(w, w.xs, st);
   int t = w.xs;
   const int last = w.xe + NP - 1;
   for (; t < last && t < lo_s; ++t, st = st + 1 == R ? 0 : st + 1)
     march_step<T, NP, W, D, V, SRC, C, false, 0>(w, t, st);
-  for (; t + R <= hi_s; t += R)  // st == 0 here
-    steady_steps<T, NP, W, D, V, SRC, C, 0>(w, t);
+  if constexpr (std::is_same<C, T>::value) {
+    for (; t + R <= hi_s; t += R)  // st == 0 here
+      steady_steps<T, NP, W, D, V, SRC, C, 0>(w, t);
+  } else if (w.px && w.py && w.pz) {  // the tier, every axis periodic
+    for (; t + R <= hi_s; t += R)
+      steady_steps<T, NP, W, D, V, SRC, C, 0, 1>(w, t);
+  } else if (!w.px && !w.py && !w.pz) {  // none periodic
+    for (; t + R <= hi_s; t += R)
+      steady_steps<T, NP, W, D, V, SRC, C, 0, 0>(w, t);
+  }  // the tier with some axes periodic: every step the general one
   for (; t < last; ++t, st = st + 1 == R ? 0 : st + 1)
     march_step<T, NP, W, D, V, SRC, C, false, 0>(w, t, st);
   copy_wait<0>();

@@ -20,7 +20,9 @@ f32 times of every timed case of the march (the whole-level kernel under
 launch), of the towers (`tower_down`, `tower_up`: a depth chain, 4 sweeps
 per depth) and of `gsrb_relax` (4 sweeps), `residual` and
 `residual_restrict` (where the tree has it) at every timed level case are
-read from each run's kernels line. In every tree the same
+read from each run's kernels line, and so are the bf16 tier's times of each
+of these (under the kernel's name with _bf16, f32 operands) where the tree
+has the tier. In every tree the same
 probe also times each tower wrapper call on the host clock (its checks,
 allocation and launches, in the kernels phase's own calls; reported per
 case as the median over the run's calls, `host_us`), and, after the
@@ -88,7 +90,12 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MARCH = ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
          "multisweep_relax_tiled_pre", "tower_down", "tower_up",
-         "gsrb_relax", "residual", "residual_restrict")
+         "gsrb_relax", "residual", "residual_restrict",
+         # the bf16 tier's forms of the same kernels (f32 operands), where
+         # the tree has them
+         "wavefront_relax_bf16", "multisweep_relax_bf16",
+         "multisweep_relax_halo_bf16", "multisweep_relax_tiled_pre_bf16",
+         "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16")
 TOWERS = ("tower_down", "tower_up")
 
 # Run in every tree after its chip_smoke module is imported: wraps the tower
@@ -496,7 +503,8 @@ def kernels_record(stdout: str) -> dict:
 
 
 def march_times(rec: dict) -> dict:
-    """{"<kernel> <case>": ms} of the timed f32 march cases, and
+    """{"<kernel> <case>": ms} of the timed f32 march cases (and of the bf16
+    tier's, under the kernel's _bf16 name), and
     {"<kernel> <case> device_ms": ms} where the record has the device's own
     time (the towers, gsrb_relax)."""
     out = {}

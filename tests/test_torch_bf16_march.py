@@ -447,3 +447,108 @@ def test_bbh_3level_precond_tier_matches_jax(monkeypatch):
         print("the tier against f32:", end=" ")
         within(t, t32, VCYCLE_CONTRACT_TOL)
         assert float(np.abs(t - t32).max()) > 0
+
+
+# The two facts the marches' tier rests on (csrc/multisweep_march.cuh: a
+# plane of a and rhs is folded once, in place, at its first pass, and u is
+# rounded to bf16 once, where its copies land), held on the twin that the
+# card holds every bf16 march form to bit for bit (chip_smoke.py, kernels
+# phase), so that a change to the twin that breaks either fails here.
+FOLD_CASES = [
+    ("open_mixed_faces", (12, 10, 8), JAX_KINDS),
+    ("open_cf", (9, 8, 6), ((C, C), (C, C), (C, C))),
+    ("periodic", (8, 10, 6), ((P, P), (P, P), (P, P))),
+    ("periodic_x_open_yz", (8, 6, 10), ((P, P), (D, C), (C, N))),
+    ("open_x_periodic_yz", (10, 8, 6), ((C, D), (P, P), (P, P))),
+]
+
+
+def plane_fold(rv, av, q, nx, *, kinds, rho, alpha, beta, dx):
+    """The fold of x plane q alone, as a march folds a plane at its first
+    pass: from that plane's rhs and a ((ny, nz) each) and its index q of nx,
+    which alone gives the x faces' rule; (P, {axis: (PA, PB)}, K, T) in
+    the operations and order of fused_sweeps._fold_coefs (c0 summed x, y,
+    z over the open axes; periodic axes without PA, PB)."""
+    dt = av.dtype
+    b_inv = beta * (1.0 / (dx * dx))
+    diag = alpha * av + 6.0 * b_inv
+    lam = 1.0 / diag
+    P_ = lam * b_inv
+    one, zero = torch.ones((), dtype=dt), torch.zeros((), dtype=dt)
+    pab, c_sum = {}, None
+    for axis in (0, 1, 2):
+        if kinds[axis][0] == P:
+            pab[axis] = (None, None)
+            continue
+        c0l, c1l = tfs._ghost_lin(kinds[axis][0], rho)
+        c0h, c1h = tfs._ghost_lin(kinds[axis][1], rho)
+        if axis == 0:
+            is_lo = torch.full((1, 1), q == 0)
+            is_hi = torch.full((1, 1), q == nx - 1)
+        else:
+            n_ax = av.shape[axis - 1]
+            idx = torch.arange(n_ax).view((-1, 1) if axis == 1 else (1, -1))
+            is_lo, is_hi = idx == 0, idx == n_ax - 1
+        a_vp = torch.where(is_hi, zero, torch.where(is_lo, one + c1l, one))
+        b_vm = torch.where(is_lo, zero, torch.where(is_hi, one + c1h, one))
+        c_ax = (torch.where(is_lo, torch.full((), c0l, dtype=dt), zero)
+                + torch.where(is_hi, torch.full((), c0h, dtype=dt), zero))
+        pab[axis] = (P_ * a_vp, P_ * b_vm)
+        c_sum = c_ax if c_sum is None else c_sum + c_ax
+    k_uc = (1.0 - lam * (alpha * av)) + P_ * (
+        (c_sum - 6.0) if c_sum is not None else -6.0)
+    return P_, pab, k_uc, lam * rv
+
+
+def test_fold_coefs_folds_each_x_plane_alone():
+    """_fold_coefs (the twin's fold) folds every x plane from that plane
+    alone: plane q of the whole level's fold is, bit for bit, the fold of
+    plane q by itself with the x faces' rule from q, in f32 and as the
+    tier's bf16 terms. So a march may fold a plane once, when it enters,
+    whatever planes its segment holds."""
+    kw = dict(rho=2.0, alpha=1.0, beta=-1.0, dx=0.37)
+    for seed, (cid, shape, kinds) in enumerate(FOLD_CASES):
+        _, rhs, a = fields(shape, 40 + seed)
+        rv, av = torch.from_numpy(rhs), torch.from_numpy(a)
+        P_, pab, k_uc, t_rhs = tfs._fold_coefs(rv, av, kinds=kinds, **kw)
+        for q in range(shape[0]):
+            Pq, pabq, kq, tq = plane_fold(rv[q], av[q], q, shape[0],
+                                          kinds=kinds, **kw)
+            terms = [(P_[q], Pq), (k_uc[q], kq), (t_rhs[q], tq)]
+            for axis in (0, 1, 2):
+                whole, alone = pab[axis], pabq[axis]
+                assert (whole[0] is None) == (alone[0] is None), (cid, q)
+                if whole[0] is not None:
+                    for w, s in zip(whole, alone):
+                        terms.append((w.expand(shape)[q], s.expand(
+                            shape[1:])))
+            for w, s in terms:
+                assert torch.equal(w, s), (cid, q)
+                assert torch.equal(w.to(torch.bfloat16),
+                                   s.to(torch.bfloat16)), (cid, q)
+
+
+@pytest.mark.parametrize("nsweeps", [1, 2, 4])
+@pytest.mark.parametrize("cid,shape,kinds,lo", [
+    ("open_mixed_faces", (12, 10, 8), JAX_KINDS, (0, 0, 0)),
+    ("open_odd_lo", (10, 8, 6), ((C, C), (C, C), (C, C)), (3, 0, 0)),
+    ("periodic", (8, 10, 6), ((P, P), (P, P), (P, P)), (0, 0, 0)),
+    ("periodic_odd_lo", (8, 6, 10), ((P, P), (D, C), (C, N)), (1, 2, 2)),
+])
+def test_tier_twin_on_a_rounded_state_is_the_twin(cid, shape, kinds, lo,
+                                                  nsweeps):
+    """The tier's twin (gsrb_sweeps_folded, compute_dtype bfloat16, the
+    kernels' colour select) rounds the state to bf16 where it starts: given
+    the state rounded beforehand it returns the same bits. So a march may
+    round each value of u once, where it enters its ring, and read it as
+    bf16 without rounding again."""
+    u, rhs, a = (torch.from_numpy(x) for x in fields(shape, 7))
+    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0,
+              dx=0.37, lo=lo, compute_dtype=BF16, _where=True)
+    rounded = u.to(torch.bfloat16).to(torch.float32)
+    assert not torch.equal(rounded, u)
+    raw = tfs.gsrb_sweeps_folded(u, rhs, a, **kw)
+    assert raw.dtype == torch.float32
+    assert torch.equal(tfs.gsrb_sweeps_folded(rounded, rhs, a, **kw), raw)
+    # and rounding again changes nothing: the passes leave bf16 values
+    assert torch.equal(raw.to(torch.bfloat16).to(torch.float32), raw)

@@ -279,3 +279,43 @@ def test_shard_geometry_on_asks_the_tier_forms_capacity(monkeypatch, ns,
     got = tfs._geometry_on.__wrapped__(shape, ns, 4, 3, 1)
     assert got == tfs.march_geometry(shape, ns, 4, 33)
     assert asked == [(4, ns, tile, pre, 1), (4, ns, tile, 1)]
+
+
+def test_build_line_names_every_tier_form():
+    """chip_smoke.py's build line reports registers and spill stores of the
+    bf16 tier's forms of both march units (tier_forms): it reads each
+    instantiation the sources build from its mangled name, keeps the tier's
+    (C = __nv_bfloat16) and leaves the f32 / f64 ones out."""
+    import chip_smoke
+    regs, spills, want = {}, {}, {}
+    for t, np_, w, d in march_forms():
+        for v in (0, 1):
+            for c in ("f", "d", "13__nv_bfloat16"):
+                if (t == "double") != (c == "d"):
+                    continue
+                name = (f"_ZN46_GLOBAL__N__0_13_multisweep_cu_012march_"
+                        f"kernelI{t[0]}Li{np_}ELi{w}ELi{d}ELb{v}E{c}EEvPKT_"
+                        f"S4_S4_PS2_11LevelParamsIS2_Eii")
+                regs[name], spills[name] = 64 + v, 4 * v
+                if c != "d" and c != "f":
+                    want[f"whole NP{np_} W{w} V{v}"] = {
+                        "D": d, "registers": 64 + v, "spill_stores": 4 * v}
+    for t, np_, w, d in shard_forms():
+        for v in (0, 1):
+            for src, where in ((1, "slab"), (2, "pre")):
+                for c in ("f", "d", "13__nv_bfloat16"):
+                    if (t == "double") != (c == "d"):
+                        continue
+                    name = (f"_ZN51_GLOBAL__N__0_18_multisweep_halo_cu_018"
+                            f"shard_march_kernelI{t[0]}Li{np_}ELi{w}ELi{d}"
+                            f"ELb{v}ELi{src}E{c}EEvPKT_S4_S4_S4_S4_S4_PS2_"
+                            f"NS_9ShardGeomE11LevelParamsIS2_Eii")
+                    regs[name], spills[name] = 72, src
+                    if c.endswith("bfloat16"):
+                        want[f"{where} NP{np_} W{w} V{v}"] = {
+                            "D": d, "registers": 72, "spill_stores": src}
+    got = chip_smoke.tier_forms(regs, spills)
+    assert got == want
+    # every float form of both units, with and without 16-byte chunks
+    floats = [f for f in march_forms() if f[0] == "float"]
+    assert len(got) == 2 * len(floats) * 3
