@@ -108,12 +108,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
   forest_batching
            the records' patches configuration with forest_batching = force:
            its three same-shape pairs (depths 4-6) each swept by the
-           batched kernels, one launch a pair (gsrb_relax_batch,
-           residual_restrict_batch); held to the patches record as records
-           holds it, to the single and batched calls by shape its batch
-           groups imply (1008 + 504 gsrb_relax and 504 + 252
-           residual_restrict calls in 42 applications, against 2016 and
-           1008 sequential), no plain version, and bit for bit to the
+           batched kernels, one launch a pair (gsrb_relax_batch: the
+           144^3 pair, which overflows the L2, by its batch march,
+           gsrb_relax_batch_march; residual_restrict_batch); held to the
+           patches record as records holds it, to the single and batched
+           calls by shape and kernel its batch groups imply (1008 gsrb_relax,
+           336 gsrb_relax_batch, 168 gsrb_relax_batch_march, 504
+           residual_restrict and 252 residual_restrict_batch calls in 42
+           applications, against 2016 and 1008 sequential), no plain
+           version, and bit for bit to the
            records phase's sequential run where that ran (history, Krylov,
            K), with s/iteration beside it
   bf16_tier
@@ -343,6 +346,10 @@ SOURCES = {
     # so they serve the rows of the single forms
     "gsrb_relax_batch": ("mg_ic_code_tpu_torch/csrc/gsrb_relax.cu",
                          "mg_ic_code_tpu/ops/fused_sweeps.py:1032"),
+    # gsrb_relax_batch's march form, where a group overflows the L2
+    "gsrb_relax_batch_march": (
+        "mg_ic_code_tpu_torch/csrc/gsrb_batch_march.cu",
+        "mg_ic_code_tpu/ops/fused_sweeps.py:1032"),
     "residual_restrict_batch": ("mg_ic_code_tpu_torch/csrc/residual.cu",
                                 "mg_ic_code_tpu/ops/fused_sweeps.py:1055"),
     # the bf16 tier of gsrb_relax and the towers (smoother_precision =
@@ -364,6 +371,13 @@ SOURCES = {
     "multisweep_relax_tiled_pre_bf16": (
         "mg_ic_code_tpu_torch/csrc/multisweep_halo.cu",
         "mg_ic_code_tpu/ops/fused_sweeps.py:1540"),
+}
+# the forms of a kernel with more than one C entry point: form -> (source,
+# entry point)
+ENTRY_POINTS = {
+    "gsrb_relax_batch": {
+        form: ("mg_ic_code_tpu_torch/csrc/gsrb_relax.cu",
+               "mgk_gsrb_relax_batch") for form in ("grid", "slab", "serial")},
 }
 # rows of the TPU kernel table (PERF.md) that one Hopper kernel serves
 TPU_KERNELS = {
@@ -393,6 +407,7 @@ TPU_KERNELS = {
                               "mg_ic_code_tpu/ops/fused_sweeps.py:1397"],
     "multisweep_relax_tiled_pre": ["mg_ic_code_tpu/ops/fused_sweeps.py:1540"],
     "gsrb_relax_batch": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
+    "gsrb_relax_batch_march": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
     "residual_restrict_batch": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
                                 "mg_ic_code_tpu/ops/pallas_kernels.py:389"],
     "gsrb_relax_bf16": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
@@ -507,6 +522,19 @@ def host_us(fn, batch: int = 8, reps: int = 9) -> float:
     return times[len(times) // 2]
 
 
+def host_us_pair(fn_a, fn_b, rounds: int = 7) -> tuple[float, float]:
+    """host_us of two wrappers taken in turns (a, b, a, b, ...), the median
+    of each over `rounds`: the host's speed drifts during a run, so two
+    wrappers are compared only side by side."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(host_us(fn_a, reps=3))
+        b.append(host_us(fn_b, reps=3))
+    a.sort()
+    b.sort()
+    return a[rounds // 2], b[rounds // 2]
+
+
 # ------------------------------------------------------------------- env
 
 
@@ -616,6 +644,23 @@ def tier_forms(regs: dict, spills: dict) -> dict:
     return out
 
 
+# batch_march_kernel<V> of csrc/gsrb_batch_march.cu, mangled
+BATCH_MARCH_KERNEL = re.compile(r"batch_march_kernelILb([01])E")
+
+
+def batch_march_forms(regs: dict, spills: dict) -> dict:
+    """Registers and spill stores of both batch march instantiations
+    (gsrb_relax_batch's march form, tile width fs.BATCH_MARCH_TILE), by
+    form "W<w> V<0|1>" (V: a and rhs in 16-byte chunks)."""
+    out = {}
+    for name, n in regs.items():
+        m = BATCH_MARCH_KERNEL.search(name)
+        if m:
+            out[f"W{fs.BATCH_MARCH_TILE} V{m.group(1)}"] = {
+                "registers": n, "spill_stores": spills.get(name, 0)}
+    return out
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     cuda_ext.lib()
@@ -654,6 +699,8 @@ def phase_build() -> dict:
         # in all
         "tier_forms": tier,
         "tier_spill_stores": sum(f["spill_stores"] for f in tier.values()),
+        # gsrb_relax_batch's march form (csrc/gsrb_batch_march.cu)
+        "batch_march_forms": batch_march_forms(regs, spills),
         "tower_kernels": tower,
         "residual_kernels": residual,
     }
@@ -1201,7 +1248,10 @@ def check_gsrb_case(case, dtype) -> dict:
 # multiple of 8: the first patch at its LEVEL_CASES lo, the second beside
 # it), a pair at odd parity, three patches, a small pair with every face
 # kind (the one-block slab form), and the largest pair in f64 too
-# (BATCH_F64).
+# (BATCH_F64); three 144^3 patches at odd parity (the march form with three
+# patches), and three 112^3 patches (3 x 22.5 MB overflow the L2 that one
+# fits, at a tile width the march is not built for: the serial form) at
+# odd parity and with periodic x and z faces.
 BATCH_CASES = [
     ("batch_d4_72x80x80_pair", (72, 80, 80), ALL_C, 2.0,
      ((376, 472, 472), (376, 552, 472)), True),
@@ -1215,21 +1265,30 @@ BATCH_CASES = [
      ((488, 488, 488), (536, 488, 488), (584, 488, 488)), False),
     ("batch_one_block_mixed", (16, 16, 16), ((D, N), (C, D), (N, C)), 0.5,
      ((1, 0, 0), (1, 16, 0)), False),
+    ("batch_three_144_odd", (144, 144, 144), ALL_C, 2.0,
+     ((1569, 1976, 1976), (1569, 2120, 1976), (1569, 2264, 1976)), True),
+    ("batch_three_112_odd", (112, 112, 112), ALL_C, 2.0,
+     ((113, 224, 224), (225, 224, 224), (337, 224, 224)), False),
+    ("batch_three_112_periodic", (112, 112, 112), ((P, P), (D, N), (P, P)),
+     2.0, ((0, 0, 0), (112, 0, 0), (0, 112, 0)), False),
 ]
+# the sweeps of a batch call in the kernels phase (the solver's nsmooth)
+BATCH_SWEEPS = 4
 BATCH_F64 = ("batch_d6_144_pair", "batch_odd_parity_pair")
 
 
 def batch_forms(shape, itemsize: int, kinds, patches: int) -> tuple:
     """The geometry fs.gsrb_geometry picks for a batch of `patches` levels
-    of `shape` at the card's capacity, and every form that takes it."""
+    of `shape` (BATCH_SWEEPS sweeps) at the card's capacity, and every form
+    that takes it."""
     cap = fs.gsrb_capacity(torch.device("cuda"), itemsize)
     picked = fs.gsrb_geometry(shape, itemsize, False, kinds, cap,
-                              patches=patches)
+                              patches=patches, nsweeps=BATCH_SWEEPS)
     forms = [picked.form]
     for form in fs.GSRB_FORMS:
         try:
             fs.gsrb_geometry(shape, itemsize, False, kinds, cap, form=form,
-                             patches=patches)
+                             patches=patches, nsweeps=BATCH_SWEEPS)
         except ValueError:
             continue
         if form not in forms:
@@ -1245,7 +1304,8 @@ def check_batch_case(case, dtype) -> dict:
     the inputs untouched, each restricted residual into its own parent's
     slice. Timed: each batched form's device and host time per call beside
     P single calls', the plain version's time and the bound (P times a
-    single call's bytes over HBM_BYTES_S)."""
+    single call's bytes over HBM_BYTES_S); and every form's device and host
+    time per call (forms_device_ms, forms_host_us)."""
     cid, shape, kinds, rho, los, timed = case
     npatch = len(los)
     fields = [level_fields(shape, dtype, seed=20 + k) for k in range(npatch)]
@@ -1257,20 +1317,21 @@ def check_batch_case(case, dtype) -> dict:
            "patches": npatch, "lo": [list(lo) for lo in los],
            "tolerance": TOL[dtype]}
     u_in = [u.clone() for u in us]
-    relax = dict(nsweeps=4, los=los, **kw)
+    relax = dict(nsweeps=BATCH_SWEEPS, los=los, **kw)
     ref = fs.gsrb_relax_batch_plain(us, rhss, as_, **relax)
-    single = [fs.gsrb_relax(u, r, a, nsweeps=4, lo=lo, **kw)
+    single = [fs.gsrb_relax(u, r, a, nsweeps=BATCH_SWEEPS, lo=lo, **kw)
               for u, r, a, lo in zip(us, rhss, as_, los)]
     geom, forms = batch_forms(shape, isz, kinds, npatch)
-    worst = (0.0, 0.0)
+    worst = {}  # by kernel: the march form's, the others'
     for form in forms:
-        out = one_launch("gsrb_relax_batch", lambda: (
+        name = batch_kernel(form)
+        out = one_launch(name, lambda: (
             fs.gsrb_relax_batch(us, rhss, as_, **relax) if form == geom.form
             else fs.gsrb_batch_launch(us, rhss, as_, form=form, **relax)))
         torch.cuda.synchronize()
         for k, (o, r, one) in enumerate(zip(out, ref, single)):
             err, rel = rel_err(o, r)
-            worst = max(worst, (rel, err))
+            worst[name] = max(worst.get(name, (0.0, 0.0)), (rel, err))
             check(rel <= TOL[dtype] and bool(torch.isfinite(o).all()),
                   f"gsrb_relax_batch {cid} {dtype} {form} patch {k}: rel "
                   f"err {rel} > {TOL[dtype]}")
@@ -1279,10 +1340,28 @@ def check_batch_case(case, dtype) -> dict:
                   f"bit for bit the single call")
         check(all(torch.equal(a, b) for a, b in zip(u_in, us)),
               f"gsrb_relax_batch {cid} {dtype} {form}: input modified")
+    # the wrapper's record (the form it picks; the errors of every form),
+    # and the march kernel's own where it is among the forms
+    picked = batch_kernel(geom.form)
     rec["gsrb_relax_batch"] = {
-        "max_abs_err": worst[1], "rel_err": worst[0], "form": geom.form,
-        "blocks_per_patch": geom.blocks, "forms_checked": forms,
-        "equals_single_calls": True}
+        "max_abs_err": max(worst.values())[1],
+        "rel_err": max(worst.values())[0], "form": geom.form,
+        "kernel": picked, "blocks_per_patch": geom.blocks,
+        "forms_checked": forms, "equals_single_calls": True}
+    if "march" in forms:  # its blocks are the launch's, in rounds
+        launch = fs.batch_march_geometry(
+            shape, kinds, fs.batch_march_capacity(us[0].device), npatch)
+        rec["gsrb_relax_batch_march"] = {
+            "max_abs_err": worst["gsrb_relax_batch_march"][1],
+            "rel_err": worst["gsrb_relax_batch_march"][0], "form": "march",
+            "picked": geom.form == "march", "equals_single_calls": True,
+            "blocks": launch.blocks, "tile": launch.tile,
+            "xseg": launch.xseg, "items": npatch
+            * -(-shape[0] // launch.xseg) * -(-shape[1] // (launch.tile - 8))
+            * -(-shape[2] // (launch.tile - 8))}
+        if geom.form == "march":
+            rec["gsrb_relax_batch"].update(
+                blocks_per_patch=None, blocks=launch.blocks)
     # the restricted residual, each patch into its own parent's slice
     half = tuple(n // 2 for n in shape)
     parents = [torch.full(tuple(n + 3 for n in half), -7.0, dtype=dtype,
@@ -1319,7 +1398,8 @@ def check_batch_case(case, dtype) -> dict:
         runs = {
             "gsrb_relax_batch": (
                 lambda: fs.gsrb_relax_batch(us, rhss, as_, **relax),
-                lambda: [fs.gsrb_relax(u, r, a, nsweeps=4, lo=lo, **kw)
+                lambda: [fs.gsrb_relax(u, r, a, nsweeps=BATCH_SWEEPS,
+                                       lo=lo, **kw)
                          for u, r, a, lo in zip(us, rhss, as_, los)],
                 lambda: fs.gsrb_relax_batch_plain(us, rhss, as_, **relax),
                 level_bytes(ncells, isz, 4), 4 * 32.0 * ncells),
@@ -1340,11 +1420,35 @@ def check_batch_case(case, dtype) -> dict:
                 singles_host_us=host_us(singles),
                 plain_ms=time_ms(plain, reps=10, warmup=1), bound_ms=b,
                 bound_by=by)
-        if len(forms) > 1:
-            rec["gsrb_relax_batch"]["forms_device_ms"] = {
-                form: device_ms(lambda: fs.gsrb_batch_launch(
-                    us, rhss, as_, form=form, **relax)) for form in forms}
+        # a group launch's host time beside one single call's (patch 0),
+        # in turns, which it must not exceed
+        for name, one in (
+                ("gsrb_relax_batch", lambda: fs.gsrb_relax(
+                    us[0], rhss[0], as_[0], nsweeps=BATCH_SWEEPS, lo=los[0],
+                    **kw)),
+                ("residual_restrict_batch", lambda: fs.residual_restrict(
+                    us[0], rhss[0], as_[0], **kw))):
+            group, single = host_us_pair(runs[name][0], one)
+            rec[name].update(group_host_us=group, single_host_us=single)
+        launch = {form: (lambda form=form: fs.gsrb_batch_launch(
+            us, rhss, as_, form=form, **relax)) for form in forms}
+        rec["gsrb_relax_batch"]["forms_device_ms"] = {
+            form: device_ms(run) for form, run in launch.items()}
+        rec["gsrb_relax_batch"]["forms_host_us"] = {
+            form: host_us(run) for form, run in launch.items()}
+        if picked == "gsrb_relax_batch_march":  # the wrapper's times are its
+            rec[picked].update({k: rec["gsrb_relax_batch"][k] for k in (
+                "ms", "device_ms", "host_us", "singles_ms",
+                "singles_device_ms", "singles_host_us", "plain_ms",
+                "bound_ms", "bound_by", "group_host_us", "single_host_us")})
     return rec
+
+
+def batch_kernel(form: str) -> str:
+    """The counter a gsrb_relax_batch launch in `form` goes to: the batch
+    march's (csrc/gsrb_batch_march.cu) or the batched gsrb_relax's."""
+    return "gsrb_relax_batch_march" if form == "march" else \
+        "gsrb_relax_batch"
 
 
 def one_launch_kernels() -> dict:
@@ -2299,7 +2403,8 @@ TOWERS = ("tower_down", "tower_up")
 # kernels whose wrapper call is one kernel launch on the solve paths (the
 # batched forms: groups of at most fs.BATCH_MAX patches)
 ONE_LAUNCH = TOWERS + ("gsrb_relax", "residual", "residual_restrict",
-                       "gsrb_relax_batch", "residual_restrict_batch",
+                       "gsrb_relax_batch", "gsrb_relax_batch_march",
+                       "residual_restrict_batch",
                        "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16",
                        "wavefront_relax_bf16", "multisweep_relax_bf16",
                        "multisweep_relax_halo_bf16",
@@ -2522,6 +2627,30 @@ def batch_calls_of(spec, group) -> int:
     (composite.batch_positions)."""
     pos = comp.batch_positions(spec, group)
     return 1 if pos is None else len(set(pos))
+
+
+def batch_kernel_calls_of(spec) -> dict:
+    """gsrb_relax_batch's wrapper calls per preconditioner application
+    (relax_calls_of) by the counter each goes to (batch_kernel): the batch
+    march's where the patches of the call take it (fs.batch_takes_march;
+    a call takes the group on the home, or its patches at one mesh
+    position), gsrb_relax_batch's elsewhere."""
+    out = {"gsrb_relax_batch": 0, "gsrb_relax_batch_march": 0}
+    for g in batched_groups_of(spec):
+        ls = spec.level_specs[g[0]]
+        shape = ls.boxes[0].shape
+        pos = comp.batch_positions(spec, g)
+        sizes = ([len(g)] if pos is None else
+                 [pos.count(p) for p in sorted(set(pos))])
+        for kind, s in mg.plan_for(ls, shape, torch.float32, "cuda",
+                                   spec.nsmooth):
+            if kind != "resident":
+                continue
+            for n in sizes:
+                march = fs.batch_takes_march(shape, 4, False, ls.kinds, n, s)
+                out[batch_kernel("march" if march else "grid")] += \
+                    2 * spec.num_mg_iterations
+    return out
 
 
 def relax_calls_of(spec) -> dict:
@@ -2783,7 +2912,11 @@ def check_route(run: dict, counts: dict, spec, what: str) -> None:
     check(ct.tower_supported(
         spec.level_specs[0], {"b": (None,) * spec.level_specs[0].ndepths},
         0), f"{what}: the base chain does not start in the tower")
-    launched = set(SMALL_LEVEL_KERNELS) | {k for k, v in want.items() if v}
+    # gsrb_relax_batch's calls by the kernel each launches
+    launched = (set(SMALL_LEVEL_KERNELS)
+                | {k for k, v in want.items()
+                   if v and k != "gsrb_relax_batch"}
+                | {k for k, n in batch_kernel_calls_of(spec).items() if n})
     if residual_calls_of(spec).get("residual_restrict_batch"):
         launched.add("residual_restrict_batch")
     check(all(counts["launches"][k] > 0 for k in launched)
@@ -3090,8 +3223,10 @@ def phase_forest_batching() -> dict:
     check_route(run, counts, spec, "patches_force")
     apps = 2 * sum(run["linear_iters"])
     relax, res = relax_calls_of(spec), residual_calls_of(spec)
+    # gsrb_relax_batch's calls by the kernel each launches (the 144^3
+    # pair's the march)
     want = {"gsrb_relax": sum(relax["gsrb_relax"].values()),
-            "gsrb_relax_batch": sum(relax["gsrb_relax_batch"].values()),
+            **batch_kernel_calls_of(spec),
             "residual_restrict": res["residual_restrict"],
             "residual_restrict_batch": res["residual_restrict_batch"]}
     got = {k: counts["launches"][k] for k in want}
@@ -4219,7 +4354,7 @@ def forest_on_mesh(mesh, ref: dict | None, what: str) -> dict:
     calls = run32["solve"][calls_of]
     apps = 2 * run32["iters"]
     per = residual_calls_of(spec)["residual_restrict_batch"]
-    check(calls["gsrb_relax_batch"]
+    check(calls["gsrb_relax_batch"] + calls["gsrb_relax_batch_march"]
           == apps * sum(relax_calls_of(run32["spec"])["gsrb_relax_batch"]
                         .values()) > 0
           and calls["residual_restrict_batch"] == apps * per
@@ -4661,7 +4796,8 @@ def check_process_forest(workers: list, ref: dict) -> dict:
         want = {k: v for k, v in ref[part]["halo"].items() if k not in local}
         check(got == want, f"processes forest: {part} halo summed {got}, "
               f"one process {want}")
-    for k in ("gsrb_relax_batch", "residual_restrict_batch"):
+    for k in ("gsrb_relax_batch", "gsrb_relax_batch_march",
+              "residual_restrict_batch"):
         got = sum(w["solve"]["launches"][k] for w in workers)
         check(got == ref["solve"]["launches"][k],
               f"processes forest: {k} calls {got} over the processes, "
@@ -4957,9 +5093,11 @@ PATH_CASES = {
                 "residual_restrict": "patch_d6_144",
                 "tower_down": "path_l0_64", "tower_up": "path_l0_64"},
     # the same forest with its pairs batched (phase forest_batching): the
-    # batched forms at its largest pair, the single ones at its largest
-    # single patch
-    "forest_batching": {"gsrb_relax_batch": "batch_d6_144_pair",
+    # batched residual and the batch march at its largest pair, the batched
+    # gsrb_relax at the largest pair that takes it, the single ones at its
+    # largest single patch
+    "forest_batching": {"gsrb_relax_batch": "batch_d5_104x96x96_pair",
+                        "gsrb_relax_batch_march": "batch_d6_144_pair",
                         "residual_restrict_batch": "batch_d6_144_pair",
                         "gsrb_relax": "patch_d6_112",
                         "residual_restrict": "patch_d6_112",
@@ -5001,6 +5139,7 @@ MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
              "multisweep_relax_tiled_pre": "sharded_pencil",
              "gsrb_relax_batch": "forest_batching",
+             "gsrb_relax_batch_march": "forest_batching",
              "residual_restrict_batch": "forest_batching",
              "gsrb_relax_bf16": "bf16_tier", "tower_down_bf16": "bf16_tier",
              "tower_up_bf16": "bf16_tier",
@@ -5068,8 +5207,12 @@ def kernels_line(kernels: dict | None, solve: dict | None,
             if run and name in run.get("by_shape", {}):
                 paths[path]["calls_by_shape"] = run["by_shape"][name]
         top = paths[main]
+        forms = ENTRY_POINTS.get(name, {})
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "name": name, "route": "cuda",
+            # where the kernel has forms in several sources: the source of
+            # the form its main path's case takes
+            "source": forms.get(top.get("form"), SOURCES[name])[0],
             "replaces": SOURCES[name][1], "tpu_kernel": TPU_KERNELS[name],
             "launches": top["launches"],
             "device_launches": top["device_launches"], "launches_of": main,
@@ -5081,6 +5224,10 @@ def kernels_line(kernels: dict | None, solve: dict | None,
             **{k: top[k] for k in ("nsweeps", "form", "blocks") if k in top},
             "paths": paths,
         })
+        if forms:  # every form's source and C entry point
+            rows[-1]["entry_points"] = {
+                form: {"source": src, "entry": entry}
+                for form, (src, entry) in forms.items()}
     # the one-sweep and one-pass entry points of the gsrb_relax pass kernel
     # (f32, the odd-lo box), each against its plain version
     if kernels is not None:

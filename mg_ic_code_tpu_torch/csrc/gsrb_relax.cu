@@ -179,7 +179,14 @@ constexpr int kThreads = 512;
 constexpr int kMaxSlabs = 256;
 // patches of one batch at most (fused_sweeps.BATCH_MAX)
 constexpr int kMaxBatch = 16;
-enum RelaxForm { FORM_GRID = 0, FORM_SLAB = 1, FORM_SERIAL = 2 };
+// (FORM_MARCH, a batch's march, has an entry point of its own:
+// mgk_gsrb_batch_march, csrc/gsrb_batch_march.cu)
+enum RelaxForm {
+  FORM_GRID = 0,
+  FORM_SLAB = 1,
+  FORM_SERIAL = 2,
+  FORM_MARCH = 3
+};
 
 // Everything one launch needs, passed by value as a __grid_constant__
 // kernel parameter: patch k's operands at index k.
@@ -642,22 +649,28 @@ extern "C" int mgk_gsrb_relax(const void* u, const void* rhs, const void* a,
 
 // C entry point of the batch: npatch (at most kMaxBatch) levels of one
 // shape, face kinds and parity (base = sum(lo) of any of them), constant
-// bCoef, patch k's state u[k], rhs[k], a[k] (only read) and result out[k];
-// `blocks` (and the slab form's xtiles, starts, smem) are one patch's launch
-// geometry (fused_sweeps.gsrb_geometry at capacity / npatch): npatch *
-// blocks blocks in one cooperative launch; in the serial form (form 2) one
-// patch's grid form at the whole capacity, `blocks` blocks taking the
-// patches in turn. The same arithmetic per cell as mgk_gsrb_relax.
-extern "C" int mgk_gsrb_relax_batch(const void* const* u,
-                                    const void* const* rhs,
-                                    const void* const* a, void* const* out,
-                                    int npatch, int is_double, int nx, int ny,
-                                    int nz, const int* kinds, double rho,
-                                    double alpha, double beta, double dx,
-                                    int base, int nsweeps, int form, int per,
-                                    int blocks, int xtiles, const int* starts,
-                                    int smem, void* stream) {
+// bCoef; ptrs holds the patches' states u (only read), then rhs, a (only
+// read) and the results out, npatch each; geo (kept per shape: one array a
+// call) npatch, is_double, nx, ny, nz, nsweeps, form, per, blocks, xtiles,
+// smem, the six face kinds, then the slab form's starts. `blocks` (and the
+// slab form's xtiles, starts, smem) are one patch's launch geometry
+// (fused_sweeps.gsrb_geometry at capacity / npatch): npatch * blocks blocks
+// in one cooperative launch; in the serial form (form 2) one patch's grid
+// form at the whole capacity, `blocks` blocks taking the patches in turn.
+// The same arithmetic per cell as mgk_gsrb_relax.
+extern "C" int mgk_gsrb_relax_batch(const void* const* ptrs, const int* geo,
+                                    double rho, double alpha, double beta,
+                                    double dx, int base, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int npatch = geo[0], is_double = geo[1], nx = geo[2], ny = geo[3];
+  const int nz = geo[4], nsweeps = geo[5], form = geo[6], per = geo[7];
+  const int blocks = geo[8], xtiles = geo[9], smem = geo[10];
+  const int *kinds = geo + 11, *starts = geo + 17;
+  if (npatch < 1 || npatch > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const void* const* u = ptrs;
+  const void* const* rhs = ptrs + npatch;
+  const void* const* a = ptrs + 2 * npatch;
+  void* const* out = const_cast<void* const*>(ptrs + 3 * npatch);
   return (int)(is_double
       ? relax_impl<double, double>(u, rhs, a, nullptr, out, npatch, nx, ny,
                                    nz, kinds, rho, alpha, beta, dx, base,

@@ -106,29 +106,6 @@ namespace {
   X(double, 4, 32, 2)  \
   X(double, 8, 24, 2)
 
-// Asynchronous copy of one element, global -> shared-memory address dst
-// (cp.async, sm_80+).
-template <typename T>
-__device__ __forceinline__ void copy_async(unsigned dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(src), "n"(sizeof(T))
-               : "memory");
-}
-// Asynchronous copy of 16 bytes, global -> shared, bypassing L1.
-__device__ __forceinline__ void copy_chunk(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's commit groups are in flight
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // One z-pair of a tile row: where its columns live in the level and in the
 // rings, and the folded weights of the y and z faces they touch. Column c of
 // the pair lives in colour half h = c ^ jb of its row (jb: row parity): the
@@ -155,20 +132,6 @@ struct MarchPair {
   unsigned my, mz[2];     // and the lanes of their pairs (face_mask)
   T tcs[2];          // the tier's c0 sum of a plane off the x faces
 };
-
-// p[0] = x, p[1] = y in one store (p aligned to twice the element)
-__device__ __forceinline__ void store_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store_pair(double* p, double x, double y) {
-  *reinterpret_cast<double2*>(p) = make_double2(x, y);
-}
-
-// v[c] for a c known only at run time, without indexing a register array
-template <typename X>
-__device__ __forceinline__ X pick(int c, const X (&v)[2]) {
-  return c ? v[1] : v[0];
-}
 
 template <typename T>
 struct MarchThread {

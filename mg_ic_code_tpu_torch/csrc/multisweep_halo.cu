@@ -99,37 +99,6 @@ struct ShardSrc {
   ShardGeom g;
 };
 
-// The copies and stores of the whole level's unit (csrc/multisweep.cu),
-// again here: the two units build apart.
-template <typename T>
-__device__ __forceinline__ void copy_async(unsigned dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(src), "n"(sizeof(T))
-               : "memory");
-}
-__device__ __forceinline__ void copy_chunk(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void store_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store_pair(double* p, double x, double y) {
-  *reinterpret_cast<double2*>(p) = make_double2(x, y);
-}
-template <typename X>
-__device__ __forceinline__ X pick(int c, const X (&v)[2]) {
-  return c ? v[1] : v[0];
-}
-
 // One z-pair of a tile row: where its columns live in a plane and in the
 // rings, and the folded weights of the y and z faces they touch. Column c of
 // the pair lives in colour half h = c ^ jb of its row (jb: row parity).

@@ -2,7 +2,8 @@
 // of one level (or one shard of a level) in ONE launch, carried along x in
 // shared memory with the halo recomputed, for ANY face kinds including
 // periodic x. This header holds what its two bodies share (the plane
-// layout); each unit holds its own body, both built for the H100 as the
+// layout, the copies and stores, which csrc/gsrb_batch_march.cu takes too);
+// each unit holds its own body, both built for the H100 as the
 // whole level's header comment says (a ring of u, rhs and a filled by
 // asynchronous copies, the tile width and the x segments chosen in Python):
 //   csrc/multisweep.cu      a whole level (mgk_multisweep_relax),
@@ -111,6 +112,48 @@
 #include "mg_kernels.h"
 
 namespace {
+
+// What every march unit copies and stores with (the whole level's, the
+// shards' and gsrb_relax_batch's, csrc/gsrb_batch_march.cu).
+// Asynchronous copy of one element, global -> shared-memory address dst
+// (cp.async, sm_80+).
+template <typename T>
+__device__ __forceinline__ void copy_async(unsigned dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+// Asynchronous copy of 16 bytes, global -> shared, bypassing L1.
+__device__ __forceinline__ void copy_chunk(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// p[0] = x, p[1] = y in one store (p aligned to twice the element)
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(double* p, double x, double y) {
+  *reinterpret_cast<double2*>(p) = make_double2(x, y);
+}
+
+// v[c] for a c known only at run time, without indexing a register array
+template <typename X>
+__device__ __forceinline__ X pick(int c, const X (&v)[2]) {
+  return c ? v[1] : v[0];
+}
 
 // The passes' arithmetic in the bf16 tier beside storage T: bf16 for f32
 // levels; T itself otherwise (the entries refuse the tier for f64 before a

@@ -51,9 +51,13 @@
 //    sibling patches of an AMR depth): P levels of one shape in one launch,
 //    blockIdx.y the patch, each with its own pointers and its own output
 //    strides (each into its own parent's covered part). The segments are
-//    cut so that the P x tiles x segments blocks fill one wave. A cell's
-//    value does not depend on the launch, so a batch is bit for bit P
-//    single calls; one call is a batch of one.
+//    cut so that the P x tiles x segments blocks fill one wave; where
+//    segments of one plane pair fill it, each block a ring of RING = 4
+//    planes (all the planes of its segment fetched at its start: a block
+//    of two pairs waited a second load latency for its sixth plane), so
+//    that a small pair's launch is not half idle. A cell's value does not
+//    depend on the launch, so a batch is bit for bit P single calls; one
+//    call is a batch of one.
 #include <cstddef>
 
 #include "residual_device.cuh"
@@ -61,7 +65,8 @@
 namespace {
 
 // Planes in the shared-memory ring (ops/fused_sweeps.RESIDUAL_RING): plane
-// i and i + 1 read in step i, three more in flight.
+// i and i + 1 read in step i, three more in flight; the restricted form is
+// built with a ring of 4 too (a batch's segments of one plane pair).
 constexpr int kRing = 5;
 // Threads a block at most (RESIDUAL_MAX_THREADS), and the copies a thread
 // makes of one plane of u: a tile's ty + 2 rows need at most 2 + 4 / ty
@@ -252,7 +257,7 @@ __device__ __forceinline__ void rows_residual(
   }
 }
 
-template <typename T, int VZ, bool VEC, bool RESTRICT>
+template <typename T, int VZ, bool VEC, bool RESTRICT, int RING>
 __global__ void __launch_bounds__(kMaxThreads)
     residual_kernel(const __grid_constant__ Operands<T> ops,
                     const LevelParams<T> p, const ResidualGeom g) {
@@ -331,10 +336,10 @@ __global__ void __launch_bounds__(kMaxThreads)
         copy_cells<T, VZ, VEC>(dst + (unsigned)(cdst[n] * (int)sizeof(T)),
                                src + csrc[n]);
   };
-  // planes x0 - 1 .. x0 + kRing - 2 into slots 0 .. kRing - 1, one commit
+  // planes x0 - 1 .. x0 + RING - 2 into slots 0 .. RING - 1, one commit
   // group a plane (empty beyond the segment)
 #pragma unroll
-  for (int n = 0; n < kRing; ++n) {
+  for (int n = 0; n < RING; ++n) {
     if (x0 - 1 + n <= x1) fetch(x0 - 1 + n, n);
     copy_commit();
   }
@@ -357,7 +362,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   // u of the thread's cells at planes i - 1, i, i + 1
   T pv[2][VZ], cv[2][VZ], nv[2][VZ];
   T acc[VZ / 2 > 0 ? VZ / 2 : 1] = {};
-  copy_wait<kRing - 3>();  // planes x0 - 1, x0, x0 + 1
+  copy_wait<RING - 3>();  // planes x0 - 1, x0, x0 + 1
   __syncthreads();
   if (active) {
     load_shared<T, VZ>(pv[0], ring + rj * nz + k);
@@ -368,11 +373,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   int s = 1;  // ring slot of plane i
   for (int i = x0; i < x1; ++i) {
-    copy_wait<kRing - 3>();  // plane i + 1
+    copy_wait<RING - 3>();  // plane i + 1
     __syncthreads();         // and everyone's; slot of plane i - 1 free
-    const int sm = s == 0 ? kRing - 1 : s - 1;
-    const int sp = s == kRing - 1 ? 0 : s + 1;
-    if (i - 1 + kRing <= x1) fetch(i - 1 + kRing, sm);
+    const int sm = s == 0 ? RING - 1 : s - 1;
+    const int sp = s == RING - 1 ? 0 : s + 1;
+    if (i - 1 + RING <= x1) fetch(i - 1 + RING, sm);
     copy_commit();
     if (active) {
       const T* cur = ring + s * g.slot;
@@ -435,7 +440,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // The shared memory a block of the kernel may take, raised once per device
 // to kMaxSmem (above 48 KB only once the kernel's limit is raised).
-template <typename T, int VZ, bool VEC, bool RESTRICT>
+template <typename T, int VZ, bool VEC, bool RESTRICT, int RING>
 cudaError_t raise_smem() {
   static bool raised[kMaxDevices];
   int dev = 0;
@@ -443,7 +448,7 @@ cudaError_t raise_smem() {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!raised[dev]) {
-    err = cudaFuncSetAttribute(residual_kernel<T, VZ, VEC, RESTRICT>,
+    err = cudaFuncSetAttribute(residual_kernel<T, VZ, VEC, RESTRICT, RING>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return err;
@@ -453,39 +458,47 @@ cudaError_t raise_smem() {
 }
 
 // One instantiation of the kernel, as a type.
-template <typename T_, int VZ_, bool VEC_, bool RESTRICT_>
+template <typename T_, int VZ_, bool VEC_, bool RESTRICT_, int RING_>
 struct Form {
   using T = T_;
-  static constexpr int VZ = VZ_;
+  static constexpr int VZ = VZ_, RING = RING_;
   static constexpr bool VEC = VEC_, RESTRICT = RESTRICT_;
 };
 
-// f(Form<...>{}) for the instantiation (VZ, VEC, restricted) of type T:
-// 16 bytes a thread, two cells or one (the whole residual only).
+// f(Form<...>{}) for the instantiation (VZ, VEC, restricted, ring) of type
+// T: 16 bytes a thread, two cells or one (the whole residual only); a ring
+// of kRing planes, or of 4 (the restricted form only).
 template <typename T, typename F>
-cudaError_t with_form(int vz, int vec, int restricted, F&& f) {
+cudaError_t with_form(int vz, int vec, int restricted, int ring, F&& f) {
   constexpr int V = 16 / (int)sizeof(T);  // cells of a 16-byte copy
+  if (ring == 4 && restricted) {
+    if (vz == V && vec) return f(Form<T, V, true, true, 4>{});
+    if (vz == 2 && !vec) return f(Form<T, 2, false, true, 4>{});
+    return cudaErrorInvalidValue;
+  }
+  if (ring != kRing) return cudaErrorInvalidValue;
   if (vz == V && vec)
-    return restricted ? f(Form<T, V, true, true>{})
-                      : f(Form<T, V, true, false>{});
+    return restricted ? f(Form<T, V, true, true, kRing>{})
+                      : f(Form<T, V, true, false, kRing>{});
   if (vz == 2 && !vec)
-    return restricted ? f(Form<T, 2, false, true>{})
-                      : f(Form<T, 2, false, false>{});
-  if (vz == 1 && !vec && !restricted) return f(Form<T, 1, false, false>{});
+    return restricted ? f(Form<T, 2, false, true, kRing>{})
+                      : f(Form<T, 2, false, false, kRing>{});
+  if (vz == 1 && !vec && !restricted)
+    return f(Form<T, 1, false, false, kRing>{});
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch(const Operands<T>& ops, int npatch,
                    const LevelParams<T>& p, const ResidualGeom& g, int vz,
-                   int vec, int restricted, int blocks, int threads,
-                   int smem, cudaStream_t stream) {
-  return with_form<T>(vz, vec, restricted, [&](auto form) {
+                   int vec, int restricted, int ring, int blocks,
+                   int threads, int smem, cudaStream_t stream) {
+  return with_form<T>(vz, vec, restricted, ring, [&](auto form) {
     using F = decltype(form);
     cudaError_t err =
-        raise_smem<typename F::T, F::VZ, F::VEC, F::RESTRICT>();
+        raise_smem<typename F::T, F::VZ, F::VEC, F::RESTRICT, F::RING>();
     if (err != cudaSuccess) return err;
-    residual_kernel<typename F::T, F::VZ, F::VEC, F::RESTRICT>
+    residual_kernel<typename F::T, F::VZ, F::VEC, F::RESTRICT, F::RING>
         <<<dim3(blocks, npatch), threads, smem, stream>>>(ops, p, g);
     return cudaGetLastError();
   });
@@ -519,8 +532,8 @@ cudaError_t residual_impl(const void* const* u, const void* const* rhs,
   }
   const auto p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta,
                                       dx);
-  return launch<T>(ops, npatch, p, g, vz, vec, restricted, blocks, threads,
-                   smem, st);
+  return launch<T>(ops, npatch, p, g, vz, vec, restricted, geo[22], blocks,
+                   threads, smem, st);
 }
 
 }  // namespace
@@ -528,7 +541,8 @@ cudaError_t residual_impl(const void* const* u, const void* const* rhs,
 // C entry point of both forms; b may be null (constant bCoef = 1), out must
 // not overlap the inputs. geo (ops/fused_sweeps.residual_geometry): is
 // double, nx, ny, nz, VZ, VEC, restrict, ty, y tiles, xseg, x segments,
-// groups a row, slot elements, threads, shared-memory bytes. The restricted
+// groups a row, slot elements, threads, shared-memory bytes, patches, the
+// six face kinds (the batch's), the ring's planes. The restricted
 // form writes out[ci * osx + cj * osy + ck] (z contiguous).
 extern "C" int mgk_residual(const void* u, const void* rhs, const void* a,
                             const void* b, void* out, const int* kinds,
@@ -549,17 +563,25 @@ extern "C" int mgk_residual(const void* u, const void* rhs, const void* a,
 }
 
 // C entry point of the batch: npatch (at most kMaxBatch) levels of one
-// shape and face kinds, constant bCoef, patch k's u[k], rhs[k], a[k] and
-// out[k] with its strides osx[k], osy[k] (the restricted form; geo as
-// mgk_residual's, its segments cut for npatch patches), in one launch.
-extern "C" int mgk_residual_batch(const void* const* u,
-                                  const void* const* rhs,
-                                  const void* const* a, void* const* out,
-                                  const long long* osx, const long long* osy,
-                                  int npatch, const int* kinds, double rho,
+// shape and face kinds, constant bCoef; ptrs holds the patches' u, then
+// rhs, a and out, npatch each, strides their outputs' osx, then osy (the
+// restricted form); geo as mgk_residual's, its segments cut for npatch
+// patches, then npatch and the six face kinds (kept per shape: one array a
+// call), in one launch.
+extern "C" int mgk_residual_batch(const void* const* ptrs,
+                                  const long long* strides, double rho,
                                   double alpha, double beta, double dx,
                                   const int* geo, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int npatch = geo[15];
+  const int* kinds = geo + 16;
+  if (npatch < 1 || npatch > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const void* const* u = ptrs;
+  const void* const* rhs = ptrs + npatch;
+  const void* const* a = ptrs + 2 * npatch;
+  void* const* out = const_cast<void* const*>(ptrs + 3 * npatch);
+  const long long* osx = strides;
+  const long long* osy = strides + npatch;
   return (int)(geo[0]
       ? residual_impl<double>(u, rhs, a, nullptr, out, osx, osy, npatch,
                               kinds, rho, alpha, beta, dx, geo, st)
@@ -567,22 +589,24 @@ extern "C" int mgk_residual_batch(const void* const* u,
                              kinds, rho, alpha, beta, dx, geo, st));
 }
 
-// Blocks of the instantiation (is_double, VZ, VEC, restricted) with
+// Blocks of the instantiation (is_double, VZ, VEC, restricted, ring) with
 // `threads` threads and `smem` bytes of shared memory that one
 // multiprocessor of the current device runs at once: the wave that
 // ops/fused_sweeps.residual_geometry fills.
 extern "C" int mgk_residual_capacity(int is_double, int vz, int vec,
-                                     int restricted, int threads, int smem,
-                                     int* per_sm) {
+                                     int restricted, int ring, int threads,
+                                     int smem, int* per_sm) {
   auto ask = [&](auto form) {
     using F = decltype(form);
     cudaError_t err =
-        raise_smem<typename F::T, F::VZ, F::VEC, F::RESTRICT>();
+        raise_smem<typename F::T, F::VZ, F::VEC, F::RESTRICT, F::RING>();
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, residual_kernel<typename F::T, F::VZ, F::VEC, F::RESTRICT>,
+        per_sm,
+        residual_kernel<typename F::T, F::VZ, F::VEC, F::RESTRICT, F::RING>,
         threads, (size_t)smem);
   };
-  return (int)(is_double ? with_form<double>(vz, vec, restricted, ask)
-                         : with_form<float>(vz, vec, restricted, ask));
+  return (int)(is_double
+                   ? with_form<double>(vz, vec, restricted, ring, ask)
+                   : with_form<float>(vz, vec, restricted, ring, ask));
 }

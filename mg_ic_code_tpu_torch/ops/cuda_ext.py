@@ -32,7 +32,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "multisweep.cu",
-           "multisweep_halo.cu")
+           "multisweep_halo.cu", "gsrb_batch_march.cu")
 HEADERS = ("mg_kernels.h", "gsrb_device.cuh", "gsrb_walk.cuh",
            "residual_device.cuh", "multisweep_march.cuh")
 NVCC_FLAGS = (
@@ -122,10 +122,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ci, pi, ci, vp,
     ]
     lib.mgk_gsrb_relax_batch.restype = ci
-    lib.mgk_gsrb_relax_batch.argtypes = [
-        pvp, pvp, pvp, pvp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci,
-        ci, ci, ci, ci, pi, ci, vp,
-    ]
+    # the batched entries: the pointer table (and the strides) by address,
+    # the geometry one int array
+    lib.mgk_gsrb_relax_batch.argtypes = [vp, pi, cd, cd, cd, cd, ci, vp]
+    lib.mgk_gsrb_batch_march.restype = ci
+    lib.mgk_gsrb_batch_march.argtypes = [vp, pi, cd, cd, cd, cd, ci, vp]
+    lib.mgk_gsrb_batch_march_capacity.restype = ci
+    lib.mgk_gsrb_batch_march_capacity.argtypes = [ci, pi]
     lib.mgk_gsrb_capacity.restype = ci
     lib.mgk_gsrb_capacity.argtypes = [ci, ci, ci, pi]
     lib.mgk_gsrb_pass.restype = ci
@@ -138,12 +141,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, pi, cd, cd, cd, cd, pi, cll, cll, vp,
     ]
     lib.mgk_residual_batch.restype = ci
-    pll = ctypes.POINTER(cll)
-    lib.mgk_residual_batch.argtypes = [
-        pvp, pvp, pvp, pvp, pll, pll, ci, pi, cd, cd, cd, cd, pi, vp,
-    ]
+    lib.mgk_residual_batch.argtypes = [vp, vp, cd, cd, cd, cd, pi, vp]
     lib.mgk_residual_capacity.restype = ci
-    lib.mgk_residual_capacity.argtypes = [ci, ci, ci, ci, ci, ci, pi]
+    lib.mgk_residual_capacity.argtypes = [ci, ci, ci, ci, ci, ci, ci, pi]
     lib.mgk_multisweep_relax.restype = ci
     lib.mgk_multisweep_relax.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci, ci,

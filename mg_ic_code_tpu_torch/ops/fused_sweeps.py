@@ -19,9 +19,11 @@ restrict); its plain version is `restrict_full` of `residual_plain`.
 
 `gsrb_relax_batch` / `residual_restrict_batch` take the same-shape sibling
 patches of an AMR depth (solver/composite.py's batch groups) as ONE launch
-of the same kernel, each patch by its own pointers; their plain versions
-are the single ones patch by patch, and a batch is bit for bit the single
-calls.
+of the same kernel, each patch by its own pointers (or, where the patches
+overflow the L2 cache, of the batch march, csrc/gsrb_batch_march.cu: the
+march of `multisweep_relax` with `gsrb_relax`'s arithmetic); their plain
+versions are the single ones patch by patch, and a batch is bit for bit
+the single calls.
 
 Beside them:
 
@@ -67,6 +69,7 @@ The residual, the restriction and the batched forms take no tier.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import math
@@ -390,16 +393,20 @@ def kinds_array(kinds: FaceKinds):
 
 def check_level_args(name: str, u, *others):
     """The kernels take contiguous f32/f64 (nx, ny, nz) CUDA tensors of one
-    shape, dtype and device, at least 2 cells per axis; raise otherwise."""
+    shape, dtype and device, at least 2 cells per axis; raise otherwise.
+    Its host time is part of every kernel call, so it reads cheap tensor
+    queries only (the device by its index: no device objects), and the
+    devices only for a message."""
     if not u.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {u.device}")
-    if u.dtype not in (torch.float32, torch.float64):
+    dt, shape, dev = u.dtype, u.shape, u.get_device()
+    if dt is not torch.float32 and dt is not torch.float64:
         raise TypeError(f"{name}: dtype {u.dtype} not supported (f32/f64)")
-    if u.ndim != 3 or min(u.shape) < 2:
+    if len(shape) != 3 or min(shape) < 2:
         raise ValueError(f"{name}: bad level shape {tuple(u.shape)}")
     for t in (u,) + tuple(o for o in others if o is not None):
-        if (t.device != u.device or t.dtype != u.dtype
-                or t.shape != u.shape):
+        if (t.dtype is not dt or t.shape != shape
+                or t.get_device() != dev):
             raise ValueError(
                 f"{name}: operands disagree: {tuple(t.shape)} {t.dtype} "
                 f"{t.device} vs {tuple(u.shape)} {u.dtype} {u.device}"
@@ -424,19 +431,23 @@ def check_batch_args(name: str, us, *others):
     if not us or any(len(o) != len(us) for o in others):
         raise ValueError(f"{name}: {len(us)} patches, operand lists "
                          f"{[len(o) for o in others]}")
+    u0 = us[0]
     for k, u in enumerate(us):
         check_level_args(name, u, *(o[k] for o in others))
-        if (u.shape, u.dtype, u.device) != (
-                us[0].shape, us[0].dtype, us[0].device):
+        if (u.shape != u0.shape or u.dtype is not u0.dtype
+                or u.get_device() != u0.get_device()):
             raise ValueError(
                 f"{name}: patch {k} is {tuple(u.shape)} {u.dtype} "
                 f"{u.device}, patch 0 {tuple(us[0].shape)} {us[0].dtype} "
                 f"{us[0].device}")
 
 
-def _table(ts):
-    """ctypes void*[len(ts)] of the tensors' data pointers."""
-    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+def _table(*lists):
+    """The data pointers of every tensor of the lists, list after list (None:
+    a null pointer), as a C array of 64-bit words (the C entries take its
+    address: table.buffer_info()[0]), and as a list."""
+    ptrs = [0 if t is None else t.data_ptr() for ts in lists for t in ts]
+    return array.array("Q", ptrs), ptrs
 
 
 # The one-launch gsrb_relax (csrc/gsrb_relax.cu): threads per block of
@@ -450,21 +461,33 @@ def _table(ts):
 # 176x64x64 (4800 and 5632), by 5-6 % either way (scripts/gsrb_probe.py).
 GSRB_THREADS = 512
 GSRB_MAX_SLABS = 256
-GSRB_FORMS = {"grid": 0, "slab": 1, "serial": 2}
+GSRB_FORMS = {"grid": 0, "slab": 1, "serial": 2, "march": 3}
 GSRB_SLAB_SMEM = 232448
 GSRB_ONE_BLOCK_CELLS = 4096
 GSRB_SLAB_MIN_TILE = 6144
 
+# The batch march (csrc/gsrb_batch_march.cu, gsrb_relax_batch's "march"
+# form): the one tile width it is built for (kW; 2 sweeps a chunk, f32: the
+# width march_tile gives the 144^3 patches whose pairs overflow the L2),
+# the sweeps a call takes (one chunk or two in the launch), and the bytes
+# of shared memory a block takes (R planes of u and of the three
+# coefficient arrays a, rhs and lambda, R = 4 + 2 + 1).
+BATCH_MARCH_TILE = 44
+BATCH_MARCH_SWEEPS = (2, 4)
+BATCH_MARCH_SMEM = 232176
+
 
 class GsrbGeometry(NamedTuple):
     """The launch of one gsrb_relax call (gsrb_geometry)."""
-    form: str      # "grid" or "slab"; a batch also "serial"
+    form: str      # "grid" or "slab"; a batch also "serial" or "march"
     per: int       # 1 every axis periodic, 0 none, -1 some
-    blocks: int
+    blocks: int    # the march: blocks of the launch, all patches
     xsplit: tuple  # slab forms: (first plane, planes) of each x tile
     ysplit: tuple  # slab forms: (first row, rows) of each y tile; block
                    # (ix, iy) is number ix * len(ysplit[0]) + iy
-    smem: int      # slab forms: bytes of shared memory a block
+    smem: int      # slab and march forms: bytes of shared memory a block
+    tile: int = 0  # the march: the y-z tile width
+    xseg: int = 0  # the march: planes of an x segment (all but the last)
 
 
 def pair_grid_blocks(shape, threads: int, capacity: int) -> int:
@@ -531,33 +554,94 @@ def slab_tiles(shape, itemsize: int, capacity: int):
     return None if best is None else best[1]
 
 
+def batch_march_supported(shape, itemsize: int, with_b: bool,
+                          kinds: FaceKinds, nsweeps) -> bool:
+    """Batches the march form takes: f32 with constant b, 2 or 4 sweeps
+    (BATCH_MARCH_SWEEPS: one chunk of two or two chunks), no periodic axis,
+    and a y-z plane whose tile width (march_tile at 2 sweeps) is the one
+    built, BATCH_MARCH_TILE."""
+    return (itemsize == 4 and not with_b and nsweeps in BATCH_MARCH_SWEEPS
+            and periodic_axes(kinds) == 0
+            and march_tile(int(shape[1]), int(shape[2]), 2, 4)
+            == BATCH_MARCH_TILE)
+
+
+def batch_march_geometry(shape, kinds: FaceKinds, capacity: int,
+                         patches: int) -> GsrbGeometry:
+    """The batch march's launch (csrc/gsrb_batch_march.cu) on `patches`
+    levels of `shape` for `capacity` blocks of its form running at once
+    (batch_march_capacity): the whole level's tile width (march_tile, 2
+    sweeps) and the x segments of march_segments over every patch's tiles,
+    the blocks as many of the work items (patch, segment, tile) as run at
+    once, taking them in rounds."""
+    nx, ny, nz = (int(n) for n in shape)
+    inner = BATCH_MARCH_TILE - 8
+    tiles = patches * -(-ny // inner) * -(-nz // inner)
+    nseg, xseg = march_segments(nx, tiles, int(capacity), 2)
+    return GsrbGeometry("march", periodic_axes(kinds),
+                        min(int(capacity), tiles * nseg), ((), ()), ((), ()),
+                        BATCH_MARCH_SMEM, BATCH_MARCH_TILE, xseg)
+
+
+def batch_takes_march(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
+                      patches: int, nsweeps) -> bool:
+    """Whether gsrb_relax_batch takes the march form for `patches` levels of
+    `shape` and `nsweeps` sweeps when no form is asked for: where their four
+    arrays a level overflow the L2 cache that one level's fit (exceeds_l2)
+    and the march applies (batch_march_supported). On an H100 the march read
+    0.185 ms for the 144^3 f32 pair's 4 sweeps against the serial form's
+    0.257-0.263 (scripts/batch_probe.py --march; PERF.md)."""
+    nx, ny, nz = (int(n) for n in shape)
+    return (patches > 1
+            and exceeds_l2((patches * nx, ny, nz), itemsize)
+            and not exceeds_l2((nx, ny, nz), itemsize)
+            and batch_march_supported((nx, ny, nz), itemsize, with_b, kinds,
+                                      nsweeps))
+
+
 def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
                   capacity: int, form: str | None = None,
-                  patches: int = 1) -> GsrbGeometry:
+                  patches: int = 1, nsweeps: int | None = None
+                  ) -> GsrbGeometry:
     """The launch of gsrb_relax on a level of `shape` for `capacity` blocks
     running at once (gsrb_capacity; a cooperative launch needs all of them
     resident); for a batch of `patches` levels of the shape
-    (gsrb_relax_batch) the launch of one of them at capacity // patches,
-    `blocks` then a patch's, or, where the batch's four arrays a level
-    overflow the L2 cache that one level's fit (exceeds_l2), the "serial"
-    form: one level's grid form at the whole capacity, its blocks taking
-    the patches in turn (side by side, their passes went to device memory:
-    25 % slower than single calls for two 144^3 f32 patches on an H100).
-    The slab form where it applies, f32 with constant b and a
+    (gsrb_relax_batch, `nsweeps` sweeps) the launch of one of them at
+    capacity // patches, `blocks` then a patch's, or, where the batch's four
+    arrays a level overflow the L2 cache that one level's fit (exceeds_l2),
+    the "march" form where it applies (batch_takes_march;
+    batch_march_geometry, the blocks at `capacity`: the card's is the march
+    kernel's own, batch_march_capacity), else the "serial" form: one
+    level's grid form at the whole capacity, its blocks taking the patches
+    in turn (side by side, their passes went to device memory: 25 % slower
+    than single calls for two 144^3 f32 patches on an H100). The slab form
+    where it applies, f32 with constant b and a
     split of x and y into tiles that fits (slab_tiles, each axis cut evenly
     by even_split), and where it is the faster: one block, or tiles of
     GSRB_SLAB_MIN_TILE cells or more. Else the grid form: a z pair a thread
     in whole x planes (pair_grid_blocks) unless those leave more than an
     eighth of the capacity idle, then as many blocks as run at once. `form`
-    asks for one form (the measurements do); a slab form that does not
-    apply then raises."""
+    asks for one form (the measurements do); a slab or march form that does
+    not apply then raises, and so does a serial or march form for one
+    level."""
     nx, ny, nz = (int(n) for n in shape)
     if nx * ny * nz >= 2 ** 31:
         raise ValueError(f"gsrb_relax: {nx * ny * nz} cells (below 2^31)")
     per = periodic_axes(kinds)
-    if form == "serial" or (form is None and patches > 1 and exceeds_l2(
-            (patches * nx, ny, nz), itemsize)
-            and not exceeds_l2((nx, ny, nz), itemsize)):
+    overflow = (form is None and patches > 1
+                and exceeds_l2((patches * nx, ny, nz), itemsize)
+                and not exceeds_l2((nx, ny, nz), itemsize))
+    if form == "march" or (form is None and batch_takes_march(
+            (nx, ny, nz), itemsize, with_b, kinds, patches, nsweeps)):
+        if patches < 2:
+            raise ValueError("gsrb_relax: the march form takes a batch")
+        if not batch_march_supported((nx, ny, nz), itemsize, with_b, kinds,
+                                     nsweeps):
+            raise ValueError(
+                f"gsrb_relax: no march form for {tuple(shape)}, itemsize "
+                f"{itemsize}, b {with_b}, nsweeps {nsweeps}")
+        return batch_march_geometry((nx, ny, nz), kinds, capacity, patches)
+    if form == "serial" or overflow:
         if patches < 2:
             raise ValueError("gsrb_relax: the serial form takes a batch")
         return gsrb_geometry(shape, itemsize, with_b, kinds, capacity,
@@ -599,21 +683,68 @@ def gsrb_capacity(device, itemsize: int, compute: int = 0) -> int:
     return cap.value
 
 
+def batch_march_capacity(device) -> int:
+    """Blocks of the batch march form that the CUDA device runs at once
+    (mgk_gsrb_batch_march_capacity)."""
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = cuda_ext.lib().mgk_gsrb_batch_march_capacity(
+            BATCH_MARCH_TILE, ctypes.byref(cap))
+    cuda_ext.check(err, "gsrb_relax_batch march capacity")
+    return cap.value
+
+
 @functools.lru_cache(maxsize=None)
 def _relax_launch(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
                   index: int, form: str | None, patches: int = 1,
-                  compute: int = 0):
+                  compute: int = 0, nsweeps: int | None = None):
     """(geometry, the C entry's geometry arguments) of a level (of each of
-    a batch of `patches`) in the arithmetic `compute` (1: the bf16 tier),
-    kept: the solver calls gsrb_relax with a few shapes many times, and its
-    host time is part of every call's."""
+    a batch of `patches`, `nsweeps` sweeps) in the arithmetic `compute` (1:
+    the bf16 tier), kept: the solver calls gsrb_relax with a few shapes many
+    times, and its host time is part of every call's. The march form (a
+    batch's: _batch_launch builds its arguments) at its own kernel's
+    capacity."""
+    device = torch.device("cuda", index)
     geom = gsrb_geometry(shape, itemsize, with_b, kinds, gsrb_capacity(
-        torch.device("cuda", index), itemsize, compute), form, patches)
-    starts = (geom.xsplit[0] + (shape[0],) + geom.ysplit[0] + (shape[1],)
-              if geom.form == "slab" else (0,))
+        device, itemsize, compute), form, patches, nsweeps)
+    if geom.form == "march":
+        return batch_march_geometry(shape, kinds, batch_march_capacity(
+            device), patches), ()
+    starts = _starts(geom, shape)
     return geom, (kinds_array(kinds), GSRB_FORMS[geom.form], geom.per,
                   geom.blocks, len(geom.xsplit[0]),
                   (ctypes.c_int * len(starts))(*starts), geom.smem)
+
+
+def _starts(geom: GsrbGeometry, shape) -> tuple:
+    """The slab form's starts (the first plane of each x tile, then nx; the
+    first row of each y tile, then ny); (0,) for another form."""
+    if geom.form != "slab":
+        return (0,)
+    return geom.xsplit[0] + (shape[0],) + geom.ysplit[0] + (shape[1],)
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_launch(shape, itemsize: int, kinds: FaceKinds, index: int,
+                  form: str | None, patches: int, nsweeps: int):
+    """(geometry, the geometry array of the C entry) of a gsrb_relax_batch
+    launch of `patches` levels (_relax_launch's geometry), kept per shape:
+    mgk_gsrb_batch_march's (npatch, nx, ny, nz, nsweeps, tile, xseg,
+    blocks, the kinds) for the march form, else mgk_gsrb_relax_batch's
+    (npatch, is_double, nx, ny, nz, nsweeps, form, per, blocks, xtiles,
+    smem, the kinds, the starts)."""
+    geom, _ = _relax_launch(shape, itemsize, False, kinds, index, form,
+                            patches, 0, nsweeps)
+    codes = tuple(kinds_array(kinds))
+    if geom.form == "march":
+        geo = (patches, *shape, nsweeps, geom.tile, geom.xseg, geom.blocks,
+               *codes)
+    else:
+        geo = (patches, int(itemsize == 8), *shape, nsweeps,
+               GSRB_FORMS[geom.form], geom.per, geom.blocks,
+               len(geom.xsplit[0]), geom.smem, *codes,
+               *_starts(geom, shape))
+    return geom, (ctypes.c_int * len(geo))(*geo)
 
 
 def gsrb_relax(
@@ -675,45 +806,77 @@ def gsrb_relax_batch(
     CUDA tensors go to the kernel, ONE cooperative launch for up to
     BATCH_MAX patches (gsrb_batch_launch); CPU tensors take the plain
     version."""
-    kw = dict(nsweeps=nsweeps, kinds=kinds, rho=rho, alpha=alpha, beta=beta,
-              dx=dx, los=los)
     if us[0].device.type == "cpu":
-        return gsrb_relax_batch_plain(us, rhss, as_, **kw)
-    return gsrb_batch_launch(us, rhss, as_, **kw)
+        return gsrb_relax_batch_plain(
+            us, rhss, as_, nsweeps=nsweeps, kinds=kinds, rho=rho,
+            alpha=alpha, beta=beta, dx=dx, los=los)
+    return gsrb_batch_launch(us, rhss, as_, nsweeps=nsweeps, kinds=kinds,
+                             rho=rho, alpha=alpha, beta=beta, dx=dx, los=los)
 
 
 def gsrb_batch_launch(
     us, rhss, as_, *, nsweeps: int, kinds: FaceKinds, rho: float,
     alpha: float, beta: float, dx: float, los, form: str | None = None,
 ):
-    """gsrb_relax_batch's launches on CUDA tensors (mgk_gsrb_relax_batch):
-    one per BATCH_MAX patches, in the form gsrb_geometry picks for that
-    many patches at the card's capacity, or in `form`."""
+    """gsrb_relax_batch's launches on CUDA tensors: one per BATCH_MAX
+    patches, in the form gsrb_geometry picks for that many patches and
+    sweeps at the card's capacity, or in `form`: mgk_gsrb_relax_batch (grid,
+    slab, serial) or mgk_gsrb_batch_march (march: the state between its two
+    chunks in a scratch tensor of the group's size), counted under
+    gsrb_relax_batch_march. Its host time is part of every group call: the
+    operands are checked by cheap queries (check_batch_args), the pointers
+    go in one table."""
     check_batch_args("gsrb_relax_batch", us, rhss, as_)
     if nsweeps < 0:
         raise ValueError(f"gsrb_relax_batch: nsweeps {nsweeps}")
-    if len(los) != len(us) or len({sum(lo) % 2 for lo in los}) != 1:
+    base = int(sum(los[0]))
+    if len(los) != len(us) or any((sum(lo) - base) % 2 for lo in los):
         raise ValueError(f"gsrb_relax_batch: the patches' parities differ "
                          f"(lo {list(los)})")
     u0 = us[0]
-    nx, ny, nz = u0.shape
+    shape = tuple(u0.shape)
+    index, isz = u0.get_device(), u0.element_size()
+    lib = cuda_ext.lib()
     outs = []
     for c in range(0, len(us), BATCH_MAX):
-        part = slice(c, c + BATCH_MAX)
-        n = len(us[part])
-        _, args = _relax_launch(tuple(u0.shape), u0.element_size(), False,
-                                kinds, u0.device.index, form, n)
-        out = [torch.empty_like(u) for u in us[part]]
-        kernel_counts.count_launch("gsrb_relax_batch", 1)
-        err = on_stream(
-            cuda_ext.lib().mgk_gsrb_relax_batch, u0, _table(us[part]),
-            _table(rhss[part]), _table(as_[part]), _table(out), n,
-            int(u0.dtype == torch.float64), nx, ny, nz, args[0], float(rho),
-            float(alpha), float(beta), float(dx), int(sum(los[0])),
-            int(nsweeps), *args[1:])
+        pu, pr, pa = ((us, rhss, as_) if len(us) <= BATCH_MAX else
+                      (us[c:c + BATCH_MAX], rhss[c:c + BATCH_MAX],
+                       as_[c:c + BATCH_MAX]))
+        n = len(pu)
+        geom, geo = _batch_launch(shape, isz, kinds, index, form, n,
+                                  int(nsweeps))
+        out = [torch.empty_like(u) for u in pu]
+        if geom.form == "march":
+            # the state between the two chunks: one scratch tensor, patch
+            # k's at k cells-of-a-patch in
+            tmp = [] if nsweeps <= 2 else [torch.empty(
+                (n,) + shape, dtype=u0.dtype, device=u0.device)]
+            table, ptrs = _table(pu, pr, pa, out, tmp)
+            if tmp:
+                step = u0.numel() * isz
+                table.extend(ptrs[-1] + k * step for k in range(1, n))
+            else:
+                table.extend([0] * n)
+            entry, name = lib.mgk_gsrb_batch_march, "gsrb_relax_batch_march"
+        else:
+            table, _ = _table(pu, pr, pa, out)
+            entry, name = lib.mgk_gsrb_relax_batch, "gsrb_relax_batch"
+        kernel_counts.count_launch(name, 1)
+        err = on_stream(entry, u0, table.buffer_info()[0], geo,
+                         float(rho), float(alpha), float(beta), float(dx),
+                         base)
         cuda_ext.check(err, "gsrb_relax_batch")
         outs += out
     return outs
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device `index` as a cudaStream_t (int),
+    without the torch.cuda.Stream object that current_stream() builds."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def on_stream(fn, t, *args):
@@ -721,9 +884,9 @@ def on_stream(fn, t, *args):
     stream of t's device, made the current device only where it is not."""
     idx = t.get_device()
     if idx == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+        return fn(*args, _raw_stream(idx))
     with torch.cuda.device(idx):
-        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+        return fn(*args, _raw_stream(idx))
 
 
 def _gsrb_passes(name: str, u, rhs, a, b, colors, *, kinds: FaceKinds,
@@ -1213,6 +1376,9 @@ def sharded_plan(shape, n: int, kinds: FaceKinds) -> int | None:
 # launch lost up to 20 % where its blocks overran the blocks the card runs
 # at once by part of a wave; so the segments are cut to fill one wave.
 RESIDUAL_RING = 5
+# the smaller ring of the restricted form: a batch whose segments of one
+# plane pair fill one wave takes it (residual_geometry)
+RESIDUAL_PAIR_RING = 4
 RESIDUAL_MAX_THREADS = 512
 RESIDUAL_SMEM = 232448
 RESIDUAL_WORK = 64
@@ -1229,6 +1395,7 @@ class ResidualGeometry(NamedTuple):
     threads: int
     slot: int      # elements of one ring slot
     smem: int      # bytes of shared memory a block
+    ring: int = RESIDUAL_RING  # planes in a block's ring
 
 
 def residual_form(nz: int, itemsize: int, aligned: bool) -> tuple[int, bool]:
@@ -1253,7 +1420,8 @@ def residual_geometry(shape, itemsize: int, vz: int, vec: bool,
                       restrict: bool, with_b: bool, sms: int, per_sm,
                       ty: int | None = None,
                       xseg: int | None = None,
-                      patches: int = 1) -> ResidualGeometry:
+                      patches: int = 1,
+                      ring: int | None = None) -> ResidualGeometry:
     """The tiles and x segments of a residual launch on a card with `sms`
     multiprocessors: the lowest even tile height whose row pairs hold
     RESIDUAL_WORK groups of VZ cells (a thread each; at most the level's
@@ -1261,23 +1429,48 @@ def residual_geometry(shape, itemsize: int, vz: int, vec: bool,
     blocks fit one wave: sms x per_sm(threads, smem), the blocks one
     multiprocessor runs at once (on the card, mgk_residual_capacity),
     shared by the `patches` levels of a batch (residual_restrict_batch).
-    `ty` / `xseg` ask for another launch (scripts/residual_probe.py times
-    them); one that does not fit a block's threads or shared memory
-    raises."""
+    A batch's restricted residual takes segments of one plane pair, else
+    of two, with a ring of RESIDUAL_PAIR_RING planes, at the lowest tile
+    height whose blocks fit one wave, where one does (each block fetches
+    its planes at its start: on an H100 the 72x80x80 pair read 0.0069 ms
+    so against 0.0078, its segments rounded up to two pairs at the ring of
+    RESIDUAL_RING filling 360 of the wave's 660 blocks; the 104x96x96 pair
+    0.0102 against 0.0116).
+    `ty` / `xseg` / `ring` ask for another launch (scripts/residual_probe.py
+    and scripts/batch_probe.py time them); one that does not fit a block's
+    threads or shared memory raises."""
     nx, ny, nz = (int(n) for n in shape)
     if ny * nz >= 2 ** 31:
         raise ValueError(f"residual: a plane of {ny * nz} cells (below 2^31)")
     qpr = nz // vz
     step = 2 if restrict else 1
+    ty_asked = ty
     if ty is None:
         ty = 2 * min(-(-RESIDUAL_WORK // qpr), -(-ny // 2))
     ntiles = -(-ny // ty)
     threads = -(-(ty // 2) * qpr // 32) * 32
     slot = residual_slot(ty, nz, itemsize, with_b)
-    smem = RESIDUAL_RING * slot * itemsize
-    if ty % 2 or threads > RESIDUAL_MAX_THREADS or smem > RESIDUAL_SMEM:
+    if ty_asked is None and ring is None and xseg is None and restrict \
+            and patches > 1:
+        for pairs_len in (2, 4):
+            for t in range(2, 2 * -(-ny // 2) + 1, 2):
+                try:
+                    g = residual_geometry(shape, itemsize, vz, vec, True,
+                                          with_b, sms, per_sm, ty=t,
+                                          xseg=pairs_len, patches=patches,
+                                          ring=RESIDUAL_PAIR_RING)
+                except ValueError:
+                    continue
+                if g.ntiles * g.nseg * patches <= sms * per_sm(g.threads,
+                                                               g.smem):
+                    return g
+    ring = RESIDUAL_RING if ring is None else ring
+    smem = ring * slot * itemsize
+    if (ty % 2 or threads > RESIDUAL_MAX_THREADS or smem > RESIDUAL_SMEM
+            or ring not in (RESIDUAL_RING, RESIDUAL_PAIR_RING)
+            or (ring == RESIDUAL_PAIR_RING and not restrict)):
         raise ValueError(f"residual: no launch for {tuple(shape)}, itemsize "
-                         f"{itemsize}, ty {ty}")
+                         f"{itemsize}, ty {ty}, ring {ring}")
     if xseg is None:
         nseg = max(1, sms * per_sm(threads, smem) // (ntiles * patches))
         xseg = -(-nx // min(nseg, nx))
@@ -1285,19 +1478,20 @@ def residual_geometry(shape, itemsize: int, vz: int, vec: bool,
     if xseg % step or xseg < 1:
         raise ValueError(f"residual: x segments of {xseg} planes")
     return ResidualGeometry(vz, vec, ty, ntiles, xseg, -(-nx // xseg),
-                            threads, slot, smem)
+                            threads, slot, smem, ring)
 
 
 def residual_capacity(index: int, itemsize: int, vz: int, vec: bool,
                       restrict: bool, threads: int, smem: int) -> int:
-    """Blocks of the residual instantiation (itemsize, vz, vec, restrict)
-    with `threads` and `smem` that one multiprocessor of CUDA device
+    """Blocks of the residual instantiation (itemsize, vz, vec, restrict;
+    the ring of RESIDUAL_RING planes, whose registers the smaller ring's
+    share) with `threads` and `smem` that one multiprocessor of CUDA device
     `index` runs at once (mgk_residual_capacity)."""
     cap = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = cuda_ext.lib().mgk_residual_capacity(
-            int(itemsize == 8), vz, int(vec), int(restrict), threads, smem,
-            ctypes.byref(cap))
+            int(itemsize == 8), vz, int(vec), int(restrict), RESIDUAL_RING,
+            threads, smem, ctypes.byref(cap))
     cuda_ext.check(err, "residual capacity")
     return cap.value
 
@@ -1320,12 +1514,14 @@ def _residual_launch(shape, itemsize: int, kinds: FaceKinds, restrict: bool,
                      patches: int = 1):
     """(geometry, kinds array, geometry array) of a residual launch (of a
     batch of `patches`), kept as gsrb_relax's are (the solver calls the
-    residual with a few shapes many times)."""
+    residual with a few shapes many times); the geometry array ends with
+    the patches and the kinds (mgk_residual_batch reads them) and the
+    ring's planes."""
     g = _residual_geometry(shape, itemsize, restrict, with_b, aligned, index,
                            patches)
     geo = (int(itemsize == 8), *shape, g.vz, int(g.vec), int(restrict), g.ty,
            g.ntiles, g.xseg, g.nseg, shape[2] // g.vz, g.slot, g.threads,
-           g.smem)
+           g.smem, patches, *kinds_array(kinds), g.ring)
     return g, kinds_array(kinds), (ctypes.c_int * len(geo))(*geo)
 
 
@@ -1426,45 +1622,52 @@ def residual_restrict_batch(
     contiguous, e.g. its own parent's covered part) or a new tensor:
     returns the P restricted residuals. CUDA tensors go to the kernel, ONE
     launch for up to BATCH_MAX patches (mgk_residual_batch, blocks over the
-    patches' tiles and segments); CPU tensors take the plain version."""
-    kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx)
-    shape = tuple(us[0].shape)
+    patches' tiles and segments; the operands checked by cheap queries,
+    check_batch_args, the pointers and strides in one table each); CPU
+    tensors take the plain version."""
+    u0 = us[0]
+    shape = tuple(u0.shape)
     if len(shape) != 3 or any(n % 2 for n in shape):
         raise ValueError(f"residual_restrict_batch: every axis must be "
                          f"even, got {shape}")
     half = tuple(n // 2 for n in shape)
     outs = [None] * len(us) if outs is None else list(outs)
+    dt, dev = u0.dtype, u0.device
     for o in outs:
-        if o is not None and (tuple(o.shape) != half or o.dtype != us[0].dtype
-                              or o.device != us[0].device):
+        if o is not None and (o.shape != half or o.dtype is not dt
+                              or o.device != dev):
             raise ValueError(
                 f"residual_restrict_batch: out {tuple(o.shape)} {o.dtype} "
-                f"{o.device} for {half} {us[0].dtype} {us[0].device}")
-    if us[0].device.type == "cpu":
-        rcs = residual_restrict_batch_plain(us, rhss, as_, **kw)
+                f"{o.device} for {half} {dt} {dev}")
+    if dev.type == "cpu":
+        rcs = residual_restrict_batch_plain(us, rhss, as_, kinds=kinds,
+                                            rho=rho, alpha=alpha, beta=beta,
+                                            dx=dx)
         return [rc if o is None else o.copy_(rc) for rc, o in zip(rcs, outs)]
     check_batch_args("residual_restrict_batch", us, rhss, as_)
-    outs = [us[0].new_empty(half) if o is None else o for o in outs]
-    for o in outs:
-        if o.stride(2) != 1 or min(o.stride()) < 0:
+    for o in outs:  # the caller's (new ones are contiguous)
+        if o is not None and (o.stride(2) != 1 or min(o.stride()) < 0):
             raise ValueError(f"residual_restrict_batch: out strides "
                              f"{o.stride()} (z contiguous)")
-    u0 = us[0]
+    outs = [u0.new_empty(half) if o is None else o for o in outs]
+    index, isz = u0.get_device(), u0.element_size()
+    lib = cuda_ext.lib()
     for c in range(0, len(us), BATCH_MAX):
-        part = slice(c, c + BATCH_MAX)
-        n = len(us[part])
-        _, kinds_c, geo = _residual_launch(
-            shape, u0.element_size(), kinds, True, False,
-            _batch_aligned(us[part], rhss[part], as_[part]),
-            u0.device.index, n)
-        strides = lambda ax: (ctypes.c_longlong * n)(  # noqa: E731
-            *(o.stride(ax) for o in outs[part]))
+        pu, pr, pa, po = ((us, rhss, as_, outs) if len(us) <= BATCH_MAX else
+                          (us[c:c + BATCH_MAX], rhss[c:c + BATCH_MAX],
+                           as_[c:c + BATCH_MAX], outs[c:c + BATCH_MAX]))
+        n = len(pu)
+        table, ptrs = _table(pu, pr, pa, po)
+        _, _, geo = _residual_launch(
+            shape, isz, kinds, True, False,
+            not any(p % 16 for p in ptrs[:3 * n]), index, n)
+        strides = array.array("q", [o.stride(0) for o in po]
+                              + [o.stride(1) for o in po])
         kernel_counts.count_launch("residual_restrict_batch", 1)
-        err = on_stream(cuda_ext.lib().mgk_residual_batch, u0,
-                        _table(us[part]), _table(rhss[part]),
-                        _table(as_[part]), _table(outs[part]), strides(0),
-                        strides(1), n, kinds_c, float(rho), float(alpha),
-                        float(beta), float(dx), geo)
+        err = on_stream(lib.mgk_residual_batch, u0,
+                         table.buffer_info()[0], strides.buffer_info()[0],
+                         float(rho), float(alpha), float(beta), float(dx),
+                         geo)
         cuda_ext.check(err, "residual_restrict_batch")
     return outs
 

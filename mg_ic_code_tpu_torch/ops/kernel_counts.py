@@ -18,6 +18,10 @@ one launch (csrc/multisweep.cu, csrc/multisweep_halo.cu);
 gsrb_relax_batch and residual_restrict_batch, the batched forms of
 gsrb_relax and residual_restrict (the same kernels: the same-shape sibling
 patches of a batch group in one launch, up to fused_sweeps.BATCH_MAX);
+gsrb_relax_batch_march, the launches of fused_sweeps.gsrb_relax_batch that
+take its batch march (csrc/gsrb_batch_march.cu: a group whose patches
+overflow the L2), counted apart from the batched gsrb_relax's (the plain
+version of both is gsrb_relax_batch's);
 gsrb_relax_bf16, tower_down_bf16, tower_up_bf16, wavefront_relax_bf16,
 multisweep_relax_bf16, multisweep_relax_halo_bf16 and
 multisweep_relax_tiled_pre_bf16, the same kernels in the bf16 tier
@@ -42,7 +46,8 @@ processes add up to those of one process driving the same mesh.
 KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
            "tower_up", "wavefront_relax", "multisweep_relax",
            "multisweep_relax_halo", "multisweep_relax_tiled_pre",
-           "gsrb_relax_batch", "residual_restrict_batch", "gsrb_relax_bf16",
+           "gsrb_relax_batch", "gsrb_relax_batch_march",
+           "residual_restrict_batch", "gsrb_relax_bf16",
            "tower_down_bf16", "tower_up_bf16", "wavefront_relax_bf16",
            "multisweep_relax_bf16", "multisweep_relax_halo_bf16",
            "multisweep_relax_tiled_pre_bf16")

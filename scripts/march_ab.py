@@ -95,7 +95,10 @@ MARCH = ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
          # the tree has them
          "wavefront_relax_bf16", "multisweep_relax_bf16",
          "multisweep_relax_halo_bf16", "multisweep_relax_tiled_pre_bf16",
-         "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16")
+         "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16",
+         # the batched forms at the timed BATCH_CASES, where the tree has
+         # them
+         "gsrb_relax_batch", "residual_restrict_batch")
 TOWERS = ("tower_down", "tower_up")
 
 # Run in every tree after its chip_smoke module is imported: wraps the tower
@@ -506,7 +509,10 @@ def march_times(rec: dict) -> dict:
     """{"<kernel> <case>": ms} of the timed f32 march cases (and of the bf16
     tier's, under the kernel's _bf16 name), and
     {"<kernel> <case> device_ms": ms} where the record has the device's own
-    time (the towers, gsrb_relax)."""
+    time (the towers, gsrb_relax); for the batched kernels also the group
+    launch's host time ("... host_us"), each form's device and host time
+    ("... device_ms <form>", "... host_us <form>") and one single call's
+    host time ("... single_host_us")."""
     out = {}
     for c in rec["checks"]:
         if c.get("dtype") != "float32":
@@ -517,6 +523,13 @@ def march_times(rec: dict) -> dict:
                 out[f"{name} {c['case']}"] = r["ms"]
             if r.get("device_ms") is not None:
                 out[f"{name} {c['case']} device_ms"] = r["device_ms"]
+            if name.endswith("_batch") and r.get("ms") is not None:
+                for k in ("host_us", "group_host_us", "single_host_us"):
+                    if r.get(k) is not None:
+                        out[f"{name} {c['case']} {k}"] = r[k]
+                for k in ("device_ms", "host_us"):
+                    for form, v in r.get(f"forms_{k}", {}).items():
+                        out[f"{name} {c['case']} {k} {form}"] = v
             for form, ms in r.get("whole_level_relax_ms", {}).items():
                 out[f"{name} {c['case']} whole_level_{form}"] = ms
     return out

@@ -700,19 +700,23 @@ def test_cuda_residual_restrict_matches_plain(case, dt):
 
 # the batched forms (a batch group's same-shape patches in one launch):
 # (shape, kinds, the patches' lo): a slab-form pair, three patches in the
-# grid form at odd parity, the 144^3 pair in the serial form (two patches'
-# arrays over the L2)
+# grid form at odd parity, the 144^3 pair in the march form (two patches'
+# arrays over the L2; the serial form too), three 144^3 patches at odd
+# parity in the march form
 BATCH_CASES = [
     ((72, 80, 80), ((C, C),) * 3, ((376, 472, 472), (376, 552, 472))),
     ((48, 48, 48), KINDS, ((1, 0, 0), (49, 0, 0), (1, 48, 2))),
     ((144, 144, 144), ((C, C),) * 3, ((1568, 1976, 1976), (1568, 2120, 1976))),
+    ((144, 144, 144), ((C, C),) * 3,
+     ((1569, 1976, 1976), (1569, 2120, 1976), (1569, 2264, 1976))),
 ]
 
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("case", BATCH_CASES,
-                         ids=["pair_slab", "three_odd", "pair_144"])
+                         ids=["pair_slab", "three_odd", "pair_144",
+                              "three_144_odd"])
 def test_cuda_batched_kernels_match_plain_and_single(case, dt):
     """gsrb_relax_batch and residual_restrict_batch in every form
     gsrb_geometry takes for the batch: each patch within the plain
@@ -733,13 +737,15 @@ def test_cuda_batched_kernels_match_plain_and_single(case, dt):
     for form in tfs.GSRB_FORMS:
         try:
             tfs.gsrb_geometry(shape, us[0].element_size(), False, kinds, cap,
-                              form, patches=len(los))
+                              form, patches=len(los), nsweeps=4)
         except ValueError:
             continue
         kernel_counts.reset()
         out = tfs.gsrb_batch_launch(us, rhss, as_, nsweeps=4, los=los,
                                     form=form, **kw)
-        assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax_batch"] == 1
+        name = ("gsrb_relax_batch_march" if form == "march"
+                else "gsrb_relax_batch")
+        assert kernel_counts.DEVICE_LAUNCHES[name] == 1
         for o, r, s in zip(out, ref, single):
             assert float((o - r).abs().max()) <= rtol * float(
                 r.abs().max())
