@@ -371,6 +371,12 @@ SOURCES = {
     "multisweep_relax_tiled_pre_bf16": (
         "mg_ic_code_tpu_torch/csrc/multisweep_halo.cu",
         "mg_ic_code_tpu/ops/fused_sweeps.py:1540"),
+    # the one-sweep and one-pass entry points (no rung of the solver calls
+    # them: the sweep_entry_points run drives them as a caller would)
+    "gsrb_full_sweep": ("mg_ic_code_tpu_torch/csrc/gsrb_sweep.cu",
+                        "mg_ic_code_tpu/ops/pallas_kernels.py:266"),
+    "gsrb_half_sweep": ("mg_ic_code_tpu_torch/csrc/gsrb_sweep.cu",
+                        "mg_ic_code_tpu/ops/pallas_kernels.py:368"),
 }
 # the forms of a kernel with more than one C entry point: form -> (source,
 # entry point)
@@ -378,14 +384,18 @@ ENTRY_POINTS = {
     "gsrb_relax_batch": {
         form: ("mg_ic_code_tpu_torch/csrc/gsrb_relax.cu",
                "mgk_gsrb_relax_batch") for form in ("grid", "slab", "serial")},
+    "gsrb_full_sweep": {
+        "march": ("mg_ic_code_tpu_torch/csrc/gsrb_sweep.cu",
+                  "mgk_gsrb_sweep"),
+        "grid": ("mg_ic_code_tpu_torch/csrc/gsrb_relax.cu",
+                 "mgk_gsrb_relax")},
+    "gsrb_half_sweep": {
+        "stream": ("mg_ic_code_tpu_torch/csrc/gsrb_sweep.cu",
+                   "mgk_gsrb_sweep")},
 }
 # rows of the TPU kernel table (PERF.md) that one Hopper kernel serves
 TPU_KERNELS = {
-    # the last two through the one-sweep and one-pass entry points
-    # (fused_sweeps.gsrb_full_sweep / gsrb_half_sweep)
-    "gsrb_relax": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032",
-                   "mg_ic_code_tpu/ops/pallas_kernels.py:266",
-                   "mg_ic_code_tpu/ops/pallas_kernels.py:368"],
+    "gsrb_relax": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
     "residual": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
                  "mg_ic_code_tpu/ops/pallas_kernels.py:389"],
     "residual_restrict": ["mg_ic_code_tpu/ops/fused_sweeps.py:1055",
@@ -413,6 +423,8 @@ TPU_KERNELS = {
     "gsrb_relax_bf16": ["mg_ic_code_tpu/ops/fused_sweeps.py:1032"],
     "tower_down_bf16": ["mg_ic_code_tpu/ops/coarse_tower.py:206"],
     "tower_up_bf16": ["mg_ic_code_tpu/ops/coarse_tower.py:234"],
+    "gsrb_full_sweep": ["mg_ic_code_tpu/ops/pallas_kernels.py:266"],
+    "gsrb_half_sweep": ["mg_ic_code_tpu/ops/pallas_kernels.py:368"],
 }
 # the tier of a march serves the rows of its f32 form
 for _name in ("wavefront_relax", "multisweep_relax", "multisweep_relax_halo",
@@ -1649,53 +1661,105 @@ def check_march_bf16(name: str, case) -> dict:
     return rec
 
 
-def check_sweep_entry_points(dtype) -> dict:
-    """gsrb_full_sweep and gsrb_half_sweep (the one-sweep and one-pass entry
-    points of the gsrb_relax pass kernel) against their plain versions, on
-    a box whose sum(lo) is odd, and the full sweep against two half sweeps
-    and against gsrb_relax with nsweeps = 1."""
-    shape, kinds, lo = (96, 80, 80), ALL_C, (49, 40, 40)
-    f = level_fields(shape, dtype, seed=7, with_b=True)
+# the one-sweep and one-pass entry points' cases: (id, shape, kinds, lo,
+# with_b, timed)
+SWEEP_CASES = [
+    ("sweep_96x80x80_odd_lo_b", (96, 80, 80), ALL_C, (49, 40, 40), True,
+     True),
+    ("sweep_96x80x80_odd_lo", (96, 80, 80), ALL_C, (49, 40, 40), False,
+     True),
+    ("sweep_256_P", (256, 256, 256), ALL_P, (0, 0, 0), False, True),
+    ("sweep_4_P", (4, 4, 4), ALL_P, (0, 0, 0), False, True),
+    ("sweep_37x30x45_yP_b", (37, 30, 45), ((D, N), (P, P), (C, D)),
+     (1, 0, 0), True, False),
+    ("sweep_24x18x6", (24, 18, 6), ALL_D, (0, 1, 0), False, False),
+]
+# the case whose f32 calls are the sweep_entry_points run (the entry points
+# driven with the counters set to 0 just before, as a caller would call
+# them: the full sweep in its march, the half sweep in its stream), which
+# the kernels line reports, and the counts of that run
+SWEEP_RUN_CASE = "sweep_256_P"
+SWEEP_COUNTS: dict = {}
+
+
+def check_sweep_entry_points(case, dtype) -> dict:
+    """gsrb_full_sweep and gsrb_half_sweep (csrc/gsrb_sweep.cu: one launch
+    a call, out of place) in the form each takes, against their plain
+    versions; the caller's u untouched, one launch a call, the full sweep
+    bit for bit two half sweeps and gsrb_relax with nsweeps = 1; timed:
+    device, host and batched times beside the byte bound (each array read
+    once, out written once). SWEEP_RUN_CASE in f32 is also the
+    sweep_entry_points run of the kernels line."""
+    cid, shape, kinds, lo, with_b, timed = case
+    f = level_fields(shape, dtype, seed=7, with_b=with_b)
     kw = dict(kinds=kinds, rho=2.0, alpha=1.0, beta=-1.0, dx=0.37, lo=lo)
     args = (f["u"], f["rhs"], f["a"], f["b"])
-    rec = {"case": "sweep_entry_points_odd_lo", "shape": list(shape),
-           "dtype": str(dtype)[6:], "tolerance": TOL[dtype]}
+    u_in = f["u"].clone()
+    rec = {"case": cid, "shape": list(shape), "dtype": str(dtype)[6:],
+           "with_b": with_b, "tolerance": TOL[dtype]}
+    first = cid == SWEEP_RUN_CASE and dtype == torch.float32
+    if first:
+        kernel_counts.reset()
     before = dict(kernel_counts.DEVICE_LAUNCHES)
     full = fs.gsrb_full_sweep(*args, **kw)
     halves = [fs.gsrb_half_sweep(*args, color=c, **kw) for c in (0, 1)]
     torch.cuda.synchronize()
-    check(kernel_counts.DEVICE_LAUNCHES["gsrb_relax"]
-          == before["gsrb_relax"] + 4, "sweep entry points: launch count")
+    if first:
+        SWEEP_COUNTS["sweep_entry_points"] = kernel_counts.snapshot()
+    got = {k: kernel_counts.DEVICE_LAUNCHES[k] - before[k]
+           for k in kernel_counts.KERNELS}
+    check(got == {k: {"gsrb_full_sweep": 1, "gsrb_half_sweep": 2}.get(k, 0)
+                  for k in got}, f"{cid}: launches {got}")
+    check(torch.equal(f["u"], u_in), f"{cid}: input modified")
     err, rel = rel_err(full, fs.gsrb_full_sweep_plain(*args, **kw))
-    rec["gsrb_full_sweep"] = {"max_abs_err": err, "rel_err": rel}
-    check(rel <= TOL[dtype], f"gsrb_full_sweep {dtype}: rel err {rel}")
+    isz = f["u"].element_size()
+    geoms = {full_: fs._sweep_launch(tuple(shape), isz, with_b, kinds,
+                                     f["u"].get_device(), full_)[0]
+             for full_ in (True, False)}
+    rec["gsrb_full_sweep"] = {"max_abs_err": err, "rel_err": rel,
+                              **geoms[True]._asdict()}
+    check(rel <= TOL[dtype] and bool(torch.isfinite(full).all()),
+          f"gsrb_full_sweep {cid} {dtype}: rel err {rel}")
     worst = (0.0, 0.0)
     for c in (0, 1):
         ref = fs.gsrb_half_sweep_plain(*args, color=c, **kw)
         err, rel = rel_err(halves[c], ref)
         worst = max(worst, (rel, err))
-        check(rel <= TOL[dtype],
-              f"gsrb_half_sweep colour {c} {dtype}: rel err {rel}")
+        check(rel <= TOL[dtype] and bool(torch.isfinite(halves[c]).all()),
+              f"gsrb_half_sweep {cid} colour {c} {dtype}: rel err {rel}")
         # a colour pass leaves the other colour's cells untouched
         check(int((halves[c] != f["u"]).sum()) <= (full.numel() + 1) // 2,
-              f"gsrb_half_sweep colour {c}: touched both colours")
+              f"gsrb_half_sweep {cid} colour {c}: touched both colours")
     check(not torch.equal(halves[0], halves[1]), "half sweeps: same colour")
-    rec["gsrb_half_sweep"] = {"max_abs_err": worst[1], "rel_err": worst[0]}
+    rec["gsrb_half_sweep"] = {"max_abs_err": worst[1], "rel_err": worst[0],
+                              **geoms[False]._asdict()}
     two = fs.gsrb_half_sweep(halves[0], *args[1:], color=1, **kw)
     one = fs.gsrb_relax(*args, nsweeps=1, **kw)
     check(torch.equal(full, two) and torch.equal(full, one),
-          "gsrb_full_sweep is not two half sweeps / gsrb_relax(nsweeps=1)")
-    isz, ncells = f["u"].element_size(), full.numel()
+          f"{cid}: gsrb_full_sweep is not two half sweeps / "
+          f"gsrb_relax(nsweeps=1)")
+    check(torch.equal(f["u"], u_in), f"{cid}: input modified")
+    if not timed:
+        return rec
+    ncells = full.numel()
     for name, fn, plain, passes in (
             ("gsrb_full_sweep", lambda: fs.gsrb_full_sweep(*args, **kw),
              lambda: fs.gsrb_full_sweep_plain(*args, **kw), 2),
             ("gsrb_half_sweep",
              lambda: fs.gsrb_half_sweep(*args, color=0, **kw),
              lambda: fs.gsrb_half_sweep_plain(*args, color=0, **kw), 1)):
-        b, by = bound_ms(level_bytes(ncells, isz, 5), passes * 16.0 * ncells)
-        rec[name].update(ms=time_ms(fn), plain_ms=time_ms(plain, reps=10,
-                                                           warmup=1),
-                         bound_ms=b, bound_by=by)
+        b, by = bound_ms(level_bytes(ncells, isz, 5 if with_b else 4),
+                         passes * 16.0 * ncells / 2)
+        dev = device_ms(fn)
+        # the host time beside one gsrb_relax call's, taken in turns
+        mine, relax = host_us_pair(fn, lambda: fs.gsrb_relax(
+            *args, nsweeps=1, **kw))
+        rec[name].update(ms=time_ms(fn), device_ms=dev, host_us=host_us(fn),
+                         host_us_in_turns=mine,
+                         gsrb_relax_host_us_in_turns=relax,
+                         wall_ms=wall_ms(fn),
+                         plain_ms=time_ms(plain, reps=6, warmup=1),
+                         bound_ms=b, bound_by=by, reached=b / dev)
     return rec
 
 
@@ -2324,7 +2388,9 @@ def phase_kernels() -> dict:
                 if dtype == torch.float32 and case[0] not in BF16_MARCH_SKIP:
                     checks.append(check_march_bf16(name, case))
                     torch.cuda.empty_cache()
-        checks.append(check_sweep_entry_points(dtype))
+        for case in SWEEP_CASES:
+            checks.append(check_sweep_entry_points(case, dtype))
+            torch.cuda.empty_cache()
         for case in SHARD_CASES:
             checks.append(check_shard_case(case, dtype))
             torch.cuda.empty_cache()
@@ -2408,7 +2474,8 @@ ONE_LAUNCH = TOWERS + ("gsrb_relax", "residual", "residual_restrict",
                        "gsrb_relax_bf16", "tower_down_bf16", "tower_up_bf16",
                        "wavefront_relax_bf16", "multisweep_relax_bf16",
                        "multisweep_relax_halo_bf16",
-                       "multisweep_relax_tiled_pre_bf16")
+                       "multisweep_relax_tiled_pre_bf16",
+                       "gsrb_full_sweep", "gsrb_half_sweep")
 
 
 def check_one_launch(counts: dict, what: str) -> None:
@@ -5134,6 +5201,10 @@ PATH_CASES["processes"] = dict(PATH_CASES["sharded_x"])
 PATH_CASES["bf16_processes"] = dict(PATH_CASES["bf16_sharded_x"])
 # the processes phase's launches, summed over its processes
 PROCESS_COUNTS: dict = {}
+# the one-sweep and one-pass entry points, which no solver path calls: the
+# kernels phase drives them (check_sweep_entry_points, SWEEP_COUNTS)
+PATH_CASES["sweep_entry_points"] = {
+    "gsrb_full_sweep": SWEEP_RUN_CASE, "gsrb_half_sweep": SWEEP_RUN_CASE}
 # the path whose run gives a kernel's top-level launches
 MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
@@ -5146,7 +5217,9 @@ MAIN_PATH = {"multisweep_relax": "periodic",
              "wavefront_relax_bf16": "bf16_scale7",
              "multisweep_relax_bf16": "bf16_periodic",
              "multisweep_relax_halo_bf16": "bf16_sharded_x",
-             "multisweep_relax_tiled_pre_bf16": "bf16_sharded_pencil"}
+             "multisweep_relax_tiled_pre_bf16": "bf16_sharded_pencil",
+             "gsrb_full_sweep": "sweep_entry_points",
+             "gsrb_half_sweep": "sweep_entry_points"}
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_us")
 
@@ -5173,7 +5246,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                 "bf16_tier", "bf16_scale7", "bf16_periodic",
                 "bf16_sharded_x", "bf16_sharded_pencil")},
             "processes": PROCESS_COUNTS.get("processes"),
-            "bf16_processes": PROCESS_COUNTS.get("bf16_processes")}
+            "bf16_processes": PROCESS_COUNTS.get("bf16_processes"),
+            "sweep_entry_points": SWEEP_COUNTS.get("sweep_entry_points")}
 
     def measured(name: str, path: str) -> dict:
         if kernels is None:
@@ -5202,7 +5276,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                 # launch's form and blocks, where the kernel has forms; the
                 # f32 form's times beside the bf16 tier's
                 **{k: rec[k] for k in ("nsweeps", "form", "blocks", "f32_ms",
-                                       "f32_device_ms", "f32_host_us")
+                                       "f32_device_ms", "f32_host_us",
+                                       "wall_ms", "reached")
                    if k in rec}}
             if run and name in run.get("by_shape", {}):
                 paths[path]["calls_by_shape"] = run["by_shape"][name]
@@ -5228,15 +5303,6 @@ def kernels_line(kernels: dict | None, solve: dict | None,
             rows[-1]["entry_points"] = {
                 form: {"source": src, "entry": entry}
                 for form, (src, entry) in forms.items()}
-    # the one-sweep and one-pass entry points of the gsrb_relax pass kernel
-    # (f32, the odd-lo box), each against its plain version
-    if kernels is not None:
-        for c in kernels["checks"]:
-            if (c["case"] == "sweep_entry_points_odd_lo"
-                    and c["dtype"] == "float32"):
-                rows[0]["entry_points"] = {
-                    k: dict(c[k], shape=c["shape"])
-                    for k in ("gsrb_full_sweep", "gsrb_half_sweep")}
     return {"kernels": rows}
 
 

@@ -41,8 +41,8 @@
 //  * Each cell's update is gsrb_update_row's (csrc/gsrb_device.cuh), every
 //    operation written as an intrinsic in the order and with the
 //    contractions that its compiled form has on sm_90a (the SASS of
-//    gsrb_pass_kernel<float>, which the grid and slab forms agree with bit
-//    for bit): a = alpha a_cell rounded, diag = a + 6 beta/dx^2 rounded (not
+//    the one-pass kernel of the time, gsrb_pass_kernel<float>, which the
+//    grid and slab forms agree with bit for bit): a = alpha a_cell rounded, diag = a + 6 beta/dx^2 rounded (not
 //    fused), lambda = 1 / diag, P = lambda beta/dx^2, per axis acc =
 //    fma(up, P wa, acc), fma(um, P wb, acc), k_uc = fma(P, c_sum - 6,
 //    fma(-a, lambda, 1)), and the new value

@@ -1,6 +1,6 @@
-// Device functions shared by every GSRB kernel (csrc/gsrb_relax.cu: the
-// pass kernel and both one-launch forms; csrc/tower.cu: the towers' colour
-// passes): the folded red-black Gauss-Seidel update of ONE cell, split into
+// Device functions shared by every GSRB kernel (csrc/gsrb_relax.cu: both
+// one-launch forms; csrc/gsrb_sweep.cu: the one-sweep and one-pass kernels;
+// csrc/tower.cu: the towers' colour passes): the folded red-black Gauss-Seidel update of ONE cell, split into
 // the terms of its (i, j) row (row_fold) and the rest (gsrb_update_row), so
 // that a kernel that updates several cells of one z row works the row out
 // once; every caller computes the same expressions in the same order.

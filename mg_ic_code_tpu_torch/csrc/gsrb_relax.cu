@@ -41,9 +41,10 @@
 //    Point-to-point flags between neighbouring blocks in place of the grid
 //    barrier were slower in every form measured (PERF.md §6), as were
 //    1024 threads a block: the update is issue-bound.
-// Both forms compute exactly what the pass kernel below computes, with the
-// same arithmetic in the same order (gsrb_update_row): gsrb_full_sweep ==
-// gsrb_relax(nsweeps = 1) bitwise.
+// Both forms compute every cell with gsrb_update_row's arithmetic in its
+// order, as the one-sweep and one-pass kernels do (csrc/gsrb_sweep.cu):
+// gsrb_full_sweep == gsrb_relax(nsweeps = 1) bitwise. At nsweeps = 1 the
+// grid form is gsrb_full_sweep's "grid" form.
 //
 // The bf16 tier (smoother_precision = bfloat16; mgk_gsrb_relax's `compute`
 // 1, f32 levels with constant b): the same two forms with the colour passes'
@@ -54,8 +55,7 @@
 // state is rounded where it enters: the grid form's first pass rounds every
 // cell it reads from the caller's u (both colours), the slab form its window
 // once loaded. Storage stays f32 (bf16 values in f32: no halved tile, no
-// packed pairs); the f32 and f64 instantiations are the ones without it. The pass kernel (one launch per colour
-// pass) is the entry point of gsrb_full_sweep / gsrb_half_sweep.
+// packed pairs); the f32 and f64 instantiations are the ones without it.
 //
 // A batch (mgk_gsrb_relax_batch: the same-shape sibling patches of an AMR
 // depth, which the JAX package sweeps as one vmapped XLA body): P levels of
@@ -109,64 +109,6 @@ LevelParams<T> make_level_params(int nx, int ny, int nz, const int* kinds,
 
 template LevelParams<float> make_level_params<float>(int, int, int, const int*, double, double, double, double);
 template LevelParams<double> make_level_params<double>(int, int, int, const int*, double, double, double, double);
-
-template <typename T>
-__global__ void gsrb_pass_kernel(T* u, const T* __restrict__ rhs,
-                                 const T* __restrict__ a,
-                                 const T* __restrict__ b,
-                                 const LevelParams<T> p, const int par) {
-  // thread -> (i, j, kk): only the cells this pass updates are visited
-  const int hz = (p.nz + 1) >> 1;
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= (long long)p.ny * hz) return;
-  const int i = blockIdx.y;
-  const int j = (int)(m / hz);
-  const int kk = (int)(m - (long long)j * hz);
-  // the pass updates cells with (i + j + k + par) even
-  const int k = 2 * kk + ((i + j + par) & 1);
-  if (k >= p.nz) return;
-
-  const long long idx = ((long long)i * p.ny + j) * p.nz + k;
-  u[idx] = gsrb_cell<T, long long>([u](long long q) { return u[q]; }, a[idx],
-                                   rhs[idx], b, p, i, j, k, idx);
-}
-
-// One colour pass in place on u: the cells with (i + j + k + par) even are
-// updated.
-template <typename T>
-static cudaError_t launch_gsrb_pass(T* u, const T* rhs, const T* a,
-                                    const T* b, const LevelParams<T>& p,
-                                    int par, cudaStream_t stream) {
-  const int threads = 256;
-  const long long per_plane = (long long)p.ny * ((p.nz + 1) >> 1);
-  dim3 grid((unsigned)((per_plane + threads - 1) / threads), (unsigned)p.nx);
-  gsrb_pass_kernel<T><<<grid, threads, 0, stream>>>(u, rhs, a, b, p,
-                                                    ((par % 2) + 2) % 2);
-  return cudaGetLastError();
-}
-
-// One colour pass in place on u: the cells with (i + j + k + par) even are
-// updated, par = (sum(lo) + colour) & 1. The entry point of the one-pass and
-// one-sweep forms (the TPU kernels mg_ic_code_tpu/ops/pallas_kernels.py:
-// gsrb_half_sweep and :gsrb_full_sweep, which is two of these).
-extern "C" int mgk_gsrb_pass(void* u, const void* rhs, const void* a,
-                             const void* b, int is_double, int nx, int ny,
-                             int nz, const int* kinds, double rho,
-                             double alpha, double beta, double dx, int par,
-                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (is_double) {
-    auto p = make_level_params<double>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-    return (int)launch_gsrb_pass<double>((double*)u, (const double*)rhs,
-                                         (const double*)a, (const double*)b,
-                                         p, par, st);
-  }
-  auto p = make_level_params<float>(nx, ny, nz, kinds, rho, alpha, beta, dx);
-  return (int)launch_gsrb_pass<float>((float*)u, (const float*)rhs,
-                                      (const float*)a, (const float*)b, p,
-                                      par, st);
-}
-
 
 extern __shared__ __align__(16) unsigned char relax_smem[];
 

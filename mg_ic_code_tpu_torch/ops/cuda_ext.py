@@ -32,7 +32,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("gsrb_relax.cu", "residual.cu", "tower.cu", "multisweep.cu",
-           "multisweep_halo.cu", "gsrb_batch_march.cu")
+           "multisweep_halo.cu", "gsrb_batch_march.cu", "gsrb_sweep.cu")
 HEADERS = ("mg_kernels.h", "gsrb_device.cuh", "gsrb_walk.cuh",
            "residual_device.cuh", "multisweep_march.cuh")
 NVCC_FLAGS = (
@@ -131,10 +131,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mgk_gsrb_batch_march_capacity.argtypes = [ci, pi]
     lib.mgk_gsrb_capacity.restype = ci
     lib.mgk_gsrb_capacity.argtypes = [ci, ci, ci, pi]
-    lib.mgk_gsrb_pass.restype = ci
-    lib.mgk_gsrb_pass.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, vp,
-    ]
+    lib.mgk_gsrb_sweep.restype = ci
+    lib.mgk_gsrb_sweep.argtypes = [vp, vp, vp, vp, vp, pi, cd, cd, cd, cd,
+                                   ci, vp]
+    lib.mgk_gsrb_sweep_capacity.restype = ci
+    lib.mgk_gsrb_sweep_capacity.argtypes = [ci, ci, ci, ci, ci, pi]
     lib.mgk_residual.restype = ci
     cll = ctypes.c_longlong
     lib.mgk_residual.argtypes = [

@@ -35,9 +35,11 @@ Beside them:
     `multisweep_relax_tiled` (one function in three TPU tilings), and the
     smoother of levels with periodic x that are too big for the L2 cache.
     `ops/wavefront.wavefront_relax` is the same kernel with x open.
-  * `gsrb_full_sweep` / `gsrb_half_sweep`: one sweep / one colour pass
-    through the `gsrb_relax` pass kernel (the JAX package's
-    `pallas_kernels.gsrb_full_sweep` / `gsrb_half_sweep`).
+  * `gsrb_full_sweep` / `gsrb_half_sweep` (csrc/gsrb_sweep.cu): one sweep
+    / one colour pass in ONE launch, out of place (the JAX package's
+    `pallas_kernels.gsrb_full_sweep` / `gsrb_half_sweep`): a half sweep one
+    coalesced streaming pass, a full sweep red and black in one march along
+    x (or gsrb_relax's grid form), in the form `sweep_geometry` picks.
 
 All work on any level shape (the card has no residency limit) in f32 or
 f64, with the homogeneous ghost rules of the six faces folded into per-cell
@@ -297,7 +299,7 @@ def gsrb_full_sweep_plain(
     beta: float, dx: float, lo,
 ):
     """The plain PyTorch version of `gsrb_full_sweep`."""
-    kernel_counts.PLAIN_CALLS["gsrb_relax"] += 1
+    kernel_counts.PLAIN_CALLS["gsrb_full_sweep"] += 1
     return gsrb_sweeps_folded(
         u, rhs, a, b, nsweeps=1, kinds=kinds, rho=rho, alpha=alpha,
         beta=beta, dx=dx, lo=lo,
@@ -309,7 +311,7 @@ def gsrb_half_sweep_plain(
     beta: float, dx: float, lo, color: int,
 ):
     """The plain PyTorch version of `gsrb_half_sweep`."""
-    kernel_counts.PLAIN_CALLS["gsrb_relax"] += 1
+    kernel_counts.PLAIN_CALLS["gsrb_half_sweep"] += 1
     return gsrb_sweeps_folded(
         u, rhs, a, b, nsweeps=1, kinds=kinds, rho=rho, alpha=alpha,
         beta=beta, dx=dx, lo=lo, colors=(int(color),),
@@ -889,25 +891,237 @@ def on_stream(fn, t, *args):
         return fn(*args, _raw_stream(idx))
 
 
-def _gsrb_passes(name: str, u, rhs, a, b, colors, *, kinds: FaceKinds,
-                 rho: float, alpha: float, beta: float, dx: float, lo):
-    """The colour passes `colors` on a copy of u, one launch of the
-    `gsrb_relax` pass kernel each (C entry point mgk_gsrb_pass)."""
+# The one-sweep and one-pass entry points (csrc/gsrb_sweep.cu): threads per
+# block of the stream form (kSweepThreads) and of the march, the forms' codes
+# of mgk_gsrb_sweep (SweepForm: a half sweep's stream, a full sweep's march;
+# the full sweep's "grid" form is gsrb_relax's, mgk_gsrb_relax at nsweeps =
+# 1), the shared memory a march block may take (the H100's 227 KB a block),
+# the tile heights the march is offered (sweep_tile), and the fewest planes
+# of an x segment.
+SWEEP_THREADS = 256
+SWEEP_MARCH_THREADS = 512
+SWEEP_FORMS = {"stream": 0, "march": 1}
+SWEEP_SMEM = 232448
+SWEEP_TILE_ROWS = (32, 24, 16, 8, 4, 2)
+SWEEP_MIN_SEG = 4
+
+
+class SweepGeometry(NamedTuple):
+    """The launch of one gsrb_full_sweep / gsrb_half_sweep call
+    (sweep_geometry)."""
+    form: str       # "stream" (half), "march" or "grid" (full)
+    ty: int = 0     # the march: rows of a y tile (the last takes the rest)
+    xseg: int = 0   # the march: planes of an x segment (the last the rest)
+    nseg: int = 0   # the march: x segments
+    smem: int = 0   # the march: bytes of shared memory a block
+    blocks: int = 0  # blocks of the launch (stream, march)
+    threads: int = 0  # the march: threads a block
+
+
+def sweep_smem(nz: int, ty: int, itemsize: int) -> int:
+    """Shared memory of a march block of ty rows: its ring of five u
+    planes (the four a step reads and one fetched ahead), each with two rows
+    beyond the tile on each side."""
+    return 5 * (ty + 4) * nz * itemsize
+
+
+def sweep_tile(ny: int, nz: int, itemsize: int) -> int | None:
+    """The march's tile height: of SWEEP_TILE_ROWS, the one whose tiles
+    compute the fewest rows, ceil(ny / ty) * (ty + 2) (red runs on a row
+    beyond each side; the taller on a tie), among those whose ring lets two
+    blocks share a multiprocessor (at most SWEEP_SMEM / 2), else among
+    those whose ring fits a block; None where none fits. On an H100 this is
+    16 rows at 256^3 (0.144 ms; 24, one block a multiprocessor, was
+    slower) and 24 at 960x144x144 (0.190 against 16's 0.206 and 32's
+    0.204: 144 rows in tiles of 32 leave one of 16)
+    (scripts/sweep_probe.py)."""
+    for most in (SWEEP_SMEM // 2, SWEEP_SMEM):
+        fits = [t for t in SWEEP_TILE_ROWS
+                if sweep_smem(nz, t, itemsize) <= most]
+        if fits:
+            return min(fits, key=lambda t: (-(-ny // t) * (t + 2), -t))
+    return None
+
+
+def sweep_segments(nx: int, tiles: int, capacity: int) -> tuple[int, int]:
+    """(nseg, xseg): the x segments of a march launch over `tiles` y tiles
+    that make one wave of the `capacity` blocks the card runs at once, at
+    most nx // SWEEP_MIN_SEG of them (at least one), xseg planes each but
+    the last, which takes what is left."""
+    want = max(1, min(max(nx // SWEEP_MIN_SEG, 1), round(capacity / tiles)))
+    length = -(-nx // want)
+    return -(-nx // length), length
+
+
+def sweep_geometry(shape, itemsize: int, kinds: FaceKinds, full: bool,
+                   capacity, form: str | None = None, ty: int | None = None,
+                   nseg: int | None = None,
+                   threads: int | None = None) -> SweepGeometry:
+    """The launch of gsrb_full_sweep (full) or gsrb_half_sweep on a level of
+    `shape`; `capacity(threads, smem)` gives the blocks of the march of
+    `threads` threads with smem bytes each that the card runs at once
+    (sweep_capacity). A half sweep: the "stream" form. A full sweep: the
+    "grid" form (gsrb_relax's at nsweeps = 1) where the level's four arrays
+    fit the L2 cache (exceeds_l2), else the "march" where a tile fits
+    SWEEP_SMEM, else "grid". On an H100 the march read 0.144 ms at 256^3 P
+    against the grid form's 0.232, 0.189 against 0.277 at 960x144x144, and
+    0.015 against 0.0105 at 96x80x80, where the grid form's second pass
+    reads each array from the L2 (scripts/sweep_probe.py; PERF.md). A full
+    sweep with an odd periodic axis raises (red writes in place in either
+    form, and across such a wrap a red cell reads a red neighbour: the
+    plain version reads its value before the pass). The march: sweep_tile's
+    tile height, SWEEP_MARCH_THREADS threads a block, the x segments of one
+    wave (sweep_segments). `form`, `ty`, `nseg`, `threads` ask for one (the
+    measurements do); a march that does not fit then raises."""
+    nx, ny, nz = (int(n) for n in shape)
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError(f"gsrb sweep: {nx * ny * nz} cells (below 2^31)")
+    if full and _odd_periodic_axis(shape, kinds):
+        raise ValueError(
+            f"gsrb_full_sweep: {tuple(shape)} has an odd periodic axis: the "
+            f"colours disagree across the wrap, where a kernel that writes "
+            f"a colour in place reads a cell its pass writes")
+    asked = form is not None
+    if form is None:
+        form = ("stream" if not full else
+                "march" if exceeds_l2(shape, itemsize) else "grid")
+    if form not in (("grid", "march") if full else ("stream",)):
+        raise ValueError(f"gsrb_{'full' if full else 'half'}_sweep: no "
+                         f"form {form!r}")
+    if form == "grid":
+        return SweepGeometry("grid")
+    if form == "stream":
+        items = nx * ny * -(-nz // 4)
+        return SweepGeometry("stream", blocks=-(-items // SWEEP_THREADS))
+    threads = SWEEP_MARCH_THREADS if threads is None else int(threads)
+    if threads % 32 or not 32 <= threads <= 512:
+        raise ValueError(f"gsrb_full_sweep: {threads} threads a block")
+    t = sweep_tile(ny, nz, itemsize) if ty is None else int(ty)
+    if t is None or sweep_smem(nz, t, itemsize) > SWEEP_SMEM:
+        if not asked:
+            return SweepGeometry("grid")
+        raise ValueError(f"gsrb_full_sweep: no march tile fits "
+                         f"{tuple(shape)}, itemsize {itemsize}")
+    smem = sweep_smem(nz, t, itemsize)
+    tiles = -(-ny // t)
+    if nseg is None:
+        segs, length = sweep_segments(nx, tiles,
+                                      int(capacity(threads, smem)))
+    else:
+        length = -(-nx // int(nseg))
+        segs = -(-nx // length)
+    return SweepGeometry("march", t, length, segs, smem, tiles * segs,
+                         threads)
+
+
+def sweep_blocks(shape, geom: SweepGeometry, kinds: FaceKinds):
+    """What each block of a march launch (block b: segment b // tiles, tile
+    b % tiles) covers, as csrc/gsrb_sweep.cu computes it: a dict of the
+    planes [x0, x1) and rows [y0, y1) it writes, the level rows of its u
+    ring and the level planes of its u ring's fetches in order (-1 past an
+    open face: not fetched), and its red planes (-1 past an open face: not
+    computed)."""
+    nx, ny, nz = (int(n) for n in shape)
+    px, py = (kinds[ax][0] == PERIODIC for ax in (0, 1))
+
+    def wrap(n, size, periodic):
+        if 0 <= n < size:
+            return n
+        return n % size if periodic else -1
+
+    tiles = -(-ny // geom.ty)
+    out = []
+    for blk in range(tiles * geom.nseg):
+        tile, seg = blk % tiles, blk // tiles
+        y0, x0 = tile * geom.ty, seg * geom.xseg
+        ty, x1 = min(geom.ty, ny - y0), min(nx, x0 + geom.xseg)
+        nsteps = x1 - x0 + 2
+        out.append({
+            "x": (x0, x1), "y": (y0, y0 + ty),
+            "u_rows": [wrap(y0 - 2 + r, ny, py) for r in range(ty + 4)],
+            "u_planes": [wrap(x0 - 2 + m, nx, px)
+                         for m in range(nsteps + 2)],
+            "red_planes": [wrap(x0 - 1 + s, nx, px)
+                           for s in range(nsteps)]})
+    return out
+
+
+def sweep_capacity(device, itemsize: int, form: str, per: int,
+                   threads: int, smem: int) -> int:
+    """Blocks of the sweep form's kernel (SWEEP_FORMS) of `threads` threads
+    with `smem` bytes of shared memory each that the CUDA device runs at
+    once (mgk_gsrb_sweep_capacity)."""
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = cuda_ext.lib().mgk_gsrb_sweep_capacity(
+            int(itemsize == 8), SWEEP_FORMS[form], int(per), int(threads),
+            int(smem), ctypes.byref(cap))
+    cuda_ext.check(err, "gsrb sweep capacity")
+    return cap.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_launch(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
+                  index: int, full: bool, form: str | None = None,
+                  ty: int | None = None, nseg: int | None = None,
+                  threads: int | None = None):
+    """(geometry, the C entry's geometry argument) of a gsrb_full_sweep
+    (full) or gsrb_half_sweep launch, kept per shape: mgk_gsrb_sweep's int
+    array (form, is_double, nx, ny, nz, the kinds, per, ty, xseg, nseg,
+    smem, threads), or for the grid form gsrb_relax's arguments
+    (_relax_launch)."""
+    device = torch.device("cuda", index)
+    per = periodic_axes(kinds)
+    geom = sweep_geometry(
+        shape, itemsize, kinds, full,
+        lambda th, smem: sweep_capacity(device, itemsize, "march", per, th,
+                                        smem),
+        form, ty, nseg, threads)
+    if geom.form == "grid":
+        return geom, _relax_launch(shape, itemsize, with_b, kinds, index,
+                                   "grid")[1]
+    # lets the kernel take its shared memory (once per kernel and device)
+    sweep_capacity(device, itemsize, geom.form, per,
+                   geom.threads or SWEEP_THREADS, geom.smem)
+    geo = (SWEEP_FORMS[geom.form], int(itemsize == 8), *shape,
+           *kinds_array(kinds), per, geom.ty, geom.xseg, geom.nseg,
+           geom.smem, geom.threads)
+    return geom, (ctypes.c_int * len(geo))(*geo)
+
+
+def sweep_launch(u, rhs, a, b=None, *, full: bool, color: int = 0,
+                 kinds: FaceKinds, rho: float, alpha: float, beta: float,
+                 dx: float, lo, form: str | None = None,
+                 ty: int | None = None, nseg: int | None = None,
+                 threads: int | None = None):
+    """gsrb_full_sweep's (full) or gsrb_half_sweep's (colour `color`) ONE
+    launch on CUDA tensors, in the form sweep_geometry picks or in `form`,
+    `ty`, `nseg`, `threads` (the measurements compare them), counted under
+    the entry point's name. Its host time is part of every call: the
+    operands are checked by cheap queries, the geometry is kept per shape,
+    the launch goes on the raw current stream in one ctypes call."""
+    name = "gsrb_full_sweep" if full else "gsrb_half_sweep"
     check_level_args(name, u, rhs, a, b)
+    geom, geo = _sweep_launch(tuple(u.shape), u.element_size(),
+                              b is not None, kinds, u.get_device(), full,
+                              form, ty, nseg, threads)
+    out = torch.empty_like(u)
     lib = cuda_ext.lib()
-    out = u.clone()  # the kernel sweeps in place
-    nx, ny, nz = u.shape
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernel_counts.count_launch("gsrb_relax", len(colors))
-        for color in colors:
-            err = lib.mgk_gsrb_pass(
-                out.data_ptr(), rhs.data_ptr(), a.data_ptr(), _ptr(b),
-                int(u.dtype == torch.float64), nx, ny, nz,
-                kinds_array(kinds), float(rho), float(alpha), float(beta),
-                float(dx), int(sum(lo)) + int(color), stream,
-            )
-            cuda_ext.check(err, name)
+    kernel_counts.count_launch(name, 1)
+    if geom.form == "grid":
+        nx, ny, nz = u.shape
+        err = on_stream(
+            lib.mgk_gsrb_relax, u, u.data_ptr(), rhs.data_ptr(),
+            a.data_ptr(), _ptr(b), out.data_ptr(),
+            int(u.dtype == torch.float64), 0, nx, ny, nz, geo[0], float(rho),
+            float(alpha), float(beta), float(dx), int(sum(lo)), 1, *geo[1:])
+    else:
+        err = on_stream(
+            lib.mgk_gsrb_sweep, u, u.data_ptr(), rhs.data_ptr(),
+            a.data_ptr(), _ptr(b), out.data_ptr(), geo, float(rho),
+            float(alpha), float(beta), float(dx),
+            int(sum(lo)) + (0 if full else int(color)))
+    cuda_ext.check(err, name)
     return out
 
 
@@ -915,13 +1129,14 @@ def gsrb_full_sweep(
     u, rhs, a, b=None, *, kinds: FaceKinds, rho: float, alpha: float,
     beta: float, dx: float, lo,
 ):
-    """One red + black sweep of a whole level (homogeneous ghosts): two
-    launches of the `gsrb_relax` pass kernel. Returns a new tensor. CUDA
-    tensors go to the kernel, CPU tensors take the plain version."""
+    """One red + black sweep of a whole level (homogeneous ghosts): ONE
+    launch (csrc/gsrb_sweep.cu's march, or gsrb_relax's grid form where the
+    march does not apply). Returns a new tensor; the inputs are only read.
+    CUDA tensors go to the kernel, CPU tensors take the plain version."""
     kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx, lo=lo)
     if u.device.type == "cpu":
         return gsrb_full_sweep_plain(u, rhs, a, b, **kw)
-    return _gsrb_passes("gsrb_full_sweep", u, rhs, a, b, (0, 1), **kw)
+    return sweep_launch(u, rhs, a, b, full=True, **kw)
 
 
 def gsrb_half_sweep(
@@ -929,13 +1144,14 @@ def gsrb_half_sweep(
     beta: float, dx: float, lo, color: int,
 ):
     """One colour pass of a whole level (homogeneous ghosts): the cells
-    with (i + j + k + sum(lo) + color) even are updated, in one launch of
-    the `gsrb_relax` pass kernel. Returns a new tensor. CUDA tensors go to
-    the kernel, CPU tensors take the plain version."""
+    with (i + j + k + sum(lo) + color) even are updated, the others copied,
+    in ONE launch (csrc/gsrb_sweep.cu). Returns a new tensor; the inputs are
+    only read. CUDA tensors go to the kernel, CPU tensors take the plain
+    version."""
     kw = dict(kinds=kinds, rho=rho, alpha=alpha, beta=beta, dx=dx, lo=lo)
     if u.device.type == "cpu":
         return gsrb_half_sweep_plain(u, rhs, a, b, color=color, **kw)
-    return _gsrb_passes("gsrb_half_sweep", u, rhs, a, b, (int(color),), **kw)
+    return sweep_launch(u, rhs, a, b, full=False, color=int(color), **kw)
 
 
 # sweeps one multisweep launch can carry (csrc/multisweep.cu instantiates 4

@@ -5,9 +5,10 @@ CUDA library (and nowhere else): it counts wrapper CALLS that reached the
 card. `DEVICE_LAUNCHES[name]` goes up, at the same place, by the number of
 kernel launches that call enqueued from its C entry point: 1 for every
 kernel — gsrb_relax, all its sweeps in one cooperative launch (csrc/
-gsrb_relax.cu; its one-sweep and one-pass entry points gsrb_full_sweep /
-gsrb_half_sweep, counted under it, enqueue 2 and 1 launches of its pass
-kernel); residual and residual_restrict, the two forms of one march
+gsrb_relax.cu); gsrb_full_sweep and gsrb_half_sweep, the one-sweep and
+one-pass entry points, each one launch out of place (csrc/gsrb_sweep.cu, or
+gsrb_relax's grid form for a full sweep where the march does not apply),
+counted under their own names; residual and residual_restrict, the two forms of one march
 (csrc/residual.cu: the residual whole, or restricted by full weighting in
 the same launch); tower_down and tower_up, each a whole depth chain in one
 cooperative launch (csrc/tower.cu); wavefront_relax and multisweep_relax,
@@ -50,7 +51,8 @@ KERNELS = ("gsrb_relax", "residual", "residual_restrict", "tower_down",
            "residual_restrict_batch", "gsrb_relax_bf16",
            "tower_down_bf16", "tower_up_bf16", "wavefront_relax_bf16",
            "multisweep_relax_bf16", "multisweep_relax_halo_bf16",
-           "multisweep_relax_tiled_pre_bf16")
+           "multisweep_relax_tiled_pre_bf16", "gsrb_full_sweep",
+           "gsrb_half_sweep")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}

@@ -43,7 +43,11 @@ sees), with the wrapper calls it made; and the staged chain the periodic
 box's 256^3 depth was restricted with before the fused kernel
 (stencils.restrict_residual of the ghost-filled level, f32) beside
 `residual_restrict` where the tree has it, under "precond". A case a tree
-lacks is left out of that tree's columns. The JSON written to --out holds
+lacks is left out of that tree's columns. The sweep probe, run in every
+tree after the split probe, times gsrb_full_sweep and gsrb_half_sweep at
+every SWEEP_SHAPES level (device, host, batched and wall time, the plain
+version's time, the byte bound and the share of it reached), under
+"sweep". The JSON written to --out holds
 every run's times and, per case, each tree's runs, median and spread
 (largest over smallest of its runs, minus one) and each tree's speed-up
 over A (A's median over its own), for the times under "cases", the host
@@ -63,7 +67,8 @@ resident where the tree has it, unsharded) is under "cases" as
 `--bitwise` holds every tree's outputs bit for bit to tree A's: in each
 tree's first run the bitwise probe hashes the f32 and f64 outputs of every
 gsrb_relax form at every level case, every gsrb_relax_batch form at every
-batch, the one-sweep and one-pass entry points, both towers at every chain,
+batch, the one-sweep and one-pass entry points (at the odd-lo box and at
+every SWEEP_SHAPES level, constant and variable b), both towers at every chain,
 the whole-level marches at every WAVE_CASES and MULTI_CASES case but 512^3
 and the shard marches at every SHARD_CASES case (nsweeps 2 and 4), and the
 bf16 tier's outputs of each of these where the tree has the tier's form
@@ -353,6 +358,20 @@ with torch.no_grad():
             [_cs.fs.gsrb_full_sweep(*_args, **_kw)])
         _hash[f"gsrb_half_sweep {_n}"] = _digest(
             [_cs.fs.gsrb_half_sweep(*_args, color=c, **_kw) for c in (0, 1)])
+        for _cid, _shape, _kinds, _lo, _ in SWEEP_SHAPES:
+            for _wb in (False, True):
+                _f = _cs.level_fields(_shape, _dt, seed=13, with_b=_wb)
+                _args = (_f["u"], _f["rhs"], _f["a"], _f["b"])
+                _kw = dict(kinds=getattr(_cs, _kinds), rho=2.0, alpha=1.0,
+                           beta=-1.0, dx=0.37, lo=_lo)
+                _t = f"{_cid} {_n} b{int(_wb)}"
+                _hash[f"gsrb_full_sweep {_t}"] = _digest(
+                    [_cs.fs.gsrb_full_sweep(*_args, **_kw)])
+                _hash[f"gsrb_half_sweep {_t}"] = _digest(
+                    [_cs.fs.gsrb_half_sweep(*_args, color=c, **_kw)
+                     for c in (0, 1)])
+                del _f, _args
+                torch.cuda.empty_cache()
         for _cid, _shape, _kinds, _lo, _ in _cs.TOWER_CASES:
             _spec = _cs.chain_spec(_shape, _lo, _kinds, dx0=0.11)
             _f = _cs.level_fields(_shape, _dt, seed=2)
@@ -454,6 +473,60 @@ PRECOND_CASES = (
      "PERIODIC", (2, 2)),
     ("scale7_x4", ("max_level = 6", "precond_precision = single",
                    "verbosity = 0"), "CANONICAL", (4,)))
+# The one-sweep and one-pass entry points' levels (the sweep probe and the
+# bitwise probe): (id, shape, face kinds by chip_smoke's name, lo, the
+# dtypes timed, with variable b at 96x80x80 and constant b everywhere)
+SWEEP_SHAPES = (
+    ("96x80x80", (96, 80, 80), "ALL_C", (49, 40, 40),
+     ("float32", "float64")),
+    ("256_P", (256, 256, 256), "ALL_P", (0, 0, 0), ("float32",)),
+    ("960x144x144", (960, 144, 144), "ALL_D", (0, 0, 0), ("float32",)),
+    ("4_P", (4, 4, 4), "ALL_P", (0, 0, 0), ("float32",)),
+    ("8_P", (8, 8, 8), "ALL_P", (0, 0, 1), ("float32",)),
+)
+# Run in every tree after the split probe: gsrb_full_sweep and
+# gsrb_half_sweep (colour 0) at each SWEEP_SHAPES level and timed dtype
+# (constant b; at 96x80x80 variable b too), with this tree's device_ms,
+# host_us, time_ms and wall_ms, the plain version's time and the byte bound
+# (each array read once, out written once, at 3.35 TB/s), printed as one
+# line.
+SWEEP_PROBE = """
+_sweep = {}
+with torch.no_grad():
+    for _cid, _shape, _kinds, _lo, _dts in SWEEP_SHAPES:
+        for _dn in _dts:
+            for _wb in ((False, True) if _cid == "96x80x80" else (False,)):
+                _dt = getattr(torch, _dn)
+                _f = chip_smoke.level_fields(_shape, _dt, seed=13,
+                                             with_b=_wb)
+                _args = (_f["u"], _f["rhs"], _f["a"], _f["b"])
+                _kw = dict(kinds=getattr(chip_smoke, _kinds), rho=2.0,
+                           alpha=1.0, beta=-1.0, dx=0.37, lo=_lo)
+                _fs = chip_smoke.fs
+                _bound = ((5 if _wb else 4) * _f["u"].numel()
+                          * _f["u"].element_size() / 3.35e12 * 1e3)
+                for _name, _fn, _plain in (
+                        ("gsrb_full_sweep",
+                         lambda: _fs.gsrb_full_sweep(*_args, **_kw),
+                         lambda: _fs.gsrb_full_sweep_plain(*_args, **_kw)),
+                        ("gsrb_half_sweep",
+                         lambda: _fs.gsrb_half_sweep(*_args, color=0, **_kw),
+                         lambda: _fs.gsrb_half_sweep_plain(*_args, color=0,
+                                                           **_kw))):
+                    _key = f"{_name} {_cid}{'_b' if _wb else ''} {_dn}"
+                    _dev = device_ms(_fn)
+                    _sweep[f"{_key} device_ms"] = _dev
+                    _sweep[f"{_key} host_us"] = host_us(_fn)
+                    _sweep[f"{_key} ms"] = time_ms(_fn)
+                    _sweep[f"{_key} wall_ms"] = wall_ms(_fn)
+                    _sweep[f"{_key} plain_ms"] = time_ms(_plain, reps=5,
+                                                         warmup=1)
+                    _sweep[f"{_key} bound_ms"] = _bound
+                    _sweep[f"{_key} reached"] = _bound / _dev
+                del _f, _args
+                torch.cuda.empty_cache()
+print(json.dumps({"phase": "sweep_probe", "sweep": _sweep}), flush=True)
+"""
 SPLIT_CASES = ("path_l0_64", "path_l1_96x80x80", "path_l2_128x80x80",
                "path_l3_176x64x64", "path_l4_272x80x80")
 PHASES = "env,build,kernels"
@@ -491,7 +564,9 @@ def runner(phases: str = PHASES, bitwise: bool = False) -> str:
             "    k: statistics.median(v) for k, v in _host.items()}}),\n"
             "    flush=True)\n"
             + timer_source("device_ms") + "\n" + timer_source("host_us")
+            + "\n" + timer_source("wall_ms")
             + f"\nSPLIT_CASES = {SPLIT_CASES!r}\n" + SPLIT_PROBE
+            + f"SWEEP_SHAPES = {SWEEP_SHAPES!r}\n" + SWEEP_PROBE
             + f"PRECOND_CASES = {PRECOND_CASES!r}\n" + PRECOND_PROBE
             + (BITWISE_PROBE if bitwise else "") +
             "sys.exit(rc)\n")
@@ -577,6 +652,15 @@ def split_times(stdout: str) -> dict:
     raise RuntimeError("no gsrb_split line in the run's output")
 
 
+def sweep_times(stdout: str) -> dict:
+    """{"<entry point> <level> <dtype> <metric>": value}: the sweep probe's
+    line of one run."""
+    for line in stdout.splitlines():
+        if line.startswith("{") and '"phase": "sweep_probe"' in line:
+            return json.loads(line)["sweep"]
+    raise RuntimeError("no sweep_probe line in the run's output")
+
+
 def precond_times(stdout: str) -> dict:
     """{"<case> wall_ms|host_ms|busy_ms": value} and the wrapper calls of
     one application ("<case> calls"): the precond probe's line of one
@@ -635,6 +719,7 @@ def run_tree(root: str, log_path: str, timeout: float,
     return ({"times": march_times(kernels_record(proc.stdout)),
              "host_us": host_times(proc.stdout),
              "split": split_times(proc.stdout),
+             "sweep": sweep_times(proc.stdout),
              "precond": precond_times(proc.stdout),
              "sharded": sharded_times(proc.stdout),
              "bitwise": bitwise_hashes(proc.stdout),
@@ -721,6 +806,7 @@ def main() -> int:
               "cases": summarize(runs, list(roots)),
               "host_us": summarize(runs, list(roots), "host_us"),
               "split": summarize(runs, list(roots), "split"),
+              "sweep": summarize(runs, list(roots), "sweep"),
               "precond": summarize(runs, list(roots), "precond"),
               "sharded": summarize(runs, list(roots), "sharded")}
     if args.bitwise:
@@ -737,7 +823,7 @@ def main() -> int:
         print(case + " host: " + ", ".join(
             f"{t} {row[t + '_median']:.1f} us" for t in roots if t in row),
             flush=True)
-    for field in ("split", "precond", "sharded"):
+    for field in ("split", "sweep", "precond", "sharded"):
         for case, row in result[field].items():
             print(case + ": " + ", ".join(
                 f"{t} {row[t + '_median']:.4g}" for t in roots if t in row),

@@ -420,8 +420,9 @@ def test_cuda_march_tiles_match_plain(case, nsweeps, dt):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_cuda_sweep_entry_points_match_plain(dt):
-    """gsrb_full_sweep (two launches of the pass kernel) and gsrb_half_sweep
-    (one) against their plain versions on a box with an odd sum(lo)."""
+    """gsrb_full_sweep and gsrb_half_sweep (one launch each, counted under
+    their own names) against their plain versions on a box with an odd
+    sum(lo)."""
     _need_cuda()
     npdt, rtol = DTYPES[dt]
     f = {k: torch.from_numpy(v).cuda()
@@ -430,8 +431,9 @@ def test_cuda_sweep_entry_points_match_plain(dt):
     kw = dict(kinds=KINDS, rho=2.0, alpha=1.0, beta=-1.0, dx=0.25,
               lo=(2, 0, 1))
     kernel_counts.reset()
+    u_in = f["u"].clone()
     full = tfs.gsrb_full_sweep(*args, **kw)
-    assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax"] == 2
+    assert kernel_counts.DEVICE_LAUNCHES["gsrb_full_sweep"] == 1
     ref = tfs.gsrb_full_sweep_plain(*args, **kw)
     assert float((full - ref).abs().max()) <= rtol * float(ref.abs().max())
     halves = []
@@ -440,8 +442,10 @@ def test_cuda_sweep_entry_points_match_plain(dt):
         ref = tfs.gsrb_half_sweep_plain(*args, color=color, **kw)
         assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
         halves.append(out)
-    assert kernel_counts.DEVICE_LAUNCHES["gsrb_relax"] == 4
-    assert kernel_counts.LAUNCHES["gsrb_relax"] == 3
+    assert kernel_counts.DEVICE_LAUNCHES["gsrb_half_sweep"] == 2
+    assert kernel_counts.LAUNCHES["gsrb_half_sweep"] == 2
+    assert kernel_counts.LAUNCHES["gsrb_relax"] == 0
+    assert torch.equal(f["u"], u_in)
     two = tfs.gsrb_half_sweep(halves[0], *args[1:], color=1, **kw)
     assert torch.equal(full, two)
     assert torch.equal(full, tfs.gsrb_relax(*args, nsweeps=1, **kw))

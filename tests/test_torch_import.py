@@ -224,6 +224,10 @@ def test_kernel_sources_are_listed_and_the_build_directory_is_ignored():
     assert sorted(cuda_ext.SOURCES + cuda_ext.HEADERS) == on_disk
     assert "multisweep.cu" in cuda_ext.SOURCES
     assert "multisweep_halo.cu" in cuda_ext.SOURCES
+    # the one-sweep and one-pass entry points: a unit of their own
+    assert "gsrb_sweep.cu" in cuda_ext.SOURCES
+    for name in ("gsrb_full_sweep", "gsrb_half_sweep"):
+        assert name in kernel_counts.KERNELS
     for name in ("multisweep_relax", "multisweep_relax_halo",
                  "multisweep_relax_tiled_pre"):
         assert name in kernel_counts.KERNELS
@@ -234,7 +238,8 @@ def test_kernel_sources_are_listed_and_the_build_directory_is_ignored():
     # every C entry point that is declared to ctypes is defined in a source
     text = "".join(open(os.path.join(cuda_ext.CSRC_DIR, f)).read()
                    for f in cuda_ext.SOURCES)
-    for entry in ("mgk_gsrb_relax", "mgk_gsrb_pass", "mgk_residual",
+    for entry in ("mgk_gsrb_relax", "mgk_gsrb_sweep",
+                  "mgk_gsrb_sweep_capacity", "mgk_residual",
                   "mgk_multisweep_relax", "mgk_multisweep_halo",
                   "mgk_multisweep_pre", "mgk_tower_down", "mgk_tower_up",
                   "mgk_tower_capacity", "mgk_tower_barriers",

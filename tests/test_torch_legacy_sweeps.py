@@ -5,8 +5,8 @@ JAX side: `pallas_kernels.gsrb_full_sweep` (one red + black sweep per
 launch) and `pallas_kernels.gsrb_half_sweep` (one colour pass,
 base = sum(lo) + color), each with interpret=True as tests/test_pallas.py
 runs them. Port side: `fused_sweeps.gsrb_full_sweep` / `gsrb_half_sweep` on
-CPU tensors, which take their plain PyTorch versions (on the card they are
-two launches and one launch of the `gsrb_relax` pass kernel).
+CPU tensors, which take their plain PyTorch versions (on the card each is
+one launch of csrc/gsrb_sweep.cu, counted under its own name).
 
 Tolerances: 1e-12 absolute in f64 on O(1) data, 2e-6 of max|result| in
 f32. An offset box with an ODD sum(lo) settles the parity convention: a
@@ -62,11 +62,11 @@ def test_full_sweep_matches_jax(kinds, lo, dt):
     kw = dict(kinds=KINDS[kinds], lo=LOS[lo], **KW)
     ref = jpk.gsrb_full_sweep(jnp.asarray(u), jnp.asarray(rhs),
                               jnp.asarray(a), interpret=True, **kw)
-    before = kernel_counts.PLAIN_CALLS["gsrb_relax"]
+    before = kernel_counts.PLAIN_CALLS["gsrb_full_sweep"]
     out = tfs.gsrb_full_sweep(torch.from_numpy(u), torch.from_numpy(rhs),
                               torch.from_numpy(a), **kw)
-    assert kernel_counts.PLAIN_CALLS["gsrb_relax"] == before + 1
-    assert kernel_counts.LAUNCHES["gsrb_relax"] == 0
+    assert kernel_counts.PLAIN_CALLS["gsrb_full_sweep"] == before + 1
+    assert kernel_counts.LAUNCHES["gsrb_full_sweep"] == 0
     close(out, ref, atol, rtol)
 
 
