@@ -551,13 +551,7 @@ def host_us_pair(fn_a, fn_b, rounds: int = 7) -> tuple[float, float]:
 
 
 def phase_env() -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     try:
         import h5py  # noqa: F401
 
@@ -815,6 +809,28 @@ LEVEL_CASES = [
      False, False),
     ("patch_144_odd_lo", (144, 144, 144), ALL_C, (1568, 1977, 1976), 2.0,
      False, False),
+    # periodic axes of odd extent, where cells 0 and n - 1 are neighbours of
+    # one colour: the 240^3 box's 15^3 bottom (gsrb_relax in its BiCGStab's
+    # preconditioner; when sharded, its uncut depths) beside its even
+    # neighbour 16^3, the odd bottoms of 144^3, 160^3 and 100^3 boxes, an
+    # odd periodic y, and an odd periodic x over a grid form of many blocks
+    ("odd_periodic_15_P", (15, 15, 15), ALL_P, (0, 0, 0), 2.0 ** -3, False,
+     True),
+    ("even_periodic_16_P", (16, 16, 16), ALL_P, (0, 0, 0), 2.0 ** -3, False,
+     True),
+    ("odd_periodic_9_P", (9, 9, 9), ALL_P, (0, 0, 0), 2.0, False, False),
+    ("odd_periodic_5_P", (5, 5, 5), ALL_P, (0, 0, 0), 2.0, False, False),
+    ("odd_periodic_25_P", (25, 25, 25), ALL_P, (0, 0, 0), 2.0, False, False),
+    ("odd_periodic_y_20x17x24", (20, 17, 24), ((D, C), (P, P), (C, N)),
+     (0, 1, 0), 2.0, False, False),
+    ("odd_periodic_x_45x64x64", (45, 64, 64), ((P, P), (D, C), (C, N)),
+     (1, 0, 0), 2.0, False, True),
+    # the 240^3 box's own levels: its top depth (the residual's two forms
+    # between its V-cycles; gsrb_relax held there too) and 30^3, which its
+    # 4 x-slabs smooth with gsrb_relax and restrict to the 15^3 bottom
+    ("odd_path_240_P", (240, 240, 240), ALL_P, (0, 0, 0), 2.0, False, True),
+    ("odd_path_30_P", (30, 30, 30), ALL_P, (0, 0, 0), 2.0 ** -2, False,
+     True),
 ]
 
 # wavefront cases: (id, shape, kinds, lo, rho, timed). The first four are
@@ -889,6 +905,8 @@ MULTI_CASES = [
     ("tile44_tiny_nx6", (6, 36, 72), ALL_P, (1, 0, 0), 2.0, False),
     ("tile44_two_segments", (66, 36, 36), ((P, P), (D, N), (C, D)),
      (0, 0, 1), 2.0, False),
+    # the top depth of the box at N = 240 (phase periodic_odd)
+    ("odd_path_240_P", (240, 240, 240), ALL_P, (0, 0, 0), 2.0, True),
 ]
 # run in f32 only (the four f64 arrays and the plain version's temporaries
 # of a 512^3 level would take a quarter of the card)
@@ -916,6 +934,16 @@ TOWER_CASES = [
     ("no_tail_68", (68, 68, 68), ((D, N), (C, D), (N, C)), (4, 0, 8), False),
     ("bottom_tail_64x64x60", (64, 64, 60), ((P, P), (P, P), (D, N)),
      (0, 4, 0), False),
+    # bottoms periodic of odd extent, pre-smoothed in place by tower_down:
+    # the 240^3 box's chain (120^3 -> 15^3, the bottom the tail), 144^3 ->
+    # 9^3, 80^3 -> 5^3, a 25^3 bottom too big for the tail (grid-wide), and
+    # a bottom odd and periodic in z alone
+    ("odd_bottom_120_P", (120, 120, 120), ALL_P, (0, 0, 0), True),
+    ("odd_bottom_144_P", (144, 144, 144), ALL_P, (0, 0, 0), False),
+    ("odd_bottom_80_P", (80, 80, 80), ALL_P, (0, 0, 0), False),
+    ("odd_bottom_grid_100_P", (100, 100, 100), ALL_P, (0, 0, 0), False),
+    ("odd_z_bottom_96x48x40", (96, 48, 40), ((D, C), (N, D), (P, P)),
+     (0, 0, 8), False),
 ]
 
 
@@ -925,7 +953,8 @@ def gsrb_forms(u, with_b: bool, kinds, compute: int = 0) -> tuple:
     then every other form that takes it (the slab form only f32 levels with
     constant b whose tiles fit a block's shared memory)."""
     isz = u.element_size()
-    cap = fs.gsrb_capacity(u.device, isz, compute)
+    cap = fs.gsrb_capacity(u.device, isz, compute,
+                           bool(fs.odd_wrap_axes(u.shape, kinds)))
     picked = fs.gsrb_geometry(u.shape, isz, with_b, kinds, cap)
     forms = [picked.form]
     for form in fs.GSRB_FORMS:
@@ -966,11 +995,16 @@ def check_gsrb(cid: str, f: dict, lo, kw: dict, dtype, timed: bool,
         check(rel <= TOL[dtype] and bool(torch.isfinite(out).all()),
               f"gsrb_relax {cid} {dtype} {form}: rel err {rel} > "
               f"{TOL[dtype]}")
+        again = (relax(fs.gsrb_relax) if form == geom.form
+                 else relax(fs.gsrb_launch, form=form))
+        check(torch.equal(again, out), f"gsrb_relax {cid} {dtype} {form}: "
+              f"two launches differ: {rel_err(again, out)}")
         check(torch.equal(u_in, f["u"]),
               f"gsrb_relax {cid} {dtype} {form}: input modified")
         check(not torch.equal(out, f["u"]), f"gsrb_relax {cid}: no update")
     rec = {"max_abs_err": worst[1], "rel_err": worst[0], "form": geom.form,
-           "blocks": geom.blocks, "forms_checked": forms}
+           "blocks": geom.blocks, "forms_checked": forms,
+           "relaunch_bitwise": True, "wrap_face_cells": geom.faces}
     if timed:
         run = lambda: relax(fs.gsrb_relax)
         rec.update(
@@ -1010,7 +1044,8 @@ BF16_TOL = 0.05
 BF16_CONTRACT = 0.05
 # level cases the tier's path never sends to gsrb_relax (the march rungs
 # take them)
-BF16_SKIP = ("path_l5_512x96x96", "big_960x144x144", "periodic_path_256")
+BF16_SKIP = ("path_l5_512x96x96", "big_960x144x144", "periodic_path_256",
+             "odd_path_240_P")
 
 
 def tier_twin(u, rhs, a, **kw):
@@ -1060,6 +1095,10 @@ def check_gsrb_bf16(cid: str, f: dict, lo, kw: dict, timed: bool,
               f"{BF16_TOL}")
         check(torch.equal(out, twin), f"gsrb_relax_bf16 {cid} {form}: not "
               f"bit for bit its twin: {rel_err(out, twin)}")
+        again = (relax(fs.gsrb_relax, **tier) if form == geom.form
+                 else relax(fs.gsrb_launch, form=form, **tier))
+        check(torch.equal(again, out), f"gsrb_relax_bf16 {cid} {form}: two "
+              f"launches differ")
         against = max(against, check_against_f32(
             f"gsrb_relax_bf16 {cid} {form}", out, f32, BF16_CONTRACT))
         check(torch.equal(u_in, f["u"]),
@@ -1131,9 +1170,12 @@ def check_residual(cid: str, f: dict, kw: dict, dtype, timed: bool) -> dict:
     torch.cuda.synchronize()
     err, rel = rel_err(res, fs.residual_plain(*args, **kw))
     out = {"residual": {"max_abs_err": err, "rel_err": rel,
+                        "relaunch_bitwise": True,
                         "geometry": fs.residual_geometry_on(
                             *args, out=res, restrict=False)._asdict()}}
     check(rel <= TOL[dtype], f"residual {cid} {dtype}: rel err {rel}")
+    check(torch.equal(fs.residual(*args, **kw), res),
+          f"residual {cid} {dtype}: two launches differ")
     nin = 3 + (f["b"] is not None)
     runs = {"residual": (lambda: fs.residual(*args, **kw),
                          lambda: fs.residual_plain(*args, **kw),
@@ -1148,6 +1190,8 @@ def check_residual(cid: str, f: dict, kw: dict, dtype, timed: bool) -> dict:
         check(torch.equal(rc, st.restrict_full(res)),
               f"residual_restrict {cid} {dtype}: not restrict_full of "
               f"residual bit for bit")
+        check(torch.equal(fs.residual_restrict(*args, **kw), rc),
+              f"residual_restrict {cid} {dtype}: two launches differ")
         # into the covered part of a parent, as the AMR downsweep writes it
         half = tuple(n // 2 for n in shape)
         parent = torch.full(tuple(n + 3 for n in half), -7.0, dtype=dtype,
@@ -1162,7 +1206,7 @@ def check_residual(cid: str, f: dict, kw: dict, dtype, timed: bool) -> dict:
               f"residual_restrict {cid} {dtype}: into a parent's slice")
         out["residual_restrict"] = {
             "max_abs_err": err, "rel_err": rel, "equals_restrict_full": True,
-            "into_slice": True, "geometry": fs.residual_geometry_on(
+            "into_slice": True, "relaunch_bitwise": True, "geometry": fs.residual_geometry_on(
                 *args, out=rc, restrict=True)._asdict()}
         runs["residual_restrict"] = (
             lambda: fs.residual_restrict(*args, **kw),
@@ -1283,17 +1327,26 @@ BATCH_CASES = [
      ((113, 224, 224), (225, 224, 224), (337, 224, 224)), False),
     ("batch_three_112_periodic", (112, 112, 112), ((P, P), (D, N), (P, P)),
      2.0, ((0, 0, 0), (112, 0, 0), (0, 112, 0)), False),
+    # periodic axes of odd extent (each form that takes them: one block a
+    # patch, the grid and serial forms with their wrap faces), and an odd
+    # periodic x over many blocks
+    ("batch_odd_periodic_15_P", (15, 15, 15), ALL_P, 2.0,
+     ((0, 0, 0), (30, 0, 0)), True),
+    ("batch_odd_periodic_x_45x64x64", (45, 64, 64), ((P, P), (D, N), (C, D)),
+     2.0, ((1, 0, 0), (1, 64, 0)), False),
 ]
 # the sweeps of a batch call in the kernels phase (the solver's nsmooth)
 BATCH_SWEEPS = 4
-BATCH_F64 = ("batch_d6_144_pair", "batch_odd_parity_pair")
+BATCH_F64 = ("batch_d6_144_pair", "batch_odd_parity_pair",
+             "batch_odd_periodic_15_P", "batch_odd_periodic_x_45x64x64")
 
 
 def batch_forms(shape, itemsize: int, kinds, patches: int) -> tuple:
     """The geometry fs.gsrb_geometry picks for a batch of `patches` levels
     of `shape` (BATCH_SWEEPS sweeps) at the card's capacity, and every form
     that takes it."""
-    cap = fs.gsrb_capacity(torch.device("cuda"), itemsize)
+    cap = fs.gsrb_capacity(torch.device("cuda"), itemsize, 0,
+                           bool(fs.odd_wrap_axes(shape, kinds)))
     picked = fs.gsrb_geometry(shape, itemsize, False, kinds, cap,
                               patches=patches, nsweeps=BATCH_SWEEPS)
     forms = [picked.form]
@@ -1350,6 +1403,11 @@ def check_batch_case(case, dtype) -> dict:
             check(torch.equal(o, one),
                   f"gsrb_relax_batch {cid} {dtype} {form} patch {k}: not "
                   f"bit for bit the single call")
+        again = (fs.gsrb_relax_batch(us, rhss, as_, **relax)
+                 if form == geom.form
+                 else fs.gsrb_batch_launch(us, rhss, as_, form=form, **relax))
+        check(all(torch.equal(a, o) for a, o in zip(again, out)),
+              f"gsrb_relax_batch {cid} {dtype} {form}: two launches differ")
         check(all(torch.equal(a, b) for a, b in zip(u_in, us)),
               f"gsrb_relax_batch {cid} {dtype} {form}: input modified")
     # the wrapper's record (the form it picks; the errors of every form),
@@ -1375,37 +1433,41 @@ def check_batch_case(case, dtype) -> dict:
             rec["gsrb_relax_batch"].update(
                 blocks_per_patch=None, blocks=launch.blocks)
     # the restricted residual, each patch into its own parent's slice
-    half = tuple(n // 2 for n in shape)
-    parents = [torch.full(tuple(n + 3 for n in half), -7.0, dtype=dtype,
-                          device="cuda") for _ in range(npatch)]
-    views = [p[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]]
-             for p in parents]
-    rref = fs.residual_restrict_batch_plain(us, rhss, as_, **kw)
-    rsingle = [fs.residual_restrict(u, r, a, **kw)
-               for u, r, a in zip(us, rhss, as_)]
-    rc = one_launch("residual_restrict_batch",
-                    lambda: fs.residual_restrict_batch(us, rhss, as_, **kw))
-    one_launch("residual_restrict_batch", lambda: fs.residual_restrict_batch(
-        us, rhss, as_, outs=views, **kw))
-    torch.cuda.synchronize()
-    worst = (0.0, 0.0)
-    for k in range(npatch):
-        err, rel = rel_err(rc[k], rref[k])
-        worst = max(worst, (rel, err))
-        check(rel <= TOL[dtype], f"residual_restrict_batch {cid} {dtype} "
-              f"patch {k}: rel err {rel}")
-        check(torch.equal(rc[k], rsingle[k]) and torch.equal(views[k],
-                                                              rsingle[k]),
-              f"residual_restrict_batch {cid} {dtype} patch {k}: not bit "
-              f"for bit the single call")
-        rest = parents[k].clone()
-        rest[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]] = -7.0
-        check(bool((rest == -7.0).all()), f"residual_restrict_batch {cid}: "
-              f"wrote outside patch {k}'s slice")
-    rec["residual_restrict_batch"] = {
-        "max_abs_err": worst[1], "rel_err": worst[0],
-        "equals_single_calls": True, "into_slices": True,
-        "geometry": fs.residual_batch_geometry(us, rhss, as_)._asdict()}
+    # (a level of odd extent is a bottom: nothing restricts it)
+    even = all(n % 2 == 0 for n in shape)
+    if even:
+        half = tuple(n // 2 for n in shape)
+        parents = [torch.full(tuple(n + 3 for n in half), -7.0,
+                              dtype=dtype, device="cuda")
+                   for _ in range(npatch)]
+        views = [p[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]]
+                 for p in parents]
+        rref = fs.residual_restrict_batch_plain(us, rhss, as_, **kw)
+        rsingle = [fs.residual_restrict(u, r, a, **kw)
+                   for u, r, a in zip(us, rhss, as_)]
+        rc = one_launch("residual_restrict_batch", lambda: (
+            fs.residual_restrict_batch(us, rhss, as_, **kw)))
+        one_launch("residual_restrict_batch", lambda: (
+            fs.residual_restrict_batch(us, rhss, as_, outs=views, **kw)))
+        torch.cuda.synchronize()
+        worst = (0.0, 0.0)
+        for k in range(npatch):
+            err, rel = rel_err(rc[k], rref[k])
+            worst = max(worst, (rel, err))
+            check(rel <= TOL[dtype], f"residual_restrict_batch {cid} "
+                  f"{dtype} patch {k}: rel err {rel}")
+            check(torch.equal(rc[k], rsingle[k])
+                  and torch.equal(views[k], rsingle[k]),
+                  f"residual_restrict_batch {cid} {dtype} patch {k}: not "
+                  f"bit for bit the single call")
+            rest = parents[k].clone()
+            rest[1:1 + half[0], 2:2 + half[1], 1:1 + half[2]] = -7.0
+            check(bool((rest == -7.0).all()), f"residual_restrict_batch "
+                  f"{cid}: wrote outside patch {k}'s slice")
+        rec["residual_restrict_batch"] = {
+            "max_abs_err": worst[1], "rel_err": worst[0],
+            "equals_single_calls": True, "into_slices": True,
+            "geometry": fs.residual_batch_geometry(us, rhss, as_)._asdict()}
     if timed:
         runs = {
             "gsrb_relax_batch": (
@@ -1423,6 +1485,8 @@ def check_batch_case(case, dtype) -> dict:
                                                          **kw),
                 level_bytes(ncells, isz, 3) + ncells * isz / 8,
                 16.0 * ncells)}
+        if not even:
+            del runs["residual_restrict_batch"]
         for name, (run, singles, plain, nbytes, flops) in runs.items():
             b, by = bound_ms(npatch * nbytes, npatch * flops)
             rec[name].update(
@@ -1440,6 +1504,8 @@ def check_batch_case(case, dtype) -> dict:
                     **kw)),
                 ("residual_restrict_batch", lambda: fs.residual_restrict(
                     us[0], rhss[0], as_[0], **kw))):
+            if name not in runs:
+                continue
             group, single = host_us_pair(runs[name][0], one)
             rec[name].update(group_host_us=group, single_host_us=single)
         launch = {form: (lambda form=form: fs.gsrb_batch_launch(
@@ -1521,6 +1587,9 @@ def check_one_launch_case(name: str, case, dtype) -> dict:
         check(kernel_counts.DEVICE_LAUNCHES[name] == before + 1,
               f"{name}: not one launch per call")
         check(torch.equal(u_in, f["u"]), f"{name} {cid}: input modified")
+        check(torch.equal(fn(f["u"], f["rhs"], f["a"], nsweeps=ns, **kw),
+                          out),
+              f"{name} {cid} {dtype} nsweeps {ns}: two launches differ")
         for what, other in others.items():
             err, rel = rel_err(out, other)
             worst = max(worst, (rel, err))
@@ -1530,7 +1599,7 @@ def check_one_launch_case(name: str, case, dtype) -> dict:
                   f"rel err {rel} > {TOL[dtype]}")
         del others, out
     rec[name].update(rel_err=worst[0], max_abs_err=worst[1],
-                     against=sorted(against))
+                     against=sorted(against), relaunch_bitwise=True)
     if timed:
         run = lambda ns: fn(f["u"], f["rhs"], f["a"], nsweeps=ns, **kw)
         run2x2 = lambda: fn(run(2), f["rhs"], f["a"], nsweeps=2, **kw)
@@ -1806,12 +1875,15 @@ def check_tower_case(case, dtype) -> dict:
     check(ct.tower_supported(spec, {"b": (None,) * ndep}, 0),
           f"tower case {cid} not tower-shaped")
     isz = f["u"].element_size()
+    faces = fs.face_cells(spec.boxes[-1].shape, kinds)
     blocks, tail, smem = ct.tower_geometry(
         [b.shape for b in spec.boxes], isz,
-        ct.tower_capacity(f["u"].device, isz))
+        ct.tower_capacity(f["u"].device, isz, 0, faces > 0), faces)
     rec = {"case": cid, "shape": list(shape), "depths": ndep,
            "dtype": str(dtype)[6:], "tolerance": TOL[dtype],
            "geometry": {"blocks": blocks, "tail": tail, "smem": smem,
+                        "bottom": list(spec.boxes[-1].shape),
+                        "wrap_face_cells": faces,
                         "grid_barriers": tower_barriers(ndep, tail,
                                                         spec.nsmooth)}}
     inputs = [t.clone() for t in [f["u"], f["rhs"]] + a_list]
@@ -1834,9 +1906,14 @@ def check_tower_case(case, dtype) -> dict:
     for k, p in zip(list(ku) + list(kr) + [kb], list(pu) + list(pr) + [pb]):
         err, rel = rel_err(k, p)
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-    rec["tower_down"] = {"max_abs_err": worst_abs, "rel_err": worst_rel}
+    rec["tower_down"] = {"max_abs_err": worst_abs, "rel_err": worst_rel,
+                         "relaunch_bitwise": True}
     check(worst_rel <= TOL[dtype],
           f"tower_down {cid} {dtype}: rel err {worst_rel}")
+    ku2, kr2, kb2 = down(ct.tower_down)
+    check(all(torch.equal(x, y) for x, y in zip(
+        list(ku) + list(kr) + [kb], list(ku2) + list(kr2) + [kb2])),
+        f"tower_down {cid} {dtype}: two launches differ")
 
     # up pass from the plain down pass's outputs, on both sides
     e_bot = 0.5 * pb
@@ -1847,8 +1924,11 @@ def check_tower_case(case, dtype) -> dict:
         ct.tower_up_plain)
     torch.cuda.synchronize()
     err, rel = rel_err(out, ref)
-    rec["tower_up"] = {"max_abs_err": err, "rel_err": rel}
+    rec["tower_up"] = {"max_abs_err": err, "rel_err": rel,
+                       "relaunch_bitwise": True}
     check(rel <= TOL[dtype], f"tower_up {cid} {dtype}: rel err {rel}")
+    check(torch.equal(up(ct.tower_up), out),
+          f"tower_up {cid} {dtype}: two launches differ")
     # the kernels only read their inputs
     check(all(torch.equal(x, y) for x, y in zip(
         inputs + up_in, [f["u"], f["rhs"]] + a_list + [e_bot] + list(pu)
@@ -1935,6 +2015,10 @@ def check_tower_bf16(cid: str, spec, f: dict, a_list, timed: bool,
     kd = one_launch("tower_down_bf16", lambda: down(sb, ct.tower_down))
     pd, fd = down(sb, ct.tower_down_plain), down(spec, ct.tower_down)
     torch.cuda.synchronize()
+    flat = lambda o: list(o[0]) + list(o[1]) + [o[2]]  # noqa: E731
+    check(all(torch.equal(x, y) for x, y in zip(
+        flat(kd), flat(down(sb, ct.tower_down)))),
+        f"tower_down_bf16 {cid}: two launches differ")
     states, rests = list(kd[0]) + [kd[2]], list(kd[1])
     rhs_in = [f["rhs"]] + rests
     per_depth = tower_depths_bf16(
@@ -1949,7 +2033,6 @@ def check_tower_bf16(cid: str, spec, f: dict, a_list, timed: bool,
         rest_err = max(rest_err, rel_err(rests[k], ref)[1])
     check(rest_err <= TOL[torch.float32], f"tower_down_bf16 {cid}: "
           f"restricted residual {rest_err} of max|plain| > TOL")
-    flat = lambda o: list(o[0]) + list(o[1]) + [o[2]]  # noqa: E731
     against = check_against_f32(f"tower_down_bf16 {cid} depth 0",
                                 kd[0][0], fd[0][0], BF16_CONTRACT)
     out = {"tower_down_bf16": {
@@ -1978,6 +2061,8 @@ def check_tower_bf16(cid: str, spec, f: dict, a_list, timed: bool,
                              a_list[:-1], _where=True)
     check(torch.equal(ku, twin), f"tower_up_bf16 {cid}: not bit for bit its "
           f"twin: {rel_err(ku, twin)}")
+    check(torch.equal(up(sb, ct.tower_up), ku),
+          f"tower_up_bf16 {cid}: two launches differ")
     err, rel = rel_err(ku, ref)
     check(rel <= BF16_TOL and bool(torch.isfinite(ku).all()),
           f"tower_up_bf16 {cid}: {rel} of max|plain| > {BF16_TOL}")
@@ -2047,6 +2132,12 @@ SHARD_CASES = [
      (4,), (1, 0, 0), False),
     ("slab_one_shard_periodic", (48, 40, 36), ALL_P, (0, 1, 0), (1,),
      (0, 0, 0), False),
+    # the box at N = 240 on 4 x-slabs (phase periodic_odd): its top depth's
+    # slab, and its 60^3 depth's, 15 planes a shard
+    ("slab_60x240x240_P", (240, 240, 240), ALL_P, (0, 0, 0), (4,),
+     (1, 0, 0), True),
+    ("slab_15x60x60_P", (60, 60, 60), ALL_P, (0, 0, 0), (4,), (1, 0, 0),
+     False),
 ]
 # cases whose rhs and aCoef pads are built for a deeper chunk (h_max rows a
 # side) and sliced [h_max - H, h_max + H), as halo.sharded_relax slices them
@@ -2168,8 +2259,10 @@ def check_shard_case(case, dtype) -> dict:
         worst = max(worst, (rel, err))
         check(rel <= TOL[dtype] and bool(torch.isfinite(out).all()),
               f"{name} {cid} {dtype} nsweeps {ns}: rel err {rel}")
+        check(torch.equal(call(ops, ns), out),
+              f"{name} {cid} {dtype} nsweeps {ns}: two launches differ")
     rec[name].update(rel_err=worst[0], max_abs_err=worst[1],
-                     meta=list(ops["meta"]))
+                     meta=list(ops["meta"]), relaunch_bitwise=True)
 
     # 4 sweeps of the whole level as the sharded path runs them (per chunk
     # of 2: every shard's kernel on the operands parallel/halo builds,
@@ -3910,6 +4003,214 @@ def phase_periodic() -> dict:
     return out
 
 
+# ----------------------------------------------------------- periodic_odd
+
+# the periodic box at N = 240 (params/periodic.txt with N alone changed):
+# 240 = 15 * 2^4, so its depth chain ends on a periodic 15^3 bottom, odd
+# on every axis: the top depth takes the multisweep rung, the tower runs
+# 120^3 -> 15^3 and pre-smooths that bottom in place, and the bottom's
+# BiCGStab (3375 cells, above mg.DIRECT_BOTTOM_MAX_CELLS) is preconditioned
+# by gsrb_relax at 15^3. On 4 x-slabs the depths the mesh cuts stop at 60^3
+# (15 planes a shard), and 30^3 and 15^3 are too few for the tower:
+# gsrb_relax smooths both.
+PERIODIC_ODD = PERIODIC_BASE + ["N = 240 240 240"]
+ODD_COUNTS: dict = {}
+# the kernels-phase cases of a level kernel, which hold it at the shapes a
+# run of the box gives it (held_at)
+ODD_HELD_BY = {"gsrb_relax": "LEVEL_CASES", "residual": "LEVEL_CASES",
+               "residual_restrict": "LEVEL_CASES",
+               "multisweep_relax": "MULTI_CASES"}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def odd_plan_table(level_spec) -> dict:
+    """Per depth of the box's level: its shape, the shards the mesh cuts it
+    into, and what smooths it on the card at f32: the shard march (a cut
+    depth), the tower (the uncut chain from the depth the tower starts at),
+    else relax's plan (multisweep or resident: gsrb_relax)."""
+    coefs = {"b": (None,) * level_spec.ndepths}
+    table, tower_from = {}, None
+    for d, box in enumerate(level_spec.boxes):
+        cut = mg._shard_counts(level_spec, d)
+        uncut_below = all(mg._shard_counts(level_spec, dd) == (1, 1, 1)
+                          for dd in range(d, level_spec.ndepths))
+        if (tower_from is None and uncut_below
+                and ct.tower_supported(level_spec, coefs, d)):
+            tower_from = d
+        if cut != (1, 1, 1):
+            kernel = "multisweep_relax_halo"
+        elif tower_from is not None:
+            kernel = "tower_down/tower_up"
+        else:
+            plan = mg.plan_for(level_spec, box.shape, torch.float32, "cuda",
+                               level_spec.nsmooth)
+            kernel = {"multisweep": "multisweep_relax",
+                      "resident": "gsrb_relax"}[plan[0][0]]
+        table["x".join(map(str, box.shape))] = {"shards": list(cut),
+                                                "kernel": kernel}
+    bottom = level_spec.boxes[-1]
+    table["bottom_precond"] = {
+        "shape": list(bottom.shape),
+        "direct": mg._use_direct_bottom(level_spec),
+        "plan": mg.plan_for(level_spec, bottom.shape, torch.float32, "cuda",
+                            2)}
+    return table
+
+
+def held_at(seen: dict, path: str) -> dict:
+    """For each kernel and level shape a run of the box gave it (seen, from
+    calls_by_shape), the kernels-phase case that holds the kernel against
+    its plain version there (every axis periodic, the same shape); fails
+    where none does, or where the kernels line's case for the path
+    (PATH_CASES) is not one of them."""
+    out = {}
+    for name, shapes in seen.items():
+        cases = globals()[ODD_HELD_BY[name]]
+        for key in shapes:
+            shape = tuple(int(n) for n in key.split("x"))
+            cid = next((c[0] for c in cases
+                        if tuple(c[1]) == shape and c[2] == ALL_P), None)
+            check(cid is not None,
+                  f"{path}: {name} at {key} P is held by no case of "
+                  f"{ODD_HELD_BY[name]}")
+            out.setdefault(name, {})[key] = cid
+        if shapes:
+            check(PATH_CASES[path].get(name) in out[name].values(),
+                  f"{path}: the kernels line reads {name} at "
+                  f"{PATH_CASES[path].get(name)}, not a shape of the run: "
+                  f"{out[name]}")
+    return out
+
+
+def phase_periodic_odd() -> dict:
+    """The periodic box at N = 240 end to end (PERIODIC_ODD): every kernel of
+    its route launched (the multisweep rung at 240^3, the tower down to the
+    15^3 bottom, gsrb_relax at 15^3 in the bottom's BiCGStab), one launch a
+    call, no plain version; the same solve under `smoother = xla` on the
+    card within the periodic phase's limits (step 1 1e-5, K 1e-10, Krylov
+    counts equal); a second kernel solve bit for bit the first (a colour pass
+    that read a cell its pass writes would differ between runs); the box on
+    4 x-slabs of cuda:0 within 1e-5 of the unsharded step 1, with the
+    kernel of each depth; s/iteration and peak memory beside the card."""
+    card = card_line()
+    runs = []
+    for label in ("periodic_odd", "periodic_odd_again"):
+        keep: dict = {}
+        kernel_counts.reset()
+        with calls_by_shape(("gsrb_relax", "multisweep_relax", "residual",
+                             "residual_restrict")) as seen:
+            run = run_solve(PERIODIC_ODD, label, keep, params=PERIODIC)
+        counts = kernel_counts.snapshot()
+        run["calls_by_shape"] = {k: dict(v) for k, v in seen.items()}
+        runs.append((run, counts, keep))
+        torch.cuda.empty_cache()
+    (run, counts, keep), (again, _, _) = runs
+    ODD_COUNTS["periodic_odd"] = counts
+    check(run["levels"] == [[240, 240, 240]],
+          f"periodic_odd: hierarchy {run['levels']}")
+    spec = comp.make_amr_spec(keep["geom"], keep["cfg"])
+    table = odd_plan_table(spec.level_specs[0])
+    check(table["240x240x240"]["kernel"] == "multisweep_relax"
+          and table["120x120x120"]["kernel"] == "tower_down/tower_up"
+          and table["15x15x15"]["kernel"] == "tower_down/tower_up"
+          and not table["bottom_precond"]["direct"]
+          and table["bottom_precond"]["plan"] == [("resident", 2)],
+          f"periodic_odd: route {table}")
+    on_path = ("multisweep_relax", "residual", "residual_restrict",
+               "tower_down", "tower_up", "gsrb_relax")
+    check(all(counts["launches"][k] > 0 for k in on_path),
+          f"periodic_odd: a kernel of the route was never launched: "
+          f"{ {k: counts['launches'][k] for k in on_path} }")
+    check(set(run["calls_by_shape"]["gsrb_relax"]) == {"15x15x15"}
+          and set(run["calls_by_shape"]["multisweep_relax"])
+          == {"240x240x240"},
+          f"periodic_odd: relax calls by shape {run['calls_by_shape']}")
+    held = held_at(run["calls_by_shape"], "periodic_odd")
+    check_one_launch(counts, "periodic_odd")
+    check(counts["device_launches"]["multisweep_relax"]
+          == counts["launches"]["multisweep_relax"],
+          "periodic_odd: multisweep_relax is not one launch per call")
+    check(all(v == 0 for v in counts["plain_calls"].values()),
+          f"periodic_odd: a plain version ran on the card's path: {counts}")
+    k, h = run["constant_K"], run["history"]
+    check(math.isfinite(k) and k < 0.0, f"periodic_odd: constant_K {k}")
+    check(len(h) >= 2 and all(b < a for a, b in zip(h, h[1:])),
+          f"periodic_odd: history not contracting: {h}")
+    # the race would show as run-to-run differences
+    check(again["history"] == h
+          and again["linear_residuals"] == run["linear_residuals"]
+          and again["K_history"] == run["K_history"],
+          f"periodic_odd: two kernel solves differ: {h} {again['history']}")
+    torch.cuda.empty_cache()
+    staged = run_solve(PERIODIC_ODD + ["smoother = xla",
+                                       "max_NL_iterations = 2"],
+                       "periodic_odd_staged", params=PERIODIC)
+    agree = check_against_staged(run, staged, "periodic_odd")
+    torch.cuda.empty_cache()
+    # 4 x-slabs of cuda:0: which kernel took each depth, step 1 against the
+    # unsharded solve
+    with calls_by_shape(("gsrb_relax", "residual",
+                         "residual_restrict")) as seen_x:
+        slabs, counts_x = sharded_solve(PERIODIC_ODD, "periodic_odd_x",
+                                        SHARD_X, PERIODIC)
+    torch.cuda.empty_cache()
+    ODD_COUNTS["periodic_odd_x"] = counts_x
+    seen_x = {k: dict(v) for k, v in seen_x.items()}
+    held_x = held_at(seen_x, "periodic_odd_x")
+    mesh = one_card_mesh(SHARD_X)
+    spec_x = comp.make_amr_spec(keep["geom"], keep["cfg"], mesh.home, mesh)
+    table_x = odd_plan_table(spec_x.level_specs[0])
+    step_x = abs(slabs["history"][0] - h[0]) / h[0]
+    check(step_x <= 1e-5, f"periodic_odd_x: step 1 {slabs['history'][0]} "
+          f"vs unsharded {h[0]}: {step_x}")
+    check(counts_x["launches"]["multisweep_relax_halo"] > 0
+          and counts_x["launches"]["gsrb_relax"] > 0
+          and "15x15x15" in seen_x["gsrb_relax"],
+          f"periodic_odd_x: launches {counts_x['launches']} by shape "
+          f"{seen_x}")
+    check_one_launch(counts_x, "periodic_odd_x")
+    check(all(v == 0 for v in counts_x["plain_calls"].values()),
+          f"periodic_odd_x: a plain version ran: {counts_x}")
+    n_iter = len(h)
+    out = {
+        "phase": "periodic_odd", "params": os.path.relpath(PERIODIC, ROOT),
+        "overrides": PERIODIC_ODD, "card": card,
+        "plan_by_depth": table, "held_by": held,
+        "launches": counts["launches"],
+        "device_launches": counts["device_launches"],
+        "plain_calls": counts["plain_calls"],
+        "launches_per_picard_iteration": {
+            n: c / n_iter for n, c in counts["launches"].items() if c},
+        "repeat_bitwise": True, "repeat_s_per_iteration":
+            again["s_per_iteration"], **agree, **run,
+        "x_slabs": {"mesh": list(SHARD_X), "step1_rel_diff": step_x,
+                    "plan_by_depth": table_x,
+                    "calls_by_shape": seen_x, "held_by": held_x,
+                    "launches": counts_x["launches"],
+                    "plain_calls": counts_x["plain_calls"],
+                    "history": slabs["history"],
+                    "linear_iters": slabs["linear_iters"],
+                    "constant_K": slabs["constant_K"],
+                    "s_per_iteration": slabs["s_per_iteration"],
+                    "max_memory_allocated": slabs["max_memory_allocated"]},
+    }
+    emit(out)
+    print(f"periodic_odd: {card}: s/iteration {run['s_per_iteration']}, "
+          f"peak memory {run['max_memory_allocated']} B; launches "
+          f"{ {n: counts['launches'][n] for n in on_path} }", flush=True)
+    return out
+
+
 # ------------------------------------------------------------------- cli
 
 CLI_OVERRIDES = ["max_level = 6", "max_NL_iterations = 2",
@@ -5205,6 +5506,24 @@ PROCESS_COUNTS: dict = {}
 # kernels phase drives them (check_sweep_entry_points, SWEEP_COUNTS)
 PATH_CASES["sweep_entry_points"] = {
     "gsrb_full_sweep": SWEEP_RUN_CASE, "gsrb_half_sweep": SWEEP_RUN_CASE}
+# the periodic box at N = 240 (phase periodic_odd): the multisweep rung and
+# the residual's two forms at its 240^3 top depth (the residual also at the
+# 15^3 bottom, held by odd_periodic_15_P), its 15^3 bottom in gsrb_relax
+# (the bottom's BiCGStab), the tower down to it
+PATH_CASES["periodic_odd"] = {"multisweep_relax": "odd_path_240_P",
+                              "residual": "odd_path_240_P",
+                              "residual_restrict": "odd_path_240_P",
+                              "gsrb_relax": "odd_periodic_15_P",
+                              "tower_down": "odd_bottom_120_P",
+                              "tower_up": "odd_bottom_120_P"}
+# the same box on 4 x-slabs (phase periodic_odd): the shard march at its
+# top depth's slab, gsrb_relax at 15^3 (and 30^3), the residual at the
+# bottom, the restricted residual at 30^3 (the phase's held_at checks each
+# shape the run gives a level kernel against the kernels-phase cases)
+PATH_CASES["periodic_odd_x"] = {
+    "multisweep_relax_halo": "slab_60x240x240_P",
+    "gsrb_relax": "odd_periodic_15_P", "residual": "odd_periodic_15_P",
+    "residual_restrict": "odd_path_30_P"}
 # the path whose run gives a kernel's top-level launches
 MAIN_PATH = {"multisweep_relax": "periodic",
              "multisweep_relax_halo": "sharded_x",
@@ -5247,7 +5566,9 @@ def kernels_line(kernels: dict | None, solve: dict | None,
                 "bf16_sharded_x", "bf16_sharded_pencil")},
             "processes": PROCESS_COUNTS.get("processes"),
             "bf16_processes": PROCESS_COUNTS.get("bf16_processes"),
-            "sweep_entry_points": SWEEP_COUNTS.get("sweep_entry_points")}
+            "sweep_entry_points": SWEEP_COUNTS.get("sweep_entry_points"),
+            "periodic_odd": ODD_COUNTS.get("periodic_odd"),
+            "periodic_odd_x": ODD_COUNTS.get("periodic_odd_x")}
 
     def measured(name: str, path: str) -> dict:
         if kernels is None:
@@ -5307,8 +5628,8 @@ def kernels_line(kernels: dict | None, solve: dict | None,
 
 
 PHASES = ("env", "build", "kernels", "solve", "lock3", "scale7", "records",
-          "forest_batching", "bf16_tier", "periodic", "cli", "sharded",
-          "processes", "lowdim")
+          "forest_batching", "bf16_tier", "periodic", "periodic_odd", "cli",
+          "sharded", "processes", "lowdim")
 # asked for by name only: the default run needs one card
 ON_REQUEST = ("cards", "processes_cards")
 
@@ -5349,6 +5670,7 @@ def main() -> int:
            "forest_batching": phase_forest_batching,
            "bf16_tier": phase_bf16_tier,
            "periodic": phase_periodic,
+           "periodic_odd": phase_periodic_odd,
            "cli": phase_cli, "sharded": phase_sharded,
            "processes": phase_processes,
            "lowdim": phase_lowdim, "cards": phase_cards,

@@ -140,6 +140,9 @@ struct RelaxArgs {
   const T* a[kMaxBatch];
   const T* b[kMaxBatch];     // null: constant bCoef
   T* out[kMaxBatch];
+  // grid form: the wrap faces of a level with an odd periodic axis
+  // (gsrb_walk.cuh's Faces; null without one)
+  T* faces[kMaxBatch];
   int par, npass, per;        // sum(lo) & 1, 2 * nsweeps, periodic_axes
   bool vec;                   // slab form: rows in 16-byte pieces
   int tiles;                  // blocks of one patch
@@ -151,7 +154,9 @@ struct RelaxArgs {
   int start[2 * kMaxSlabs + 2];
 };
 
-template <typename T, typename C>
+// ODD: the level has a periodic axis of odd extent (its passes in place
+// read the wrap faces, g.faces).
+template <typename T, typename C, bool ODD>
 __global__ void __launch_bounds__(kThreads, 1)
 relax_grid_kernel(const __grid_constant__ RelaxArgs<T> g) {
   cg::grid_group grid = cg::this_grid();
@@ -177,10 +182,26 @@ relax_grid_kernel(const __grid_constant__ RelaxArgs<T> g) {
     else
       first_pass<false, -1, C>(out, get, rhs, a, b, g.p, g.par, update, w,
                                many);
-    for (int pass = 1; pass < g.npass; ++pass) {
-      grid.sync();
-      pass_in_place<false, C>(out, rhs, a, b, g.p, (g.par + pass) & 1, w,
-                              many, g.per);
+    if constexpr (ODD) {
+      // each pass saves the next pass's faces, whose cells it does not
+      // write; the first pass those of the second from the caller's u
+      const Faces<T> fc = make_faces(g.p, g.faces[patch]);
+      if (g.npass > 1)
+        save_faces(fc, get, g.p, (g.par + 1) & 1, first, stride);
+      for (int pass = 1; pass < g.npass; ++pass) {
+        grid.sync();
+        pass_faces<false, C>(out, rhs, a, b, g.p, (g.par + pass) & 1, w,
+                             many, g.per, fc);
+        if (pass + 1 < g.npass)
+          save_faces(fc, [out](int q) { return out[q]; }, g.p,
+                     (g.par + pass + 1) & 1, first, stride);
+      }
+    } else {
+      for (int pass = 1; pass < g.npass; ++pass) {
+        grid.sync();
+        pass_in_place<false, C>(out, rhs, a, b, g.p, (g.par + pass) & 1, w,
+                                many, g.per);
+      }
     }
   }
 }
@@ -259,10 +280,13 @@ constexpr int kRowCells = 4;
 // colour in the tile, as items (li, lj, seg) of the (bx, by, L) box, L =
 // ceil(nz / 2 / kRowCells) segments a row: segment seg takes the z pairs
 // seg, seg + L, ... of row (li, lj) (neighbouring threads on neighbouring
-// pairs), all its loads ahead of its stores; in the arithmetic of C.
-template <int PER, typename C>
+// pairs), all its loads ahead of its stores; in the arithmetic of C. ZODD:
+// z is periodic of odd extent, and a row's cells 0 and nz - 1 read each
+// other from Z (save_zwrap: their values before the pass).
+template <int PER, typename C, bool ZODD>
 __device__ __forceinline__ void tile_pass(float* W, const float* A,
-                                          const float* R, const Tile& t,
+                                          const float* R, const float* Z,
+                                          const Tile& t,
                                           const LevelParams<float>& p,
                                           int par, Walk w, int segs) {
   const int nz = p.nz, hz = (nz + 1) >> 1;
@@ -288,8 +312,14 @@ __device__ __forceinline__ void tile_pass(float* W, const float* A,
       um[0] = W[c - t.sx];
       up[1] = W[c + nz];
       um[1] = W[c - nz];
-      up[2] = W[k == nz - 1 ? (zper ? c - (nz - 1) : c) : c + 1];
-      um[2] = W[k == 0 ? (zper ? c + (nz - 1) : c) : c - 1];
+      if constexpr (ZODD) {
+        const int zr = 2 * (w.a * t.by + w.b);
+        up[2] = k == nz - 1 ? Z[zr] : W[c + 1];
+        um[2] = k == 0 ? Z[zr + 1] : W[c - 1];
+      } else {
+        up[2] = W[k == nz - 1 ? (zper ? c - (nz - 1) : c) : c + 1];
+        um[2] = W[k == 0 ? (zper ? c + (nz - 1) : c) : c - 1];
+      }
       v[s] = gsrb_update_row<float, false, PER, C>(W[c], up, um, A[own + k],
                                                    R[own + k], false, 0.0f,
                                                    rf, p, k);
@@ -301,7 +331,17 @@ __device__ __forceinline__ void tile_pass(float* W, const float* A,
   }
 }
 
-template <int PER, typename C>
+// The tile's z wrap cells (k = 0, then nz - 1, of each row) into Z, at a
+// point where no pass writes the window.
+__device__ __forceinline__ void save_zwrap(float* Z, const float* W,
+                                           const Tile& t, int nz) {
+  for (int m = threadIdx.x; m < 2 * t.bx * t.by; m += blockDim.x) {
+    const int r = m >> 1, li = r / t.by;
+    Z[m] = W[t.at(li, r - li * t.by, (m & 1) ? nz - 1 : 0, nz)];
+  }
+}
+
+template <int PER, typename C, bool ZODD>
 __global__ void __launch_bounds__(kThreads, 1)
 relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   const LevelParams<float>& p = g.p;
@@ -322,6 +362,7 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   const int cells = t.bx * t.by * nz;
   float* A = W + (t.bx + 2) * t.sx;
   float* R = A + cells;
+  float* Z = R + cells;  // ZODD: 2 cells a tile row
   float* out = g.out[patch];
   // the window from the caller's u (not its corners, which no cell reads),
   // a and rhs of the tile
@@ -364,6 +405,10 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
       W[m] = as_compute<C>(W[m]);
     __syncthreads();
   }
+  if constexpr (ZODD) {
+    save_zwrap(Z, W, t, nz);
+    __syncthreads();
+  }
   // rows a neighbour reads: the first and last planes along a cut x, the
   // first and last rows along a cut y
   const int xrows = tx > 1 ? 2 * t.by : 0, yrows = ty > 1 ? 2 * t.bx : 0;
@@ -381,9 +426,10 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
     wr = (li + 1) * (t.by + 2) + lj + 1;
   };
   for (int pass = 0; pass < g.npass; ++pass) {
-    tile_pass<PER, C>(W, A, R, t, p, (g.par + pass) & 1, w, segs);
+    tile_pass<PER, C, ZODD>(W, A, R, Z, t, p, (g.par + pass) & 1, w, segs);
     __syncthreads();
     if (pass + 1 == g.npass) break;
+    if constexpr (ZODD) save_zwrap(Z, W, t, nz);
     if (xrows + yrows > 0) {
       copy_rows<false>(W, out, xrows + yrows, nz, vec, edge_rows);
       cg::this_grid().sync();
@@ -437,35 +483,48 @@ relax_slab_kernel(const __grid_constant__ RelaxArgs<float> g) {
   copy_rows<false>(W, out, t.bx * t.by, nz, vec, own_rows);
 }
 
-// The slab kernels: every axis periodic, none, some; f32 arithmetic, then
-// the bf16 tier's.
-const void* const kSlabKernels[2][3] = {
-    {(const void*)relax_slab_kernel<1, float>,
-     (const void*)relax_slab_kernel<0, float>,
-     (const void*)relax_slab_kernel<-1, float>},
-    {(const void*)relax_slab_kernel<1, __nv_bfloat16>,
-     (const void*)relax_slab_kernel<0, __nv_bfloat16>,
-     (const void*)relax_slab_kernel<-1, __nv_bfloat16>}};
+// The slab kernels: every axis periodic, none, some, then with z periodic
+// of odd extent every axis periodic and some; f32 arithmetic, then the bf16
+// tier's.
+constexpr int kSlabForms = 5;
+const void* const kSlabKernels[2][kSlabForms] = {
+    {(const void*)relax_slab_kernel<1, float, false>,
+     (const void*)relax_slab_kernel<0, float, false>,
+     (const void*)relax_slab_kernel<-1, float, false>,
+     (const void*)relax_slab_kernel<1, float, true>,
+     (const void*)relax_slab_kernel<-1, float, true>},
+    {(const void*)relax_slab_kernel<1, __nv_bfloat16, false>,
+     (const void*)relax_slab_kernel<0, __nv_bfloat16, false>,
+     (const void*)relax_slab_kernel<-1, __nv_bfloat16, false>,
+     (const void*)relax_slab_kernel<1, __nv_bfloat16, true>,
+     (const void*)relax_slab_kernel<-1, __nv_bfloat16, true>}};
 
 template <typename C>
-const void* slab_kernel(int per) {
+const void* slab_kernel(int per, bool zodd) {
   return kSlabKernels[std::is_same<C, __nv_bfloat16>::value ? 1 : 0]
-                     [per == 1 ? 0 : per == 0 ? 1 : 2];
+                     [zodd ? (per == 1 ? 3 : 4)
+                           : per == 1 ? 0 : per == 0 ? 1 : 2];
 }
 
-// Blocks of every kernel of the type and arithmetic that the current device
-// runs at once, the slab kernels with `smem` bytes of shared memory each (the
-// wrapper's budget), asked once per kernel and device; also sets that
-// shared-memory limit on the slab kernels.
+// Blocks of the kernels a level of the type and arithmetic launches that the
+// current device runs at once, the slab kernels with `smem` bytes of shared
+// memory each (the wrapper's budget), asked once per kernel and device; also
+// sets that shared-memory limit on those slab kernels. odd: the level has a
+// periodic axis of odd extent (the grid kernel's ODD form and every slab
+// form); else the grid kernel's even form and the slab forms without a z
+// wrap, so that no odd form decides an even level's blocks.
 template <typename T, typename C>
-cudaError_t relax_capacity(int smem, int* capacity) {
-  static int cache_grid[kMaxDevices] = {};
-  static int cache_slab[3][kMaxDevices] = {};
+cudaError_t relax_capacity(int smem, bool odd, int* capacity) {
+  static int cache_grid[2][kMaxDevices] = {};
+  static int cache_slab[kSlabForms][kMaxDevices] = {};
   int cap = 0;
-  cudaError_t err = march_capacity((const void*)relax_grid_kernel<T, C>,
-                                   kThreads, 0, cache_grid, &cap);
+  cudaError_t err = march_capacity(
+      odd ? (const void*)relax_grid_kernel<T, C, true>
+          : (const void*)relax_grid_kernel<T, C, false>,
+      kThreads, 0, cache_grid[odd], &cap);
   const int tier = std::is_same<C, __nv_bfloat16>::value ? 1 : 0;
-  for (int f = 0; f < 3 && err == cudaSuccess && sizeof(T) == 4; ++f) {
+  const int forms = odd ? kSlabForms : 3;
+  for (int f = 0; f < forms && err == cudaSuccess && sizeof(T) == 4; ++f) {
     int c = 0;
     err = march_capacity(kSlabKernels[tier][f], kThreads, smem,
                          cache_slab[f], &c);
@@ -481,7 +540,8 @@ cudaError_t relax_capacity(int smem, int* capacity) {
 template <typename T, typename C>
 cudaError_t relax_impl(const void* const* u, const void* const* rhs,
                        const void* const* a, const void* const* b,
-                       void* const* out, int npatch, int nx, int ny, int nz,
+                       void* const* out, void* faces, int npatch, int nx,
+                       int ny, int nz,
                        const int* kinds, double rho, double alpha,
                        double beta, double dx, int base, int nsweeps,
                        int form, int per, int blocks, int xtiles,
@@ -493,6 +553,13 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
     return cudaErrorInvalidValue;
   RelaxArgs<T> g = {};
   g.p = make_level_params<T>(nx, ny, nz, kinds, rho, alpha, beta, dx);
+  const int fcells = face_cells(g.p);
+  const bool zodd = odd_wrap(g.p, 2);
+  // the grid form's in-place passes need the faces where there are any;
+  // the slab form keeps its z wrap in shared memory (x and y wrap through
+  // its halo, copied between passes)
+  if (fcells > 0 && form != FORM_SLAB && faces == nullptr)
+    return cudaErrorInvalidValue;
   bool has_b = false;
   unsigned long long bits = 0;  // of every pointer of the slab form
   for (int k = 0; k < npatch; ++k) {
@@ -501,6 +568,8 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
     g.a[k] = (const T*)a[k];
     g.b[k] = b ? (const T*)b[k] : nullptr;
     g.out[k] = (T*)out[k];
+    g.faces[k] = fcells > 0 && form != FORM_SLAB
+        ? (T*)faces + (long long)k * fcells : nullptr;
     has_b = has_b || g.b[k] != nullptr;
     bits |= (unsigned long long)u[k] | (unsigned long long)rhs[k] |
             (unsigned long long)a[k] | (unsigned long long)out[k];
@@ -512,7 +581,9 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
   g.npatch = npatch;
   g.serial = form == FORM_SERIAL;
   if (!std::is_same<C, T>::value && has_b) return cudaErrorInvalidValue;
-  const void* kern = (const void*)relax_grid_kernel<T, C>;
+  const void* kern = fcells > 0
+      ? (const void*)relax_grid_kernel<T, C, true>
+      : (const void*)relax_grid_kernel<T, C, false>;
   if (form == FORM_SLAB) {
     // the slab form: f32, constant b, x and y cut in order into xtiles x
     // (blocks / xtiles) tiles, each tile's window, a and rhs within smem
@@ -534,12 +605,12 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
       }
       g.start[s] = starts[s];
     }
-    if (((bx + 2) * (by + 2) + 2 * bx * by) * nz * (long long)sizeof(T) >
-        smem)
+    if ((((bx + 2) * (by + 2) + 2 * bx * by) * nz + (zodd ? 2 * bx * by : 0))
+            * (long long)sizeof(T) > smem)
       return cudaErrorInvalidValue;
     g.xtiles = tx;
     g.vec = nz % 4 == 0 && (bits & 15) == 0;
-    kern = slab_kernel<C>(per);
+    kern = slab_kernel<C>(per, zodd);
   } else {
     smem = 0;
   }
@@ -554,14 +625,17 @@ cudaError_t relax_impl(const void* const* u, const void* const* rhs,
 
 // C entry point (csrc/mg_kernels.h's conventions): nsweeps red-black sweeps
 // of the level u into out (u, rhs, a, b only read; b may be null: constant
-// bCoef = 1). base = sum(lo). compute: 0 the passes at the operands'
+// bCoef = 1). faces: scratch of fused_sweeps.face_cells(shape, kinds)
+// elements for the grid form of a level with a periodic axis of odd extent
+// (the wrapper allocates it), else null. base = sum(lo). compute: 0 the passes at the operands'
 // precision, 1 in bf16 (f32 operands, b null). The launch geometry comes from
 // fused_sweeps.gsrb_geometry: form (RelaxForm), per (1 every axis periodic,
 // 0 none, -1 some), blocks, and for the slab form xtiles (tiles along x;
 // blocks / xtiles along y), starts (the first plane of each x tile, then
 // nx; the first row of each y tile, then ny) and smem bytes.
 extern "C" int mgk_gsrb_relax(const void* u, const void* rhs, const void* a,
-                              const void* b, void* out, int is_double,
+                              const void* b, void* out, void* faces,
+                              int is_double,
                               int compute, int nx, int ny, int nz,
                               const int* kinds, double rho,
                               double alpha, double beta, double dx, int base,
@@ -578,21 +652,25 @@ extern "C" int mgk_gsrb_relax(const void* u, const void* rhs, const void* a,
     return (int)cudaErrorInvalidValue;
   if (compute == 1)
     return (int)relax_impl<float, __nv_bfloat16>(
-        us, rs, as, bs, os, 1, nx, ny, nz, kinds, rho, alpha, beta, dx, base,
-        nsweeps, form, per, blocks, xtiles, starts, smem, st);
+        us, rs, as, bs, os, faces, 1, nx, ny, nz, kinds, rho, alpha, beta, dx,
+        base, nsweeps, form, per, blocks, xtiles, starts, smem, st);
   return (int)(is_double
-      ? relax_impl<double, double>(us, rs, as, bs, os, 1, nx, ny, nz, kinds,
-                                   rho, alpha, beta, dx, base, nsweeps, form,
-                                   per, blocks, xtiles, starts, smem, st)
-      : relax_impl<float, float>(us, rs, as, bs, os, 1, nx, ny, nz, kinds,
-                                 rho, alpha, beta, dx, base, nsweeps, form,
-                                 per, blocks, xtiles, starts, smem, st));
+      ? relax_impl<double, double>(us, rs, as, bs, os, faces, 1, nx, ny, nz,
+                                   kinds, rho, alpha, beta, dx, base, nsweeps,
+                                   form, per, blocks, xtiles, starts, smem,
+                                   st)
+      : relax_impl<float, float>(us, rs, as, bs, os, faces, 1, nx, ny, nz,
+                                 kinds, rho, alpha, beta, dx, base, nsweeps,
+                                 form, per, blocks, xtiles, starts, smem,
+                                 st));
 }
 
 // C entry point of the batch: npatch (at most kMaxBatch) levels of one
 // shape, face kinds and parity (base = sum(lo) of any of them), constant
 // bCoef; ptrs holds the patches' states u (only read), then rhs, a (only
-// read) and the results out, npatch each; geo (kept per shape: one array a
+// read) and the results out, npatch each, then the faces scratch of the
+// grid and serial forms (mgk_gsrb_relax's, patch k's k * face cells in;
+// null where the level has no periodic axis of odd extent); geo (kept per shape: one array a
 // call) npatch, is_double, nx, ny, nz, nsweeps, form, per, blocks, xtiles,
 // smem, the six face kinds, then the slab form's starts. `blocks` (and the
 // slab form's xtiles, starts, smem) are one patch's launch geometry
@@ -613,26 +691,30 @@ extern "C" int mgk_gsrb_relax_batch(const void* const* ptrs, const int* geo,
   const void* const* rhs = ptrs + npatch;
   const void* const* a = ptrs + 2 * npatch;
   void* const* out = const_cast<void* const*>(ptrs + 3 * npatch);
+  void* faces = const_cast<void*>(ptrs[4 * npatch]);
   return (int)(is_double
-      ? relax_impl<double, double>(u, rhs, a, nullptr, out, npatch, nx, ny,
-                                   nz, kinds, rho, alpha, beta, dx, base,
+      ? relax_impl<double, double>(u, rhs, a, nullptr, out, faces, npatch, nx,
+                                   ny, nz, kinds, rho, alpha, beta, dx, base,
                                    nsweeps, form, per, blocks, xtiles, starts,
                                    smem, st)
-      : relax_impl<float, float>(u, rhs, a, nullptr, out, npatch, nx, ny, nz,
-                                 kinds, rho, alpha, beta, dx, base, nsweeps,
-                                 form, per, blocks, xtiles, starts, smem,
-                                 st));
+      : relax_impl<float, float>(u, rhs, a, nullptr, out, faces, npatch, nx,
+                                 ny, nz, kinds, rho, alpha, beta, dx, base,
+                                 nsweeps, form, per, blocks, xtiles, starts,
+                                 smem, st));
 }
 
-// C entry point: *capacity <- blocks of every gsrb_relax kernel of the type
+// C entry point: *capacity <- blocks of the gsrb_relax kernels of the type
 // and arithmetic (compute as mgk_gsrb_relax's) that the current device runs
-// at once, the slab kernels with `smem` bytes of shared memory each.
-extern "C" int mgk_gsrb_capacity(int is_double, int compute, int smem,
-                                 int* capacity) {
-  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+// at once on a level with (odd 1) or without (0) a periodic axis of odd
+// extent, the slab kernels with `smem` bytes of shared memory each.
+extern "C" int mgk_gsrb_capacity(int is_double, int compute, int odd,
+                                 int smem, int* capacity) {
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double) || odd < 0 ||
+      odd > 1)
     return (int)cudaErrorInvalidValue;
   if (compute == 1)
-    return (int)relax_capacity<float, __nv_bfloat16>(smem, capacity);
-  return (int)(is_double ? relax_capacity<double, double>(smem, capacity)
-                         : relax_capacity<float, float>(smem, capacity));
+    return (int)relax_capacity<float, __nv_bfloat16>(smem, odd, capacity);
+  return (int)(is_double
+      ? relax_capacity<double, double>(smem, odd, capacity)
+      : relax_capacity<float, float>(smem, odd, capacity));
 }

@@ -43,6 +43,16 @@
 //    tower_down runs that tail after its last grid barrier while the other
 //    blocks exit; tower_up runs it first, then one grid barrier, then the
 //    big depths. A 16^3 -> 4^3 chain is one block and no grid barrier.
+//  * Only the bottom depth may have an odd extent (every other is
+//    restricted). Along a periodic axis of odd extent n, cells 0 and n - 1
+//    are neighbours of one colour, so tower_down's passes in place on such a
+//    bottom read them from a copy of the wrap faces made before the pass
+//    (csrc/gsrb_walk.cuh's Faces: each pass saves the next pass's, whose
+//    cells it does not write): in shared memory beside the tail's arrays,
+//    or, where the bottom is grid-wide, in a scratch the caller passes
+//    (mgk_tower_down's `faces`). The depth's first pass (from zero, fused
+//    into the restriction) reads no neighbour and leaves the next pass's
+//    cells zero. tower_up never smooths the bottom.
 // Grid barriers per call with 4 smooths: tower_down one before each pass
 // but a depth's first and one before each restriction, and one before the
 // tail (17 at 64^3 -> 4^3, 25 at 128^3 -> 4^3); tower_up one after the
@@ -86,6 +96,8 @@ struct TowerArgs {
                              // new state of depths 0..ndep-2
   const T* uin[kMaxDepths];  // up: the states the correction is added to
   const T* top;              // down: the caller's u; up: the bottom's
+  T* faces;                  // down: the grid-wide bottom's wrap faces
+                             // (null unless it has an odd periodic axis)
   int par[kMaxDepths];       // sum(lo) & 1 per depth
   int ndep, nsmooth, tail;   // depths [tail, ndep) run in one block
 };
@@ -183,16 +195,19 @@ __device__ __forceinline__ void prolong_depth(T* u, const T* uin, const T* e,
 
 // tower_down's depths [tail, ndep) in this block's shared memory: u, a and
 // the rhs of the depth at work, the restricted rhs of the next beside it
-// (the two rhs buffers alternate). Each depth's state and restricted rhs are
-// written out for tower_up.
-template <typename T, typename C>
+// (the two rhs buffers alternate), then the bottom's wrap faces (ODD: the
+// bottom has a periodic axis of odd extent). Each depth's state and
+// restricted rhs are written out for tower_up.
+template <typename T, typename C, bool ODD>
 __device__ void tail_down(const TowerArgs<T>& g, T* sm) {
   const int t = g.tail, n0 = cells_of(g.p[t]);
+  const int n1 = t + 1 < g.ndep ? cells_of(g.p[t + 1]) : 0;
   const int tid = threadIdx.x, nt = blockDim.x;
   T* U = sm;
   T* A = U + n0;
   T* R0 = A + n0;
   T* R1 = A + 2 * n0;
+  T* F = R1 + n1;
   for (int m = tid; m < n0; m += nt) R0[m] = g.r[t][m];
   for (int d = t; d < g.ndep; ++d) {
     const LevelParams<T>& p = g.p[d];
@@ -204,12 +219,32 @@ __device__ void tail_down(const TowerArgs<T>& g, T* sm) {
     }
     bool many;
     const Walk w = pair_walk(p, tid, nt, many);
-    __syncthreads();
-    for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
-      pass_in_place<true, C>(U, rhs, A, (const T*)nullptr, p,
-                             (g.par[d] + pass) & 1, w, many,
-                             periodic_axes(p));
+    if (ODD && d + 1 == g.ndep) {
+      // the wrapped neighbours from the faces F, each pass saving the next
+      // pass's, the first's from the depth's starting state
+      const Faces<T> fc = make_faces(p, F);
+      const T* top = g.top;
+      save_faces(fc, [d, top](int q) {
+        return d == 0 ? as_compute<C>(top[q]) : (T)0;
+      }, p, g.par[d], tid, nt);
       __syncthreads();
+      for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
+        pass_faces<true, C>(U, rhs, A, (const T*)nullptr, p,
+                            (g.par[d] + pass) & 1, w, many,
+                            periodic_axes(p), fc);
+        if (pass + 1 < 2 * g.nsmooth)
+          save_faces(fc, [U](int q) { return U[q]; }, p,
+                     (g.par[d] + pass + 1) & 1, tid, nt);
+        __syncthreads();
+      }
+    } else {
+      __syncthreads();
+      for (int pass = 0; pass < 2 * g.nsmooth; ++pass) {
+        pass_in_place<true, C>(U, rhs, A, (const T*)nullptr, p,
+                               (g.par[d] + pass) & 1, w, many,
+                               periodic_axes(p));
+        __syncthreads();
+      }
     }
     for (int m = tid; m < n; m += nt) g.u[d][m] = U[m];
     if (d + 1 < g.ndep) {
@@ -261,7 +296,7 @@ __device__ void tail_up(const TowerArgs<T>& g, T* sm) {
   for (int m = tid; m < n0; m += nt) g.u[t][m] = U0[m];
 }
 
-template <typename T, typename C>
+template <typename T, typename C, bool ODD>
 __global__ void __launch_bounds__(kThreads, 1)
 tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
   cg::grid_group grid = cg::this_grid();
@@ -282,11 +317,26 @@ tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
                               g.r[0], g.a[0], (const T*)nullptr, p, g.par[0],
                               np > 0, w, many);
     }
-    for (int pass = 1; pass < np; ++pass) {
-      grid.sync();
-      pass_in_place<true, C>(g.u[d], g.r[d], g.a[d], (const T*)nullptr, p,
-                             (g.par[d] + pass) & 1, w, many,
-                             periodic_axes(p));
+    if (ODD && d + 1 == g.ndep) {
+      // a grid-wide bottom: the wrapped neighbours from the faces in g.faces
+      const Faces<T> fc = make_faces(p, g.faces);
+      T* u = g.u[d];
+      for (int pass = 1; pass < np; ++pass) {
+        grid.sync();
+        pass_faces<true, C>(u, g.r[d], g.a[d], (const T*)nullptr, p,
+                            (g.par[d] + pass) & 1, w, many,
+                            periodic_axes(p), fc);
+        if (pass + 1 < np)
+          save_faces(fc, [u](int q) { return u[q]; }, p,
+                     (g.par[d] + pass + 1) & 1, first, stride);
+      }
+    } else {
+      for (int pass = 1; pass < np; ++pass) {
+        grid.sync();
+        pass_in_place<true, C>(g.u[d], g.r[d], g.a[d], (const T*)nullptr,
+                               p, (g.par[d] + pass) & 1, w, many,
+                               periodic_axes(p));
+      }
     }
     if (d + 1 == g.ndep) break;
     grid.sync();
@@ -306,6 +356,10 @@ tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
                                  (const T*)nullptr, pn, ci, cj, ck, m)
                            : (T)0;
                      });
+      // a grid-wide odd bottom: its second pass reads the faces of the
+      // cells the first left zero
+      if (ODD && d + 2 == g.ndep)
+        for (int m = first; m < face_cells(pn); m += stride) g.faces[m] = 0;
     } else {
       restrict_depth(g.u[d], g.r[d], g.a[d], g.r[d + 1], p, first, stride,
                      [](int, int, int, int, T) {});
@@ -313,7 +367,7 @@ tower_down_kernel(const __grid_constant__ TowerArgs<T> g) {
     }
   }
   if (g.tail < g.ndep && blockIdx.x == 0)
-    tail_down<T, C>(g, reinterpret_cast<T*>(tower_smem));
+    tail_down<T, C, ODD>(g, reinterpret_cast<T*>(tower_smem));
 }
 
 template <typename T, typename C>
@@ -354,17 +408,21 @@ tower_barriers_kernel(int n) {
   for (int i = 0; i < n; ++i) grid.sync();
 }
 
-// Blocks of both tower kernels of the type and arithmetic the current device
-// runs at once with `smem` bytes of dynamic shared memory each (the wrapper's
-// budget), asked once per kernel and device; also sets that shared-memory
-// limit on both.
+// Blocks of the tower kernels of the type and arithmetic the current device
+// runs at once with `smem` bytes of dynamic shared memory each (the
+// wrapper's budget), asked once per kernel and device; also sets that
+// shared-memory limit on each. odd: tower_down's form for a bottom with a
+// periodic axis of odd extent, else its even form (so that the odd form
+// decides no even chain's blocks); tower_up has one form.
 template <typename T, typename C>
-cudaError_t tower_capacity(int smem, int* capacity) {
-  static int cache_down[kMaxDevices] = {};
+cudaError_t tower_capacity(int smem, bool odd, int* capacity) {
+  static int cache_down[2][kMaxDevices] = {};
   static int cache_up[kMaxDevices] = {};
   int down = 0, up = 0;
-  cudaError_t err = march_capacity((const void*)tower_down_kernel<T, C>,
-                                   kThreads, smem, cache_down, &down);
+  cudaError_t err = march_capacity(
+      odd ? (const void*)tower_down_kernel<T, C, true>
+          : (const void*)tower_down_kernel<T, C, false>,
+      kThreads, smem, cache_down[odd], &down);
   if (err != cudaSuccess) return err;
   err = march_capacity((const void*)tower_up_kernel<T, C>, kThreads, smem,
                        cache_up, &up);
@@ -379,7 +437,9 @@ long long cells_host(const int* shapes, int d) {
 
 // The static part of the arguments, with the checks of the geometry: at
 // most kMaxDepths depths, cells indexed by int, the tail inside the chain
-// and its shared memory within `smem`.
+// and its shared memory (with the bottom's wrap faces) within `smem`,
+// and only the bottom may have an odd extent (the restriction halves every
+// other depth).
 template <typename T>
 cudaError_t chain_args(TowerArgs<T>& g, int ndep, const int* shapes,
                        const int* kinds, const double* dxs,
@@ -391,6 +451,9 @@ cudaError_t chain_args(TowerArgs<T>& g, int ndep, const int* shapes,
     return cudaErrorInvalidValue;
   for (int d = 0; d < ndep; ++d) {
     if (cells_host(shapes, d) > (1LL << 30)) return cudaErrorInvalidValue;
+    if (d + 1 < ndep && (shapes[3 * d] % 2 || shapes[3 * d + 1] % 2 ||
+                         shapes[3 * d + 2] % 2))
+      return cudaErrorInvalidValue;
     g.p[d] = make_level_params<T>(shapes[3 * d], shapes[3 * d + 1],
                                   shapes[3 * d + 2], kinds, rhos[d], alpha,
                                   beta, dxs[d]);
@@ -401,7 +464,8 @@ cudaError_t chain_args(TowerArgs<T>& g, int ndep, const int* shapes,
   g.tail = tail;
   if (tail < ndep) {
     const long long n1 = tail + 1 < ndep ? cells_host(shapes, tail + 1) : 0;
-    if ((3 * cells_host(shapes, tail) + n1) * (long long)sizeof(T) > smem)
+    if ((3 * cells_host(shapes, tail) + n1 + face_cells(g.p[ndep - 1])) *
+            (long long)sizeof(T) > smem)
       return cudaErrorInvalidValue;
   }
   return cudaSuccess;
@@ -417,9 +481,11 @@ cudaError_t launch_tower(const void* kern, TowerArgs<T>& g, int blocks,
 
 // Down pass. u0, rhs0: the caller's depth-0 state and rhs (read only). out:
 // one buffer of every depth's smoothed state (depth 0 first), then the
-// restricted rhs of depths 1 .. ndep-1. C: the passes' arithmetic.
+// restricted rhs of depths 1 .. ndep-1. faces: mgk_tower_down's. C: the
+// passes' arithmetic.
 template <typename T, typename C>
 cudaError_t tower_down_impl(const void* u0, const void* rhs0, void* out,
+                            void* faces,
                             const void* const* a, int ndep, const int* shapes,
                             const int* kinds, const double* dxs,
                             const double* rhos, const int* bases, double alpha,
@@ -441,8 +507,12 @@ cudaError_t tower_down_impl(const void* u0, const void* rhs0, void* out,
   }
   for (int d = 0; d < ndep; ++d) g.a[d] = (const T*)a[d];
   g.top = (const T*)u0;
-  return launch_tower<T>((const void*)tower_down_kernel<T, C>, g, blocks,
-                         smem, st);
+  const bool odd = face_cells(g.p[ndep - 1]) > 0;
+  if (odd && tail == ndep && faces == nullptr) return cudaErrorInvalidValue;
+  g.faces = odd && tail == ndep ? (T*)faces : nullptr;
+  return launch_tower<T>(odd ? (const void*)tower_down_kernel<T, C, true>
+                             : (const void*)tower_down_kernel<T, C, false>,
+                         g, blocks, smem, st);
 }
 
 // Up pass. e_bot: the solved bottom depth; u_in, rhs, a: ndep-1 arrays each
@@ -479,8 +549,13 @@ cudaError_t tower_up_impl(const void* e_bot, const void* const* u_in,
 // dxs, rhos: ndep doubles; bases: ndep ints (sum(lo) per depth); blocks,
 // tail, smem: the launch geometry (ops/coarse_tower.tower_geometry).
 // compute: 0 the passes at the operands' precision, 1 in bf16 (f32).
+// tower_down's faces: where the bottom depth has a periodic axis of odd
+// extent and runs grid-wide (tail == ndep), a scratch of its wrap faces,
+// face_cells(bottom) elements (gsrb_walk.cuh; fused_sweeps.face_cells); else
+// null (the tail keeps them in shared memory).
 extern "C" int mgk_tower_down(const void* u0, const void* rhs0, void* out,
-                              const void* const* a, int is_double,
+                              void* faces, const void* const* a,
+                              int is_double,
                               int compute, int ndep, const int* shapes,
                               const int* kinds, const double* dxs,
                               const double* rhos, const int* bases,
@@ -491,15 +566,16 @@ extern "C" int mgk_tower_down(const void* u0, const void* rhs0, void* out,
     return (int)cudaErrorInvalidValue;
   if (compute == 1)
     return (int)tower_down_impl<float, __nv_bfloat16>(
-        u0, rhs0, out, a, ndep, shapes, kinds, dxs, rhos, bases, alpha, beta,
-        nsmooth, blocks, tail, smem, st);
+        u0, rhs0, out, faces, a, ndep, shapes, kinds, dxs, rhos, bases, alpha,
+        beta, nsmooth, blocks, tail, smem, st);
   return (int)(is_double
-      ? tower_down_impl<double, double>(u0, rhs0, out, a, ndep, shapes, kinds,
-                                        dxs, rhos, bases, alpha, beta,
-                                        nsmooth, blocks, tail, smem, st)
-      : tower_down_impl<float, float>(u0, rhs0, out, a, ndep, shapes, kinds,
-                                      dxs, rhos, bases, alpha, beta, nsmooth,
-                                      blocks, tail, smem, st));
+      ? tower_down_impl<double, double>(u0, rhs0, out, faces, a, ndep,
+                                        shapes, kinds, dxs, rhos, bases,
+                                        alpha, beta, nsmooth, blocks, tail,
+                                        smem, st)
+      : tower_down_impl<float, float>(u0, rhs0, out, faces, a, ndep, shapes,
+                                      kinds, dxs, rhos, bases, alpha, beta,
+                                      nsmooth, blocks, tail, smem, st));
 }
 
 extern "C" int mgk_tower_up(const void* e_bot, const void* const* u_in,
@@ -538,13 +614,16 @@ extern "C" int mgk_tower_barriers(int blocks, int n, void* stream) {
 
 // C entry point: *capacity <- blocks of both tower kernels of the type and
 // arithmetic (compute as mgk_tower_down's) that the current device runs at
-// once with `smem` bytes of shared memory each.
-extern "C" int mgk_tower_capacity(int is_double, int compute, int smem,
-                                  int* capacity) {
-  if (compute < 0 || compute > 1 || (compute == 1 && is_double))
+// once with `smem` bytes of shared memory each, for a chain whose bottom has
+// (odd 1) or has not (0) a periodic axis of odd extent.
+extern "C" int mgk_tower_capacity(int is_double, int compute, int odd,
+                                  int smem, int* capacity) {
+  if (compute < 0 || compute > 1 || (compute == 1 && is_double) || odd < 0 ||
+      odd > 1)
     return (int)cudaErrorInvalidValue;
   if (compute == 1)
-    return (int)tower_capacity<float, __nv_bfloat16>(smem, capacity);
-  return (int)(is_double ? tower_capacity<double, double>(smem, capacity)
-                         : tower_capacity<float, float>(smem, capacity));
+    return (int)tower_capacity<float, __nv_bfloat16>(smem, odd, capacity);
+  return (int)(is_double
+      ? tower_capacity<double, double>(smem, odd, capacity)
+      : tower_capacity<float, float>(smem, odd, capacity));
 }

@@ -145,12 +145,14 @@ MAX_DEPTHS = 12
 TOWER_SMEM = {4: 52 << 10, 8: 104 << 10}
 
 
-def tower_geometry(shapes, itemsize: int, capacity: int):
+def tower_geometry(shapes, itemsize: int, capacity: int, faces: int = 0):
     """(blocks, tail, smem) of one tower launch over the depth chain
     `shapes` (the finest first): depths [0, tail) run grid-wide, depths
     [tail, end) in one block's `smem` bytes of shared memory. The tail
     starts at the first depth whose u, rhs and a, with one array of the
-    depth below, fit TOWER_SMEM (counted in bytes, whatever the shape);
+    depth below and the `faces` cells of the bottom's wrap faces
+    (fused_sweeps.face_cells: 0 without a periodic axis of odd extent), fit
+    TOWER_SMEM (counted in bytes, whatever the shape);
     tail = len(shapes) and smem = 0 when none does. `blocks` of
     TOWER_THREADS: 1 when the whole chain is the tail; else enough for the
     top depth's colour pass (a z pair a thread), at most `capacity` (the
@@ -160,7 +162,8 @@ def tower_geometry(shapes, itemsize: int, capacity: int):
     (fused_sweeps.pair_grid_blocks)."""
     cells = [math.prod(s) for s in shapes] + [0]
     ndep = len(shapes)
-    need = [(3 * cells[k] + cells[k + 1]) * itemsize for k in range(ndep)]
+    need = [(3 * cells[k] + cells[k + 1] + faces) * itemsize
+            for k in range(ndep)]
     tail = next((k for k in range(ndep) if need[k] <= TOWER_SMEM[itemsize]),
                 ndep)
     smem = need[tail] if tail < ndep else 0
@@ -170,15 +173,17 @@ def tower_geometry(shapes, itemsize: int, capacity: int):
             tail, smem)
 
 
-def tower_capacity(device, itemsize: int, compute: int = 0) -> int:
+def tower_capacity(device, itemsize: int, compute: int = 0,
+                   odd: bool = False) -> int:
     """Blocks of both tower kernels of the item size and arithmetic
     (compute 1: the bf16 tier) at TOWER_SMEM that the CUDA device runs at
-    once (mgk_tower_capacity)."""
+    once (mgk_tower_capacity), for a chain whose bottom has (`odd`) or has
+    not a periodic axis of odd extent: tower_down has a form for each."""
     cap = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = cuda_ext.lib().mgk_tower_capacity(
-            int(itemsize == 8), int(compute), TOWER_SMEM[itemsize],
-            ctypes.byref(cap))
+            int(itemsize == 8), int(compute), int(bool(odd)),
+            TOWER_SMEM[itemsize], ctypes.byref(cap))
     cuda_ext.check(err, "tower capacity")
     return cap.value
 
@@ -206,6 +211,8 @@ class _Chain(NamedTuple):
     views: tuple        # per depth (shape, stride, offset) in one buffer
     down_cells: int     # every state, then every restricted rhs
     up_cells: int       # the states of every depth above the bottom
+    faces: int          # tower_down's scratch for the bottom's wrap faces
+                        # where the bottom is grid-wide (no tail), else 0
     args: tuple         # the C entry points' arguments after the pointers,
                         # tower_geometry's last
 
@@ -233,8 +240,10 @@ def _chain(spec, d: int, ref) -> _Chain:
     shapes = tuple(tuple(int(n) for n in spec.boxes[d + k].shape)
                    for k in range(ndep))
     isz = ref.element_size()
-    geometry = tower_geometry(shapes, isz,
-                              tower_capacity(ref.device, isz, compute))
+    faces = fs.face_cells(shapes[-1], spec.kinds)
+    geometry = tower_geometry(
+        shapes, isz, tower_capacity(ref.device, isz, compute, faces > 0),
+        faces)
     args = (
         int(isz == 8), compute, ndep,
         (ctypes.c_int * (3 * ndep))(*sum(shapes, ())),
@@ -245,7 +254,8 @@ def _chain(spec, d: int, ref) -> _Chain:
                                 for k in range(ndep)]),
         float(spec.alpha), float(spec.beta), int(spec.nsmooth), *geometry,
     )
-    chain = _Chain(shapes, *buffer_layout(shapes), args)
+    chain = _Chain(shapes, *buffer_layout(shapes),
+                   faces if geometry[1] == ndep else 0, args)
     if len(_CHAINS) >= 256:
         _CHAINS.clear()
     _CHAINS[key] = (spec, chain)
@@ -292,11 +302,13 @@ def tower_down(spec, d: int, u, rhs, a_list):
         raise ValueError(f"tower_down: need {ndep} arrays of a")
     _check_chain("tower_down", ch.shapes, u, ((u,), (rhs,), a_list))
     out = torch.empty(ch.down_cells, dtype=u.dtype, device=u.device)
+    faces = (torch.empty(ch.faces, dtype=u.dtype, device=u.device)
+             if ch.faces else None)
     kernel_counts.count_launch(
         fs.tier_name("tower_down", spec.smoother_compute), 1)
     err = fs.on_stream(
         cuda_ext.lib().mgk_tower_down, u, u.data_ptr(), rhs.data_ptr(),
-        out.data_ptr(), _ptrs(a_list), *ch.args)
+        out.data_ptr(), fs._ptr(faces), _ptrs(a_list), *ch.args)
     cuda_ext.check(err, "tower_down")
     views = [out.as_strided(*v) for v in ch.views]
     return views[:ndep - 1], views[ndep:], views[ndep - 1]

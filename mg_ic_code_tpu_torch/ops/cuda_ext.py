@@ -118,8 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.POINTER(vp))
     lib.mgk_gsrb_relax.restype = ci
     lib.mgk_gsrb_relax.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci, ci,
-        ci, ci, ci, ci, pi, ci, vp,
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, cd, cd, cd, cd, ci,
+        ci, ci, ci, ci, ci, pi, ci, vp,
     ]
     lib.mgk_gsrb_relax_batch.restype = ci
     # the batched entries: the pointer table (and the strides) by address,
@@ -130,7 +130,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mgk_gsrb_batch_march_capacity.restype = ci
     lib.mgk_gsrb_batch_march_capacity.argtypes = [ci, pi]
     lib.mgk_gsrb_capacity.restype = ci
-    lib.mgk_gsrb_capacity.argtypes = [ci, ci, ci, pi]
+    lib.mgk_gsrb_capacity.argtypes = [ci, ci, ci, ci, pi]
     lib.mgk_gsrb_sweep.restype = ci
     lib.mgk_gsrb_sweep.argtypes = [vp, vp, vp, vp, vp, pi, cd, cd, cd, cd,
                                    ci, vp]
@@ -170,8 +170,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.mgk_tower_down.restype = ci
     lib.mgk_tower_down.argtypes = [
-        vp, vp, vp, pvp, ci, ci, ci, pi, pi, pd, pd, pi, cd, cd, ci, ci, ci,
-        ci, vp,
+        vp, vp, vp, vp, pvp, ci, ci, ci, pi, pi, pd, pd, pi, cd, cd, ci, ci,
+        ci, ci, vp,
     ]
     lib.mgk_tower_up.restype = ci
     lib.mgk_tower_up.argtypes = [
@@ -179,7 +179,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, vp,
     ]
     lib.mgk_tower_capacity.restype = ci
-    lib.mgk_tower_capacity.argtypes = [ci, ci, ci, pi]
+    lib.mgk_tower_capacity.argtypes = [ci, ci, ci, ci, pi]
     lib.mgk_tower_barriers.restype = ci
     lib.mgk_tower_barriers.argtypes = [ci, ci, vp]
 

@@ -490,6 +490,8 @@ class GsrbGeometry(NamedTuple):
     smem: int      # slab and march forms: bytes of shared memory a block
     tile: int = 0  # the march: the y-z tile width
     xseg: int = 0  # the march: planes of an x segment (all but the last)
+    faces: int = 0  # grid and serial forms: cells of a patch's wrap faces
+                    # (face_cells), the scratch of its passes in place
 
 
 def pair_grid_blocks(shape, threads: int, capacity: int) -> int:
@@ -523,23 +525,41 @@ def even_split(n: int, parts: int) -> tuple[tuple, tuple]:
     return first, count
 
 
-def tile_smem(bx: int, by: int, nz: int, itemsize: int) -> int:
+def tile_smem(bx: int, by: int, nz: int, itemsize: int,
+              zodd: bool = False) -> int:
     """Shared memory of a slab block whose tile is bx planes of by rows: the
     window (the tile with a plane and a row more on each side) and the
-    tile's a and rhs."""
-    return ((bx + 2) * (by + 2) + 2 * bx * by) * nz * itemsize
+    tile's a and rhs; where z is periodic of odd extent (zodd), also the two
+    z wrap cells of each tile row (face_cells)."""
+    return (((bx + 2) * (by + 2) + 2 * bx * by) * nz
+            + (2 * bx * by if zodd else 0)) * itemsize
 
 
-def slab_tiles(shape, itemsize: int, capacity: int):
+def odd_wrap_axes(shape, kinds: FaceKinds) -> tuple:
+    """The periodic axes of odd extent: along one, cells 0 and n - 1 are
+    neighbours of one colour, and a colour pass in place reads them across
+    the wrap from a copy made before the pass (csrc/gsrb_walk.cuh)."""
+    return tuple(ax for ax in range(3)
+                 if kinds[ax][0] == PERIODIC and shape[ax] % 2)
+
+
+def face_cells(shape, kinds: FaceKinds) -> int:
+    """Cells of a level's wrap faces: the two faces of each periodic axis of
+    odd extent (csrc/gsrb_walk.cuh's Faces); 0 without one."""
+    return sum(2 * math.prod(shape) // shape[ax]
+               for ax in odd_wrap_axes(shape, kinds))
+
+
+def slab_tiles(shape, itemsize: int, capacity: int, zodd: bool = False):
     """(x tiles, y tiles) of the slab form, or None where no split fits: at
     most min(capacity, GSRB_MAX_SLABS) tiles whose largest fits
     GSRB_SLAB_SMEM, the one with the least rows computed and exchanged per
     pass by its largest tile (by x bx rows, and 2 bx or 2 by more along a cut
     axis: the rows it sends equal the rows it takes), then the fewest
-    tiles; one tile up to GSRB_ONE_BLOCK_CELLS cells."""
+    tiles; one tile up to GSRB_ONE_BLOCK_CELLS cells. zodd: tile_smem's."""
     nx, ny, nz = shape
     if nx * ny * nz <= GSRB_ONE_BLOCK_CELLS:
-        ok = tile_smem(nx, ny, nz, itemsize) <= GSRB_SLAB_SMEM
+        ok = tile_smem(nx, ny, nz, itemsize, zodd) <= GSRB_SLAB_SMEM
         return (1, 1) if ok else None
     most = min(int(capacity), GSRB_MAX_SLABS)
     best = None
@@ -547,7 +567,7 @@ def slab_tiles(shape, itemsize: int, capacity: int):
         bx = -(-nx // tx)
         for ty in range(1, min(ny, most // tx) + 1):
             by = -(-ny // ty)
-            if tile_smem(bx, by, nz, itemsize) > GSRB_SLAB_SMEM:
+            if tile_smem(bx, by, nz, itemsize, zodd) > GSRB_SLAB_SMEM:
                 continue
             cost = bx * by + 2 * (by * (tx > 1) + bx * (ty > 1))
             key = (cost, tx * ty, tx)
@@ -625,11 +645,16 @@ def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
     eighth of the capacity idle, then as many blocks as run at once. `form`
     asks for one form (the measurements do); a slab or march form that does
     not apply then raises, and so does a serial or march form for one
-    level."""
+    level. A level with a periodic axis of odd extent: the grid and serial
+    forms' passes in place take `faces` cells of scratch a patch
+    (face_cells), the slab form's tiles the z wrap cells where that axis is
+    z (tile_smem)."""
     nx, ny, nz = (int(n) for n in shape)
     if nx * ny * nz >= 2 ** 31:
         raise ValueError(f"gsrb_relax: {nx * ny * nz} cells (below 2^31)")
     per = periodic_axes(kinds)
+    zodd = 2 in odd_wrap_axes((nx, ny, nz), kinds)
+    faces = face_cells((nx, ny, nz), kinds)
     overflow = (form is None and patches > 1
                 and exceeds_l2((patches * nx, ny, nz), itemsize)
                 and not exceeds_l2((nx, ny, nz), itemsize))
@@ -654,14 +679,14 @@ def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
                          f"capacity")
     tiles = None
     if form != "grid" and itemsize == 4 and not with_b:
-        tiles = slab_tiles((nx, ny, nz), itemsize, capacity)
+        tiles = slab_tiles((nx, ny, nz), itemsize, capacity, zodd)
     if tiles is not None:
         xs, ys = even_split(nx, tiles[0]), even_split(ny, tiles[1])
         bx, by = max(xs[1]), max(ys[1])
         if (form == "slab" or tiles == (1, 1)
                 or bx * by * nz >= GSRB_SLAB_MIN_TILE):
             return GsrbGeometry("slab", per, tiles[0] * tiles[1], xs, ys,
-                                tile_smem(bx, by, nz, itemsize))
+                                tile_smem(bx, by, nz, itemsize, zodd))
     if form not in (None, "grid"):
         raise ValueError(f"gsrb_relax: no {form} form for {tuple(shape)}, "
                          f"itemsize {itemsize}, b {with_b}")
@@ -669,17 +694,20 @@ def gsrb_geometry(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
     need = -(-nx * ny * -(-nz // 2) // GSRB_THREADS)
     if 8 * blocks < 7 * capacity and need > blocks:
         blocks = min(capacity, need)
-    return GsrbGeometry("grid", per, blocks, ((), ()), ((), ()), 0)
+    return GsrbGeometry("grid", per, blocks, ((), ()), ((), ()), 0,
+                        faces=faces)
 
 
-def gsrb_capacity(device, itemsize: int, compute: int = 0) -> int:
-    """Blocks of every gsrb_relax kernel of the item size and arithmetic
+def gsrb_capacity(device, itemsize: int, compute: int = 0,
+                  odd: bool = False) -> int:
+    """Blocks of the gsrb_relax kernels of the item size and arithmetic
     (compute 1: the bf16 tier) (the slab kernels at GSRB_SLAB_SMEM) that the
-    CUDA device runs at once (mgk_gsrb_capacity)."""
+    CUDA device runs at once (mgk_gsrb_capacity), for a level with (`odd`)
+    or without a periodic axis of odd extent: those launch other kernels."""
     cap = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = cuda_ext.lib().mgk_gsrb_capacity(
-            int(itemsize == 8), int(compute), GSRB_SLAB_SMEM,
+            int(itemsize == 8), int(compute), int(bool(odd)), GSRB_SLAB_SMEM,
             ctypes.byref(cap))
     cuda_ext.check(err, "gsrb_relax capacity")
     return cap.value
@@ -708,7 +736,8 @@ def _relax_launch(shape, itemsize: int, with_b: bool, kinds: FaceKinds,
     capacity."""
     device = torch.device("cuda", index)
     geom = gsrb_geometry(shape, itemsize, with_b, kinds, gsrb_capacity(
-        device, itemsize, compute), form, patches, nsweeps)
+        device, itemsize, compute, bool(odd_wrap_axes(shape, kinds))), form,
+        patches, nsweeps)
     if geom.form == "march":
         return batch_march_geometry(shape, kinds, batch_march_capacity(
             device), patches), ()
@@ -787,11 +816,14 @@ def gsrb_launch(
                                b is not None, kinds, u.device.index, form,
                                1, compute)
     out = torch.empty_like(u)
+    faces = (torch.empty(geom.faces, dtype=u.dtype, device=u.device)
+             if geom.faces else None)
     nx, ny, nz = u.shape
     kernel_counts.count_launch(tier_name("gsrb_relax", compute_dtype), 1)
     err = on_stream(
         cuda_ext.lib().mgk_gsrb_relax, u, u.data_ptr(), rhs.data_ptr(),
-        a.data_ptr(), _ptr(b), out.data_ptr(), int(u.dtype == torch.float64),
+        a.data_ptr(), _ptr(b), out.data_ptr(), _ptr(faces),
+        int(u.dtype == torch.float64),
         compute, nx, ny, nz, args[0], float(rho), float(alpha), float(beta),
         float(dx), int(sum(lo)), int(nsweeps), *args[1:])
     cuda_ext.check(err, "gsrb_relax")
@@ -861,7 +893,10 @@ def gsrb_batch_launch(
                 table.extend([0] * n)
             entry, name = lib.mgk_gsrb_batch_march, "gsrb_relax_batch_march"
         else:
-            table, _ = _table(pu, pr, pa, out)
+            # the wrap faces of every patch of a grid or serial form
+            faces = [torch.empty(n * geom.faces, dtype=u0.dtype,
+                                 device=u0.device) if geom.faces else None]
+            table, _ = _table(pu, pr, pa, out, faces)
             entry, name = lib.mgk_gsrb_relax_batch, "gsrb_relax_batch"
         kernel_counts.count_launch(name, 1)
         err = on_stream(entry, u0, table.buffer_info()[0], geo,
@@ -976,7 +1011,7 @@ def sweep_geometry(shape, itemsize: int, kinds: FaceKinds, full: bool,
     nx, ny, nz = (int(n) for n in shape)
     if nx * ny * nz >= 2 ** 31:
         raise ValueError(f"gsrb sweep: {nx * ny * nz} cells (below 2^31)")
-    if full and _odd_periodic_axis(shape, kinds):
+    if full and odd_wrap_axes(shape, kinds):
         raise ValueError(
             f"gsrb_full_sweep: {tuple(shape)} has an odd periodic axis: the "
             f"colours disagree across the wrap, where a kernel that writes "
@@ -1112,7 +1147,7 @@ def sweep_launch(u, rhs, a, b=None, *, full: bool, color: int = 0,
         nx, ny, nz = u.shape
         err = on_stream(
             lib.mgk_gsrb_relax, u, u.data_ptr(), rhs.data_ptr(),
-            a.data_ptr(), _ptr(b), out.data_ptr(),
+            a.data_ptr(), _ptr(b), out.data_ptr(), None,
             int(u.dtype == torch.float64), 0, nx, ny, nz, geo[0], float(rho),
             float(alpha), float(beta), float(dx), int(sum(lo)), 1, *geo[1:])
     else:
@@ -1269,10 +1304,6 @@ def shard_geometry_on(local_shape, nsweeps: int, itemsize: int, index: int,
         shard_capacity(device, itemsize, nsweeps, tile, pre, compute))
 
 
-def _odd_periodic_axis(shape, kinds: FaceKinds) -> bool:
-    return any(kinds[ax][0] == PERIODIC and shape[ax] % 2 for ax in range(3))
-
-
 def multisweep_supported(shape, nsweeps: int, kinds: FaceKinds | None,
                          itemsize: int = 4) -> bool:
     """Levels the one-launch kernel takes from `gsrb_relax` (the multisweep
@@ -1285,7 +1316,7 @@ def multisweep_supported(shape, nsweeps: int, kinds: FaceKinds | None,
     term is what keeps small levels on `gsrb_relax`."""
     if kinds is None or nsweeps not in MULTISWEEP_CHUNKS:
         return False
-    if _odd_periodic_axis(shape, kinds):
+    if odd_wrap_axes(shape, kinds):
         return False
     return exceeds_l2(shape, itemsize)
 
@@ -1336,7 +1367,7 @@ def multisweep_launch(name: str, u, rhs, a, *, nsweeps: int,
             raise ValueError(f"{name}: prepadded {tuple(u.shape)} for H={H}")
     periodic = [kinds[ax][0] == PERIODIC for ax in range(3)]
     if meta is None:
-        if _odd_periodic_axis(u.shape, kinds):
+        if odd_wrap_axes(u.shape, kinds):
             raise ValueError(
                 f"{name}: a periodic axis needs an even extent, got "
                 f"{tuple(u.shape)}")
@@ -1577,7 +1608,7 @@ def sharded_plan(shape, n: int, kinds: FaceKinds) -> int | None:
     on, the alternative is the plain sharded ops."""
     if n <= 0 or n % MULTISWEEP_PLAN_CHUNK:
         return None
-    if _odd_periodic_axis(shape, kinds):
+    if odd_wrap_axes(shape, kinds):
         return None
     return MULTISWEEP_PLAN_CHUNK
 

@@ -812,9 +812,11 @@ def residual(spec, coefs: dict, d: int, u, rhs):
 def residual_restrict(spec, coefs: dict, d: int, u, rhs, out=None,
                       keep: bool = False):
     """restrict_full(rhs - L(u)) at a depth the mesh cuts: every shard's
-    residual (exchanged ghost planes) restricted on its own device. Exact
-    where each shard's edges fall on coarse-cell edges: an even local
-    extent on every axis (asserted). Where the caller holds shard sets, no
+    residual (exchanged ghost planes) restricted on its own device, where
+    each shard's edges fall on coarse-cell edges (an even local extent on
+    every axis); else the shards' residual joined once and restricted
+    whole (15 planes a shard of 60: the next depth is not cut alike; not
+    with `keep`). Where the caller holds shard sets, no
     `out` is given and depth d+1 is cut as d is, the coarse shards stay
     where they are (the shard set of d+1); otherwise they are joined once,
     into `out` (e.g. the covered part of a parent level) or a new tensor
@@ -823,10 +825,12 @@ def residual_restrict(spec, coefs: dict, d: int, u, rhs, out=None,
     downsweep writes it into the parent's covered part by a level
     window)."""
     (u_s, rhs_s), whole = _resident(spec, d, u, rhs)
-    assert all(n % 2 == 0 for n in u_s.n_loc), (
-        f"per-shard restriction needs even local extents, got {u_s.n_loc}")
-    coarse = {k: st.restrict_full(r) for k, r in
-              _residual_shards(spec, coefs, d, u_s, rhs_s).items()}
+    res = _residual_shards(spec, coefs, d, u_s, rhs_s)
+    if any(n % 2 for n in u_s.n_loc):
+        assert not keep, f"keep needs even local extents, got {u_s.n_loc}"
+        rc = st.restrict_full(u_s.like(res).join())
+        return rc if out is None else out.copy_(rc)
+    coarse = {k: st.restrict_full(r) for k, r in res.items()}
     if keep:
         assert not whole and out is None
         return u_s.like(coarse, tuple(n // 2 for n in u_s.shape),
@@ -849,7 +853,12 @@ def prolong_inc(u: ShardSet, ec) -> ShardSet:
     """u + the piecewise-constant prolongation of the coarse correction
     `ec`, shard by shard: ec a shard set of the same cut (the next depth
     of a chain cut alike), or whole (a strided view included): then the
-    part under each shard is copied to it (one level split)."""
+    part under each shard is copied to it (one level split); where a
+    shard's edge lies inside a coarse cell (an odd local extent), the part
+    of ec prolonged whole."""
+    if not isinstance(ec, ShardSet) and any(n % 2 for n in u.n_loc):
+        up = u.region(st.upsample2(ec))
+        return u.like({k: s + up[k] for k, s in u.shards.items()})
     ec_s = ec.shards if isinstance(ec, ShardSet) else u.region(ec)
     return u.like({k: st.prolong_inc(s, ec_s[k])
                    for k, s in u.shards.items()})

@@ -197,15 +197,18 @@ def _coarsen_coef_at(spec: LevelMGSpec, d: int, c):
     coefficient join, then one coefficient split where d is cut)."""
     if not isinstance(c, ShardSet):
         return st.coarsen_coef(c, spec.avg_type)
-    assert all(n % 2 == 0 for n in c.n_loc), (
-        f"per-shard coarsening needs even local extents, got {c.n_loc}")
     box = spec.boxes[d]
-    coarse = c.like({k: st.coarsen_coef(s, spec.avg_type)
-                     for k, s in c.shards.items()}, box.shape, box.lo)
     counts = _shard_counts(spec, d)
-    if counts == c.counts:
-        return coarse
-    whole = coarse.join(what="coef_joins")
+    if any(n % 2 for n in c.n_loc):
+        # a shard's edge inside a coarse cell (15 planes a shard of 60):
+        # joined, then coarsened whole (depth d is not cut alike)
+        whole = st.coarsen_coef(c.join(what="coef_joins"), spec.avg_type)
+    else:
+        coarse = c.like({k: st.coarsen_coef(s, spec.avg_type)
+                         for k, s in c.shards.items()}, box.shape, box.lo)
+        if counts == c.counts:
+            return coarse
+        whole = coarse.join(what="coef_joins")
     if counts == (1, 1, 1):
         return whole
     return ShardSet.split(whole, spec.mesh, counts, box.lo, "coef_splits")

@@ -88,8 +88,10 @@ def host_split(cases) -> dict:
         stream = torch.cuda.current_stream(0).cuda_stream
         entry = (lib.mgk_gsrb_batch_march if geom.form == "march"
                  else lib.mgk_gsrb_relax_batch)
+        # the march's scratch states, else the wrap faces' scratch
+        faces = [us[0].new_empty(n * geom.faces) if geom.faces else None]
         table, _ = fs._table(us, rhss, as_, outs,
-                             *([tmps] if geom.form == "march" else []))
+                             tmps if geom.form == "march" else faces)
 
         def c_call():
             return entry(table.buffer_info()[0], geo, *level, stream)
